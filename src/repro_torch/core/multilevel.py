@@ -1,0 +1,68 @@
+"""Multi-level projection MP^ν (paper §6, Algorithms 5/6) — port of
+``repro/core/multilevel.py``.
+
+A *level* is ``(norm, n_axes)``: aggregate the leading ``n_axes`` axes of the
+current tensor with ``norm``. The norm list ν runs innermost→outermost; the
+LAST entry is the final vector projection. For Y ∈ R^{c,n,m}:
+
+    ν = [(inf, 1), (1, 2)]            — bi-level ℓ1,∞ over a matrix-like view
+    ν = [(inf, 1), (inf, 1), (1, 1)]  — tri-level ℓ1,∞,∞ of Definition 6.1
+    ν = [(1, 3)]                      — the usual flat ℓ1 projection
+
+The design compiles to a reduce → solve → apply schedule
+(``core.schedule``) that runs with plain PyTorch ops on ``y``'s device.
+``method="auto"`` routes through the planner (``core.plan``), which may pick
+the generated CUDA kernels for a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence, Tuple
+
+import torch
+
+from . import ball, plan as _plan, schedule as sched_mod
+
+Level = Tuple[object, int]
+
+
+def _check_levels(shape, levels: Sequence[Level]):
+    sched_mod.check_levels(shape, levels)
+
+
+def multilevel_project(y: torch.Tensor, levels: Sequence[Level], radius,
+                       method: str = "sort") -> torch.Tensor:
+    """MP^ν_radius(Y) — Algorithm 6 via the compiled schedule.
+
+    ``method="auto"`` builds (or fetches) the cached planner plan for
+    ``y``'s shape, dtype and device and runs it.
+    """
+    if method == "auto":
+        p = _plan.make_plan(y.shape, y.dtype, levels, method="auto",
+                            device=y.device.type)
+        return p(y, radius)
+    sched = sched_mod.compile_schedule(y.shape, levels)
+    return sched_mod.execute(y, sched, radius, method=method)
+
+
+def trilevel_l1infinf(y: torch.Tensor, radius,
+                      method: str = "sort") -> torch.Tensor:
+    """Paper Algorithm 5: TP^{1,∞,∞} for an order-3 tensor (c, n, m)."""
+    if y.ndim != 3:
+        raise ValueError("trilevel_l1infinf expects an order-3 tensor")
+    return multilevel_project(y, [(math.inf, 1), (math.inf, 1), (1, 1)],
+                              radius, method)
+
+
+def multilevel_norm(x: torch.Tensor, levels: Sequence[Level]) -> torch.Tensor:
+    """The mixed norm induced by ν: aggregate each level in turn.
+
+    Feasibility invariant: ``multilevel_norm(MP^ν_η(Y), ν) <= η``.
+    """
+    _check_levels(x.shape, levels)
+    cur = x
+    for q, k in levels[:-1]:
+        cur = ball.norm_reduce(cur, q, axes=tuple(range(k)))
+    q, _ = levels[-1]
+    return ball.norm_reduce(cur.reshape(-1), q, axes=0)

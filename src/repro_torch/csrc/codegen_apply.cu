@@ -1,0 +1,217 @@
+// codegen_apply.cu — the backward sweep of a norm design fused into one
+// elementwise pass over Y, for a batch of items.
+//
+// Replaces the generated TPU apply kernels of
+// repro/kernels/codegen/lowering.py: _apply_call (_make_apply_kernel with
+// _apply_tile, _apply_chain, _grouped_l1_tile) and _apply_call_batched
+// (_make_batched_apply_kernel).
+//
+// Same canonical layout as codegen_reduce.cu. The radii chain starts at the
+// solved aggregate u (B, m) and walks down per column j and row i:
+//   level L-1 (`qlast`) on x = Y (LEAD 0), v1 (LEAD 1) or v2 (LEAD 2):
+//     ℓ∞ clip to ±u[j]; ℓ2 rescale by u[j] / vfin[j] when vfin[j] > u[j];
+//     ℓ1 soft threshold by the column's θ_j (64-step bisection over n);
+//   level 2 (q2, LEAD 2) over the l2 group of v1, level 1 (q1) over the l1
+//   group of Y, with the same three rules; an ℓ1 group's θ comes from a
+//   64-step bisection run by the thread that owns the group.
+// ℓ2 rescales use the saved aggregates, never recomputed norms, and the
+// 1e-30 floor keeps an all-zero group out of 0/0. θ = 0 when Σ|x| <= r.
+//
+// An ℓ1 apply at level L-1 needs a whole column in one CTA (the n_resident
+// pin of kernels/codegen/tiling.py): the CTA stages |x| of its 32 columns in
+// shared memory (n x 32 floats, bounded by tiling.SMEM_BUDGET_BYTES), its 8
+// thread rows bisect with column reductions through shared memory, and
+// splits == 1. Otherwise rows split across CTAs like the reduce pass.
+// Each element is read and written by one thread, so `out` may alias `y`.
+//
+// Bound: bytes. Y is read once and X written once; the aggregates add
+// 1/g of that per lead level. O(1) operations per element outside ℓ1
+// groups, 64 sweeps over the group per ℓ1 level (served from shared memory
+// or L1/L2, not HBM).
+#include "common.cuh"
+
+namespace {
+
+constexpr int BM = 32;  // columns per CTA (tiling.BLOCK_M)
+constexpr int BR = 8;   // thread rows per CTA (tiling.BLOCK_ROWS)
+constexpr int ITERS = 64;
+
+// One group's ℓ1 θ, thread-serial over `len` values at `stride`
+// (lowering.py:_grouped_l1_tile): bisection on [0, max|x|].
+__device__ float group_theta(const float* x, long long stride, int len, float r) {
+  float hi = 0.f, s = 0.f;
+  for (int k = 0; k < len; ++k) {
+    const float a = fabsf(x[k * stride]);
+    hi = fmaxf(hi, a);
+    s += a;
+  }
+  if (s <= r) return 0.f;  // inside the ball: identity
+  float lo = 0.f;
+  for (int it = 0; it < ITERS; ++it) {
+    const float mid = 0.5f * (lo + hi);
+    float phi = 0.f;
+    for (int k = 0; k < len; ++k) phi += fmaxf(fabsf(x[k * stride]) - mid, 0.f);
+    if (phi > r) lo = mid; else hi = mid;
+  }
+  return 0.5f * (lo + hi);
+}
+
+// Shrink one element x of a group with norm q to radius w: ℓ∞ clip, ℓ2
+// rescale by the group's saved aggregate, ℓ1 soft threshold by θ.
+__device__ __forceinline__ float shrink(int q, float x, float w, float agg,
+                                        float theta) {
+  if (q == NORM_LINF) return fminf(fmaxf(x, -w), w);
+  if (q == NORM_L2) return agg > w ? x * (w / fmaxf(agg, 1e-30f)) : x;
+  return soft_threshold(x, theta);
+}
+
+// dst[k·stride] = shrink(src[k·stride]) for k < len. `dst` may alias `src`,
+// so the compiler may not move a load above an earlier store; loading UNROLL
+// elements before storing them keeps UNROLL loads in flight per thread
+// (each element is still loaded before it is stored).
+constexpr int UNROLL = 4;
+__device__ __forceinline__ void shrink_strided(int q, const float* src,
+                                               float* dst, long long stride,
+                                               int len, float w, float agg,
+                                               float theta) {
+  int k = 0;
+  for (; k + UNROLL <= len; k += UNROLL) {
+    float x[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) x[u] = src[(k + u) * stride];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) dst[(k + u) * stride] = shrink(q, x[u], w, agg, theta);
+  }
+  for (; k < len; ++k) dst[k * stride] = shrink(q, src[k * stride], w, agg, theta);
+}
+
+// Fold one value per thread over the CTA's 8 thread rows of its column;
+// every thread of the column gets the same result.
+template <bool MAX>
+__device__ float column_reduce(float v, float (*red)[BM]) {
+  __syncthreads();
+  red[threadIdx.y][threadIdx.x] = v;
+  __syncthreads();
+  float r = red[0][threadIdx.x];
+  for (int k = 1; k < BR; ++k) r = MAX ? fmaxf(r, red[k][threadIdx.x]) : r + red[k][threadIdx.x];
+  return r;
+}
+
+template <int LEAD>
+__global__ void __launch_bounds__(BM * BR)
+apply_kernel(const float* y, const float* __restrict__ v1,
+             const float* __restrict__ v2, const float* __restrict__ vfin,
+             const float* __restrict__ u, float* out, int g1, int g2, int n,
+             int m, int q1, int q2, int qlast, int rows_per_split) {
+  extern __shared__ float col[];  // ℓ1 at level L-1 only: |x| as [n][BM]
+  __shared__ float red[BR][BM];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int j = blockIdx.x * BM + tx;
+  const long long b = blockIdx.y;
+  const bool valid = j < m;
+  const long long nm = static_cast<long long>(n) * m;
+  const float uj = valid ? u[b * m + j] : 0.f;
+  const float vj = valid && qlast == NORM_L2 ? vfin[b * m + j] : 0.f;
+  // input of the level-(L-1) apply: Y itself or the last lead aggregate
+  const float* xs = LEAD == 0 ? y + b * nm : (LEAD == 1 ? v1 : v2) + b * nm;
+
+  float theta = 0.f;
+  if (qlast == NORM_L1) {  // whole column resident, one CTA per column tile
+    float hi = 0.f, s = 0.f;
+    for (int i = ty; i < n; i += BR) {
+      const float a = valid ? fabsf(xs[static_cast<long long>(i) * m + j]) : 0.f;
+      col[i * BM + tx] = a;
+      hi = fmaxf(hi, a);
+      s += a;
+    }
+    hi = column_reduce<true>(hi, red);
+    s = column_reduce<false>(s, red);
+    float lo = 0.f;
+    for (int it = 0; it < ITERS; ++it) {  // uniform trip count: barriers inside
+      const float mid = 0.5f * (lo + hi);
+      float p = 0.f;
+      for (int i = ty; i < n; i += BR) p += fmaxf(col[i * BM + tx] - mid, 0.f);
+      const float phi = column_reduce<false>(p, red);
+      if (phi > uj) lo = mid; else hi = mid;
+    }
+    theta = s <= uj ? 0.f : 0.5f * (lo + hi);
+  }
+  if (!valid) return;
+
+  const int r0 = blockIdx.z * rows_per_split + ty;
+  const int r1 = min(n, blockIdx.z * rows_per_split + rows_per_split);
+  if (LEAD == 0) {  // this thread's rows r0, r0 + BR, ... of column j
+    const long long ij = static_cast<long long>(r0) * m + j;
+    if (r0 < r1)
+      shrink_strided(qlast, xs + ij, out + b * nm + ij,
+                     static_cast<long long>(BR) * m, (r1 - r0 + BR - 1) / BR,
+                     uj, vj, theta);
+    return;
+  }
+  for (int i = r0; i < r1; i += BR) {
+    const long long ij = static_cast<long long>(i) * m + j;
+    const float w = shrink(qlast, xs[ij], uj, vj, theta);
+    if (LEAD == 1) {
+      const long long base = b * g1 * nm + ij;  // group over l1, stride nm
+      const float agg = v1[b * nm + ij];
+      const float th = q1 == NORM_L1 ? group_theta(y + base, nm, g1, w) : 0.f;
+      shrink_strided(q1, y + base, out + base, nm, g1, w, agg, th);
+    } else {
+      const float* v1g = v1 + b * g2 * nm + ij;  // group over l2, stride nm
+      const float agg2 = v2[b * nm + ij];
+      const float th2 = q2 == NORM_L1 ? group_theta(v1g, nm, g2, w) : 0.f;
+      const long long stride1 = static_cast<long long>(g2) * nm;
+      for (int l2 = 0; l2 < g2; ++l2) {
+        const float x1 = v1g[l2 * nm];
+        const float w2 = shrink(q2, x1, w, agg2, th2);
+        const long long base = (b * g1 * g2 + l2) * nm + ij;  // group over l1
+        const float th1 = q1 == NORM_L1 ? group_theta(y + base, stride1, g1, w2) : 0.f;
+        shrink_strided(q1, y + base, out + base, stride1, g1, w2, x1, th1);
+      }
+    }
+  }
+}
+
+template <int LEAD>
+cudaError_t launch(dim3 grid, int smem, cudaStream_t s, const float* y,
+                   const float* v1, const float* v2, const float* vfin,
+                   const float* u, float* out, int g1, int g2, int n, int m,
+                   int q1, int q2, int qlast, int rows_per_split) {
+  if (smem > 0) {
+    cudaError_t e = cudaFuncSetAttribute(
+        apply_kernel<LEAD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  apply_kernel<LEAD><<<grid, dim3(BM, BR), smem, s>>>(
+      y, v1, v2, vfin, u, out, g1, g2, n, m, q1, q2, qlast, rows_per_split);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// y, out: (batch, g1, g2, n, m) contiguous float32 (g1 = g2 = 1 for absent
+// lead axes; out may alias y); v1/v2: the reduce pass's aggregates (null
+// when absent); vfin, u: (batch, m). With qlast == ℓ1, splits must be 1 and
+// rows_per_split == n. Returns a cudaError_t.
+REPRO_EXPORT int codegen_apply(const float* y, const float* v1, const float* v2,
+                               const float* vfin, const float* u, float* out,
+                               int batch, int lead_rank, int g1, int g2, int n,
+                               int m, int q1, int q2, int qlast,
+                               int rows_per_split, int splits, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int smem = qlast == NORM_L1 ? n * BM * static_cast<int>(sizeof(float)) : 0;
+  const dim3 grid((m + BM - 1) / BM, batch, splits);
+  switch (lead_rank) {
+    case 0:
+      return launch<0>(grid, smem, s, y, v1, v2, vfin, u, out, g1, g2, n, m,
+                       q1, q2, qlast, rows_per_split);
+    case 1:
+      return launch<1>(grid, smem, s, y, v1, v2, vfin, u, out, g1, g2, n, m,
+                       q1, q2, qlast, rows_per_split);
+    case 2:
+      return launch<2>(grid, smem, s, y, v1, v2, vfin, u, out, g1, g2, n, m,
+                       q1, q2, qlast, rows_per_split);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}

@@ -1,0 +1,290 @@
+"""Schedule IR → the generated CUDA pipeline (port of
+``repro/kernels/codegen/lowering.py``, forward only).
+
+A compiled ``Schedule`` is ``ReduceLevel* → OuterSolve → ApplyGroup*``; any
+design the tiler (``tiling.plan_tiles``) accepts runs as three launches over
+a batch of items:
+
+* **reduce** (``csrc/codegen_reduce.cu``) — one streaming pass over Y gives
+  every intermediate aggregate v_t and the finalized last-level aggregate;
+* **outer solve** — the ℓ1 θ-solve kernel (``kernels/l1ball.py``) on the
+  (B, m) aggregate, or a PyTorch rescale/clip for an ℓ2/ℓ∞ outer level;
+* **apply** (``csrc/codegen_apply.cu``) — one elementwise pass over Y walks
+  the radii chain down through the saved aggregates and writes X.
+
+Y is read twice and X written once, the minimum for the projection. Each of
+the two kernels sits beside its plain PyTorch version in this module
+(:func:`reduce_plain`, :func:`apply_plain`); the wrappers
+(:func:`codegen_reduce`, :func:`codegen_apply`) run the plain version for a
+CPU tensor and the kernel for a CUDA tensor — nothing else. ``generate``
+builds the single-item callable from the batched one: the kernels take the
+batch as their leading launch axis.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch import _device
+from repro_torch.core import ball, schedule as sched_mod
+from repro_torch.core.schedule import Schedule
+from repro_torch.obs import profile as obs_profile
+
+from .. import _build, l1ball
+from .tiling import TilePlan, plan_tiles, row_split
+
+NORM_CODES = {"1": 0, "2": 1, "inf": 2}  # csrc/common.cuh
+
+_P, _I = _build.PTR, _build.INT
+REDUCE = _build.Kernel("codegen_reduce", {
+    "codegen_reduce": [_P, _P, _P, _P, _P] + [_I] * 11 + [_P],
+})
+APPLY = _build.Kernel("codegen_apply", {
+    "codegen_apply": [_P] * 6 + [_I] * 11 + [_P],
+})
+
+
+# --------------------------------------------------------------------------- #
+# Plain versions (PyTorch ops): the per-norm monoid of the reduce
+# --------------------------------------------------------------------------- #
+
+
+def _tile(q: str, a: torch.Tensor, dim: int) -> torch.Tensor:
+    """Fold axis ``dim`` of non-negative ``a`` into its ``q``-norm."""
+    if q == "1":
+        return a.sum(dim=dim)
+    if q == "2":
+        return torch.sqrt((a * a).sum(dim=dim))
+    return a.amax(dim=dim)
+
+
+def reduce_plain(yc: torch.Tensor, norms: Sequence[str]
+                 ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """The reduce pass in PyTorch ops on the batched canonical view
+    ``yc`` (B, *lead, n, m): ``([v_1, …, v_{L-2}], vfin)``."""
+    cur = yc.abs()
+    aggs = []
+    for q in norms[:-1]:
+        cur = _tile(q, cur, 1)          # fold the leading lead axis
+        aggs.append(cur)
+    return aggs, _tile(norms[-1], cur, 1)
+
+
+def _grouped_l1(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Project every slice of ``x`` along axis 1 onto the ℓ1 ball of its
+    radius ``r`` (size-1 axis 1): the 64-step bisection of the ℓ1 kernel's
+    plain version, one row per group, θ = 0 inside."""
+    xt = x.movedim(1, -1)
+    rows = l1ball.project_l1_plain(xt.reshape(-1, xt.shape[-1]),
+                                   r.movedim(1, -1).reshape(-1), "bisect")
+    return rows.reshape(xt.shape).movedim(-1, 1)
+
+
+def _shrink(q: str, x: torch.Tensor, w: torch.Tensor,
+            agg: Optional[torch.Tensor]) -> torch.Tensor:
+    """One apply level on groups along axis 1 of ``x``; ``w`` and ``agg``
+    carry a size-1 axis 1."""
+    if q == "inf":
+        return torch.minimum(torch.maximum(x, -w), w)
+    if q == "2":
+        return x * torch.where(agg > w, w / torch.clamp(agg, min=1e-30),
+                               torch.ones_like(agg))
+    return _grouped_l1(x, w)
+
+
+def apply_plain(yc: torch.Tensor, aggs: Sequence[torch.Tensor],
+                vfin: torch.Tensor, u: torch.Tensor,
+                norms: Sequence[str]) -> torch.Tensor:
+    """The apply pass in PyTorch ops: the radii chain from ``u`` (B, m) down
+    through ``stages = [yc, v_1, …, v_{L-2}]``."""
+    stages = [yc, *aggs]
+    w = _shrink(norms[-1], stages[-1], u[:, None], vfin[:, None])
+    for lvl in range(len(norms) - 1, 0, -1):
+        w = _shrink(norms[lvl - 1], stages[lvl - 1], w[:, None],
+                    stages[lvl][:, None])
+    return w
+
+
+# --------------------------------------------------------------------------- #
+# Kernel wrappers
+# --------------------------------------------------------------------------- #
+
+
+def _lead_args(tp: TilePlan) -> Tuple[int, int]:
+    lead = tuple(tp.lead) + (1,) * (2 - len(tp.lead))
+    return lead[0], lead[1]
+
+
+def _check_f32_contiguous(what: str, *ts: torch.Tensor) -> None:
+    for t in ts:
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{what} takes contiguous float32 tensors, got "
+                             f"{t.dtype} contiguous={t.is_contiguous()}")
+
+
+def _codes(norms: Sequence[str]) -> Tuple[int, int, int]:
+    """(q1, q2, qlast) of the kernels: the lead levels' norms, then L-1's."""
+    lead = [NORM_CODES[q] for q in norms[:-1]] + [0, 0]
+    return lead[0], lead[1], NORM_CODES[norms[-1]]
+
+
+def codegen_reduce(yc: torch.Tensor, tp: TilePlan, norms: Sequence[str]
+                   ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Every forward aggregate of the batched canonical view ``yc``
+    (B, *tp.canon_shape): ``([v_1, …, v_{L-2}], vfin (B, m))``. ``norms``
+    are the reduce norms q_1 … q_{L-1}."""
+    if tuple(yc.shape[1:]) != tp.canon_shape or len(norms) != len(tp.lead) + 1:
+        raise ValueError(f"codegen_reduce: {tuple(yc.shape)} does not match "
+                         f"the plan {tp.canon_shape} / norms {list(norms)}")
+    if yc.device.type == "cpu":
+        return reduce_plain(yc, norms)
+    _device.require_cuda(yc, "codegen_reduce")
+    _check_f32_contiguous("codegen_reduce", yc)
+    b, n, m = yc.shape[0], tp.n, tp.m
+    aggs = [yc.new_empty((b,) + tp.lead[t:] + (n, m))
+            for t in range(1, len(tp.lead) + 1)]
+    rows, splits = row_split(n, m, b)
+    partial = yc.new_empty((b, splits, m))
+    vfin = yc.new_empty((b, m))
+    g1, g2 = _lead_args(tp)
+    q1, q2, qlast = _codes(norms)
+    v1 = aggs[0] if aggs else None
+    v2 = aggs[1] if len(aggs) > 1 else None
+    REDUCE.launch("codegen_reduce", yc.data_ptr(), _build.ptr(v1),
+                  _build.ptr(v2), partial.data_ptr(), vfin.data_ptr(), b,
+                  len(tp.lead), g1, g2, n, m, q1, q2, qlast, rows, splits,
+                  _build.stream_handle(yc))
+    return aggs, vfin
+
+
+def codegen_apply(yc: torch.Tensor, aggs: Sequence[torch.Tensor],
+                  vfin: torch.Tensor, u: torch.Tensor, tp: TilePlan,
+                  norms: Sequence[str],
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The fused backward sweep: X (B, *tp.canon_shape) from ``yc``, the
+    reduce's aggregates, ``vfin`` and the solved ``u`` (B, m). ``out`` may
+    be ``yc`` itself (in-place projection)."""
+    if tuple(yc.shape[1:]) != tp.canon_shape or len(aggs) != len(tp.lead) \
+            or len(norms) != len(tp.lead) + 1:
+        raise ValueError(f"codegen_apply: {tuple(yc.shape)} does not match "
+                         f"the plan {tp.canon_shape} / norms {list(norms)}")
+    if yc.device.type == "cpu":
+        x = apply_plain(yc, aggs, vfin, u, norms)
+        return x if out is None else out.copy_(x)
+    _device.require_cuda(yc, "codegen_apply")
+    _check_f32_contiguous("codegen_apply", yc, vfin, u, *aggs)
+    b, n, m = yc.shape[0], tp.n, tp.m
+    if vfin.shape != (b, m) or u.shape != (b, m):
+        raise ValueError("codegen_apply: vfin and u must be (B, m)")
+    if out is None:
+        out = torch.empty_like(yc)
+    elif out.shape != yc.shape or out.dtype != yc.dtype \
+            or not out.is_contiguous() or out.device != yc.device:
+        raise ValueError("out must be a contiguous float32 tensor like yc")
+    rows, splits = (n, 1) if tp.n_resident else row_split(n, m, b)
+    g1, g2 = _lead_args(tp)
+    q1, q2, qlast = _codes(norms)
+    v1 = aggs[0] if aggs else None
+    v2 = aggs[1] if len(aggs) > 1 else None
+    APPLY.launch("codegen_apply", yc.data_ptr(), _build.ptr(v1),
+                 _build.ptr(v2), vfin.data_ptr(), u.data_ptr(),
+                 out.data_ptr(), b, len(tp.lead), g1, g2, n, m, q1, q2,
+                 qlast, rows, splits, _build.stream_handle(yc))
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# Outer stage + the generator
+# --------------------------------------------------------------------------- #
+
+
+def _solve_outer_batched(v: torch.Tensor, norm: str, radii: torch.Tensor,
+                         method: str) -> torch.Tensor:
+    """Per-item outer solves on the (B, m) finalized aggregates."""
+    if norm == "1":
+        return l1ball.project_l1_batched(v, radii, method=method)
+    if norm == "2":
+        return ball.project_l2(v, radii)
+    return torch.minimum(v, radii[:, None])  # ℓ∞ on v >= 0
+
+
+
+
+def generate_batched(sched: Schedule, dtype, *, method: str = "bisect",
+                     device=None) -> Callable:
+    """Compile ``sched`` into ``(ys, radii, out=None) -> xs`` for a bucket of
+    B items stacked on a leading axis with one radius each.
+
+    ``device`` (default ``"cuda"``) is where the callable runs: a CUDA
+    device launches the kernels, ``"cpu"`` runs their plain versions, and
+    inputs on any other device raise. ``method`` is the outer ℓ1 θ-solve,
+    ``"bisect"`` or ``"filter"``; the grouped solves inside the apply are
+    always the 64-step bisection. ``out`` receives X and may be ``ys``.
+    """
+    dev = _device.resolve(device)
+    if sched.batch_dims:
+        raise ValueError(
+            "generate_batched takes a batch-free schedule; the stacked "
+            "serving axis is the callable's leading axis")
+    if method not in l1ball.KERNEL_METHODS:
+        raise ValueError(f"the outer solve kernel takes {l1ball.KERNEL_METHODS}, "
+                         f"not {method!r}")
+    tp = plan_tiles(sched, dtype)
+    if tp is None:
+        raise ValueError(
+            f"codegen cannot lower levels={sched.levels} on shape="
+            f"{sched.shape} as {dtype}: the Hopper tiler rejects it")
+    norms = [q for q, _ in sched.levels]
+
+    def fused(ys: torch.Tensor, radii, out: torch.Tensor | None = None):
+        if ys.device.type != dev.type:
+            raise ValueError(f"kernel built for {dev.type}, got a tensor on "
+                             f"{ys.device}")
+        if tuple(ys.shape[1:]) != sched.shape:
+            raise ValueError(f"batched kernel built for item shape "
+                             f"{sched.shape}, got {tuple(ys.shape)}")
+        batch = ys.shape[0]
+        radii = torch.as_tensor(radii, dtype=ys.dtype, device=ys.device)
+        if radii.shape != (batch,):
+            raise ValueError(f"radii must be one scalar per stacked item: got "
+                             f"{tuple(radii.shape)} for batch {batch}")
+        yc = ys.reshape((batch,) + tp.canon_shape)
+        oc = None if out is None else out.view((batch,) + tp.canon_shape)
+        if len(norms) == 1:
+            with obs_profile.scope(f"codegen_solve_{norms[0]}"):
+                x = l1ball.project_l1_batched(yc, radii, method=method, out=oc)
+            return x.reshape(ys.shape)
+        with obs_profile.scope("codegen_reduce"):
+            aggs, vfin = codegen_reduce(yc, tp, norms[:-1])
+        with obs_profile.scope(f"codegen_solve_{norms[-1]}"):
+            u = _solve_outer_batched(vfin, norms[-1], radii, method)
+        with obs_profile.scope("codegen_apply"):
+            x = codegen_apply(yc, aggs, vfin, u, tp, norms[:-1], out=oc)
+        return x.reshape(ys.shape)
+
+    return fused
+
+
+def generate(sched: Schedule, dtype, *, method: str = "bisect",
+             device=None) -> Callable:
+    """Compile ``sched`` into ``(y, radius, out=None) -> x`` with one scalar
+    radius. Leading batch axes of the schedule join the kernels' batch axis
+    (every item gets ``radius``), the counterpart of JAX's vmap."""
+    base = sched if not sched.batch_dims else sched_mod.compile_schedule(
+        sched.shape[sched.batch_dims:], sched.levels)
+    batched = generate_batched(base, dtype, method=method, device=device)
+    count = math.prod(sched.shape[:sched.batch_dims])
+
+    def fused(y: torch.Tensor, radius, out: torch.Tensor | None = None):
+        ys = y.reshape((count,) + base.shape)
+        radii = torch.as_tensor(radius, dtype=y.dtype, device=y.device)
+        if radii.ndim:
+            raise ValueError("generate takes one scalar radius")
+        x = batched(ys, radii.expand(count).contiguous(),
+                    out=None if out is None else out.view(ys.shape))
+        return x.reshape(y.shape)
+
+    return fused

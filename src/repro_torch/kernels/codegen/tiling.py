@@ -1,0 +1,110 @@
+"""Tile planning for the generated projection kernels on Hopper (port of
+``repro/kernels/codegen/tiling.py``, re-derived for the card).
+
+The kernels (``csrc/codegen_reduce.cu``, ``csrc/codegen_apply.cu``) index the
+*canonical* view of a compiled schedule, ``(g_1, …, g_{L-1}, m)``: ``m`` is the
+solve axis, ``n = g_{L-1}`` the row axis of the last reduce, and
+``lead = (g_1, …, g_{L-2})`` the axes folded before it. A CTA covers
+``BLOCK_M`` consecutive columns — one warp, so every row access is a
+coalesced 128-byte line — with ``BLOCK_ROWS`` thread rows walking rows, and
+each thread folds the lead axes of its (row, column) in registers. Lead axes
+therefore cost no shared memory and no VMEM-style budget; what limits a
+design here is:
+
+* the lead rank: the kernels are instantiated for 0, 1 or 2 lead axes, so
+  designs of depth L <= 4;
+* an ℓ1 apply at level L-1, whose group is a whole column of n rows: one CTA
+  keeps ``n × BLOCK_M`` floats of it in shared memory for the 64 bisection
+  sweeps (the ``n_resident`` pin), so ``n <= SMEM_BUDGET_BYTES / (4·BLOCK_M)``;
+* an ℓ1 outer solve: ``csrc/l1ball.cu`` keeps one item's m-vector in shared
+  memory, so ``m <= L1_KERNEL_MAX``;
+* the type: float32 only.
+
+``plan_tiles`` returns ``None`` for every design outside those limits: the
+``codegen`` planner backends are then unavailable for it. Designs the JAX
+tiler accepts and this one rejects: depth > 4, non-float32 types, an ℓ1 apply
+over more than 1600 rows, an ℓ1 solve over more than 51,200 values (see
+ROADMAP.md).
+
+Pallas walked the row axis sequentially; Hopper has no sequential grid axis,
+so :func:`row_split` cuts it across CTAs until the launch fills the card.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.core.schedule import Schedule
+
+BLOCK_M = 32                     # columns per CTA: one warp of 4-byte loads
+BLOCK_ROWS = 8                   # thread rows per CTA: 256 threads
+SMEM_BUDGET_BYTES = 200 * 1024   # dynamic shared memory one CTA may claim
+                                 # (Hopper allows 227 KB; slack for static)
+L1_KERNEL_MAX = SMEM_BUDGET_BYTES // 4  # l1ball.cu: one float32 vector in smem
+MAX_LEAD_RANK = 2                # kernels instantiated for 0, 1, 2 lead axes
+SM_COUNT = 132                   # H100 SXM
+TARGET_CTAS = 8 * SM_COUNT       # 8 CTAs of 256 threads fill an SM's 2048
+
+
+class TilePlan(NamedTuple):
+    """Launch geometry of one compiled schedule (batch axes excluded).
+
+    ``canon_shape`` is the collapsed ``(g_1, …, g_{L-1}, m)`` view; ``lead``
+    its folded prefix; ``n``/``m`` the row and column extents; ``n_resident``
+    that an ℓ1 apply at level L-1 keeps whole columns in one CTA;
+    ``smem_bytes`` the dynamic shared memory the apply kernel claims.
+    """
+
+    canon_shape: Tuple[int, ...]
+    lead: Tuple[int, ...]
+    n: int
+    m: int
+    n_resident: bool
+    smem_bytes: int
+
+
+def plan_tiles(sched: Schedule, dtype: torch.dtype) -> Optional[TilePlan]:
+    """The launch geometry for ``sched``, or ``None`` when the kernels do not
+    take the design (see the module docstring for the limits)."""
+    if sched.batch_dims:
+        raise ValueError(
+            "plan_tiles takes a batch-free schedule; the batch is the "
+            "kernels' leading launch axis")
+    if dtype != torch.float32:
+        return None
+    dims = sched.canonical_shape
+    m = dims[-1]
+    if sched.solve.norm == "1" and m > L1_KERNEL_MAX:
+        return None
+    if len(sched.levels) == 1:
+        # the whole design is the outer solve; only ℓ1 has a kernel
+        if sched.solve.norm != "1":
+            return None
+        return TilePlan(dims, (), 1, m, True, m * 4)
+    lead, n = dims[:-2], dims[-2]
+    if len(lead) > MAX_LEAD_RANK:
+        return None
+    n_resident = sched.levels[-2][0] == "1"
+    smem = n * BLOCK_M * 4 if n_resident else 0
+    if smem > SMEM_BUDGET_BYTES:
+        return None
+    return TilePlan(dims, lead, n, m, n_resident, smem)
+
+
+def row_split(n: int, m: int, batch: int) -> Tuple[int, int]:
+    """``(rows_per_split, splits)``: cut n rows into chunks of a multiple of
+    ``BLOCK_ROWS`` rows, as many as it takes for
+    ``ceil(m / BLOCK_M) · batch · splits`` CTAs to reach ``TARGET_CTAS`` (or
+    one chunk per ``BLOCK_ROWS`` rows)."""
+    col_ctas = math.ceil(m / BLOCK_M) * batch
+    want = max(1, min(math.ceil(TARGET_CTAS / col_ctas),
+                      math.ceil(n / BLOCK_ROWS)))
+    splits = want
+    while True:
+        rows = math.ceil(math.ceil(n / splits) / BLOCK_ROWS) * BLOCK_ROWS
+        if math.ceil(n / rows) >= want or rows == BLOCK_ROWS:
+            return rows, math.ceil(n / rows)
+        splits += 1

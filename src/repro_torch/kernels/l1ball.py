@@ -1,0 +1,120 @@
+"""ℓ1-ball projection of a batch of vectors: the θ-solve of the generated
+pipeline (port of ``repro/kernels/l1ball.py``).
+
+:func:`project_l1_batched` projects every row of ``v`` (B, n) onto its own
+ℓ1 ball. On a CUDA tensor it launches ``csrc/l1ball.cu`` (one CTA per row,
+the row staged in shared memory, so ``n <= L1_KERNEL_MAX``); on a CPU tensor
+it runs :func:`project_l1_plain`, the same two algorithms in PyTorch ops:
+
+* ``bisect`` — 64 fixed bisection steps on θ over [0, max|v|];
+* ``filter`` — Michelot/Condat fixed point, at most n + 2 sweeps.
+
+Both return θ = 0 inside the ball (the ball contract of ``core.ball``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch import _device
+
+from . import _build
+from .codegen.tiling import L1_KERNEL_MAX
+
+_ITERS = 64
+KERNEL_METHODS = ("bisect", "filter")
+_METHOD_CODES = {"bisect": 0, "filter": 1}
+
+KERNEL = _build.Kernel("l1ball", {
+    "l1ball_project": [_build.PTR, _build.PTR, _build.PTR, _build.INT,
+                       _build.INT, _build.INT, _build.INT, _build.PTR],
+})
+
+
+def _iters(method: str, n: int) -> int:
+    # filter terminates in <= n sweeps; bisect needs its fixed budget
+    return n + 2 if method == "filter" else _ITERS
+
+
+def project_l1_plain(v: torch.Tensor, radii: torch.Tensor,
+                     method: str = "bisect") -> torch.Tensor:
+    """The plain PyTorch version of the kernel, row by row identical in
+    algorithm (the sums run in another order)."""
+    a = v.abs()
+    r = radii[:, None]
+    s0 = a.sum(dim=1, keepdim=True)
+    inside = s0 <= r
+    if method == "bisect":
+        lo = torch.zeros_like(s0)
+        hi = a.amax(dim=1, keepdim=True)
+        for _ in range(_ITERS):
+            mid = 0.5 * (lo + hi)
+            too_small = torch.clamp(a - mid, min=0.0).sum(dim=1, keepdim=True) > r
+            lo = torch.where(too_small, mid, lo)
+            hi = torch.where(too_small, hi, mid)
+        theta = 0.5 * (lo + hi)
+    else:
+        n = a.shape[1]
+        theta = (s0 - r) / n
+        count = torch.full_like(s0, n, dtype=torch.int64)
+        changed = torch.ones_like(s0, dtype=torch.bool)
+        it = 0
+        while bool(changed.any()) and it < _iters(method, n):
+            active = a > theta
+            new_count = active.sum(dim=1, keepdim=True)
+            ssum = torch.where(active, a, torch.zeros_like(a)).sum(dim=1, keepdim=True)
+            new_theta = torch.where(
+                new_count > 0, (ssum - r) / torch.clamp(new_count, min=1).to(a.dtype),
+                theta)
+            theta = torch.where(changed, new_theta, theta)
+            still = (new_count != count) & (new_count > 0)
+            count = torch.where(changed, new_count, count)
+            changed = changed & still
+            it += 1
+        theta = torch.clamp(theta, min=0.0)
+    theta = torch.where(inside, torch.zeros_like(theta), theta)
+    return torch.sign(v) * torch.clamp(a - theta, min=0.0)
+
+
+def _check(v: torch.Tensor, radii: torch.Tensor, method: str) -> None:
+    if method not in KERNEL_METHODS:
+        raise ValueError(
+            f"no l1ball kernel for method {method!r}; available: "
+            f"{list(KERNEL_METHODS)}")
+    if v.ndim != 2 or radii.shape != (v.shape[0],):
+        raise ValueError(
+            f"l1ball takes v (B, n) and radii (B,), got {tuple(v.shape)} and "
+            f"{tuple(radii.shape)}")
+    if v.dtype != torch.float32 or radii.dtype != torch.float32:
+        raise ValueError(f"l1ball takes float32, got {v.dtype}/{radii.dtype}")
+    if radii.device != v.device:
+        raise ValueError("v and radii must lie on one device")
+
+
+def project_l1_batched(v: torch.Tensor, radii: torch.Tensor, *,
+                       method: str = "bisect",
+                       out: torch.Tensor | None = None) -> torch.Tensor:
+    """Project each row of ``v`` (B, n) onto the ℓ1 ball of its radius.
+
+    CUDA tensor: the ``l1ball`` kernel, writing into ``out`` (allocated when
+    None; may be ``v`` itself). CPU tensor: :func:`project_l1_plain`.
+    """
+    _check(v, radii, method)
+    if v.device.type == "cpu":
+        x = project_l1_plain(v, radii, method)
+        return x if out is None else out.copy_(x)
+    _device.require_cuda(v, "l1ball")
+    b, n = v.shape
+    if not 1 <= n <= L1_KERNEL_MAX:
+        raise ValueError(f"l1ball takes 1 <= n <= {L1_KERNEL_MAX}, got n={n}")
+    if not (v.is_contiguous() and radii.is_contiguous()):
+        raise ValueError("l1ball takes contiguous v and radii")
+    if out is None:
+        out = torch.empty_like(v)
+    elif out.shape != v.shape or out.dtype != v.dtype or not out.is_contiguous() \
+            or out.device != v.device:
+        raise ValueError("out must be a contiguous float32 tensor like v")
+    KERNEL.launch("l1ball_project", v.data_ptr(), radii.data_ptr(),
+                  out.data_ptr(), b, n, _METHOD_CODES[method],
+                  _iters(method, n), _build.stream_handle(v))
+    return out

@@ -1,0 +1,128 @@
+"""The port stands alone and never falls back: ``import repro_torch`` pulls in
+neither JAX nor the JAX package; no file of the port imports them; and
+without a CUDA device every entry point that was not asked for the CPU
+raises instead of running the plain path, as does every kernel wrapper
+given a tensor that is neither on the CPU nor on a CUDA device."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+BILEVEL = [("inf", 1), ("1", 1)]
+
+
+def test_import_pulls_in_neither_jax_nor_repro():
+    code = (
+        "import sys, pkgutil, importlib, repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
+        " or k == 'repro' or k.startswith('repro.'))\n"
+        "print(bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|repro)\b(?!_)|from\s+(jax|repro)(\.|\s)|"
+    r".*torch\.compile|.*os\.environ)", re.M)
+
+
+def test_no_file_of_the_port_imports_jax_or_repro():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        hits = _FORBIDDEN.findall(path.read_text())
+        assert not hits, f"{path}: {hits}"
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; these checks are for hosts "
+                    "without one")
+
+
+def test_entry_points_raise_without_cuda():
+    _no_cuda()
+    from repro_torch import interop
+    from repro_torch.core import plan, schedule
+    from repro_torch.kernels import codegen
+    from repro_torch.kernels.codegen import lowering
+    from repro_torch.serving.engine import ProjectionEngine
+
+    sched = schedule.compile_schedule((8, 16), BILEVEL)
+    calls = [
+        lambda: plan.make_plan((8, 16), torch.float32, BILEVEL),
+        lambda: plan.make_plan((8, 16), torch.float32, BILEVEL,
+                               method="codegen", device="cuda"),
+        lambda: plan.validate_backend((8, 16), torch.float32, BILEVEL, "bisect"),
+        lambda: ProjectionEngine(),
+        lambda: ProjectionEngine(device="cuda", start=False),
+        lambda: lowering.generate(sched, torch.float32),
+        lambda: lowering.generate_batched(sched, torch.float32, device="cuda"),
+        lambda: codegen.build((8, 16), BILEVEL, torch.float32),
+        lambda: codegen.build_batched((8, 16), BILEVEL, torch.float32),
+        lambda: interop.from_numpy_tree({"w": [1.0]}),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_codegen_backends_are_not_offered_on_cpu():
+    from repro_torch.core import plan
+
+    with pytest.raises(ValueError, match="not available"):
+        plan.make_plan((8, 16), torch.float32, BILEVEL, method="codegen",
+                       device="cpu")
+    with pytest.raises(ValueError, match="not available"):
+        plan.make_plan((8, 16), torch.float32, BILEVEL, radius_kind="batch",
+                       method="codegen_batch", device="cpu")
+    p = plan.make_plan((8, 16), torch.float32, BILEVEL, device="cpu")
+    assert p.method in ("sort", "bisect", "filter")
+    with pytest.raises(ValueError, match="device"):
+        p(torch.empty(8, 16, device="meta"), 1.0)
+
+
+def test_kernel_wrappers_launch_or_raise():
+    """A tensor that is not on the CPU never reaches a plain version."""
+    from repro_torch.core import schedule
+    from repro_torch.kernels import l1ball
+    from repro_torch.kernels.codegen import lowering, tiling
+
+    tp = tiling.plan_tiles(schedule.compile_schedule((8, 16), BILEVEL),
+                           torch.float32)
+    y = torch.empty(1, 8, 16, device="meta")
+    row = torch.empty(1, 16, device="meta")
+    with pytest.raises(ValueError, match="CUDA kernel needs a CUDA tensor"):
+        l1ball.project_l1_batched(row, torch.empty(1, device="meta"))
+    with pytest.raises(ValueError, match="CUDA kernel needs a CUDA tensor"):
+        lowering.codegen_reduce(y, tp, ["inf"])
+    with pytest.raises(ValueError, match="CUDA kernel needs a CUDA tensor"):
+        lowering.codegen_apply(y, [], row, row, tp, ["inf"])
+    fn = lowering.generate_batched(schedule.compile_schedule((8, 16), BILEVEL),
+                                   torch.float32, device="cpu")
+    with pytest.raises(ValueError, match="built for cpu"):
+        fn(y, torch.ones(1, device="meta"))
+
+
+def test_a_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
+    from repro_torch.kernels import _build, l1ball
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "TOOLKIT_NVCC", tmp_path / "no-nvcc")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(l1ball.KERNEL, "_lib", None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        l1ball.KERNEL.lib()
+    assert l1ball.KERNEL.launches == 0
