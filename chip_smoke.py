@@ -5,11 +5,14 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-1. builds the three CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+1. builds the four CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, started together) and holds each against its plain PyTorch
-   version on the card: at the two full-width serving shapes, over the
-   design matrix at small ragged sizes, and for ``l1ball`` both bodies over
-   several lengths up to the tiler's limit;
+   version on the card: the three projection kernels at the two full-width
+   serving shapes, over the design matrix at small ragged sizes, and for
+   ``l1ball`` both bodies over several lengths up to the tiler's limit; the
+   flash-attention forward (o and lse) at the harvest's shape
+   (4, 32, 2048, 64) f32 causal and on small ragged cases (non-causal,
+   windows, GQA, Sq < Sk and Sq > Sk, block-unaligned lengths);
 2. serves full-width requests through ``ProjectionEngine`` — 8 bi-level
    (8192, 2048) and 8 tri-level (256, 32, 2048) f32 requests through
    ``codegen_batch`` buckets of 8, one of each through ``codegen`` — checks
@@ -18,16 +21,30 @@ Run from the root of a checkout, with no arguments:
    measures the engine's bucket and per-request latency, synchronous and
    with the dispatcher thread (whose answers must equal the synchronous
    ones);
-3. times each kernel at full width, for the bucket of 8 and for one item,
-   with CUDA events (median of 20) beside its bound, its plain version and,
-   where one PyTorch call computes the same function, that call.
+3. runs the SAE factory at the full width of ``stablelm-1.6b`` (24 layers,
+   d_model 2048, 32 heads of 64, seeded init on the card): a harvest of 2
+   steps of 4 × 2048 tokens at layer 12, whose step-0 activations must equal
+   the same forward with ``impl="naive"``, and 24 flash launches per harvest
+   step; then ``run_factory`` twice with seeds (0, 1), 20 steps of 4096 rows
+   in microbatches of 1024 — bi-level (encoder (2048, 8192)) and
+   head-structured tri-level (``heads=32``, encoder (2048, 32, 256)) —
+   whose losses must be finite and fall, and whose projected encoders must
+   be feasible (max violation <= 1e-5 · radius);
+4. times each kernel at full width (the projection kernels for the bucket
+   of 8 and for one item) with CUDA events (median of 20) beside its bound,
+   its plain version and, where one PyTorch call computes the same function,
+   that call; and times one harvest step and one SAE step with their parts.
 
-The widths are the SAE factory's dictionary SAE on stablelm-1.6b:
-d_model 2048, d_dict 4 x 2048 = 8192, 32 heads; the projected tensor is the
-transposed encoder. Tolerance everywhere: |a - b| <= 1e-5 * max|Y| +
-1e-5 * |b| (64-step float32 bisection and another summation order move θ by
-a few ulps). Any failure exits non-zero without the final line. Without a
-CUDA device, or outside a checkout, it exits 2 and prints no result.
+The widths are the SAE factory's on stablelm-1.6b: d_model 2048, d_dict
+4 x 2048 = 8192, 32 heads; the projected tensor is the transposed encoder.
+Projection tolerance: |a - b| <= 1e-5 * max|Y| + 1e-5 * |b| (64-step
+float32 bisection and another summation order move θ by a few ulps). Flash
+tolerance: o within 2e-5 + 1e-5 |b| (the JAX package's own f32 oracle
+tests use 2e-5), lse within 1e-5 + 1e-5 |b|. Harvest tolerance: 1e-5 of
+the largest activation + 1e-5 |b|. Float32 matmuls run in full float32:
+TF32 is switched off for cuBLAS and cuDNN before anything runs. Any failure
+exits non-zero without the final line. Without a CUDA device, or outside a
+checkout, it exits 2 and prints no result.
 
 Output: one line per check, then a JSON line ``{"kernels": [...]}``, the
 ``nvidia-smi`` name and power limit, and last
@@ -36,7 +53,9 @@ Output: one line per check, then a JSON line ``{"kernels": [...]}``, the
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -58,6 +77,7 @@ FULL = {  # the two requests the server sees, per workload
     "trilevel": ((256, 32, 2048), TRILEVEL),
 }
 BUCKET = 8
+SERVER_KERNELS = ("codegen_reduce", "l1ball", "codegen_apply")  # the server's path
 
 # tests/test_codegen.py DESIGNS + EXTRA_DESIGNS
 DESIGNS = [
@@ -85,7 +105,37 @@ REPLACES = {  # (kernel, batched) -> the TPU kernel's pallas_call site
     ("codegen_apply", False): "src/repro/kernels/codegen/lowering.py:270",
     ("l1ball", True): "src/repro/kernels/l1ball.py:154",
     ("l1ball", False): "src/repro/kernels/l1ball.py:122",
+    ("flash_fwd", False): "src/repro/kernels/flash_attention.py:132",
 }
+
+# flash forward: (q shape, kv shape, causal, window). The harvest's own shape
+# at full width, then tests/test_kernels.py's flash cases plus the corners
+# of the TPU kernel (rows no key reaches, ragged tails, head dims 16/32/128)
+FLASH_FULL = ((4, 32, 2048, 64), (4, 32, 2048, 64), True, None)
+FLASH_CASES = [
+    ((1, 1, 128, 64), (1, 1, 128, 64), True, None),
+    ((2, 4, 256, 64), (2, 2, 256, 64), True, None),
+    ((1, 8, 384, 128), (1, 1, 384, 128), True, None),
+    ((1, 8, 384, 64), (1, 2, 384, 64), True, None),      # GQA group 4
+    ((2, 2, 257, 64), (2, 2, 257, 64), True, None),      # block-unaligned
+    ((1, 2, 256, 64), (1, 2, 256, 64), False, None),     # non-causal
+    ((1, 2, 384, 64), (1, 2, 384, 64), True, 32),        # windows
+    ((1, 2, 384, 64), (1, 2, 384, 64), True, 128),
+    ((1, 2, 384, 64), (1, 2, 384, 64), True, 1000),
+    ((1, 2, 128, 64), (1, 2, 512, 64), False, None),     # cross, Sq < Sk
+    ((1, 2, 100, 64), (1, 2, 300, 64), True, None),      # right-aligned q
+    ((1, 2, 200, 64), (1, 2, 333, 64), False, 40),
+    ((1, 2, 300, 64), (1, 2, 100, 64), True, None),      # Sq > Sk
+    ((1, 2, 300, 64), (1, 2, 130, 64), True, 50),
+    ((2, 4, 40, 16), (2, 4, 40, 16), True, None),        # the smoke LM's heads
+    ((1, 4, 70, 32), (1, 2, 70, 32), True, 16),
+]
+
+# the SAE factory at the full width of stablelm-1.6b (configs/registry.py)
+FACTORY = dict(arch="stablelm-1.6b", smoke=False, layers=(12,),
+               harvest_steps=2, seq_len=2048, lm_batch=4, train_steps=20,
+               sae_batch=4096, microbatch=1024)
+FACTORY_SEEDS = (0, 1)
 
 
 class SmokeFailure(RuntimeError):
@@ -129,10 +179,193 @@ def event_ms(fn, reps=REPS):
     return statistics.median(times)
 
 
+def host_ms(fn, reps=5):
+    """Median milliseconds of ``fn()`` on the host clock, each run ended by a
+    device synchronize, after one warm-up run."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
 def bound_ms(nbytes, nops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def factory_phase(dev, fcfg, seeds, workdir, randn):
+    """Phase 3: the SAE factory on ``dev``. Builds the LM with the port's
+    seeded init, harvests once alone (held against ``impl="naive"``, the
+    flash kernel launched once per layer and step), runs ``run_factory``
+    bi-level and with ``heads=32`` (each counted for launches, each checked
+    for falling finite losses and feasible encoders), and times one harvest
+    step and one SAE step with their parts. Returns what phase 4 and the
+    JSON line report."""
+    import numpy as np
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.data import DataConfig, DataPipeline
+    from repro_torch.kernels import _build
+    from repro_torch.models import lm, sae
+    from repro_torch.optim.projection_hook import _project_leaf
+    from repro_torch.training import sae_factory as F
+
+    layer = fcfg.layers[0]
+    shutil.rmtree(workdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    cfg, _, lm_params = F.lm_for(fcfg, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _tree.leaves(lm_params))
+    print(f"factory: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
+          f"{cfg.n_heads}x{cfg.resolved_head_dim} heads d_ff {cfg.d_ff} vocab "
+          f"{cfg.vocab}: {n_params} params, seeded init on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    per_step = n_layers = cfg.n_layers  # one flash launch per layer and step
+
+    # stage 1 alone, to hold the kernel path against impl="naive"
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    meta = F.harvest_activations(fcfg, workdir / "harvest", params=lm_params)
+    torch.cuda.synchronize()
+    harvest_s = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    print(f"factory harvest: {meta['n_shards']} steps of {fcfg.lm_batch}x"
+          f"{fcfg.seq_len} tokens in {harvest_s:.2f} s; launches {counts}")
+    if counts["flash_fwd"] != per_step * fcfg.harvest_steps:
+        raise SmokeFailure(f"harvest launched flash_fwd {counts['flash_fwd']} "
+                           f"times, not {per_step} per step")
+    toks = DataPipeline(DataConfig(
+        vocab=cfg.vocab, seq_len=fcfg.seq_len, global_batch=fcfg.lm_batch,
+        microbatch=fcfg.lm_batch, seed=fcfg.seed)).batch(0)
+    toks = torch.from_numpy(toks.reshape(-1, fcfg.seq_len)).to(dev)
+    with torch.no_grad():
+        want = lm.forward(lm_params, toks, cfg, impl="naive", remat=False,
+                          collect="resid")[2][layer].reshape(-1, cfg.d_model)
+    got = torch.from_numpy(np.load(workdir / "harvest"
+                                   / f"layer{layer:03d}_shard00000.npy")).to(dev)
+    err = check_close(f"harvest layer {layer} flash vs naive", got, want,
+                      float(want.abs().max()))
+    print(f"factory harvest layer {layer} step 0: flash path vs impl='naive' "
+          f"max_abs_err {err:.3e} (max |act| {float(want.abs().max()):.3e})")
+    del want, got
+    torch.cuda.empty_cache()
+
+    # the main path: run_factory, bi-level then head-structured tri-level
+    factory = {}
+    for design, heads in (("bilevel", 1), ("trilevel", 32)):
+        fc = dataclasses.replace(fcfg, heads=heads)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = F.run_factory(fc, workdir / design, seeds=seeds,
+                            lm_params=lm_params, device=dev)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        print(f"factory {design} (heads={heads}, levels "
+              f"{F.effective_levels(fc)}): run_factory {run_s:.1f} s; "
+              f"launches {counts}")
+        if counts["flash_fwd"] != per_step * fc.harvest_steps:
+            raise SmokeFailure(f"{design}: flash_fwd launched "
+                               f"{counts['flash_fwd']} times, not "
+                               f"{per_step * fc.harvest_steps}")
+        rec = res["layers"][layer]
+        for s_ in seeds:
+            losses = rec["losses"][s_]
+            rep = rec["constraint"][s_]
+            print(f"factory {design} seed {s_} losses: "
+                  + " ".join(f"{x:.6g}" for x in losses))
+            print(f"factory {design} seed {s_}: metrics {rec['metrics'][s_]}; "
+                  f"sparsity {rec['sparsity'][s_]}; constraint norms "
+                  f"{rep['norms']} max_violation {rep['max_violation']:.3e}")
+            if not all(np.isfinite(losses)):
+                raise SmokeFailure(f"{design} seed {s_}: non-finite loss")
+            if not losses[-1] < losses[0]:
+                raise SmokeFailure(f"{design} seed {s_}: loss did not fall "
+                                   f"({losses[0]} -> {losses[-1]})")
+            if not rep["max_violation"] <= 1e-5 * fc.radius:
+                raise SmokeFailure(f"{design} seed {s_}: encoder infeasible, "
+                                   f"max violation {rep['max_violation']}")
+        print(f"factory {design} mmcs {rec['mmcs']}")
+        factory[design] = {"counts": counts, "run_s": run_s,
+                           "mmcs": rec["mmcs"],
+                           "final_loss": {s_: rec["losses"][s_][-1]
+                                          for s_ in seeds}}
+    flash_launches = factory["bilevel"]["counts"]["flash_fwd"]
+
+    # one harvest step (the LM forward through the flash path) and its parts
+    def harvest_forward():
+        with torch.no_grad():
+            return lm.forward(lm_params, toks, cfg, impl="flash", remat=False,
+                              collect="resid")
+
+    step_parts = {"forward_ms": host_ms(harvest_forward, reps=3),
+                  "host_ms_per_step": harvest_s / fcfg.harvest_steps * 1e3}
+    b, s = toks.shape
+    hd = cfg.resolved_head_dim
+    x4 = randn((b, s, cfg.n_heads, hd), 1.0)
+    step_parts["layout_copies_ms"] = cfg.n_layers * event_ms(
+        lambda: [x4.transpose(1, 2).contiguous() for _ in range(3)])
+    xs = randn((b, s, cfg.d_model), 1.0)
+    step_parts["unembed_ms"] = event_ms(lambda: xs @ lm_params["unembed"])
+    del x4, xs
+    print(f"factory harvest step parts: {step_parts}")
+
+    # one SAE step of each design and its parts
+    sae_parts = {}
+    for design, heads in (("bilevel", 1), ("trilevel", 32)):
+        fc = dataclasses.replace(fcfg, heads=heads)
+        tcfg = F.sae_train_config(fc)
+        d_in = cfg.d_model
+        state = F.init_sae_state(d_in, fc.expansion * d_in, tcfg, 0,
+                                 heads=heads, device=dev)
+        step = F.make_sae_train_step(tcfg)
+        pipe = DataPipeline(DataConfig(
+            vocab=1, seq_len=0, global_batch=fc.sae_batch,
+            microbatch=fc.microbatch, activation_dir=str(workdir / "harvest"),
+            activation_layer=layer))
+        batch = torch.from_numpy(pipe.batch(0)).to(dev)
+        spec = tcfg.projection
+        enc = state["params"]["enc"]["w"]
+
+        def fwd_bwd():
+            leaves = [p.detach().requires_grad_(True)
+                      for p in (enc, state["params"]["enc"]["b"],
+                                state["params"]["dec"]["w"],
+                                state["params"]["dec"]["b"])]
+            tree = {"enc": {"w": leaves[0], "b": leaves[1]},
+                    "dec": {"w": leaves[2], "b": leaves[3]}}
+            loss = sae.dict_loss(tree, batch[0].float())
+            return torch.autograd.grad(loss, leaves)
+
+        # step_ms: the train step on a batch already on the card; data_ms:
+        # the loop's fetch of the next batch (reader + copy), apart
+        sae_parts[design] = {
+            "step_ms": host_ms(lambda: step(state, {"tokens": batch})),
+            "data_ms": host_ms(lambda: torch.from_numpy(
+                pipe.batch(1)).to(dev)),
+            "fwd_bwd_ms": batch.shape[0] * event_ms(fwd_bwd),
+            "projection_ms": event_ms(lambda: _project_leaf(
+                enc, spec.levels, spec.radius, spec.method,
+                transpose=spec.transpose)),
+        }
+        print(f"factory SAE step {design}: {sae_parts[design]}")
+        del state, batch, enc
+    del lm_params, toks
+    shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    return {"runs": factory, "flash_launches": flash_launches,
+            "n_layers": n_layers, "harvest_step_ms": step_parts,
+            "sae_step_ms": sae_parts}
 
 
 def main() -> int:
@@ -148,10 +381,14 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
 
     from repro_torch.core import multilevel, plan as planmod, schedule
-    from repro_torch.kernels import _build, l1ball
+    from repro_torch.kernels import _build, flash_attention as flash, l1ball
     from repro_torch.kernels.codegen import lowering, tiling
     from repro_torch.serving.engine import ProjectionEngine
+    from repro_torch.training import sae_factory as F
 
+    # the reference is float32: no TF32 in any matmul or convolution
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -242,6 +479,25 @@ def main() -> int:
                               float(v.abs().max()))
             print(f"l1ball {method} n={n}: max_abs_err {err:.3e}")
 
+    def hold_flash(tag, qs, ks, causal, window):
+        """The flash kernel against its plain version: o within 2e-5 +
+        1e-5|b|, lse within 1e-5 + 1e-5|b|; returns the max error and the
+        inputs."""
+        q, k, v = randn(qs, 1.0), randn(ks, 1.0), randn(ks, 1.0)
+        o, lse = flash.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        po, plse = flash.flash_attention_plain(q, k, v, causal=causal,
+                                               window=window)
+        err = max(check_close(f"{tag} o", o, po, 2.0),
+                  check_close(f"{tag} lse", lse, plse, 1.0))
+        print(f"flash {tag} q{qs} kv{ks} causal={causal} window={window}: "
+              f"max_abs_err {err:.3e}")
+        return err, (q, k, v)
+
+    for i, (qs, ks, causal, window) in enumerate(FLASH_CASES):
+        hold_flash(f"case{i}", qs, ks, causal, window)
+    flash_full = hold_flash("full", *FLASH_FULL)
+
     full_cases = {}
     for wl, (shape, levels) in FULL.items():
         errs, inputs = hold_pipeline(f"{wl} full", shape, levels, BUCKET)
@@ -282,8 +538,8 @@ def main() -> int:
             launches[wl, batch] = _build.launch_counts()
             print(f"server {wl} {'codegen_batch' if batch > 1 else 'codegen'} "
                   f"x{batch}: launches {launches[wl, batch]}")
-            for k, c in launches[wl, batch].items():
-                if c == 0:
+            for k in SERVER_KERNELS:
+                if launches[wl, batch][k] == 0:
                     raise SmokeFailure(f"server {wl}: kernel {k} never launched")
         m = shape[-1]
         for i, (y, r, x) in enumerate(zip(ys, radii, outs)):
@@ -348,7 +604,11 @@ def main() -> int:
     print(f"server: {served} checked requests, 0 failures; plan cache "
           f"{planmod.cache_info()}")
 
-    # ------------------------------------- phase 3: times at full width
+    # ------------------------------ phase 3: the SAE factory at full width
+    fac = factory_phase(dev, F.SAEFactoryConfig(**FACTORY), FACTORY_SEEDS,
+                        ROOT / "build" / "chip_smoke_factory", randn)
+
+    # ------------------------------------- phase 4: times at full width
     # each kernel at the bucket of 8 and at one item (the codegen path), on
     # the phase-1 inputs, held once more against its plain version
     rows = []
@@ -416,7 +676,45 @@ def main() -> int:
                 print(f"time {wl} x{b} bucket stack: {stack_ms[wl]:.4f} ms")
                 del items
             del out
+    # the flash forward at the harvest's shape: kernel, plain version and
+    # one scaled_dot_product_attention call on the same f32 tensors
+    ferr, (q, k, v) = flash_full
+    (b, hq, sq, d), sk = q.shape, k.shape[2]
+    kern = lambda: flash.flash_attention(q, k, v, causal=True)  # noqa: E731
+    plain = lambda: flash.flash_attention_plain(q, k, v, causal=True)  # noqa: E731
+    ferr = max(ferr, check_close("full flash o (timing)", kern()[0], plain()[0], 2.0))
+    plain_ms = event_ms(plain)
+    ms = event_ms(kern)
+    lib_ms = event_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True))
+    # causal work 2·B·Hq·Sq·Sk·D (half of QKᵀ and of PV); bytes: q, k, v, o
+    # once each and the f32 lse
+    bms, by = bound_ms(4 * (2 * q.numel() + 2 * k.numel() + b * hq * sq),
+                       2 * b * hq * sq * sk * d)
+    rows.append({
+        "name": "flash_fwd", "workload": f"harvest {tuple(q.shape)} causal f32",
+        "route": "cuda", "source": "src/repro_torch/csrc/flash_fwd.cu",
+        "replaces": REPLACES["flash_fwd", False], "launches": fac["flash_launches"],
+        "max_abs_err": ferr, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+        "bound_by": by, "library_ms": lib_ms})
+    print(f"time flash_fwd {tuple(q.shape)} causal: {ms:.4f} ms (bound "
+          f"{bms:.4f} ms by {by}, {bms / ms:.2f} of bound), plain "
+          f"{plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms, "
+          f"max_abs_err {ferr:.3e}")
+    step_parts, sae_parts = fac["harvest_step_ms"], fac["sae_step_ms"]
+    step_parts["flash_ms"] = fac["n_layers"] * ms
+    step_parts["rest_ms"] = step_parts["forward_ms"] - step_parts["flash_ms"] \
+        - step_parts["layout_copies_ms"] - step_parts["unembed_ms"]
+    for parts in sae_parts.values():
+        # AdamW, gradient accumulation and clipping, host dispatch
+        parts["rest_ms"] = parts["step_ms"] - parts["fwd_bwd_ms"] \
+            - parts["projection_ms"]
+    print(f"harvest step breakdown (ms): {step_parts}")
+    print(f"SAE step breakdown (ms): {sae_parts}")
     print(json.dumps({"kernels": rows,
+                      "factory": {"harvest_step_ms": step_parts,
+                                  "sae_step_ms": sae_parts,
+                                  "runs": fac["runs"]},
                       "engine_ms": {
                           wl: {"bucket_latency": v[0] * 1e3,
                                "per_request_latency": v[1] * 1e3,

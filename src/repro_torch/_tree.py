@@ -1,0 +1,54 @@
+"""Parameter trees as nested dicts (the port's stand-in for ``jax.tree_util``).
+
+A tree is a dict whose values are trees or leaves. Traversal visits dict keys
+in sorted order, as ``jax.tree_util`` flattens dicts, so a flat list of
+leaves (and any sum over it) comes out in the JAX package's order. A leaf's
+path is its keys joined by ``/`` (``"enc/w"``), the names the projection
+spec's regex matches.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, Tuple
+
+
+def leaves_with_paths(tree, prefix: str = "") -> List[Tuple[str, object]]:
+    """``[(path, leaf), ...]`` in sorted-key order."""
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out += leaves_with_paths(tree[k], f"{prefix}{k}/")
+        return out
+    return [(prefix[:-1], tree)]
+
+
+def leaves(tree) -> list:
+    return [leaf for _, leaf in leaves_with_paths(tree)]
+
+
+def map_with_path(fn: Callable, tree, prefix: str = ""):
+    """The tree with each leaf replaced by ``fn(path, leaf)``."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, f"{prefix}{k}/") for k, v in tree.items()}
+    return fn(prefix[:-1], tree)
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """The tree with each leaf replaced by ``fn(leaf, *matching leaves of
+    rest)``; every tree in ``rest`` has ``tree``'s structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def unflatten_like(tree, flat: list):
+    """A tree of ``tree``'s structure whose leaves, in sorted-key order, are
+    ``flat``."""
+    it = iter(flat)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(node[k]) for k in sorted(node)}
+        return next(it)
+
+    return walk(tree)

@@ -42,6 +42,7 @@ TOOLKIT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # when nvcc is not on PATH
 # ctypes argument kinds of the exported C functions
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
+FLOAT = ctypes.c_float
 
 KERNELS: Dict[str, "Kernel"] = {}
 

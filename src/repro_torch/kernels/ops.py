@@ -1,9 +1,11 @@
-"""Projection entry points on tensors (port of ``repro/kernels/ops.py``,
-projection part).
+"""Entry points on tensors (port of ``repro/kernels/ops.py``): the
+projections and the attention forward.
 
-The tensor's device decides the path: a CUDA tensor runs the generated
-kernels (``kernels/codegen``), a CPU tensor a cached planner plan of the
-plain PyTorch schedule executor. No environment variable or flag switches the
+The tensor's device decides the path: for a projection, a CUDA tensor runs
+the generated kernels (``kernels/codegen``), a CPU tensor a cached planner
+plan of the plain PyTorch schedule executor; for attention, a CUDA tensor
+runs the flash kernel (``kernels/flash_attention``), a CPU tensor its plain
+version. No environment variable or flag switches the
 kernels off (the JAX package's ``REPRO_FORCE_INTERPRET``/``use_pallas`` have
 no counterpart).
 """
@@ -15,6 +17,7 @@ import torch
 from repro_torch.core import plan as planmod
 
 from .codegen import codegen_project
+from .flash_attention import flash_attention
 
 _BILEVEL_LEVELS = (("inf", 1), ("1", 1))
 _TRILEVEL_LEVELS = (("inf", 1), ("inf", 1), ("1", 1))
@@ -42,3 +45,8 @@ def trilevel_l1infinf(y: torch.Tensor, radius, *,
     if y.ndim != 3:
         raise ValueError("trilevel_l1infinf expects an order-3 tensor")
     return _projection(y, _TRILEVEL_LEVELS, radius, method)
+
+
+def attention(q, k, v, *, causal: bool = True, window=None) -> torch.Tensor:
+    """Flash attention forward, o only: q (B,Hq,Sq,D), k/v (B,Hkv,Sk,D)."""
+    return flash_attention(q, k, v, causal=causal, window=window)[0]

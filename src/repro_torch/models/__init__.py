@@ -1,0 +1,35 @@
+"""repro_torch.models — the model API of the port (``repro/models`` counterpart).
+
+    api = models.get(cfg)        # family-dispatched function bundle
+    params = params.init_params(api.template(cfg), seed, device="cuda")
+    logits, aux = api.forward(params, tokens, cfg, ...)
+
+The port covers the dense LM families (``lm``) and the paper's SAE
+(``sae``). MoE/MLA, audio, SSM and hybrid models and the decode caches wait
+for their slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+from repro_torch.configs.types import ArchConfig
+
+from . import layers, lm, params, sae  # noqa: F401
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAPI:
+    template: Callable
+    forward: Callable
+
+
+def get(cfg: ArchConfig) -> ModelAPI:
+    fam = cfg.family
+    if fam in ("dense", "vlm") and cfg.moe is None and cfg.mla is None:
+        return ModelAPI(lm.template, lm.forward)
+    if fam == "sae":
+        return ModelAPI(sae.template, sae.forward)
+    raise ValueError(f"{cfg.name}: family {fam!r} is not ported yet; the port "
+                     "covers the dense LM and the SAE")

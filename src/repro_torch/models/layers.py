@@ -1,0 +1,187 @@
+"""Neural-net building blocks of the dense LM (port of
+``repro/models/layers.py``, lines 35-171 and 201-229).
+
+Everything is a plain function of (params, inputs) on tensors. Attention
+comes in three implementations selected by ``impl``:
+
+  * "naive"   — materializes the S×S logits
+  * "chunked" — online softmax over KV chunks in PyTorch ops (flash
+                semantics, memory-bounded)
+  * "flash"   — ``kernels/flash_attention.py``: the hand-written CUDA
+                forward on a CUDA tensor, its plain version on a CPU tensor
+                (the counterpart of the JAX package's ``"pallas"``)
+
+All attention math accumulates in f32 regardless of compute dtype. MoE,
+Mamba2 and single-token decode wait for their slices.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .params import ParamDef
+
+_NEG = -1e30
+
+
+# ---------------------------------------------------------------------- norms
+def rms_norm(x, scale, eps=1e-5):
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(x.dtype)
+
+
+# ----------------------------------------------------------------------- rope
+def rope_frequencies(head_dim: int, rope_pct: float, theta: float, positions):
+    """positions (…,) int -> (cos, sin, rot) with cos/sin (…, rot//2)."""
+    rot = int(head_dim * rope_pct)
+    rot -= rot % 2
+    if rot == 0:
+        return None
+    exps = torch.arange(0, rot, 2, dtype=torch.float32,
+                        device=positions.device) / rot
+    inv = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                       device=positions.device), exps)
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang), rot
+
+
+def apply_rope(x, freqs):
+    """x (..., S, H, D); freqs from rope_frequencies with positions (..., S).
+    Rotates the first ``rot`` channels in interleaved pairs (partial rotary);
+    the rest pass through."""
+    if freqs is None:
+        return x
+    cos, sin, rot = freqs
+    xf = x.float()
+    xr, xp = xf[..., :rot], xf[..., rot:]
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    c = cos[..., None, :]  # broadcast over heads
+    s = sin[..., None, :]
+    o1 = x1 * c - x2 * s
+    o2 = x2 * c + x1 * s
+    out = torch.stack([o1, o2], dim=-1).reshape(xr.shape)
+    return torch.cat([out, xp], dim=-1).to(x.dtype)
+
+
+# ------------------------------------------------------------------ attention
+def _gqa_logits(q, k):
+    """q (B,S,KV,G,D) × k (B,T,KV,D) -> (B,KV,G,S,T) in f32."""
+    return torch.einsum("bskgd,btkd->bkgst", q.float(), k.float())
+
+
+def _mask(qpos, kpos, causal, window):
+    mask = torch.ones(qpos.shape[0], kpos.shape[1], dtype=torch.bool,
+                      device=qpos.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def attention_naive(q, k, v, *, causal=True, window=None, q_offset=0):
+    """q (B,S,H,Dqk), k (B,T,KV,Dqk), v (B,T,KV,Dv). Returns (B,S,H,Dv)."""
+    b, s, h, d = q.shape
+    t, kv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    g = h // kv
+    qg = q.reshape(b, s, kv, g, d) * (d ** -0.5)
+    logits = _gqa_logits(qg, k)
+    qpos = torch.arange(s, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(t, device=q.device)[None, :]
+    mask = _mask(qpos, kpos, causal, window)
+    logits = torch.where(mask, logits, torch.full((), _NEG, device=q.device))
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", w, v.float())
+    return out.reshape(b, s, h, dv).to(q.dtype)
+
+
+def attention_chunked(q, k, v, *, causal=True, window=None, q_offset=0,
+                      chunk=1024):
+    """Online softmax over KV chunks (flash semantics in PyTorch ops)."""
+    b, s, h, d = q.shape
+    t, kv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    g = h // kv
+    chunk = min(chunk, t)
+    n_chunks = -(-t // chunk)
+    t_pad = n_chunks * chunk
+    if t_pad != t:
+        k = F.pad(k, (0, 0, 0, 0, 0, t_pad - t))
+        v = F.pad(v, (0, 0, 0, 0, 0, t_pad - t))
+
+    qg = (q.float() * (d ** -0.5)).reshape(b, s, kv, g, d)
+    qpos = (torch.arange(s, device=q.device) + q_offset)[:, None]
+    neg = torch.full((), _NEG, device=q.device)
+
+    m = torch.full((b, kv, g, s), _NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, kv, g, s), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, kv, g, s, dv), dtype=torch.float32, device=q.device)
+    for idx in range(n_chunks):
+        kb = k[:, idx * chunk:(idx + 1) * chunk]
+        vb = v[:, idx * chunk:(idx + 1) * chunk]
+        logits = _gqa_logits(qg, kb)  # (b,kv,g,s,chunk)
+        kpos = (idx * chunk + torch.arange(chunk, device=q.device))[None, :]
+        mask = _mask(qpos, kpos, causal, window) & (kpos < t)
+        logits = torch.where(mask, logits, neg)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bkgst,btkd->bkgsd", p,
+                                                   vb.float())
+        m = m_new
+    out = acc / torch.where(l == 0, torch.ones_like(l), l)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dv).to(q.dtype)
+
+
+def attention(q, k, v, *, causal=True, window=None, q_offset=0,
+              impl="chunked", chunk=None):
+    if impl == "naive":
+        return attention_naive(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
+    if impl == "chunked":
+        return attention_chunked(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset, chunk=chunk or 1024)
+    if impl == "flash":
+        from repro_torch.kernels import ops
+
+        # the kernel takes (B, H, S, D) contiguous; q is right-aligned to k,
+        # which is q_offset = 0 for the forward's square attention
+        qt = q.transpose(1, 2).contiguous()
+        kt = k.transpose(1, 2).contiguous()
+        vt = v.transpose(1, 2).contiguous()
+        o = ops.attention(qt, kt, vt, causal=causal, window=window)
+        return o.transpose(1, 2)
+    raise ValueError(f"unknown attention impl {impl!r}")
+
+
+# ------------------------------------------------------------------------ mlp
+def _act(x, kind):
+    if kind == "silu":
+        return F.silu(x)
+    if kind == "gelu":
+        return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+    if kind == "relu":
+        return F.relu(x)
+    raise ValueError(kind)
+
+
+def mlp_template(d_model: int, d_ff: int, act: str = "silu"):
+    t = {
+        "w_up": ParamDef((d_model, d_ff), ("embed", "ffn"), "scaled"),
+        "w_down": ParamDef((d_ff, d_model), ("ffn", "embed"), "scaled"),
+    }
+    if act != "gelu":  # gated (SwiGLU-style) for silu/relu families
+        t["w_gate"] = ParamDef((d_model, d_ff), ("embed", "ffn"), "scaled")
+    return t
+
+
+def mlp_apply(p, x, act="silu"):
+    up = x @ p["w_up"]
+    if "w_gate" in p:
+        up = _act(x @ p["w_gate"], act) * up
+    else:
+        up = _act(up, act)
+    return up @ p["w_down"]

@@ -10,6 +10,9 @@ stages. Outside an active profiler a range costs one cheap host call.
 
 from __future__ import annotations
 
+import contextlib
+import pathlib
+
 import torch
 
 SCOPE_PREFIX = "proj"
@@ -37,3 +40,23 @@ def scope(name: str):
     """A raw ``proj/``-prefixed range (codegen pipeline stages)."""
     return torch.profiler.record_function(f"{SCOPE_PREFIX}/{name}")
 
+
+
+@contextlib.contextmanager
+def capture(path):
+    """Capture a ``torch.profiler`` trace of the block (CPU, and CUDA when a
+    card is present) into ``path``/``trace.json`` (Chrome trace format).
+
+    ``path`` falsy (None/"") disables capture — launchers pass their
+    ``--profile-dir`` flag through unconditionally."""
+    if not path:
+        yield None
+        return
+    out = pathlib.Path(path)
+    out.mkdir(parents=True, exist_ok=True)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield out
+    prof.export_chrome_trace(str(out / "trace.json"))

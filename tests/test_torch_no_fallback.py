@@ -52,13 +52,20 @@ def _no_cuda():
                     "without one")
 
 
-def test_entry_points_raise_without_cuda():
+def test_entry_points_raise_without_cuda(tmp_path):
     _no_cuda()
     from repro_torch import interop
     from repro_torch.core import plan, schedule
     from repro_torch.kernels import codegen
     from repro_torch.kernels.codegen import lowering
+    from repro_torch.launch import sae_factory as cli
+    from repro_torch.models import lm, params
     from repro_torch.serving.engine import ProjectionEngine
+    from repro_torch.training import sae_factory as F
+
+    fcfg = F.SAEFactoryConfig(layers=(0,), harvest_steps=1, seq_len=8,
+                              lm_batch=2, train_steps=1, sae_batch=8,
+                              microbatch=8)
 
     sched = schedule.compile_schedule((8, 16), BILEVEL)
     calls = [
@@ -73,6 +80,12 @@ def test_entry_points_raise_without_cuda():
         lambda: codegen.build((8, 16), BILEVEL, torch.float32),
         lambda: codegen.build_batched((8, 16), BILEVEL, torch.float32),
         lambda: interop.from_numpy_tree({"w": [1.0]}),
+        lambda: params.init_params(lm.template(F._arch(fcfg)), 0),
+        lambda: F.lm_for(fcfg),
+        lambda: F.harvest_activations(fcfg, tmp_path / "h"),
+        lambda: F.train_sae(tmp_path / "h", 0, fcfg),
+        lambda: F.run_factory(fcfg, tmp_path / "r"),
+        lambda: cli.main(["--out", str(tmp_path / "cli"), "--layers", "0"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -110,6 +123,13 @@ def test_kernel_wrappers_launch_or_raise():
         lowering.codegen_reduce(y, tp, ["inf"])
     with pytest.raises(ValueError, match="CUDA kernel needs a CUDA tensor"):
         lowering.codegen_apply(y, [], row, row, tp, ["inf"])
+    from repro_torch.kernels import flash_attention, ops
+    qkv = torch.empty(1, 2, 8, 16, device="meta")
+    with pytest.raises(ValueError, match="CUDA kernel needs a CUDA tensor"):
+        flash_attention.flash_attention(qkv, qkv, qkv)
+    with pytest.raises(ValueError, match="CUDA kernel needs a CUDA tensor"):
+        ops.attention(qkv, qkv, qkv)
+    assert flash_attention.KERNEL.launches == 0
     fn = lowering.generate_batched(schedule.compile_schedule((8, 16), BILEVEL),
                                    torch.float32, device="cpu")
     with pytest.raises(ValueError, match="built for cpu"):
