@@ -22,18 +22,21 @@ Run from the root of a checkout, with no arguments:
    with the dispatcher thread (whose answers must equal the synchronous
    ones);
 3. runs the SAE factory at the full width of ``stablelm-1.6b`` (24 layers,
-   d_model 2048, 32 heads of 64, seeded init on the card): a harvest of 2
-   steps of 4 × 2048 tokens at layer 12, whose step-0 activations must equal
-   the same forward with ``impl="naive"``, and 24 flash launches per harvest
-   step; then ``run_factory`` twice with seeds (0, 1), 20 steps of 4096 rows
-   in microbatches of 1024 — bi-level (encoder (2048, 8192)) and
-   head-structured tri-level (``heads=32``, encoder (2048, 32, 256)) —
-   whose losses must be finite and fall, and whose projected encoders must
-   be feasible (max violation <= 1e-5 · radius);
+   d_model 2048, 32 heads of 64, seeded init on the card): ``run_factory``
+   twice, each harvesting 2 steps of 4 × 2048 tokens at layer 12 (24 flash
+   launches per harvest step) and training with seeds (0, 1) 20 steps of
+   4096 rows in microbatches of 1024 — bi-level (encoder (2048, 8192)) and
+   head-structured tri-level (``heads=32``, encoder (2048, 32, 256)).
+   Losses must be finite and fall, and the projected encoders feasible (max
+   violation <= 1e-5 · radius). The bi-level run's layer-12 shard 0 must
+   equal the same forward with ``impl="naive"``; each design's first SAE
+   step, from the main path's seed-0 init and batch and with live features,
+   must equal the same step on the CPU (``hold_sae_step``);
 4. times each kernel at full width (the projection kernels for the bucket
    of 8 and for one item) with CUDA events (median of 20) beside its bound,
    its plain version and, where one PyTorch call computes the same function,
-   that call; and times one harvest step and one SAE step with their parts.
+   that call; and times one warm harvest step and one SAE step with their
+   parts.
 
 The widths are the SAE factory's on stablelm-1.6b: d_model 2048, d_dict
 4 x 2048 = 8192, 32 heads; the projected tensor is the transposed encoder.
@@ -201,14 +204,82 @@ def bound_ms(nbytes, nops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def hold_sae_step(dev, fc, harvest_dir, layer, main_loss):
+    """One full-width SAE step on the card against the same step on the CPU:
+    the main path's seed-0 init and first batch, through the factory's own
+    step (``make_sae_train_step``: microbatch accumulation, AdamW, the
+    projection). The parameters are held in float64 for this check, so no
+    ReLU decision near 0 can fall differently on the two devices; the step
+    itself accumulates the gradients and runs AdamW and the projection in
+    float32, as on the main path. The init must have live features, so the
+    encoder's gradient is not zero. Loss and gradient norm are held within
+    1e-5 |b|, every parameter within 1e-5 of its largest entry + 1e-5 |b|,
+    and the main path's own float32 first-step loss within 1e-5 |b| of the
+    CPU's. Returns the max abs errors."""
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.data import DataConfig, DataPipeline
+    from repro_torch.models import sae
+    from repro_torch.training import sae_factory as F
+
+    tcfg = F.sae_train_config(fc)
+    d_in = F.read_meta(harvest_dir)["d_model"]
+    d_dict = fc.expansion * d_in
+    rows = torch.from_numpy(DataPipeline(DataConfig(
+        vocab=1, seq_len=0, global_batch=fc.sae_batch,
+        microbatch=fc.microbatch, activation_dir=str(harvest_dir),
+        activation_layer=layer)).batch(0))
+    p32 = F.init_sae_state(d_in, d_dict, tcfg, 0, heads=fc.heads,
+                           device=dev)["params"]
+    with torch.no_grad():
+        alive = {k: float(v) for k, v in sae.dict_metrics(
+            p32, rows.reshape(-1, d_in).to(dev)).items()}
+    if not (alive["l0"] > 0 and alive["dead_frac"] < 1):
+        raise SmokeFailure(f"held SAE step heads={fc.heads}: no live feature "
+                           f"at the init ({alive})")
+    before = _tree.tree_map(lambda p: p.double().cpu(), p32)
+    card = F.init_sae_state(d_in, d_dict, tcfg, 0,
+                            params=_tree.tree_map(lambda p: p.to(dev, copy=True),
+                                                 before))
+    host = F.init_sae_state(d_in, d_dict, tcfg, 0,
+                            params=_tree.tree_map(lambda p: p.clone(), before))
+    step = F.make_sae_train_step(tcfg)
+    card, cm = step(card, {"tokens": rows.to(dev)})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host, hm = step(host, {"tokens": rows})
+    host_s = time.perf_counter() - t0
+    tag = f"held SAE step heads={fc.heads}"
+    errs = {k: check_close(f"{tag} {k}", cm[k].cpu(), hm[k], 0.0)
+            for k in ("loss", "grad_norm")}
+    errs["main_path_loss"] = check_close(
+        f"{tag} main path's first loss", torch.tensor(main_loss),
+        hm["loss"], 0.0)
+    for (name, got), want, b0 in zip(_tree.leaves_with_paths(card["params"]),
+                                     _tree.leaves(host["params"]),
+                                     _tree.leaves(before)):
+        scale = max(float(b0.abs().max()), float(want.abs().max()))
+        errs[name] = check_close(f"{tag} {name}", got.cpu(), want, scale)
+    moved = float((host["params"]["enc"]["w"] - before["enc"]["w"]).abs().max())
+    print(f"{tag}: init l0 {alive['l0']:.1f} dead_frac {alive['dead_frac']:.4f}"
+          f"; loss {float(hm['loss']):.6g} (main path {main_loss:.6g}), "
+          f"grad_norm {float(hm['grad_norm']):.6g}, encoder moved by up to "
+          f"{moved:.3e}; card vs CPU max_abs_err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (CPU step {host_s:.1f} s)")
+    return errs
+
+
 def factory_phase(dev, fcfg, seeds, workdir, randn):
     """Phase 3: the SAE factory on ``dev``. Builds the LM with the port's
-    seeded init, harvests once alone (held against ``impl="naive"``, the
-    flash kernel launched once per layer and step), runs ``run_factory``
-    bi-level and with ``heads=32`` (each counted for launches, each checked
-    for falling finite losses and feasible encoders), and times one harvest
-    step and one SAE step with their parts. Returns what phase 4 and the
-    JSON line report."""
+    seeded init and runs ``run_factory`` bi-level and with ``heads=32``,
+    each counted for launches (the flash kernel once per layer and harvest
+    step) and checked for falling finite losses and feasible encoders. The
+    bi-level run's layer-12 shard 0 is held against the same forward with
+    ``impl="naive"``; each design's first SAE step is held against the same
+    step on the CPU. Then times one warm harvest step and one SAE step with
+    their parts. Returns what phase 4 and the JSON line report."""
     import numpy as np
     import torch
 
@@ -230,37 +301,13 @@ def factory_phase(dev, fcfg, seeds, workdir, randn):
           f"{cfg.vocab}: {n_params} params, seeded init on the card in "
           f"{time.perf_counter() - t0:.1f} s")
     per_step = n_layers = cfg.n_layers  # one flash launch per layer and step
-
-    # stage 1 alone, to hold the kernel path against impl="naive"
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    meta = F.harvest_activations(fcfg, workdir / "harvest", params=lm_params)
-    torch.cuda.synchronize()
-    harvest_s = time.perf_counter() - t0
-    counts = _build.launch_counts()
-    print(f"factory harvest: {meta['n_shards']} steps of {fcfg.lm_batch}x"
-          f"{fcfg.seq_len} tokens in {harvest_s:.2f} s; launches {counts}")
-    if counts["flash_fwd"] != per_step * fcfg.harvest_steps:
-        raise SmokeFailure(f"harvest launched flash_fwd {counts['flash_fwd']} "
-                           f"times, not {per_step} per step")
     toks = DataPipeline(DataConfig(
         vocab=cfg.vocab, seq_len=fcfg.seq_len, global_batch=fcfg.lm_batch,
         microbatch=fcfg.lm_batch, seed=fcfg.seed)).batch(0)
     toks = torch.from_numpy(toks.reshape(-1, fcfg.seq_len)).to(dev)
-    with torch.no_grad():
-        want = lm.forward(lm_params, toks, cfg, impl="naive", remat=False,
-                          collect="resid")[2][layer].reshape(-1, cfg.d_model)
-    got = torch.from_numpy(np.load(workdir / "harvest"
-                                   / f"layer{layer:03d}_shard00000.npy")).to(dev)
-    err = check_close(f"harvest layer {layer} flash vs naive", got, want,
-                      float(want.abs().max()))
-    print(f"factory harvest layer {layer} step 0: flash path vs impl='naive' "
-          f"max_abs_err {err:.3e} (max |act| {float(want.abs().max()):.3e})")
-    del want, got
-    torch.cuda.empty_cache()
 
     # the main path: run_factory, bi-level then head-structured tri-level
-    factory = {}
+    factory, held = {}, {}
     for design, heads in (("bilevel", 1), ("trilevel", 32)):
         fc = dataclasses.replace(fcfg, heads=heads)
         _build.reset_launches()
@@ -295,20 +342,51 @@ def factory_phase(dev, fcfg, seeds, workdir, randn):
                 raise SmokeFailure(f"{design} seed {s_}: encoder infeasible, "
                                    f"max violation {rep['max_violation']}")
         print(f"factory {design} mmcs {rec['mmcs']}")
+        if design == "bilevel":
+            # the main path's own shard against the naive-attention forward
+            with torch.no_grad():
+                want = lm.forward(lm_params, toks, cfg, impl="naive",
+                                  remat=False, collect="resid")[2][layer]
+            want = want.reshape(-1, cfg.d_model)
+            got = torch.from_numpy(np.load(
+                workdir / design / f"layer{layer:03d}_shard00000.npy")).to(dev)
+            err = check_close(f"harvest layer {layer} flash vs naive", got,
+                              want, float(want.abs().max()))
+            print(f"factory harvest layer {layer} step 0 (bi-level run's "
+                  f"shard): flash path vs impl='naive' max_abs_err {err:.3e} "
+                  f"(max |act| {float(want.abs().max()):.3e})")
+            del want, got
+            torch.cuda.empty_cache()
+        held[design] = hold_sae_step(dev, fc, workdir / design, layer,
+                                     rec["losses"][0][0])
         factory[design] = {"counts": counts, "run_s": run_s,
                            "mmcs": rec["mmcs"],
                            "final_loss": {s_: rec["losses"][s_][-1]
                                           for s_ in seeds}}
     flash_launches = factory["bilevel"]["counts"]["flash_fwd"]
 
-    # one harvest step (the LM forward through the flash path) and its parts
+    # one warm harvest step as the factory runs it (tokens, forward, copy of
+    # the layer's rows to the host, shard write) and its parts
     def harvest_forward():
         with torch.no_grad():
             return lm.forward(lm_params, toks, cfg, impl="flash", remat=False,
                               collect="resid")
 
-    step_parts = {"forward_ms": host_ms(harvest_forward, reps=3),
-                  "host_ms_per_step": harvest_s / fcfg.harvest_steps * 1e3}
+    tdir = workdir / "timing"
+    one = dataclasses.replace(fcfg, harvest_steps=1)
+    step_parts = {"harvest_step_ms": host_ms(
+        lambda: F.harvest_activations(one, tdir, params=lm_params), reps=3)}
+    step_parts["forward_ms"] = host_ms(harvest_forward, reps=3)
+    acts = harvest_forward()[2]
+    step_parts["to_host_ms"] = host_ms(
+        lambda: acts[layer].reshape(-1, cfg.d_model).cpu().numpy(), reps=3)
+    rows = acts[layer].reshape(-1, cfg.d_model).cpu().numpy()
+    step_parts["shard_write_ms"] = host_ms(
+        lambda: np.save(tdir / "timing.npy", rows.astype(np.float32)), reps=3)
+    # the token batch, meta.json and Python around the three parts
+    step_parts["harvest_rest_ms"] = step_parts["harvest_step_ms"] - sum(
+        step_parts[k] for k in ("forward_ms", "to_host_ms", "shard_write_ms"))
+    del acts, rows
     b, s = toks.shape
     hd = cfg.resolved_head_dim
     x4 = randn((b, s, cfg.n_heads, hd), 1.0)
@@ -330,7 +408,7 @@ def factory_phase(dev, fcfg, seeds, workdir, randn):
         step = F.make_sae_train_step(tcfg)
         pipe = DataPipeline(DataConfig(
             vocab=1, seq_len=0, global_batch=fc.sae_batch,
-            microbatch=fc.microbatch, activation_dir=str(workdir / "harvest"),
+            microbatch=fc.microbatch, activation_dir=str(workdir / design),
             activation_layer=layer))
         batch = torch.from_numpy(pipe.batch(0)).to(dev)
         spec = tcfg.projection
@@ -365,7 +443,7 @@ def factory_phase(dev, fcfg, seeds, workdir, randn):
 
     return {"runs": factory, "flash_launches": flash_launches,
             "n_layers": n_layers, "harvest_step_ms": step_parts,
-            "sae_step_ms": sae_parts}
+            "sae_step_ms": sae_parts, "held_sae_step": held}
 
 
 def main() -> int:
@@ -703,8 +781,10 @@ def main() -> int:
           f"max_abs_err {ferr:.3e}")
     step_parts, sae_parts = fac["harvest_step_ms"], fac["sae_step_ms"]
     step_parts["flash_ms"] = fac["n_layers"] * ms
-    step_parts["rest_ms"] = step_parts["forward_ms"] - step_parts["flash_ms"] \
-        - step_parts["layout_copies_ms"] - step_parts["unembed_ms"]
+    # the 24 blocks' matmuls, norms, rope and the collect stack
+    step_parts["forward_rest_ms"] = step_parts["forward_ms"] \
+        - step_parts["flash_ms"] - step_parts["layout_copies_ms"] \
+        - step_parts["unembed_ms"]
     for parts in sae_parts.values():
         # AdamW, gradient accumulation and clipping, host dispatch
         parts["rest_ms"] = parts["step_ms"] - parts["fwd_bwd_ms"] \
@@ -714,6 +794,7 @@ def main() -> int:
     print(json.dumps({"kernels": rows,
                       "factory": {"harvest_step_ms": step_parts,
                                   "sae_step_ms": sae_parts,
+                                  "held_sae_step": fac["held_sae_step"],
                                   "runs": fac["runs"]},
                       "engine_ms": {
                           wl: {"bucket_latency": v[0] * 1e3,

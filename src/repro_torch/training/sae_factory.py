@@ -8,7 +8,7 @@
    hand-written flash kernel (``csrc/flash_fwd.cu``); the JAX factory
    harvests with ``harvest``'s default ``impl="naive"``, the same function.
 2. **Projected SAE training**: stream the shards back through
-   ``DataPipeline`` into ``make_train_step(fused="auto")`` with the
+   ``DataPipeline`` into ``make_train_step`` with the
    dictionary SAE (``models/sae.py``) — the encoder weight is projected onto
    the bi-/tri-level ball every optimizer step by the fused AdamW+project
    epilogue (the plain schedule executor, as in the JAX step). Learned
@@ -141,12 +141,11 @@ def init_sae_state(d_in: int, d_dict: int, tcfg: TrainConfig, seed: int, *,
     return {"params": params, "opt": adamw.init(params, tcfg)}
 
 
-def make_sae_train_step(tcfg: TrainConfig, *, l1: float = 0.0, fused="auto"):
+def make_sae_train_step(tcfg: TrainConfig):
     """The projected dictionary-SAE step: ``make_train_step`` with the
     reconstruction loss and the fused AdamW+project epilogue."""
     return TS.make_train_step(
-        None, tcfg, None, fused=fused,
-        loss_fn=lambda p, xb: sae.dict_loss(p, xb.float(), l1=l1))
+        None, tcfg, None, loss_fn=lambda p, xb: sae.dict_loss(p, xb.float()))
 
 
 def train_sae(harvest_dir, layer: int, fcfg: SAEFactoryConfig, *,

@@ -13,11 +13,13 @@ The microbatch loop is a Python loop over the leading axis (``lax.scan`` in
 the JAX package); gradients come from ``torch.autograd.grad`` and accumulate
 in float32.
 
-When projection is enabled the optimizer epilogue runs fused
-(``optim/fused_step.py``): AdamW update, multi-level projection and the
-param/master casts per matched leaf in one pass (``fused="auto"``; force
-with ``fused=True/False``). The step updates ``state``'s tensors in place
-(JAX donates them) and returns it.
+The optimizer epilogue is always the fused one (``optim/fused_step.py``):
+AdamW update, multi-level projection and the param/master casts per
+matched leaf in one pass; with the projection disabled or absent it is the
+plain AdamW step. The step updates ``state``'s tensors in place (JAX
+donates them) and returns it. The JAX package's unfused epilogue
+(``fused=False``: AdamW, then the projection hook) waits for the slice that
+needs it.
 
 The LM next-token loss (``make_loss_fn``/``xent``) waits for the LM-training
 slice, with the flash backward; so do in-step telemetry and the mesh path.
@@ -32,12 +34,10 @@ import torch
 
 from repro_torch import _tree
 from repro_torch.configs.types import ArchConfig, TrainConfig
-from repro_torch.optim import adamw, fused_step
-from repro_torch.optim.projection_hook import make_projection_hook
+from repro_torch.optim import fused_step
 
 
 def make_train_step(cfg: ArchConfig | None, tcfg: TrainConfig, api=None, *,
-                    fused: bool | str = "auto",
                     loss_fn: Callable = None) -> Callable:
     """Build the projected train step (see module docstring).
 
@@ -47,9 +47,6 @@ def make_train_step(cfg: ArchConfig | None, tcfg: TrainConfig, api=None, *,
     if loss_fn is None:
         raise ValueError("make_train_step needs loss_fn=: the LM next-token "
                          "loss waits for the LM-training slice")
-    projecting = tcfg.projection is not None and tcfg.projection.enabled
-    use_fused = projecting if fused == "auto" else bool(fused)
-    project = None if use_fused else make_projection_hook(tcfg.projection)
 
     def train_step(state, batch):
         params = state["params"]
@@ -71,19 +68,9 @@ def make_train_step(cfg: ArchConfig | None, tcfg: TrainConfig, api=None, *,
         grads = _tree.unflatten_like(params, [g / n_micro for g in gsum])
         loss = lsum / n_micro
 
-        if use_fused:
-            # one pass per leaf: update → project (f32) → cast, in place
-            new_params, new_opt, metrics = fused_step.fused_update(
-                grads, state["opt"], params, tcfg)
-        else:
-            new_params, new_opt, metrics = adamw.update(grads, state["opt"],
-                                                        params, tcfg)
-            # the paper's constraint: project back onto the norm ball
-            new_params = project(new_params, new_opt["step"])
-            # keep the master copy consistent with the projected params
-            if "master" in new_opt and projecting:
-                new_opt["master"] = _tree.tree_map(
-                    lambda p, m: p.to(m.dtype), new_params, new_opt["master"])
+        # one pass per leaf: update → project (f32) → cast, in place
+        new_params, new_opt, metrics = fused_step.fused_update(
+            grads, state["opt"], params, tcfg)
         metrics = dict(metrics, loss=loss)
         return {"params": new_params, "opt": new_opt}, metrics
 
