@@ -5,14 +5,19 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-1. builds the four CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+1. builds the six CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, started together) and holds each against its plain PyTorch
    version on the card: the three projection kernels at the two full-width
    serving shapes, over the design matrix at small ragged sizes, and for
    ``l1ball`` both bodies over several lengths up to the tiler's limit; the
    flash-attention forward (o and lse) at the harvest's shape
    (4, 32, 2048, 64) f32 causal and on small ragged cases (non-causal,
-   windows, GQA, Sq < Sk and Sq > Sk, block-unaligned lengths);
+   windows, GQA, Sq < Sk and Sq > Sk, block-unaligned lengths); then, in
+   float32 and bf16, the forward and the two backward kernels
+   (``flash_bwd_dq``, ``flash_bwd_dkv``) at granite-3-2b's attention shape,
+   q (4, 32, 2048, 64) and k/v (4, 8, 2048, 64) causal, and on the same
+   ragged cases, and the ``FlashAttention`` Function's gradients at that
+   shape in float32 against autograd of ``attention_naive``;
 2. serves full-width requests through ``ProjectionEngine`` — 8 bi-level
    (8192, 2048) and 8 tri-level (256, 32, 2048) f32 requests through
    ``codegen_batch`` buckets of 8, one of each through ``codegen`` — checks
@@ -32,11 +37,24 @@ Run from the root of a checkout, with no arguments:
    equal the same forward with ``impl="naive"``; each design's first SAE
    step, from the main path's seed-0 init and batch and with live features,
    must equal the same step on the CPU (``hold_sae_step``);
-4. times each kernel at full width (the projection kernels for the bucket
+4. trains granite-3-2b on the card. First a held step: full width cut to 4
+   layers, float32 compute, the projection on, one step with
+   ``impl="flash"`` against the same step with ``impl="naive"`` from the
+   same state and batch. Then the main path, ``repro_torch.launch.train``
+   at full width and depth (40 layers, 2.63 B float32 parameters, bf16
+   compute, remat) with ``--batch 8 --microbatch 4 --seq 2048 --steps 3
+   --ckpt <dir> --ckpt-every 3`` (one async checkpoint of 31.6 GB: the
+   machine's disk takes 45 GiB of writes per call) and a radius of 0.05 of the init's
+   smallest per-layer ℓ1,∞ norm of ``w_up``/``w_gate``: every loss finite,
+   every projected layer feasible and neither empty nor full of zero
+   columns, the launch counts (2 forward launches per layer and microbatch
+   under remat, 1 of each backward kernel), the last checkpoint restored
+   equal to the final state, and the peak device memory;
+5. times each kernel at full width (the projection kernels for the bucket
    of 8 and for one item) with CUDA events (median of 20) beside its bound,
    its plain version and, where one PyTorch call computes the same function,
-   that call; and times one warm harvest step and one SAE step with their
-   parts.
+   that call; times one warm harvest step and one SAE step with their
+   parts; and one warm train step with its parts.
 
 The widths are the SAE factory's on stablelm-1.6b: d_model 2048, d_dict
 4 x 2048 = 8192, 32 heads; the projected tensor is the transposed encoder.
@@ -44,8 +62,18 @@ Projection tolerance: |a - b| <= 1e-5 * max|Y| + 1e-5 * |b| (64-step
 float32 bisection and another summation order move θ by a few ulps). Flash
 tolerance: o within 2e-5 + 1e-5 |b| (the JAX package's own f32 oracle
 tests use 2e-5), lse within 1e-5 + 1e-5 |b|. Harvest tolerance: 1e-5 of
-the largest activation + 1e-5 |b|. Float32 matmuls run in full float32:
-TF32 is switched off for cuBLAS and cuDNN before anything runs. Any failure
+the largest activation + 1e-5 |b|. Flash backward tolerance: float32 dq/dk/dv within 1e-5 of
+the tensor's largest entry + 1e-5 |b| (sums over up to 8192 rows in another
+order); bf16 operands (forward o and the gradients) within 2**-7 |b| (one
+bf16 rounding of a float32 result that the two versions compute in another
+order) + 1e-5 of the largest entry. The Function's float32 gradients
+against autograd of the naive attention: 1e-5 of the largest entry + 1e-5
+|b|. Held train step: loss and gradient norm within 1e-5 |b|, the first
+moments (the clipped gradients) within 1e-5 of the leaf's largest entry +
+1e-5 |b|, the parameters as well plus AdamW's own sensitivity to those
+differences (``hold_train_step``). Float32
+matmuls run in full float32: TF32 is switched off for cuBLAS and cuDNN
+before anything runs. Any failure
 exits non-zero without the final line. Without a CUDA device, or outside a
 checkout, it exits 2 and prints no result.
 
@@ -69,7 +97,9 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 RTOL = 1e-5
+BF16_RTOL = 2.0 ** -7         # one bf16 rounding
 REPS = 20
 SEED = 0
 
@@ -109,6 +139,8 @@ REPLACES = {  # (kernel, batched) -> the TPU kernel's pallas_call site
     ("l1ball", True): "src/repro/kernels/l1ball.py:154",
     ("l1ball", False): "src/repro/kernels/l1ball.py:122",
     ("flash_fwd", False): "src/repro/kernels/flash_attention.py:132",
+    ("flash_bwd_dq", False): "src/repro/kernels/flash_attention.py:302",
+    ("flash_bwd_dkv", False): "src/repro/kernels/flash_attention.py:325",
 }
 
 # flash forward: (q shape, kv shape, causal, window). The harvest's own shape
@@ -134,6 +166,19 @@ FLASH_CASES = [
     ((1, 4, 70, 32), (1, 2, 70, 32), True, 16),
 ]
 
+# granite-3-2b's attention (configs/registry.py: 32 q heads over 8 kv heads
+# of 64) at the training shape: microbatch 4 x 2048 tokens, causal
+GRANITE_ATTN = ((4, 32, 2048, 64), (4, 8, 2048, 64), True, None)
+
+# LM training (phase 4): launch/train.py's CLI at full width and depth
+TRAIN_ARCH = "granite-3-2b"
+# one checkpoint (the async save at the last step): the full state is
+# 31.6 GB and the chip machine's disk takes 45 GiB of writes per call
+TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--batch", "8", "--microbatch", "4",
+              "--seq", "2048", "--steps", "3", "--ckpt-every", "3"]
+RADIUS_FRACTION = 0.05        # of the init's smallest per-layer l1,inf norm
+HELD_LAYERS = 4
+
 # the SAE factory at the full width of stablelm-1.6b (configs/registry.py)
 FACTORY = dict(arch="stablelm-1.6b", smoke=False, layers=(12,),
                harvest_steps=2, seq_len=2048, lm_batch=4, train_steps=20,
@@ -145,8 +190,9 @@ class SmokeFailure(RuntimeError):
     pass
 
 
-def check_close(what, got, want, scale):
-    """Max abs error of ``got`` against ``want``; raises past tolerance."""
+def check_close(what, got, want, scale, rtol=RTOL):
+    """Max abs error of ``got`` against ``want``; raises past
+    1e-5 · scale + rtol · |want|."""
     import torch
 
     got, want = got.float(), want.float()
@@ -155,7 +201,7 @@ def check_close(what, got, want, scale):
     if not bool(torch.isfinite(got).all()):
         raise SmokeFailure(f"{what}: non-finite values")
     err = (got - want).abs()
-    bad = err > 1e-5 * scale + RTOL * want.abs()
+    bad = err > 1e-5 * scale + rtol * want.abs()
     max_err = float(err.max()) if err.numel() else 0.0
     if bool(bad.any()):
         raise SmokeFailure(f"{what}: max abs err {max_err:.3e} past tolerance "
@@ -198,9 +244,9 @@ def host_ms(fn, reps=5):
     return statistics.median(times)
 
 
-def bound_ms(nbytes, nops):
+def bound_ms(nbytes, nops, ops_per_s=F32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / F32_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -268,6 +314,67 @@ def hold_sae_step(dev, fc, harvest_dir, layer, main_loss):
           f"{moved:.3e}; card vs CPU max_abs_err "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
           + f" (CPU step {host_s:.1f} s)")
+    return errs
+
+
+def hold_attention(randn, tag, qs, ks, causal, window, dtype):
+    """In ``dtype``: the forward and both backward kernels against their
+    plain versions on the same inputs, the kernel's o and lse feeding
+    both backwards. Returns the max error per kernel and the inputs."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as flash
+
+    q, k, v, do = (randn(s_, 1.0).to(dtype) for s_ in (qs, ks, ks, qs))
+    o, lse = flash.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    rtol = BF16_RTOL if dtype == torch.bfloat16 else RTOL
+    po, plse = flash.flash_attention_plain(q, k, v, causal=causal,
+                                           window=window)
+    errs = {"flash_fwd": max(check_close(f"{tag} o", o, po, 2.0, rtol=rtol),
+                             check_close(f"{tag} lse", lse, plse, 1.0))}
+    delta = (do.float() * o.float()).sum(-1)
+    opts = dict(causal=causal, window=window)
+    dq = flash.flash_bwd_dq(q, k, v, do, lse, delta, **opts)
+    dk, dv = flash.flash_bwd_dkv(q, k, v, do, lse, delta, **opts)
+    torch.cuda.synchronize()
+    want = flash.flash_attention_bwd_plain(q, k, v, o, lse, do, **opts)
+    got = {"dq": dq, "dk": dk, "dv": dv}
+    e = {n: check_close(f"{tag} {n}", got[n], w, float(w.abs().max()),
+                        rtol=rtol) for n, w in zip(("dq", "dk", "dv"), want)}
+    errs["flash_bwd_dq"] = e["dq"]
+    errs["flash_bwd_dkv"] = max(e["dk"], e["dv"])
+    print(f"flash {tag} {str(dtype)[6:]} q{qs} kv{ks} causal={causal} "
+          f"window={window}: " + ", ".join(
+              f"{k_} max_abs_err {v_:.3e}" for k_, v_ in errs.items()))
+    return errs, (q, k, v, do, o, lse, delta)
+
+
+
+def hold_function_grads(randn):
+    """The ``FlashAttention`` Function's float32 gradients at granite's
+    attention shape against autograd of ``attention_naive`` (the S×S
+    logits) on the same q, k, v and cotangent."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.models import layers as L
+
+    qs, ks, causal, window = GRANITE_ATTN
+    q, k, v, cot = randn(qs, 1.0), randn(ks, 1.0), randn(ks, 1.0), randn(qs, 1.0)
+    lf = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    (flash.flash(*lf, causal=causal, window=window) * cot).sum().backward()
+    ln = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    on = L.attention_naive(*(x.transpose(1, 2) for x in ln), causal=causal,
+                           window=window).transpose(1, 2)
+    (on * cot).sum().backward()
+    torch.cuda.synchronize()
+    errs = {f"d{n}": check_close(f"Function d{n} vs naive autograd", a.grad,
+                                 b.grad, float(b.grad.abs().max()))
+            for n, a, b in zip("qkv", lf, ln)}
+    print(f"flash Function gradients at {qs}/{ks} f32 vs autograd of "
+          "attention_naive: " + ", ".join(f"{k_} max_abs_err {v_:.3e}"
+                                          for k_, v_ in errs.items()))
     return errs
 
 
@@ -446,6 +553,358 @@ def factory_phase(dev, fcfg, seeds, workdir, randn):
             "sae_step_ms": sae_parts, "held_sae_step": held}
 
 
+def train_args():
+    """(steps, batch, microbatch, seq) of TRAIN_ARGV."""
+    args = dict(zip(TRAIN_ARGV[::2], TRAIN_ARGV[1::2]))
+    return tuple(int(args[k]) for k in ("--steps", "--batch", "--microbatch",
+                                        "--seq"))
+
+
+def train_radius(dev):
+    """The radius of the main path's constraint: RADIUS_FRACTION of the
+    smallest per-layer bi-level ℓ1,∞ norm of the launcher's seed-0 init of
+    ``w_up`` and ``w_gate`` (each leaf draws from its own seeded generator,
+    so initialising one leaf gives the launcher's values)."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.types import ProjectionSpec
+    from repro_torch.core.multilevel import multilevel_norm
+    from repro_torch.models import lm, params as PM
+
+    mlp = lm.template(registry.get_arch(TRAIN_ARCH))["blocks"]["mlp"]
+    levels = list(ProjectionSpec().levels)
+    norms = []
+    for leaf in ("w_up", "w_gate"):
+        w = PM.init_params({"blocks": {"mlp": {leaf: mlp[leaf]}}}, SEED,
+                           device=dev)["blocks"]["mlp"][leaf]
+        norms += [float(multilevel_norm(x, levels)) for x in w]
+        del w
+    return RADIUS_FRACTION * min(norms), min(norms)
+
+
+def hold_train_step(dev, radius):
+    """One step of granite-3-2b at full width cut to HELD_LAYERS layers,
+    float32 compute, the projection on: ``impl="flash"`` (the kernels,
+    through the Function and remat) against ``impl="naive"`` from the same
+    state and batch. The flash run launches the forward twice and each
+    backward kernel once per layer and microbatch, the naive run none.
+
+    Tolerances. Loss and gradient norm within 1e-5 |b|. The first moments,
+    m = (1 - β1) · the clipped gradient after one step, hold the kernels'
+    gradients: within 1e-5 of the leaf's largest entry + 1e-5 |b|. Every
+    updated parameter within 1e-5 of the leaf's largest entry + 1e-5 |b|
+    + lr · |Δu|, where Δu is the difference of the two runs' normalised
+    AdamW updates m̂ / (√v̂ + ε), computed from their own moments: that
+    update has slope 1/ε = 1e8 at g = 0, so a gradient entry of order ε
+    whose last digits differ moves its parameter by a fraction of lr. A
+    projected leaf takes 3 × the leaf's largest lr · |Δu| instead (the clip
+    moves with its column's max and with θ, each 1-Lipschitz)."""
+    import torch
+
+    from repro_torch import _tree, models
+    from repro_torch.configs import registry
+    from repro_torch.configs.types import ProjectionSpec, TrainConfig
+    from repro_torch.data import DataConfig, DataPipeline
+    from repro_torch.kernels import _build
+    from repro_torch.optim import adamw
+    from repro_torch.optim.projection_hook import _matches
+    from repro_torch.training import init_state, make_train_step
+
+    cfg = dataclasses.replace(registry.get_arch(TRAIN_ARCH), n_layers=HELD_LAYERS)
+    steps, batch, micro, seq = train_args()
+    spec = ProjectionSpec(pattern=r"(w_up|w_gate)", radius=radius)
+    tcfg = TrainConfig(microbatch=micro, total_steps=steps, warmup=1,
+                       remat=True, master_dtype="", compute_dtype="float32",
+                       projection=spec)
+    api = models.get(cfg)
+    pipe = DataPipeline(DataConfig(vocab=cfg.vocab, seq_len=seq + 1,
+                                   global_batch=batch, microbatch=micro))
+    toks = {"tokens": torch.from_numpy(pipe.batch(0)).to(dev)}
+    base = init_state(cfg, tcfg, api, SEED, device=dev)["params"]
+    runs = {}
+    for impl in ("flash", "naive"):
+        params = _tree.tree_map(lambda p: p.clone(), base)
+        state = {"params": params, "opt": adamw.init(params, tcfg)}
+        _build.reset_launches()
+        state, m = make_train_step(cfg, tcfg, api, impl=impl)(state, toks)
+        torch.cuda.synchronize()
+        runs[impl] = (state, {k: float(v) for k, v in m.items()},
+                      _build.launch_counts())
+    (sf, mf, cf), (sn, mn, cn) = runs["flash"], runs["naive"]
+    n_micro = toks["tokens"].shape[0]
+    want = {"flash_fwd": 2 * HELD_LAYERS * n_micro,
+            "flash_bwd_dq": HELD_LAYERS * n_micro,
+            "flash_bwd_dkv": HELD_LAYERS * n_micro}
+    for k_, n in want.items():
+        if cf[k_] != n or cn[k_] != 0:
+            raise SmokeFailure(f"held step: {k_} launched {cf[k_]} (flash) / "
+                               f"{cn[k_]} (naive) times, not {n} / 0")
+    errs = {k_: check_close(f"held step {k_}", torch.tensor(mf[k_]),
+                            torch.tensor(mn[k_]), 0.0)
+            for k_ in ("loss", "grad_norm")}
+    match = _matches(spec)
+    bc1, bc2 = 1.0 - tcfg.beta1, 1.0 - tcfg.beta2   # step 1's bias corrections
+
+    def unit(m_, v_):
+        return (m_ / bc1) / (torch.sqrt(v_ / bc2) + tcfg.eps)
+
+    moved, slack_max = 0.0, 0.0
+    for (name, pf), pn, p0, m_f, m_n, v_f, v_n in zip(
+            _tree.leaves_with_paths(sf["params"]), _tree.leaves(sn["params"]),
+            _tree.leaves(base), _tree.leaves(sf["opt"]["m"]),
+            _tree.leaves(sn["opt"]["m"]), _tree.leaves(sf["opt"]["v"]),
+            _tree.leaves(sn["opt"]["v"])):
+        errs[f"m/{name}"] = check_close(f"held step first moment {name}", m_f,
+                                        m_n, float(m_n.abs().max()))
+        du = mn["lr"] * (unit(m_f, v_f) - unit(m_n, v_n)).abs()
+        slack = 3.0 * du.max() if match(name, pn) else du
+        err = (pf - pn).abs()
+        bad = err > 1e-5 * float(pn.abs().max()) + RTOL * pn.abs() + slack
+        if bool(bad.any()) or not bool(torch.isfinite(pf).all()):
+            raise SmokeFailure(f"held step {name}: max abs err "
+                               f"{float(err.max()):.3e} past tolerance")
+        errs[name] = float(err.max())
+        moved = max(moved, float((pn - p0).abs().max()))
+        slack_max = max(slack_max, float(slack.max()))
+    print(f"held train step ({cfg.name} full width, {HELD_LAYERS} layers, f32, "
+          f"radius {radius:.6g}): loss {mn['loss']:.6g} grad_norm "
+          f"{mn['grad_norm']:.6g}, parameters moved by up to {moved:.3e}; "
+          f"flash launches {cf}; flash vs naive max_abs_err "
+          + ", ".join(f"{k_} {v_:.3e}" for k_, v_ in errs.items())
+          + f"; largest lr·|Δu| slack used {slack_max:.3e}")
+    del runs, sf, sn, base
+    torch.cuda.empty_cache()
+    return errs
+
+
+def training_phase(dev, workdir):
+    """Phase 4: the held step, then the main path (``launch.train.run`` at
+    full width and depth) with its checks, then one warm train step and its
+    parts on the trained state. Returns what phase 5 and the JSON line
+    report."""
+    import numpy as np
+    import torch
+
+    from repro_torch import _tree, models
+    from repro_torch.configs import registry
+    from repro_torch.configs.types import ProjectionSpec, TrainConfig
+    from repro_torch.data import DataConfig, DataPipeline
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train as train_cli
+    from repro_torch.optim import fused_step
+    from repro_torch.optim.projection_hook import _project_leaf
+    from repro_torch.runtime import CheckpointManager
+    from repro_torch.training import make_loss_fn, make_train_step
+    from repro_torch.training.sae_factory import constraint_report
+
+    radius, init_norm = train_radius(dev)
+    print(f"train radius {radius:.6g} = {RADIUS_FRACTION} x the init's smallest "
+          f"per-layer l1,inf norm of w_up/w_gate ({init_norm:.6g})")
+    held = hold_train_step(dev, radius)
+
+    # ------------------------------------------------------- the main path
+    cfg = registry.get_arch(TRAIN_ARCH)
+    ck = workdir / "ckpt"
+    shutil.rmtree(workdir, ignore_errors=True)
+    argv = TRAIN_ARGV + ["--radius", repr(radius), "--ckpt", str(ck)]
+    workdir.mkdir(parents=True)
+    print(f"train checkpoint directory {ck}: "
+          f"{shutil.disk_usage(workdir).free / 2**30:.1f} GiB free")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = train_cli.run(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    state = out["state"]
+    steps, batch, micro, seq = train_args()
+    n_micro = batch // micro
+    n_params = sum(p.numel() for p in _tree.leaves(state["params"]))
+    print(f"train main path: python -m repro_torch.launch.train {' '.join(argv)}"
+          f": {cfg.n_layers} layers d_model {cfg.d_model} {cfg.n_heads}x"
+          f"{cfg.resolved_head_dim} q heads over {cfg.n_kv_heads} kv heads d_ff "
+          f"{cfg.d_ff} vocab {cfg.vocab}, {n_params} float32 params; {run_s:.1f} s "
+          f"(init, {steps} steps, checkpoints); step seconds "
+          + " ".join(f"{x:.3f}" for x in out["step_seconds"]))
+    print(f"train losses {out['losses']} grad norms {out['grad_norms']}")
+    print(f"train launches {counts}; peak device memory "
+          f"{peak / 2**30:.2f} GiB ({peak} bytes, max_memory_allocated)")
+    if not (len(out["losses"]) == steps and all(np.isfinite(out["losses"]))):
+        raise SmokeFailure(f"train: losses {out['losses']}")
+    want = {"flash_fwd": 2 * cfg.n_layers * n_micro * steps,
+            "flash_bwd_dq": cfg.n_layers * n_micro * steps,
+            "flash_bwd_dkv": cfg.n_layers * n_micro * steps}
+    for k_, n in want.items():
+        if counts[k_] != n:
+            raise SmokeFailure(f"train: {k_} launched {counts[k_]} times, not {n}")
+    spec = ProjectionSpec(pattern=r"(w_up|w_gate)", radius=radius)
+    rep = constraint_report(state["params"], spec)
+    print(f"train constraint: max per-layer norms {rep['norms']}, max_violation "
+          f"{rep['max_violation']:.3e} (radius {radius:.6g})")
+    if not rep["max_violation"] <= 1e-5 * radius:
+        raise SmokeFailure(f"train: projected leaves infeasible: {rep}")
+    layer_sparsity = {}
+    for leaf in ("w_up", "w_gate"):
+        cols = state["params"]["blocks"]["mlp"][leaf].abs().amax(dim=1)  # (L, f)
+        per_layer = (100.0 * (cols == 0).float().mean(dim=1)).tolist()
+        layer_sparsity[leaf] = per_layer
+        print(f"train per-layer column sparsity {leaf}: min {min(per_layer):.2f}% "
+              f"mean {sum(per_layer) / len(per_layer):.2f}% max "
+              f"{max(per_layer):.2f}%; the launcher's stacked line "
+              f"{out['sparsity'][f'blocks/mlp/{leaf}']:.2f}%")
+        if not all(0.0 < x < 100.0 for x in per_layer):
+            raise SmokeFailure(f"train: {leaf} per-layer column sparsity "
+                               f"{per_layer} not strictly inside (0, 100)")
+    mgr = CheckpointManager(ck)
+    if mgr.all_steps() != [steps]:
+        raise SmokeFailure(f"train: checkpoints {mgr.all_steps()}, not [{steps}]")
+    t0 = time.perf_counter()
+    restored, manifest = mgr.restore(device="cpu")
+    restore_s = time.perf_counter() - t0
+    got = dict(_tree.leaves_with_paths(restored))
+    live = dict(_tree.leaves_with_paths(state))
+    if manifest["step"] != steps or sorted(got) != sorted(live):
+        raise SmokeFailure(f"train: restored step {manifest['step']} with "
+                           f"{len(got)} leaves, not {steps} with {len(live)}")
+    for name, t in live.items():
+        if not torch.equal(got[name], t.cpu()):
+            raise SmokeFailure(f"train: restored {name} differs from the state")
+    ck_bytes = sum(f.stat().st_size for f in ck.rglob("*") if f.is_file())
+    print(f"train checkpoint: steps {mgr.all_steps()} ({ck_bytes} bytes on disk),"
+          f" step {steps} restored equal to the final state ({len(live)} "
+          f"leaves) in {restore_s:.1f} s")
+    del restored, got
+    shutil.rmtree(workdir, ignore_errors=True)
+
+    # ------------------------------------- one warm train step and its parts
+    tcfg = TrainConfig(microbatch=micro, lr=3e-4, total_steps=steps,
+                       warmup=min(20, steps // 5 + 1), remat=True,
+                       master_dtype="", projection=spec)
+    api = models.get(cfg)
+    pipe = DataPipeline(DataConfig(vocab=cfg.vocab, seq_len=seq + 1,
+                                   global_batch=batch, microbatch=micro))
+    toks = torch.from_numpy(pipe.batch(steps)).to(dev)
+    step_fn = make_train_step(cfg, tcfg, api, impl="flash")
+    loss_fn = make_loss_fn(cfg, api, impl="flash", remat=True,
+                           compute_dtype=torch.bfloat16)
+    params = state["params"]
+    leaves = _tree.leaves(params)
+
+    def fwd_bwd():
+        live_ = [p.detach().requires_grad_(True) for p in leaves]
+        loss = loss_fn(_tree.unflatten_like(params, live_), toks[0])
+        torch.autograd.grad(loss, live_)
+
+    parts = {"step_ms": host_ms(lambda: step_fn(state, {"tokens": toks}), reps=3)}
+    parts["fwd_bwd_ms"] = n_micro * host_ms(fwd_bwd, reps=3)
+    grads = _tree.tree_map(lambda p: torch.full_like(p, 1e-3), params)
+    parts["epilogue_ms"] = host_ms(lambda: fused_step.fused_update(
+        grads, state["opt"], params, tcfg), reps=3)
+    del grads
+    mlp = params["blocks"]["mlp"]
+    parts["projection_ms"] = sum(event_ms(lambda w=w: _project_leaf(
+        w, spec.levels, spec.radius, spec.method)) for w in (mlp["w_up"],
+                                                             mlp["w_gate"]))
+    parts["data_ms"] = host_ms(lambda: torch.from_numpy(
+        pipe.batch(steps + 1)).to(dev), reps=3)
+    parts["tokens_per_s"] = batch * seq / (parts["step_ms"] / 1e3)
+    per_step = {k_: n // steps for k_, n in want.items()}
+    print(f"train step parts (ms): {parts}")
+    out_losses, out_gnorms = out["losses"], out["grad_norms"]
+    del state, params, leaves, mlp, out
+    torch.cuda.empty_cache()
+    return {"held": held, "counts": counts, "per_step": per_step,
+            "losses": out_losses, "grad_norms": out_gnorms, "parts": parts,
+            "peak_bytes": peak, "run_s": run_s,
+            "radius": radius, "init_norm": init_norm,
+            "layer_sparsity": layer_sparsity, "restore_s": restore_s,
+            "ckpt_bytes": ck_bytes}
+
+
+def time_attention(attn_full, attn_case_errs, trn):
+    """Phase 5's attention rows: each flash kernel at granite's training
+    shape in bf16 (the main path's type: the JSON rows) and in float32 (in
+    each row under "float32"): the kernel, its plain version, and
+    ``scaled_dot_product_attention`` (``enable_gqa``) on the same tensors,
+    its backward timed as forward+backward minus forward. Adds the flash
+    kernels' share to the train step's parts."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as flash
+
+    rows = []
+    (b, hq, sq, d), (_, hkv, sk, _) = GRANITE_ATTN[0], GRANITE_ATTN[1]
+    work = b * hq * sq * sk * d           # B·Hq·Sq·Sk·D; causal halves 2x
+    attn_rows, attn_ms = {}, {}
+    for dt, (errs, (q, k, v, do, o, lse, delta)) in attn_full.items():
+        tag = str(dt)[6:]
+        rate = BF16_OPS_PER_S if dt == torch.bfloat16 else F32_OPS_PER_S
+        es, n_q, n_k, n_r = q.element_size(), q.numel(), k.numel(), lse.numel()
+        qq, kk, vv = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qq, kk, vv, is_causal=True, enable_gqa=True)
+
+        t = {"flash_fwd": event_ms(lambda: flash.flash_attention(q, k, v)),
+             "flash_bwd_dq": event_ms(lambda: flash.flash_bwd_dq(
+                 q, k, v, do, lse, delta)),
+             "flash_bwd_dkv": event_ms(lambda: flash.flash_bwd_dkv(
+                 q, k, v, do, lse, delta)),
+             "fwd_plain": event_ms(lambda: flash.flash_attention_plain(q, k, v)),
+             "bwd_plain": event_ms(lambda: flash.flash_attention_bwd_plain(
+                 q, k, v, o, lse, do), reps=5),
+             "sdpa_fwd": event_ms(sdpa),
+             "sdpa_fwd_bwd": event_ms(lambda: torch.autograd.grad(
+                 sdpa(), (qq, kk, vv), do))}
+        t["sdpa_bwd"] = t["sdpa_fwd_bwd"] - t["sdpa_fwd"]
+        attn_ms[tag] = t
+        spec_ = {  # bytes (inputs once, outputs once), operations, plain, library
+            "flash_fwd": (es * (2 * n_q + 2 * n_k) + 4 * n_r, 2 * work,
+                          t["fwd_plain"], t["sdpa_fwd"]),
+            "flash_bwd_dq": (es * (3 * n_q + 2 * n_k) + 8 * n_r, 3 * work,
+                             t["bwd_plain"], t["sdpa_bwd"]),
+            "flash_bwd_dkv": (es * (2 * n_q + 4 * n_k) + 8 * n_r, 4 * work,
+                              t["bwd_plain"], t["sdpa_bwd"]),
+        }
+        for name, (nbytes, nops, plain_ms, lib_ms) in spec_.items():
+            bms, by = bound_ms(nbytes, nops, rate)
+            err = max(errs[name], attn_case_errs[name, tag])
+            attn_rows[name, tag] = {
+                "name": name, "workload": f"train {tuple(q.shape)}/"
+                f"{tuple(k.shape)} causal {tag}", "route": "cuda",
+                "source": "src/repro_torch/csrc/" + (
+                    "flash_fwd.cu" if name == "flash_fwd" else "flash_bwd.cu"),
+                "replaces": REPLACES[name, False],
+                "launches": trn["counts"][name] if tag == "bfloat16" else 0,
+                "max_abs_err": err, "ms": t[name], "plain_ms": plain_ms,
+                "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+            print(f"time {name} {tag} {tuple(q.shape)}/{tuple(k.shape)} causal: "
+                  f"{t[name]:.4f} ms (bound {bms:.4f} ms by {by}, "
+                  f"{bms / t[name]:.3f} of bound), plain {plain_ms:.4f} ms, "
+                  f"scaled_dot_product_attention {lib_ms:.4f} ms, max_abs_err "
+                  f"{err:.3e}")
+        del qq, kk, vv
+    # the JSON rows are the main path's bf16 launches; the float32 times of
+    # the same kernels at the same shape ride along
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        row = dict(attn_rows[name, "bfloat16"])
+        row["float32"] = {k_: attn_rows[name, "float32"][k_] for k_ in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err")}
+        rows.append(row)
+    tparts = trn["parts"]
+    tparts["flash_ms"] = sum(trn["per_step"][k_] * attn_ms["bfloat16"][k_]
+                             for k_ in trn["per_step"])
+    tparts["fwd_bwd_rest_ms"] = tparts["fwd_bwd_ms"] - tparts["flash_ms"]
+    tparts["rest_ms"] = tparts["step_ms"] - tparts["fwd_bwd_ms"] \
+        - tparts["epilogue_ms"]
+    print(f"train step breakdown (ms): {tparts}")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -479,12 +938,13 @@ def main() -> int:
     built = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s wall; per source "
           + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()))
-    for k in _build.KERNELS.values():
-        log = k.library.with_suffix(".log")
+    logs = dict.fromkeys(k.library.with_suffix(".log")
+                         for k in _build.KERNELS.values())  # one per source
+    for log in logs:
         if log.exists():
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line:
-                    print(f"ptxas {k.name}: {line.strip()}")
+                    print(f"ptxas {log.stem.rsplit('-', 1)[0]}: {line.strip()}")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -575,6 +1035,18 @@ def main() -> int:
     for i, (qs, ks, causal, window) in enumerate(FLASH_CASES):
         hold_flash(f"case{i}", qs, ks, causal, window)
     flash_full = hold_flash("full", *FLASH_FULL)
+
+    attn_case_errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (qs, ks, causal, window) in enumerate(FLASH_CASES):
+            errs, _ = hold_attention(randn, f"case{i}", qs, ks, causal,
+                                     window, dtype)
+            for k_, v_ in errs.items():
+                key = (k_, str(dtype)[6:])
+                attn_case_errs[key] = max(attn_case_errs.get(key, 0.0), v_)
+    attn_full = {dt: hold_attention(randn, "granite", *GRANITE_ATTN, dt)
+                 for dt in (torch.float32, torch.bfloat16)}
+    fn_errs = hold_function_grads(randn)
 
     full_cases = {}
     for wl, (shape, levels) in FULL.items():
@@ -686,7 +1158,10 @@ def main() -> int:
     fac = factory_phase(dev, F.SAEFactoryConfig(**FACTORY), FACTORY_SEEDS,
                         ROOT / "build" / "chip_smoke_factory", randn)
 
-    # ------------------------------------- phase 4: times at full width
+    # ------------------------------ phase 4: LM training at full width
+    trn = training_phase(dev, ROOT / "build" / "chip_smoke_train")
+
+    # ------------------------------------- phase 5: times at full width
     # each kernel at the bucket of 8 and at one item (the codegen path), on
     # the phase-1 inputs, held once more against its plain version
     rows = []
@@ -779,6 +1254,7 @@ def main() -> int:
           f"{bms:.4f} ms by {by}, {bms / ms:.2f} of bound), plain "
           f"{plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms, "
           f"max_abs_err {ferr:.3e}")
+    rows += time_attention(attn_full, attn_case_errs, trn)
     step_parts, sae_parts = fac["harvest_step_ms"], fac["sae_step_ms"]
     step_parts["flash_ms"] = fac["n_layers"] * ms
     # the 24 blocks' matmuls, norms, rope and the collect stack
@@ -796,6 +1272,9 @@ def main() -> int:
                                   "sae_step_ms": sae_parts,
                                   "held_sae_step": fac["held_sae_step"],
                                   "runs": fac["runs"]},
+                      "train": {k_: v_ for k_, v_ in trn.items()
+                                if k_ != "per_step"},
+                      "flash_function_grad_err": fn_errs,
                       "engine_ms": {
                           wl: {"bucket_latency": v[0] * 1e3,
                                "per_request_latency": v[1] * 1e3,

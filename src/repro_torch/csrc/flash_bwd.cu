@@ -1,0 +1,421 @@
+// flash_bwd.cu — attention backward (FlashAttention-2), two kernels:
+//
+//   flash_bwd_dq   one CTA per (q tile of 64 rows, query head, batch item):
+//                  dQ = scale · Σ_k dS K, with dS = P ∘ (dO Vᵀ − delta)
+//   flash_bwd_dkv  one CTA per (k tile of 64 keys, kv head, batch item):
+//                  dV = Σ Pᵀ dO and dK = scale · Σ dSᵀ Q over the kv head's
+//                  whole query group (G = Hq / Hkv heads) and every q tile
+//
+// where P = exp(scale · Q Kᵀ − lse) under the mask and delta = rowsum(dO ∘ O)
+// (computed by the wrapper, as the JAX package computes it in jnp).
+//
+// Replaces the TPU kernels of repro/kernels/flash_attention.py: _bwd_call's
+// two pallas_calls, _dq_kernel (:181, call at :302) and _dkv_kernel (:226,
+// call at :325). Same layouts: q, o, do, dq (B, Hq, Sq, D); k, v, dk, dv
+// (B, Hkv, Sk, D); lse, delta (B, Hq, Sq) float32; queries right-aligned to
+// the keys; causal and sliding-window masks; GQA through h / G.
+//
+// What the TPU kernels' grids did, and what this design does instead:
+//   * dQ's sequential k axis becomes a loop inside the CTA over the k tiles
+//     that hold a valid key for its rows; the accumulator lives in registers
+//     (each thread owns 4 rows × D/16 channels);
+//   * dK/dV's sequential fused (group member, q block) axis becomes a loop
+//     inside the CTA over the G query heads of its kv head and their q tiles,
+//     so the GQA sum is taken in registers: no atomics, no second pass, and
+//     the result does not depend on the order blocks run in;
+//   * a dead block contributes exactly 0 in the TPU kernels too (its mask is
+//     all false and p, dS are selected to 0 under the mask), so the loops
+//     skip every tile in which no (query, key) pair is valid, computed from
+//     the mask itself; the result does not depend on the TPU's block sizes;
+//   * ragged tails are zeroed as they are staged (q/do rows past Sq, k/v
+//     rows past Sk), so 0 · padding never turns into NaN; p and dS are
+//     selected (not multiplied) to 0 under the mask, so a row no key reaches
+//     (lse = -1e30 + log(count)) never overflows into the sums.
+//
+// Shared-memory staging: the operand whose rows a thread owns is kept
+// transposed ([D][68]), so a thread reads its 4 rows with one float4; the
+// other operand is kept in natural layout with rows padded to D + 4 floats
+// and read by the rows tx + 16j, which puts the 8 lanes of a float4 phase
+// on 8 distinct 4-bank groups (no conflicts). P and dS go through shared
+// memory for the products that contract over the other axis.
+//
+// Bound: at granite-3-2b's shape, q (4, 32, 2048, 64), k/v (4, 8, 2048, 64),
+// causal, dQ does 3·B·Hq·Sq·Sk·D = 103 GFLOP (S, dP and dS·K, halved by the
+// mask) and dK/dV 4·B·Hq·Sq·Sk·D = 137 GFLOP, against 100 MB of bf16 or
+// 200 MB of f32 inputs and outputs: both are bound by operations. This is
+// a simple SIMT float32 design (FMAs fed from shared memory, no tensor
+// cores), so bf16 inputs leave it far below the bf16 tensor-core bound.
+#include <math.h>
+
+#include "flash_common.cuh"
+
+namespace {
+
+using flash::dcol;
+using flash::LD;
+using flash::THREADS;
+using flash::to_f;
+constexpr int TQ = flash::TILE;  // q rows per tile
+constexpr int TK = flash::TILE;  // keys per tile
+
+template <int D>
+constexpr int KS = D + 4;  // row stride of a natural-layout tile
+
+// stage rows [r0, r0 + 64) of a (rows, D) matrix transposed into dst[D][LD],
+// zero past n_rows
+template <int D, typename T>
+__device__ __forceinline__ void stage_t(float* dst, const T* src, int r0,
+                                        int n_rows, int tid) {
+  for (int e = tid; e < flash::TILE * D; e += THREADS) {
+    const int r = e / D, d = e % D;
+    const int row = r0 + r;
+    dst[d * LD + r] = row < n_rows ? to_f(src[static_cast<long long>(row) * D + d]) : 0.f;
+  }
+}
+
+// stage rows [r0, r0 + 64) of a (rows, D) matrix in natural layout into
+// dst[64][D + 4], zero past n_rows
+template <int D, typename T>
+__device__ __forceinline__ void stage_n(float* dst, const T* src, int r0,
+                                        int n_rows, int tid) {
+  for (int e = tid; e < flash::TILE * D / 4; e += THREADS) {
+    const int r = e / (D / 4), d = (e % (D / 4)) * 4;
+    const int row = r0 + r;
+    const float4 x = row < n_rows
+        ? flash::load4(src + static_cast<long long>(row) * D + d)
+        : make_float4(0.f, 0.f, 0.f, 0.f);
+    *reinterpret_cast<float4*>(&dst[r * KS<D> + d]) = x;
+  }
+}
+
+// acc[i][j] += Σ_d at[d][4·ty + i] · bn[tx + 16j][d]: 4 rows of a transposed
+// tile against 4 rows of a natural tile, 64 FMAs per 8 float4 loads
+template <int D>
+__device__ __forceinline__ void tile_dot(float (&acc)[4][4], const float* at,
+                                         const float* bn, int tx, int ty) {
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    float a[4][4], b[4][4];  // a[dd][i], b[j][dd]
+#pragma unroll
+    for (int dd = 0; dd < 4; ++dd) {
+      const float4 t = *reinterpret_cast<const float4*>(&at[(d + dd) * LD + ty * 4]);
+      a[dd][0] = t.x; a[dd][1] = t.y; a[dd][2] = t.z; a[dd][3] = t.w;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 t = *reinterpret_cast<const float4*>(&bn[(tx + 16 * j) * KS<D> + d]);
+      b[j][0] = t.x; b[j][1] = t.y; b[j][2] = t.z; b[j][3] = t.w;
+    }
+#pragma unroll
+    for (int dd = 0; dd < 4; ++dd)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[dd][i], b[j][dd], acc[i][j]);
+  }
+}
+
+// acc[i][jd] += Σ_c wt[c][4·ty + i] · xn[c][dcol(tx, jd)]: a 64-long
+// contraction of a transposed weight tile with a natural tile
+template <int D>
+__device__ __forceinline__ void tile_accumulate(float (&acc)[4][D / 16],
+                                                const float* wt, const float* xn,
+                                                int tx, int ty) {
+  constexpr int ND = D / 16;
+#pragma unroll 4
+  for (int c = 0; c < flash::TILE; ++c) {
+    const float4 w = *reinterpret_cast<const float4*>(&wt[c * LD + ty * 4]);
+    const float wv[4] = {w.x, w.y, w.z, w.w};
+    float xv[ND];
+    flash::row_slots<D>(&xn[c * KS<D>], tx, xv);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jd = 0; jd < ND; ++jd) acc[i][jd] = fmaf(wv[i], xv[jd], acc[i][jd]);
+  }
+}
+
+// ------------------------------------------------------------------- dQ
+template <int D, typename T>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    T* __restrict__ dq, int hq, int hkv, int sq, int sk,
+                    int causal, int window, float scale) {
+  constexpr int ND = D / 16;
+  extern __shared__ __align__(16) float smem[];
+  float* qT = smem;                // [D][LD]   q tile, transposed
+  float* doT = qT + D * LD;        // [D][LD]   dO tile, transposed
+  float* ks = doT + D * LD;        // [TK][D+4] k tile
+  float* vs = ks + TK * KS<D>;     // [TK][D+4] v tile
+  float* dsT = vs + TK * KS<D>;    // [TK][LD]  dS, transposed
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * TQ;  // longest causal tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long long qbase = (static_cast<long long>(b) * hq + h) * sq * D;
+  const long long kvbase =
+      (static_cast<long long>(b) * hkv + h / (hq / hkv)) * sk * D;
+  const long long rbase = (static_cast<long long>(b) * hq + h) * sq;
+  const int shift = sk - sq;  // right alignment of q
+
+  // keys that are valid for some row of the tile: [k_lo, k_hi)
+  const int qlo = q0 + shift, qhi = min(q0 + TQ, sq) - 1 + shift;
+  int k_lo = 0, k_hi = sk;
+  if (causal) k_hi = max(0, min(sk, qhi + 1));
+  if (window > 0) k_lo = max(0, qlo - window + 1);
+
+  stage_t<D>(qT, q + qbase, q0, sq, tid);
+  stage_t<D>(doT, dout + qbase, q0, sq, tid);
+  float lse_r[4], dl_r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    lse_r[i] = row < sq ? lse[rbase + row] : 0.f;
+    dl_r[i] = row < sq ? delta[rbase + row] : 0.f;
+  }
+
+  float acc[4][ND];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jd = 0; jd < ND; ++jd) acc[i][jd] = 0.f;
+
+  for (int k0 = (k_lo / TK) * TK; k0 < k_hi; k0 += TK) {
+    __syncthreads();  // q/dO are staged; the previous tile's ks/dsT are consumed
+    stage_n<D>(ks, k + kvbase, k0, sk, tid);
+    stage_n<D>(vs, v + kvbase, k0, sk, tid);
+    __syncthreads();
+
+    float s[4][4] = {}, dp[4][4] = {};
+    tile_dot<D>(s, qT, ks, tx, ty);
+    tile_dot<D>(dp, doT, vs, tx, ty);
+    float ds[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = q0 + ty * 4 + i + shift;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kpos = k0 + tx + 16 * j;
+        const bool ok = flash::valid(qpos, kpos, sk, causal, window);
+        const float p = ok ? expf(s[i][j] * scale - lse_r[i]) : 0.f;
+        ds[i][j] = ok ? p * (dp[i][j] - dl_r[i]) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float4*>(&dsT[(tx + 16 * j) * LD + ty * 4]) =
+          make_float4(ds[0][j], ds[1][j], ds[2][j], ds[3][j]);
+    __syncthreads();
+    tile_accumulate<D>(acc, dsT, ks, tx, ty);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    if (row >= sq) continue;
+    T* out = dq + qbase + static_cast<long long>(row) * D;
+#pragma unroll
+    for (int jd = 0; jd < ND; ++jd)
+      out[dcol<D>(tx, jd)] = flash::from_f<T>(acc[i][jd] * scale);
+  }
+}
+
+// ----------------------------------------------------------------- dK/dV
+template <int D, typename T>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     T* __restrict__ dk, T* __restrict__ dv, int hq, int hkv,
+                     int sq, int sk, int causal, int window, float scale) {
+  constexpr int ND = D / 16;
+  extern __shared__ __align__(16) float smem[];
+  float* kT = smem;                // [D][LD]   k tile, transposed
+  float* vT = kT + D * LD;         // [D][LD]   v tile, transposed
+  float* qs = vT + D * LD;         // [TQ][D+4] q tile
+  float* dos = qs + TQ * KS<D>;    // [TQ][D+4] dO tile
+  float* pS = dos + TQ * KS<D>;    // [TQ][LD]  Pᵀ stored by query row
+  float* dsS = pS + TQ * LD;       // [TQ][LD]  dSᵀ stored by query row
+  float* lse_s = dsS + TQ * LD;    // [TQ]
+  float* dl_s = lse_s + TQ;        // [TQ]
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int k0 = blockIdx.x * TK;  // causal: the longest tiles come first
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int group = hq / hkv;
+  const long long kvbase = (static_cast<long long>(b) * hkv + hk) * sk * D;
+  const int shift = sk - sq;
+
+  // rows that are valid for some key of the tile: [i_lo, i_hi)
+  const int khi = min(k0 + TK, sk) - 1;
+  const int i_lo = causal ? max(0, k0 - shift) : 0;
+  const int i_hi = window > 0 ? max(0, min(sq, khi + window - shift)) : sq;
+
+  stage_t<D>(kT, k + kvbase, k0, sk, tid);
+  stage_t<D>(vT, v + kvbase, k0, sk, tid);
+
+  float dk_acc[4][ND], dv_acc[4][ND];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int jd = 0; jd < ND; ++jd) dk_acc[a][jd] = dv_acc[a][jd] = 0.f;
+
+  for (int g = 0; g < group; ++g) {
+    const int h = hk * group + g;
+    const long long qbase = (static_cast<long long>(b) * hq + h) * sq * D;
+    const long long rbase = (static_cast<long long>(b) * hq + h) * sq;
+    for (int q0 = (i_lo / TQ) * TQ; q0 < i_hi; q0 += TQ) {
+      __syncthreads();  // k/v are staged; the previous tile's qs/dos/pS/dsS are consumed
+      stage_n<D>(qs, q + qbase, q0, sq, tid);
+      stage_n<D>(dos, dout + qbase, q0, sq, tid);
+      if (tid < TQ) {
+        const int row = q0 + tid;
+        lse_s[tid] = row < sq ? lse[rbase + row] : 0.f;
+        dl_s[tid] = row < sq ? delta[rbase + row] : 0.f;
+      }
+      __syncthreads();
+
+      // Sᵀ and dPᵀ for keys 4·ty + a and query rows tx + 16i
+      float s[4][4] = {}, dp[4][4] = {};
+      tile_dot<D>(s, kT, qs, tx, ty);
+      tile_dot<D>(dp, vT, dos, tx, ty);
+      float p[4][4], ds[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = tx + 16 * i;
+        const int qpos = q0 + r + shift;
+        const float l = lse_s[r], dl = dl_s[r];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const int kpos = k0 + ty * 4 + a;
+          const bool ok = flash::valid(qpos, kpos, sk, causal, window);
+          p[a][i] = ok ? expf(s[a][i] * scale - l) : 0.f;
+          ds[a][i] = ok ? p[a][i] * (dp[a][i] - dl) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = tx + 16 * i;
+        *reinterpret_cast<float4*>(&pS[r * LD + ty * 4]) =
+            make_float4(p[0][i], p[1][i], p[2][i], p[3][i]);
+        *reinterpret_cast<float4*>(&dsS[r * LD + ty * 4]) =
+            make_float4(ds[0][i], ds[1][i], ds[2][i], ds[3][i]);
+      }
+      __syncthreads();
+      tile_accumulate<D>(dv_acc, pS, dos, tx, ty);
+      tile_accumulate<D>(dk_acc, dsS, qs, tx, ty);
+    }
+  }
+
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int key = k0 + ty * 4 + a;
+    if (key >= sk) continue;
+    T* dko = dk + kvbase + static_cast<long long>(key) * D;
+    T* dvo = dv + kvbase + static_cast<long long>(key) * D;
+#pragma unroll
+    for (int jd = 0; jd < ND; ++jd) {
+      dko[dcol<D>(tx, jd)] = flash::from_f<T>(dk_acc[a][jd] * scale);
+      dvo[dcol<D>(tx, jd)] = flash::from_f<T>(dv_acc[a][jd]);
+    }
+  }
+}
+
+template <int D>
+constexpr int dq_smem() {
+  return static_cast<int>(sizeof(float)) * (2 * D * LD + 2 * TK * KS<D> + TK * LD);
+}
+
+template <int D>
+constexpr int dkv_smem() {
+  return static_cast<int>(sizeof(float)) *
+         (2 * D * LD + 2 * TQ * KS<D> + 2 * TQ * LD + 2 * TQ);
+}
+
+struct Args {
+  const void *q, *k, *v, *dout;
+  const float *lse, *delta;
+  int batch, hq, hkv, sq, sk, causal, window;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <int D, typename T>
+int launch_dq(const Args& a, void* dq) {
+  auto kern = flash_bwd_dq_kernel<D, T>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem<D>());
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.sq + TQ - 1) / TQ, a.hq, a.batch);
+  kern<<<grid, THREADS, dq_smem<D>(), a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, a.delta,
+      static_cast<T*>(dq), a.hq, a.hkv, a.sq, a.sk, a.causal, a.window, a.scale);
+  return cudaGetLastError();
+}
+
+template <int D, typename T>
+int launch_dkv(const Args& a, void* dk, void* dv) {
+  auto kern = flash_bwd_dkv_kernel<D, T>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_smem<D>());
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.sk + TK - 1) / TK, a.hkv, a.batch);
+  kern<<<grid, THREADS, dkv_smem<D>(), a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, a.delta,
+      static_cast<T*>(dk), static_cast<T*>(dv), a.hq, a.hkv, a.sq, a.sk,
+      a.causal, a.window, a.scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_dq(const Args& a, int d, void* dq) {
+  switch (d) {
+    case 16: return launch_dq<16, T>(a, dq);
+    case 32: return launch_dq<32, T>(a, dq);
+    case 64: return launch_dq<64, T>(a, dq);
+    case 128: return launch_dq<128, T>(a, dq);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int dispatch_dkv(const Args& a, int d, void* dk, void* dv) {
+  switch (d) {
+    case 16: return launch_dkv<16, T>(a, dk, dv);
+    case 32: return launch_dkv<32, T>(a, dk, dv);
+    case 64: return launch_dkv<64, T>(a, dk, dv);
+    case 128: return launch_dkv<128, T>(a, dk, dv);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// q, do, dq: (batch, hq, sq, d); k, v, dk, dv: (batch, hkv, sk, d), all
+// contiguous and of one type, float32 (bf16 = 0) or bf16 (bf16 = 1); lse,
+// delta: (batch, hq, sq) float32. window <= 0 means none; d is 16, 32, 64
+// or 128. Each returns a cudaError_t.
+REPRO_EXPORT int flash_bwd_dq(const void* q, const void* k, const void* v,
+                              const void* dout, const float* lse,
+                              const float* delta, void* dq, int batch, int hq,
+                              int hkv, int sq, int sk, int d, int causal,
+                              int window, float scale, int bf16, void* stream) {
+  const Args a{q, k, v, dout, lse, delta, batch, hq, hkv, sq, sk, causal,
+               window, scale, static_cast<cudaStream_t>(stream)};
+  return bf16 ? dispatch_dq<__nv_bfloat16>(a, d, dq) : dispatch_dq<float>(a, d, dq);
+}
+
+REPRO_EXPORT int flash_bwd_dkv(const void* q, const void* k, const void* v,
+                               const void* dout, const float* lse,
+                               const float* delta, void* dk, void* dv, int batch,
+                               int hq, int hkv, int sq, int sk, int d, int causal,
+                               int window, float scale, int bf16, void* stream) {
+  const Args a{q, k, v, dout, lse, delta, batch, hq, hkv, sq, sk, causal,
+               window, scale, static_cast<cudaStream_t>(stream)};
+  return bf16 ? dispatch_dkv<__nv_bfloat16>(a, d, dk, dv)
+              : dispatch_dkv<float>(a, d, dk, dv);
+}

@@ -1,5 +1,5 @@
-// flash_fwd.cu — attention forward by online softmax, float32, one CTA per
-// (q tile of 64 rows, query head, batch item).
+// flash_fwd.cu — attention forward by online softmax, one CTA per (q tile of
+// 64 rows, query head, batch item); q/k/v float32 or bf16, math in float32.
 //
 // Replaces the TPU kernel of repro/kernels/flash_attention.py: _fwd_call
 // (pallas_call at :145, body _flash_kernel at :75). It computes the same
@@ -31,6 +31,11 @@
 // slots at all (p = 0). l == 0 becomes 1; lse = m + log(l). expf/logf, never
 // the fast intrinsics; no tensor cores, so no TF32.
 //
+// bf16 inputs (the trainer's compute type) are widened to float32 as they
+// are staged into shared memory and o is rounded back to bf16 at the store,
+// as the TPU kernel's .astype(f32) / .astype(o_ref.dtype) do; lse stays
+// float32. The float32 instantiation is the same code with identity casts.
+//
 // Bound: at the harvest's shape (4, 32, 2048, 64) f32 causal the work is
 // 2·B·Hq·Sq·Sk·D ≈ 68.7 GFLOP against 134 MB of q, k, v and o, so the
 // kernel is bound by float32 operations (67 TFLOP/s outside the tensor
@@ -38,29 +43,23 @@
 // simple SIMT kernel keeps them on FMAs fed from shared memory.
 #include <math.h>
 
-#include "common.cuh"
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;         // query rows per CTA (kernels/flash_attention.py: TILE_Q)
-constexpr int BK = 64;         // keys per shared-memory tile
-constexpr int THREADS = 256;   // 16 × 16: ty owns rows 4ty..4ty+3, tx keys 4tx..4tx+3
-constexpr int LD = BQ + 4;     // row stride of the transposed tiles (keeps float4 alignment)
-constexpr float NEG = -1e30f;  // the TPU kernel's _NEG_INF
-constexpr unsigned FULL = 0xffffffffu;
+using flash::dcol;
+using flash::FULL;
+using flash::LD;              // row stride of the transposed tiles (keeps float4 alignment)
+using flash::THREADS;         // 16 × 16: ty owns rows 4ty..4ty+3, tx keys 4tx..4tx+3
+using flash::to_f;
+constexpr int BQ = flash::TILE;  // query rows per CTA (kernels/flash_attention.py: TILE_Q)
+constexpr int BK = flash::TILE;  // keys per shared-memory tile
+constexpr float NEG = -1e30f;    // the TPU kernel's _NEG_INF
 
-// channel held in accumulator slot jd by lane tx (ND = D / 16 slots)
-template <int D>
-__device__ __forceinline__ int dcol(int tx, int jd) {
-  constexpr int ND = D / 16;
-  if constexpr (ND >= 4) return (jd / 4) * 64 + tx * 4 + (jd % 4);
-  else return tx * ND + jd;
-}
-
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int hq, int hkv, int sq, int sk,
                  int causal, int window, float scale, int block_q, int block_k) {
   constexpr int ND = D / 16;
@@ -97,7 +96,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int e = tid; e < BQ * D; e += THREADS) {
     const int r = e / D, d = e % D;
     const int row = q0 + r;
-    qT[d * LD + r] = row < sq ? q[qbase + static_cast<long long>(row) * D + d] : 0.f;
+    qT[d * LD + r] = row < sq ? to_f(q[qbase + static_cast<long long>(row) * D + d]) : 0.f;
   }
 
   float m[4], l[4], acc[4][ND];
@@ -119,8 +118,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float kv = 0.f, vv = 0.f;
       if (kp < sk) {
         const long long off = kvbase + static_cast<long long>(kp) * D + d;
-        kv = k[off];
-        vv = v[off];
+        kv = to_f(k[off]);
+        vv = to_f(v[off]);
       }
       kT[d * LD + r] = kv;
       vs[r * D + d] = vv;
@@ -217,44 +216,59 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = q0 + ty * 4 + i;
     if (row >= sq) continue;
     const float denom = l[i] == 0.f ? 1.f : l[i];
-    float* orow = o + qbase + static_cast<long long>(row) * D;
+    T* orow = o + qbase + static_cast<long long>(row) * D;
 #pragma unroll
-    for (int jd = 0; jd < ND; ++jd) orow[dcol<D>(tx, jd)] = acc[i][jd] / denom;
+    for (int jd = 0; jd < ND; ++jd)
+      orow[dcol<D>(tx, jd)] = flash::from_f<T>(acc[i][jd] / denom);
     if (tx == 0)
       lse[(static_cast<long long>(b) * hq + h) * sq + row] = m[i] + logf(denom);
   }
 }
 
-template <int D>
-int launch(const float* q, const float* k, const float* v, float* o, float* lse,
+template <int D, typename T>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int batch, int hq, int hkv, int sq, int sk, int causal, int window,
            float scale, int block_q, int block_k, cudaStream_t stream) {
   const int smem = static_cast<int>(sizeof(float)) * (2 * D * LD + BK * D + BK * LD);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((sq + BQ - 1) / BQ, hq, batch);
-  flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
-      q, k, v, o, lse, hq, hkv, sq, sk, causal, window, scale, block_q, block_k);
+  flash_fwd_kernel<D, T><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), lse, hq, hkv, sq, sk, causal, window, scale, block_q,
+      block_k);
   return cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
+             int batch, int hq, int hkv, int sq, int sk, int d, int causal,
+             int window, float scale, int block_q, int block_k, cudaStream_t st) {
+  switch (d) {
+    case 16: return launch<16, T>(q, k, v, o, lse, batch, hq, hkv, sq, sk, causal, window, scale, block_q, block_k, st);
+    case 32: return launch<32, T>(q, k, v, o, lse, batch, hq, hkv, sq, sk, causal, window, scale, block_q, block_k, st);
+    case 64: return launch<64, T>(q, k, v, o, lse, batch, hq, hkv, sq, sk, causal, window, scale, block_q, block_k, st);
+    case 128: return launch<128, T>(q, k, v, o, lse, batch, hq, hkv, sq, sk, causal, window, scale, block_q, block_k, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// q, o: (batch, hq, sq, d); k, v: (batch, hkv, sk, d); lse: (batch, hq, sq);
-// all contiguous float32. window <= 0 means none. block_q/block_k are the
-// emulated TPU blocks (min(128, sq), min(128, sk)); block_q is a multiple of
-// 64 or equals sq. d is 16, 32, 64 or 128. Returns a cudaError_t.
-REPRO_EXPORT int flash_fwd(const float* q, const float* k, const float* v,
-                           float* o, float* lse, int batch, int hq, int hkv,
-                           int sq, int sk, int d, int causal, int window,
-                           float scale, int block_q, int block_k, void* stream) {
+// q, o: (batch, hq, sq, d); k, v: (batch, hkv, sk, d), all contiguous and
+// of one type, float32 (bf16 = 0) or bf16 (bf16 = 1); lse: (batch, hq, sq)
+// float32. window <= 0 means none. block_q/block_k are the emulated TPU
+// blocks (min(128, sq), min(128, sk)); block_q is a multiple of 64 or equals
+// sq. d is 16, 32, 64 or 128. Returns a cudaError_t.
+REPRO_EXPORT int flash_fwd(const void* q, const void* k, const void* v, void* o,
+                           float* lse, int batch, int hq, int hkv, int sq,
+                           int sk, int d, int causal, int window, float scale,
+                           int block_q, int block_k, int bf16, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 16: return launch<16>(q, k, v, o, lse, batch, hq, hkv, sq, sk, causal, window, scale, block_q, block_k, st);
-    case 32: return launch<32>(q, k, v, o, lse, batch, hq, hkv, sq, sk, causal, window, scale, block_q, block_k, st);
-    case 64: return launch<64>(q, k, v, o, lse, batch, hq, hkv, sq, sk, causal, window, scale, block_q, block_k, st);
-    case 128: return launch<128>(q, k, v, o, lse, batch, hq, hkv, sq, sk, causal, window, scale, block_q, block_k, st);
-    default: return cudaErrorInvalidValue;
-  }
+  if (bf16)
+    return dispatch<__nv_bfloat16>(q, k, v, o, lse, batch, hq, hkv, sq, sk, d,
+                                   causal, window, scale, block_q, block_k, st);
+  return dispatch<float>(q, k, v, o, lse, batch, hq, hkv, sq, sk, d, causal,
+                         window, scale, block_q, block_k, st);
 }

@@ -16,7 +16,9 @@ raises; nothing falls back.
 
 A :class:`Kernel` owns one library and the plain integer ``launches`` that
 its wrapper bumps after every successful launch, so a run can show which
-kernels the main path went through.
+kernels the main path went through. Two kernels of one source (``source=``,
+as ``flash_bwd_dq`` and ``flash_bwd_dkv`` share ``csrc/flash_bwd.cu``) share
+its library and count their launches apart.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ INT = ctypes.c_int
 FLOAT = ctypes.c_float
 
 KERNELS: Dict[str, "Kernel"] = {}
+_BUILD_LOCK = threading.Lock()  # one nvcc per library, whichever kernel asks
 
 
 def _nvcc() -> str:
@@ -62,12 +65,14 @@ class Kernel:
     """One CUDA source built into a shared library, with its launch count.
 
     ``functions`` maps each exported C function to its argument kinds; every
-    function returns an ``int`` (``cudaError_t``).
+    function returns an ``int`` (``cudaError_t``). ``source`` names the
+    ``csrc/<source>.cu`` file (default: ``name``).
     """
 
-    def __init__(self, name: str, functions: Dict[str, Sequence]):
+    def __init__(self, name: str, functions: Dict[str, Sequence],
+                 source: Optional[str] = None):
         self.name = name
-        self.source = CSRC / f"{name}.cu"
+        self.source = CSRC / f"{source or name}.cu"
         self.functions = dict(functions)
         self.launches = 0
         self.build_seconds: Optional[float] = None
@@ -82,7 +87,7 @@ class Kernel:
         for src in [self.source, *sorted(CSRC.glob("*.cuh"))]:
             h.update(src.name.encode())
             h.update(src.read_bytes())
-        return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
+        return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
 
     def start_build(self) -> Optional[subprocess.Popen]:
         """Start ``nvcc`` for this source unless its library exists; returns
@@ -112,7 +117,8 @@ class Kernel:
         """The loaded library, built first if needed."""
         with self._lock:
             if self._lib is None:
-                self.finish_build(self.start_build())
+                with _BUILD_LOCK:
+                    self.finish_build(self.start_build())
                 lib = ctypes.CDLL(str(self.library))
                 for fn, argtypes in self.functions.items():
                     getattr(lib, fn).argtypes = list(argtypes)
@@ -146,7 +152,10 @@ def build_all() -> Dict[str, float]:
     """Build every registered kernel's library at once (one ``nvcc`` per
     source, all started together) and load them; returns the build seconds
     of each library that had to be compiled."""
-    procs = {name: k.start_build() for name, k in KERNELS.items()}
+    owners = {}  # one kernel per library starts its build
+    for name, k in KERNELS.items():
+        owners.setdefault(k.library, name)
+    procs = {name: KERNELS[name].start_build() for name in owners.values()}
     for name, proc in procs.items():
         KERNELS[name].finish_build(proc)
     for k in KERNELS.values():

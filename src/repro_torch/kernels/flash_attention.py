@@ -1,4 +1,4 @@
-"""Flash-attention forward: blockwise online softmax (port of the forward of
+"""Flash attention, forward and backward: blockwise online softmax (port of
 ``repro/kernels/flash_attention.py``).
 
 :func:`flash_attention` returns ``(o, lse)`` like the TPU kernel's
@@ -6,16 +6,25 @@
 q's dtype and lse (B, Hq, Sq) in f32, queries right-aligned to the keys,
 causal and sliding-window masks, GQA with group Hq // Hkv.
 
-On a CUDA tensor it launches ``csrc/flash_fwd.cu`` (float32, D in 16, 32,
-64 or 128); on a CPU tensor it runs :func:`flash_attention_plain`, the same
-blockwise algorithm in PyTorch ops. Both evaluate the TPU kernel's blocks of
-(min(block_q, Sq), min(block_k, Sk)) with its liveness rule and its -1e30
-masking, so even the rows no key reaches (causal with Sq > Sk) come out as
-the TPU kernel's do: V averaged over the slots of the live blocks, and
-lse = -1e30 + log(count).
+On a CUDA tensor it launches ``csrc/flash_fwd.cu`` (float32 or bf16, D in
+16, 32, 64 or 128); on a CPU tensor it runs :func:`flash_attention_plain`,
+the same blockwise algorithm in PyTorch ops. Both evaluate the TPU kernel's
+blocks of (min(block_q, Sq), min(block_k, Sk)) with its liveness rule and
+its -1e30 masking, so even the rows no key reaches (causal with Sq > Sk)
+come out as the TPU kernel's do: V averaged over the slots of the live
+blocks, and lse = -1e30 + log(count).
 
-The backward (the TPU kernel's ``_bwd_call``) waits for the LM-training
-slice; nothing here is differentiable.
+:func:`flash_attention_bwd` is ``_bwd_call``: (dq, dk, dv) from the saved
+(q, k, v, o, lse) and dO, with delta = rowsum(dO ∘ O) in float32. On a CUDA
+tensor it launches the two kernels of ``csrc/flash_bwd.cu``
+(``flash_bwd_dq``, ``flash_bwd_dkv``); on a CPU tensor it runs
+:func:`flash_attention_bwd_plain`. A dead block's mask is all false, so
+the backward does not depend on the blocks: the plain version walks the
+TPU's blocks, the kernels their own 64-row tiles.
+
+:class:`FlashAttention` is ``_flash``'s custom VJP as a
+``torch.autograd.Function`` and :func:`flash` its entry point: o only,
+differentiable in q, k and v.
 """
 
 from __future__ import annotations
@@ -33,10 +42,19 @@ TILE_Q = 64                        # query rows per CTA (csrc/flash_fwd.cu: BQ)
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 _NEG_INF = -1e30
 
-_P, _I = _build.PTR, _build.INT
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+_P, _I, _F = _build.PTR, _build.INT, _build.FLOAT
 KERNEL = _build.Kernel("flash_fwd", {
-    "flash_fwd": [_P] * 5 + [_I] * 8 + [_build.FLOAT] + [_I] * 2 + [_P],
+    "flash_fwd": [_P] * 5 + [_I] * 8 + [_F] + [_I] * 3 + [_P],
 })
+# the backward's two kernels share csrc/flash_bwd.cu and count apart
+DQ_KERNEL = _build.Kernel("flash_bwd_dq", {
+    "flash_bwd_dq": [_P] * 7 + [_I] * 8 + [_F, _I, _P],
+}, source="flash_bwd")
+DKV_KERNEL = _build.Kernel("flash_bwd_dkv", {
+    "flash_bwd_dkv": [_P] * 8 + [_I] * 8 + [_F, _I, _P],
+}, source="flash_bwd")
 
 
 def _shapes(q, k, v, window):
@@ -127,14 +145,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None, scale=None,
                                      scale=scale, block_q=block_q,
                                      block_k=block_k)
     _device.require_cuda(q, "flash_attention")
-    if any(t.dtype != torch.float32 for t in (q, k, v)):
-        raise ValueError(f"the flash kernel takes float32, got "
-                         f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if any(t.device != q.device or not t.is_contiguous() for t in (q, k, v)):
-        raise ValueError("the flash kernel takes contiguous q, k, v on one device")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the flash kernel takes head dims {KERNEL_HEAD_DIMS}, "
-                         f"got {d}")
+    _check_kernel_operands("flash_attention", d, q, k, v)
     bq, bk = min(block_q, sq), min(block_k, sk)
     if bq % TILE_Q and bq != sq:
         raise ValueError(f"block_q {block_q} must be a multiple of {TILE_Q} "
@@ -145,5 +156,188 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None, scale=None,
     KERNEL.launch("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   o.data_ptr(), lse.data_ptr(), b, hq, hkv, sq, sk, d,
                   int(bool(causal)), 0 if window is None else int(window),
-                  scale, bq, bk, _build.stream_handle(q))
+                  scale, bq, bk, int(q.dtype == torch.bfloat16),
+                  _build.stream_handle(q))
     return o, lse
+
+
+def _check_kernel_operands(what, d, *ts):
+    """The kernels' contract: one dtype (float32 or bf16), one device,
+    contiguous, 16-byte aligned, head dim 16/32/64/128."""
+    if ts[0].dtype not in KERNEL_DTYPES or any(t.dtype != ts[0].dtype for t in ts):
+        raise ValueError(f"{what}: the flash kernels take float32 or bfloat16 "
+                         f"operands of one dtype, got {[t.dtype for t in ts]}")
+    if any(t.device != ts[0].device or not t.is_contiguous()
+           or t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{what}: the flash kernels take contiguous, 16-byte "
+                         "aligned operands on one device")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{what}: the flash kernels take head dims "
+                         f"{KERNEL_HEAD_DIMS}, got {d}")
+
+
+# --------------------------------------------------------------- backward
+def _check_bwd(q, k, v, o, lse, do, window):
+    dims = _shapes(q, k, v, window)
+    b, hq, _, sq, _, _ = dims
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (b, hq, sq):
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)}, do "
+                         f"{tuple(do.shape)} and lse {tuple(lse.shape)} must "
+                         f"match q {tuple(q.shape)}")
+    return dims
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
+                              window=None, scale=None,
+                              block_q: int = DEFAULT_BLOCK_Q,
+                              block_k: int = DEFAULT_BLOCK_K):
+    """The plain PyTorch version of ``_bwd_call``: the TPU backward's grid as
+    loops over k blocks, all q blocks at once, a (q block, k block) pair
+    applied only where it is live, its ``_block_mask`` (ragged q rows are
+    ``qpos >= sk``), ragged q/do/k/v rows zeroed before any contraction and
+    delta = rowsum(dO ∘ O) in float32. The GQA group's dK/dV are summed
+    after the loop. Returns ``(dq, dk, dv)`` in the input dtypes."""
+    b, hq, hkv, sq, sk, d = _check_bwd(q, k, v, o, lse, do, window)
+    g = hq // hkv
+    scale = d ** -0.5 if scale is None else float(scale)
+    bq, bk = min(block_q, sq), min(block_k, sk)
+    nq, nk = -(-sq // bq), -(-sk // bk)
+    dev = q.device
+    delta = (do.float() * o.float()).sum(-1)
+
+    def rows(x):  # (b, h, s, ...) -> padded q blocks (b, h, nq, bq, ...)
+        pad = (0, 0) * (x.ndim - 3) + (0, nq * bq - sq)
+        return F.pad(x, pad).reshape(b, hq, nq, bq, *x.shape[3:])
+
+    qf, dof = rows(q.float()), rows(do.float())
+    lsef, deltaf = rows(lse.float()), rows(delta)
+    kf = F.pad(k.float(), (0, 0, 0, nk * bk - sk)).repeat_interleave(g, dim=1)
+    vf = F.pad(v.float(), (0, 0, 0, nk * bk - sk)).repeat_interleave(g, dim=1)
+    q_start = [i * bq + (sk - sq) for i in range(nq)]
+    qpos = (torch.tensor(q_start, device=dev)[:, None]
+            + torch.arange(bq, device=dev))[..., None]          # (nq, bq, 1)
+
+    dq = torch.zeros((b, hq, nq, bq, d), dtype=torch.float32, device=dev)
+    dk = torch.zeros((b, hq, nk * bk, d), dtype=torch.float32, device=dev)
+    dv = torch.zeros((b, hq, nk * bk, d), dtype=torch.float32, device=dev)
+    for ik in range(nk):
+        ks = ik * bk
+        live = [(not causal or ks <= qs + bq - 1)
+                and (window is None or ks + bk - 1 > qs - window)
+                for qs in q_start]
+        if not any(live):
+            continue
+        kb = kf[:, :, ks:ks + bk]
+        vb = vf[:, :, ks:ks + bk]
+        s = torch.einsum("bhnqd,bhkd->bhnqk", qf, kb) * scale
+        kpos = ks + torch.arange(bk, device=dev)
+        mask = (kpos < sk) & (qpos < sk)
+        if causal:
+            mask = mask & (kpos <= qpos)
+        if window is not None:
+            mask = mask & (kpos > qpos - window)
+        mask = mask & torch.tensor(live, device=dev)[:, None, None]
+        # select, not multiply: a row no key reaches has lse = -1e30 + log(n)
+        p = torch.where(mask, torch.exp(s - lsef[..., None]), 0.0)
+        dp = torch.einsum("bhnqd,bhkd->bhnqk", dof, vb)
+        ds = torch.where(mask, p * (dp - deltaf[..., None]), 0.0)
+        dq += torch.einsum("bhnqk,bhkd->bhnqd", ds, kb)
+        dk[:, :, ks:ks + bk] += torch.einsum("bhnqk,bhnqd->bhkd", ds, qf)
+        dv[:, :, ks:ks + bk] += torch.einsum("bhnqk,bhnqd->bhkd", p, dof)
+    dq = (dq * scale).reshape(b, hq, nq * bq, d)[:, :, :sq]
+    dk = (dk * scale).reshape(b, hkv, g, nk * bk, d).sum(2)[:, :, :sk]
+    dv = dv.reshape(b, hkv, g, nk * bk, d).sum(2)[:, :, :sk]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window=None, scale=None,
+                        block_q: int = DEFAULT_BLOCK_Q,
+                        block_k: int = DEFAULT_BLOCK_K):
+    """Flash-attention backward, ``(dq, dk, dv)`` in the input dtypes. The two
+    CUDA kernels for CUDA tensors, the plain version for CPU tensors.
+    ``block_q``/``block_k`` are the TPU blocks the plain version walks; the
+    result does not depend on them."""
+    _check_bwd(q, k, v, o, lse, do, window)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         window=window, scale=scale,
+                                         block_q=block_q, block_k=block_k)
+    # delta = rowsum(dO ∘ O): one elementwise pass, as jnp outside Pallas
+    delta = (do.float() * o.float()).sum(-1)
+    opts = dict(causal=causal, window=window, scale=scale)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, **opts)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **opts)
+    return dq, dk, dv
+
+
+def _bwd_args(what, q, k, v, do, lse, delta, causal, window, scale):
+    """Checks and the trailing launch arguments shared by the two kernels."""
+    b, hq, hkv, sq, sk, d = _shapes(q, k, v, window)
+    _device.require_cuda(q, what)
+    _check_kernel_operands(what, d, q, k, v, do)
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.dtype != torch.float32 or t.device != q.device
+                or not t.is_contiguous() or t.shape != (b, hq, sq)):
+            raise ValueError(f"{what}: {name} must be contiguous float32 "
+                             f"{(b, hq, sq)} on q's device")
+    scale = d ** -0.5 if scale is None else float(scale)
+    return (b, hq, hkv, sq, sk, d, int(bool(causal)),
+            0 if window is None else int(window), scale,
+            int(q.dtype == torch.bfloat16), _build.stream_handle(q))
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
+                 window=None, scale=None):
+    """dq by the ``flash_bwd_dq`` kernel (``_dq_kernel``), CUDA tensors only:
+    delta = rowsum(dO ∘ O) is given."""
+    args = _bwd_args("flash_bwd_dq", q, k, v, do, lse, delta, causal, window,
+                     scale)
+    dq = torch.empty_like(q)
+    DQ_KERNEL.launch("flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                     dq.data_ptr(), *args)
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
+                  window=None, scale=None):
+    """(dk, dv) by the ``flash_bwd_dkv`` kernel (``_dkv_kernel``), CUDA
+    tensors only: delta = rowsum(dO ∘ O) is given."""
+    args = _bwd_args("flash_bwd_dkv", q, k, v, do, lse, delta, causal, window,
+                     scale)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    DKV_KERNEL.launch("flash_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                      dk.data_ptr(), dv.data_ptr(), *args)
+    return dk, dv
+
+
+# ----------------------------------------------------------- custom VJP
+class FlashAttention(torch.autograd.Function):
+    """``_flash`` with its custom VJP: the forward saves (q, k, v, o, lse)
+    and the backward runs :func:`flash_attention_bwd` on them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, block_q, block_k):
+        o, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                 scale=scale, block_q=block_q, block_k=block_k)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.opts = dict(causal=causal, window=window, scale=scale,
+                        block_q=block_q, block_k=block_k)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash(q, k, v, *, causal: bool = True, window=None, scale=None,
+          block_q: int = DEFAULT_BLOCK_Q, block_k: int = DEFAULT_BLOCK_K):
+    """Blockwise attention, differentiable: o (B,Hq,Sq,D) from q (B,Hq,Sq,D)
+    and k, v (B,Hkv,Sk,D) (the JAX package's ``flash_attention``)."""
+    return FlashAttention.apply(q, k, v, causal, window, scale, int(block_q),
+                                int(block_k))

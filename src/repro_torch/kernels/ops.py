@@ -1,13 +1,13 @@
 """Entry points on tensors (port of ``repro/kernels/ops.py``): the
-projections and the attention forward.
+projections and attention.
 
 The tensor's device decides the path: for a projection, a CUDA tensor runs
 the generated kernels (``kernels/codegen``), a CPU tensor a cached planner
 plan of the plain PyTorch schedule executor; for attention, a CUDA tensor
-runs the flash kernel (``kernels/flash_attention``), a CPU tensor its plain
-version. No environment variable or flag switches the
-kernels off (the JAX package's ``REPRO_FORCE_INTERPRET``/``use_pallas`` have
-no counterpart).
+runs the flash kernels (``kernels/flash_attention``: the forward, and the
+dQ and dK/dV kernels in the backward), a CPU tensor their plain versions.
+No environment variable or flag switches the kernels off (the JAX
+package's ``REPRO_FORCE_INTERPRET``/``use_pallas`` have no counterpart).
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import torch
 from repro_torch.core import plan as planmod
 
 from .codegen import codegen_project
-from .flash_attention import flash_attention
+from .flash_attention import flash
 
 _BILEVEL_LEVELS = (("inf", 1), ("1", 1))
 _TRILEVEL_LEVELS = (("inf", 1), ("inf", 1), ("1", 1))
@@ -48,5 +48,6 @@ def trilevel_l1infinf(y: torch.Tensor, radius, *,
 
 
 def attention(q, k, v, *, causal: bool = True, window=None) -> torch.Tensor:
-    """Flash attention forward, o only: q (B,Hq,Sq,D), k/v (B,Hkv,Sk,D)."""
-    return flash_attention(q, k, v, causal=causal, window=window)[0]
+    """Flash attention, o only, differentiable in q, k and v: q (B,Hq,Sq,D),
+    k/v (B,Hkv,Sk,D)."""
+    return flash(q, k, v, causal=causal, window=window)

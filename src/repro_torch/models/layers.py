@@ -8,7 +8,8 @@ comes in three implementations selected by ``impl``:
   * "chunked" — online softmax over KV chunks in PyTorch ops (flash
                 semantics, memory-bounded)
   * "flash"   — ``kernels/flash_attention.py``: the hand-written CUDA
-                forward on a CUDA tensor, its plain version on a CPU tensor
+                forward and backward kernels on a CUDA tensor (float32 or
+                bf16), their plain versions on a CPU tensor; differentiable
                 (the counterpart of the JAX package's ``"pallas"``)
 
 All attention math accumulates in f32 regardless of compute dtype. MoE,

@@ -128,9 +128,13 @@ def forward(params, tokens, cfg: ArchConfig, *, impl="chunked", remat=True,
     x = params["embed"][tokens].to(params["final_norm"].dtype)
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
     blocks = params["blocks"]
+    # unbind each stacked leaf once: its backward stacks the layers'
+    # gradients in one pass, where a[i] per layer would give every layer a
+    # full-size zero gradient of the stack to sum
+    per_layer = [a.unbind(0) for a in _tree.leaves(blocks)]
     caps = []
     for i in range(cfg.n_layers):
-        lp = _tree.tree_map(lambda a: a[i], blocks)
+        lp = _tree.unflatten_like(blocks, [u[i] for u in per_layer])
 
         def body(x, lp=lp):
             return _block(lp, x, cfg, positions=positions, impl=impl,

@@ -60,3 +60,9 @@ def capture(path):
     with torch.profiler.profile(activities=acts) as prof:
         yield out
     prof.export_chrome_trace(str(out / "trace.json"))
+
+
+def trace_files(path):
+    """The capture artifacts under ``path`` (recursive; files only)."""
+    root = pathlib.Path(path)
+    return sorted(p for p in root.rglob("*") if p.is_file())

@@ -5,4 +5,4 @@ from .sae_factory import (  # noqa: F401
     SAEFactoryConfig, harvest_activations, make_sae_train_step, run_factory,
     train_sae,
 )
-from .step import make_train_step  # noqa: F401
+from .step import init_state, make_loss_fn, make_train_step, xent  # noqa: F401

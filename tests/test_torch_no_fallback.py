@@ -59,6 +59,8 @@ def test_entry_points_raise_without_cuda(tmp_path):
     from repro_torch.kernels import codegen
     from repro_torch.kernels.codegen import lowering
     from repro_torch.launch import sae_factory as cli
+    from repro_torch.launch import train as train_cli
+    from repro_torch.runtime import CheckpointManager
     from repro_torch.models import lm, params
     from repro_torch.serving.engine import ProjectionEngine
     from repro_torch.training import sae_factory as F
@@ -86,7 +88,11 @@ def test_entry_points_raise_without_cuda(tmp_path):
         lambda: F.train_sae(tmp_path / "h", 0, fcfg),
         lambda: F.run_factory(fcfg, tmp_path / "r"),
         lambda: cli.main(["--out", str(tmp_path / "cli"), "--layers", "0"]),
+        lambda: train_cli.main(["--smoke", "--steps", "1"]),
+        lambda: train_cli.main(["--smoke", "--steps", "1", "--device", "cuda"]),
+        lambda: CheckpointManager(tmp_path / "ck").restore(0),
     ]
+    CheckpointManager(tmp_path / "ck").save(0, {"w": torch.zeros(1)})
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
@@ -129,7 +135,16 @@ def test_kernel_wrappers_launch_or_raise():
         flash_attention.flash_attention(qkv, qkv, qkv)
     with pytest.raises(ValueError, match="CUDA kernel needs a CUDA tensor"):
         ops.attention(qkv, qkv, qkv)
-    assert flash_attention.KERNEL.launches == 0
+    with pytest.raises(ValueError, match="CUDA kernel needs a CUDA tensor"):
+        flash_attention.flash_attention(*(t.to(torch.bfloat16) for t in (qkv,) * 3))
+    lse = torch.empty(1, 2, 8, device="meta")
+    with pytest.raises(ValueError, match="CUDA kernel needs a CUDA tensor"):
+        flash_attention.flash_attention_bwd(qkv, qkv, qkv, qkv, lse, qkv)
+    with pytest.raises(ValueError, match="CUDA kernel needs a CUDA tensor"):
+        flash_attention.flash(qkv, qkv, qkv)
+    for k in (flash_attention.KERNEL, flash_attention.DQ_KERNEL,
+              flash_attention.DKV_KERNEL):
+        assert k.launches == 0
     fn = lowering.generate_batched(schedule.compile_schedule((8, 16), BILEVEL),
                                    torch.float32, device="cpu")
     with pytest.raises(ValueError, match="built for cpu"):
@@ -146,3 +161,43 @@ def test_a_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         l1ball.KERNEL.lib()
     assert l1ball.KERNEL.launches == 0
+
+
+@pytest.mark.parametrize("name", ["KERNEL", "DQ_KERNEL", "DKV_KERNEL"])
+def test_flash_kernels_without_a_build_raise(monkeypatch, tmp_path, name):
+    """The bf16 forward and both backward kernels: a call that reaches the
+    launch without a built library raises (no nvcc here), counts nothing."""
+    from repro_torch.kernels import _build, flash_attention
+
+    kern = getattr(flash_attention, name)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "TOOLKIT_NVCC", tmp_path / "no-nvcc")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(kern, "_lib", None)
+    fn = next(iter(kern.functions))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kern.launch(fn, *([0] * len(kern.functions[fn])))
+    assert kern.launches == 0
+
+
+def test_flash_backward_kernels_share_one_source():
+    from repro_torch.kernels import _build, flash_attention
+
+    dq, dkv = flash_attention.DQ_KERNEL, flash_attention.DKV_KERNEL
+    assert dq.source == dkv.source == _build.CSRC / "flash_bwd.cu"
+    assert dq.library == dkv.library
+    assert {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"} <= set(_build.launch_counts())
+
+
+@pytest.mark.parametrize("module", ["repro_torch.runtime",
+                                    "repro_torch.launch.train"])
+def test_training_modules_import_neither_jax_nor_repro(module):
+    code = (f"import sys, importlib; importlib.import_module({module!r})\n"
+            "bad = sorted(k for k in sys.modules if k == 'jax' or "
+            "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
+            "print(bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
