@@ -5,9 +5,10 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-1. builds the six CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
-   per source, started together) and holds each against its plain PyTorch
-   version on the card: the three projection kernels at the two full-width
+1. builds the ten CUDA kernels of the seven sources in
+   ``src/repro_torch/csrc`` (one ``nvcc`` per source, started together) and
+   holds each against its plain PyTorch version on the card: the three
+   generated-pipeline projection kernels at the two full-width
    serving shapes, over the design matrix at small ragged sizes, and for
    ``l1ball`` both bodies over several lengths up to the tiler's limit; the
    flash-attention forward (o and lse) at the harvest's shape
@@ -17,7 +18,12 @@ Run from the root of a checkout, with no arguments:
    (``flash_bwd_dq``, ``flash_bwd_dkv``) at granite-3-2b's attention shape,
    q (4, 32, 2048, 64) and k/v (4, 8, 2048, 64) causal, and on the same
    ragged cases, and the ``FlashAttention`` Function's gradients at that
-   shape in float32 against autograd of ``attention_naive``;
+   shape in float32 against autograd of ``attention_naive``; and the four
+   golden kernels of paper Algorithms 2 and 5 (``colmax``, ``clip``,
+   ``trilevel_reduce``, ``trilevel_apply``) in float32 and bf16 at the
+   golden workloads' shapes, at ``tests/test_kernels.py``'s shapes and on
+   ragged cases with a NaN, +inf and -inf in Y: every output equal to the
+   plain version's, NaN in the same places;
 2. serves full-width requests through ``ProjectionEngine`` — 8 bi-level
    (8192, 2048) and 8 tri-level (256, 32, 2048) f32 requests through
    ``codegen_batch`` buckets of 8, one of each through ``codegen`` — checks
@@ -26,7 +32,23 @@ Run from the root of a checkout, with no arguments:
    measures the engine's bucket and per-request latency, synchronous and
    with the dispatcher thread (whose answers must equal the synchronous
    ones);
-3. runs the SAE factory at the full width of ``stablelm-1.6b`` (24 layers,
+3. runs the hand-written Algorithm 2 and 5 pipelines
+   (``bilevel_l1inf_fused``, ``trilevel_l1infinf_fused``) on four
+   workloads: W1 and W2, the server's first bi-level and tri-level request
+   with its radius; W3, the paper's Fig. 1 at full size, (1000, 10000)
+   uniform(0, 1) from numpy seed 0 at η in (0.25, 0.5, 1, 2, 4); W4, its
+   Fig. 3 at full size, (32, 1000, 2000) uniform(0, 1) from numpy seed 2 at
+   η = 1. Each fused call, counted alone, launches its three kernels once
+   each (colmax/l1ball/clip or trilevel_reduce/l1ball/trilevel_apply) and
+   nothing else; its result is held to the generated pipeline
+   (``codegen.build(..., method="bisect")``) within 1e-6 (the golden pin)
+   and is feasible. On W1 and W3 the exact ℓ1,∞ projection
+   (``project_l1inf_exact``) is feasible, no farther from Y than the
+   bi-level result (relative 1e-6), equal to the same call on the CPU and,
+   with ``method="bisect"``, to Newton within 1e-4. Feasibility is held to
+   1e-5 · η + m · 2**-23 · max|Y| (one float32 ulp of the outer threshold
+   per summed column, as in phase 2);
+4. runs the SAE factory at the full width of ``stablelm-1.6b`` (24 layers,
    d_model 2048, 32 heads of 64, seeded init on the card): ``run_factory``
    twice, each harvesting 2 steps of 4 × 2048 tokens at layer 12 (24 flash
    launches per harvest step) and training with seeds (0, 1) 20 steps of
@@ -37,7 +59,7 @@ Run from the root of a checkout, with no arguments:
    equal the same forward with ``impl="naive"``; each design's first SAE
    step, from the main path's seed-0 init and batch and with live features,
    must equal the same step on the CPU (``hold_sae_step``);
-4. trains granite-3-2b on the card. First a held step: full width cut to 4
+5. trains granite-3-2b on the card. First a held step: full width cut to 4
    layers, float32 compute, the projection on, one step with
    ``impl="flash"`` against the same step with ``impl="naive"`` from the
    same state and batch. Then the main path, ``repro_torch.launch.train``
@@ -50,16 +72,22 @@ Run from the root of a checkout, with no arguments:
    columns, the launch counts (2 forward launches per layer and microbatch
    under remat, 1 of each backward kernel), the last checkpoint restored
    equal to the final state, and the peak device memory;
-5. times each kernel at full width (the projection kernels for the bucket
-   of 8 and for one item) with CUDA events (median of 20) beside its bound,
-   its plain version and, where one PyTorch call computes the same function,
-   that call; times one warm harvest step and one SAE step with their
+6. times each kernel at full width (the projection kernels for the bucket
+   of 8 and for one item, the golden kernels at their workloads W1–W4) with
+   CUDA events (median of 20) beside its bound, its plain version and,
+   where one PyTorch call computes the same function, that call; times the
+   four golden workloads' pipelines (golden, generated, the plain schedule
+   and, on W1 and W3, the exact projection; W3's exact/bi-level time ratio
+   at each η); times one warm harvest step and one SAE step with their
    parts; and one warm train step with its parts.
 
 The widths are the SAE factory's on stablelm-1.6b: d_model 2048, d_dict
 4 x 2048 = 8192, 32 heads; the projected tensor is the transposed encoder.
 Projection tolerance: |a - b| <= 1e-5 * max|Y| + 1e-5 * |b| (64-step
-float32 bisection and another summation order move θ by a few ulps). Flash
+float32 bisection and another summation order move θ by a few ulps); the
+same for the exact ℓ1,∞ projection on the card against the CPU (float32
+sorts and prefix sums in another order). Golden kernels: exact in float32
+and bf16 (maxima and clips do not round). Flash
 tolerance: o within 2e-5 + 1e-5 |b| (the JAX package's own f32 oracle
 tests use 2e-5), lse within 1e-5 + 1e-5 |b|. Harvest tolerance: 1e-5 of
 the largest activation + 1e-5 |b|. Flash backward tolerance: float32 dq/dk/dv within 1e-5 of
@@ -141,6 +169,10 @@ REPLACES = {  # (kernel, batched) -> the TPU kernel's pallas_call site
     ("flash_fwd", False): "src/repro/kernels/flash_attention.py:132",
     ("flash_bwd_dq", False): "src/repro/kernels/flash_attention.py:302",
     ("flash_bwd_dkv", False): "src/repro/kernels/flash_attention.py:325",
+    ("colmax", False): "src/repro/kernels/bilevel_l1inf.py:82",
+    ("clip", False): "src/repro/kernels/bilevel_l1inf.py:103",
+    ("trilevel_reduce", False): "src/repro/kernels/trilevel_l1infinf.py:70",
+    ("trilevel_apply", False): "src/repro/kernels/trilevel_l1infinf.py:98",
 }
 
 # flash forward: (q shape, kv shape, causal, window). The harvest's own shape
@@ -170,7 +202,7 @@ FLASH_CASES = [
 # of 64) at the training shape: microbatch 4 x 2048 tokens, causal
 GRANITE_ATTN = ((4, 32, 2048, 64), (4, 8, 2048, 64), True, None)
 
-# LM training (phase 4): launch/train.py's CLI at full width and depth
+# LM training (phase 5): launch/train.py's CLI at full width and depth
 TRAIN_ARCH = "granite-3-2b"
 # one checkpoint (the async save at the last step): the full state is
 # 31.6 GB and the chip machine's disk takes 45 GiB of writes per call
@@ -184,6 +216,28 @@ FACTORY = dict(arch="stablelm-1.6b", smoke=False, layers=(12,),
                harvest_steps=2, seq_len=2048, lm_batch=4, train_steps=20,
                sae_batch=4096, microbatch=1024)
 FACTORY_SEEDS = (0, 1)
+
+# the golden kernels of paper Algorithms 2 and 5 (kernels/bilevel_l1inf.py,
+# kernels/trilevel_l1infinf.py)
+GOLDEN = {  # kernel -> its source in src/repro_torch/csrc
+    "colmax": "bilevel_l1inf.cu",
+    "clip": "bilevel_l1inf.cu",
+    "trilevel_reduce": "trilevel_l1infinf.cu",
+    "trilevel_apply": "trilevel_l1infinf.cu",
+}
+# phase 3's workloads beyond the server's two requests (W1, W2): the
+# paper's Fig. 1 and Fig. 3 at full size (benchmarks/projections.py:37-74),
+# uniform(0, 1) from a numpy seed: (shape, seed, radii)
+FIG1 = ((1000, 10000), 0, (0.25, 0.5, 1.0, 2.0, 4.0))
+FIG3 = ((32, 1000, 2000), 2, (1.0,))
+# phase 1's extra shapes: tests/test_kernels.py's (colmax, clip; the
+# tri-level classes) and a ragged case that gets a NaN, +inf and -inf
+GOLDEN_SHAPES = {
+    "bilevel": [(8, 128), (256, 512), (300, 700), (1024, 257), (7, 1000),
+                (1, 128), (250, 333), (1024, 512), (37, 1001)],
+    "trilevel": [(2, 8, 128), (3, 17, 130), (8, 250, 64), (1, 64, 257),
+                 (4, 300, 700), (3, 9, 1001)],
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -209,6 +263,25 @@ def check_close(what, got, want, scale, rtol=RTOL):
     return max_err
 
 
+def check_exact(what, got, want):
+    """``got`` must equal ``want``: same shape and type, NaN in the same
+    places, every other entry equal (±inf included). Returns the max abs
+    error over the entries finite in both (0)."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise SmokeFailure(f"{what}: {tuple(got.shape)} {got.dtype} != "
+                           f"{tuple(want.shape)} {want.dtype}")
+    g, w = got.float(), want.float()
+    if not torch.equal(g.isnan(), w.isnan()):
+        raise SmokeFailure(f"{what}: NaN in other places")
+    finite = g.isfinite() & w.isfinite()
+    err = float((g - w)[finite].abs().max()) if bool(finite.any()) else 0.0
+    if bool(((g != w) & ~g.isnan()).any()):
+        raise SmokeFailure(f"{what}: not equal (max abs err {err:.3e})")
+    return err
+
+
 def event_ms(fn, reps=REPS):
     """Median milliseconds of ``fn()`` over ``reps`` runs, CUDA events,
     after two warm-up runs."""
@@ -226,6 +299,25 @@ def event_ms(fn, reps=REPS):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(fn, reps=REPS):
+    """Median milliseconds of one replay of ``fn`` captured in a CUDA graph:
+    the device's time for its launches with no host work (wrapper checks,
+    allocations, ``ctypes`` calls) inside the event window."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm up off the capture, as torch.cuda.graph asks
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = event_ms(graph.replay, reps)
+    del graph
+    return ms
 
 
 def host_ms(fn, reps=5):
@@ -248,6 +340,249 @@ def bound_ms(nbytes, nops, ops_per_s=F32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def hold_golden_kernels(randn, rand):
+    """Phase 1's golden kernels: ``colmax``, ``clip``, ``trilevel_reduce``
+    and ``trilevel_apply`` against their plain versions in float32 and
+    bf16, at the golden workloads' full-width shapes, at GOLDEN_SHAPES, and
+    on the ragged cases with a NaN, +inf and -inf in Y; every output must
+    equal. The radii are a random fraction of each column's maximum, in
+    float32 (the wrappers round them to Y's type), so the NaN and +inf
+    columns carry a NaN and an inf radius. Returns the max error of each
+    kernel and the number of cases."""
+    import torch
+
+    from repro_torch.kernels import bilevel_l1inf as bi, trilevel_l1infinf as tri
+
+    shapes = {"bilevel": [FULL["bilevel"][0], FIG1[0]] + GOLDEN_SHAPES["bilevel"],
+              "trilevel": [FULL["trilevel"][0], FIG3[0]]
+              + GOLDEN_SHAPES["trilevel"]}
+    errs, cases = dict.fromkeys(GOLDEN, 0.0), 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for design, design_shapes in shapes.items():
+            for shape in design_shapes:
+                y = randn(shape, 3.0).to(dtype)
+                if shape == design_shapes[-1]:   # the ragged case
+                    flat = y.view(-1)
+                    flat[5], flat[7 * shape[-1] + 3], flat[-2] = (
+                        float("nan"), float("inf"), -float("inf"))
+                tag = f"golden {str(dtype)[6:]} {shape}"
+                m = shape[-1]
+                if design == "bilevel":
+                    got = {"colmax": bi.colmax(y)}
+                    want = {"colmax": bi.colmax_plain(y)}
+                    u = want["colmax"].float() * (0.2 + 0.6 * rand((m,)))
+                    got["clip"], want["clip"] = bi.clip(y, u), bi.clip_plain(y, u)
+                else:
+                    v2, v1 = tri.trilevel_reduce(y)
+                    p2, p1 = tri.trilevel_reduce_plain(y)
+                    u1 = p1.float() * (0.2 + 0.6 * rand((m,)))
+                    got = {"trilevel_reduce": (v2, v1),
+                           "trilevel_apply": tri.trilevel_apply(y, p2, u1)}
+                    want = {"trilevel_reduce": (p2, p1),
+                            "trilevel_apply": tri.trilevel_apply_plain(y, p2, u1)}
+                torch.cuda.synchronize()
+                for name in got:
+                    pairs = zip(got[name], want[name]) \
+                        if name == "trilevel_reduce" else [(got[name], want[name])]
+                    for a, b in pairs:
+                        errs[name] = max(errs[name],
+                                         check_exact(f"{tag} {name}", a, b))
+                cases += 1
+    print(f"golden kernels vs plain versions, float32 and bf16, {cases} "
+          "cases (full width, tests/test_kernels.py shapes, NaN/±inf): "
+          "all equal; " + ", ".join(f"{k} max_abs_err {v:.3e}"
+                                     for k, v in errs.items()))
+    return errs
+
+
+def golden_workloads(server_reqs):
+    """W1–W4 of phase 3: ``{name: (design, y, radii)}`` on the card."""
+    import numpy as np
+    import torch
+
+    wls = {"W1": ("bilevel", *server_reqs["bilevel"]),
+           "W2": ("trilevel", *server_reqs["trilevel"])}
+    for name, design, (shape, seed, radii) in (("W3", "bilevel", FIG1),
+                                                ("W4", "trilevel", FIG3)):
+        y = np.random.default_rng(seed).uniform(0.0, 1.0, shape)
+        wls[name] = (design, torch.from_numpy(y.astype(np.float32)).cuda(),
+                     radii)
+    return wls
+
+
+def golden_phase(wls):
+    """Phase 3: the hand-written Algorithm 2 and 5 pipelines on W1–W4 (see
+    the module docstring). Each fused call runs in a counting window of its
+    own. Returns per workload its launch counts (summed over its radii),
+    the golden pin's largest difference and the exact projection's
+    checks."""
+    import torch
+
+    from repro_torch.core import exact_l1inf, multilevel
+    from repro_torch.kernels import (_build, bilevel_l1inf as bi, codegen,
+                                     trilevel_l1infinf as tri)
+
+    fused = {"bilevel": bi.bilevel_l1inf_fused,
+             "trilevel": tri.trilevel_l1infinf_fused}
+    levels = {"bilevel": BILEVEL, "trilevel": TRILEVEL}
+    per_call = {"bilevel": {"colmax": 1, "l1ball": 1, "clip": 1},
+                "trilevel": {"trilevel_reduce": 1, "l1ball": 1,
+                             "trilevel_apply": 1}}
+    out = {}
+    for wl, (design, y, radii) in wls.items():
+        lv = levels[design]
+        generated = codegen.build(y.shape, lv, torch.float32, method="bisect")
+        scale, m = float(y.abs().max()), y.shape[-1]
+        counts, recs = {}, []
+        for eta in radii:
+            _build.reset_launches()
+            x = fused[design](y, eta)
+            torch.cuda.synchronize()
+            got = _build.launch_counts()
+            want = {k: per_call[design].get(k, 0) for k in got}
+            if got != want:
+                raise SmokeFailure(f"{wl} η={eta}: launches {got}, not {want}")
+            for k, n in got.items():
+                counts[k] = counts.get(k, 0) + n
+            pin = float((x - generated(y, eta)).abs().max())
+            if not pin <= 1e-6:
+                raise SmokeFailure(f"{wl} η={eta}: golden vs generated {pin:.3e}")
+            slack = RTOL * eta + m * 2.0 ** -23 * scale
+            nrm = float(multilevel.multilevel_norm(x, lv))
+            if not nrm <= eta + slack:
+                raise SmokeFailure(f"{wl} η={eta}: norm {nrm} > {eta} + {slack:.3e}")
+            rec = {"eta": eta, "pin_max_abs_diff": pin, "norm": nrm}
+            line = (f"golden {wl} {design} {tuple(y.shape)} η={eta:.6g}: "
+                    f"launches {({k: n for k, n in got.items() if n})}, golden "
+                    f"vs generated max_abs_diff {pin:.3e}, norm {nrm:.7g} "
+                    f"(excess {nrm - eta:.3e}, slack {slack:.3e})")
+            if design == "bilevel":
+                xe = exact_l1inf.project_l1inf_exact(y, eta)
+                xb = exact_l1inf.project_l1inf_exact(y, eta, method="bisect")
+                torch.cuda.synchronize()
+                ne = float(exact_l1inf.l1inf_norm(xe))
+                if not ne <= eta + slack:
+                    raise SmokeFailure(f"{wl} η={eta}: exact norm {ne}")
+                de, db = float((xe - y).norm()), float((x - y).norm())
+                if not de <= db * (1 + 1e-6):
+                    raise SmokeFailure(f"{wl} η={eta}: exact {de} farther than "
+                                       f"bi-level {db}")
+                nb = float((xe - xb).abs().max())
+                if not nb <= 1e-4:
+                    raise SmokeFailure(f"{wl} η={eta}: exact newton vs bisect {nb}")
+                t0 = time.perf_counter()
+                host = exact_l1inf.project_l1inf_exact(y.cpu(), eta)
+                host_s = time.perf_counter() - t0
+                ce = check_close(f"{wl} η={eta} exact card vs CPU", xe.cpu(),
+                                 host, scale)
+                rec.update(exact_norm=ne, exact_dist=de, bilevel_dist=db,
+                           exact_newton_vs_bisect=nb, exact_card_vs_cpu=ce)
+                line += (f"; exact norm {ne:.7g}, ‖X-Y‖ exact {de:.7g} vs "
+                         f"bi-level {db:.7g}, newton vs bisect {nb:.3e}, card "
+                         f"vs CPU {ce:.3e} (CPU call {host_s:.1f} s)")
+                del xe, xb, host
+            print(line)
+            recs.append(rec)
+            del x
+        out[wl] = {"design": design, "shape": list(y.shape), "counts": counts,
+                   "checks": recs}
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_golden(wls, golden, kernel_errs):
+    """Phase 6's golden rows: each golden kernel at its workloads (W1, W3
+    bi-level; W2, W4 tri-level) against its plain version, beside its
+    bound and the library call; then each workload's pipelines (golden,
+    generated, the plain schedule, and on W1 and W3 the exact projection)
+    at its first radius, and on W3 the exact and golden pipelines at every
+    radius. Returns the JSON rows and the pipeline times."""
+    import torch
+
+    from repro_torch.core import exact_l1inf, multilevel
+    from repro_torch.kernels import (bilevel_l1inf as bi, codegen, l1ball,
+                                     trilevel_l1infinf as tri)
+
+    rows, pipes = [], {}
+    for wl, (design, y, radii) in wls.items():
+        es, elems, m = y.element_size(), y.numel(), y.shape[-1]
+        eta = radii[0]
+        if design == "bilevel":
+            u = l1ball.outer_l1_solve(bi.colmax(y), eta)
+            u2 = u[None, :]
+            cases = {  # kernel, plain, bytes, operations, library
+                "colmax": (lambda: bi.colmax(y), lambda: bi.colmax_plain(y),
+                           es * (elems + m), 2 * elems,
+                           lambda: torch.amax(y.abs(), dim=0)),
+                "clip": (lambda: bi.clip(y, u), lambda: bi.clip_plain(y, u),
+                         es * (2 * elems + m), 2 * elems,
+                         lambda: torch.clamp(y, -u2, u2)),
+            }
+        else:
+            v2, v1 = tri.trilevel_reduce(y)
+            u1 = l1ball.outer_l1_solve(v1, eta)
+            nm = v2.numel()
+            cases = {
+                "trilevel_reduce": (lambda: tri.trilevel_reduce(y),
+                                    lambda: tri.trilevel_reduce_plain(y),
+                                    es * (elems + nm + m), 2 * elems + nm,
+                                    None),
+                "trilevel_apply": (lambda: tri.trilevel_apply(y, v2, u1),
+                                   lambda: tri.trilevel_apply_plain(y, v2, u1),
+                                   es * (2 * elems + nm + m), 2 * elems + nm,
+                                   None),
+            }
+        for name, (kern, plain, nbytes, nops, lib) in cases.items():
+            k_out, p_out = kern(), plain()
+            torch.cuda.synchronize()
+            pairs = zip(k_out, p_out) if name == "trilevel_reduce" \
+                else [(k_out, p_out)]
+            err = max([kernel_errs[name]] + [check_exact(
+                f"{wl} {name} (timing)", a, b) for a, b in pairs])
+            del k_out, p_out
+            plain_ms = event_ms(plain)
+            ms = event_ms(kern)
+            dev_ms = graph_ms(kern)
+            lib_ms = None if lib is None else event_ms(lib)
+            bms, by = bound_ms(nbytes, nops)
+            rows.append({
+                "name": name, "workload": f"{wl} {tuple(y.shape)} f32",
+                "route": "cuda", "source": f"src/repro_torch/csrc/{GOLDEN[name]}",
+                "replaces": REPLACES[name, False],
+                "launches": golden[wl]["counts"][name], "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                "bound_by": by, "library_ms": lib_ms, "graph_ms": dev_ms})
+            print(f"time {wl} {name} {tuple(y.shape)}: {ms:.4f} ms (bound "
+                  f"{bms:.4f} ms by {by}, {bms / ms:.2f} of bound; CUDA-graph "
+                  f"replay {dev_ms:.4f} ms, {bms / dev_ms:.2f} of bound), plain "
+                  f"{plain_ms:.4f} ms, library "
+                  f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
+                  f"max_abs_err {err:.3e}")
+        fused = bi.bilevel_l1inf_fused if design == "bilevel" \
+            else tri.trilevel_l1infinf_fused
+        lv = BILEVEL if design == "bilevel" else TRILEVEL
+        generated = codegen.build(y.shape, lv, torch.float32, method="bisect")
+        t = {"golden_ms": event_ms(lambda: fused(y, eta)),
+             "generated_ms": event_ms(lambda: generated(y, eta)),
+             "plain_schedule_ms": event_ms(
+                 lambda: multilevel.multilevel_project(y, lv, eta), reps=5)}
+        if design == "bilevel":
+            t["exact_ms"] = event_ms(
+                lambda: exact_l1inf.project_l1inf_exact(y, eta), reps=5)
+        if wl == "W3":
+            t["exact_over_golden"] = {}
+            for r in radii:
+                g_ms = event_ms(lambda: fused(y, r))
+                e_ms = event_ms(lambda: exact_l1inf.project_l1inf_exact(y, r),
+                                reps=5)
+                t["exact_over_golden"][r] = {"golden_ms": g_ms,
+                                             "exact_ms": e_ms,
+                                             "ratio": e_ms / g_ms}
+        pipes[wl] = t
+        print(f"time {wl} pipelines {tuple(y.shape)} η={eta:.6g} (ms): {t}")
+    return rows, pipes
 
 
 def hold_sae_step(dev, fc, harvest_dir, layer, main_loss):
@@ -379,14 +714,14 @@ def hold_function_grads(randn):
 
 
 def factory_phase(dev, fcfg, seeds, workdir, randn):
-    """Phase 3: the SAE factory on ``dev``. Builds the LM with the port's
+    """Phase 4: the SAE factory on ``dev``. Builds the LM with the port's
     seeded init and runs ``run_factory`` bi-level and with ``heads=32``,
     each counted for launches (the flash kernel once per layer and harvest
     step) and checked for falling finite losses and feasible encoders. The
     bi-level run's layer-12 shard 0 is held against the same forward with
     ``impl="naive"``; each design's first SAE step is held against the same
     step on the CPU. Then times one warm harvest step and one SAE step with
-    their parts. Returns what phase 4 and the JSON line report."""
+    their parts. Returns what phase 5 and the JSON line report."""
     import numpy as np
     import torch
 
@@ -677,9 +1012,9 @@ def hold_train_step(dev, radius):
 
 
 def training_phase(dev, workdir):
-    """Phase 4: the held step, then the main path (``launch.train.run`` at
+    """Phase 5: the held step, then the main path (``launch.train.run`` at
     full width and depth) with its checks, then one warm train step and its
-    parts on the trained state. Returns what phase 5 and the JSON line
+    parts on the trained state. Returns what phase 6 and the JSON line
     report."""
     import numpy as np
     import torch
@@ -824,7 +1159,7 @@ def training_phase(dev, workdir):
 
 
 def time_attention(attn_full, attn_case_errs, trn):
-    """Phase 5's attention rows: each flash kernel at granite's training
+    """Phase 6's attention rows: each flash kernel at granite's training
     shape in bf16 (the main path's type: the JSON rows) and in float32 (in
     each row under "float32"): the kernel, its plain version, and
     ``scaled_dot_product_attention`` (``enable_gqa``) on the same tensors,
@@ -1047,6 +1382,7 @@ def main() -> int:
     attn_full = {dt: hold_attention(randn, "granite", *GRANITE_ATTN, dt)
                  for dt in (torch.float32, torch.bfloat16)}
     fn_errs = hold_function_grads(randn)
+    golden_errs = hold_golden_kernels(randn, rand)
 
     full_cases = {}
     for wl, (shape, levels) in FULL.items():
@@ -1073,6 +1409,7 @@ def main() -> int:
     # codegen_batch, then one request through codegen
     launches = {}
     served = 0
+    server_reqs = {}  # the first request of each workload, for phase 3
     for wl, (shape, levels) in FULL.items():
         ys = [randn(shape) for _ in range(BUCKET + 1)]
         radii = [float(multilevel.multilevel_norm(y, levels))
@@ -1105,6 +1442,7 @@ def main() -> int:
             served += 1
         print(f"server {wl}: {len(outs)} requests correct and feasible "
               f"(last max_abs_err {err:.3e})")
+        server_reqs[wl] = (ys[0], (radii[0],))
         del ys, outs, tickets
         torch.cuda.empty_cache()
 
@@ -1154,14 +1492,19 @@ def main() -> int:
     print(f"server: {served} checked requests, 0 failures; plan cache "
           f"{planmod.cache_info()}")
 
-    # ------------------------------ phase 3: the SAE factory at full width
+    # ------------------ phase 3: the hand-written Algorithm 2 and 5 pipelines
+    wls = golden_workloads(server_reqs)
+    golden = golden_phase(wls)
+    del server_reqs
+
+    # ------------------------------ phase 4: the SAE factory at full width
     fac = factory_phase(dev, F.SAEFactoryConfig(**FACTORY), FACTORY_SEEDS,
                         ROOT / "build" / "chip_smoke_factory", randn)
 
-    # ------------------------------ phase 4: LM training at full width
+    # ------------------------------ phase 5: LM training at full width
     trn = training_phase(dev, ROOT / "build" / "chip_smoke_train")
 
-    # ------------------------------------- phase 5: times at full width
+    # ------------------------------------- phase 6: times at full width
     # each kernel at the bucket of 8 and at one item (the codegen path), on
     # the phase-1 inputs, held once more against its plain version
     rows = []
@@ -1255,6 +1598,9 @@ def main() -> int:
           f"{plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms, "
           f"max_abs_err {ferr:.3e}")
     rows += time_attention(attn_full, attn_case_errs, trn)
+    golden_rows, golden_ms = time_golden(wls, golden, golden_errs)
+    rows += golden_rows
+    del wls
     step_parts, sae_parts = fac["harvest_step_ms"], fac["sae_step_ms"]
     step_parts["flash_ms"] = fac["n_layers"] * ms
     # the 24 blocks' matmuls, norms, rope and the collect stack
@@ -1275,6 +1621,8 @@ def main() -> int:
                       "train": {k_: v_ for k_, v_ in trn.items()
                                 if k_ != "per_step"},
                       "flash_function_grad_err": fn_errs,
+                      "golden": {wl: dict(golden[wl], pipelines_ms=golden_ms[wl])
+                                 for wl in golden},
                       "engine_ms": {
                           wl: {"bucket_latency": v[0] * 1e3,
                                "per_request_latency": v[1] * 1e3,

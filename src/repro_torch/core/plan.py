@@ -13,7 +13,9 @@ through the plain PyTorch schedule executor on the key's device, and (b)
 specialized executables registered with :func:`register_plan_backend`: the
 generated CUDA pipeline ``codegen``/``codegen_batch``
 (``repro_torch.kernels.plan_backends``), available on ``"cuda"`` keys whose
-design the Hopper tiler accepts. ``make_plan`` plans for the card unless
+design the Hopper tiler accepts, and the exact ℓ1,∞ projection
+``exact_l1inf`` (``core.exact_l1inf``), available on 2-D bi-level ℓ1,∞
+scalar-radius keys on either device. ``make_plan`` plans for the card unless
 ``device="cpu"`` is asked for, and raises without a CUDA device.
 
 Example (CPU, fixed backend):
@@ -40,7 +42,7 @@ import torch
 from repro_torch import _device
 from repro_torch.obs import metrics as obs_metrics
 
-from . import ball, schedule
+from . import ball, exact_l1inf, schedule
 
 AUTO = "auto"
 
@@ -142,6 +144,37 @@ def torch_dtype(dtype) -> torch.dtype:
 def dtype_name(dtype) -> str:
     """The name plan keys carry (``"float32"``) of a dtype or its name."""
     return str(torch_dtype(dtype)).removeprefix("torch.")
+
+
+_L1INF_LEVELS = (("inf", 1), ("1", 1))
+
+
+def _exact_l1inf_available(key: PlanKey) -> bool:
+    # The EXACT ℓ1,∞ projection (Chu et al. semismooth Newton) targets the
+    # same ball as the bi-level design but is a different operator; offering
+    # it under method="auto" trades bi-level's looseness for measured speed,
+    # as the JAX planner does. 2-D scalar-radius keys only (the port's keys
+    # are unsharded forward keys).
+    return (key.levels == _L1INF_LEVELS and len(key.shape) == 2
+            and key.radius_kind == "scalar")
+
+
+def _build_exact_l1inf(key: PlanKey) -> Callable:
+    def fn(y, radius, out=None):
+        x = exact_l1inf.project_l1inf_exact(y, radius)
+        return x if out is None else out.copy_(x)
+
+    return fn
+
+
+register_plan_backend(PlanBackend(
+    name="exact_l1inf",
+    available=_exact_l1inf_available,
+    build=_build_exact_l1inf,
+    description="EXACT l1,inf projection (Chu et al. semismooth Newton on "
+                "the dual) in PyTorch ops: same ball as the bi-level design, "
+                "exact optimum",
+))
 
 
 def _maybe_register_kernel_backends() -> None:

@@ -1,0 +1,114 @@
+// golden.cuh — pieces shared by the hand-written golden kernels of the
+// paper's Algorithms 2 and 5 (bilevel_l1inf.cu, trilevel_l1infinf.cu):
+// storage types, 16-byte vector access, NaN-propagating max/min, and the
+// fold of per-split column maxima.
+//
+// These kernels are an independent second implementation of what the
+// generated pipeline (codegen_reduce.cu, codegen_apply.cu) computes for the
+// bi-level and tri-level ℓ1,∞ designs, so they share none of its bodies.
+//
+// Storage: float32 (`float`) or bf16 kept as its raw bits (`unsigned short`).
+// Every value the golden kernels write is one of their inputs' values, its
+// negation, or NaN (maxima, clips, minima: no arithmetic rounds), so the
+// bf16 narrowing below is a truncation of the widened bits and is exact.
+#pragma once
+
+#include "common.cuh"
+
+namespace golden {
+
+enum : int { DTYPE_F32 = 0, DTYPE_BF16 = 1 };  // kernels/bilevel_l1inf.py
+
+constexpr int BM = 32;  // column threads per CTA: one warp across a row
+constexpr int BR = 8;   // thread rows per CTA
+
+using bf16_bits = unsigned short;
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(bf16_bits x) {
+  return __uint_as_float(static_cast<unsigned>(x) << 16);
+}
+
+template <typename S>
+__device__ __forceinline__ S narrow(float x);
+template <>
+__device__ __forceinline__ float narrow<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16_bits narrow<bf16_bits>(float x) {
+  return static_cast<bf16_bits>(__float_as_uint(x) >> 16);
+}
+
+// max / min that return NaN when either operand is NaN, as torch.maximum,
+// torch.amax and jnp.max do (fmaxf / fminf would drop the NaN).
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (a != a || a > b) ? a : b;
+}
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return (a != a || a < b) ? a : b;
+}
+// clip(y, -u, u) = min(max(y, -u), u), jnp.clip's order of operations
+__device__ __forceinline__ float clip_nan(float y, float u) {
+  return min_nan(max_nan(y, -u), u);
+}
+
+// VEC consecutive elements of one row; VEC * sizeof(S) == 16 makes every
+// access one 16-byte load or store (the wrapper checks the alignment).
+template <typename S, int VEC>
+struct alignas(VEC * sizeof(S)) Pack {
+  S v[VEC];
+};
+
+template <typename S, int VEC>
+__device__ __forceinline__ Pack<S, VEC> load(const S* p) {
+  return *reinterpret_cast<const Pack<S, VEC>*>(p);
+}
+
+template <typename S, int VEC>
+__device__ __forceinline__ void store(S* p, const Pack<S, VEC>& x) {
+  *reinterpret_cast<Pack<S, VEC>*>(p) = x;
+}
+
+// Fold a CTA's BR thread rows of per-column maxima (red[BR][BM * VEC]) and
+// write the CTA's partial row for columns [col0, col0 + BM * VEC).
+template <int VEC>
+__device__ __forceinline__ void write_partial(float (&red)[BR][BM * VEC],
+                                              float* __restrict__ partial_row,
+                                              int col0, int m) {
+  __syncthreads();
+  for (int c = threadIdx.y * BM + threadIdx.x; c < BM * VEC; c += BM * BR) {
+    float a = red[0][c];
+#pragma unroll
+    for (int r = 1; r < BR; ++r) a = max_nan(a, red[r][c]);
+    if (col0 + c < m) partial_row[col0 + c] = a;
+  }
+}
+
+// out[j] = max over the `splits` partial rows of column j, in y's type. A CTA
+// covers BM columns; its BR thread rows take every BR-th split, so each
+// thread has few dependent loads, then fold through shared memory.
+template <typename S>
+__global__ void __launch_bounds__(BM * BR)
+fold_splits(const float* __restrict__ partial, S* __restrict__ out, int m,
+            int splits) {
+  __shared__ float red[BR][BM];
+  const int j = blockIdx.x * BM + threadIdx.x;
+  float a = 0.f;  // identity of the max on |y| >= 0
+  if (j < m) {
+#pragma unroll 4
+    for (int s = threadIdx.y; s < splits; s += BR)
+      a = max_nan(a, partial[static_cast<long long>(s) * m + j]);
+  }
+  red[threadIdx.y][threadIdx.x] = a;
+  __syncthreads();
+  if (threadIdx.y == 0 && j < m) {
+#pragma unroll
+    for (int r = 1; r < BR; ++r) a = max_nan(a, red[r][threadIdx.x]);
+    out[j] = narrow<S>(a);
+  }
+}
+
+inline int ceil_div(long long a, long long b) {
+  return static_cast<int>((a + b - 1) / b);
+}
+
+}  // namespace golden

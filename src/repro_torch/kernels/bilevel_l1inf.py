@@ -1,0 +1,168 @@
+"""The bi-level ℓ1,∞ projection (paper Algorithm 2) as hand-written kernels
+(port of ``repro/kernels/bilevel_l1inf.py``).
+
+GOLDEN REFERENCE, as in the JAX package: the planner serves the generated
+pipeline (``kernels/codegen``); these kernels are a second, independent
+implementation of the same design that pins it (``chip_smoke.py`` on the
+card, ``tests/test_torch_golden.py`` on the CPU).
+
+    pass 1  colmax:  v[j]   = max_i |Y[i, j]|      (csrc/bilevel_l1inf.cu)
+    (tiny)  outer :  u      = P¹_η(v)              (kernels.l1ball.outer_l1_solve)
+    pass 2  clip  :  X[i,j] = clip(Y[i,j], ±u[j])  (csrc/bilevel_l1inf.cu)
+
+Y is read twice, the minimum for the split. :func:`colmax` and :func:`clip`
+launch their kernels on a CUDA tensor (float32 or bf16, output in Y's type)
+and run :func:`colmax_plain` / :func:`clip_plain` on a CPU tensor, nothing
+else. The TPU ``block_n``/``block_m`` arguments are not carried over: the
+wrappers pick the launch shape (:func:`launch_shape`).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from repro_torch import _device
+
+from . import _build, l1ball
+
+BM = 32            # column threads per CTA (csrc/golden.cuh)
+BR = 8             # thread rows per CTA
+TARGET_CTAS = 4 * 132  # four 256-thread CTAs on each of the H100's SMs
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/golden.cuh
+
+_P, _I = _build.PTR, _build.INT
+COLMAX = _build.Kernel("colmax", {
+    "golden_colmax": [_P, _P, _P] + [_I] * 6 + [_P],
+}, source="bilevel_l1inf")
+CLIP = _build.Kernel("clip", {
+    "golden_clip": [_P, _P, _P] + [_I] * 6 + [_P],
+}, source="bilevel_l1inf")
+
+
+# --------------------------------------------------------------------------- #
+# Launch shape and checks, shared with kernels/trilevel_l1infinf.py
+# --------------------------------------------------------------------------- #
+
+
+def vector_width(m: int, *ts: torch.Tensor) -> int:
+    """Elements per 16-byte access: ``16 / itemsize`` when every row of
+    width ``m`` starts 16-byte aligned in every tensor, else 1."""
+    vec = 16 // ts[0].element_size()
+    ok = m % vec == 0 and all(t.data_ptr() % 16 == 0 for t in ts)
+    return vec if ok else 1
+
+
+def launch_shape(n: int, m: int, vec: int, step: int = BR,
+                 target: int = TARGET_CTAS) -> Tuple[int, int]:
+    """``(rows_per_cta, row_ctas)``: cut n rows into chunks of a multiple of
+    ``step`` rows (a CTA walks ``step`` rows at a time), enough that the
+    ``ceil(m / (BM·vec))`` column strips times the chunks reach ``target``
+    CTAs (or one chunk per ``step`` rows)."""
+    strips = math.ceil(m / (BM * vec))
+    want = max(1, min(math.ceil(target / strips), math.ceil(n / step)))
+    rows = math.ceil(math.ceil(n / want) / step) * step
+    return rows, math.ceil(n / rows)
+
+
+def check_operands(what: str, y: torch.Tensor, *others: torch.Tensor) -> None:
+    """The kernels take contiguous float32 or bf16 tensors of one type on
+    one CUDA device."""
+    _device.require_cuda(y, what)
+    if y.dtype not in DTYPE_CODES:
+        raise ValueError(f"{what} takes float32 or bfloat16, got {y.dtype}")
+    for t in (y, *others):
+        if t.dtype != y.dtype or t.device != y.device:
+            raise ValueError(f"{what}: every operand must be {y.dtype} on "
+                             f"{y.device}, got {t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what} takes contiguous tensors")
+    if y.numel() == 0:
+        raise ValueError(f"{what} takes a non-empty tensor")
+
+
+# --------------------------------------------------------------------------- #
+# Plain versions (PyTorch ops)
+# --------------------------------------------------------------------------- #
+
+
+def colmax_plain(y: torch.Tensor) -> torch.Tensor:
+    """v[j] = max_i |Y[i, j]| in Y's type (NaN propagates)."""
+    return y.abs().amax(dim=0)
+
+
+def clip_plain(y: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """X = clip(Y, ±u) with u rounded to Y's type first, as JAX's
+    ``clip_pallas`` does; ``jnp.clip``'s max-then-min order."""
+    u = u.to(y.dtype)[None, :]
+    return torch.minimum(torch.maximum(y, -u), u)
+
+
+# --------------------------------------------------------------------------- #
+# Kernel wrappers
+# --------------------------------------------------------------------------- #
+
+
+def colmax(y: torch.Tensor) -> torch.Tensor:
+    """Per-column max|·| of a 2-D tensor: the ``colmax`` kernel on a CUDA
+    tensor, :func:`colmax_plain` on a CPU one."""
+    if y.ndim != 2:
+        raise ValueError(f"colmax takes a 2-D tensor, got {tuple(y.shape)}")
+    if y.device.type == "cpu":
+        return colmax_plain(y)
+    check_operands("colmax", y)
+    n, m = y.shape
+    vec = vector_width(m, y)
+    rows, splits = launch_shape(n, m, vec)
+    partial = torch.empty((splits, m), dtype=torch.float32, device=y.device)
+    out = torch.empty((m,), dtype=y.dtype, device=y.device)
+    COLMAX.launch("golden_colmax", y.data_ptr(), partial.data_ptr(),
+                  out.data_ptr(), DTYPE_CODES[y.dtype], vec, n, m, rows,
+                  splits, _build.stream_handle(y))
+    return out
+
+
+def clip(y: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """X = clip(Y, ±u) with ``u`` (m,) a per-column radius, rounded to Y's
+    type first: the ``clip`` kernel on a CUDA tensor, :func:`clip_plain` on
+    a CPU one."""
+    if y.ndim != 2 or u.shape != (y.shape[1],):
+        raise ValueError(f"clip takes y (n, m) and u (m,), got "
+                         f"{tuple(y.shape)} and {tuple(u.shape)}")
+    if y.device.type == "cpu":
+        return clip_plain(y, u)
+    u = u.to(y.dtype).contiguous()   # JAX: u.astype(y.dtype) outside the kernel
+    check_operands("clip", y, u)
+    n, m = y.shape
+    x = torch.empty_like(y)
+    vec = vector_width(m, y, u, x)
+    rows, ctas = launch_shape(n, m, vec)
+    CLIP.launch("golden_clip", y.data_ptr(), u.data_ptr(), x.data_ptr(),
+                DTYPE_CODES[y.dtype], vec, n, m, rows, ctas,
+                _build.stream_handle(y))
+    return x
+
+
+def check_fused(what: str, y: torch.Tensor) -> None:
+    """The fused pipelines take float32: the outer solve's ``l1ball``
+    kernel is float32-only."""
+    if y.dtype != torch.float32:
+        raise ValueError(f"{what} takes float32 (the l1ball outer solve is "
+                         f"float32-only), got {y.dtype}")
+
+
+def bilevel_l1inf_fused(y: torch.Tensor, radius, *,
+                        method: str = "bisect") -> torch.Tensor:
+    """Fused bi-level ℓ1,∞ projection of Y (n, m): colmax → outer ℓ1
+    solve → clip, on Y's device.
+
+    ``method`` selects the outer θ-solve: "bisect" or "filter" run the
+    ``l1ball`` kernel; any other ``core.ball`` method, or m over JAX's
+    single-block limit, the solver in PyTorch ops (``l1ball.outer_l1_solve``).
+    """
+    check_fused("bilevel_l1inf_fused", y)
+    v = colmax(y)
+    u = l1ball.outer_l1_solve(v, radius, method=method)
+    return clip(y, u)

@@ -10,6 +10,10 @@ it runs :func:`project_l1_plain`, the same two algorithms in PyTorch ops:
 * ``filter`` — Michelot/Condat fixed point, at most n + 2 sweeps.
 
 Both return θ = 0 inside the ball (the ball contract of ``core.ball``).
+
+:func:`project_l1` is the single-vector form (B = 1) and
+:func:`outer_l1_solve` the golden pipelines' outer θ-solve, routed by method
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,6 +27,9 @@ from .codegen.tiling import L1_KERNEL_MAX
 
 _ITERS = 64
 KERNEL_METHODS = ("bisect", "filter")
+# the JAX package's single-block VMEM limit (its L1_KERNEL_MAX): longer
+# vectors take the PyTorch-ops route in outer_l1_solve there and here
+REF_ROUTE_ABOVE = 512 * 1024
 _METHOD_CODES = {"bisect": 0, "filter": 1}
 
 KERNEL = _build.Kernel("l1ball", {
@@ -118,3 +125,31 @@ def project_l1_batched(v: torch.Tensor, radii: torch.Tensor, *,
                   out.data_ptr(), b, n, _METHOD_CODES[method],
                   _iters(method, n), _build.stream_handle(v))
     return out
+
+
+def project_l1(v: torch.Tensor, radius, *, method: str = "bisect") -> torch.Tensor:
+    """Project one vector ``v`` (n,) onto the ℓ1 ball of ``radius``: the
+    batched kernel (or its plain version on a CPU tensor) with B = 1.
+
+    ``method`` is "bisect" or "filter"; a CUDA vector over
+    ``L1_KERNEL_MAX`` values raises (the kernel keeps it in shared memory).
+    """
+    if v.ndim != 1:
+        raise ValueError(f"project_l1 takes a vector, got {tuple(v.shape)}")
+    radii = torch.as_tensor(radius, dtype=v.dtype, device=v.device).reshape(1)
+    return project_l1_batched(v[None], radii, method=method)[0]
+
+
+def outer_l1_solve(v: torch.Tensor, radius, *, method: str = "bisect"
+                   ) -> torch.Tensor:
+    """The golden pipelines' outer θ-solve on the column aggregate ``v``
+    (m,), routed as JAX's ``outer_l1_solve``: a kernel method ("bisect",
+    "filter") runs :func:`project_l1`, any other method, or a vector over
+    ``REF_ROUTE_ABOVE`` values, the ``core.ball`` solver in PyTorch ops on
+    ``v``'s device. A kernel method on a CUDA vector of
+    ``L1_KERNEL_MAX`` + 1 … ``REF_ROUTE_ABOVE`` values raises (over the
+    card's shared memory, under JAX's limit)."""
+    if v.shape[0] <= REF_ROUTE_ABOVE and method in KERNEL_METHODS:
+        return project_l1(v, radius, method=method)
+    from .ref import project_l1_ref
+    return project_l1_ref(v, radius, method=method)

@@ -1,0 +1,142 @@
+"""The tri-level ℓ1,∞,∞ projection (paper Algorithm 5) as hand-written
+kernels (port of ``repro/kernels/trilevel_l1infinf.py``).
+
+GOLDEN REFERENCE, as in the JAX package: the planner serves the generated
+pipeline (``kernels/codegen``); these kernels pin it. ``TP^{1,∞,∞}_η(Y)`` for
+Y ∈ R^{c,n,m} is
+
+    pass 1  reduce:  v2[i,j] = max_c |Y[c,i,j]|  and  v1[j] = max_i v2[i,j]
+                     in ONE pass over Y             (csrc/trilevel_l1infinf.cu)
+    (tiny)  outer :  u1 = P¹_η(v1)                  (kernels.l1ball.outer_l1_solve)
+    pass 2  apply :  X = clip(Y, ±min(v2, u1))      (csrc/trilevel_l1infinf.cu)
+
+:func:`trilevel_reduce` and :func:`trilevel_apply` launch their kernels on a
+CUDA tensor (float32 or bf16, outputs in Y's type) and run their ``_plain``
+versions on a CPU tensor, nothing else. The launch shape is the wrappers'
+(``bilevel_l1inf.launch_shape``), not the TPU's ``block_n``/``block_m``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from . import _build, l1ball
+from .bilevel_l1inf import (BM, BR, DTYPE_CODES, TARGET_CTAS, check_fused,
+                            check_operands, launch_shape, vector_width)
+
+_P, _I = _build.PTR, _build.INT
+REDUCE = _build.Kernel("trilevel_reduce", {
+    "golden_trilevel_reduce": [_P] * 4 + [_I] * 8 + [_P],
+}, source="trilevel_l1infinf")
+APPLY = _build.Kernel("trilevel_apply", {
+    "golden_trilevel_apply": [_P] * 4 + [_I] * 9 + [_P],
+}, source="trilevel_l1infinf")
+
+
+def reduce_shape(c: int, n: int, m: int, vec: int) -> Tuple[int, int, int]:
+    """``(rows_per_cta, row_ctas, groups)`` of the reduce: ``groups`` thread
+    rows share each row's c slices, the fewest (1, 2, 4 or 8) with which
+    the column strips times the row chunks reach ``TARGET_CTAS``, and no
+    more than c slices can feed."""
+    strips = math.ceil(m / (BM * vec))
+    groups = 1
+    while (groups < BR and 2 * groups <= c
+           and strips * math.ceil(n * groups / BR) < TARGET_CTAS):
+        groups *= 2
+    return (*launch_shape(n, m, vec, step=BR // groups), groups)
+
+
+def _check_order3(what: str, y: torch.Tensor) -> None:
+    if y.ndim != 3:
+        raise ValueError(f"{what} expects an order-3 tensor, got "
+                         f"{tuple(y.shape)}")
+
+
+# --------------------------------------------------------------------------- #
+# Plain versions (PyTorch ops)
+# --------------------------------------------------------------------------- #
+
+
+def trilevel_reduce_plain(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(v2, v1) = (max_c |Y|, max_{c,i} |Y|) in Y's type."""
+    v2 = y.abs().amax(dim=0)
+    return v2, v2.amax(dim=0)
+
+
+def trilevel_apply_plain(y: torch.Tensor, v2: torch.Tensor,
+                         u1: torch.Tensor) -> torch.Tensor:
+    """X = clip(Y, ±min(v2, u1)), u1 rounded to Y's type and the min taken
+    in Y's type, as JAX's ``trilevel_apply_pallas``."""
+    u2 = torch.minimum(v2, u1.to(y.dtype)[None, :])[None]
+    return torch.minimum(torch.maximum(y, -u2), u2)
+
+
+# --------------------------------------------------------------------------- #
+# Kernel wrappers
+# --------------------------------------------------------------------------- #
+
+
+def trilevel_reduce(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(v2 (n, m), v1 (m,)) of Y (c, n, m) in one streaming pass: the
+    ``trilevel_reduce`` kernel on a CUDA tensor, the plain version on a CPU
+    one."""
+    _check_order3("trilevel_reduce", y)
+    if y.device.type == "cpu":
+        return trilevel_reduce_plain(y)
+    check_operands("trilevel_reduce", y)
+    c, n, m = y.shape
+    vec = vector_width(m, y)
+    rows, splits, groups = reduce_shape(c, n, m, vec)
+    v2 = torch.empty((n, m), dtype=y.dtype, device=y.device)
+    partial = torch.empty((splits, m), dtype=torch.float32, device=y.device)
+    v1 = torch.empty((m,), dtype=y.dtype, device=y.device)
+    REDUCE.launch("golden_trilevel_reduce", y.data_ptr(), v2.data_ptr(),
+                  partial.data_ptr(), v1.data_ptr(), DTYPE_CODES[y.dtype], vec,
+                  c, n, m, rows, splits, groups, _build.stream_handle(y))
+    return v2, v1
+
+
+def trilevel_apply(y: torch.Tensor, v2: torch.Tensor,
+                   u1: torch.Tensor) -> torch.Tensor:
+    """X = clip(Y, ±min(v2, u1)) for Y (c, n, m), v2 (n, m), u1 (m,): the
+    ``trilevel_apply`` kernel on a CUDA tensor, the plain version on a CPU
+    one."""
+    _check_order3("trilevel_apply", y)
+    c, n, m = y.shape
+    if v2.shape != (n, m) or u1.shape != (m,):
+        raise ValueError(f"trilevel_apply takes v2 {(n, m)} and u1 {(m,)}, "
+                         f"got {tuple(v2.shape)} and {tuple(u1.shape)}")
+    if y.device.type == "cpu":
+        return trilevel_apply_plain(y, v2, u1)
+    u1 = u1.to(y.dtype).contiguous()  # JAX: u1.astype(y.dtype) outside the kernel
+    check_operands("trilevel_apply", y, v2, u1)
+    x = torch.empty_like(y)
+    vec = vector_width(m, y, v2, u1, x)
+    rows, row_ctas = launch_shape(n, m, vec)
+    # split the slice axis when rows and columns give too few CTAs
+    ctas = math.ceil(m / (BM * vec)) * row_ctas
+    per = math.ceil(c / max(1, min(c, math.ceil(TARGET_CTAS / ctas))))
+    APPLY.launch("golden_trilevel_apply", y.data_ptr(), v2.data_ptr(),
+                 u1.data_ptr(), x.data_ptr(), DTYPE_CODES[y.dtype], vec, c, n,
+                 m, rows, row_ctas, per, math.ceil(c / per),
+                 _build.stream_handle(y))
+    return x
+
+
+def trilevel_l1infinf_fused(y: torch.Tensor, radius, *,
+                            method: str = "bisect") -> torch.Tensor:
+    """Fused tri-level ℓ1,∞,∞ projection of Y (c, n, m): reduce → outer ℓ1
+    solve → apply, on Y's device.
+
+    ``method`` selects the outer θ-solve: "bisect" or "filter" run the
+    ``l1ball`` kernel; any other ``core.ball`` method, or m over JAX's
+    single-block limit, the solver in PyTorch ops (``l1ball.outer_l1_solve``).
+    """
+    _check_order3("trilevel_l1infinf_fused", y)
+    check_fused("trilevel_l1infinf_fused", y)
+    v2, v1 = trilevel_reduce(y)
+    u1 = l1ball.outer_l1_solve(v1, radius, method=method)
+    return trilevel_apply(y, v2, u1)

@@ -189,8 +189,66 @@ def test_flash_backward_kernels_share_one_source():
     assert {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"} <= set(_build.launch_counts())
 
 
+GOLDEN_WRAPPERS = ("colmax", "clip", "trilevel_reduce", "trilevel_apply",
+                   "bilevel_l1inf_fused", "trilevel_l1infinf_fused")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", GOLDEN_WRAPPERS)
+def test_golden_wrappers_launch_or_raise(name, dtype):
+    """The golden kernels' wrappers: a tensor that is not on the CPU never
+    reaches a plain version (the fused pipelines refuse bf16 first)."""
+    from repro_torch.kernels import bilevel_l1inf as bi, trilevel_l1infinf as tri
+
+    y2 = torch.empty(8, 16, device="meta", dtype=dtype)
+    y3 = torch.empty(2, 8, 16, device="meta", dtype=dtype)
+    row = torch.empty(16, device="meta", dtype=dtype)
+    calls = {
+        "colmax": lambda: bi.colmax(y2),
+        "clip": lambda: bi.clip(y2, row),
+        "trilevel_reduce": lambda: tri.trilevel_reduce(y3),
+        "trilevel_apply": lambda: tri.trilevel_apply(y3, y2, row),
+        "bilevel_l1inf_fused": lambda: bi.bilevel_l1inf_fused(y2, 1.0),
+        "trilevel_l1infinf_fused": lambda: tri.trilevel_l1infinf_fused(y3, 1.0),
+    }
+    fused_bf16 = name.endswith("_fused") and dtype == torch.bfloat16
+    match = "float32" if fused_bf16 else "CUDA kernel needs a CUDA tensor"
+    with pytest.raises(ValueError, match=match):
+        calls[name]()
+    for k in (bi.COLMAX, bi.CLIP, tri.REDUCE, tri.APPLY):
+        assert k.launches == 0
+
+
+@pytest.mark.parametrize("module,name", [
+    ("bilevel_l1inf", "COLMAX"), ("bilevel_l1inf", "CLIP"),
+    ("trilevel_l1infinf", "REDUCE"), ("trilevel_l1infinf", "APPLY")])
+def test_golden_kernels_without_a_build_raise(monkeypatch, tmp_path, module,
+                                              name):
+    """Each golden kernel: a call that reaches the launch without a built
+    library raises (no nvcc here) and counts nothing."""
+    import importlib
+
+    from repro_torch.kernels import _build
+
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
+    kern = getattr(mod, name)
+    assert kern.source == _build.CSRC / f"{module}.cu"
+    assert kern.name in _build.launch_counts()
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "TOOLKIT_NVCC", tmp_path / "no-nvcc")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(kern, "_lib", None)
+    fn = next(iter(kern.functions))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kern.launch(fn, *([0] * len(kern.functions[fn])))
+    assert kern.launches == 0
+
+
 @pytest.mark.parametrize("module", ["repro_torch.runtime",
-                                    "repro_torch.launch.train"])
+                                    "repro_torch.launch.train",
+                                    "repro_torch.kernels.bilevel_l1inf",
+                                    "repro_torch.kernels.trilevel_l1infinf",
+                                    "repro_torch.core.exact_l1inf"])
 def test_training_modules_import_neither_jax_nor_repro(module):
     code = (f"import sys, importlib; importlib.import_module({module!r})\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or "
