@@ -5,7 +5,10 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-1. builds the ten CUDA kernels of the seven sources in
+(``--only mesh`` builds the kernels and runs phase 7 alone: on a machine
+with four cards its ranks talk over NCCL.)
+
+1. builds the eleven CUDA kernels of the seven sources in
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, started together) and
    holds each against its plain PyTorch version on the card: the three
    generated-pipeline projection kernels at the two full-width
@@ -79,7 +82,35 @@ Run from the root of a checkout, with no arguments:
    four golden workloads' pipelines (golden, generated, the plain schedule
    and, on W1 and W3, the exact projection; W3's exact/bi-level time ratio
    at each η); times one warm harvest step and one SAE step with their
-   parts; and one warm train step with its parts.
+   parts; and one warm train step with its parts;
+7. the mesh executor at the full width of granite-3-2b. First the partial
+   apply (``codegen_partial_apply``, kernel row 9) alone: against its plain
+   version at wq's local shard, 40 × (64, 8, 2048), and on eight ragged
+   cases (depth 3 and 4, batch 1 and 40, edges off the block, ℓ∞, ℓ2 and
+   ℓ1 at level L-2, a NaN, +inf and -inf in Y), then timed there (events,
+   CUDA-graph replay, plain version, ``torch.clamp(y, -w, w)``). Then four
+   ranks (``torch.multiprocessing``, spawn): NCCL with one rank per card
+   when the machine has four, else gloo with all four on the one card
+   (collectives through the host, the ranks time-slicing the card). Each
+   rank builds granite's full wq (40, 2048, 32, 64) and w_up (40, 2048,
+   8192) from the seed, keeps its shard of the ("data", "model") = (1, 4)
+   mesh (``param_rules(fsdp=False)``: heads and ffn over "model") and
+   projects it through ``make_projection_hook(spec, mesh=, param_specs=)``:
+   wq transposed under ν = (ℓ∞, ℓ1, ℓ1) (the partial-apply path: one psum,
+   then a 64-step distributed bisection, then row 9), w_up under the
+   bi-level ν (the gather path), each at 0.05 of the init's smallest
+   per-layer norm. With the codegen body, from zero: per rank and call
+   1 ``codegen_reduce``, 1 ``l1ball`` and 1 ``codegen_partial_apply`` (wq)
+   or ``codegen_apply`` (w_up), and the collective calls and bytes of
+   ``sharded_collective_bytes``; the plain body launches nothing and moves
+   the same bytes. Each shard: codegen body against plain body within
+   1e-6 · max(max|Y|, max v) (v the outer aggregate: the two bodies' outer
+   θ-bisections, the kernel's and PyTorch's, end a few ulps of max v
+   apart), against its slice of the single-device generated projection of
+   the whole leaf within 1e-5 · max|Y|; every layer feasible (the bound
+   below) and its share of zero outer groups strictly inside (0, 100) %.
+   Times (events, median of 20, every rank in lock-step): one hook call per
+   leaf and body, and the distributed bisection alone.
 
 The widths are the SAE factory's on stablelm-1.6b: d_model 2048, d_dict
 4 x 2048 = 8192, 32 heads; the projected tensor is the transposed encoder.
@@ -173,6 +204,7 @@ REPLACES = {  # (kernel, batched) -> the TPU kernel's pallas_call site
     ("clip", False): "src/repro/kernels/bilevel_l1inf.py:103",
     ("trilevel_reduce", False): "src/repro/kernels/trilevel_l1infinf.py:70",
     ("trilevel_apply", False): "src/repro/kernels/trilevel_l1infinf.py:98",
+    ("codegen_partial_apply", False): "src/repro/kernels/codegen/lowering.py:309",
 }
 
 # flash forward: (q shape, kv shape, causal, window). The harvest's own shape
@@ -1240,8 +1272,388 @@ def time_attention(attn_full, attn_case_errs, trn):
     return rows
 
 
-def main() -> int:
+# the mesh executor (phase 7): granite-3-2b's wq and w_up at full width,
+# projected by the sharded hook on a ("data", "model") = (1, 4) mesh with
+# heads and ffn sharded over "model" (param_rules(fsdp=False))
+MESH_ARCH = "granite-3-2b"
+MESH_RANKS = 4
+MESH_HOOKS = (  # leaf -> (its path under blocks/, the ProjectionSpec's fields)
+    ("wq", ("attn", "wq"), dict(pattern=r"wq", levels=(("inf", 1), ("1", 1), ("1", 1)),
+                                transpose=True, method="bisect")),
+    ("w_up", ("mlp", "w_up"), dict(pattern=r"w_up", levels=(("inf", 1), ("1", 1)),
+                                   method="bisect")),
+)
+# per rank and hook call: the kernels of the sharded codegen body
+MESH_LAUNCHES = {"wq": {"codegen_reduce": 1, "codegen_partial_apply": 1,
+                        "codegen_apply": 0, "l1ball": 1},
+                 "w_up": {"codegen_reduce": 1, "codegen_partial_apply": 0,
+                          "codegen_apply": 1, "l1ball": 1}}
+# the partial apply alone (phase 7a): wq's local shard in canonical form,
+# then ragged cases (batch, canonical shape, reduce norms; level L-2 is the
+# second-to-last norm), a NaN, +inf and -inf in item 0 of each
+PARTIAL_FULL = (40, (64, 8, 2048), ("inf", "1"))
+PARTIAL_CASES = [
+    (1, (5, 13, 77), ("inf", "1")),
+    (40, (3, 9, 45), ("2", "1")),
+    (1, (7, 11, 33), ("1", "1")),
+    (40, (4, 8, 40), ("1", "1")),
+    (1, (3, 4, 9, 50), ("inf", "inf", "1")),
+    (40, (2, 3, 10, 37), ("1", "2", "1")),
+    (1, (3, 5, 7, 65), ("2", "1", "1")),
+    (40, (2, 3, 5, 33), ("inf", "1", "1")),
+]
+
+
+def check_close_nan(what, got, want, scale, rtol=RTOL):
+    """Like :func:`check_close`, for inputs with NaN and ±inf: NaN in the
+    same places, infinities equal, the rest within 1e-5 · scale + rtol ·
+    |want|. Returns the max abs error over the entries finite in both."""
     import torch
+
+    if got.shape != want.shape:
+        raise SmokeFailure(f"{what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if not torch.equal(got.isnan(), want.isnan()):
+        raise SmokeFailure(f"{what}: NaN in other places")
+    fin = got.isfinite() & want.isfinite()
+    if not torch.equal(got[~fin & ~got.isnan()], want[~fin & ~want.isnan()]):
+        raise SmokeFailure(f"{what}: infinities differ")
+    err = (got - want)[fin].abs()
+    max_err = float(err.max()) if err.numel() else 0.0
+    if bool((err > 1e-5 * scale + rtol * want[fin].abs()).any()):
+        raise SmokeFailure(f"{what}: max abs err {max_err:.3e} past tolerance "
+                           f"(scale {scale:.3e})")
+    return max_err
+
+
+def partial_apply_inputs(randn, rand, batch, canon, norms, specials):
+    """Y (batch, *canon), the plain reduce's aggregates, and radii w shaped
+    like the last one (uniform fractions of it, so some groups shrink)."""
+    import torch
+
+    from repro_torch.core import schedule
+    from repro_torch.kernels.codegen import lowering, tiling
+
+    levels = [(q, 1) for q in norms] + [("1", 1)]
+    tp = tiling.plan_tiles(schedule.compile_schedule(canon, levels), torch.float32)
+    if tp is None or tp.canon_shape != tuple(canon):
+        raise SmokeFailure(f"partial apply {canon}: no tile plan")
+    yc = randn((batch,) + tuple(canon))
+    if specials:
+        flat = yc[0].view(-1)
+        flat[3], flat[flat.numel() // 2], flat[-2] = float("nan"), float("inf"), -float("inf")
+    aggs, _ = lowering.reduce_plain(yc, list(norms))
+    w = (rand(aggs[-1].shape) * 1.2 * aggs[-1]).contiguous()
+    return yc, tp, list(norms), aggs, w
+
+
+def hold_partial_apply(randn, rand):
+    """Phase 7a: ``codegen_partial_apply`` (kernel row 9) against
+    ``partial_apply_plain`` on the card, at wq's local shard and on the
+    ragged cases; then its times at wq's local shard. Returns its JSON row
+    without ``launches`` (the mesh phase counts them)."""
+    import torch
+
+    from repro_torch.kernels.codegen import lowering
+
+    err = 0.0
+    for batch, canon, norms in PARTIAL_CASES:
+        yc, tp, norms, aggs, w = partial_apply_inputs(randn, rand, batch, canon,
+                                                      norms, True)
+        got = lowering.codegen_partial_apply(yc, aggs, w, tp, norms)
+        torch.cuda.synchronize()
+        want = lowering.partial_apply_plain(yc, aggs, w, norms)
+        finite = yc[yc.isfinite()]
+        e = check_close_nan(f"partial apply {batch}x{canon} {norms}", got, want,
+                            float(finite.abs().max()))
+        print(f"partial apply {batch}x{canon} norms {norms} (NaN, ±inf in Y): "
+              f"max_abs_err {e:.3e}")
+        err = max(err, e)
+    batch, canon, norms = PARTIAL_FULL
+    yc, tp, norms, aggs, w = partial_apply_inputs(randn, rand, batch, canon,
+                                                  norms, False)
+    scale = float(yc.abs().max())
+    out = torch.empty_like(yc)
+    kern = lambda: lowering.codegen_partial_apply(yc, aggs, w, tp, norms, out=out)  # noqa: E731
+    plain = lambda: lowering.partial_apply_plain(yc, aggs, w, norms)  # noqa: E731
+    w_b = w[:, None]
+    lib = lambda: torch.clamp(yc, -w_b, w_b)  # noqa: E731
+    got = kern().clone()
+    torch.cuda.synchronize()
+    e = check_close(f"partial apply full {batch}x{canon}", got, plain(), scale)
+    if not torch.equal(got, lib()):  # ℓ∞ at level L-2: the clamp itself
+        raise SmokeFailure("partial apply full: not equal to torch.clamp")
+    print(f"partial apply full {batch}x{canon} norms {norms}: max_abs_err {e:.3e}, "
+          "equal to torch.clamp(y, -w, w)")
+    err = max(err, e)
+    del got
+    plain_ms = event_ms(plain)
+    ms = event_ms(kern)
+    dev_ms = graph_ms(kern)
+    lib_ms = event_ms(lib)
+    # Y read and X written once, v1 and w read once
+    nbytes = 4 * (2 * yc.numel() + aggs[0].numel() + w.numel())
+    bms, by = bound_ms(nbytes, 2 * yc.numel())
+    print(f"time codegen_partial_apply {batch}x{canon}: {ms:.4f} ms (bound "
+          f"{bms:.4f} ms by {by}, {bms / ms:.2f} of bound; CUDA-graph replay "
+          f"{dev_ms:.4f} ms, {bms / dev_ms:.2f} of bound), plain {plain_ms:.4f} "
+          f"ms, torch.clamp {lib_ms:.4f} ms, max_abs_err {err:.3e}")
+    return {"name": "codegen_partial_apply",
+            "workload": f"wq local shard {batch}x{canon} f32",
+            "route": "cuda", "source": "src/repro_torch/csrc/codegen_apply.cu",
+            "replaces": REPLACES["codegen_partial_apply", False],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+            "graph_ms": dev_ms}
+
+
+def _layer_stats(x, levels, names, mesh, batch):
+    """Per-layer norm of ``x`` under ``levels`` (its leading ``batch`` axes
+    are layers) and the share of the outer level's groups that are zero;
+    ``names`` shard axes over ``mesh`` (None: ``x`` is whole). Reduces
+    with the mesh's collectives where a level spans a sharded axis."""
+    import torch
+
+    cur, cur_names = x, list(names)
+    zero = None
+    for i, (q, k) in enumerate(levels):
+        axes = tuple(range(batch, batch + k)) if i < len(levels) - 1 \
+            else tuple(range(batch, cur.ndim))
+        if i == len(levels) - 1:  # the outer level's groups: zero or not
+            outer = [cur_names[a] for a in axes if cur_names[a]]
+            zeros = (cur == 0).flatten(batch).sum(-1).to(cur.dtype)
+            zeros = mesh.psum(zeros, outer) if outer else zeros
+            total = cur[(0,) * batch].numel() * (mesh.axis_size(outer) if outer else 1)
+            zero = zeros / total
+        a = cur.abs()
+        v = a.sum(axes) if q == "1" else (a * a).sum(axes) if q == "2" else a.amax(axes)
+        coll = [cur_names[ax] for ax in axes if cur_names[ax]]
+        if coll:
+            v = mesh.pmax(v, coll) if q == "inf" else mesh.psum(v, coll)
+        cur = torch.sqrt(v) if q == "2" else v
+        cur_names = [n for ax, n in enumerate(cur_names) if ax not in axes]
+    return cur, zero
+
+
+def mesh_rank(rank, world, backend, tmp):
+    """One rank of phase 7 (``torch.multiprocessing`` spawns it): joins the
+    world, builds granite-3-2b's full wq and w_up from the seed, keeps its
+    shard, and projects it through ``make_projection_hook(spec, mesh=,
+    param_specs=)`` with the codegen body (the main path: launch counts and
+    collective counts from zero) and the plain body. Checks each shard;
+    writes its numbers to ``<tmp>/rank<rank>.json``."""
+    import datetime
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.configs.types import ProjectionSpec
+    from repro_torch.core import schedule, sharded
+    from repro_torch.kernels import _build, l1ball
+    from repro_torch.kernels.codegen import lowering, tiling
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.params import init_params, param_specs
+    from repro_torch.optim.projection_hook import make_projection_hook
+    from repro_torch.parallel import sharding
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300),
+                            device_id=dev if backend == "nccl" else None)
+    mesh = make_host_mesh(1, world)
+    blocks = lm.template(get_arch(MESH_ARCH))["blocks"]
+    specs = param_specs({"blocks": blocks}, sharding.param_rules(mesh, fsdp=False),
+                        sharding.mesh_shape_dict(mesh))
+    out = {"rank": rank, "leaves": {}}
+    local, refs, pspecs = {}, {}, {}
+    for leaf, (grp, name), fields in MESH_HOOKS:
+        levels = fields["levels"]
+        full = init_params({"blocks": {grp: {name: blocks[grp][name]}}}, SEED,
+                           device=dev)["blocks"][grp][name]
+        spec = specs["blocks"][grp][name]
+        perm = (0,) + tuple(reversed(range(1, full.ndim))) \
+            if fields.get("transpose") else tuple(range(full.ndim))
+        view = full.permute(perm)
+        norms0, _ = _layer_stats(view, levels, (None,) * full.ndim, mesh, 1)
+        radius = RADIUS_FRACTION * float(norms0.min())
+        # the single-device generated pipeline on the whole leaf, and its
+        # outer aggregate (the interval [0, max] the outer θ-bisection walks)
+        whole = view.contiguous()
+        gen = lowering.generate(schedule.compile_schedule(view.shape, levels, 1),
+                                torch.float32, method="bisect")
+        ref = gen(whole, radius).permute(perm)
+        qs = [q for q, _ in levels]
+        tp = tiling.plan_tiles(schedule.compile_schedule(view.shape[1:], levels),
+                               torch.float32)
+        _, vfin = lowering.codegen_reduce(
+            whole.reshape((whole.shape[0],) + tp.canon_shape), tp, qs[:-1])
+        refs[leaf] = sharding.shard(ref, spec, mesh)
+        local[leaf] = sharding.shard(full, spec, mesh)
+        pspecs[leaf] = ProjectionSpec(radius=radius, **fields)
+        out["leaves"][leaf] = {"shape": list(full.shape), "spec": list(spec),
+                               "local_shape": list(local[leaf].shape),
+                               "radius": radius, "scale": float(full.abs().max()),
+                               "outer_aggregate_max": float(vfin.max()),
+                               "init_norm_min": float(norms0.min())}
+        del full, view, ref, whole, vfin
+        torch.cuda.empty_cache()
+    params = {"blocks": {grp: {name: local[leaf]} for leaf, (grp, name), _ in MESH_HOOKS}}
+
+    def hook(leaf, backend_):
+        return make_projection_hook(pspecs[leaf], mesh=mesh, param_specs=specs,
+                                    backend=backend_)
+
+    results = {}
+    for body in ("codegen", "plain"):  # the main path first
+        for leaf, (grp, name), fields in MESH_HOOKS:
+            h = hook(leaf, body)
+            torch.cuda.synchronize()
+            dist.barrier()
+            _build.reset_launches()
+            mesh.reset_counts()
+            x = h(params, 0)["blocks"][grp][name]
+            torch.cuda.synchronize()
+            counts = _build.launch_counts()
+            results[body, leaf] = x
+            o = out["leaves"][leaf]
+            o[f"{body}_collectives"] = mesh.counts()
+            o[f"{body}_launches"] = {k: counts[k] for k in MESH_LAUNCHES[leaf]}
+    for leaf, (grp, name), fields in MESH_HOOKS:
+        o = out["leaves"][leaf]
+        levels, scale = fields["levels"], o["scale"]
+        x, xp = results["codegen", leaf], results["plain", leaf]
+        # the bodies' outer θ-bisections (the l1ball kernel over the reduce
+        # kernel's sums in one, PyTorch ops in the other) end a few ulps
+        # apart on [0, max v]: 1e-6 of max(max|Y|, max v), v the outer
+        # aggregate
+        o["codegen_vs_plain"] = check_close(
+            f"rank {rank} {leaf} codegen vs plain", x, xp,
+            0.1 * max(scale, o["outer_aggregate_max"]), rtol=0.0)
+        o["codegen_vs_single_device"] = check_close(
+            f"rank {rank} {leaf} vs the single-device projection", x, refs[leaf],
+            scale, rtol=0.0)
+        want = dict(MESH_LAUNCHES[leaf])
+        if o["codegen_launches"] != want:
+            raise SmokeFailure(f"rank {rank} {leaf}: launches {o['codegen_launches']}"
+                               f" != {want}")
+        if any(o["plain_launches"].values()):
+            raise SmokeFailure(f"rank {rank} {leaf}: the plain body launched "
+                               f"{o['plain_launches']}")
+        perm = (0,) + tuple(reversed(range(1, x.ndim))) \
+            if fields.get("transpose") else tuple(range(x.ndim))
+        names = tuple(o["spec"][a] for a in perm)
+        vshape = [o["shape"][a] for a in perm]
+        model = sharded.sharded_collective_bytes(vshape, levels, names, mesh,
+                                                 batch_dims=1)
+        o["model"] = {"calls": model["schedule_calls"],
+                      "bytes": model["schedule_bytes"],
+                      "per_step": model["per_step"]}
+        for body in ("codegen", "plain"):
+            got = o[f"{body}_collectives"]
+            if (got["calls"], got["bytes"]) != (model["schedule_calls"],
+                                                model["schedule_bytes"]):
+                raise SmokeFailure(f"rank {rank} {leaf} {body}: collectives "
+                                   f"{got} != the model {o['model']}")
+        norms, zero = _layer_stats(x.permute(perm), levels, names, mesh, 1)
+        r = o["radius"]
+        slack = r * RTOL + vshape[-1] * 2.0 ** -23 * scale
+        o["max_norm_over_radius"] = float((norms / r).max())
+        if not bool((norms <= r + slack).all()):
+            raise SmokeFailure(f"rank {rank} {leaf}: a layer's norm "
+                               f"{float(norms.max())} > radius {r} + {slack}")
+        o["zero_groups_pct"] = [float(zero.min()) * 100, float(zero.max()) * 100]
+        if not bool(((zero > 0) & (zero < 1)).all()):
+            raise SmokeFailure(f"rank {rank} {leaf}: a layer is empty or whole "
+                               f"(zero outer groups {o['zero_groups_pct']} %)")
+
+    # times: one sharded hook call per leaf and body, and the wq path's
+    # distributed bisection alone, every rank in lock-step
+    for leaf, (grp, name), _ in MESH_HOOKS:
+        for body in ("codegen", "plain"):
+            h = hook(leaf, body)
+            dist.barrier()
+            out["leaves"][leaf][f"{body}_hook_ms"] = event_ms(lambda: h(params, 0))
+    fields = MESH_HOOKS[0][2]
+    yt = local["wq"].permute(0, 3, 2, 1).contiguous()
+    norms_ = [q for q, _ in fields["levels"]]
+    tp = tiling.plan_tiles(schedule.compile_schedule(yt.shape[1:], fields["levels"]),
+                           torch.float32)
+    yc = yt.reshape((yt.shape[0],) + tp.canon_shape)
+    aggs, acc = lowering.codegen_reduce(yc, tp, norms_[:-1], raw=True)
+    vfin = mesh.psum(acc, ("model",))
+    radii = torch.full((yc.shape[0],), pspecs["wq"].radius, device=dev)
+    u = l1ball.project_l1_batched(vfin, radii)
+    dist.barrier()
+    out["bisection_ms"] = event_ms(lambda: sharded._grouped_l1_collective(
+        aggs[-1], u, (1,), ("model",), vfin, mesh))
+    out["bisection_shape"] = list(aggs[-1].shape)
+    dist.barrier()
+    dist.destroy_process_group()
+    (tmp / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def mesh_phase(backend):
+    """Phase 7: four ranks project granite-3-2b's wq and w_up through the
+    sharded hook (``mesh_rank``); every rank's checks must pass. Returns the
+    ranks' numbers, rank 0 first."""
+    import torch
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    tmp = ROOT / "build" / "chip_smoke_mesh"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    t0 = time.perf_counter()
+    try:
+        mp.start_processes(mesh_rank, args=(MESH_RANKS, backend, tmp),
+                           nprocs=MESH_RANKS, join=True, start_method="spawn")
+    except ProcessException as e:
+        raise SmokeFailure(f"mesh phase: a rank failed:\n{e}") from None
+    ranks = [json.loads((tmp / f"rank{r}.json").read_text())
+             for r in range(MESH_RANKS)]
+    shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    for leaf, _, _ in MESH_HOOKS:
+        for o in ranks:
+            lo = o["leaves"][leaf]
+            print(f"mesh rank {o['rank']} {leaf} {tuple(lo['shape'])} spec "
+                  f"{tuple(lo['spec'])} shard {tuple(lo['local_shape'])}: "
+                  f"codegen vs plain {lo['codegen_vs_plain']:.3e}, vs the "
+                  f"single-device projection {lo['codegen_vs_single_device']:.3e} "
+                  f"(max|Y| {lo['scale']:.4e}, outer aggregate max "
+                  f"{lo['outer_aggregate_max']:.4e}); launches {lo['codegen_launches']}; "
+                  f"collectives {lo['codegen_collectives']['calls']} calls "
+                  f"{lo['codegen_collectives']['bytes']} bytes (model "
+                  f"{lo['model']['calls']} calls {lo['model']['bytes']} bytes); "
+                  f"every layer feasible (max norm/radius "
+                  f"{lo['max_norm_over_radius']:.7f}), zero outer groups "
+                  f"{min(lo['zero_groups_pct']):.2f}–{max(lo['zero_groups_pct']):.2f} %; "
+                  f"hook call {lo['codegen_hook_ms']:.3f} ms codegen, "
+                  f"{lo['plain_hook_ms']:.3f} ms plain")
+    per_rank = ", ".join(f"{o['bisection_ms']:.3f}" for o in ranks)
+    print(f"mesh distributed bisection {tuple(ranks[0]['bisection_shape'])}, 64 "
+          f"steps: {per_rank} ms (ranks 0–{MESH_RANKS - 1})")
+    print(f"mesh phase: {MESH_RANKS} ranks over {backend}, {seconds:.1f} s wall")
+    torch.cuda.synchronize()
+    return ranks, seconds
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description="Drive the port on the card.")
+    ap.add_argument("--only", choices=("mesh",),
+                    help="run one phase alone: 'mesh' builds the kernels and "
+                         "runs phase 7 (the partial apply, then the mesh "
+                         "executor on four ranks)")
+    args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to drive", file=sys.stderr)
@@ -1288,6 +1700,32 @@ def main() -> int:
 
     def rand(shape):
         return torch.rand(shape, generator=gen, device=dev)
+
+    # phase 7's collective transport: NCCL with one rank per card when the
+    # machine has four, else gloo with the four ranks on one card
+    mesh_backend = "nccl" if torch.cuda.device_count() >= MESH_RANKS else "gloo"
+    print(f"mesh backend: {mesh_backend}, {MESH_RANKS} ranks on "
+          + (f"cuda:0–{MESH_RANKS - 1}" if mesh_backend == "nccl" else "cuda:0"))
+
+    def mesh_phases():
+        """Phase 7: the partial apply alone, then the four ranks; its
+        kernel row (launches from rank 0's main path) and the ranks."""
+        torch.cuda.empty_cache()
+        row = hold_partial_apply(randn, rand)
+        torch.cuda.empty_cache()
+        ranks, seconds = mesh_phase(mesh_backend)
+        row["launches"] = ranks[0]["leaves"]["wq"]["codegen_launches"][
+            "codegen_partial_apply"]
+        return row, {"backend": mesh_backend, "seconds": seconds, "ranks": ranks}
+
+    if args.only == "mesh":
+        row, mesh = mesh_phases()
+        print(json.dumps({"kernels": [row], "mesh": mesh}))
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # ------------------------------------- phase 1: kernels vs plain versions
     def hold_pipeline(tag, shape, levels, batch):
@@ -1613,7 +2051,11 @@ def main() -> int:
             - parts["projection_ms"]
     print(f"harvest step breakdown (ms): {step_parts}")
     print(f"SAE step breakdown (ms): {sae_parts}")
-    print(json.dumps({"kernels": rows,
+    del full_cases, attn_full, flash_full, q, k, v
+    # ------------------------- phase 7: the mesh executor at full width
+    mesh_row, mesh = mesh_phases()
+    rows.append(mesh_row)
+    print(json.dumps({"kernels": rows, "mesh": mesh,
                       "factory": {"harvest_step_ms": step_parts,
                                   "sae_step_ms": sae_parts,
                                   "held_sae_step": fac["held_sae_step"],

@@ -18,6 +18,15 @@ design the Hopper tiler accepts, and the exact ℓ1,∞ projection
 scalar-radius keys on either device. ``make_plan`` plans for the card unless
 ``device="cpu"`` is asked for, and raises without a CUDA device.
 
+``sharding=(mesh, spec)`` makes a plan mesh-aware: the key carries the
+global shape and a :class:`ShardingKey`, the plan takes this rank's shard,
+and the candidates are the mesh executor's bodies, ``sharded`` (plain
+PyTorch ops) and ``sharded_codegen`` (the generated kernels, on ``"cuda"``
+keys ``kernels.codegen.distributed.shardable`` accepts). Nothing gathers
+the tensor, so the generic θ-solvers are no candidates there. Timing runs
+on every rank in lock-step (each candidate is collective); rank 0's verdict
+is broadcast.
+
 Example (CPU, fixed backend):
 
 >>> import torch
@@ -52,14 +61,30 @@ _AUTOTUNE_REPS = 7      # interleaved timing rounds (min per candidate kept)
 _RADIUS_KINDS = ("scalar", "batch")
 
 
+class ShardingKey(NamedTuple):
+    """Canonical, hashable description of a mesh sharding (a PlanKey part).
+
+    ``mesh_axes`` is ``((axis_name, size), ...)`` in mesh order; ``ranks``
+    the world ranks the mesh lays out; ``spec`` maps each tensor axis to a
+    mesh axis name (or None). The live mesh is kept in a side registry keyed
+    on ``(mesh_axes, ranks)``, registered whenever a plan is built from a
+    real mesh.
+    """
+
+    mesh_axes: Tuple[Tuple[str, int], ...]
+    ranks: Tuple[int, ...]
+    spec: Tuple[Optional[str], ...]
+
+
 class PlanKey(NamedTuple):
     """The cache key a plan is specialized on."""
 
-    shape: Tuple[int, ...]
+    shape: Tuple[int, ...]                # the global shape under a sharding
     dtype: str                            # torch dtype name, e.g. 'float32'
     levels: Tuple[Tuple[str, int], ...]   # canonical ('1'|'2'|'inf', n_axes)
     radius_kind: str                      # 'scalar' | 'batch'
     device: str                           # 'cuda' | 'cpu'
+    sharding: Optional[ShardingKey] = None  # None = single-device workload
 
 
 class PlanBackend(NamedTuple):
@@ -83,6 +108,8 @@ _SPECIALIZED: Dict[str, PlanBackend] = {}
 _EXECS: Dict[Tuple[PlanKey, str], Callable] = {}
 _PLANS: Dict[Tuple[PlanKey, str], "ProjectionPlan"] = {}
 _AUTO_WINNERS: Dict[PlanKey, Tuple[str, Dict[str, float]]] = {}
+_L1_WINNERS: Dict[PlanKey, str] = {}
+_MESHES: Dict[Tuple[Tuple[Tuple[str, int], ...], Tuple[int, ...]], object] = {}
 _KERNEL_BACKENDS_LOADED = False
 
 # hits/misses describe the current cache generation (reset with the caches);
@@ -109,6 +136,7 @@ def clear_cache() -> None:
     _EXECS.clear()
     _PLANS.clear()
     _AUTO_WINNERS.clear()
+    _L1_WINNERS.clear()
     _COUNTERS.update(dict.fromkeys(_COUNTER_KEYS, 0))
 
 
@@ -146,6 +174,74 @@ def dtype_name(dtype) -> str:
     return str(torch_dtype(dtype)).removeprefix("torch.")
 
 
+def canonical_sharding(sharding, ndim: int) -> Optional[ShardingKey]:
+    """Fold ``None``, a :class:`ShardingKey` or a ``(mesh, spec)`` pair
+    into a :class:`ShardingKey`, registering the live mesh. ``None`` for
+    what the mesh executor does not take — a mesh of one rank, a fully
+    replicated spec, or one tensor axis over several mesh axes — which the
+    single-device backends serve."""
+    if sharding is None or isinstance(sharding, ShardingKey):
+        return sharding
+    mesh, spec = sharding
+    if mesh.size <= 1:
+        return None
+    from . import sharded as shmod
+
+    names = shmod.parse_spec(spec, ndim, mesh)  # the one spec parser
+    if names is None or not any(names):
+        return None
+    mesh_axes = tuple((str(n), int(s)) for n, s in mesh.shape.items())
+    ranks = tuple(range(mesh.size))
+    _MESHES[mesh_axes, ranks] = mesh
+    return ShardingKey(mesh_axes, ranks, tuple(names))
+
+
+def _key_mesh(key: PlanKey):
+    return _MESHES.get((key.sharding.mesh_axes, key.sharding.ranks))
+
+
+def _sharded_available(key: PlanKey) -> bool:
+    # scalar radius only: a served bucket stacks items, the mesh executor
+    # projects one sharded tensor per call
+    return (key.sharding is not None and key.radius_kind == "scalar"
+            and _key_mesh(key) is not None)
+
+
+def _build_sharded(key: PlanKey) -> Callable:
+    from . import sharded as shmod
+
+    return _sharded_fn(key, "plain", shmod)
+
+
+def _sharded_fn(key: PlanKey, backend: str, shmod) -> Callable:
+    """``(y_local, radius, out)`` through the mesh executor; its outer
+    θ-solver is resolved once here, on rank 0, and broadcast."""
+    mesh = _key_mesh(key)
+    spec, levels = key.sharding.spec, list(key.levels)
+    padded = tuple(d * mesh.shape[n] if n else d for d, n in zip(
+        shmod.local_shape(key.shape, spec, mesh), spec))
+    method = shmod._resolve_sharded_method(
+        AUTO, schedule.compile_schedule(padded, levels), key.dtype, mesh,
+        device=key.device)
+
+    def fn(y, radius, out):
+        x = shmod.multilevel_project_sharded(
+            y, levels, radius, mesh=mesh, spec=spec, shape=key.shape,
+            method=method, backend=backend)
+        return x if out is None else out.copy_(x)
+
+    return fn
+
+
+register_plan_backend(PlanBackend(
+    name="sharded",
+    available=_sharded_available,
+    build=_build_sharded,
+    description="mesh executor, plain body: collective reduces, gathered "
+                "small outer solve, local applies (core/sharded.py)",
+))
+
+
 _L1INF_LEVELS = (("inf", 1), ("1", 1))
 
 
@@ -156,7 +252,7 @@ def _exact_l1inf_available(key: PlanKey) -> bool:
     # as the JAX planner does. 2-D scalar-radius keys only (the port's keys
     # are unsharded forward keys).
     return (key.levels == _L1INF_LEVELS and len(key.shape) == 2
-            and key.radius_kind == "scalar")
+            and key.radius_kind == "scalar" and key.sharding is None)
 
 
 def _build_exact_l1inf(key: PlanKey) -> Callable:
@@ -242,8 +338,11 @@ def _get_executable(key: PlanKey, name: str) -> Callable:
 
 
 def _candidates(key: PlanKey) -> List[str]:
-    """Backends worth timing for this key."""
-    if any(q == "1" for q, _ in key.levels):
+    """Backends worth timing for this key (a sharded key: the mesh
+    executor's bodies only)."""
+    if key.sharding is not None:
+        names = []
+    elif any(q == "1" for q, _ in key.levels):
         names = list(ball.available_methods())
     else:
         # no ℓ1 level: the θ-solver never runs, one generic executable does
@@ -253,9 +352,19 @@ def _candidates(key: PlanKey) -> List[str]:
     return names
 
 
+def _local_shape(key: PlanKey) -> Tuple[int, ...]:
+    """The tensor shape a plan for ``key`` takes: this rank's shard of a
+    sharded key, else ``key.shape``."""
+    if key.sharding is None:
+        return key.shape
+    from .sharded import local_shape
+
+    return local_shape(key.shape, key.sharding.spec, _key_mesh(key))
+
+
 def _bench_args(key: PlanKey):
     gen = torch.Generator(device=key.device).manual_seed(0)
-    shape = key.shape if key.radius_kind == "scalar" \
+    shape = _local_shape(key) if key.radius_kind == "scalar" \
         else (_AUTOTUNE_BATCH,) + key.shape
     y = torch.rand(shape, generator=gen, dtype=torch_dtype(key.dtype),
                    device=key.device)
@@ -271,16 +380,21 @@ def _sync(device: str) -> None:
         torch.cuda.synchronize()
 
 
-def _autotune(key: PlanKey) -> Tuple[str, Dict[str, float]]:
-    """Interleaved min-of-rounds shoot-out over every candidate backend.
+def _autotune(key: PlanKey, names: Optional[List[str]] = None
+              ) -> Tuple[str, Dict[str, float]]:
+    """Interleaved min-of-rounds shoot-out over every candidate backend
+    (or over ``names``).
 
     Candidates run round-robin and each keeps its fastest round: the fastest
     is the least disturbed by noise, and interleaving keeps drift from
     favouring one candidate. Every call is closed by a device synchronise, so
-    the host clock measures the work, not the enqueue.
+    the host clock measures the work, not the enqueue. On a sharded key every
+    rank runs the same rounds (the candidates are collective) and rank 0's
+    winner is broadcast.
     """
     y, radius = _bench_args(key)
-    fns = {name: _get_executable(key, name) for name in _candidates(key)}
+    names = _candidates(key) if names is None else names
+    fns = {name: _get_executable(key, name) for name in names}
     for fn in fns.values():
         for _ in range(2):
             fn(y, radius, None)  # build + warm
@@ -293,8 +407,27 @@ def _autotune(key: PlanKey) -> Tuple[str, Dict[str, float]]:
             _sync(key.device)
             timings[name] = min(timings[name],
                                 (time.perf_counter() - t0) * 1e6)
-    winner = min(timings, key=timings.get)
+    if key.sharding is not None:
+        winner = _key_mesh(key).broadcast_choice(
+            list(fns), lambda: min(timings, key=timings.get))
+    else:
+        winner = min(timings, key=timings.get)
     return winner, timings
+
+
+def best_l1_method(n: int, dtype=torch.float32, *, device=None) -> str:
+    """Autotuned θ-solver name for flat length-``n`` ℓ1 projections: only
+    ``core.ball`` registry methods compete, so the winner runs anywhere a
+    method name does (the mesh executor's replicated outer solve). Timed
+    once per (n, dtype, device) and cached."""
+    dev = _device.resolve(device)
+    key = PlanKey((int(n),), dtype_name(dtype), (("1", 1),), "scalar", dev.type)
+    if key in _L1_WINNERS:
+        _count("autotune_hits")
+    else:
+        _count("autotune_runs")
+        _L1_WINNERS[key] = _autotune(key, list(ball.available_methods()))[0]
+    return _L1_WINNERS[key]
 
 
 def _canonical_backend_name(key: PlanKey, method: str) -> str:
@@ -305,6 +438,11 @@ def _canonical_backend_name(key: PlanKey, method: str) -> str:
                 f"levels={key.levels} dtype={key.dtype} "
                 f"radius_kind={key.radius_kind!r} on device={key.device!r}")
         return method
+    if key.sharding is not None:
+        raise ValueError(
+            f"backend {method!r} is not available for a sharded key: the mesh "
+            "executor runs 'sharded' or 'sharded_codegen' (nothing gathers "
+            "the tensor)")
     try:
         return ball.resolve_method(method)
     except ValueError:
@@ -334,7 +472,7 @@ class ProjectionPlan:
     def __call__(self, y: torch.Tensor, radius=1.0,
                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.key.radius_kind == "scalar":
-            expected = self.key.shape
+            expected = _local_shape(self.key)
         else:
             expected = tuple(y.shape[:1]) + self.key.shape
         if tuple(y.shape) != expected:
@@ -355,7 +493,8 @@ class ProjectionPlan:
 
 
 def make_plan(shape, dtype, levels, radius_kind: str = "scalar",
-              method: str = AUTO, *, device=None) -> ProjectionPlan:
+              method: str = AUTO, *, device=None,
+              sharding=None) -> ProjectionPlan:
     """Build (or fetch from cache) the projection plan for one workload.
 
     ``shape``/``dtype`` describe one tensor to project (for
@@ -363,7 +502,9 @@ def make_plan(shape, dtype, levels, radius_kind: str = "scalar",
     radius per item). ``levels`` is the norm design ν. ``method`` is a
     backend name, or ``"auto"`` to time every available backend on first
     use and cache the winner. ``device`` is ``"cuda"`` (the default; raises
-    without a CUDA device) or ``"cpu"``.
+    without a CUDA device) or ``"cpu"``. ``sharding=(mesh, spec)``: ``shape``
+    is the global shape and the plan projects this rank's shard through the
+    mesh executor (every rank makes the same plan, in the same order).
     """
     _maybe_register_kernel_backends()
     dev = _device.resolve(device)
@@ -373,7 +514,8 @@ def make_plan(shape, dtype, levels, radius_kind: str = "scalar",
     if radius_kind not in _RADIUS_KINDS:
         raise ValueError(
             f"radius_kind must be one of {_RADIUS_KINDS}, got {radius_kind!r}")
-    key = PlanKey(shape, dtype_name(dtype), lv, radius_kind, dev.type)
+    key = PlanKey(shape, dtype_name(dtype), lv, radius_kind, dev.type,
+                  canonical_sharding(sharding, len(shape)))
     cache_key = (key, method)
     if cache_key in _PLANS:
         _count("plan_hits")

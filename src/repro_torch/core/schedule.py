@@ -218,3 +218,72 @@ def execute(y: torch.Tensor, sched: Schedule, radius,
         with obs_profile.stage_scope(app, i):
             w = apply_group(inputs[i], app.norm, w, app.axes, aggs[i], method)
     return w
+
+
+# --------------------------------------------------------------------------- #
+# Collective-bytes model of the mesh executor (core/sharded.py)
+# --------------------------------------------------------------------------- #
+
+_L1_APPLY_SWEEPS = 65  # distributed bisect: 64 φ-psums + the initial pmax
+
+
+def sharded_collective_bytes(shape, levels: Sequence[Level], spec,
+                             mesh_sizes, itemsize: int = 4, *,
+                             batch_dims: int = 0) -> dict:
+    """Per-step collective payload of the sharded schedule vs gathering the
+    tensor (pure arithmetic; the JAX package's model, plus batch axes).
+
+    ``spec`` maps each tensor axis to a mesh axis name (or None);
+    ``mesh_sizes`` maps mesh axis names to their rank counts. A payload is
+    what one rank's collective carries:
+
+    * a ReduceLevel over a sharded axis all-reduces its output aggregate;
+    * the OuterSolve all-gathers the final aggregate iff a sharded non-batch
+      axis survives every reduce;
+    * an ℓ∞/ℓ2 ApplyGroup is local; an ℓ1 ApplyGroup whose group spans a
+      sharded axis runs the distributed bisection, ``_L1_APPLY_SWEEPS``
+      collectives over the group count.
+
+    The leading ``batch_dims`` axes ride along in every payload at their
+    per-rank extent (a sharded batch axis carries its own slice only). Each
+    step also gives its number of collective ``calls`` (one per reduce or
+    gather, ``_L1_APPLY_SWEEPS`` per distributed bisection).
+    """
+    sched = compile_schedule(shape, levels, batch_dims)
+    b = sched.batch_dims
+    names = [spec[a] if a < len(spec) else None for a in range(len(shape))]
+    batch_local = math.prod(-(-d // mesh_sizes[n]) if n else d
+                            for d, n in zip(shape[:b], names[:b]))
+
+    def payload(stage_shape) -> int:
+        return batch_local * math.prod(stage_shape[b:]) * itemsize
+
+    steps = []
+    stage_names = [list(names)]
+    for i, red in enumerate(sched.reduces):
+        cur = stage_names[-1]
+        coll = [cur[a] for a in red.axes if cur[a]]
+        steps.append({"step": f"reduce_{red.norm}",
+                      "bytes": payload(sched.stage_shapes[i + 1]) if coll else 0,
+                      "calls": int(bool(coll))})
+        stage_names.append([n for a, n in enumerate(cur) if a not in red.axes])
+    gather = any(stage_names[-1][b:])
+    steps.append({"step": f"solve_{sched.solve.norm}",
+                  "bytes": payload(sched.stage_shapes[-1]) if gather else 0,
+                  "calls": sum(1 for n in stage_names[-1][b:] if n)})
+    for i, app in zip(reversed(range(len(sched.reduces))), sched.applies):
+        coll = [stage_names[i][a] for a in app.axes if stage_names[i][a]]
+        spans = app.norm == "1" and coll
+        steps.append({"step": f"apply_{app.norm}",
+                      "bytes": payload(sched.stage_shapes[i + 1])
+                      * _L1_APPLY_SWEEPS if spans else 0,
+                      "calls": _L1_APPLY_SWEEPS if spans else 0})
+    total = sum(s["bytes"] for s in steps)
+    gathered = math.prod(shape) * itemsize
+    return {
+        "per_step": steps,
+        "schedule_bytes": total,
+        "schedule_calls": sum(s["calls"] for s in steps),
+        "gather_bytes": gathered,
+        "ratio": gathered / max(total, 1),
+    }

@@ -3,8 +3,9 @@
 //
 // Replaces the generated TPU apply kernels of
 // repro/kernels/codegen/lowering.py: _apply_call (_make_apply_kernel with
-// _apply_tile, _apply_chain, _grouped_l1_tile) and _apply_call_batched
-// (_make_batched_apply_kernel).
+// _apply_tile, _apply_chain, _grouped_l1_tile), _apply_call_batched
+// (_make_batched_apply_kernel) and _partial_apply_call
+// (_make_partial_apply_kernel).
 //
 // Same canonical layout as codegen_reduce.cu. The radii chain starts at the
 // solved aggregate u (B, m) and walks down per column j and row i:
@@ -16,6 +17,18 @@
 //   64-step bisection run by the thread that owns the group.
 // ℓ2 rescales use the saved aggregates, never recomputed norms, and the
 // 1e-30 floor keeps an all-zero group out of 0/0. θ = 0 when Σ|x| <= r.
+// Levels L-2 … 1 keep the plain version's NaN rules (torch.maximum and
+// torch.minimum propagate NaN; fmaxf would drop it), so a NaN or ±inf in Y
+// lands where the plain version puts it.
+//
+// codegen_partial_apply resumes that chain one level down: the mesh
+// executor (kernels/codegen/distributed.py) solves level L-1's ℓ1 groups,
+// which span several ranks, with a distributed bisection and hands over
+// their radii w, shaped like the last lead aggregate (B, n, m). The kernel
+// reads w[b, i, j] where apply_kernel computes it and runs the same chain
+// (LEAD 1 or 2, designs of depth 3 and 4). One thread per (b, i, j) and its
+// lead group, rows split across CTAs as in the non-resident apply; no
+// shared memory, since no level-(L-1) group has to be resident.
 //
 // An ℓ1 apply at level L-1 needs a whole column in one CTA (the n_resident
 // pin of kernels/codegen/tiling.py): the CTA stages |x| of its 32 columns in
@@ -24,8 +37,8 @@
 // splits == 1. Otherwise rows split across CTAs like the reduce pass.
 // Each element is read and written by one thread, so `out` may alias `y`.
 //
-// Bound: bytes. Y is read once and X written once; the aggregates add
-// 1/g of that per lead level. O(1) operations per element outside ℓ1
+// Bound: bytes. Y is read once and X written once; the aggregates (and w)
+// add 1/g of that per lead level. O(1) operations per element outside ℓ1
 // groups, 64 sweeps over the group per ℓ1 level (served from shared memory
 // or L1/L2, not HBM).
 #include "common.cuh"
@@ -36,13 +49,22 @@ constexpr int BM = 32;  // columns per CTA (tiling.BLOCK_M)
 constexpr int BR = 8;   // thread rows per CTA (tiling.BLOCK_ROWS)
 constexpr int ITERS = 64;
 
+// torch.maximum / torch.minimum: a NaN in either operand gives NaN.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+
 // One group's ℓ1 θ, thread-serial over `len` values at `stride`
-// (lowering.py:_grouped_l1_tile): bisection on [0, max|x|].
+// (lowering.py:_grouped_l1_tile): bisection on [0, max|x|], step for step
+// the plain version's (kernels/l1ball.py:project_l1_plain).
 __device__ float group_theta(const float* x, long long stride, int len, float r) {
   float hi = 0.f, s = 0.f;
   for (int k = 0; k < len; ++k) {
     const float a = fabsf(x[k * stride]);
-    hi = fmaxf(hi, a);
+    hi = max_nan(hi, a);
     s += a;
   }
   if (s <= r) return 0.f;  // inside the ball: identity
@@ -50,7 +72,7 @@ __device__ float group_theta(const float* x, long long stride, int len, float r)
   for (int it = 0; it < ITERS; ++it) {
     const float mid = 0.5f * (lo + hi);
     float phi = 0.f;
-    for (int k = 0; k < len; ++k) phi += fmaxf(fabsf(x[k * stride]) - mid, 0.f);
+    for (int k = 0; k < len; ++k) phi += max_nan(fabsf(x[k * stride]) - mid, 0.f);
     if (phi > r) lo = mid; else hi = mid;
   }
   return 0.5f * (lo + hi);
@@ -60,9 +82,11 @@ __device__ float group_theta(const float* x, long long stride, int len, float r)
 // rescale by the group's saved aggregate, ℓ1 soft threshold by θ.
 __device__ __forceinline__ float shrink(int q, float x, float w, float agg,
                                         float theta) {
-  if (q == NORM_LINF) return fminf(fmaxf(x, -w), w);
+  if (q == NORM_LINF) return min_nan(max_nan(x, -w), w);
   if (q == NORM_L2) return agg > w ? x * (w / fmaxf(agg, 1e-30f)) : x;
-  return soft_threshold(x, theta);
+  // sign(x) * max(|x| - θ, 0), NaN kept as torch.sign(x) * torch.clamp does
+  const float sgn = x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
+  return sgn * max_nan(fabsf(x) - theta, 0.f);
 }
 
 // dst[k·stride] = shrink(src[k·stride]) for k < len. `dst` may alias `src`,
@@ -83,6 +107,36 @@ __device__ __forceinline__ void shrink_strided(int q, const float* src,
     for (int u = 0; u < UNROLL; ++u) dst[(k + u) * stride] = shrink(q, x[u], w, agg, theta);
   }
   for (; k < len; ++k) dst[k * stride] = shrink(q, src[k * stride], w, agg, theta);
+}
+
+// Levels L-2 … 1 of the chain at position ij of item b, from the radius w
+// of level L-1 there: LEAD 1 shrinks Y's group over l1 (aggregate v1);
+// LEAD 2 shrinks v1's group over l2 (aggregate v2), then Y's group over l1
+// under each of its members.
+template <int LEAD>
+__device__ __forceinline__ void lead_chain(const float* y, const float* v1,
+                                           const float* v2, float* out,
+                                           long long b, long long ij,
+                                           long long nm, int g1, int g2,
+                                           int q1, int q2, float w) {
+  if (LEAD == 1) {
+    const long long base = b * g1 * nm + ij;  // group over l1, stride nm
+    const float agg = v1[b * nm + ij];
+    const float th = q1 == NORM_L1 ? group_theta(y + base, nm, g1, w) : 0.f;
+    shrink_strided(q1, y + base, out + base, nm, g1, w, agg, th);
+  } else if (LEAD == 2) {
+    const float* v1g = v1 + b * g2 * nm + ij;  // group over l2, stride nm
+    const float agg2 = v2[b * nm + ij];
+    const float th2 = q2 == NORM_L1 ? group_theta(v1g, nm, g2, w) : 0.f;
+    const long long stride1 = static_cast<long long>(g2) * nm;
+    for (int l2 = 0; l2 < g2; ++l2) {
+      const float x1 = v1g[l2 * nm];
+      const float w2 = shrink(q2, x1, w, agg2, th2);
+      const long long base = (b * g1 * g2 + l2) * nm + ij;  // group over l1
+      const float th1 = q1 == NORM_L1 ? group_theta(y + base, stride1, g1, w2) : 0.f;
+      shrink_strided(q1, y + base, out + base, stride1, g1, w2, x1, th1);
+    }
+  }
 }
 
 // Fold one value per thread over the CTA's 8 thread rows of its column;
@@ -150,25 +204,29 @@ apply_kernel(const float* y, const float* __restrict__ v1,
   }
   for (int i = r0; i < r1; i += BR) {
     const long long ij = static_cast<long long>(i) * m + j;
-    const float w = shrink(qlast, xs[ij], uj, vj, theta);
-    if (LEAD == 1) {
-      const long long base = b * g1 * nm + ij;  // group over l1, stride nm
-      const float agg = v1[b * nm + ij];
-      const float th = q1 == NORM_L1 ? group_theta(y + base, nm, g1, w) : 0.f;
-      shrink_strided(q1, y + base, out + base, nm, g1, w, agg, th);
-    } else {
-      const float* v1g = v1 + b * g2 * nm + ij;  // group over l2, stride nm
-      const float agg2 = v2[b * nm + ij];
-      const float th2 = q2 == NORM_L1 ? group_theta(v1g, nm, g2, w) : 0.f;
-      const long long stride1 = static_cast<long long>(g2) * nm;
-      for (int l2 = 0; l2 < g2; ++l2) {
-        const float x1 = v1g[l2 * nm];
-        const float w2 = shrink(q2, x1, w, agg2, th2);
-        const long long base = (b * g1 * g2 + l2) * nm + ij;  // group over l1
-        const float th1 = q1 == NORM_L1 ? group_theta(y + base, stride1, g1, w2) : 0.f;
-        shrink_strided(q1, y + base, out + base, stride1, g1, w2, x1, th1);
-      }
-    }
+    lead_chain<LEAD>(y, v1, v2, out, b, ij, nm, g1, g2, q1, q2,
+                     shrink(qlast, xs[ij], uj, vj, theta));
+  }
+}
+
+// Levels L-2 … 1 below one position: each thread owns (b, i, j) and walks
+// the lead groups of column j and row i given w, the level-(L-1) radius
+// there. Resumed here by codegen_partial_apply with w read from memory.
+template <int LEAD>
+__global__ void __launch_bounds__(BM * BR)
+partial_apply_kernel(const float* y, const float* __restrict__ v1,
+                     const float* __restrict__ v2, const float* __restrict__ w,
+                     float* out, int g1, int g2, int n, int m, int q1, int q2,
+                     int rows_per_split) {
+  const int j = blockIdx.x * BM + threadIdx.x;
+  if (j >= m) return;
+  const long long b = blockIdx.y;
+  const long long nm = static_cast<long long>(n) * m;
+  const int r0 = blockIdx.z * rows_per_split + threadIdx.y;
+  const int r1 = min(n, blockIdx.z * rows_per_split + rows_per_split);
+  for (int i = r0; i < r1; i += BR) {
+    const long long ij = static_cast<long long>(i) * m + j;
+    lead_chain<LEAD>(y, v1, v2, out, b, ij, nm, g1, g2, q1, q2, w[b * nm + ij]);
   }
 }
 
@@ -214,4 +272,27 @@ REPRO_EXPORT int codegen_apply(const float* y, const float* v1, const float* v2,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// y, out: (batch, g1, g2, n, m) contiguous float32 as above (lead_rank 1
+// or 2; out may alias y); v1/v2: the reduce pass's aggregates (v2 null for
+// lead_rank 1); w: (batch, n, m), the level-(L-1) radii, laid out like the
+// last lead aggregate. Returns a cudaError_t.
+REPRO_EXPORT int codegen_partial_apply(const float* y, const float* v1,
+                                       const float* v2, const float* w,
+                                       float* out, int batch, int lead_rank,
+                                       int g1, int g2, int n, int m, int q1,
+                                       int q2, int rows_per_split, int splits,
+                                       void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((m + BM - 1) / BM, batch, splits), block(BM, BR);
+  if (lead_rank == 1)
+    partial_apply_kernel<1><<<grid, block, 0, s>>>(y, v1, v2, w, out, g1, g2, n,
+                                                   m, q1, q2, rows_per_split);
+  else if (lead_rank == 2)
+    partial_apply_kernel<2><<<grid, block, 0, s>>>(y, v1, v2, w, out, g1, g2, n,
+                                                   m, q1, q2, rows_per_split);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
 }

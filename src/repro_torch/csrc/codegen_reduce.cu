@@ -10,7 +10,10 @@
 // the lead axes with their norms' monoids; level L-1 (`qlast`) reduces the
 // row axis n. Outputs: v1 (B, [g2,] n, m) and v2 (B, n, m) — the
 // intermediate aggregates the apply pass reuses — and vfin (B, m), the
-// finalized last-level aggregate the outer θ-solve projects.
+// finalized last-level aggregate the outer θ-solve projects, or with `raw`
+// the last level's raw accumulator (ℓ2: the sum of squares) — what the mesh
+// executor combines across ranks before it finalizes
+// (kernels/codegen/distributed.py).
 //
 // Pallas carried the row accumulator across a sequential grid axis. Hopper
 // runs CTAs in no order, so the row axis is split instead: a CTA covers 32
@@ -89,26 +92,27 @@ reduce_partial(const float* __restrict__ y, float* __restrict__ v1,
 
 __global__ void reduce_finalize(const float* __restrict__ partial,
                                 float* __restrict__ vfin, int m, int splits,
-                                int qlast) {
+                                int qlast, int raw) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const long long b = blockIdx.y;
   if (j >= m) return;
   const float* p = partial + b * splits * m + j;
   float s = p[0];
   for (int k = 1; k < splits; ++k) s = combine(qlast, s, p[static_cast<long long>(k) * m]);
-  vfin[b * m + j] = finalize(qlast, s);
+  vfin[b * m + j] = raw ? s : finalize(qlast, s);
 }
 
 }  // namespace
 
 // y: (batch, g1, g2, n, m) contiguous float32 (g1 = g2 = 1 for absent lead
 // axes); v1/v2 may be null when LEAD does not produce them; partial:
-// (batch, splits, m) scratch; vfin: (batch, m). Returns a cudaError_t.
+// (batch, splits, m) scratch; vfin: (batch, m), finalized unless `raw`.
+// Returns a cudaError_t.
 REPRO_EXPORT int codegen_reduce(const float* y, float* v1, float* v2,
                                 float* partial, float* vfin, int batch,
                                 int lead_rank, int g1, int g2, int n, int m,
                                 int q1, int q2, int qlast, int rows_per_split,
-                                int splits, void* stream) {
+                                int splits, int raw, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 block(BM, BR);
   const dim3 grid((m + BM - 1) / BM, splits, batch);
@@ -131,6 +135,6 @@ REPRO_EXPORT int codegen_reduce(const float* y, float* v1, float* v2,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const dim3 fgrid((m + 255) / 256, batch);
-  reduce_finalize<<<fgrid, 256, 0, s>>>(partial, vfin, m, splits, qlast);
+  reduce_finalize<<<fgrid, 256, 0, s>>>(partial, vfin, m, splits, qlast, raw);
   return cudaGetLastError();
 }

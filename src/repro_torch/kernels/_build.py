@@ -12,7 +12,10 @@ into ``build/repro_torch/<name>-<hash>.so`` at the root of the checkout, the
 hash covering the sources and the flags, so an edited source rebuilds and an
 unchanged one loads at once. ``nvcc``'s report (registers, shared memory,
 spills per kernel) is kept beside the library as ``.log``. A failed build
-raises; nothing falls back.
+raises; nothing falls back. A build holds an ``fcntl`` lock on the
+library's ``.lock`` file, so processes that start together (the ranks of a
+mesh on a fresh checkout) build each library once: the others wait, then
+load it.
 
 A :class:`Kernel` owns one library and the plain integer ``launches`` that
 its wrapper bumps after every successful launch, so a run can show which
@@ -23,7 +26,9 @@ its library and count their launches apart.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -48,6 +53,18 @@ FLOAT = ctypes.c_float
 
 KERNELS: Dict[str, "Kernel"] = {}
 _BUILD_LOCK = threading.Lock()  # one nvcc per library, whichever kernel asks
+
+
+@contextlib.contextmanager
+def _file_lock(library: Path):
+    """Hold an exclusive ``fcntl`` lock on ``library``'s ``.lock`` file."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(library.with_suffix(".lock"), "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
 
 
 def _nvcc() -> str:
@@ -117,7 +134,7 @@ class Kernel:
         """The loaded library, built first if needed."""
         with self._lock:
             if self._lib is None:
-                with _BUILD_LOCK:
+                with _BUILD_LOCK, _file_lock(self.library):
                     self.finish_build(self.start_build())
                 lib = ctypes.CDLL(str(self.library))
                 for fn, argtypes in self.functions.items():
@@ -155,9 +172,12 @@ def build_all() -> Dict[str, float]:
     owners = {}  # one kernel per library starts its build
     for name, k in KERNELS.items():
         owners.setdefault(k.library, name)
-    procs = {name: KERNELS[name].start_build() for name in owners.values()}
-    for name, proc in procs.items():
-        KERNELS[name].finish_build(proc)
+    with contextlib.ExitStack() as locks:
+        for library in sorted(owners):  # one order: no two processes deadlock
+            locks.enter_context(_file_lock(library))
+        procs = {name: KERNELS[name].start_build() for name in owners.values()}
+        for name, proc in procs.items():
+            KERNELS[name].finish_build(proc)
     for k in KERNELS.values():
         k.lib()
     return {name: KERNELS[name].build_seconds

@@ -12,11 +12,19 @@ a batch of items:
 * **apply** (``csrc/codegen_apply.cu``) — one elementwise pass over Y walks
   the radii chain down through the saved aggregates and writes X.
 
-Y is read twice and X written once, the minimum for the projection. Each of
-the two kernels sits beside its plain PyTorch version in this module
-(:func:`reduce_plain`, :func:`apply_plain`); the wrappers
-(:func:`codegen_reduce`, :func:`codegen_apply`) run the plain version for a
-CPU tensor and the kernel for a CUDA tensor — nothing else. ``generate``
+The mesh executor (``kernels/codegen/distributed.py``) adds two pieces: the
+reduce's raw last-level accumulator (``raw=True``: ℓ2 as its sum of
+squares, combined across ranks before it is finalized), and the
+**partial apply** (``codegen_partial_apply``, the second entry of
+``csrc/codegen_apply.cu``), which resumes the chain one level down from a
+radii tensor w solved outside it.
+
+Y is read twice and X written once, the minimum for the projection. Each
+kernel sits beside its plain PyTorch version in this module
+(:func:`reduce_plain`, :func:`apply_plain`, :func:`partial_apply_plain`);
+the wrappers (:func:`codegen_reduce`, :func:`codegen_apply`,
+:func:`codegen_partial_apply`) run the plain version for a CPU tensor and
+the kernel for a CUDA tensor — nothing else. ``generate``
 builds the single-item callable from the batched one: the kernels take the
 batch as their leading launch axis.
 """
@@ -40,11 +48,14 @@ NORM_CODES = {"1": 0, "2": 1, "inf": 2}  # csrc/common.cuh
 
 _P, _I = _build.PTR, _build.INT
 REDUCE = _build.Kernel("codegen_reduce", {
-    "codegen_reduce": [_P, _P, _P, _P, _P] + [_I] * 11 + [_P],
+    "codegen_reduce": [_P, _P, _P, _P, _P] + [_I] * 12 + [_P],
 })
 APPLY = _build.Kernel("codegen_apply", {
     "codegen_apply": [_P] * 6 + [_I] * 11 + [_P],
 })
+PARTIAL_APPLY = _build.Kernel("codegen_partial_apply", {
+    "codegen_partial_apply": [_P] * 5 + [_I] * 10 + [_P],
+}, source="codegen_apply")
 
 
 # --------------------------------------------------------------------------- #
@@ -61,15 +72,24 @@ def _tile(q: str, a: torch.Tensor, dim: int) -> torch.Tensor:
     return a.amax(dim=dim)
 
 
-def reduce_plain(yc: torch.Tensor, norms: Sequence[str]
+def finalize(q: str, acc: torch.Tensor) -> torch.Tensor:
+    """The ``q``-norm from its raw accumulator (ℓ2: the root of the sum of
+    squares; ℓ1 and ℓ∞ accumulate the norm itself)."""
+    return torch.sqrt(acc) if q == "2" else acc
+
+
+def reduce_plain(yc: torch.Tensor, norms: Sequence[str], raw: bool = False
                  ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """The reduce pass in PyTorch ops on the batched canonical view
-    ``yc`` (B, *lead, n, m): ``([v_1, …, v_{L-2}], vfin)``."""
+    ``yc`` (B, *lead, n, m): ``([v_1, …, v_{L-2}], vfin)``; with ``raw``,
+    the last level's raw accumulator in place of ``vfin``."""
     cur = yc.abs()
     aggs = []
     for q in norms[:-1]:
         cur = _tile(q, cur, 1)          # fold the leading lead axis
         aggs.append(cur)
+    if raw and norms[-1] == "2":
+        return aggs, (cur * cur).sum(dim=1)
     return aggs, _tile(norms[-1], cur, 1)
 
 
@@ -95,17 +115,25 @@ def _shrink(q: str, x: torch.Tensor, w: torch.Tensor,
     return _grouped_l1(x, w)
 
 
+def partial_apply_plain(yc: torch.Tensor, aggs: Sequence[torch.Tensor],
+                        w: torch.Tensor, norms: Sequence[str]) -> torch.Tensor:
+    """Levels L-2 … 1 of the apply pass in PyTorch ops: the radii chain
+    resumed from ``w``, the level-(L-1) radii shaped like ``aggs[-1]``
+    (B, n, m), down through ``stages = [yc, v_1, …, v_{L-2}]``."""
+    stages = [yc, *aggs]
+    for lvl in range(len(norms) - 1, 0, -1):
+        w = _shrink(norms[lvl - 1], stages[lvl - 1], w[:, None],
+                    stages[lvl][:, None])
+    return w
+
+
 def apply_plain(yc: torch.Tensor, aggs: Sequence[torch.Tensor],
                 vfin: torch.Tensor, u: torch.Tensor,
                 norms: Sequence[str]) -> torch.Tensor:
     """The apply pass in PyTorch ops: the radii chain from ``u`` (B, m) down
     through ``stages = [yc, v_1, …, v_{L-2}]``."""
-    stages = [yc, *aggs]
-    w = _shrink(norms[-1], stages[-1], u[:, None], vfin[:, None])
-    for lvl in range(len(norms) - 1, 0, -1):
-        w = _shrink(norms[lvl - 1], stages[lvl - 1], w[:, None],
-                    stages[lvl][:, None])
-    return w
+    w = _shrink(norms[-1], aggs[-1] if aggs else yc, u[:, None], vfin[:, None])
+    return partial_apply_plain(yc, aggs, w, norms)
 
 
 # --------------------------------------------------------------------------- #
@@ -131,16 +159,18 @@ def _codes(norms: Sequence[str]) -> Tuple[int, int, int]:
     return lead[0], lead[1], NORM_CODES[norms[-1]]
 
 
-def codegen_reduce(yc: torch.Tensor, tp: TilePlan, norms: Sequence[str]
+def codegen_reduce(yc: torch.Tensor, tp: TilePlan, norms: Sequence[str],
+                   raw: bool = False
                    ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Every forward aggregate of the batched canonical view ``yc``
     (B, *tp.canon_shape): ``([v_1, …, v_{L-2}], vfin (B, m))``. ``norms``
-    are the reduce norms q_1 … q_{L-1}."""
+    are the reduce norms q_1 … q_{L-1}. ``raw`` returns the last level's raw
+    accumulator in place of ``vfin`` (see :func:`finalize`)."""
     if tuple(yc.shape[1:]) != tp.canon_shape or len(norms) != len(tp.lead) + 1:
         raise ValueError(f"codegen_reduce: {tuple(yc.shape)} does not match "
                          f"the plan {tp.canon_shape} / norms {list(norms)}")
     if yc.device.type == "cpu":
-        return reduce_plain(yc, norms)
+        return reduce_plain(yc, norms, raw)
     _device.require_cuda(yc, "codegen_reduce")
     _check_f32_contiguous("codegen_reduce", yc)
     b, n, m = yc.shape[0], tp.n, tp.m
@@ -156,7 +186,7 @@ def codegen_reduce(yc: torch.Tensor, tp: TilePlan, norms: Sequence[str]
     REDUCE.launch("codegen_reduce", yc.data_ptr(), _build.ptr(v1),
                   _build.ptr(v2), partial.data_ptr(), vfin.data_ptr(), b,
                   len(tp.lead), g1, g2, n, m, q1, q2, qlast, rows, splits,
-                  _build.stream_handle(yc))
+                  int(raw), _build.stream_handle(yc))
     return aggs, vfin
 
 
@@ -193,6 +223,44 @@ def codegen_apply(yc: torch.Tensor, aggs: Sequence[torch.Tensor],
                  _build.ptr(v2), vfin.data_ptr(), u.data_ptr(),
                  out.data_ptr(), b, len(tp.lead), g1, g2, n, m, q1, q2,
                  qlast, rows, splits, _build.stream_handle(yc))
+    return out
+
+
+def codegen_partial_apply(yc: torch.Tensor, aggs: Sequence[torch.Tensor],
+                          w: torch.Tensor, tp: TilePlan, norms: Sequence[str],
+                          out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Levels L-2 … 1 of the backward sweep, resumed from ``w``: X (B,
+    *tp.canon_shape) from ``yc``, the reduce's aggregates and the level-(L-1)
+    radii ``w``, shaped like ``aggs[-1]`` (B, n, m). Designs of depth 3 and 4
+    (one or two lead axes). ``out`` may be ``yc`` itself."""
+    if tuple(yc.shape[1:]) != tp.canon_shape or len(aggs) != len(tp.lead) \
+            or len(norms) != len(tp.lead) + 1 or not 1 <= len(tp.lead) <= 2:
+        raise ValueError(f"codegen_partial_apply: {tuple(yc.shape)} does not "
+                         f"match the plan {tp.canon_shape} / norms "
+                         f"{list(norms)}, or the design has no lead level")
+    b, n, m = yc.shape[0], tp.n, tp.m
+    if tuple(w.shape) != (b, n, m):
+        raise ValueError(f"codegen_partial_apply: w must be {(b, n, m)}, got "
+                         f"{tuple(w.shape)}")
+    if yc.device.type == "cpu":
+        x = partial_apply_plain(yc, aggs, w, norms)
+        return x if out is None else out.copy_(x)
+    _device.require_cuda(yc, "codegen_partial_apply")
+    _check_f32_contiguous("codegen_partial_apply", yc, w, *aggs)
+    if out is None:
+        out = torch.empty_like(yc)
+    elif out.shape != yc.shape or out.dtype != yc.dtype \
+            or not out.is_contiguous() or out.device != yc.device:
+        raise ValueError("out must be a contiguous float32 tensor like yc")
+    rows, splits = row_split(n, m, b)
+    g1, g2 = _lead_args(tp)
+    q1, q2, _ = _codes(norms)
+    v1 = aggs[0]
+    v2 = aggs[1] if len(aggs) > 1 else None
+    PARTIAL_APPLY.launch("codegen_partial_apply", yc.data_ptr(), v1.data_ptr(),
+                         _build.ptr(v2), w.data_ptr(), out.data_ptr(), b,
+                         len(tp.lead), g1, g2, n, m, q1, q2, rows, splits,
+                         _build.stream_handle(yc))
     return out
 
 

@@ -8,8 +8,10 @@ axes + init). From the same template:
                        its own ``torch.Generator`` seeded from (seed, path)
   * ``count_params`` — exact parameter count without allocation
 
-``param_specs`` (logical axes → mesh axes) waits for the mesh slice. The
-logical axes are kept so the templates stay the JAX package's.
+  * ``param_specs``  — the spec tree (logical axes → mesh axes) a mesh
+                       shards the parameters by
+
+The logical axes are the JAX package's, so are the specs.
 
 JAX's and torch's generators give different numbers from one seed, so a
 parity test builds parameters once (in either package) and carries them
@@ -22,7 +24,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import zlib
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -77,3 +79,34 @@ def init_params(template, seed: int, dtype=torch.float32, *, device=None):
 
 def count_params(template) -> int:
     return int(sum(math.prod(pd.shape) for pd in _tree.leaves(template)))
+
+
+def param_specs(template, rules: Dict[str, Optional[str]],
+                mesh_shape: Dict[str, int]):
+    """Spec tree: per leaf a tuple with one entry per axis, the mesh axis it
+    is sharded over or None. ``rules`` maps logical axis -> mesh axis (or a
+    tuple of mesh axes, or None).
+
+    A dim is sharded only when the mapped mesh axes divide it; otherwise
+    that dim replicates. A mesh axis is used at most once per param (first
+    logical axis wins).
+    """
+
+    def one(_, pd: ParamDef):
+        used = set()
+        parts = []
+        for dim, ax in zip(pd.shape, pd.axes):
+            mesh_ax = rules.get(ax) if ax else None
+            if mesh_ax is None:
+                parts.append(None)
+                continue
+            axes_tuple = mesh_ax if isinstance(mesh_ax, tuple) else (mesh_ax,)
+            size = math.prod(mesh_shape[a] for a in axes_tuple)
+            if dim % size == 0 and not (set(axes_tuple) & used):
+                used.update(axes_tuple)
+                parts.append(mesh_ax)
+            else:
+                parts.append(None)
+        return tuple(parts)
+
+    return _tree.map_with_path(one, template)

@@ -13,9 +13,19 @@ axes (groups = rows, e.g. SAE feature selection).
 
 The projection runs the plain schedule executor (``core.schedule.execute``)
 in PyTorch ops on the leaf's device, as the JAX training step runs its jnp
-schedule: no kernel. The mesh-native sharded path (``mesh=``,
-``param_specs=``) waits for the mesh executor, and ``method="auto"`` for the
-planner's ``best_l1_method``.
+schedule: no kernel.
+
+Passing ``mesh=`` and ``param_specs=`` to :func:`make_projection_hook` makes
+the projection mesh-native: the parameters are this rank's shards
+(``parallel.sharding.shard``), and every matched leaf whose projected
+(trailing) axes are sharded runs the mesh executor
+(``core.sharded.multilevel_project_sharded``) in place — collective reduces
+of the aggregates, a gathered small outer solve, local applies — with its
+leading stacked axes as batch dims. On a CUDA leaf whose design
+``kernels.codegen.distributed.shardable`` accepts, the shard-local stages
+are the generated kernels. Leaves with unsharded trailing axes (or without
+specs) keep the single-device path. ``method="auto"`` waits for the hook's
+use of the planner's ``best_l1_method``.
 """
 
 from __future__ import annotations
@@ -26,8 +36,10 @@ import torch
 
 from repro_torch import _tree
 from repro_torch.configs.types import ProjectionSpec
-from repro_torch.core import ball, schedule as sched_mod
+from repro_torch.core import ball, schedule as sched_mod, sharded
 from repro_torch.core.masks import sparsity
+
+SHARD_BACKENDS = ("auto",) + sharded.BACKENDS
 
 
 def _method_resolver(spec: ProjectionSpec):
@@ -58,35 +70,123 @@ def _project_leaf(w: torch.Tensor, levels, radius, method: str,
     return x.contiguous()
 
 
+def _resolve_shard_backend(backend: str, shape, levels, names, mesh, dtype,
+                           batch_dims: int, device: torch.device) -> str:
+    """Pick the mesh executor's shard-local stages for one sharded leaf.
+
+    ``"auto"`` lowers them through the generated kernels when the leaf is
+    on a CUDA device and ``shardable`` accepts the design (a function of
+    shapes alone, so every rank picks alike); otherwise the plain body —
+    the same collective plan without the kernels."""
+    if backend != "auto":
+        return backend
+    if device.type != "cuda":
+        return "plain"
+    from repro_torch.kernels.codegen import distributed as _dist
+
+    ok = _dist.shardable(shape, list(levels), names, mesh, dtype, batch_dims)
+    return "codegen" if ok else "plain"
+
+
+def _sharded_leaf_names(mesh, pspec, ndim: int, need: int):
+    """The leaf's per-axis mesh axis names IF the mesh executor should run
+    it: some trailing (projected) axis sharded and the spec representable
+    (``plan.canonical_sharding`` is the one parser of specs)."""
+    if pspec is None:
+        return None
+    from repro_torch.core import plan as planmod
+
+    key = planmod.canonical_sharding((mesh, pspec), ndim)
+    if key is None or not any(n is not None for n in key.spec[ndim - need:]):
+        return None
+    return key.spec
+
+
+def _project_leaf_sharded(w: torch.Tensor, spec: ProjectionSpec, radius,
+                          method: str, mesh, names,
+                          backend: str = "auto") -> torch.Tensor:
+    """Project this rank's shard ``w`` of one leaf in place through the
+    mesh executor: leading stacked axes are batch dims, and the weight is
+    never gathered. ``names`` are the per-axis mesh axis names."""
+    need = sum(k for _, k in spec.levels)
+    batch = w.ndim - need
+    perm = None
+    if spec.transpose:
+        # reverse the projected axes (an involution: the same permutation
+        # restores the layout) and the names with them
+        perm = tuple(range(batch)) + tuple(reversed(range(batch, w.ndim)))
+        w = w.permute(perm).contiguous()
+        names = tuple(names[a] for a in perm)
+    padded = tuple(d * mesh.shape[n] if n else d for d, n in zip(w.shape, names))
+    be = _resolve_shard_backend(backend, padded, spec.levels, names, mesh,
+                                w.dtype, batch, w.device)
+    x = sharded.multilevel_project_sharded(
+        w, list(spec.levels), radius, mesh=mesh, spec=names, method=method,
+        batch_dims=batch, backend=be)
+    if perm is not None:
+        x = x.permute(perm)
+    return x.contiguous()
+
+
+def _spec_table(param_specs):
+    """Path string → spec of a spec tree (tuples are leaves)."""
+    if param_specs is None:
+        return {}
+    return dict(_tree.leaves_with_paths(param_specs))
+
+
 def _matches(spec: ProjectionSpec):
     pat = re.compile(spec.pattern)
     need = sum(k for _, k in spec.levels)
     return lambda name, w: w.ndim >= need and pat.search(name) is not None
 
 
-def _projector(spec: ProjectionSpec):
+def _projector(spec: ProjectionSpec, mesh=None, param_specs=None,
+               backend: str = "auto"):
     """``project_all(params)``: every matched leaf projected, the rest as
     they are. The regex compiles and the solver validates here, once."""
     match = _matches(spec)
     resolve = _method_resolver(spec)
+    need = sum(k for _, k in spec.levels)
+    specs_by_path = _spec_table(param_specs) if mesh is not None else {}
 
     def one(name, w):
         if match(name, w):
-            return _project_leaf(w, spec.levels, spec.radius,
-                                 resolve(w.shape, w.dtype),
+            method = resolve(w.shape, w.dtype)
+            names = None
+            if mesh is not None:
+                names = _sharded_leaf_names(mesh, specs_by_path.get(name),
+                                            w.ndim, need)
+            if names is not None:
+                return _project_leaf_sharded(
+                    w, spec, spec.radius, method, mesh, names,
+                    backend=backend).to(w.dtype)
+            return _project_leaf(w, spec.levels, spec.radius, method,
                                  transpose=spec.transpose).to(w.dtype)
         return w
 
     return lambda params: _tree.map_with_path(one, params)
 
 
-def make_projection_hook(spec: ProjectionSpec | None):
+def make_projection_hook(spec: ProjectionSpec | None, *, mesh=None,
+                         param_specs=None, backend: str = "auto"):
     """Build the training-time projection hook once and return
     ``hook(params, step) -> params``. ``step`` is an int or a 0-d tensor;
-    off-cadence steps return ``params`` untouched."""
+    off-cadence steps return ``params`` untouched.
+
+    With ``mesh`` (a ``parallel.mesh.Mesh``) and ``param_specs`` (the spec
+    tree of ``models.params.param_specs``), ``params`` are this rank's
+    shards and every matched leaf whose projected axes are sharded runs the
+    mesh executor in place. ``backend`` picks its shard-local stages:
+    ``"auto"`` (the generated kernels on an eligible CUDA leaf, else the
+    plain body), ``"plain"`` or ``"codegen"`` — both run the same
+    collective plan."""
+    if backend not in SHARD_BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}: expected one of "
+                         f"{SHARD_BACKENDS}")
     if spec is None or not spec.enabled:
         return lambda params, step: params
-    project_all = _projector(spec)
+    project_all = _projector(spec, mesh, param_specs, backend)
 
     def hook(params, step):
         if spec.every <= 1 or int(step) % spec.every == 0:

@@ -259,3 +259,95 @@ def test_training_modules_import_neither_jax_nor_repro(module):
                          text=True, timeout=120, env=env)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+class _Layout:
+    """A mesh layout with no ranks behind it."""
+
+    shape = {"data": 1, "model": 4}
+    axis_names = ("data", "model")
+    size = 4
+
+
+def test_sharded_calls_raise_without_a_process_group():
+    """A sharded entry point never runs quietly as one rank."""
+    import torch.distributed as dist
+
+    from repro_torch.core import sharded
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.parallel.mesh import Mesh
+
+    assert not dist.is_initialized()
+    calls = [
+        lambda: Mesh((1, 4), ("data", "model")),
+        lambda: launch_mesh.make_host_mesh(1, 4),
+        lambda: launch_mesh.make_production_mesh(),
+        lambda: sharded.multilevel_project_sharded(
+            torch.zeros(8, 4), BILEVEL, 1.0, mesh=_Layout, spec=(None, "model")),
+        lambda: sharded.multilevel_project_sharded(
+            torch.zeros(8, 4), BILEVEL, 1.0, mesh=_Layout, spec=(None, "model"),
+            backend="codegen"),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="process group"):
+            call()
+
+
+def test_codegen_body_refuses_an_unshardable_design():
+    """An intermediate reduce axis sharded: no splice point, so
+    backend="codegen" raises instead of running the plain body."""
+    from repro_torch.core import schedule
+    from repro_torch.kernels.codegen import distributed
+
+    levels = [("inf", 1), ("inf", 1), ("1", 1)]
+    spec = ("model", None, None)
+    assert not distributed.shardable((4, 16, 64), levels, spec, _Layout,
+                                     torch.float32)
+    sched = schedule.compile_schedule((4, 16, 64), levels)
+    with pytest.raises(ValueError, match="no sharded codegen lowering"):
+        distributed.make_codegen_schedule_body(sched, spec, _Layout,
+                                               torch.float32)
+
+
+def test_partial_apply_runs_its_plain_version_only_on_the_cpu(monkeypatch):
+    from repro_torch.core import schedule
+    from repro_torch.kernels.codegen import lowering, tiling
+
+    def no_launch(*args):
+        raise AssertionError("the kernel was launched for a CPU tensor")
+
+    monkeypatch.setattr(lowering.PARTIAL_APPLY, "launch", no_launch)
+    levels = [("inf", 1), ("1", 1), ("1", 1)]
+    tp = tiling.plan_tiles(schedule.compile_schedule((4, 8, 16), levels),
+                           torch.float32)
+    gen = torch.Generator().manual_seed(0)
+    yc = torch.randn((2,) + tp.canon_shape, generator=gen)
+    aggs, _ = lowering.codegen_reduce(yc, tp, ["inf", "1"])
+    w = torch.rand(aggs[-1].shape, generator=gen)
+    got = lowering.codegen_partial_apply(yc, aggs, w, tp, ["inf", "1"])
+    assert torch.equal(got, lowering.partial_apply_plain(yc, aggs, w, ["inf", "1"]))
+    assert lowering.PARTIAL_APPLY.launches == 0
+    meta = [t.to("meta") for t in (yc, aggs[0], w)]
+    with pytest.raises(ValueError, match="CUDA kernel needs a CUDA tensor"):
+        lowering.codegen_partial_apply(meta[0], [meta[1]], meta[2], tp,
+                                       ["inf", "1"])
+
+
+def test_partial_apply_shares_the_apply_source():
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.codegen import lowering
+
+    assert lowering.PARTIAL_APPLY.source == lowering.APPLY.source \
+        == _build.CSRC / "codegen_apply.cu"
+    assert {"codegen_apply", "codegen_partial_apply"} <= set(_build.launch_counts())
+
+
+@pytest.mark.parametrize("module", ["repro_torch.core.sharded",
+                                    "repro_torch.kernels.codegen.distributed",
+                                    "repro_torch.launch.mesh",
+                                    "repro_torch.parallel.sharding",
+                                    "repro_torch.optim.projection_hook"])
+def test_mesh_modules_import_neither_jax_nor_repro(module):
+    test_training_modules_import_neither_jax_nor_repro(module)
+    worker = ROOT / "tests" / "_torch_sharded_worker.py"
+    assert not _FORBIDDEN.findall(worker.read_text())
