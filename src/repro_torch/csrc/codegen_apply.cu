@@ -38,7 +38,9 @@
 // Each element is read and written by one thread, so `out` may alias `y`.
 //
 // Bound: bytes. Y is read once and X written once; the aggregates (and w)
-// add 1/g of that per lead level. O(1) operations per element outside ℓ1
+// add 1/g of that per lead level. A lead aggregate that only an ℓ2 shrink
+// needs (v1 under LEAD 1, v2 under LEAD 2) is read only for ℓ2, and vfin
+// only for an ℓ2 at level L-1. O(1) operations per element outside ℓ1
 // groups, 64 sweeps over the group per ℓ1 level (served from shared memory
 // or L1/L2, not HBM).
 #include "common.cuh"
@@ -121,12 +123,13 @@ __device__ __forceinline__ void lead_chain(const float* y, const float* v1,
                                            int q1, int q2, float w) {
   if (LEAD == 1) {
     const long long base = b * g1 * nm + ij;  // group over l1, stride nm
-    const float agg = v1[b * nm + ij];
+    // only an ℓ2 shrink reads the group's saved aggregate
+    const float agg = q1 == NORM_L2 ? v1[b * nm + ij] : 0.f;
     const float th = q1 == NORM_L1 ? group_theta(y + base, nm, g1, w) : 0.f;
     shrink_strided(q1, y + base, out + base, nm, g1, w, agg, th);
   } else if (LEAD == 2) {
     const float* v1g = v1 + b * g2 * nm + ij;  // group over l2, stride nm
-    const float agg2 = v2[b * nm + ij];
+    const float agg2 = q2 == NORM_L2 ? v2[b * nm + ij] : 0.f;
     const float th2 = q2 == NORM_L1 ? group_theta(v1g, nm, g2, w) : 0.f;
     const long long stride1 = static_cast<long long>(g2) * nm;
     for (int l2 = 0; l2 < g2; ++l2) {

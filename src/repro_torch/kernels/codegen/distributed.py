@@ -51,7 +51,7 @@ from repro_torch.parallel import sharding
 from .. import l1ball
 from .lowering import (_solve_outer_batched, codegen_apply,
                        codegen_partial_apply, codegen_reduce, finalize)
-from .tiling import L1_KERNEL_MAX, TilePlan, plan_tiles
+from .tiling import L1_KERNEL_MAX, plan_tiles
 
 
 def _level_of_axis(levels, batch_dims: int, axis: int) -> int:
@@ -111,16 +111,15 @@ def _solve_outer(v: torch.Tensor, norm: str, radii: torch.Tensor,
 
 def make_codegen_schedule_body(sched: Schedule,
                                axis_names: Sequence[Optional[str]], mesh,
-                               dtype, *, method: str = "bisect",
-                               tile_plan: Optional[TilePlan] = None
+                               dtype, *, method: str = "bisect"
                                ) -> Callable:
     """Build ``(y_local, radius) -> x_local`` with the shard-local stages
     lowered through the generated kernels.
 
     ``sched`` is the GLOBAL schedule on the (padded, evenly divisible)
     shape; the local schedule and its tile plan derive from the per-shard
-    shape. ``tile_plan`` overrides the heuristic plan, which is a function of
-    shapes alone and so the same on every rank. Gate with
+    shape. The tile plan is the heuristic one, a function of shapes alone
+    and so the same on every rank. Gate with
     :func:`shardable` first; raises ``ValueError`` when the design has no
     codegen lowering on this mesh.
     """
@@ -142,7 +141,7 @@ def make_codegen_schedule_body(sched: Schedule,
     lshape = local_shape(sched.shape, names, mesh)
     lsched = sched_mod.compile_schedule(lshape[b:], levels)
     norms = [q for q, _ in levels]
-    tp = tile_plan if tile_plan is not None else plan_tiles(lsched, dtype)
+    tp = plan_tiles(lsched, dtype)
     count = math.prod(lshape[:b])
 
     # final reduce level (index L-2): the mesh axes its combine spans

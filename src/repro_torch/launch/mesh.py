@@ -22,19 +22,13 @@ def make_host_mesh(data: int = 1, model: int = 1) -> Mesh:
     return Mesh((data, model), ("data", "model"))
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+def make_production_mesh() -> Mesh:
     """The world in the production layout: the cards of one host (at most
-    the world) on the tensor-parallel "model" axis, the rest data parallel;
-    ``multi_pod`` splits the data axis over a leading "pod" axis of 2."""
+    the world) on the tensor-parallel "model" axis, the rest data parallel."""
     require_process_group("make_production_mesh")
     world = dist.get_world_size()
     model = max(1, min(world, torch.cuda.device_count()))
     if world % model:
         raise ValueError(f"a model axis of {model} does not divide the "
                          f"world of {world} ranks")
-    data = world // model
-    if not multi_pod:
-        return Mesh((data, model), ("data", "model"))
-    if data % 2:
-        raise ValueError(f"two pods need an even data axis, got {data}")
-    return Mesh((2, data // 2, model), ("pod", "data", "model"))
+    return Mesh((world // model, model), ("data", "model"))

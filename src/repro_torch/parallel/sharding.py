@@ -2,8 +2,7 @@
 ``repro/parallel/sharding.py``, the parameter part), and the two helpers
 that go between a full tensor and one rank's shard.
 
-Mesh axes: ("data", "model") on one host, ("pod", "data", "model") across
-pods. Policy: tensor parallelism over 'model' for heads / kv_heads / ffn /
+Mesh axes: ("data", "model"). Policy: tensor parallelism over 'model' for heads / kv_heads / ffn /
 experts / vocab / ssm_in; FSDP over 'data' on the 'embed' (d_model) axis of
 every weight when ``fsdp``. A spec is a tuple with one entry per tensor
 axis: a mesh axis name or None (the port's ``PartitionSpec``).
@@ -16,7 +15,6 @@ are fixed points of every level of a norm design).
 
 from __future__ import annotations
 
-import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -28,16 +26,6 @@ def mesh_shape_dict(mesh) -> Dict[str, int]:
     """Axis name → size of a :class:`~repro_torch.parallel.mesh.Mesh`, or of
     a plain ``{name: size}`` mapping (in mesh order)."""
     return dict(mesh.shape) if hasattr(mesh, "shape") else dict(mesh)
-
-
-def batch_axes(mesh) -> tuple:
-    """Mesh axes the batch dim shards over."""
-    return ("pod", "data") if "pod" in mesh_shape_dict(mesh) else ("data",)
-
-
-def dp_shards(mesh) -> int:
-    shp = mesh_shape_dict(mesh)
-    return math.prod(shp[a] for a in batch_axes(mesh))
 
 
 def param_rules(mesh, *, fsdp: bool = True) -> Dict[str, object]:
