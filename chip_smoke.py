@@ -6,10 +6,13 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 (``--only mesh`` builds the kernels and runs phase 7 alone: on a machine
-with four cards its ranks talk over NCCL.)
+with four cards its ranks talk over NCCL. ``--only attention`` builds them
+and runs the flash kernels' holds of phase 1 in float32 and bf16, the
+Function's gradients and the flash rows of phase 6 alone.)
 
 1. builds the eleven CUDA kernels of the seven sources in
-   ``src/repro_torch/csrc`` (one ``nvcc`` per source, started together) and
+   ``src/repro_torch/csrc`` (one ``nvcc`` per source, started together),
+   prints each kernel's ptxas lines (registers, shared memory, spills) and
    holds each against its plain PyTorch version on the card: the three
    generated-pipeline projection kernels at the two full-width
    serving shapes, over the design matrix at small ragged sizes, and for
@@ -275,6 +278,32 @@ GOLDEN_SHAPES = {
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def ptxas_report(log):
+    """(kernel, line) for each register, shared-memory and spill line of an
+    ``nvcc -Xptxas=-v`` log; the kernel is its mangled name's last nested
+    identifier and integer template arguments (``flash_fwd_wgmma<64>``)."""
+    import re
+
+    out, entry = [], "?"
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) "
+                      r"'?(_Z\w+)", line)
+        if m:
+            sym, pos, name = m.group(1), 2, m.group(1)
+            pos += sym[pos] == "N"
+            while pos < len(sym) and sym[pos].isdigit():
+                n = re.match(r"\d+", sym[pos:]).group()
+                pos += len(n)
+                name = sym[pos:pos + int(n)]
+                pos += int(n)
+            targs = re.match(r"I((?:L[a-z]\d+E|[a-z])*)E", sym[pos:])
+            ints = re.findall(r"L[a-z](\d+)E", targs.group(1)) if targs else []
+            entry = name + (f"<{','.join(ints)}>" if ints else "")
+        elif "registers" in line or "spill" in line:
+            out.append((entry, line.strip()))
+    return out
 
 
 def check_close(what, got, want, scale, rtol=RTOL, nonfinite=False):
@@ -756,6 +785,26 @@ def hold_function_grads(randn):
     return errs
 
 
+def hold_attention_all(randn):
+    """``hold_attention`` in float32 and bf16 on every ``FLASH_CASES``
+    entry and at ``GRANITE_ATTN``, then ``hold_function_grads``. Returns
+    the cases' max error per (kernel, type), granite's errors and inputs
+    per type, and the Function's gradient errors."""
+    import torch
+
+    case_errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (qs, ks, causal, window) in enumerate(FLASH_CASES):
+            errs, _ = hold_attention(randn, f"case{i}", qs, ks, causal,
+                                     window, dtype)
+            for k_, v_ in errs.items():
+                key = (k_, str(dtype)[6:])
+                case_errs[key] = max(case_errs.get(key, 0.0), v_)
+    full = {dt: hold_attention(randn, "granite", *GRANITE_ATTN, dt)
+            for dt in (torch.float32, torch.bfloat16)}
+    return case_errs, full, hold_function_grads(randn)
+
+
 def factory_phase(dev, fcfg, seeds, workdir, randn):
     """Phase 4: the SAE factory on ``dev``. Builds the LM with the port's
     seeded init and runs ``run_factory`` bi-level and with ``heads=32``,
@@ -1201,13 +1250,15 @@ def training_phase(dev, workdir):
             "ckpt_bytes": ck_bytes}
 
 
-def time_attention(attn_full, attn_case_errs, trn):
+def time_attention(attn_full, attn_case_errs, trn=None):
     """Phase 6's attention rows: each flash kernel at granite's training
     shape in bf16 (the main path's type: the JSON rows) and in float32 (in
     each row under "float32"): the kernel, its plain version, and
     ``scaled_dot_product_attention`` (``enable_gqa``) on the same tensors,
-    its backward timed as forward+backward minus forward. Adds the flash
-    kernels' share to the train step's parts."""
+    its backward timed as forward+backward minus forward. With the train
+    step's record ``trn``, the rows take its launch counts and the flash
+    kernels' share goes into the step's parts; without it (``--only
+    attention``) the launches are 0."""
     import torch
 
     from repro_torch.kernels import flash_attention as flash
@@ -1256,7 +1307,8 @@ def time_attention(attn_full, attn_case_errs, trn):
                 "source": "src/repro_torch/csrc/" + (
                     "flash_fwd.cu" if name == "flash_fwd" else "flash_bwd.cu"),
                 "replaces": REPLACES[name, False],
-                "launches": trn["counts"][name] if tag == "bfloat16" else 0,
+                "launches": (trn["counts"][name]
+                             if trn is not None and tag == "bfloat16" else 0),
                 "max_abs_err": err, "ms": t[name], "plain_ms": plain_ms,
                 "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
             print(f"time {name} {tag} {tuple(q.shape)}/{tuple(k.shape)} causal: "
@@ -1273,6 +1325,8 @@ def time_attention(attn_full, attn_case_errs, trn):
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "max_abs_err")}
         rows.append(row)
+    if trn is None:
+        return rows
     tparts = trn["parts"]
     tparts["flash_ms"] = sum(trn["per_step"][k_] * attn_ms["bfloat16"][k_]
                              for k_ in trn["per_step"])
@@ -1647,10 +1701,14 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description="Drive the port on the card.")
-    ap.add_argument("--only", choices=("mesh",),
+    ap.add_argument("--only", choices=("mesh", "attention"),
                     help="run one phase alone: 'mesh' builds the kernels and "
                          "runs phase 7 (the partial apply, then the mesh "
-                         "executor on four ranks)")
+                         "executor on four ranks); 'attention' builds them "
+                         "and holds the flash kernels in float32 and bf16 "
+                         "(granite's shape and every ragged case), the "
+                         "Function's gradients, then times the kernels "
+                         "beside their plain versions and SDPA")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1687,9 +1745,8 @@ def main(argv=None) -> int:
                          for k in _build.KERNELS.values())  # one per source
     for log in logs:
         if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"ptxas {log.stem.rsplit('-', 1)[0]}: {line.strip()}")
+            for entry, line in ptxas_report(log.read_text()):
+                print(f"ptxas {log.stem.rsplit('-', 1)[0]} {entry}: {line}")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -1715,6 +1772,16 @@ def main(argv=None) -> int:
         row["launches"] = ranks[0]["leaves"]["wq"]["codegen_launches"][
             "codegen_partial_apply"]
         return row, {"backend": mesh_backend, "seconds": seconds, "ranks": ranks}
+
+    if args.only == "attention":
+        attn_case_errs, attn_full, _ = hold_attention_all(randn)
+        rows = time_attention(attn_full, attn_case_errs)
+        print(json.dumps({"kernels": rows}))
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     if args.only == "mesh":
         row, mesh = mesh_phases()
@@ -1807,17 +1874,7 @@ def main(argv=None) -> int:
         hold_flash(f"case{i}", qs, ks, causal, window)
     flash_full = hold_flash("full", *FLASH_FULL)
 
-    attn_case_errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        for i, (qs, ks, causal, window) in enumerate(FLASH_CASES):
-            errs, _ = hold_attention(randn, f"case{i}", qs, ks, causal,
-                                     window, dtype)
-            for k_, v_ in errs.items():
-                key = (k_, str(dtype)[6:])
-                attn_case_errs[key] = max(attn_case_errs.get(key, 0.0), v_)
-    attn_full = {dt: hold_attention(randn, "granite", *GRANITE_ATTN, dt)
-                 for dt in (torch.float32, torch.bfloat16)}
-    fn_errs = hold_function_grads(randn)
+    attn_case_errs, attn_full, fn_errs = hold_attention_all(randn)
     golden_errs = hold_golden_kernels(randn, rand)
 
     full_cases = {}

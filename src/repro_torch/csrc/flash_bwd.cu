@@ -2,9 +2,11 @@
 //
 //   flash_bwd_dq   one CTA per (q tile of 64 rows, query head, batch item):
 //                  dQ = scale · Σ_k dS K, with dS = P ∘ (dO Vᵀ − delta)
-//   flash_bwd_dkv  one CTA per (k tile of 64 keys, kv head, batch item):
-//                  dV = Σ Pᵀ dO and dK = scale · Σ dSᵀ Q over the kv head's
-//                  whole query group (G = Hq / Hkv heads) and every q tile
+//   flash_bwd_dkv  dV = Σ Pᵀ dO and dK = scale · Σ dSᵀ Q over the kv head's
+//                  whole query group (G = Hq / Hkv heads) and every q tile:
+//                  in float32 one SIMT CTA per (k tile of 64 keys, kv head,
+//                  batch item); in bf16 the tensor-core kernel of namespace
+//                  tc (no bf16 input reaches the SIMT one)
 //
 // where P = exp(scale · Q Kᵀ − lse) under the mask and delta = rowsum(dO ∘ O)
 // (computed by the wrapper, as the JAX package computes it in jnp).
@@ -15,7 +17,7 @@
 // (B, Hkv, Sk, D); lse, delta (B, Hq, Sq) float32; queries right-aligned to
 // the keys; causal and sliding-window masks; GQA through h / G.
 //
-// What the TPU kernels' grids did, and what this design does instead:
+// What the TPU kernels' grids did, and what the SIMT kernels do instead:
 //   * dQ's sequential k axis becomes a loop inside the CTA over the k tiles
 //     that hold a valid key for its rows; the accumulator lives in registers
 //     (each thread owns 4 rows × D/16 channels);
@@ -42,12 +44,13 @@
 // Bound: at granite-3-2b's shape, q (4, 32, 2048, 64), k/v (4, 8, 2048, 64),
 // causal, dQ does 3·B·Hq·Sq·Sk·D = 103 GFLOP (S, dP and dS·K, halved by the
 // mask) and dK/dV 4·B·Hq·Sq·Sk·D = 137 GFLOP, against 100 MB of bf16 or
-// 200 MB of f32 inputs and outputs: both are bound by operations. This is
-// a simple SIMT float32 design (FMAs fed from shared memory, no tensor
-// cores), so bf16 inputs leave it far below the bf16 tensor-core bound.
+// 200 MB of f32 inputs and outputs: both are bound by operations. The SIMT
+// kernels are a simple float32 design (FMAs fed from shared memory, no
+// tensor cores): dQ in bf16 runs it still, far below the bf16 bound.
 #include <math.h>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -393,6 +396,285 @@ int dispatch_dkv(const Args& a, int d, void* dk, void* dv) {
   }
 }
 
+// ------------------------------------------- dK/dV in bf16: tensor cores
+// One CTA per (128 keys, kv head, batch item), k blocks slowest in a linear
+// grid so causal's longest CTAs start first: two consumer warpgroups of 64
+// keys each (keys are the M of every product) and a producer warp. Its
+// first thread loads K and V once, then streams 64-row tiles of Q and dO
+// through a ring of BSTAGES (TMA, one full and one empty barrier per stage)
+// over the G query heads of the kv head and, for each, the q tiles in
+// [i_lo, i_hi); its 32 lanes stage each tile's lse · log2 e and delta in
+// shared memory (0 past Sq) and arrive on the same full barrier. Per tile a
+// warpgroup, with float32 accumulators,
+//   Sᵀ = K Qᵀ, dPᵀ = V dOᵀ          wgmma m64n64k16, operands in shared memory;
+//   Pᵀ  = 2^(Sᵀ · scale · log2 e − lse · log2 e) where valid, else 0;
+//   dSᵀ = Pᵀ ∘ (dPᵀ − delta) where valid, else 0;
+//   dV += Pᵀ dO, dK += dSᵀ Q        wgmma m64n{D}k16, Pᵀ and dSᵀ from
+//                                   registers split into two bf16 terms as
+//                                   the forward splits P, dO and Q MN-major;
+// the GQA sum stays in the accumulators (no atomics, no second pass). p
+// and dS are selected, not multiplied, to 0, so a row that no key reaches
+// (lse = -1e30 + log n, where 2^(...) overflows) never reaches the sums;
+// TMA reads q/do rows past Sq and k/v rows past Sk as 0. A warpgroup skips
+// the products of a tile in which none of its keys is valid for any row,
+// and tests validity per pair only on tiles that need it. dK · scale and
+// dV are rounded to bf16 once.
+//
+// Bound: at granite-3-2b's shape the four products are 4·B·Hq·Sq·Sk·D / 2
+// = 137 GFLOP (206 issued with the two split products) against 84 MB of
+// q, k, v, do, lse, delta, dk and dv: bound by operations, 139 µs at
+// 989 TFLOP/s.
+namespace tc {
+
+using namespace hopper;
+constexpr int BKV = 128;  // keys per CTA
+constexpr int TQR = 64;   // query rows per streamed tile
+constexpr int BSTAGES = 3;
+constexpr int THREADS = 2 * WG + 32;  // two consumer warpgroups and a producer warp
+
+template <int D>
+struct DkvSmem {
+  static constexpr int K = 0;                       // [BKV][D]
+  static constexpr int V = BKV * D * 2;
+  static constexpr int RING = 2 * BKV * D * 2;      // stage s: Q at RING + 2s·TILE, dO after
+  static constexpr int TILE = TQR * D * 2;
+  static constexpr int ROWS = RING + BSTAGES * 2 * TILE;  // stage s: lse·log2 e, delta
+  static constexpr int BAR = ROWS + BSTAGES * 2 * TQR * 4;
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * BSTAGES) + 1024;
+};
+
+// Pᵀ and dSᵀ of one tile in place of Sᵀ and dPᵀ (MASK: some pair of the
+// tile needs its own test); the thread holds keys key and key + 8 and the
+// query columns 8j + 2·quad + e, whose lse · log2 e and delta are in rows
+template <bool MASK>
+__device__ __forceinline__ void dkv_probs(float (&st)[TQR / 2], float (&dpt)[TQR / 2],
+                                          const float* rows, int qpos0, int key, int sk,
+                                          int causal, int window, float scale_log2,
+                                          int quad) {
+#pragma unroll
+  for (int j = 0; j < TQR / 8; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(rows + 8 * j + 2 * quad);
+    const float2 dl = *reinterpret_cast<const float2*>(rows + TQR + 8 * j + 2 * quad);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int x = 4 * j + 2 * i + e;
+        const float p = ex2(fmaf(st[x], scale_log2, -(e ? l2.y : l2.x)));
+        const float ds = p * (dpt[x] - (e ? dl.y : dl.x));
+        if (MASK) {
+          const bool ok = flash::valid(qpos0 + 8 * j + 2 * quad + e, key + 8 * i, sk,
+                                       causal, window);
+          st[x] = ok ? p : 0.f;
+          dpt[x] = ok ? ds : 0.f;
+        } else {
+          st[x] = p;
+          dpt[x] = ds;
+        }
+      }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+                    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, int batch, int hq, int hkv, int sq,
+                    int sk, int causal, int window, float scale) {
+  using L = Layout<D>;
+  using S = DkvSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  float* rows_s = reinterpret_cast<float*>(smem + S::ROWS);
+  uint64_t* full_kv = reinterpret_cast<uint64_t*>(smem + S::BAR);
+  uint64_t* full = full_kv + 1;
+  uint64_t* empty = full + BSTAGES;
+
+  // one linear grid, k blocks slowest: causal's longest CTAs (k block 0)
+  // start first across every head and batch item
+  const int hb = batch * hkv;
+  const int k0 = (blockIdx.x / hb) * BKV;
+  const int hk = blockIdx.x % hkv, b = (blockIdx.x % hb) / hkv;
+  const int group = hq / hkv, shift = sk - sq;
+  // rows that are valid for some key of the CTA: [i_lo, i_hi)
+  const int khi = min(k0 + BKV, sk) - 1;
+  const int i_lo = causal ? max(0, k0 - shift) : 0;
+  const int i_hi = window > 0 ? max(0, min(sq, khi + window - shift)) : sq;
+  const int qfirst = (i_lo / TQR) * TQR;
+  const int nq = i_hi > qfirst ? (i_hi - qfirst + TQR - 1) / TQR : 0;
+  const int ntiles = group * nq;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    for (int s = 0; s < BSTAGES; ++s) {
+      mbar_init(full + s, 32);  // the producer warp's lanes (one of them with the bytes)
+      mbar_init(empty + s, 8);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG;
+  if (wg == 2) {  // producer warp
+    const int lane = threadIdx.x % 32;
+    if (ntiles > 0) {
+      if (lane == 0) {
+        const int kvm = b * hkv + hk;
+        mbar_expect_tx(full_kv, 2 * BKV * D * 2);
+#pragma unroll
+        for (int c = 0; c < D / L::BOX; ++c) {
+          tma_load(smem + S::K + c * BKV * L::ROW, &tk, full_kv, c * L::BOX, k0, kvm);
+          tma_load(smem + S::V + c * BKV * L::ROW, &tv, full_kv, c * L::BOX, k0, kvm);
+        }
+      }
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % BSTAGES;
+        mbar_wait(empty + s, ((t / BSTAGES) & 1) ^ 1);
+        const int qm = b * hq + hk * group + t / nq, q0 = qfirst + (t % nq) * TQR;
+        // lse · log2 e and delta of the tile's rows, 0 past Sq
+        float* rs = rows_s + s * 2 * TQR;
+#pragma unroll
+        for (int h = 0; h < TQR / 32; ++h) {
+          const int row = q0 + h * 32 + lane;
+          const long long off = static_cast<long long>(qm) * sq + row;
+          rs[h * 32 + lane] = row < sq ? lse[off] * LOG2E : 0.f;
+          rs[TQR + h * 32 + lane] = row < sq ? delta[off] : 0.f;
+        }
+        if (lane == 0) {
+          uint8_t* qt = smem + S::RING + 2 * s * S::TILE;
+          mbar_expect_tx(full + s, 2 * S::TILE);
+#pragma unroll
+          for (int c = 0; c < D / L::BOX; ++c) {
+            tma_load(qt + c * TQR * L::ROW, &tq, full + s, c * L::BOX, q0, qm);
+            tma_load(qt + S::TILE + c * TQR * L::ROW, &tdo, full + s, c * L::BOX, q0, qm);
+          }
+        } else {
+          mbar_arrive(full + s);  // releases this lane's rows
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers
+  const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32, quad = lane % 4;
+  const int r = warp * 16 + lane / 4;  // the thread's keys r and r + 8 of the 64
+  const int kw = k0 + wg * 64;         // this warpgroup's first key
+  const float scale_log2 = scale * LOG2E;
+  const uint32_t ktile = smem_u32(smem + S::K), vtile = smem_u32(smem + S::V);
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  if (ntiles > 0) mbar_wait(full_kv, 0);
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % BSTAGES;
+    const uint32_t ph = (t / BSTAGES) & 1;
+    const int q0 = qfirst + (t % nq) * TQR;
+    const uint32_t qt = smem_u32(smem + S::RING + 2 * s * S::TILE), dot = qt + S::TILE;
+    mbar_wait(full + s, ph);
+    // some key of this warpgroup is valid for some row of the tile
+    if (kw < sk && q0 < sq && (!causal || kw <= q0 + TQR - 1 + shift) &&
+        (window <= 0 || kw + 63 > q0 + shift - window)) {
+      float st[TQR / 2], dpt[TQR / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma_ss<TQR>(st, L::kmajor(ktile, BKV, wg * 64, kk), L::kmajor(qt, TQR, 0, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma_ss<TQR>(dpt, L::kmajor(vtile, BKV, wg * 64, kk), L::kmajor(dot, TQR, 0, kk),
+                    kk > 0);
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(st);
+      fence_regs(dpt);
+      const bool whole = kw + 64 <= sk && q0 + TQR <= sq &&
+                         (!causal || kw + 63 <= q0 + shift) &&
+                         (window <= 0 || kw > q0 + TQR - 1 + shift - window);
+      const float* rs = rows_s + s * 2 * TQR;
+      if (whole)
+        dkv_probs<false>(st, dpt, rs, q0 + shift, kw + r, sk, causal, window, scale_log2,
+                         quad);
+      else
+        dkv_probs<true>(st, dpt, rs, q0 + shift, kw + r, sk, causal, window, scale_log2,
+                        quad);
+      uint32_t phi[TQR / 16][4], plo[TQR / 16][4], dhi[TQR / 16][4], dlo[TQR / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < TQR / 16; ++kk) {
+        a_split(st, kk, phi[kk], plo[kk]);
+        a_split(dpt, kk, dhi[kk], dlo[kk]);
+      }
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TQR / 16; ++kk) {
+        mma_rs<D>(dv_acc, phi[kk], L::mnmajor(dot, TQR, kk), 1);
+        mma_rs<D>(dv_acc, plo[kk], L::mnmajor(dot, TQR, kk), 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < TQR / 16; ++kk) {
+        mma_rs<D>(dk_acc, dhi[kk], L::mnmajor(qt, TQR, kk), 1);
+        mma_rs<D>(dk_acc, dlo[kk], L::mnmajor(qt, TQR, kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      fence_regs(phi);
+      fence_regs(plo);
+      fence_regs(dhi);
+      fence_regs(dlo);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + s);
+  }
+
+  const long long base = (static_cast<long long>(b) * hkv + hk) * sk;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = kw + r + 8 * i;
+    if (key >= sk) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const long long off = (base + key) * D + 8 * j + 2 * quad;
+      *reinterpret_cast<__nv_bfloat162*>(dk + off) = __floats2bfloat162_rn(
+          dk_acc[4 * j + 2 * i] * scale, dk_acc[4 * j + 2 * i + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off) =
+          __floats2bfloat162_rn(dv_acc[4 * j + 2 * i], dv_acc[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
+template <int D>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const float* lse, const float* delta, void* dk, void* dv, int batch, int hq,
+               int hkv, int sq, int sk, int causal, int window, float scale,
+               cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  int e = tile_map(&tq, q, batch * hq, sq, D, TQR);
+  if (!e) e = tile_map(&tdo, dout, batch * hq, sq, D, TQR);
+  if (!e) e = tile_map(&tk, k, batch * hkv, sk, D, BKV);
+  if (!e) e = tile_map(&tv, v, batch * hkv, sk, D, BKV);
+  if (e) return e;
+  constexpr int smem = DkvSmem<D>::BYTES;
+  int sms = 0;
+  e = prepare<flash_bwd_dkv_wgmma<D>>(smem, &sms);
+  if (e) return e;
+  const int grid = (sk + BKV - 1) / BKV * hkv * batch;
+  flash_bwd_dkv_wgmma<D><<<grid, THREADS, smem, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), batch, hq, hkv, sq, sk, causal, window, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // q, do, dq: (batch, hq, sq, d); k, v, dk, dv: (batch, hkv, sk, d), all
@@ -416,6 +698,13 @@ REPRO_EXPORT int flash_bwd_dkv(const void* q, const void* k, const void* v,
                                int window, float scale, int bf16, void* stream) {
   const Args a{q, k, v, dout, lse, delta, batch, hq, hkv, sq, sk, causal,
                window, scale, static_cast<cudaStream_t>(stream)};
-  return bf16 ? dispatch_dkv<__nv_bfloat16>(a, d, dk, dv)
-              : dispatch_dkv<float>(a, d, dk, dv);
+  if (!bf16) return dispatch_dkv<float>(a, d, dk, dv);
+  // bf16: the tensor-core kernel only, for every head dim
+  switch (d) {
+    case 16: return tc::launch_dkv<16>(q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, sq, sk, causal, window, scale, a.stream);
+    case 32: return tc::launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, sq, sk, causal, window, scale, a.stream);
+    case 64: return tc::launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, sq, sk, causal, window, scale, a.stream);
+    case 128: return tc::launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, sq, sk, causal, window, scale, a.stream);
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -6,8 +6,9 @@
 q's dtype and lse (B, Hq, Sq) in f32, queries right-aligned to the keys,
 causal and sliding-window masks, GQA with group Hq // Hkv.
 
-On a CUDA tensor it launches ``csrc/flash_fwd.cu`` (float32 or bf16, D in
-16, 32, 64 or 128); on a CPU tensor it runs :func:`flash_attention_plain`,
+On a CUDA tensor it launches ``csrc/flash_fwd.cu`` (D in 16, 32, 64 or
+128): a SIMT kernel for float32, a tensor-core kernel (``wgmma`` fed by TMA)
+for bf16; on a CPU tensor it runs :func:`flash_attention_plain`,
 the same blockwise algorithm in PyTorch ops. Both evaluate the TPU kernel's
 blocks of (min(block_q, Sq), min(block_k, Sk)) with its liveness rule and
 its -1e30 masking, so even the rows no key reaches (causal with Sq > Sk)
@@ -17,10 +18,11 @@ blocks, and lse = -1e30 + log(count).
 :func:`flash_attention_bwd` is ``_bwd_call``: (dq, dk, dv) from the saved
 (q, k, v, o, lse) and dO, with delta = rowsum(dO ∘ O) in float32. On a CUDA
 tensor it launches the two kernels of ``csrc/flash_bwd.cu``
-(``flash_bwd_dq``, ``flash_bwd_dkv``); on a CPU tensor it runs
+(``flash_bwd_dq``, SIMT; ``flash_bwd_dkv``, SIMT for float32 and on the
+tensor cores for bf16); on a CPU tensor it runs
 :func:`flash_attention_bwd_plain`. A dead block's mask is all false, so
 the backward does not depend on the blocks: the plain version walks the
-TPU's blocks, the kernels their own 64-row tiles.
+TPU's blocks, the kernels their own tiles.
 
 :class:`FlashAttention` is ``_flash``'s custom VJP as a
 ``torch.autograd.Function`` and :func:`flash` its entry point: o only,
@@ -38,7 +40,7 @@ from . import _build
 
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
-TILE_Q = 64                        # query rows per CTA (csrc/flash_fwd.cu: BQ)
+TILE_Q = 64                        # query rows that share one liveness (csrc/flash_fwd.cu)
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 _NEG_INF = -1e30
 
@@ -149,7 +151,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None, scale=None,
     bq, bk = min(block_q, sq), min(block_k, sk)
     if bq % TILE_Q and bq != sq:
         raise ValueError(f"block_q {block_q} must be a multiple of {TILE_Q} "
-                         "(a CTA's rows lie in one block)")
+                         "(each 64-row tile of the kernels lies in one block)")
     scale = d ** -0.5 if scale is None else float(scale)
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)

@@ -18,9 +18,10 @@ steps and at the last, and ``column sparsity <leaf>: x%``.
 Attention runs ``impl="flash"``: the hand-written CUDA forward and dQ /
 dK/dV backward kernels on the card, the counterpart of the JAX package's
 ``"pallas"`` (the JAX launcher trains with ``"chunked"``, or ``"naive"``
-under ``--smoke``). ``--mesh`` takes only ``1x1`` (the mesh executor waits
-for its slice) and ``--telemetry-every``/``--telemetry-marks`` raise (the
-telemetry bridge waits for its slice).
+under ``--smoke``). ``--mesh`` takes only ``1x1`` (the mesh executor is in,
+but a train step sharded over it waits for its slice) and
+``--telemetry-every``/``--telemetry-marks`` raise (the telemetry bridge
+waits for its slice).
 """
 
 from __future__ import annotations
@@ -68,7 +69,8 @@ def run(argv=None) -> dict:
     args = _parser().parse_args(argv)
     if args.mesh != "1x1":
         raise ValueError(f"--mesh {args.mesh}: the port trains on one device "
-                         "(1x1); the mesh executor waits for its slice")
+                         "(1x1); a train step sharded over the mesh executor "
+                         "waits for its slice")
     if args.telemetry_every > 0 or args.telemetry_marks:
         raise ValueError("--telemetry-every/--telemetry-marks: the in-step "
                          "telemetry bridge waits for its slice")

@@ -47,8 +47,9 @@ def _method_resolver(spec: ProjectionSpec):
     validated through the registry immediately (config errors surface
     once)."""
     if spec.method == "auto":
-        raise ValueError("method='auto' needs the planner's best_l1_method, "
-                         "which the port has not ported yet; name a solver "
+        raise ValueError("method='auto': this hook does not yet resolve the "
+                         "solver once per hook through the planner's "
+                         "best_l1_method (core/plan.py); name a solver "
                          f"({', '.join(ball.available_methods())})")
     method = ball.resolve_method(spec.method)
     return lambda shape, dtype: method
