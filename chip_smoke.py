@@ -8,7 +8,8 @@ Run from the root of a checkout, with no arguments:
 (``--only mesh`` builds the kernels and runs phase 7 alone: on a machine
 with four cards its ranks talk over NCCL. ``--only attention`` builds them
 and runs the flash kernels' holds of phase 1 in float32 and bf16, the
-Function's gradients and the flash rows of phase 6 alone.)
+Function's gradients and the flash rows of phase 6 alone; its launches are
+those of one bf16 Function forward+backward at granite's shape.)
 
 1. builds the eleven CUDA kernels of the seven sources in
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, started together),
@@ -278,32 +279,6 @@ GOLDEN_SHAPES = {
 
 class SmokeFailure(RuntimeError):
     pass
-
-
-def ptxas_report(log):
-    """(kernel, line) for each register, shared-memory and spill line of an
-    ``nvcc -Xptxas=-v`` log; the kernel is its mangled name's last nested
-    identifier and integer template arguments (``flash_fwd_wgmma<64>``)."""
-    import re
-
-    out, entry = [], "?"
-    for line in log.splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties for) "
-                      r"'?(_Z\w+)", line)
-        if m:
-            sym, pos, name = m.group(1), 2, m.group(1)
-            pos += sym[pos] == "N"
-            while pos < len(sym) and sym[pos].isdigit():
-                n = re.match(r"\d+", sym[pos:]).group()
-                pos += len(n)
-                name = sym[pos:pos + int(n)]
-                pos += int(n)
-            targs = re.match(r"I((?:L[a-z]\d+E|[a-z])*)E", sym[pos:])
-            ints = re.findall(r"L[a-z](\d+)E", targs.group(1)) if targs else []
-            entry = name + (f"<{','.join(ints)}>" if ints else "")
-        elif "registers" in line or "spill" in line:
-            out.append((entry, line.strip()))
-    return out
 
 
 def check_close(what, got, want, scale, rtol=RTOL, nonfinite=False):
@@ -724,7 +699,7 @@ def hold_sae_step(dev, fc, harvest_dir, layer, main_loss):
     return errs
 
 
-def hold_attention(randn, tag, qs, ks, causal, window, dtype):
+def hold_attention(randn, tag, qs, ks, causal, window, dtype, scale=None):
     """In ``dtype``: the forward and both backward kernels against their
     plain versions on the same inputs, the kernel's o and lse feeding
     both backwards. Returns the max error per kernel and the inputs."""
@@ -733,15 +708,14 @@ def hold_attention(randn, tag, qs, ks, causal, window, dtype):
     from repro_torch.kernels import flash_attention as flash
 
     q, k, v, do = (randn(s_, 1.0).to(dtype) for s_ in (qs, ks, ks, qs))
-    o, lse = flash.flash_attention(q, k, v, causal=causal, window=window)
+    opts = dict(causal=causal, window=window, scale=scale)
+    o, lse = flash.flash_attention(q, k, v, **opts)
     torch.cuda.synchronize()
     rtol = BF16_RTOL if dtype == torch.bfloat16 else RTOL
-    po, plse = flash.flash_attention_plain(q, k, v, causal=causal,
-                                           window=window)
+    po, plse = flash.flash_attention_plain(q, k, v, **opts)
     errs = {"flash_fwd": max(check_close(f"{tag} o", o, po, 2.0, rtol=rtol),
                              check_close(f"{tag} lse", lse, plse, 1.0))}
     delta = (do.float() * o.float()).sum(-1)
-    opts = dict(causal=causal, window=window)
     dq = flash.flash_bwd_dq(q, k, v, do, lse, delta, **opts)
     dk, dv = flash.flash_bwd_dkv(q, k, v, do, lse, delta, **opts)
     torch.cuda.synchronize()
@@ -752,7 +726,8 @@ def hold_attention(randn, tag, qs, ks, causal, window, dtype):
     errs["flash_bwd_dq"] = e["dq"]
     errs["flash_bwd_dkv"] = max(e["dk"], e["dv"])
     print(f"flash {tag} {str(dtype)[6:]} q{qs} kv{ks} causal={causal} "
-          f"window={window}: " + ", ".join(
+          f"window={window}" + ("" if scale is None else f" scale={scale}")
+          + ": " + ", ".join(
               f"{k_} max_abs_err {v_:.3e}" for k_, v_ in errs.items()))
     return errs, (q, k, v, do, o, lse, delta)
 
@@ -787,16 +762,18 @@ def hold_function_grads(randn):
 
 def hold_attention_all(randn):
     """``hold_attention`` in float32 and bf16 on every ``FLASH_CASES``
-    entry and at ``GRANITE_ATTN``, then ``hold_function_grads``. Returns
+    entry, on one case with a negative scale (the kernels take any scale)
+    and at ``GRANITE_ATTN``, then ``hold_function_grads``. Returns
     the cases' max error per (kernel, type), granite's errors and inputs
     per type, and the Function's gradient errors."""
     import torch
 
     case_errs = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for i, (qs, ks, causal, window) in enumerate(FLASH_CASES):
+        for i, (qs, ks, causal, window, scale) in enumerate(
+                [c + (None,) for c in FLASH_CASES] + [FLASH_CASES[1] + (-0.125,)]):
             errs, _ = hold_attention(randn, f"case{i}", qs, ks, causal,
-                                     window, dtype)
+                                     window, dtype, scale)
             for k_, v_ in errs.items():
                 key = (k_, str(dtype)[6:])
                 case_errs[key] = max(case_errs.get(key, 0.0), v_)
@@ -1250,15 +1227,40 @@ def training_phase(dev, workdir):
             "ckpt_bytes": ck_bytes}
 
 
-def time_attention(attn_full, attn_case_errs, trn=None):
+def function_launches():
+    """Launch counts of one bf16 ``flash`` forward+backward (the Function
+    that ``ops.attention`` calls) at granite's attention shape, counted from
+    0: ``--only attention``'s launches, since it runs no train step."""
+    import torch
+
+    from repro_torch.kernels import _build, flash_attention as flash
+
+    qs, ks, causal, window = GRANITE_ATTN
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    q, k, v = (torch.randn(s_, generator=g, device="cuda", dtype=torch.bfloat16
+                           ).requires_grad_(True) for s_ in (qs, ks, ks))
+    _build.reset_launches()
+    flash.flash(q, k, v, causal=causal, window=window).float().sum().backward()
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    print(f"flash Function forward+backward at {qs}/{ks} bf16: launches "
+          + ", ".join(f"{n} {counts[n]}" for n in names))
+    if any(counts[n] != 1 for n in names):
+        raise SmokeFailure("flash Function forward+backward: each flash "
+                           "kernel should launch once")
+    return counts
+
+
+def time_attention(attn_full, attn_case_errs, launches, trn=None):
     """Phase 6's attention rows: each flash kernel at granite's training
     shape in bf16 (the main path's type: the JSON rows) and in float32 (in
     each row under "float32"): the kernel, its plain version, and
     ``scaled_dot_product_attention`` (``enable_gqa``) on the same tensors,
-    its backward timed as forward+backward minus forward. With the train
-    step's record ``trn``, the rows take its launch counts and the flash
-    kernels' share goes into the step's parts; without it (``--only
-    attention``) the launches are 0."""
+    its backward timed as forward+backward minus forward. The bf16 rows
+    take ``launches`` (the train step's counts, or ``function_launches``'
+    under ``--only attention``); with the train step's record ``trn`` the
+    flash kernels' share goes into the step's parts."""
     import torch
 
     from repro_torch.kernels import flash_attention as flash
@@ -1307,8 +1309,7 @@ def time_attention(attn_full, attn_case_errs, trn=None):
                 "source": "src/repro_torch/csrc/" + (
                     "flash_fwd.cu" if name == "flash_fwd" else "flash_bwd.cu"),
                 "replaces": REPLACES[name, False],
-                "launches": (trn["counts"][name]
-                             if trn is not None and tag == "bfloat16" else 0),
+                "launches": launches[name],
                 "max_abs_err": err, "ms": t[name], "plain_ms": plain_ms,
                 "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
             print(f"time {name} {tag} {tuple(q.shape)}/{tuple(k.shape)} causal: "
@@ -1743,10 +1744,13 @@ def main(argv=None) -> int:
           + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()))
     logs = dict.fromkeys(k.library.with_suffix(".log")
                          for k in _build.KERNELS.values())  # one per source
-    for log in logs:
-        if log.exists():
-            for entry, line in ptxas_report(log.read_text()):
-                print(f"ptxas {log.stem.rsplit('-', 1)[0]} {entry}: {line}")
+    for log in logs:  # each register/spill line after its kernel's mangled name
+        entry = "?"
+        for line in (log.read_text().splitlines() if log.exists() else ()):
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "registers" in line or "spill" in line:
+                print(f"ptxas {log.stem.rsplit('-', 1)[0]} {entry}: {line.strip()}")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -1775,7 +1779,7 @@ def main(argv=None) -> int:
 
     if args.only == "attention":
         attn_case_errs, attn_full, _ = hold_attention_all(randn)
-        rows = time_attention(attn_full, attn_case_errs)
+        rows = time_attention(attn_full, attn_case_errs, function_launches())
         print(json.dumps({"kernels": rows}))
         print(smi)
         print(json.dumps({"ok": True, "device": {
@@ -2092,7 +2096,7 @@ def main(argv=None) -> int:
           f"{bms:.4f} ms by {by}, {bms / ms:.2f} of bound), plain "
           f"{plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms, "
           f"max_abs_err {ferr:.3e}")
-    rows += time_attention(attn_full, attn_case_errs, trn)
+    rows += time_attention(attn_full, attn_case_errs, trn["counts"], trn)
     golden_rows, golden_ms = time_golden(wls, golden, golden_errs)
     rows += golden_rows
     del wls

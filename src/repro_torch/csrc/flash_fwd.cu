@@ -282,7 +282,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
 //                     2^-8 · |v| / sqrt(n) on outputs near 0, far outside
 //                     that bar).
 // Logits are scaled by scale · log2(e) (inside the exponent's FMA on a tile
-// with no masked pair) and exponentiated by ex2; the sentinels stay as they
+// with no masked pair when scale > 0) and exponentiated by ex2; the sentinels stay as they
 // are: a masked slot is -1e30 (2^0 = 1 while the whole row is masked), a
 // key past the live blocks -inf, and lse = m · ln 2 + log(l), or
 // -1e30 + log(l) while m is the sentinel. Liveness is evaluated per
@@ -399,7 +399,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&corr)[2
     float mc = fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]));
     mc = fmaxf(mc, __shfl_xor_sync(flash::FULL, mc, 1));
     mc = fmaxf(mc, __shfl_xor_sync(flash::FULL, mc, 2));
-    if (!MASK) mc *= scale_log2;  // scale > 0: the max of the scaled logits
+    if (!MASK) mc *= scale_log2;  // scale > 0 (the caller's test): the max of the scaled logits
     // the reference max moves only when the row's max passes it by more
     // than 8 (p <= 2^8 otherwise), so most tiles leave O unscaled; from
     // the sentinel -1e30 any valid logit moves it (corr = 2^-1e30 = 0)
@@ -525,8 +525,11 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         wgmma_commit();
         wgmma_wait();
         fence_regs(sc);
-        const bool whole = k0 >= my.lo && k0 + BK <= my.hi && k0 + BK <= sk &&
-                           row0 + 64 <= sq && (!causal || k0 + BK - 1 <= row0 + shift) &&
+        // a scale <= 0 sends every tile through the masked path, which
+        // scales each logit before the row's max
+        const bool whole = scale_log2 > 0.f && k0 >= my.lo && k0 + BK <= my.hi &&
+                           k0 + BK <= sk && row0 + 64 <= sq &&
+                           (!causal || k0 + BK - 1 <= row0 + shift) &&
                            (window <= 0 || k0 > row0 + 63 + shift - window);
         const int qpos0 = row0 + r + shift;
         float corr[2];

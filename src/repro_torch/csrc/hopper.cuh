@@ -294,13 +294,8 @@ inline EncodeTiled encode_tiled() {
   static const EncodeTiled fn = [] {
     void* p = nullptr;
     cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
     const cudaError_t e = cudaGetDriverEntryPointByVersion(
         "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
     return e == cudaSuccess && q == cudaDriverEntryPointSuccess
                ? reinterpret_cast<EncodeTiled>(p) : nullptr;
   }();
