@@ -9,7 +9,10 @@ Run from the root of a checkout, with no arguments:
 with four cards its ranks talk over NCCL. ``--only attention`` builds them
 and runs the flash kernels' holds of phase 1 in float32 and bf16, the
 Function's gradients and the flash rows of phase 6 alone; its launches are
-those of one bf16 Function forward+backward at granite's shape.)
+those of one bf16 Function forward+backward at granite's shape. ``--only
+golden`` builds them and runs the golden kernels' holds of phase 1, phase
+3 and the golden rows of phase 6, with W1 and W2 drawn as phase 2 draws
+the server's requests.)
 
 1. builds the eleven CUDA kernels of the seven sources in
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, started together),
@@ -21,7 +24,8 @@ those of one bf16 Function forward+backward at granite's shape.)
    flash-attention forward (o and lse) at the harvest's shape
    (4, 32, 2048, 64) f32 causal and on small ragged cases (non-causal,
    windows, GQA, Sq < Sk and Sq > Sk, block-unaligned lengths); then, in
-   float32 and bf16, the forward and the two backward kernels
+   float32 and bf16 (bf16 on the tensor-core kernels, float32 on the SIMT
+   ones), the forward and the two backward kernels
    (``flash_bwd_dq``, ``flash_bwd_dkv``) at granite-3-2b's attention shape,
    q (4, 32, 2048, 64) and k/v (4, 8, 2048, 64) causal, and on the same
    ragged cases, and the ``FlashAttention`` Function's gradients at that
@@ -82,7 +86,9 @@ those of one bf16 Function forward+backward at granite's shape.)
 6. times each kernel at full width (the projection kernels for the bucket
    of 8 and for one item, the golden kernels at their workloads W1–W4) with
    CUDA events (median of 20) beside its bound, its plain version and,
-   where one PyTorch call computes the same function, that call; times the
+   where one PyTorch call computes the same function, that call (held
+   equal to the plain version first); the golden kernels also as CUDA-graph
+   replays and by host time per call, beside the library call's; times the
    four golden workloads' pipelines (golden, generated, the plain schedule
    and, on W1 and W3, the exact projection; W3's exact/bi-level time ratio
    at each η); times one warm harvest step and one SAE step with their
@@ -383,6 +389,23 @@ def host_ms(fn, reps=5):
     return statistics.median(times)
 
 
+def host_call_ms(fn, calls=200):
+    """Milliseconds of host time per call of ``fn()``, over ``calls`` calls
+    enqueued back to back with no synchronize between them: the wrapper's
+    host work and the launch, which the event window of a lone call counts
+    while the device waits."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return ms
+
+
 def bound_ms(nbytes, nops, ops_per_s=F32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / ops_per_s * 1e3
@@ -442,6 +465,20 @@ def hold_golden_kernels(randn, rand):
           "all equal; " + ", ".join(f"{k} max_abs_err {v:.3e}"
                                      for k, v in errs.items()))
     return errs
+
+
+def golden_requests(randn, rand):
+    """W1 and W2 for ``--only golden``, which serves no request: one seeded
+    request of each server workload, its radius drawn as phase 2 draws it."""
+    from repro_torch.core import multilevel
+
+    reqs = {}
+    for wl, (shape, levels) in FULL.items():
+        y = randn(shape)
+        radius = float(multilevel.multilevel_norm(y, levels)) \
+            * (0.05 + 0.45 * float(rand(())))
+        reqs[wl] = (y, (radius,))
+    return reqs
 
 
 def golden_workloads(server_reqs):
@@ -571,6 +608,7 @@ def time_golden(wls, golden, kernel_errs):
             v2, v1 = tri.trilevel_reduce(y)
             u1 = l1ball.outer_l1_solve(v1, eta)
             nm = v2.numel()
+            w2 = torch.minimum(v2, u1.to(y.dtype)[None, :])[None]  # the radii, precomputed
             cases = {
                 "trilevel_reduce": (lambda: tri.trilevel_reduce(y),
                                     lambda: tri.trilevel_reduce_plain(y),
@@ -579,7 +617,7 @@ def time_golden(wls, golden, kernel_errs):
                 "trilevel_apply": (lambda: tri.trilevel_apply(y, v2, u1),
                                    lambda: tri.trilevel_apply_plain(y, v2, u1),
                                    es * (2 * elems + nm + m), 2 * elems + nm,
-                                   None),
+                                   lambda: torch.clamp(y, -w2, w2)),
             }
         for name, (kern, plain, nbytes, nops, lib) in cases.items():
             k_out, p_out = kern(), plain()
@@ -588,11 +626,15 @@ def time_golden(wls, golden, kernel_errs):
                 else [(k_out, p_out)]
             err = max([kernel_errs[name]] + [check_exact(
                 f"{wl} {name} (timing)", a, b) for a, b in pairs])
+            if lib is not None:  # the library call computes the same output
+                check_exact(f"{wl} {name} library call", lib(), p_out)
             del k_out, p_out
             plain_ms = event_ms(plain)
             ms = event_ms(kern)
             dev_ms = graph_ms(kern)
             lib_ms = None if lib is None else event_ms(lib)
+            host = {"kernel": host_call_ms(kern),
+                    "library": None if lib is None else host_call_ms(lib)}
             bms, by = bound_ms(nbytes, nops)
             rows.append({
                 "name": name, "workload": f"{wl} {tuple(y.shape)} f32",
@@ -600,12 +642,15 @@ def time_golden(wls, golden, kernel_errs):
                 "replaces": REPLACES[name, False],
                 "launches": golden[wl]["counts"][name], "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                "bound_by": by, "library_ms": lib_ms, "graph_ms": dev_ms})
+                "bound_by": by, "library_ms": lib_ms, "graph_ms": dev_ms,
+                "host_ms": host["kernel"], "library_host_ms": host["library"]})
             print(f"time {wl} {name} {tuple(y.shape)}: {ms:.4f} ms (bound "
                   f"{bms:.4f} ms by {by}, {bms / ms:.2f} of bound; CUDA-graph "
                   f"replay {dev_ms:.4f} ms, {bms / dev_ms:.2f} of bound), plain "
                   f"{plain_ms:.4f} ms, library "
                   f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
+                  f"host per call {host['kernel']:.4f} ms (library "
+                  f"{'n/a' if lib_ms is None else '%.4f ms' % host['library']}), "
                   f"max_abs_err {err:.3e}")
         fused = bi.bilevel_l1inf_fused if design == "bilevel" \
             else tri.trilevel_l1infinf_fused
@@ -1702,14 +1747,17 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description="Drive the port on the card.")
-    ap.add_argument("--only", choices=("mesh", "attention"),
+    ap.add_argument("--only", choices=("mesh", "attention", "golden"),
                     help="run one phase alone: 'mesh' builds the kernels and "
                          "runs phase 7 (the partial apply, then the mesh "
                          "executor on four ranks); 'attention' builds them "
                          "and holds the flash kernels in float32 and bf16 "
                          "(granite's shape and every ragged case), the "
                          "Function's gradients, then times the kernels "
-                         "beside their plain versions and SDPA")
+                         "beside their plain versions and SDPA; 'golden' "
+                         "builds them and runs the golden kernels' holds of "
+                         "phase 1, phase 3 on W1-W4 (W1, W2 drawn as the "
+                         "server's requests are) and their rows of phase 6")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1777,24 +1825,31 @@ def main(argv=None) -> int:
             "codegen_partial_apply"]
         return row, {"backend": mesh_backend, "seconds": seconds, "ranks": ranks}
 
-    if args.only == "attention":
-        attn_case_errs, attn_full, _ = hold_attention_all(randn)
-        rows = time_attention(attn_full, attn_case_errs, function_launches())
-        print(json.dumps({"kernels": rows}))
+    def finish(result):
+        """The last three lines: the result's JSON, the card, the verdict."""
+        print(json.dumps(result))
         print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
 
+    if args.only == "attention":
+        attn_case_errs, attn_full, _ = hold_attention_all(randn)
+        rows = time_attention(attn_full, attn_case_errs, function_launches())
+        return finish({"kernels": rows})
+
     if args.only == "mesh":
         row, mesh = mesh_phases()
-        print(json.dumps({"kernels": [row], "mesh": mesh}))
-        print(smi)
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}))
-        return 0
+        return finish({"kernels": [row], "mesh": mesh})
+
+    if args.only == "golden":
+        golden_errs = hold_golden_kernels(randn, rand)
+        wls = golden_workloads(golden_requests(randn, rand))
+        golden = golden_phase(wls)
+        rows, golden_ms = time_golden(wls, golden, golden_errs)
+        return finish({"kernels": rows, "golden": {
+            wl: dict(golden[wl], pipelines_ms=golden_ms[wl]) for wl in golden}})
 
     # ------------------------------------- phase 1: kernels vs plain versions
     def hold_pipeline(tag, shape, levels, batch):
@@ -2041,11 +2096,19 @@ def main(argv=None) -> int:
                          + (b * m if norms[-2] == "2" else 0)),
                     2 * elems + 2 * agg_elems),
             }
+            # one PyTorch call computing the same output, where there is one:
+            # the bi-level reduce's single aggregate, and the ℓ∞ apply as a
+            # clamp with its radii precomputed (the tri-level reduce has two
+            # outputs, v1 and vfin; l1ball's θ-solve has no such call)
             lib = dict.fromkeys(cases)
+            w_b = u_p[:, None, :] if wl == "bilevel" \
+                else torch.minimum(aggs_p[-1], u_p[:, None])[:, None]
+            lib_apply = lambda: torch.clamp(yc, -w_b, w_b)  # noqa: E731
+            check_close(f"{wl} x{b} apply: torch.clamp", lib_apply(),
+                        cases["codegen_apply"][1](), scale)
+            lib["codegen_apply"] = event_ms(lib_apply)
             if wl == "bilevel":
-                u_b = u_p[:, None, :]
                 lib["codegen_reduce"] = event_ms(lambda: torch.amax(yc.abs(), dim=1))
-                lib["codegen_apply"] = event_ms(lambda: torch.clamp(yc, -u_b, u_b))
             for name, (kern, plain, compare, nbytes, nops) in cases.items():
                 err = compare(kern(), plain())
                 torch.cuda.synchronize()
@@ -2116,26 +2179,21 @@ def main(argv=None) -> int:
     # ------------------------- phase 7: the mesh executor at full width
     mesh_row, mesh = mesh_phases()
     rows.append(mesh_row)
-    print(json.dumps({"kernels": rows, "mesh": mesh,
-                      "factory": {"harvest_step_ms": step_parts,
-                                  "sae_step_ms": sae_parts,
-                                  "held_sae_step": fac["held_sae_step"],
-                                  "runs": fac["runs"]},
-                      "train": {k_: v_ for k_, v_ in trn.items()
-                                if k_ != "per_step"},
-                      "flash_function_grad_err": fn_errs,
-                      "golden": {wl: dict(golden[wl], pipelines_ms=golden_ms[wl])
-                                 for wl in golden},
-                      "engine_ms": {
-                          wl: {"bucket_latency": v[0] * 1e3,
-                               "per_request_latency": v[1] * 1e3,
-                               "bucket_stack": stack_ms[wl]}
-                          for wl, v in latency.items()}}))
-    print(smi)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return finish({"kernels": rows, "mesh": mesh,
+                   "factory": {"harvest_step_ms": step_parts,
+                               "sae_step_ms": sae_parts,
+                               "held_sae_step": fac["held_sae_step"],
+                               "runs": fac["runs"]},
+                   "train": {k_: v_ for k_, v_ in trn.items()
+                             if k_ != "per_step"},
+                   "flash_function_grad_err": fn_errs,
+                   "golden": {wl: dict(golden[wl], pipelines_ms=golden_ms[wl])
+                              for wl in golden},
+                   "engine_ms": {
+                       wl: {"bucket_latency": v[0] * 1e3,
+                            "per_request_latency": v[1] * 1e3,
+                            "bucket_stack": stack_ms[wl]}
+                       for wl, v in latency.items()}})
 
 
 if __name__ == "__main__":

@@ -1,12 +1,17 @@
 // flash_bwd.cu — attention backward (FlashAttention-2), two kernels:
 //
-//   flash_bwd_dq   one CTA per (q tile of 64 rows, query head, batch item):
-//                  dQ = scale · Σ_k dS K, with dS = P ∘ (dO Vᵀ − delta)
+//   flash_bwd_dq   dQ = scale · Σ_k dS K, with dS = P ∘ (dO Vᵀ − delta): in
+//                  float32 one SIMT CTA per (q tile of 64 rows, query head,
+//                  batch item); in bf16 the tensor-core kernel of namespace
+//                  tc (128 rows per CTA)
 //   flash_bwd_dkv  dV = Σ Pᵀ dO and dK = scale · Σ dSᵀ Q over the kv head's
 //                  whole query group (G = Hq / Hkv heads) and every q tile:
 //                  in float32 one SIMT CTA per (k tile of 64 keys, kv head,
 //                  batch item); in bf16 the tensor-core kernel of namespace
-//                  tc (no bf16 input reaches the SIMT one)
+//                  tc
+//
+// No bf16 input reaches a SIMT kernel: the exports send every bf16 call,
+// at every head dim, to namespace tc.
 //
 // where P = exp(scale · Q Kᵀ − lse) under the mask and delta = rowsum(dO ∘ O)
 // (computed by the wrapper, as the JAX package computes it in jnp).
@@ -43,10 +48,10 @@
 //
 // Bound: at granite-3-2b's shape, q (4, 32, 2048, 64), k/v (4, 8, 2048, 64),
 // causal, dQ does 3·B·Hq·Sq·Sk·D = 103 GFLOP (S, dP and dS·K, halved by the
-// mask) and dK/dV 4·B·Hq·Sq·Sk·D = 137 GFLOP, against 100 MB of bf16 or
-// 200 MB of f32 inputs and outputs: both are bound by operations. The SIMT
-// kernels are a simple float32 design (FMAs fed from shared memory, no
-// tensor cores): dQ in bf16 runs it still, far below the bf16 bound.
+// mask) and dK/dV 4·B·Hq·Sq·Sk·D = 137 GFLOP, against 119 MB (dQ) and
+// 103 MB (dK/dV) of bf16 inputs and outputs, about twice that in f32: both
+// are bound by operations. The SIMT kernels are a simple float32 design
+// (FMAs fed from shared memory, no tensor cores) and take float32 only.
 #include <math.h>
 
 #include "flash_common.cuh"
@@ -673,6 +678,241 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return cudaGetLastError();
 }
 
+// --------------------------------------------- dQ in bf16: tensor cores
+// One CTA per (128 query rows, query head, batch item), q blocks slowest
+// and the last first in a linear grid (causal's longest CTAs start first)
+// and the G query heads of a kv head adjacent (their K/V tiles come from
+// L2): two consumer warpgroups of 64 rows each (query rows are the M of
+// every product) and a producer warp. Its first thread loads the CTA's Q
+// and dO once, then streams 64-key tiles of K and V through a ring of
+// STAGES (TMA, one full and one empty barrier per stage) over the keys in
+// [k_lo, k_hi) that some row of the CTA reaches. Each consumer thread reads
+// lse · log2 e and delta of its own two rows into registers once. Per tile
+// a warpgroup, with float32 accumulators,
+//   S = Q Kᵀ, dP = dO Vᵀ       wgmma m64n64k16, operands in shared memory;
+//   dS = 2^(S · scale · log2 e − lse · log2 e) ∘ (dP − delta) where valid,
+//        else 0;
+//   dQ += dS K                  wgmma m64n{D}k16, dS from registers split
+//                               into two bf16 terms (hopper::split), K
+//                               MN-major: the forward's P V with K in V's
+//                               place.
+// P and dS are selected, not multiplied, to 0, so a row that no key
+// reaches (lse = -1e30 + log n, where 2^(...) overflows) never reaches the
+// sum; TMA reads q/do rows past Sq and k/v rows past Sk as 0. A warpgroup
+// skips the products of a tile in which none of its rows has a valid key,
+// and tests validity per pair only on tiles that need it. dQ · scale is
+// rounded to bf16 once; a row with no valid key writes 0. No atomics: each
+// row's sum runs in one warpgroup in key order, so dQ is deterministic.
+//
+// Bound: at granite-3-2b's shape the three products are
+// 3·B·Hq·Sq·Sk·D / 2 = 103 GFLOP (137 issued with the split product)
+// against 119 MB of q, k, v, do, lse, delta and dq: bound by operations,
+// 104 µs at 989 TFLOP/s.
+constexpr int BQR = 128;  // query rows per dQ CTA
+constexpr int BKT = 64;   // keys per streamed tile
+
+template <int D>
+struct DqSmem {
+  static constexpr int STAGES = D == 128 ? 3 : 4;
+  static constexpr int TILE_Q = BQR * D * 2;
+  static constexpr int Q = 0;                       // [BQR][D]
+  static constexpr int DO = TILE_Q;                 // [BQR][D]
+  static constexpr int RING = 2 * TILE_Q;           // stage s: K at RING + 2s·TILE, V after
+  static constexpr int TILE = BKT * D * 2;
+  static constexpr int BAR = RING + STAGES * 2 * TILE;
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+// dS of one tile in place of dP (MASK: some pair of the tile needs its own
+// test); the thread holds rows qpos0 and qpos0 + 8 (as query positions) and
+// the keys key0 + 8j + e, with its rows' lse · log2 e in l2 and delta in dl
+template <bool MASK>
+__device__ __forceinline__ void dq_scores(const float (&sc)[BKT / 2], float (&dp)[BKT / 2],
+                                          const float (&l2)[2], const float (&dl)[2],
+                                          int qpos0, int key0, int sk, int causal,
+                                          int window, float scale_log2) {
+#pragma unroll
+  for (int j = 0; j < BKT / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int x = 4 * j + 2 * i + e;
+        const float ds = ex2(fmaf(sc[x], scale_log2, -l2[i])) * (dp[x] - dl[i]);
+        if (MASK)
+          dp[x] = flash::valid(qpos0 + 8 * i, key0 + 8 * j + e, sk, causal, window) ? ds : 0.f;
+        else
+          dp[x] = ds;
+      }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+                   const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
+                   int batch, int hq, int hkv, int sq, int sk, int causal, int window,
+                   float scale) {
+  using L = Layout<D>;
+  using S = DqSmem<D>;
+  constexpr int STAGES = S::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(smem + S::BAR);
+  uint64_t* full = full_q + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int hb = batch * hq, nqb = (sq + BQR - 1) / BQR;
+  const int q0 = (nqb - 1 - static_cast<int>(blockIdx.x) / hb) * BQR;
+  const int h = blockIdx.x % hq, b = (blockIdx.x % hb) / hq;
+  const int shift = sk - sq;
+  // keys that are valid for some row of the CTA: [k_lo, k_hi)
+  const int qlo = q0 + shift, qhi = min(q0 + BQR, sq) - 1 + shift;
+  const int k_hi = causal ? max(0, min(sk, qhi + 1)) : sk;
+  const int k_lo = window > 0 ? max(0, qlo - window + 1) : 0;
+  const int kfirst = (k_lo / BKT) * BKT;
+  const int ntiles = k_hi > kfirst ? (k_hi - kfirst + BKT - 1) / BKT : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG;
+  if (wg == 2) {  // producer: its first thread issues every load
+    if (threadIdx.x == 2 * WG && ntiles > 0) {
+      const int qm = b * hq + h, kvm = b * hkv + h / (hq / hkv);
+      mbar_expect_tx(full_q, 2 * S::TILE_Q);
+#pragma unroll
+      for (int c = 0; c < D / L::BOX; ++c) {
+        tma_load(smem + S::Q + c * BQR * L::ROW, &tq, full_q, c * L::BOX, q0, qm);
+        tma_load(smem + S::DO + c * BQR * L::ROW, &tdo, full_q, c * L::BOX, q0, qm);
+      }
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % STAGES, k0 = kfirst + t * BKT;
+        mbar_wait(empty + s, ((t / STAGES) & 1) ^ 1);
+        uint8_t* kt = smem + S::RING + 2 * s * S::TILE;
+        mbar_expect_tx(full + s, 2 * S::TILE);
+#pragma unroll
+        for (int c = 0; c < D / L::BOX; ++c) {
+          tma_load(kt + c * BKT * L::ROW, &tk, full + s, c * L::BOX, k0, kvm);
+          tma_load(kt + S::TILE + c * BKT * L::ROW, &tv, full + s, c * L::BOX, k0, kvm);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers
+  const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32, quad = lane % 4;
+  const int r = warp * 16 + lane / 4;  // the thread's rows r and r + 8 of the 64
+  const int rw = q0 + wg * 64;         // this warpgroup's first row
+  const float scale_log2 = scale * LOG2E;
+  const uint32_t qtile = smem_u32(smem + S::Q), dotile = smem_u32(smem + S::DO);
+  const long long mat = static_cast<long long>(b) * hq + h;
+
+  float l2[2], dl[2];  // lse · log2 e and delta of rows rw + r and rw + r + 8, 0 past Sq
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = rw + r + 8 * i;
+    l2[i] = row < sq ? lse[mat * sq + row] * LOG2E : 0.f;
+    dl[i] = row < sq ? delta[mat * sq + row] : 0.f;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int c = 0; c < D / 2; ++c) acc[c] = 0.f;
+  if (ntiles > 0) mbar_wait(full_q, 0);
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % STAGES, k0 = kfirst + t * BKT;
+    const uint32_t ph = (t / STAGES) & 1;
+    const uint32_t kt = smem_u32(smem + S::RING + 2 * s * S::TILE), vt = kt + S::TILE;
+    mbar_wait(full + s, ph);
+    // some row of this warpgroup has a valid key in the tile
+    if (rw < sq && k0 < sk && (!causal || k0 <= rw + 63 + shift) &&
+        (window <= 0 || k0 + BKT - 1 > rw + shift - window)) {
+      float sc[BKT / 2], dp[BKT / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma_ss<BKT>(sc, L::kmajor(qtile, BQR, wg * 64, kk), L::kmajor(kt, BKT, 0, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma_ss<BKT>(dp, L::kmajor(dotile, BQR, wg * 64, kk), L::kmajor(vt, BKT, 0, kk),
+                    kk > 0);
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(sc);
+      fence_regs(dp);
+      const bool whole = k0 + BKT <= sk && rw + 64 <= sq &&
+                         (!causal || k0 + BKT - 1 <= rw + shift) &&
+                         (window <= 0 || k0 > rw + 63 + shift - window);
+      if (whole)
+        dq_scores<false>(sc, dp, l2, dl, rw + r + shift, k0 + 2 * quad, sk, causal, window,
+                         scale_log2);
+      else
+        dq_scores<true>(sc, dp, l2, dl, rw + r + shift, k0 + 2 * quad, sk, causal, window,
+                        scale_log2);
+      uint32_t dhi[BKT / 16][4], dlo[BKT / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BKT / 16; ++kk) a_split(dp, kk, dhi[kk], dlo[kk]);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BKT / 16; ++kk) {
+        mma_rs<D>(acc, dhi[kk], L::mnmajor(kt, BKT, kk), 1);
+        mma_rs<D>(acc, dlo[kk], L::mnmajor(kt, BKT, kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(acc);
+      fence_regs(dhi);
+      fence_regs(dlo);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + s);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = rw + r + 8 * i;
+    if (row >= sq) continue;
+    __nv_bfloat16* out = dq + (mat * sq + row) * D;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * c + 2 * quad) = __floats2bfloat162_rn(
+          acc[4 * c + 2 * i] * scale, acc[4 * c + 2 * i + 1] * scale);
+  }
+}
+
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const float* lse, const float* delta, void* dq, int batch, int hq, int hkv,
+              int sq, int sk, int causal, int window, float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  int e = tile_map(&tq, q, batch * hq, sq, D, BQR);
+  if (!e) e = tile_map(&tdo, dout, batch * hq, sq, D, BQR);
+  if (!e) e = tile_map(&tk, k, batch * hkv, sk, D, BKT);
+  if (!e) e = tile_map(&tv, v, batch * hkv, sk, D, BKT);
+  if (e) return e;
+  constexpr int smem = DqSmem<D>::BYTES;
+  int sms = 0;
+  e = prepare<flash_bwd_dq_wgmma<D>>(smem, &sms);
+  if (e) return e;
+  const int grid = (sq + BQR - 1) / BQR * hq * batch;
+  flash_bwd_dq_wgmma<D><<<grid, THREADS, smem, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dq), batch, hq, hkv, sq, sk,
+      causal, window, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace tc
 
 }  // namespace
@@ -688,7 +928,15 @@ REPRO_EXPORT int flash_bwd_dq(const void* q, const void* k, const void* v,
                               int window, float scale, int bf16, void* stream) {
   const Args a{q, k, v, dout, lse, delta, batch, hq, hkv, sq, sk, causal,
                window, scale, static_cast<cudaStream_t>(stream)};
-  return bf16 ? dispatch_dq<__nv_bfloat16>(a, d, dq) : dispatch_dq<float>(a, d, dq);
+  if (!bf16) return dispatch_dq<float>(a, d, dq);
+  // bf16: the tensor-core kernel only, for every head dim
+  switch (d) {
+    case 16: return tc::launch_dq<16>(q, k, v, dout, lse, delta, dq, batch, hq, hkv, sq, sk, causal, window, scale, a.stream);
+    case 32: return tc::launch_dq<32>(q, k, v, dout, lse, delta, dq, batch, hq, hkv, sq, sk, causal, window, scale, a.stream);
+    case 64: return tc::launch_dq<64>(q, k, v, dout, lse, delta, dq, batch, hq, hkv, sq, sk, causal, window, scale, a.stream);
+    case 128: return tc::launch_dq<128>(q, k, v, dout, lse, delta, dq, batch, hq, hkv, sq, sk, causal, window, scale, a.stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 REPRO_EXPORT int flash_bwd_dkv(const void* q, const void* k, const void* v,

@@ -19,7 +19,9 @@ load it.
 
 A :class:`Kernel` owns one library and the plain integer ``launches`` that
 its wrapper bumps after every successful launch, so a run can show which
-kernels the main path went through. Two kernels of one source (``source=``,
+kernels the main path went through. The library's functions are bound
+once, when it loads; a launch after that takes no lock and looks nothing
+up by name. Two kernels of one source (``source=``,
 as ``flash_bwd_dq`` and ``flash_bwd_dkv`` share ``csrc/flash_bwd.cu``) share
 its library and count their launches apart.
 """
@@ -36,7 +38,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -45,6 +47,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 TOOLKIT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # when nvcc is not on PATH
+
+ERROR_STRING = "repro_error_string"  # every library's cudaGetErrorString
 
 # ctypes argument kinds of the exported C functions
 PTR = ctypes.c_void_p
@@ -95,6 +99,7 @@ class Kernel:
         self.build_seconds: Optional[float] = None
         self._t0 = 0.0
         self._lib: Optional[ctypes.CDLL] = None
+        self._fns: Dict[str, Callable[..., int]] = {}  # bound at load
         self._lock = threading.Lock()
         KERNELS[name] = self
 
@@ -137,28 +142,37 @@ class Kernel:
                 with _BUILD_LOCK, _file_lock(self.library):
                     self.finish_build(self.start_build())
                 lib = ctypes.CDLL(str(self.library))
+                fns = {}
                 for fn, argtypes in self.functions.items():
-                    getattr(lib, fn).argtypes = list(argtypes)
-                    getattr(lib, fn).restype = ctypes.c_int
-                lib.repro_error_string.argtypes = [ctypes.c_int]
-                lib.repro_error_string.restype = ctypes.c_char_p
+                    fns[fn] = getattr(lib, fn)
+                    fns[fn].argtypes = list(argtypes)
+                    fns[fn].restype = ctypes.c_int
+                fns[ERROR_STRING] = lib.repro_error_string
+                fns[ERROR_STRING].argtypes = [ctypes.c_int]
+                fns[ERROR_STRING].restype = ctypes.c_char_p
+                self._fns = fns
                 self._lib = lib
             return self._lib
 
     def launch(self, fn: str, *args) -> None:
         """Call one exported function (the caller passes the stream among
-        ``args``), raise on any CUDA error, and count the launch."""
-        lib = self.lib()
-        rc = getattr(lib, fn)(*args)
+        ``args``), raise on any CUDA error, and count the launch. The first
+        call loads the library (building it if needed); later calls go
+        straight to the function bound at load."""
+        if self._lib is None:
+            self.lib()
+        rc = self._fns[fn](*args)
         if rc != 0:
-            msg = lib.repro_error_string(rc).decode()
+            msg = self._fns[ERROR_STRING](rc).decode()
             raise RuntimeError(f"{self.name}.{fn} failed: CUDA error {rc} ({msg})")
         self.launches += 1
 
 
 def stream_handle(t: torch.Tensor) -> int:
-    """The raw ``cudaStream_t`` of PyTorch's current stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw ``cudaStream_t`` of PyTorch's current stream on ``t``'s device:
+    one call into PyTorch's CUDA module, with no ``torch.cuda.Stream``
+    object built around it (``torch.cuda.current_stream`` builds one)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

@@ -19,6 +19,7 @@ wrappers pick the launch shape (:func:`launch_shape`).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
@@ -124,23 +125,49 @@ def colmax(y: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@functools.lru_cache(maxsize=256)
+def _clip_shape(n: int, m: int, itemsize: int, aligned: bool) -> Tuple[int, int, int]:
+    """``(vec, rows_per_cta, row_ctas)`` of a clip launch: what
+    :func:`vector_width` and :func:`launch_shape` give for these sizes."""
+    vec = 16 // itemsize
+    vec = vec if aligned and m % vec == 0 else 1
+    return (vec, *launch_shape(n, m, vec))
+
+
 def clip(y: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """X = clip(Y, ±u) with ``u`` (m,) a per-column radius, rounded to Y's
     type first: the ``clip`` kernel on a CUDA tensor, :func:`clip_plain` on
-    a CPU one."""
+    a CPU one.
+
+    It runs once per projection on a tensor the card streams in tens of
+    microseconds, so the launch path does only what the kernel's contract
+    needs (``check_operands``' checks, with ints where it compares devices)
+    and takes the launch shape from a cache keyed by (n, m, alignment)."""
     if y.ndim != 2 or u.shape != (y.shape[1],):
         raise ValueError(f"clip takes y (n, m) and u (m,), got "
                          f"{tuple(y.shape)} and {tuple(u.shape)}")
-    if y.device.type == "cpu":
+    if y.is_cpu:
         return clip_plain(y, u)
-    u = u.to(y.dtype).contiguous()   # JAX: u.astype(y.dtype) outside the kernel
-    check_operands("clip", y, u)
+    _device.require_cuda(y, "clip")
+    code = DTYPE_CODES.get(y.dtype)
+    if code is None:
+        raise ValueError(f"clip takes float32 or bfloat16, got {y.dtype}")
+    if u.dtype != y.dtype:
+        u = u.to(y.dtype)            # JAX: u.astype(y.dtype) outside the kernel
+    if not u.is_contiguous():
+        u = u.contiguous()
+    if u.get_device() != y.get_device():
+        raise ValueError(f"clip: every operand must be on {y.device}, got u "
+                         f"on {u.device}")
+    if not y.is_contiguous():
+        raise ValueError("clip takes contiguous tensors")
     n, m = y.shape
+    if n * m == 0:
+        raise ValueError("clip takes a non-empty tensor")
     x = torch.empty_like(y)
-    vec = vector_width(m, y, u, x)
-    rows, ctas = launch_shape(n, m, vec)
-    CLIP.launch("golden_clip", y.data_ptr(), u.data_ptr(), x.data_ptr(),
-                DTYPE_CODES[y.dtype], vec, n, m, rows, ctas,
+    yp, up, xp = y.data_ptr(), u.data_ptr(), x.data_ptr()
+    vec, rows, ctas = _clip_shape(n, m, y.element_size(), (yp | up | xp) % 16 == 0)
+    CLIP.launch("golden_clip", yp, up, xp, code, vec, n, m, rows, ctas,
                 _build.stream_handle(y))
     return x
 

@@ -18,7 +18,7 @@ blocks, and lse = -1e30 + log(count).
 :func:`flash_attention_bwd` is ``_bwd_call``: (dq, dk, dv) from the saved
 (q, k, v, o, lse) and dO, with delta = rowsum(dO ∘ O) in float32. On a CUDA
 tensor it launches the two kernels of ``csrc/flash_bwd.cu``
-(``flash_bwd_dq``, SIMT; ``flash_bwd_dkv``, SIMT for float32 and on the
+(``flash_bwd_dq`` and ``flash_bwd_dkv``, each SIMT for float32 and on the
 tensor cores for bf16); on a CPU tensor it runs
 :func:`flash_attention_bwd_plain`. A dead block's mask is all false, so
 the backward does not depend on the blocks: the plain version walks the

@@ -10,14 +10,14 @@ log(l) or -1e30 + log(l) while m is the sentinel); the forward walks
 key tiles of 64 from the q block's first live slot and moves a row's
 reference max m only when the tile's max passes it by more than 8;
 every register operand of a second product (P in the forward, Pᵀ and dSᵀ
-in dK/dV) is split into two bf16 terms, hi = x with its low 16 bits
+in dK/dV, dS in dQ) is split into two bf16 terms, hi = x with its low 16 bits
 dropped (bf16 rounded toward zero) and lo = bf16(x - hi) rounded to
-nearest, so |x - hi - lo| <= 2**-16 |x|; o, dk and dv are rounded to bf16
-once. The plain versions run at the kernels' default TPU blocks (128), the
+nearest, so |x - hi - lo| <= 2**-16 |x|; o, dq, dk and dv are rounded to
+bf16 once. The plain versions run at the kernels' default TPU blocks (128), the
 blocks the kernels take.
 
 Bars (``chip_smoke.py``: ``hold_attention``, ``BF16_RTOL`` = 2**-7): o
-within 1e-5 · 2 + 2**-7 |want|, lse within 1e-5 + 1e-5 |want|, dk and dv
+within 1e-5 · 2 + 2**-7 |want|, lse within 1e-5 + 1e-5 |want|, dq, dk and dv
 within 1e-5 · max|want| + 2**-7 |want|: one bf16 rounding of a float32
 result that the two versions sum in another order. The model makes no
 claim about the kernels themselves; ``chip_smoke.py`` holds those on the
@@ -146,6 +146,28 @@ def model_dkv(q, k, v, do, lse, delta, *, causal, window):
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def model_dq(q, k, v, do, lse, delta, *, causal, window):
+    """dq as the tensor-core dQ kernel computes it: S = Q Kᵀ and dP = dO Vᵀ
+    in float32 from bf16 operands, dS selected to 0 where a pair is not
+    valid, dS split into hi + lo, each times bf16 K; dq · scale rounded to
+    bf16 once."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = d ** -0.5
+    kf, vf = (x.float().repeat_interleave(g, dim=1) for x in (k, v))
+    qpos = torch.arange(sq)[:, None] + sk - sq
+    ok = _valid(qpos, torch.arange(sk)[None, :], sk, causal, window)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), vf)
+    p = torch.exp2(s * (scale * LOG2E) - (lse * LOG2E)[..., None])
+    # selected, not multiplied: a row no key reaches overflows exp2
+    ds = torch.where(ok, p * (dp - delta[..., None]), 0.0)
+    ds_hi, ds_lo = _split(ds)
+    dq = ds_hi @ kf + ds_lo @ kf
+    return (dq * scale).to(q.dtype)
+
+
 def _inputs(qs, ks, seed):
     rng = np.random.default_rng(seed)
     return [torch.from_numpy(rng.normal(size=s_).astype(np.float32)).to(torch.bfloat16)
@@ -189,6 +211,36 @@ def test_split_dkv_holds_the_bf16_bar(case):
     for n, got, want in (("dk", dk, wdk), ("dv", dv, wdv)):
         assert got.dtype == torch.bfloat16
         _assert_bar(f"{name} {n}", got, want, float(want.float().abs().max()), RTOL)
+
+
+def _dq_case(case, seed=22):
+    """The model's dq and the plain version's from the model's own (o, lse),
+    as on the card the kernel's forward feeds the backward."""
+    name, qs, ks, causal, window = case
+    q, k, v, do = _inputs(qs, ks, seed)
+    o, lse = model_forward(q, k, v, causal=causal, window=window)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = model_dq(q, k, v, do, lse, delta, causal=causal, window=window)
+    want, _, _ = tflash.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                  causal=causal, window=window)
+    return dq, want
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=_ids)
+def test_split_dq_holds_the_bf16_bar(case):
+    dq, want = _dq_case(case)
+    assert dq.dtype == torch.bfloat16
+    _assert_bar(f"{case[0]} dq", dq, want, float(want.float().abs().max()), RTOL)
+
+
+def test_one_bf16_ds_term_misses_the_dq_bar(monkeypatch):
+    """Why the dQ kernel splits dS: with one bf16 term, dq lands outside the
+    bar on granite's head layout."""
+    monkeypatch.setattr(sys.modules[__name__], "_split",
+                        lambda x: (_bf16(x), torch.zeros_like(x)))
+    dq, want = _dq_case(SPLIT_CASES[-1])
+    with pytest.raises(AssertionError, match="of the bar"):
+        _assert_bar("one term dq", dq, want, float(want.float().abs().max()), RTOL)
 
 
 def test_split_holds_an_operand_to_2_pow_minus_16():

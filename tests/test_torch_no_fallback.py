@@ -351,3 +351,115 @@ def test_mesh_modules_import_neither_jax_nor_repro(module):
     test_training_modules_import_neither_jax_nor_repro(module)
     worker = ROOT / "tests" / "_torch_sharded_worker.py"
     assert not _FORBIDDEN.findall(worker.read_text())
+
+
+# ------------------------------------------------ the cached launch path
+def _stand_in(monkeypatch, kern, rc):
+    """Bind a stand-in ctypes function in place of ``kern``'s first export,
+    as a load binds the real one, and libc's ``strerror`` as its error
+    string: the launch path runs with no nvcc and no card. Returns the
+    export's name and the list of argument tuples it was called with."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    fn = next(iter(kern.functions))
+    calls = []
+
+    def body(*args):
+        calls.append(args)
+        return rc
+
+    stand_in = ctypes.CFUNCTYPE(ctypes.c_int, *kern.functions[fn])(body)
+    strerror = ctypes.CDLL(None).strerror
+    strerror.argtypes, strerror.restype = [ctypes.c_int], ctypes.c_char_p
+
+    def no_lib():
+        raise AssertionError("a launch after the load went through lib()")
+
+    monkeypatch.setattr(kern, "_lib", object())  # loaded
+    monkeypatch.setattr(kern, "_fns", {fn: stand_in, _build.ERROR_STRING: strerror})
+    monkeypatch.setattr(kern, "lib", no_lib)
+    monkeypatch.setattr(kern, "launches", 0)
+    return fn, calls
+
+
+@pytest.mark.parametrize("module,name", [
+    ("bilevel_l1inf", "CLIP"), ("bilevel_l1inf", "COLMAX"),
+    ("flash_attention", "DQ_KERNEL"), ("flash_attention", "DKV_KERNEL")])
+def test_cached_launch_raises_on_an_error_code(monkeypatch, module, name):
+    """A non-zero return code raises with the library's own error string
+    and counts nothing, through the function bound at load."""
+    import importlib
+
+    kern = getattr(importlib.import_module(f"repro_torch.kernels.{module}"), name)
+    fn, calls = _stand_in(monkeypatch, kern, 2)
+    with pytest.raises(RuntimeError, match=r"CUDA error 2 \(No such file"):
+        kern.launch(fn, *([0] * len(kern.functions[fn])))
+    assert len(calls) == 1 and kern.launches == 0
+
+
+@pytest.mark.parametrize("module,name", [
+    ("bilevel_l1inf", "CLIP"), ("flash_attention", "DQ_KERNEL")])
+def test_cached_launch_counts_each_launch(monkeypatch, module, name):
+    import importlib
+
+    kern = getattr(importlib.import_module(f"repro_torch.kernels.{module}"), name)
+    fn, calls = _stand_in(monkeypatch, kern, 0)
+    n_args = len(kern.functions[fn])
+    for i in range(3):
+        kern.launch(fn, *([i] * n_args))
+    assert kern.launches == 3
+    assert [c[-2] for c in calls] == [0, 1, 2]  # each call's arguments passed on
+
+
+def _reach_the_launch(monkeypatch):
+    """Let a meta tensor through the wrappers' CUDA gate and stream lookup,
+    so a call reaches ``Kernel.launch`` on a host with no card."""
+    from repro_torch import _device
+    from repro_torch.kernels import _build
+
+    monkeypatch.setattr(_device, "require_cuda", lambda t, what: None)
+    monkeypatch.setattr(_build, "stream_handle", lambda t: 0)
+
+
+def test_clip_wrapper_launches_its_cached_shape(monkeypatch):
+    """The clip wrapper hands the kernel what the uncached
+    ``vector_width``/``launch_shape`` give, for aligned and ragged widths."""
+    from repro_torch.kernels import bilevel_l1inf as bi
+
+    _reach_the_launch(monkeypatch)
+    _, calls = _stand_in(monkeypatch, bi.CLIP, 0)
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, m in ((1000, 10000), (8192, 2048), (37, 1001), (1, 128)):
+            y = torch.empty(n, m, device="meta", dtype=dtype)
+            bi.clip(y, torch.empty(m, device="meta"))  # u is rounded to y's type
+            vec = bi.vector_width(m, y)
+            want = (bi.DTYPE_CODES[dtype], vec, n, m, *bi.launch_shape(n, m, vec))
+            assert calls[-1][3:-1] == want  # ctypes hands a null stream over as None
+    assert bi.CLIP.launches == 8
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wrappers_without_a_build_raise(monkeypatch, tmp_path, dtype):
+    """A CUDA-typed call (a meta tensor let through the CUDA gate) that
+    reaches the lean launch path without a built library raises and counts
+    nothing: clip, and the bf16 and float32 dQ."""
+    from repro_torch.kernels import _build, bilevel_l1inf as bi
+    from repro_torch.kernels import flash_attention as flash
+
+    _reach_the_launch(monkeypatch)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "TOOLKIT_NVCC", tmp_path / "no-nvcc")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    qkv = torch.empty(1, 2, 8, 16, device="meta", dtype=dtype)
+    lse = torch.empty(1, 2, 8, device="meta")
+    calls = {bi.CLIP: lambda: bi.clip(qkv[0, 0], qkv[0, 0, 0]),
+             flash.DQ_KERNEL: lambda: flash.flash_bwd_dq(qkv, qkv, qkv, qkv, lse, lse)}
+    for kern, call in calls.items():
+        monkeypatch.setattr(kern, "_lib", None)
+        monkeypatch.setattr(kern, "_fns", {})
+        monkeypatch.setattr(kern, "launches", 0)
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            call()
+        assert kern.launches == 0
