@@ -9,10 +9,7 @@ Run from the root of a checkout, with no arguments:
 with four cards its ranks talk over NCCL. ``--only attention`` builds them
 and runs the flash kernels' holds of phase 1 in float32 and bf16, the
 Function's gradients and the flash rows of phase 6 alone; its launches are
-those of one bf16 Function forward+backward at granite's shape. ``--only
-golden`` builds them and runs the golden kernels' holds of phase 1, phase
-3 and the golden rows of phase 6, with W1 and W2 drawn as phase 2 draws
-the server's requests.)
+those of one bf16 Function forward+backward at granite's shape.)
 
 1. builds the eleven CUDA kernels of the seven sources in
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, started together),
@@ -169,6 +166,7 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 RTOL = 1e-5
+INF = float("inf")            # torch.linalg.vector_norm's ℓ∞ order
 BF16_RTOL = 2.0 ** -7         # one bf16 rounding
 REPS = 20
 SEED = 0
@@ -467,20 +465,6 @@ def hold_golden_kernels(randn, rand):
     return errs
 
 
-def golden_requests(randn, rand):
-    """W1 and W2 for ``--only golden``, which serves no request: one seeded
-    request of each server workload, its radius drawn as phase 2 draws it."""
-    from repro_torch.core import multilevel
-
-    reqs = {}
-    for wl, (shape, levels) in FULL.items():
-        y = randn(shape)
-        radius = float(multilevel.multilevel_norm(y, levels)) \
-            * (0.05 + 0.45 * float(rand(())))
-        reqs[wl] = (y, (radius,))
-    return reqs
-
-
 def golden_workloads(server_reqs):
     """W1–W4 of phase 3: ``{name: (design, y, radii)}`` on the card."""
     import numpy as np
@@ -595,20 +579,21 @@ def time_golden(wls, golden, kernel_errs):
         eta = radii[0]
         if design == "bilevel":
             u = l1ball.outer_l1_solve(bi.colmax(y), eta)
-            u2 = u[None, :]
+            lo, hi = -u[None, :], u[None, :]  # the bounds, precomputed
             cases = {  # kernel, plain, bytes, operations, library
                 "colmax": (lambda: bi.colmax(y), lambda: bi.colmax_plain(y),
                            es * (elems + m), 2 * elems,
-                           lambda: torch.amax(y.abs(), dim=0)),
+                           lambda: torch.linalg.vector_norm(y, INF, dim=0)),
                 "clip": (lambda: bi.clip(y, u), lambda: bi.clip_plain(y, u),
                          es * (2 * elems + m), 2 * elems,
-                         lambda: torch.clamp(y, -u2, u2)),
+                         lambda: torch.clamp(y, lo, hi)),
             }
         else:
             v2, v1 = tri.trilevel_reduce(y)
             u1 = l1ball.outer_l1_solve(v1, eta)
             nm = v2.numel()
-            w2 = torch.minimum(v2, u1.to(y.dtype)[None, :])[None]  # the radii, precomputed
+            w2 = torch.minimum(v2, u1.to(y.dtype)[None, :])[None]  # the bounds, precomputed
+            lo2 = -w2
             cases = {
                 "trilevel_reduce": (lambda: tri.trilevel_reduce(y),
                                     lambda: tri.trilevel_reduce_plain(y),
@@ -617,7 +602,7 @@ def time_golden(wls, golden, kernel_errs):
                 "trilevel_apply": (lambda: tri.trilevel_apply(y, v2, u1),
                                    lambda: tri.trilevel_apply_plain(y, v2, u1),
                                    es * (2 * elems + nm + m), 2 * elems + nm,
-                                   lambda: torch.clamp(y, -w2, w2)),
+                                   lambda: torch.clamp(y, lo2, w2)),
             }
         for name, (kern, plain, nbytes, nops, lib) in cases.items():
             k_out, p_out = kern(), plain()
@@ -1468,8 +1453,8 @@ def hold_partial_apply(randn, rand):
     out = torch.empty_like(yc)
     kern = lambda: lowering.codegen_partial_apply(yc, aggs, w, tp, norms, out=out)  # noqa: E731
     plain = lambda: lowering.partial_apply_plain(yc, aggs, w, norms)  # noqa: E731
-    w_b = w[:, None]
-    lib = lambda: torch.clamp(yc, -w_b, w_b)  # noqa: E731
+    w_b, lo_b = w[:, None], -w[:, None]
+    lib = lambda: torch.clamp(yc, lo_b, w_b)  # noqa: E731
     got = kern().clone()
     torch.cuda.synchronize()
     e = check_close(f"partial apply full {batch}x{canon}", got, plain(), scale)
@@ -1747,17 +1732,14 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description="Drive the port on the card.")
-    ap.add_argument("--only", choices=("mesh", "attention", "golden"),
+    ap.add_argument("--only", choices=("mesh", "attention"),
                     help="run one phase alone: 'mesh' builds the kernels and "
                          "runs phase 7 (the partial apply, then the mesh "
                          "executor on four ranks); 'attention' builds them "
                          "and holds the flash kernels in float32 and bf16 "
                          "(granite's shape and every ragged case), the "
                          "Function's gradients, then times the kernels "
-                         "beside their plain versions and SDPA; 'golden' "
-                         "builds them and runs the golden kernels' holds of "
-                         "phase 1, phase 3 on W1-W4 (W1, W2 drawn as the "
-                         "server's requests are) and their rows of phase 6")
+                         "beside their plain versions and SDPA")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1842,14 +1824,6 @@ def main(argv=None) -> int:
     if args.only == "mesh":
         row, mesh = mesh_phases()
         return finish({"kernels": [row], "mesh": mesh})
-
-    if args.only == "golden":
-        golden_errs = hold_golden_kernels(randn, rand)
-        wls = golden_workloads(golden_requests(randn, rand))
-        golden = golden_phase(wls)
-        rows, golden_ms = time_golden(wls, golden, golden_errs)
-        return finish({"kernels": rows, "golden": {
-            wl: dict(golden[wl], pipelines_ms=golden_ms[wl]) for wl in golden}})
 
     # ------------------------------------- phase 1: kernels vs plain versions
     def hold_pipeline(tag, shape, levels, batch):
@@ -2097,18 +2071,23 @@ def main(argv=None) -> int:
                     2 * elems + 2 * agg_elems),
             }
             # one PyTorch call computing the same output, where there is one:
-            # the bi-level reduce's single aggregate, and the ℓ∞ apply as a
-            # clamp with its radii precomputed (the tri-level reduce has two
-            # outputs, v1 and vfin; l1ball's θ-solve has no such call)
+            # the bi-level reduce's single aggregate (an ℓ∞ vector norm), and
+            # the ℓ∞ apply as a clamp with its bounds precomputed (the
+            # tri-level reduce has two outputs, v1 and vfin; l1ball's
+            # θ-solve has no such call)
             lib = dict.fromkeys(cases)
             w_b = u_p[:, None, :] if wl == "bilevel" \
                 else torch.minimum(aggs_p[-1], u_p[:, None])[:, None]
-            lib_apply = lambda: torch.clamp(yc, -w_b, w_b)  # noqa: E731
+            lo_b = -w_b
+            lib_apply = lambda: torch.clamp(yc, lo_b, w_b)  # noqa: E731
             check_close(f"{wl} x{b} apply: torch.clamp", lib_apply(),
                         cases["codegen_apply"][1](), scale)
             lib["codegen_apply"] = event_ms(lib_apply)
             if wl == "bilevel":
-                lib["codegen_reduce"] = event_ms(lambda: torch.amax(yc.abs(), dim=1))
+                lib_reduce = lambda: torch.linalg.vector_norm(yc, INF, dim=1)  # noqa: E731
+                check_close(f"{wl} x{b} reduce: vector_norm", lib_reduce(),
+                            cases["codegen_reduce"][1]()[1], scale)
+                lib["codegen_reduce"] = event_ms(lib_reduce)
             for name, (kern, plain, compare, nbytes, nops) in cases.items():
                 err = compare(kern(), plain())
                 torch.cuda.synchronize()

@@ -56,32 +56,39 @@ def vector_width(m: int, *ts: torch.Tensor) -> int:
     return vec if ok else 1
 
 
+@functools.lru_cache(maxsize=1024)
 def launch_shape(n: int, m: int, vec: int, step: int = BR,
                  target: int = TARGET_CTAS) -> Tuple[int, int]:
     """``(rows_per_cta, row_ctas)``: cut n rows into chunks of a multiple of
     ``step`` rows (a CTA walks ``step`` rows at a time), enough that the
     ``ceil(m / (BM·vec))`` column strips times the chunks reach ``target``
-    CTAs (or one chunk per ``step`` rows)."""
+    CTAs (or one chunk per ``step`` rows). Cached: a wrapper asks for the
+    same few shapes on every call."""
     strips = math.ceil(m / (BM * vec))
     want = max(1, min(math.ceil(target / strips), math.ceil(n / step)))
     rows = math.ceil(math.ceil(n / want) / step) * step
     return rows, math.ceil(n / rows)
 
 
-def check_operands(what: str, y: torch.Tensor, *others: torch.Tensor) -> None:
-    """The kernels take contiguous float32 or bf16 tensors of one type on
-    one CUDA device."""
+def check_operands(what: str, y: torch.Tensor, *others: torch.Tensor) -> int:
+    """The kernels take contiguous, non-empty float32 or bf16 tensors of one
+    type on one CUDA device; returns Y's code in :data:`DTYPE_CODES`.
+    Devices are compared by index (``get_device``), which builds no
+    ``torch.device`` on the launch path."""
     _device.require_cuda(y, what)
-    if y.dtype not in DTYPE_CODES:
+    code = DTYPE_CODES.get(y.dtype)
+    if code is None:
         raise ValueError(f"{what} takes float32 or bfloat16, got {y.dtype}")
+    index = y.get_device()
     for t in (y, *others):
-        if t.dtype != y.dtype or t.device != y.device:
+        if t.dtype != y.dtype or t.get_device() != index:
             raise ValueError(f"{what}: every operand must be {y.dtype} on "
                              f"{y.device}, got {t.dtype} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{what} takes contiguous tensors")
     if y.numel() == 0:
         raise ValueError(f"{what} takes a non-empty tensor")
+    return code
 
 
 # --------------------------------------------------------------------------- #
@@ -111,64 +118,37 @@ def colmax(y: torch.Tensor) -> torch.Tensor:
     tensor, :func:`colmax_plain` on a CPU one."""
     if y.ndim != 2:
         raise ValueError(f"colmax takes a 2-D tensor, got {tuple(y.shape)}")
-    if y.device.type == "cpu":
+    if y.is_cpu:
         return colmax_plain(y)
-    check_operands("colmax", y)
+    code = check_operands("colmax", y)
     n, m = y.shape
     vec = vector_width(m, y)
     rows, splits = launch_shape(n, m, vec)
     partial = torch.empty((splits, m), dtype=torch.float32, device=y.device)
     out = torch.empty((m,), dtype=y.dtype, device=y.device)
     COLMAX.launch("golden_colmax", y.data_ptr(), partial.data_ptr(),
-                  out.data_ptr(), DTYPE_CODES[y.dtype], vec, n, m, rows,
-                  splits, _build.stream_handle(y))
+                  out.data_ptr(), code, vec, n, m, rows, splits,
+                  _build.stream_handle(y))
     return out
-
-
-@functools.lru_cache(maxsize=256)
-def _clip_shape(n: int, m: int, itemsize: int, aligned: bool) -> Tuple[int, int, int]:
-    """``(vec, rows_per_cta, row_ctas)`` of a clip launch: what
-    :func:`vector_width` and :func:`launch_shape` give for these sizes."""
-    vec = 16 // itemsize
-    vec = vec if aligned and m % vec == 0 else 1
-    return (vec, *launch_shape(n, m, vec))
 
 
 def clip(y: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """X = clip(Y, ±u) with ``u`` (m,) a per-column radius, rounded to Y's
     type first: the ``clip`` kernel on a CUDA tensor, :func:`clip_plain` on
-    a CPU one.
-
-    It runs once per projection on a tensor the card streams in tens of
-    microseconds, so the launch path does only what the kernel's contract
-    needs (``check_operands``' checks, with ints where it compares devices)
-    and takes the launch shape from a cache keyed by (n, m, alignment)."""
+    a CPU one."""
     if y.ndim != 2 or u.shape != (y.shape[1],):
         raise ValueError(f"clip takes y (n, m) and u (m,), got "
                          f"{tuple(y.shape)} and {tuple(u.shape)}")
     if y.is_cpu:
         return clip_plain(y, u)
-    _device.require_cuda(y, "clip")
-    code = DTYPE_CODES.get(y.dtype)
-    if code is None:
-        raise ValueError(f"clip takes float32 or bfloat16, got {y.dtype}")
-    if u.dtype != y.dtype:
-        u = u.to(y.dtype)            # JAX: u.astype(y.dtype) outside the kernel
-    if not u.is_contiguous():
-        u = u.contiguous()
-    if u.get_device() != y.get_device():
-        raise ValueError(f"clip: every operand must be on {y.device}, got u "
-                         f"on {u.device}")
-    if not y.is_contiguous():
-        raise ValueError("clip takes contiguous tensors")
+    u = u.to(y.dtype).contiguous()   # JAX: u.astype(y.dtype) outside the kernel
+    code = check_operands("clip", y, u)
     n, m = y.shape
-    if n * m == 0:
-        raise ValueError("clip takes a non-empty tensor")
     x = torch.empty_like(y)
-    yp, up, xp = y.data_ptr(), u.data_ptr(), x.data_ptr()
-    vec, rows, ctas = _clip_shape(n, m, y.element_size(), (yp | up | xp) % 16 == 0)
-    CLIP.launch("golden_clip", yp, up, xp, code, vec, n, m, rows, ctas,
-                _build.stream_handle(y))
+    vec = vector_width(m, y, u, x)
+    rows, ctas = launch_shape(n, m, vec)
+    CLIP.launch("golden_clip", y.data_ptr(), u.data_ptr(), x.data_ptr(),
+                code, vec, n, m, rows, ctas, _build.stream_handle(y))
     return x
 
 

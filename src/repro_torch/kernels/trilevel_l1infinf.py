@@ -24,8 +24,8 @@ from typing import Tuple
 import torch
 
 from . import _build, l1ball
-from .bilevel_l1inf import (BM, BR, DTYPE_CODES, TARGET_CTAS, check_fused,
-                            check_operands, launch_shape, vector_width)
+from .bilevel_l1inf import (BM, BR, TARGET_CTAS, check_fused, check_operands,
+                            launch_shape, vector_width)
 
 _P, _I = _build.PTR, _build.INT
 REDUCE = _build.Kernel("trilevel_reduce", {
@@ -84,9 +84,9 @@ def trilevel_reduce(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     ``trilevel_reduce`` kernel on a CUDA tensor, the plain version on a CPU
     one."""
     _check_order3("trilevel_reduce", y)
-    if y.device.type == "cpu":
+    if y.is_cpu:
         return trilevel_reduce_plain(y)
-    check_operands("trilevel_reduce", y)
+    code = check_operands("trilevel_reduce", y)
     c, n, m = y.shape
     vec = vector_width(m, y)
     rows, splits, groups = reduce_shape(c, n, m, vec)
@@ -94,7 +94,7 @@ def trilevel_reduce(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     partial = torch.empty((splits, m), dtype=torch.float32, device=y.device)
     v1 = torch.empty((m,), dtype=y.dtype, device=y.device)
     REDUCE.launch("golden_trilevel_reduce", y.data_ptr(), v2.data_ptr(),
-                  partial.data_ptr(), v1.data_ptr(), DTYPE_CODES[y.dtype], vec,
+                  partial.data_ptr(), v1.data_ptr(), code, vec,
                   c, n, m, rows, splits, groups, _build.stream_handle(y))
     return v2, v1
 
@@ -109,10 +109,10 @@ def trilevel_apply(y: torch.Tensor, v2: torch.Tensor,
     if v2.shape != (n, m) or u1.shape != (m,):
         raise ValueError(f"trilevel_apply takes v2 {(n, m)} and u1 {(m,)}, "
                          f"got {tuple(v2.shape)} and {tuple(u1.shape)}")
-    if y.device.type == "cpu":
+    if y.is_cpu:
         return trilevel_apply_plain(y, v2, u1)
     u1 = u1.to(y.dtype).contiguous()  # JAX: u1.astype(y.dtype) outside the kernel
-    check_operands("trilevel_apply", y, v2, u1)
+    code = check_operands("trilevel_apply", y, v2, u1)
     x = torch.empty_like(y)
     vec = vector_width(m, y, v2, u1, x)
     rows, row_ctas = launch_shape(n, m, vec)
@@ -120,7 +120,7 @@ def trilevel_apply(y: torch.Tensor, v2: torch.Tensor,
     ctas = math.ceil(m / (BM * vec)) * row_ctas
     per = math.ceil(c / max(1, min(c, math.ceil(TARGET_CTAS / ctas))))
     APPLY.launch("golden_trilevel_apply", y.data_ptr(), v2.data_ptr(),
-                 u1.data_ptr(), x.data_ptr(), DTYPE_CODES[y.dtype], vec, c, n,
+                 u1.data_ptr(), x.data_ptr(), code, vec, c, n,
                  m, rows, row_ctas, per, math.ceil(c / per),
                  _build.stream_handle(y))
     return x

@@ -86,8 +86,8 @@ KINDS = (
     ("matmul", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "splitKreduce")),
     ("softmax/loss", ("softmax", "SoftMax", "nll_loss", "cross_entropy")),
     ("reduction", ("reduce_kernel",)),
-    ("copy", ("Memcpy", "Memset", "copy", "Copy", "cat", "transpose")),
     ("index", ("index", "gather", "scatter", "embedding", "Embedding")),
+    ("copy", ("Memcpy", "Memset", "copy", "Copy", "CatArray", "transpose")),
     ("elementwise", ("elementwise",)),
 )
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")

@@ -39,7 +39,8 @@ _FORBIDDEN = re.compile(
 
 
 def test_no_file_of_the_port_imports_jax_or_repro():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "scripts").glob("*.py")))
     assert len(files) > 10
     for path in files:
         hits = _FORBIDDEN.findall(path.read_text())
@@ -424,8 +425,8 @@ def _reach_the_launch(monkeypatch):
 
 
 def test_clip_wrapper_launches_its_cached_shape(monkeypatch):
-    """The clip wrapper hands the kernel what the uncached
-    ``vector_width``/``launch_shape`` give, for aligned and ragged widths."""
+    """The clip wrapper hands the kernel Y's dtype code and the launch shape
+    that the uncached ``launch_shape`` gives, for aligned and ragged widths."""
     from repro_torch.kernels import bilevel_l1inf as bi
 
     _reach_the_launch(monkeypatch)
@@ -434,10 +435,45 @@ def test_clip_wrapper_launches_its_cached_shape(monkeypatch):
         for n, m in ((1000, 10000), (8192, 2048), (37, 1001), (1, 128)):
             y = torch.empty(n, m, device="meta", dtype=dtype)
             bi.clip(y, torch.empty(m, device="meta"))  # u is rounded to y's type
-            vec = bi.vector_width(m, y)
-            want = (bi.DTYPE_CODES[dtype], vec, n, m, *bi.launch_shape(n, m, vec))
+            vec = 16 // y.element_size() if m % (16 // y.element_size()) == 0 else 1
+            want = (bi.DTYPE_CODES[dtype], vec, n, m,
+                    *bi.launch_shape.__wrapped__(n, m, vec))
             assert calls[-1][3:-1] == want  # ctypes hands a null stream over as None
     assert bi.CLIP.launches == 8
+
+
+@pytest.mark.parametrize("make,match", [
+    (lambda: (torch.empty(4, 8, device="meta", dtype=torch.float16),),
+     "float32 or bfloat16"),
+    (lambda: (torch.empty(4, 8, device="meta"),
+              torch.empty(8, device="meta", dtype=torch.bfloat16)),
+     "every operand must be"),
+    (lambda: (torch.empty(4, 8, device="meta"), torch.empty(8)),
+     "every operand must be"),
+    (lambda: (torch.empty(8, 4, device="meta").t(),), "contiguous"),
+    (lambda: (torch.empty(0, 8, device="meta"),), "non-empty"),
+], ids=["dtype", "mixed_dtype", "mixed_device", "strided", "empty"])
+def test_golden_operand_checks_refuse(monkeypatch, make, match):
+    """``check_operands``, shared by the four golden wrappers, refuses what
+    the kernels cannot take: another dtype, operands of two dtypes or two
+    devices (compared by index: a meta tensor stands in for device 0),
+    strides, no elements."""
+    from repro_torch.kernels import bilevel_l1inf as bi
+
+    _reach_the_launch(monkeypatch)
+    monkeypatch.setattr(torch.Tensor, "get_device",
+                        lambda t: -1 if t.is_cpu else 0)
+    with pytest.raises(ValueError, match=match):
+        bi.check_operands("golden", *make())
+
+
+@pytest.mark.parametrize("dtype,code", [(torch.float32, 0), (torch.bfloat16, 1)])
+def test_golden_operand_checks_return_the_dtype_code(monkeypatch, dtype, code):
+    from repro_torch.kernels import bilevel_l1inf as bi
+
+    _reach_the_launch(monkeypatch)
+    y = torch.empty(4, 8, device="meta", dtype=dtype)
+    assert bi.check_operands("golden", y, torch.empty(8, device="meta", dtype=dtype)) == code
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

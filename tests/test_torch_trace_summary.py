@@ -86,6 +86,10 @@ def test_a_trace_without_steps_raises(tmp_path, events):
     ("void at::native::multi_tensor_apply_kernel<...>", "optimizer"),
     ("void at::native::unrolled_elementwise_kernel<direct_copy_kernel_cuda>", "copy"),
     ("void at::native::indexSelectLargeIndex<float>", "index"),
+    ("void at::native::_scatter_gather_elementwise_kernel<128, 4>", "index"),
+    ("void at::native::index_elementwise_kernel<128, 4>", "index"),
+    ("void at::native::(anonymous namespace)::CatArrayBatchedCopy<float>", "copy"),
+    ("void concat_rows<float>", "other"),
     ("void at::native::vectorized_elementwise_kernel<4, mul>", "elementwise"),
     ("some_other_kernel", "other"),
 ])
