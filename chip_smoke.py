@@ -9,9 +9,10 @@ Run from the root of a checkout, with no arguments:
 with four cards its ranks talk over NCCL. ``--only attention`` builds them
 and runs the flash kernels' holds of phase 1 in float32 and bf16, the
 Function's gradients and the flash rows of phase 6 alone; its launches are
-those of one bf16 Function forward+backward at granite's shape.)
+those of one bf16 Function forward+backward at granite's shape and of one
+float32 forward at the harvest's.)
 
-1. builds the eleven CUDA kernels of the seven sources in
+1. builds the twelve CUDA kernels of the seven sources in
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, started together),
    prints each kernel's ptxas lines (registers, shared memory, spills) and
    holds each against its plain PyTorch version on the card: the three
@@ -21,8 +22,9 @@ those of one bf16 Function forward+backward at granite's shape.)
    flash-attention forward (o and lse) at the harvest's shape
    (4, 32, 2048, 64) f32 causal and on small ragged cases (non-causal,
    windows, GQA, Sq < Sk and Sq > Sk, block-unaligned lengths); then, in
-   float32 and bf16 (bf16 on the tensor-core kernels, float32 on the SIMT
-   ones), the forward and the two backward kernels
+   float32 and bf16 (the forward on the tensor cores in both, 3×TF32 for
+   float32; the backward on them for bf16, SIMT for float32), the forward
+   and the two backward kernels
    (``flash_bwd_dq``, ``flash_bwd_dkv``) at granite-3-2b's attention shape,
    q (4, 32, 2048, 64) and k/v (4, 8, 2048, 64) causal, and on the same
    ragged cases, and the ``FlashAttention`` Function's gradients at that
@@ -58,8 +60,10 @@ those of one bf16 Function forward+backward at granite's shape.)
    per summed column, as in phase 2);
 4. runs the SAE factory at the full width of ``stablelm-1.6b`` (24 layers,
    d_model 2048, 32 heads of 64, seeded init on the card): ``run_factory``
-   twice, each harvesting 2 steps of 4 × 2048 tokens at layer 12 (24 flash
-   launches per harvest step) and training with seeds (0, 1) 20 steps of
+   twice, each harvesting 2 steps of 4 × 2048 tokens at layer 12 (24
+   launches of the float32 flash forward per harvest step, all of them the
+   3×TF32 tensor-core kernel ``flash_fwd_tf32``, none of the bf16
+   ``flash_fwd``) and training with seeds (0, 1) 20 steps of
    4096 rows in microbatches of 1024 — bi-level (encoder (2048, 8192)) and
    head-structured tri-level (``heads=32``, encoder (2048, 32, 256)).
    Losses must be finite and fall, and the projected encoders feasible (max
@@ -84,8 +88,9 @@ those of one bf16 Function forward+backward at granite's shape.)
    of 8 and for one item, the golden kernels at their workloads W1–W4) with
    CUDA events (median of 20) beside its bound, its plain version and,
    where one PyTorch call computes the same function, that call (held
-   equal to the plain version first); the golden kernels also as CUDA-graph
-   replays and by host time per call, beside the library call's; times the
+   equal to the plain version first); the projection and golden kernels
+   also as CUDA-graph replays and by host time per call, beside the
+   library call's; times the
    four golden workloads' pipelines (golden, generated, the plain schedule
    and, on W1 and W3, the exact projection; W3's exact/bi-level time ratio
    at each η); times one warm harvest step and one SAE step with their
@@ -165,6 +170,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
+TF32_OPS_PER_S = 494.7e12     # H100 SXM TF32 tensor cores, dense
 RTOL = 1e-5
 INF = float("inf")            # torch.linalg.vector_norm's ℓ∞ order
 BF16_RTOL = 2.0 ** -7         # one bf16 rounding
@@ -180,7 +186,7 @@ FULL = {  # the two requests the server sees, per workload
 BUCKET = 8
 SERVER_KERNELS = ("codegen_reduce", "l1ball", "codegen_apply")  # the server's path
 
-# tests/test_codegen.py DESIGNS + EXTRA_DESIGNS
+# tests/test_codegen.py DESIGNS + EXTRA_DESIGNS, then the port's own
 DESIGNS = [
     ("l1inf_cols", (32, 64), BILEVEL),
     ("l1inf_rows", (32, 64), BILEVEL),
@@ -197,6 +203,12 @@ DESIGNS = [
     ("outer_l2", (8, 16), (("inf", 1), ("2", 1))),
     ("outer_inf", (8, 16), (("1", 1), ("inf", 1))),
     ("wide_groups", (6, 200), (("1", 1), ("1", 1))),
+    # the port's own: the lead-split apply at depth 4 (LEAD 2) and with a
+    # ragged m (vec 1) (tests/test_torch_apply_split.py SPLIT_DESIGNS)
+    ("rank4_linf", (3, 4, 5, 32), (("inf", 1), ("2", 1), ("inf", 1), ("1", 1))),
+    ("rank4_l2lead", (2, 3, 7, 33), (("2", 1), ("inf", 1), ("2", 1), ("1", 1))),
+    ("trilevel_ragged", (4, 16, 61), TRILEVEL),
+    ("trilevel_l2", (5, 9, 44), (("2", 1), ("inf", 1), ("1", 1))),
 ]
 
 REPLACES = {  # (kernel, batched) -> the TPU kernel's pallas_call site
@@ -207,6 +219,7 @@ REPLACES = {  # (kernel, batched) -> the TPU kernel's pallas_call site
     ("l1ball", True): "src/repro/kernels/l1ball.py:154",
     ("l1ball", False): "src/repro/kernels/l1ball.py:122",
     ("flash_fwd", False): "src/repro/kernels/flash_attention.py:132",
+    ("flash_fwd_tf32", False): "src/repro/kernels/flash_attention.py:132",
     ("flash_bwd_dq", False): "src/repro/kernels/flash_attention.py:302",
     ("flash_bwd_dkv", False): "src/repro/kernels/flash_attention.py:325",
     ("colmax", False): "src/repro/kernels/bilevel_l1inf.py:82",
@@ -763,6 +776,95 @@ def hold_attention(randn, tag, qs, ks, causal, window, dtype, scale=None):
 
 
 
+def hold_flash(randn, tag, qs, ks, causal, window):
+    """The float32 flash forward against its plain version: o within 2e-5 +
+    1e-5|b|, lse within 1e-5 + 1e-5|b|; returns the max error and the
+    inputs."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as flash
+
+    q, k, v = randn(qs, 1.0), randn(ks, 1.0), randn(ks, 1.0)
+    o, lse = flash.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    po, plse = flash.flash_attention_plain(q, k, v, causal=causal,
+                                           window=window)
+    err = max(check_close(f"{tag} o", o, po, 2.0),
+              check_close(f"{tag} lse", lse, plse, 1.0))
+    print(f"flash {tag} q{qs} kv{ks} causal={causal} window={window}: "
+          f"max_abs_err {err:.3e}")
+    return err, (q, k, v)
+
+
+def device_kernels(fn):
+    """``{kernel name: device ms}`` of the device kernels one call of
+    ``fn`` launches, read from ``torch.profiler`` (empty where the profiler
+    records none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return {e.key: getattr(e, "device_time_total", 0.0) / 1e3
+            for e in prof.key_averages()
+            if getattr(e, "device_type", None) == cuda}
+
+
+def time_flash_harvest(flash_full, launches):
+    """Kernel row 12 f32: the float32 forward (``flash_fwd_tf32``) at the
+    harvest's shape beside its plain version and one
+    scaled_dot_product_attention call on the same tensors (its max abs
+    error against the plain version and its device kernels, named by the
+    profiler, are reported). The
+    bound counts the float32 work at the TF32 rate; ``issued_bound_ms``
+    the three TF32 products the split issues."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as flash
+
+    ferr, (q, k, v) = flash_full
+    (b, hq, sq, d), sk = q.shape, k.shape[2]
+    kern = lambda: flash.flash_attention(q, k, v, causal=True)  # noqa: E731
+    plain = lambda: flash.flash_attention_plain(q, k, v, causal=True)  # noqa: E731
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, is_causal=True)
+    want = plain()[0]
+    ferr = max(ferr, check_close("full flash o (timing)", kern()[0], want, 2.0))
+    # the library call's own distance to the plain version, read, not held
+    lib_err = float((sdpa() - want).abs().max())
+    del want
+    plain_ms = event_ms(plain)
+    ms = event_ms(kern)
+    lib_ms = event_ms(sdpa)
+    sdpa_kernels = device_kernels(sdpa)
+    own_kernels = device_kernels(kern)   # the pre-pass and the kernel apart
+    # causal work 2·B·Hq·Sq·Sk·D (half of QKᵀ and of PV); bytes: q, k, v, o
+    # once each and the f32 lse
+    work = 2 * b * hq * sq * sk * d
+    bms, by = bound_ms(4 * (2 * q.numel() + 2 * k.numel() + b * hq * sq), work,
+                       TF32_OPS_PER_S)
+    issued_ms = 3 * work / TF32_OPS_PER_S * 1e3
+    row = {
+        "name": "flash_fwd_tf32", "workload": f"harvest {tuple(q.shape)} causal f32",
+        "route": "cuda", "source": "src/repro_torch/csrc/flash_fwd.cu",
+        "replaces": REPLACES["flash_fwd_tf32", False], "launches": launches,
+        "max_abs_err": ferr, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+        "bound_by": by, "library_ms": lib_ms, "issued_bound_ms": issued_ms,
+        "kernels": own_kernels, "library_kernels": sdpa_kernels,
+        "library_max_abs_err": lib_err}
+    print(f"time flash_fwd_tf32 {tuple(q.shape)} causal: {ms:.4f} ms (bound "
+          f"{bms:.4f} ms by {by}, {bms / ms:.2f} of bound; 3×TF32 issued "
+          f"{issued_ms:.4f} ms, {issued_ms / ms:.2f} of it), plain "
+          f"{plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms "
+          f"(device kernels {sdpa_kernels}, max_abs_err {lib_err:.3e}), "
+          f"max_abs_err {ferr:.3e}; device ms by kernel {own_kernels}")
+    return row
+
+
 def hold_function_grads(randn):
     """The ``FlashAttention`` Function's float32 gradients at granite's
     attention shape against autograd of ``attention_naive`` (the S×S
@@ -861,10 +963,13 @@ def factory_phase(dev, fcfg, seeds, workdir, randn):
         print(f"factory {design} (heads={heads}, levels "
               f"{F.effective_levels(fc)}): run_factory {run_s:.1f} s; "
               f"launches {counts}")
-        if counts["flash_fwd"] != per_step * fc.harvest_steps:
-            raise SmokeFailure(f"{design}: flash_fwd launched "
+        # float32: every forward on the 3×TF32 tensor-core kernel
+        if counts["flash_fwd_tf32"] != per_step * fc.harvest_steps \
+                or counts["flash_fwd"] != 0:
+            raise SmokeFailure(f"{design}: flash_fwd_tf32 / flash_fwd launched "
+                               f"{counts['flash_fwd_tf32']} / "
                                f"{counts['flash_fwd']} times, not "
-                               f"{per_step * fc.harvest_steps}")
+                               f"{per_step * fc.harvest_steps} / 0")
         rec = res["layers"][layer]
         for s_ in seeds:
             losses = rec["losses"][s_]
@@ -904,7 +1009,7 @@ def factory_phase(dev, fcfg, seeds, workdir, randn):
                            "mmcs": rec["mmcs"],
                            "final_loss": {s_: rec["losses"][s_][-1]
                                           for s_ in seeds}}
-    flash_launches = factory["bilevel"]["counts"]["flash_fwd"]
+    flash_launches = factory["bilevel"]["counts"]["flash_fwd_tf32"]
 
     # one warm harvest step as the factory runs it (tokens, forward, copy of
     # the layer's rows to the host, shard write) and its parts
@@ -1065,7 +1170,7 @@ def hold_train_step(dev, radius):
                       _build.launch_counts())
     (sf, mf, cf), (sn, mn, cn) = runs["flash"], runs["naive"]
     n_micro = toks["tokens"].shape[0]
-    want = {"flash_fwd": 2 * HELD_LAYERS * n_micro,
+    want = {"flash_fwd_tf32": 2 * HELD_LAYERS * n_micro, "flash_fwd": 0,
             "flash_bwd_dq": HELD_LAYERS * n_micro,
             "flash_bwd_dkv": HELD_LAYERS * n_micro}
     for k_, n in want.items():
@@ -1331,7 +1436,9 @@ def time_attention(attn_full, attn_case_errs, launches, trn=None):
                               t["bwd_plain"], t["sdpa_bwd"]),
         }
         for name, (nbytes, nops, plain_ms, lib_ms) in spec_.items():
-            bms, by = bound_ms(nbytes, nops, rate)
+            # the float32 forward runs on the TF32 tensor cores (3×TF32)
+            bms, by = bound_ms(nbytes, nops, TF32_OPS_PER_S if (
+                name == "flash_fwd" and dt == torch.float32) else rate)
             err = max(errs[name], attn_case_errs[name, tag])
             attn_rows[name, tag] = {
                 "name": name, "workload": f"train {tuple(q.shape)}/"
@@ -1818,7 +1925,15 @@ def main(argv=None) -> int:
 
     if args.only == "attention":
         attn_case_errs, attn_full, _ = hold_attention_all(randn)
+        flash_full = hold_flash(randn, "full", *FLASH_FULL)
         rows = time_attention(attn_full, attn_case_errs, function_launches())
+        del attn_full
+        q, k, v = flash_full[1]
+        _build.reset_launches()
+        flash.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        rows.append(time_flash_harvest(
+            flash_full, _build.launch_counts()["flash_fwd_tf32"]))
         return finish({"kernels": rows})
 
     if args.only == "mesh":
@@ -1888,24 +2003,9 @@ def main(argv=None) -> int:
                               float(v.abs().max()))
             print(f"l1ball {method} n={n}: max_abs_err {err:.3e}")
 
-    def hold_flash(tag, qs, ks, causal, window):
-        """The flash kernel against its plain version: o within 2e-5 +
-        1e-5|b|, lse within 1e-5 + 1e-5|b|; returns the max error and the
-        inputs."""
-        q, k, v = randn(qs, 1.0), randn(ks, 1.0), randn(ks, 1.0)
-        o, lse = flash.flash_attention(q, k, v, causal=causal, window=window)
-        torch.cuda.synchronize()
-        po, plse = flash.flash_attention_plain(q, k, v, causal=causal,
-                                               window=window)
-        err = max(check_close(f"{tag} o", o, po, 2.0),
-                  check_close(f"{tag} lse", lse, plse, 1.0))
-        print(f"flash {tag} q{qs} kv{ks} causal={causal} window={window}: "
-              f"max_abs_err {err:.3e}")
-        return err, (q, k, v)
-
     for i, (qs, ks, causal, window) in enumerate(FLASH_CASES):
-        hold_flash(f"case{i}", qs, ks, causal, window)
-    flash_full = hold_flash("full", *FLASH_FULL)
+        hold_flash(randn, f"case{i}", qs, ks, causal, window)
+    flash_full = hold_flash(randn, "full", *FLASH_FULL)
 
     attn_case_errs, attn_full, fn_errs = hold_attention_all(randn)
     golden_errs = hold_golden_kernels(randn, rand)
@@ -2079,20 +2179,24 @@ def main(argv=None) -> int:
             w_b = u_p[:, None, :] if wl == "bilevel" \
                 else torch.minimum(aggs_p[-1], u_p[:, None])[:, None]
             lo_b = -w_b
-            lib_apply = lambda: torch.clamp(yc, lo_b, w_b)  # noqa: E731
-            check_close(f"{wl} x{b} apply: torch.clamp", lib_apply(),
+            lib["codegen_apply"] = lambda: torch.clamp(yc, lo_b, w_b)  # noqa: E731
+            check_close(f"{wl} x{b} apply: torch.clamp", lib["codegen_apply"](),
                         cases["codegen_apply"][1](), scale)
-            lib["codegen_apply"] = event_ms(lib_apply)
             if wl == "bilevel":
-                lib_reduce = lambda: torch.linalg.vector_norm(yc, INF, dim=1)  # noqa: E731
-                check_close(f"{wl} x{b} reduce: vector_norm", lib_reduce(),
+                lib["codegen_reduce"] = lambda: torch.linalg.vector_norm(  # noqa: E731
+                    yc, INF, dim=1)
+                check_close(f"{wl} x{b} reduce: vector_norm", lib["codegen_reduce"](),
                             cases["codegen_reduce"][1]()[1], scale)
-                lib["codegen_reduce"] = event_ms(lib_reduce)
             for name, (kern, plain, compare, nbytes, nops) in cases.items():
                 err = compare(kern(), plain())
                 torch.cuda.synchronize()
                 plain_ms = event_ms(plain)
                 ms = event_ms(kern)
+                # device time alone (CUDA-graph replay) and host time per call
+                dev_ms, host = graph_ms(kern), host_call_ms(kern)
+                lf = lib[name]
+                lib_ms, lib_dev, lib_host = (None, None, None) if lf is None else (
+                    event_ms(lf), graph_ms(lf), host_call_ms(lf))
                 bms, by = bound_ms(nbytes, nops)
                 rows.append({
                     "name": name, "workload": f"{wl} {b}x{FULL[wl][0]}",
@@ -2100,12 +2204,17 @@ def main(argv=None) -> int:
                     "replaces": REPLACES[name, b > 1],
                     "launches": launches[wl, b][name], "max_abs_err": err,
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                    "bound_by": by, "library_ms": lib[name]})
+                    "bound_by": by, "library_ms": lib_ms, "graph_ms": dev_ms,
+                    "host_ms": host, "library_graph_ms": lib_dev,
+                    "library_host_ms": lib_host})
+                lib_txt = "n/a" if lf is None else (
+                    f"{lib_ms:.4f} ms (replay {lib_dev:.4f}, host per call "
+                    f"{lib_host:.4f})")
                 print(f"time {wl} x{b} {name}: {ms:.4f} ms (bound {bms:.4f} ms "
-                      f"by {by}, {bms / ms:.2f} of bound), plain {plain_ms:.4f} "
-                      f"ms, library "
-                      f"{'n/a' if lib[name] is None else f'{lib[name]:.4f} ms'}, "
-                      f"max_abs_err {err:.3e}")
+                      f"by {by}, {bms / ms:.2f} of bound; CUDA-graph replay "
+                      f"{dev_ms:.4f} ms, {bms / dev_ms:.2f} of bound; host per "
+                      f"call {host:.4f} ms), plain {plain_ms:.4f} ms, library "
+                      f"{lib_txt}, max_abs_err {err:.3e}")
             if b == BUCKET:
                 # the engine's other device work per bucket: the stack copy
                 items = list(yc.unbind(0))
@@ -2113,31 +2222,9 @@ def main(argv=None) -> int:
                 print(f"time {wl} x{b} bucket stack: {stack_ms[wl]:.4f} ms")
                 del items
             del out
-    # the flash forward at the harvest's shape: kernel, plain version and
-    # one scaled_dot_product_attention call on the same f32 tensors
-    ferr, (q, k, v) = flash_full
-    (b, hq, sq, d), sk = q.shape, k.shape[2]
-    kern = lambda: flash.flash_attention(q, k, v, causal=True)  # noqa: E731
-    plain = lambda: flash.flash_attention_plain(q, k, v, causal=True)  # noqa: E731
-    ferr = max(ferr, check_close("full flash o (timing)", kern()[0], plain()[0], 2.0))
-    plain_ms = event_ms(plain)
-    ms = event_ms(kern)
-    lib_ms = event_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=True))
-    # causal work 2·B·Hq·Sq·Sk·D (half of QKᵀ and of PV); bytes: q, k, v, o
-    # once each and the f32 lse
-    bms, by = bound_ms(4 * (2 * q.numel() + 2 * k.numel() + b * hq * sq),
-                       2 * b * hq * sq * sk * d)
-    rows.append({
-        "name": "flash_fwd", "workload": f"harvest {tuple(q.shape)} causal f32",
-        "route": "cuda", "source": "src/repro_torch/csrc/flash_fwd.cu",
-        "replaces": REPLACES["flash_fwd", False], "launches": fac["flash_launches"],
-        "max_abs_err": ferr, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-        "bound_by": by, "library_ms": lib_ms})
-    print(f"time flash_fwd {tuple(q.shape)} causal: {ms:.4f} ms (bound "
-          f"{bms:.4f} ms by {by}, {bms / ms:.2f} of bound), plain "
-          f"{plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms, "
-          f"max_abs_err {ferr:.3e}")
+    # the float32 flash forward at the harvest's shape (row 12 f32)
+    rows.append(time_flash_harvest(flash_full, fac["flash_launches"]))
+    ms = rows[-1]["ms"]
     rows += time_attention(attn_full, attn_case_errs, trn["counts"], trn)
     golden_rows, golden_ms = time_golden(wls, golden, golden_errs)
     rows += golden_rows
@@ -2154,7 +2241,7 @@ def main(argv=None) -> int:
             - parts["projection_ms"]
     print(f"harvest step breakdown (ms): {step_parts}")
     print(f"SAE step breakdown (ms): {sae_parts}")
-    del full_cases, attn_full, flash_full, q, k, v
+    del full_cases, attn_full, flash_full
     # ------------------------- phase 7: the mesh executor at full width
     mesh_row, mesh = mesh_phases()
     rows.append(mesh_row)

@@ -37,6 +37,15 @@
 // splits == 1. Otherwise rows split across CTAs like the reduce pass.
 // Each element is read and written by one thread, so `out` may alias `y`.
 //
+// Lead groups that are independent per element (every lead level ℓ∞ or ℓ2,
+// and level L-1 not ℓ1) take split_apply_kernel instead: once w(i, j) is
+// known each element of the group shrinks alone, so the lead slices split
+// across grid z (tiling.lead_split: enough CTAs to fill the card, where the
+// row split alone gave 256 CTAs to the (256, 32, 2048) tri-level request)
+// and a thread owns VEC = 4 adjacent columns of one row, 16-byte loads.
+// Ragged m or unaligned pointers take VEC = 1. An ℓ1 lead group needs the
+// whole group for its θ and keeps apply_kernel's thread-serial bisection.
+//
 // Bound: bytes. Y is read once and X written once; the aggregates (and w)
 // add 1/g of that per lead level. A lead aggregate that only an ℓ2 shrink
 // needs (v1 under LEAD 1, v2 under LEAD 2) is read only for ℓ2, and vfin
@@ -233,6 +242,106 @@ partial_apply_kernel(const float* y, const float* __restrict__ v1,
   }
 }
 
+// VEC adjacent floats, one load or store of 4 · VEC bytes
+template <int VEC>
+struct alignas(4 * VEC) Floats {
+  float v[VEC];
+};
+template <int VEC>
+__device__ __forceinline__ Floats<VEC> load_vec(const float* p) {
+  return *reinterpret_cast<const Floats<VEC>*>(p);
+}
+// Y and X are read and written once: streaming loads and stores
+// (evict first), which keep the aggregates the other CTAs read in L2
+template <int VEC>
+__device__ __forceinline__ Floats<VEC> load_once(const float* p) {
+  if constexpr (VEC == 4) {
+    const float4 t = __ldcs(reinterpret_cast<const float4*>(p));
+    return {{t.x, t.y, t.z, t.w}};
+  } else {
+    return {{__ldcs(p)}};
+  }
+}
+template <int VEC>
+__device__ __forceinline__ void store_once(float* p, const Floats<VEC>& x) {
+  if constexpr (VEC == 4)
+    __stcs(reinterpret_cast<float4*>(p), make_float4(x.v[0], x.v[1], x.v[2], x.v[3]));
+  else
+    __stcs(p, x.v[0]);
+}
+
+constexpr int SPLIT_THREADS = 256;  // tiling.SPLIT_THREADS
+
+// The independent lead groups: thread p of the CTA row owns row i and the
+// VEC columns j0.. of position p = i · (m / VEC) + j0 / VEC, grid y the
+// item, grid z a chunk of `chunk` lead slices s = l1 · g2 + l2 (memory
+// order). w(i, j) is shrunk once from the last lead aggregate (v1 under
+// LEAD 1, v2 under LEAD 2); under LEAD 2 each slice's level-2 radius is
+// shrunk from v1 again, one cached load per slice.
+template <int LEAD, int VEC>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+split_apply_kernel(const float* y, const float* __restrict__ v1,
+                   const float* __restrict__ v2, const float* __restrict__ vfin,
+                   const float* __restrict__ u, float* out, int g1, int g2,
+                   int n, int m, int q1, int q2, int qlast, int chunk) {
+  const int mv = m / VEC;
+  const long long p = static_cast<long long>(blockIdx.x) * SPLIT_THREADS + threadIdx.x;
+  if (p >= static_cast<long long>(n) * mv) return;
+  const int i = static_cast<int>(p / mv), j0 = static_cast<int>(p % mv) * VEC;
+  const long long b = blockIdx.y, nm = static_cast<long long>(n) * m;
+  const long long ij = static_cast<long long>(i) * m + j0;
+  const int nslices = g1 * g2;
+  const int s0 = blockIdx.z * chunk, s1 = min(nslices, s0 + chunk);
+  float w[VEC];
+  Floats<VEC> xa;
+  for (int s = s0; s < s1; s += UNROLL) {  // UNROLL loads in flight, then stores
+    const int cnt = min(UNROLL, s1 - s);
+    Floats<VEC> x[UNROLL];
+#pragma unroll
+    for (int k = 0; k < UNROLL; ++k)
+      if (k < cnt) x[k] = load_once<VEC>(y + (b * nslices + s + k) * nm + ij);
+    if (s == s0) {  // w(i, j), its loads behind the first slices'
+      // the last lead aggregate at (i, j): input of the level-(L-1) apply,
+      // and the saved aggregate of the next level's ℓ2 rescale
+      xa = load_vec<VEC>((LEAD == 1 ? v1 : v2) + b * nm + ij);
+      const Floats<VEC> uj = load_vec<VEC>(u + b * m + j0);
+      Floats<VEC> vj = {};
+      if (qlast == NORM_L2) vj = load_vec<VEC>(vfin + b * m + j0);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) w[e] = shrink(qlast, xa.v[e], uj.v[e], vj.v[e], 0.f);
+    }
+#pragma unroll
+    for (int k = 0; k < UNROLL; ++k) {
+      if (k >= cnt) break;
+      Floats<VEC> r;
+      if (LEAD == 1) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) r.v[e] = shrink(q1, x[k].v[e], w[e], xa.v[e], 0.f);
+      } else {
+        const Floats<VEC> x1 = load_vec<VEC>(v1 + (b * g2 + (s + k) % g2) * nm + ij);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          r.v[e] = shrink(q1, x[k].v[e], shrink(q2, x1.v[e], w[e], xa.v[e], 0.f),
+                          x1.v[e], 0.f);
+      }
+      store_once<VEC>(out + (b * nslices + s + k) * nm + ij, r);
+    }
+  }
+}
+
+template <int LEAD, int VEC>
+cudaError_t split_launch(int batch, int splits, cudaStream_t s, const float* y,
+                         const float* v1, const float* v2, const float* vfin,
+                         const float* u, float* out, int g1, int g2, int n, int m,
+                         int q1, int q2, int qlast, int chunk) {
+  const long long positions = static_cast<long long>(n) * (m / VEC);
+  const dim3 grid(static_cast<unsigned>((positions + SPLIT_THREADS - 1) / SPLIT_THREADS),
+                  batch, splits);
+  split_apply_kernel<LEAD, VEC><<<grid, SPLIT_THREADS, 0, s>>>(
+      y, v1, v2, vfin, u, out, g1, g2, n, m, q1, q2, qlast, chunk);
+  return cudaGetLastError();
+}
+
 template <int LEAD>
 cudaError_t launch(dim3 grid, int smem, cudaStream_t s, const float* y,
                    const float* v1, const float* v2, const float* vfin,
@@ -253,13 +362,30 @@ cudaError_t launch(dim3 grid, int smem, cudaStream_t s, const float* y,
 // y, out: (batch, g1, g2, n, m) contiguous float32 (g1 = g2 = 1 for absent
 // lead axes; out may alias y); v1/v2: the reduce pass's aggregates (null
 // when absent); vfin, u: (batch, m). With qlast == ℓ1, splits must be 1 and
-// rows_per_split == n. Returns a cudaError_t.
+// rows_per_split == n. lead_chunk > 0 takes split_apply_kernel (lead_rank 1
+// or 2, no ℓ1 among q1, q2, qlast): `splits` chunks of lead_chunk slices,
+// vec 4 (m % 4 == 0, every pointer 16-byte aligned) or 1, rows_per_split
+// unused. Returns a cudaError_t.
 REPRO_EXPORT int codegen_apply(const float* y, const float* v1, const float* v2,
                                const float* vfin, const float* u, float* out,
                                int batch, int lead_rank, int g1, int g2, int n,
                                int m, int q1, int q2, int qlast,
-                               int rows_per_split, int splits, void* stream) {
+                               int rows_per_split, int splits, int lead_chunk,
+                               int vec, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lead_chunk > 0) {
+    if (qlast == NORM_L1 || q1 == NORM_L1 || (lead_rank == 2 && q2 == NORM_L1) ||
+        (vec == 4 && m % 4 != 0))
+      return cudaErrorInvalidValue;
+    const int key = lead_rank * 8 + vec;
+    switch (key) {
+      case 8 + 1: return split_launch<1, 1>(batch, splits, s, y, v1, v2, vfin, u, out, g1, g2, n, m, q1, q2, qlast, lead_chunk);
+      case 8 + 4: return split_launch<1, 4>(batch, splits, s, y, v1, v2, vfin, u, out, g1, g2, n, m, q1, q2, qlast, lead_chunk);
+      case 16 + 1: return split_launch<2, 1>(batch, splits, s, y, v1, v2, vfin, u, out, g1, g2, n, m, q1, q2, qlast, lead_chunk);
+      case 16 + 4: return split_launch<2, 4>(batch, splits, s, y, v1, v2, vfin, u, out, g1, g2, n, m, q1, q2, qlast, lead_chunk);
+      default: return cudaErrorInvalidValue;
+    }
+  }
   const int smem = qlast == NORM_L1 ? n * BM * static_cast<int>(sizeof(float)) : 0;
   const dim3 grid((m + BM - 1) / BM, batch, splits);
   switch (lead_rank) {

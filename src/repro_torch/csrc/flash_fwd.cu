@@ -1,6 +1,7 @@
-// flash_fwd.cu — attention forward by online softmax: a SIMT float32
-// kernel (below) and, for bf16 (the trainer's compute type), a tensor-core
-// kernel (namespace tc). No bf16 input reaches the SIMT kernel.
+// flash_fwd.cu — attention forward by online softmax on Hopper's tensor
+// cores: a bf16 kernel (the trainer's compute type) and a float32 kernel
+// that holds float32 accuracy with three TF32 products per product
+// (namespace tc). Both are fed by TMA and run persistent CTAs.
 //
 // Replaces the TPU kernel of repro/kernels/flash_attention.py: _fwd_call
 // (pallas_call at :145, body _flash_kernel at :75). It computes the same
@@ -9,249 +10,28 @@
 // i + Sk - Sq), causal and sliding-window masks, and GQA through the kv head
 // h / (Hq / Hkv).
 //
-// What the TPU kernel's grid did, and what the float32 kernel does instead
-// (one CTA per (q tile of 64 rows, query head, batch item)):
-//   * the sequential ("arbitrary") k grid axis becomes a loop inside the
-//     CTA; the running max m, denominator l and the accumulator live in
-//     registers (each thread owns 4 rows × D/16 channels);
-//   * K and V tiles of 64 keys are staged through shared memory; q and K are
-//     kept transposed there so the score loop reads 4 rows and 4 keys per
-//     float4 load (16 FMAs per two shared-memory loads), and the tile of
-//     probabilities goes through shared memory to the P·V product;
-//   * dead blocks are skipped by bounding the loop, not by a predicate per
-//     block. The bounds are the TPU kernel's own liveness rule evaluated on
-//     its (block_q, block_k) = (min(128, Sq), min(128, Sk)) blocks, passed in
-//     by the wrapper: causal stops after the last live k block, a window
-//     starts at the first live one.
+// What the TPU kernel's grid did, and what these kernels do instead: the
+// sequential ("arbitrary") k grid axis becomes a loop over key tiles inside
+// the CTA, the running max m, denominator l and the accumulator in
+// registers; dead blocks are skipped by bounding that loop with the TPU
+// kernel's own liveness rule evaluated on its (block_q, block_k) =
+// (min(128, Sq), min(128, Sk)) blocks, passed in by the wrapper (causal
+// stops after the last live k block, a window starts at the first live one).
 //
-// Numerics follow the TPU kernel exactly, including its corner cases: masked
+// Numerics follow the TPU kernel, including its corner cases: masked
 // logits are -1e30 (not -inf), so a row that is masked across a whole live
 // block gets p = exp(0) = 1 there until a valid key's correction exp(m - m')
 // wipes it; a row that no key reaches (causal with Sq > Sk) keeps those
 // terms, averaging V over the slots of the live blocks (the zeroed ragged
 // tail of the last k block included). Keys past the live blocks are not
-// slots at all (p = 0). l == 0 becomes 1; lse = m + log(l). The float32
-// kernel uses expf/logf, never the fast intrinsics, and no tensor cores, so
-// no TF32; o is rounded to the input type at the store, lse stays float32.
-//
-// Bound: at the harvest's shape (4, 32, 2048, 64) f32 causal the work is
-// 2·B·Hq·Sq·Sk·D ≈ 68.7 GFLOP against 134 MB of q, k, v and o, so the
-// kernel is bound by float32 operations (67 TFLOP/s outside the tensor
-// cores), not bytes. The score and P·V loops are the whole cost; this
-// simple SIMT kernel keeps them on FMAs fed from shared memory.
+// slots at all (p = 0). l == 0 becomes 1; lse = m + log(l). o is rounded to
+// the input type at the store, lse stays float32.
 #include <math.h>
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
 namespace {
-
-using flash::dcol;
-using flash::FULL;
-using flash::LD;              // row stride of the transposed tiles (keeps float4 alignment)
-using flash::THREADS;         // 16 × 16: ty owns rows 4ty..4ty+3, tx keys 4tx..4tx+3
-using flash::to_f;
-constexpr int BQ = flash::TILE;  // query rows per CTA (kernels/flash_attention.py: TILE_Q)
-constexpr int BK = flash::TILE;  // keys per shared-memory tile
-constexpr float NEG = -1e30f;    // the TPU kernel's _NEG_INF
-
-template <int D, typename T>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int hq, int hkv, int sq, int sk,
-                 int causal, int window, float scale, int block_q, int block_k) {
-  constexpr int ND = D / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* qT = smem;            // [D][LD]  q tile, transposed
-  float* kT = qT + D * LD;     // [D][LD]  k tile, transposed
-  float* vs = kT + D * LD;     // [BK][D]  v tile
-  float* pT = vs + BK * D;     // [BK][LD] probabilities, transposed
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest causal tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const long long qbase = (static_cast<long long>(b) * hq + h) * sq * D;
-  const long long kvbase =
-      (static_cast<long long>(b) * hkv + h / (hq / hkv)) * sk * D;
-  const int shift = sk - sq;  // right alignment of q
-
-  // key slots [slot_lo, slot_hi): the live k blocks of this CTA's q block
-  // (the wrapper guarantees a CTA's 64 rows lie in one q block)
-  const int qs = (q0 / block_q) * block_q + shift;
-  const int nkb = (sk + block_k - 1) / block_k;
-  int kb_lo = 0, kb_hi = nkb;
-  if (causal) {  // live iff kb·block_k <= qs + block_q - 1
-    const int last = qs + block_q - 1;
-    kb_hi = last < 0 ? 0 : min(nkb, last / block_k + 1);
-  }
-  if (window > 0) {  // live iff kb·block_k + block_k - 1 > qs - window
-    const int t = qs - window - block_k + 1;
-    const int fl = t >= 0 ? t / block_k : -((-t + block_k - 1) / block_k);
-    kb_lo = max(0, fl + 1);
-  }
-  const int slot_lo = kb_lo * block_k, slot_hi = kb_hi * block_k;
-
-  for (int e = tid; e < BQ * D; e += THREADS) {
-    const int r = e / D, d = e % D;
-    const int row = q0 + r;
-    qT[d * LD + r] = row < sq ? to_f(q[qbase + static_cast<long long>(row) * D + d]) : 0.f;
-  }
-
-  float m[4], l[4], acc[4][ND];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG;
-    l[i] = 0.f;
-#pragma unroll
-    for (int jd = 0; jd < ND; ++jd) acc[i][jd] = 0.f;
-  }
-
-  for (int k0 = slot_lo; k0 < slot_hi; k0 += BK) {
-    __syncthreads();  // q is staged; the previous tile's kT/vs/pT are consumed
-    // the ragged tail is zeroed before any product, so padding never turns
-    // into NaN through 0 · garbage
-    for (int e = tid; e < BK * D; e += THREADS) {
-      const int r = e / D, d = e % D;
-      const int kp = k0 + r;
-      float kv = 0.f, vv = 0.f;
-      if (kp < sk) {
-        const long long off = kvbase + static_cast<long long>(kp) * D + d;
-        kv = to_f(k[off]);
-        vv = to_f(v[off]);
-      }
-      kT[d * LD + r] = kv;
-      vs[r * D + d] = vv;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 16
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&qT[d * LD + ty * 4]);
-      const float4 c = *reinterpret_cast<const float4*>(&kT[d * LD + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float cv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], cv[j], s[i][j]);
-    }
-
-    // mask, then the online-softmax update of each row; the 16 lanes that
-    // share a row are one half-warp, reduced with xor shuffles below 16
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i + shift;
-      float mc = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx * 4 + j;
-        float x = -INFINITY;  // past the live blocks: not a slot
-        if (kpos < slot_hi) {
-          bool ok = kpos < sk && qpos < sk;
-          if (causal) ok = ok && kpos <= qpos;
-          if (window > 0) ok = ok && kpos > qpos - window;
-          x = ok ? s[i][j] * scale : NEG;
-        }
-        s[i][j] = x;
-        mc = fmaxf(mc, x);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mc = fmaxf(mc, __shfl_xor_sync(FULL, mc, off));
-      const float mn = fmaxf(m[i], mc);  // >= NEG: column k0 is always a slot
-      const float corr = expf(m[i] - mn);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - mn);
-        ps += s[i][j];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) ps += __shfl_xor_sync(FULL, ps, off);
-      l[i] = corr * l[i] + ps;
-#pragma unroll
-      for (int jd = 0; jd < ND; ++jd) acc[i][jd] *= corr;
-      m[i] = mn;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(&pT[(tx * 4 + j) * LD + ty * 4]) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      const float4 pp = *reinterpret_cast<const float4*>(&pT[c * LD + ty * 4]);
-      const float pv[4] = {pp.x, pp.y, pp.z, pp.w};
-      float vv[ND];
-      if constexpr (ND >= 4) {
-#pragma unroll
-        for (int g = 0; g < ND / 4; ++g) {
-          const float4 t = *reinterpret_cast<const float4*>(&vs[c * D + g * 64 + tx * 4]);
-          vv[4 * g] = t.x;
-          vv[4 * g + 1] = t.y;
-          vv[4 * g + 2] = t.z;
-          vv[4 * g + 3] = t.w;
-        }
-      } else {
-#pragma unroll
-        for (int jd = 0; jd < ND; ++jd) vv[jd] = vs[c * D + dcol<D>(tx, jd)];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jd = 0; jd < ND; ++jd) acc[i][jd] = fmaf(pv[i], vv[jd], acc[i][jd]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= sq) continue;
-    const float denom = l[i] == 0.f ? 1.f : l[i];
-    T* orow = o + qbase + static_cast<long long>(row) * D;
-#pragma unroll
-    for (int jd = 0; jd < ND; ++jd)
-      orow[dcol<D>(tx, jd)] = flash::from_f<T>(acc[i][jd] / denom);
-    if (tx == 0)
-      lse[(static_cast<long long>(b) * hq + h) * sq + row] = m[i] + logf(denom);
-  }
-}
-
-template <int D, typename T>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int batch, int hq, int hkv, int sq, int sk, int causal, int window,
-           float scale, int block_q, int block_k, cudaStream_t stream) {
-  const int smem = static_cast<int>(sizeof(float)) * (2 * D * LD + BK * D + BK * LD);
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((sq + BQ - 1) / BQ, hq, batch);
-  flash_fwd_kernel<D, T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, hq, hkv, sq, sk, causal, window, scale, block_q,
-      block_k);
-  return cudaGetLastError();
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
-             int batch, int hq, int hkv, int sq, int sk, int d, int causal,
-             int window, float scale, int block_q, int block_k, cudaStream_t st) {
-  switch (d) {
-    case 16: return launch<16, T>(q, k, v, o, lse, batch, hq, hkv, sq, sk, causal, window, scale, block_q, block_k, st);
-    case 32: return launch<32, T>(q, k, v, o, lse, batch, hq, hkv, sq, sk, causal, window, scale, block_q, block_k, st);
-    case 64: return launch<64, T>(q, k, v, o, lse, batch, hq, hkv, sq, sk, causal, window, scale, block_q, block_k, st);
-    case 128: return launch<128, T>(q, k, v, o, lse, batch, hq, hkv, sq, sk, causal, window, scale, block_q, block_k, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
 
 // ------------------------------------------------- bf16: the tensor cores
 // A persistent grid (one CTA per SM) walks work items of BQ = 192 query
@@ -347,6 +127,23 @@ __device__ __forceinline__ Slots live_slots(int row0, int sq, int sk, int causal
 struct FwdItem {
   int q0, h, b, lo, ntiles;
 };
+// it.lo and it.ntiles: the tiles of TILE keys over the union of the live
+// slots of the item's WGS warpgroups of 64 rows from it.q0
+template <int WGS, int TILE>
+__device__ __forceinline__ void item_tiles(FwdItem& it, int sq, int sk, int causal,
+                                           int window, int block_q, int block_k) {
+  int lo = 0, hi = 0;  // the union; empty ranges are {0, 0}
+#pragma unroll
+  for (int w = 0; w < WGS; ++w) {
+    const Slots x = live_slots(it.q0 + 64 * w, sq, sk, causal, window, block_q, block_k);
+    if (x.hi > x.lo) {
+      lo = hi > lo ? min(lo, x.lo) : x.lo;
+      hi = max(hi, x.hi);
+    }
+  }
+  it.lo = lo;
+  it.ntiles = hi > lo ? (hi - lo + TILE - 1) / TILE : 0;
+}
 __device__ __forceinline__ FwdItem fwd_item(int i, int batch, int hq, int sq, int sk,
                                             int causal, int window, int block_q,
                                             int block_k) {
@@ -355,18 +152,36 @@ __device__ __forceinline__ FwdItem fwd_item(int i, int batch, int hq, int sq, in
   it.q0 = (nqb - 1 - i / hb) * BQ;
   it.h = i % hq;
   it.b = (i % hb) / hq;
-  int lo = 0, hi = 0;  // the union; empty ranges are {0, 0}
+  item_tiles<NWG, BK>(it, sq, sk, causal, window, block_q, block_k);
+  return it;
+}
+
+// whether a tile of TILE keys from k0 needs no test per logit for the 64
+// rows from row0: every key a live slot of theirs inside the keys, every
+// row inside the rows, no pair masked, and scale > 0 (a scale <= 0 sends
+// every tile through the masked path, which scales each logit before the
+// row's max)
+template <int TILE>
+__device__ __forceinline__ bool whole_tile(float scale_log2, int k0, Slots my, int sk,
+                                           int sq, int row0, int shift, int causal,
+                                           int window) {
+  return scale_log2 > 0.f && k0 >= my.lo && k0 + TILE <= my.hi && k0 + TILE <= sk &&
+         row0 + 64 <= sq && (!causal || k0 + TILE - 1 <= row0 + shift) &&
+         (window <= 0 || k0 > row0 + 63 + shift - window);
+}
+
+// the rows' accumulators times their online-softmax corrections
+template <int N>
+__device__ __forceinline__ void rescale(float (&acc)[N], const float (&corr)[2]) {
+  if (corr[0] != 1.f || corr[1] != 1.f) {
 #pragma unroll
-  for (int w = 0; w < NWG; ++w) {
-    const Slots x = live_slots(it.q0 + 64 * w, sq, sk, causal, window, block_q, block_k);
-    if (x.hi > x.lo) {
-      lo = hi > lo ? min(lo, x.lo) : x.lo;
-      hi = max(hi, x.hi);
+    for (int c = 0; c < N / 4; ++c) {
+      acc[4 * c] *= corr[0];
+      acc[4 * c + 1] *= corr[0];
+      acc[4 * c + 2] *= corr[1];
+      acc[4 * c + 3] *= corr[1];
     }
   }
-  it.lo = lo;
-  it.ntiles = hi > lo ? (hi - lo + BK - 1) / BK : 0;
-  return it;
 }
 
 // mask and scale one tile of logits in place (MASK: some key or row of the
@@ -374,9 +189,10 @@ __device__ __forceinline__ FwdItem fwd_item(int i, int batch, int hq, int sq, in
 // thread's two rows; the tile's probabilities replace the logits and corr
 // is the factor of the rows' accumulators (applied by the caller). Maxima
 // and sums run in four independent chains (the order of a sum of
-// probabilities is free: the plain version's is another still).
-template <bool MASK>
-__device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&corr)[2],
+// probabilities is free: the plain version's is another still). NS = 2 ·
+// (keys of the tile) / 4 accumulator registers of an m64n{keys} product.
+template <bool MASK, int NS>
+__device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&corr)[2],
                                              float (&m)[2], float (&l)[2], int k0,
                                              int qpos0, Slots my, int sk, int causal,
                                              int window, float scale_log2, int quad) {
@@ -385,7 +201,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&corr)[2
     const int qpos = qpos0 + 8 * i;
     float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
+    for (int j = 0; j < NS / 4; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         float& x = s[4 * j + 2 * i + e];
@@ -411,7 +227,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&corr)[2
     const float mr = m[i];  // >= NEG: a live tile holds a slot
     float ps[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
+    for (int j = 0; j < NS / 4; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         float& x = s[4 * j + 2 * i + e];
@@ -525,12 +341,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         wgmma_commit();
         wgmma_wait();
         fence_regs(sc);
-        // a scale <= 0 sends every tile through the masked path, which
-        // scales each logit before the row's max
-        const bool whole = scale_log2 > 0.f && k0 >= my.lo && k0 + BK <= my.hi &&
-                           k0 + BK <= sk && row0 + 64 <= sq &&
-                           (!causal || k0 + BK - 1 <= row0 + shift) &&
-                           (window <= 0 || k0 > row0 + 63 + shift - window);
+        const bool whole =
+            whole_tile<BK>(scale_log2, k0, my, sk, sq, row0, shift, causal, window);
         const int qpos0 = row0 + r + shift;
         float corr[2];
         if (whole)
@@ -539,15 +351,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         else
           softmax_tile<true>(sc, corr, m, l, k0, qpos0, my, sk, causal, window,
                                  scale_log2, quad);
-        if (corr[0] != 1.f || corr[1] != 1.f) {
-#pragma unroll
-          for (int c = 0; c < D / 8; ++c) {
-            acc[4 * c] *= corr[0];
-            acc[4 * c + 1] *= corr[0];
-            acc[4 * c + 2] *= corr[1];
-            acc[4 * c + 3] *= corr[1];
-          }
-        }
+        rescale(acc, corr);
         uint32_t phi[BK / 16][4], plo[BK / 16][4];
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk) a_split(sc, kk, phi[kk], plo[kk]);
@@ -624,23 +428,386 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, i
   }
 }
 
+// ------------------------------------------- float32: 3×TF32 on the tensor cores
+// One TF32 product keeps 11 bits of each operand, far outside the float32
+// bar, so each product is three: big·big + big·small + small·big, with
+// big = tf32(x) and small = tf32(x - big) rounded to nearest
+// (hopper::tf32_split), summed in float32; the dropped small·small and the
+// rounding of small leave about 2^-21 of each term, the level of a float32
+// sum in another order. A pre-pass (tf32_planes, tf32_planes_vt) writes
+// each operand's two terms to a scratch buffer the wrapper allocates: Q
+// and K as they are, V transposed to (D, keys) because wgmma reads TF32
+// operands K-major only, its keys permuted within each group of 8 (slot c
+// holds key 2c for c < 4, 2(c - 4) + 1 above) so that P enters O += P V
+// straight from the S accumulator: a thread's accumulator holds keys
+// 2t, 2t + 1 of each group of 8 where the tf32 A fragment wants columns
+// t, t + 4, and the sum over keys does not depend on their order.
+//
+// The kernel is the bf16 kernel's shape at the operands' doubled size: a
+// producer warp fills Q's two planes and a ring of STAGES K/V stages (K
+// big, K small, Vᵀ big, Vᵀ small) by TMA; NWG consumer warpgroups of 64 rows
+// run, per tile, S = Q Kᵀ (3 · D/8 wgmma m64n{BK}k8, both operands in shared
+// memory), the same online softmax (ex2 on logits scaled by scale · log2 e,
+// the max moving only past a jump of 8), and O += P V (3 · BK/8 wgmma
+// m64n{D}k8, P's two terms from registers). Shared memory holds one Q
+// buffer; the next item's Q loads once both warpgroups are done with this
+// one. Items of NWG · 64 rows are handed out by an atomic counter in
+// order of groups of HG heads, each group's q blocks last first, so the
+// K/V planes of the heads in flight (2 MB a head at the harvest's shape)
+// stay in L2 while the card works through their rows.
+//
+// Bound: at the harvest's (4, 32, 2048, 64) causal the two products are
+// 68.7 GFLOP of float32 work, 139 µs at 494.7 TFLOP/s of TF32; the split
+// issues three times that (206 GFLOP, 417 µs). The pre-pass moves 604 MB
+// (180 µs at 3.35 TB/s).
+template <int D>
+struct F32Fwd {
+  static constexpr int NWG = D == 128 ? 1 : 2;          // consumer warpgroups
+  static constexpr int BQ = 64 * NWG;                   // query rows per item
+  static constexpr int BK = D == 128 ? 32 : 64;         // keys per tile
+  static constexpr int THREADS = NWG * WG + 32;
+  static constexpr int HG = 8;                          // heads per item group
+  static constexpr int QROW = (D < 32 ? D : 32) * 4;    // bytes of a Q/K box row
+  static constexpr int TILE_Q = BQ * D * 4;             // one plane of Q
+  static constexpr int TILE = BK * D * 4;               // one plane of K or of Vᵀ
+  static constexpr int STAGES = D == 16 ? 8 : D == 32 ? 5 : 2;
+  static constexpr int Q = 0;                           // Q big, Q small
+  static constexpr int KV = 2 * TILE_Q;                 // stage s: K b/s, Vᵀ b/s
+  static constexpr int BAR = KV + STAGES * 4 * TILE;
+  static constexpr int SLOT = BAR + 8 * (2 + 3 * STAGES);  // the item handed out
+  static constexpr int BYTES = SLOT + 16 + 1024;        // + alignment
+};
+
+// the work item numbered i (< batch · hq · nqb): groups of HG heads, each
+// group's q blocks last first across its heads
+template <int D>
+__device__ __forceinline__ FwdItem f32_item(int i, int batch, int hq, int sq, int sk,
+                                            int causal, int window, int block_q,
+                                            int block_k) {
+  using C = F32Fwd<D>;
+  const int hb = batch * hq, nqb = (sq + C::BQ - 1) / C::BQ;
+  const int grp = i / (C::HG * nqb), r = i % (C::HG * nqb);
+  const int hg = min(C::HG, hb - grp * C::HG), head = grp * C::HG + r % hg;
+  FwdItem it;
+  it.q0 = (nqb - 1 - r / hg) * C::BQ;
+  it.h = head % hq;
+  it.b = head / hq;
+  item_tiles<C::NWG, C::BK>(it, sq, sk, causal, window, block_q, block_k);
+  return it;
+}
+
+// the A fragment of k step kk (keys 8kk..8kk+7 of the tile, in the
+// permuted order of Vᵀ) from the S accumulator, as two tf32 terms
+template <int NS>
+__device__ __forceinline__ void p_frag(const float (&s)[NS], int kk, uint32_t (&big)[4],
+                                       uint32_t (&small)[4]) {
+  tf32_split(s[4 * kk], big[0], small[0]);      // (g, key 2t)
+  tf32_split(s[4 * kk + 2], big[1], small[1]);  // (g + 8, key 2t)
+  tf32_split(s[4 * kk + 1], big[2], small[2]);  // (g, key 2t + 1)
+  tf32_split(s[4 * kk + 3], big[3], small[3]);  // (g + 8, key 2t + 1)
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32Fwd<D>::THREADS, 1)
+flash_fwd_tf32(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, float* __restrict__ o,
+               float* __restrict__ lse, int* __restrict__ counter, int batch, int hq,
+               int hkv, int sq, int sk, int causal, int window, float scale_log2,
+               int block_q, int block_k) {
+  using C = F32Fwd<D>;
+  using KQ = KMajor<C::QROW>;  // Q and K tiles: boxes of [rows][QROW / 4]
+  using VT = KMajor<128>;      // Vᵀ tiles: boxes of [D][32 keys]
+  constexpr int NWG = C::NWG, BQ = C::BQ, BK = C::BK, STAGES = C::STAGES;
+  constexpr int QBOX = C::QROW / 4;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(smem + C::BAR);
+  uint64_t* empty_q = full_q + 1;
+  uint64_t* full_k = empty_q + 1;
+  uint64_t* full_v = full_k + STAGES;
+  uint64_t* empty = full_v + STAGES;
+  volatile int* slot = reinterpret_cast<int*>(smem + C::SLOT);
+  const int nitems = (sq + BQ - 1) / BQ * hq * batch;
+  auto item = [&](int i) {
+    return f32_item<D>(i, batch, hq, sq, sk, causal, window, block_q, block_k);
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    mbar_init(empty_q, 4 * NWG);  // one arrival per consumer warp
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_k + s, 1);
+      mbar_init(full_v + s, 1);
+      mbar_init(empty + s, 4 * NWG);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG;
+  if (wg == NWG) {  // producer: one thread takes items and loads ahead
+    if (threadIdx.x == NWG * WG) {
+      const int qmats = batch * hq, kvmats = batch * hkv;  // a plane's matrices
+      int g = 0;  // this CTA's tiles so far
+      for (int n = blockIdx.x, j = 0;; n = gridDim.x + atomicAdd(counter, 1), ++j) {
+        mbar_wait(empty_q, (j & 1) ^ 1);
+        const bool live = n < nitems;
+        const FwdItem it = item(live ? n : 0);
+        *slot = live ? n : -1;  // published by the arrival below
+        mbar_expect_tx(full_q, live && it.ntiles > 0 ? 2 * C::TILE_Q : 0);
+        if (!live) break;
+        if (it.ntiles == 0) continue;
+        const int kvm = it.b * hkv + it.h / (hq / hkv);
+#pragma unroll
+        for (int pl = 0; pl < 2; ++pl)
+#pragma unroll
+          for (int c = 0; c < D / QBOX; ++c)
+            tma_load(smem + C::Q + pl * C::TILE_Q + c * BQ * C::QROW, &tq, full_q,
+                     c * QBOX, it.q0, pl * qmats + it.b * hq + it.h);
+        for (int t = 0; t < it.ntiles; ++t, ++g) {
+          const int s = g % STAGES;
+          mbar_wait(empty + s, ((g / STAGES) & 1) ^ 1);
+          uint8_t* st = smem + C::KV + s * 4 * C::TILE;
+          const int k0 = it.lo + t * BK;
+          mbar_expect_tx(full_k + s, 2 * C::TILE);
+#pragma unroll
+          for (int pl = 0; pl < 2; ++pl)
+#pragma unroll
+            for (int c = 0; c < D / QBOX; ++c)
+              tma_load(st + pl * C::TILE + c * BK * C::QROW, &tk, full_k + s, c * QBOX, k0,
+                       pl * kvmats + kvm);
+          mbar_expect_tx(full_v + s, 2 * C::TILE);
+#pragma unroll
+          for (int pl = 0; pl < 2; ++pl)
+#pragma unroll
+            for (int c = 0; c < BK / 32; ++c)
+              tma_load(st + (2 + pl) * C::TILE + c * D * 128, &tv, full_v + s, k0 + 32 * c,
+                       0, pl * kvmats + kvm);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers
+  const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32, quad = lane % 4;
+  const int r = warp * 16 + lane / 4;  // the thread's rows r and r + 8 of the 64
+  const int shift = sk - sq;
+  const uint32_t qb = smem_u32(smem + C::Q), qs = qb + C::TILE_Q;
+
+  int g = 0;
+  for (int j = 0;; ++j) {
+    mbar_wait(full_q, j & 1);
+    const int n = *slot;
+    if (n < 0) break;
+    // an item with no tiles still writes its rows (o = 0, lse = -1e30)
+    const FwdItem it = item(n);
+    const int row0 = it.q0 + wg * 64, lo = it.lo;
+    const Slots my = live_slots(row0, sq, sk, causal, window, block_q, block_k);
+    float acc[D / 2], m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < D / 2; ++c) acc[c] = 0.f;
+
+    for (int t = 0; t < it.ntiles; ++t, ++g) {
+      const int s = g % STAGES;
+      const uint32_t ph = (g / STAGES) & 1;
+      const int k0 = lo + t * BK;
+      const uint32_t kb = smem_u32(smem + C::KV + s * 4 * C::TILE), ks = kb + C::TILE;
+      const uint32_t vb = kb + 2 * C::TILE, vs = kb + 3 * C::TILE;
+      mbar_wait(full_k + s, ph);
+      if (k0 < my.hi && k0 + BK > my.lo) {  // the tile holds a slot of this warpgroup
+        float sc[BK / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 8; ++kk) {  // small terms first, then big · big
+          const uint64_t ab = KQ::kmajor(qb, BQ, wg * 64, kk);
+          const uint64_t bb = KQ::kmajor(kb, BK, 0, kk);
+          mma_ss_tf32<BK>(sc, KQ::kmajor(qs, BQ, wg * 64, kk), bb, kk > 0);
+          mma_ss_tf32<BK>(sc, ab, KQ::kmajor(ks, BK, 0, kk), 1);
+          mma_ss_tf32<BK>(sc, ab, bb, 1);
+        }
+        wgmma_commit();
+        wgmma_wait();
+        fence_regs(sc);
+        const bool whole =
+            whole_tile<BK>(scale_log2, k0, my, sk, sq, row0, shift, causal, window);
+        const int qpos0 = row0 + r + shift;
+        float corr[2];
+        if (whole)
+          softmax_tile<false>(sc, corr, m, l, k0, qpos0, my, sk, causal, window,
+                              scale_log2, quad);
+        else
+          softmax_tile<true>(sc, corr, m, l, k0, qpos0, my, sk, causal, window,
+                             scale_log2, quad);
+        rescale(acc, corr);
+        uint32_t pb[BK / 8][4], ps[BK / 8][4];
+#pragma unroll
+        for (int kk = 0; kk < BK / 8; ++kk) p_frag(sc, kk, pb[kk], ps[kk]);
+        mbar_wait(full_v + s, ph);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 8; ++kk) {
+          const uint64_t bb = VT::kmajor(vb, D, 0, kk);
+          mma_rs_tf32<D>(acc, ps[kk], bb, 1);
+          mma_rs_tf32<D>(acc, pb[kk], VT::kmajor(vs, D, 0, kk), 1);
+          mma_rs_tf32<D>(acc, pb[kk], bb, 1);
+        }
+        wgmma_commit();
+        wgmma_wait();
+        fence_regs(acc);
+        fence_regs(pb);
+        fence_regs(ps);
+      } else {
+        mbar_wait(full_v + s, ph);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + s);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty_q);  // Q's products are done, the slot read
+
+    const long long mat = static_cast<long long>(it.b) * hq + it.h;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(flash::FULL, l[i], 1);
+      l[i] += __shfl_xor_sync(flash::FULL, l[i], 2);
+      const int row = row0 + r + 8 * i;
+      if (row >= sq) continue;
+      const float denom = l[i] == 0.f ? 1.f : l[i], inv = 1.f / denom;
+      float* orow = o + (mat * sq + row) * D;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c)
+        *reinterpret_cast<float2*>(orow + 8 * c + 2 * quad) =
+            make_float2(acc[4 * c + 2 * i] * inv, acc[4 * c + 2 * i + 1] * inv);
+      if (quad == 0) lse[mat * sq + row] = (m[i] == NEG ? NEG : m[i] * LN2) + logf(denom);
+    }
+  }
+}
+
+// the pre-pass: n floats (n % 4 == 0) into their tf32 terms; block 0 also
+// resets the item counter of the kernel that follows on the stream
+__global__ void __launch_bounds__(256)
+tf32_planes(const float4* __restrict__ x, uint4* __restrict__ big,
+            uint4* __restrict__ small, long long n4, int* __restrict__ counter) {
+  if (counter != nullptr && blockIdx.x == 0 && threadIdx.x == 0) *counter = 0;
+  for (long long i = blockIdx.x * 256ll + threadIdx.x; i < n4; i += 256ll * gridDim.x) {
+    const float4 v = x[i];
+    uint4 b, s;
+    tf32_split(v.x, b.x, s.x);
+    tf32_split(v.y, b.y, s.y);
+    tf32_split(v.z, b.z, s.z);
+    tf32_split(v.w, b.w, s.w);
+    big[i] = b;
+    small[i] = s;
+  }
+}
+
+// the pre-pass of V: (mats, sk, d) into the terms of Vᵀ, (mats, d, skp)
+// with skp a multiple of 32, keys permuted within groups of 8 (slot c of a
+// group holds key 2c for c < 4, 2(c - 4) + 1 above), keys past sk 0. A
+// block (32, 8) moves 32 keys × 32 (or d) columns through shared memory.
+__global__ void __launch_bounds__(256)
+tf32_planes_vt(const float* __restrict__ v, uint32_t* __restrict__ big,
+               uint32_t* __restrict__ small, int sk, int skp, int d) {
+  __shared__ float tile[32][33];
+  const int c0 = blockIdx.x * 32, d0 = blockIdx.y * 32, dt = min(32, d - d0);
+  const long long mat = blockIdx.z;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  for (int rr = ty; rr < 32; rr += 8) {
+    const int key = c0 + rr;
+    tile[rr][tx] = key < sk && tx < dt ? v[(mat * sk + key) * d + d0 + tx] : 0.f;
+  }
+  __syncthreads();
+  const int src = (tx & ~7) | ((tx & 7) < 4 ? 2 * (tx & 7) : 2 * (tx & 7) - 7);
+  for (int dd = ty; dd < dt; dd += 8) {
+    uint32_t b, s;
+    tf32_split(tile[src][dd], b, s);
+    const long long at = (mat * d + d0 + dd) * skp + c0 + tx;
+    big[at] = b;
+    small[at] = s;
+  }
+}
+
+template <int D>
+int launch_tf32(const float* q, const float* k, const float* v, float* o, float* lse,
+                float* work, int batch, int hq, int hkv, int sq, int sk, int causal,
+                int window, float scale, int block_q, int block_k, cudaStream_t stream) {
+  using C = F32Fwd<D>;
+  const long long nq = static_cast<long long>(batch) * hq * sq * D;
+  const long long nk = static_cast<long long>(batch) * hkv * sk * D;
+  const int skp = (sk + 31) / 32 * 32;
+  const long long nv = static_cast<long long>(batch) * hkv * D * skp;
+  float* qp = work;       // Q big, Q small: (2 · batch · hq, sq, D)
+  float* kp = qp + 2 * nq;  // K big, K small: (2 · batch · hkv, sk, D)
+  float* vp = kp + 2 * nk;  // Vᵀ big, Vᵀ small: (2 · batch · hkv, D, skp)
+  int* counter = reinterpret_cast<int*>(vp + 2 * nv);
+  auto planes = [&](const float* x, float* dst, long long n, int* ctr) {
+    const long long n4 = n / 4;
+    const long long blocks = (n4 + 255) / 256;
+    tf32_planes<<<static_cast<unsigned>(blocks < 8192 ? blocks : 8192), 256, 0, stream>>>(
+        reinterpret_cast<const float4*>(x), reinterpret_cast<uint4*>(dst),
+        reinterpret_cast<uint4*>(dst + n), n4, ctr);
+  };
+  planes(q, qp, nq, counter);
+  planes(k, kp, nk, nullptr);
+  tf32_planes_vt<<<dim3(skp / 32, (D + 31) / 32, batch * hkv), dim3(32, 8), 0, stream>>>(
+      v, reinterpret_cast<uint32_t*>(vp), reinterpret_cast<uint32_t*>(vp + nv), sk, skp, D);
+  cudaError_t e0 = cudaGetLastError();
+  if (e0) return e0;
+  CUtensorMap tq, tk, tv;
+  int e = tile_map(&tq, qp, 2 * batch * hq, sq, D, C::BQ, 4);
+  if (!e) e = tile_map(&tk, kp, 2 * batch * hkv, sk, D, C::BK, 4);
+  if (!e) e = tile_map(&tv, vp, 2 * batch * hkv, D, skp, D, 4);
+  if (e) return e;
+  constexpr int smem = C::BYTES;
+  int sms = 0;
+  e = prepare<flash_fwd_tf32<D>>(smem, &sms);
+  if (e) return e;
+  // persistent: at most one CTA per SM; items past the first from the counter
+  const int nitems = (sq + C::BQ - 1) / C::BQ * hq * batch;
+  const int grid = nitems < sms ? nitems : sms;
+  flash_fwd_tf32<D><<<grid, C::THREADS, smem, stream>>>(
+      tq, tk, tv, o, lse, counter, batch, hq, hkv, sq, sk, causal, window, scale * LOG2E,
+      block_q, block_k);
+  return cudaGetLastError();
+}
+
+int dispatch_tf32(const float* q, const float* k, const float* v, float* o, float* lse,
+                  float* work, int batch, int hq, int hkv, int sq, int sk, int d, int causal,
+                  int window, float scale, int block_q, int block_k, cudaStream_t st) {
+  switch (d) {
+    case 16: return launch_tf32<16>(q, k, v, o, lse, work, batch, hq, hkv, sq, sk, causal, window, scale, block_q, block_k, st);
+    case 32: return launch_tf32<32>(q, k, v, o, lse, work, batch, hq, hkv, sq, sk, causal, window, scale, block_q, block_k, st);
+    case 64: return launch_tf32<64>(q, k, v, o, lse, work, batch, hq, hkv, sq, sk, causal, window, scale, block_q, block_k, st);
+    case 128: return launch_tf32<128>(q, k, v, o, lse, work, batch, hq, hkv, sq, sk, causal, window, scale, block_q, block_k, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace tc
 
 }  // namespace
 
 // q, o: (batch, hq, sq, d); k, v: (batch, hkv, sk, d), all contiguous and
 // of one type, float32 (bf16 = 0) or bf16 (bf16 = 1); lse: (batch, hq, sq)
-// float32. window <= 0 means none. block_q/block_k are the emulated TPU
+// float32. work: float32 scratch of tf32_work_floats (float32 only; null for
+// bf16). window <= 0 means none. block_q/block_k are the emulated TPU
 // blocks (min(128, sq), min(128, sk)); block_q is a multiple of 64 or equals
-// sq. d is 16, 32, 64 or 128. Returns a cudaError_t.
+// sq. d is 16, 32, 64 or 128. Both types run on the tensor cores. Returns a
+// cudaError_t.
 REPRO_EXPORT int flash_fwd(const void* q, const void* k, const void* v, void* o,
-                           float* lse, int batch, int hq, int hkv, int sq,
-                           int sk, int d, int causal, int window, float scale,
-                           int block_q, int block_k, int bf16, void* stream) {
+                           float* lse, void* work, int batch, int hq, int hkv,
+                           int sq, int sk, int d, int causal, int window,
+                           float scale, int block_q, int block_k, int bf16,
+                           void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)  // the tensor-core kernel only: no bf16 input reaches the SIMT one
+  if (bf16)
     return tc::dispatch(q, k, v, o, lse, batch, hq, hkv, sq, sk, d, causal,
                         window, scale, block_q, block_k, st);
-  return dispatch<float>(q, k, v, o, lse, batch, hq, hkv, sq, sk, d, causal,
-                         window, scale, block_q, block_k, st);
+  if (work == nullptr) return cudaErrorInvalidValue;
+  return tc::dispatch_tf32(static_cast<const float*>(q), static_cast<const float*>(k),
+                           static_cast<const float*>(v), static_cast<float*>(o), lse,
+                           static_cast<float*>(work), batch, hq, hkv, sq, sk, d, causal,
+                           window, scale, block_q, block_k, st);
 }

@@ -1,7 +1,8 @@
 // hopper.cuh — the PTX pieces of the tensor-core kernels (sm_90a): shared
 // addresses, mbarriers, TMA tile loads and the tensor maps they read,
-// wgmma descriptors, issue, fences and waits, and the two-term bf16 split
-// of a float32 operand.
+// wgmma descriptors, issue, fences and waits, the two-term bf16 split of a
+// float32 operand, and the tf32 products and two-term tf32 split of the
+// float32 (3×TF32) kernels.
 //
 // Tiles. A (rows, D) bf16 tile is loaded by TMA as D / BOX boxes of
 // [rows][BOX] with BOX = min(D, 64) columns, each box a row of BOX · 2 =
@@ -92,13 +93,15 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
 }
 
 // --------------------------------------------------------------- layouts
-template <int D>
-struct Layout {
-  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head dim");
-  static constexpr int BOX = D < 64 ? D : 64;   // columns of one TMA box
-  static constexpr int ROW = BOX * 2;           // bytes of a box row = the swizzle
+// A tile stored as boxes of [rows][ROW bytes] under the swizzle of width
+// ROW: a K-major k step (16 bf16 or 8 tf32 columns) is +32 bytes inside a
+// row, the next box after ROW / 32 steps. TF32 operands are read K-major
+// only (wgmma has no transpose for 4-byte types).
+template <int ROW>
+struct KMajor {
+  static_assert(ROW == 32 || ROW == 64 || ROW == 128, "box row bytes");
   static constexpr uint64_t MODE = ROW == 128 ? 1 : ROW == 64 ? 2 : 3;
-  static constexpr int STEPS = BOX / 16;        // k steps of 16 columns per box
+  static constexpr int STEPS = ROW / 32;        // k steps of 32 bytes per box
 
   // the wgmma descriptor of a tile's rows [r0, r0 + 64) (or its whole
   // width for B), start address + offsets in 16-byte units
@@ -112,9 +115,18 @@ struct Layout {
     const uint32_t a = tile + (kk / STEPS) * rows * ROW + r0 * ROW + (kk % STEPS) * 32;
     return desc(a, 16, 8 * ROW);
   }
+};
+
+// a (rows, D) bf16 tile in boxes of BOX = min(D, 64) columns
+template <int D>
+struct Layout : KMajor<(D < 64 ? D : 64) * 2> {
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head dim");
+  static constexpr int BOX = D < 64 ? D : 64;   // columns of one TMA box
+  static constexpr int ROW = BOX * 2;           // bytes of a box row = the swizzle
+
   // MN-major: contract over the rows; k step kk (rows 16kk..16kk+15)
   __device__ static uint64_t mnmajor(uint32_t tile, int rows, int kk) {
-    return desc(tile + kk * 16 * ROW, rows * ROW, 8 * ROW);
+    return KMajor<ROW>::desc(tile + kk * 16 * ROW, rows * ROW, 8 * ROW);
   }
 };
 
@@ -250,6 +262,140 @@ __device__ __forceinline__ void mma_rs<128>(float (&d)[64], const uint32_t (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
 
+// ------------------------------------------------------- float32 tiles
+// the 3×TF32 float32 kernels: tiles of 4-byte elements are KMajor<128>
+// (32 floats a box row) or KMajor<64> (16), read K-major only
+template <int N>
+__device__ void mma_ss_tf32(float (&d)[N / 2], uint64_t a, uint64_t b, int acc);
+template <int N>
+__device__ void mma_rs_tf32(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b, int acc);
+
+// d (+)= A B, m64nNk8, tf32 in, f32 accumulators; A and B K-major in
+// shared memory (acc = 0 overwrites d)
+template <>
+__device__ __forceinline__ void mma_ss_tf32<32>(float (&d)[16], uint64_t a, uint64_t b,
+                                                   int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void mma_ss_tf32<64>(float (&d)[32], uint64_t a, uint64_t b,
+                                                   int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d += A B, m64nNk8, tf32 in, f32 accumulators; A from registers (one
+// tf32 per register: rows g and g + 8 of the warp's 16, k columns t and
+// t + 4, g = lane / 4, t = lane % 4, in the order (g, t), (g + 8, t),
+// (g, t + 4), (g + 8, t + 4)), B K-major in shared memory
+template <>
+__device__ __forceinline__ void mma_rs_tf32<16>(float (&d)[8], const uint32_t (&a)[4],
+                                                   uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void mma_rs_tf32<32>(float (&d)[16], const uint32_t (&a)[4],
+                                                   uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void mma_rs_tf32<64>(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void mma_rs_tf32<128>(float (&d)[64], const uint32_t (&a)[4],
+                                                   uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+// x = big + small + e with big = tf32(x) and small = tf32(x - big), each
+// rounded to nearest (ties away): |e| <= 2^-11 |x - big| <= 2^-22 |x|. The
+// low 13 bits of both are 0, as wgmma's tf32 operands expect.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& big, uint32_t& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(big) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(small) : "f"(x - __uint_as_float(big)));
+}
+
 // 2^x on the special-function unit (relative error about 2^-22; 2^0 = 1
 // and 2^-inf = 0 exactly, subnormal results flush to 0)
 __device__ __forceinline__ float ex2(float x) {
@@ -321,24 +467,29 @@ inline int prepare(int smem, int* sms) {
   return e;
 }
 
-// the tensor map of a contiguous bf16 (mats, s, d) array read in boxes of
-// [rows][min(d, 64)] with the swizzle of that width; rows past s read as 0
-// within their own matrix. Returns a cudaError_t.
-inline int tile_map(CUtensorMap* map, const void* base, int mats, int s, int d, int rows) {
+// the tensor map of a contiguous (mats, s, d) array of bf16 (esize 2) or
+// float32 (esize 4) read in boxes of [rows][min(d, 128 / esize)] with the
+// swizzle of the box row's width; rows past s (and columns past d) read as
+// 0 within their own matrix. Returns a cudaError_t.
+inline int tile_map(CUtensorMap* map, const void* base, int mats, int s, int d, int rows,
+                    int esize = 2) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
-  const int box = d < 64 ? d : 64;
+  const int box = d < 128 / esize ? d : 128 / esize;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(s),
                               static_cast<cuuint64_t>(mats)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
-                                 static_cast<cuuint64_t>(s) * d * 2};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * esize,
+                                 static_cast<cuuint64_t>(s) * d * esize};
   const cuuint32_t boxdim[3] = {static_cast<cuuint32_t>(box),
                                 static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  const CUtensorMapSwizzle sw = box == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                : box == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+  const int row = box * esize;
+  const CUtensorMapSwizzle sw = row == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : row == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                             : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+  const CUresult r = fn(map, esize == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                        3, const_cast<void*>(base),
                         dims, strides, boxdim, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -42,7 +42,7 @@ from repro_torch.core.schedule import Schedule
 from repro_torch.obs import profile as obs_profile
 
 from .. import _build, l1ball
-from .tiling import TilePlan, plan_tiles, row_split
+from .tiling import TilePlan, lead_split, plan_tiles, row_split
 
 NORM_CODES = {"1": 0, "2": 1, "inf": 2}  # csrc/common.cuh
 
@@ -51,7 +51,7 @@ REDUCE = _build.Kernel("codegen_reduce", {
     "codegen_reduce": [_P, _P, _P, _P, _P] + [_I] * 12 + [_P],
 })
 APPLY = _build.Kernel("codegen_apply", {
-    "codegen_apply": [_P] * 6 + [_I] * 11 + [_P],
+    "codegen_apply": [_P] * 6 + [_I] * 13 + [_P],
 })
 PARTIAL_APPLY = _build.Kernel("codegen_partial_apply", {
     "codegen_partial_apply": [_P] * 5 + [_I] * 10 + [_P],
@@ -214,16 +214,31 @@ def codegen_apply(yc: torch.Tensor, aggs: Sequence[torch.Tensor],
     elif out.shape != yc.shape or out.dtype != yc.dtype \
             or not out.is_contiguous() or out.device != yc.device:
         raise ValueError("out must be a contiguous float32 tensor like yc")
-    rows, splits = (n, 1) if tp.n_resident else row_split(n, m, b)
     g1, g2 = _lead_args(tp)
     q1, q2, qlast = _codes(norms)
     v1 = aggs[0] if aggs else None
     v2 = aggs[1] if len(aggs) > 1 else None
+    chunk = vec = 0
+    if split_lead(tp, norms):
+        ptrs = yc.data_ptr() | out.data_ptr() | vfin.data_ptr() | u.data_ptr()
+        for a in aggs:
+            ptrs |= a.data_ptr()
+        ls = lead_split(n, m, g1 * g2, b, 4 if ptrs % 16 == 0 and m % 4 == 0 else 1)
+        rows, splits, chunk, vec = 0, ls.splits, ls.chunk, ls.vec
+    else:
+        rows, splits = (n, 1) if tp.n_resident else row_split(n, m, b)
     APPLY.launch("codegen_apply", yc.data_ptr(), _build.ptr(v1),
                  _build.ptr(v2), vfin.data_ptr(), u.data_ptr(),
                  out.data_ptr(), b, len(tp.lead), g1, g2, n, m, q1, q2,
-                 qlast, rows, splits, _build.stream_handle(yc))
+                 qlast, rows, splits, chunk, vec, _build.stream_handle(yc))
     return out
+
+
+def split_lead(tp: TilePlan, norms: Sequence[str]) -> bool:
+    """Whether the apply of ``tp`` under reduce norms ``norms`` takes the
+    lead-split kernel: a lead axis, no ℓ1 among its levels nor at level
+    L-1, so each element of a lead group shrinks alone."""
+    return bool(tp.lead) and "1" not in norms
 
 
 def codegen_partial_apply(yc: torch.Tensor, aggs: Sequence[torch.Tensor],

@@ -28,10 +28,16 @@ ROADMAP.md).
 
 Pallas walked the row axis sequentially; Hopper has no sequential grid axis,
 so :func:`row_split` cuts it across CTAs until the launch fills the card.
+Where every lead level of the apply is ℓ∞ or ℓ2 (and level L-1 is not ℓ1),
+each element of a lead group shrinks alone once its radius is known, so
+:func:`lead_split` cuts the lead slices instead: a thread owns ``vec``
+adjacent columns of one row, a CTA ``SPLIT_THREADS`` such positions and a
+chunk of the slices.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -47,6 +53,9 @@ L1_KERNEL_MAX = SMEM_BUDGET_BYTES // 4  # l1ball.cu: one float32 vector in smem
 MAX_LEAD_RANK = 2                # kernels instantiated for 0, 1, 2 lead axes
 SM_COUNT = 132                   # H100 SXM
 TARGET_CTAS = 8 * SM_COUNT       # 8 CTAs of 256 threads fill an SM's 2048
+SPLIT_THREADS = 256              # positions per CTA of the lead-split apply
+SPLIT_CHUNK_MAX = 4              # lead slices per CTA: one batch of the
+                                 # kernel's 4 loads in flight per thread
 
 
 class TilePlan(NamedTuple):
@@ -108,3 +117,34 @@ def row_split(n: int, m: int, batch: int) -> Tuple[int, int]:
         if math.ceil(n / rows) >= want or rows == BLOCK_ROWS:
             return rows, math.ceil(n / rows)
         splits += 1
+
+
+class LeadSplit(NamedTuple):
+    """Launch geometry of the lead-split apply (``csrc/codegen_apply.cu``:
+    ``split_apply_kernel``) for a batch of items: grid ``(ctas_x, batch,
+    splits)``; CTA ``(x, b, z)`` thread ``t`` owns position ``p = x ·
+    SPLIT_THREADS + t < n · (m / vec)``, i.e. row ``p // (m / vec)`` and
+    columns ``(p % (m / vec)) · vec + [0, vec)``, of item ``b`` in the lead
+    slices ``[z · chunk, min(slices, (z + 1) · chunk))``."""
+
+    vec: int
+    ctas_x: int
+    chunk: int
+    splits: int
+
+
+@functools.lru_cache(maxsize=256)
+def lead_split(n: int, m: int, slices: int, batch: int, vec: int) -> LeadSplit:
+    """Cut ``slices`` lead slices (g_1 · g_2) into chunks so that the launch
+    reaches ``TARGET_CTAS`` CTAs where the slices allow it (``chunk =
+    slices // want`` gives at least ``want`` chunks, the last possibly
+    short), and of at most ``SPLIT_CHUNK_MAX`` slices: short CTAs in many
+    waves rather than long ones whose last wave runs part-full. ``vec`` is
+    4 (16-byte loads; the caller checks ``m % 4 == 0`` and the pointers'
+    alignment) or 1."""
+    if vec not in (1, 4) or m % vec:
+        raise ValueError(f"lead_split: vec {vec} does not divide m = {m}")
+    ctas_x = math.ceil(n * (m // vec) / SPLIT_THREADS)
+    want = max(1, min(math.ceil(TARGET_CTAS / (ctas_x * batch)), slices))
+    chunk = max(1, min(slices // want, SPLIT_CHUNK_MAX))
+    return LeadSplit(vec, ctas_x, chunk, math.ceil(slices / chunk))

@@ -7,8 +7,10 @@ q's dtype and lse (B, Hq, Sq) in f32, queries right-aligned to the keys,
 causal and sliding-window masks, GQA with group Hq // Hkv.
 
 On a CUDA tensor it launches ``csrc/flash_fwd.cu`` (D in 16, 32, 64 or
-128): a SIMT kernel for float32, a tensor-core kernel (``wgmma`` fed by TMA)
-for bf16; on a CPU tensor it runs :func:`flash_attention_plain`,
+128): tensor-core kernels (``wgmma`` fed by TMA), bf16 products for bf16
+and three TF32 products per product for float32 (its operands' two tf32
+terms in a scratch buffer, :func:`tf32_work_floats`); on a CPU tensor it
+runs :func:`flash_attention_plain`,
 the same blockwise algorithm in PyTorch ops. Both evaluate the TPU kernel's
 blocks of (min(block_q, Sq), min(block_k, Sk)) with its liveness rule and
 its -1e30 masking, so even the rows no key reaches (causal with Sq > Sk)
@@ -47,9 +49,11 @@ _NEG_INF = -1e30
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 _P, _I, _F = _build.PTR, _build.INT, _build.FLOAT
-KERNEL = _build.Kernel("flash_fwd", {
-    "flash_fwd": [_P] * 5 + [_I] * 8 + [_F] + [_I] * 3 + [_P],
-})
+_FWD_ARGS = [_P] * 6 + [_I] * 8 + [_F] + [_I] * 3 + [_P]
+KERNEL = _build.Kernel("flash_fwd", {"flash_fwd": _FWD_ARGS})
+# the float32 forward: the same export and source, counted apart
+TF32_KERNEL = _build.Kernel("flash_fwd_tf32", {"flash_fwd": _FWD_ARGS},
+                            source="flash_fwd")
 # the backward's two kernels share csrc/flash_bwd.cu and count apart
 DQ_KERNEL = _build.Kernel("flash_bwd_dq", {
     "flash_bwd_dq": [_P] * 7 + [_I] * 8 + [_F, _I, _P],
@@ -134,6 +138,14 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
     return o.to(q.dtype), lse
 
 
+def tf32_work_floats(b: int, hq: int, hkv: int, sq: int, sk: int, d: int) -> int:
+    """Floats of the float32 forward's scratch: the two tf32 terms of q and
+    k, of vᵀ with its keys padded to a multiple of 32, and the kernel's item
+    counter (``csrc/flash_fwd.cu``: ``launch_tf32``)."""
+    skp = -(-sk // 32) * 32
+    return 2 * (b * hq * sq * d + b * hkv * sk * d + b * hkv * d * skp) + 4
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window=None, scale=None,
                     block_q: int = DEFAULT_BLOCK_Q,
                     block_k: int = DEFAULT_BLOCK_K):
@@ -155,11 +167,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None, scale=None,
     scale = d ** -0.5 if scale is None else float(scale)
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    KERNEL.launch("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  o.data_ptr(), lse.data_ptr(), b, hq, hkv, sq, sk, d,
-                  int(bool(causal)), 0 if window is None else int(window),
-                  scale, bq, bk, int(q.dtype == torch.bfloat16),
-                  _build.stream_handle(q))
+    bf16 = q.dtype == torch.bfloat16
+    work = None if bf16 else torch.empty(
+        tf32_work_floats(b, hq, hkv, sq, sk, d), dtype=torch.float32,
+        device=q.device)
+    (KERNEL if bf16 else TF32_KERNEL).launch(
+        "flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), _build.ptr(work), b, hq, hkv, sq, sk, d,
+        int(bool(causal)), 0 if window is None else int(window), scale, bq,
+        bk, int(bf16), _build.stream_handle(q))
     return o, lse
 
 

@@ -143,8 +143,8 @@ def test_kernel_wrappers_launch_or_raise():
         flash_attention.flash_attention_bwd(qkv, qkv, qkv, qkv, lse, qkv)
     with pytest.raises(ValueError, match="CUDA kernel needs a CUDA tensor"):
         flash_attention.flash(qkv, qkv, qkv)
-    for k in (flash_attention.KERNEL, flash_attention.DQ_KERNEL,
-              flash_attention.DKV_KERNEL):
+    for k in (flash_attention.KERNEL, flash_attention.TF32_KERNEL,
+              flash_attention.DQ_KERNEL, flash_attention.DKV_KERNEL):
         assert k.launches == 0
     fn = lowering.generate_batched(schedule.compile_schedule((8, 16), BILEVEL),
                                    torch.float32, device="cpu")
@@ -164,10 +164,11 @@ def test_a_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert l1ball.KERNEL.launches == 0
 
 
-@pytest.mark.parametrize("name", ["KERNEL", "DQ_KERNEL", "DKV_KERNEL"])
+@pytest.mark.parametrize("name", ["KERNEL", "TF32_KERNEL", "DQ_KERNEL", "DKV_KERNEL"])
 def test_flash_kernels_without_a_build_raise(monkeypatch, tmp_path, name):
-    """The bf16 forward and both backward kernels: a call that reaches the
-    launch without a built library raises (no nvcc here), counts nothing."""
+    """The bf16 and float32 forward and both backward kernels: a call that
+    reaches the launch without a built library raises (no nvcc here),
+    counts nothing."""
     from repro_torch.kernels import _build, flash_attention
 
     kern = getattr(flash_attention, name)
@@ -188,6 +189,18 @@ def test_flash_backward_kernels_share_one_source():
     assert dq.source == dkv.source == _build.CSRC / "flash_bwd.cu"
     assert dq.library == dkv.library
     assert {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"} <= set(_build.launch_counts())
+
+
+def test_flash_forward_kernels_share_one_source_and_count_apart():
+    """The bf16 and the float32 (3×TF32) forward: one export of
+    csrc/flash_fwd.cu, one library, two launch counts."""
+    from repro_torch.kernels import _build, flash_attention
+
+    bf16, f32 = flash_attention.KERNEL, flash_attention.TF32_KERNEL
+    assert bf16.source == f32.source == _build.CSRC / "flash_fwd.cu"
+    assert bf16.library == f32.library
+    assert bf16.functions == f32.functions
+    assert {"flash_fwd", "flash_fwd_tf32"} <= set(_build.launch_counts())
 
 
 GOLDEN_WRAPPERS = ("colmax", "clip", "trilevel_reduce", "trilevel_apply",
