@@ -1,0 +1,239 @@
+#!/usr/bin/env python3
+"""Time one family of the port's kernels beside a PyTorch call, on one card.
+
+    python3 scripts/time_ab.py FAMILY [--tree DIR]
+
+imports ``repro_torch`` from ``DIR/src`` (default: this checkout), builds
+that tree's kernels of FAMILY and times them, float32:
+
+- ``golden``: ``clip`` and ``colmax`` (``csrc/bilevel_l1inf.cu``) at W1
+  (8192, 2048) and W3 (1000, 10000) beside ``torch.clamp`` with the bounds
+  precomputed and the ℓ∞ ``torch.linalg.vector_norm`` over the rows;
+- ``codegen``: kernel rows 8 (``codegen_apply``, one item) and 11 (the same
+  kernel on a bucket of 8) at the server's bi-level (8192, 2048) and
+  tri-level (256, 32, 2048) requests (``chip_smoke.py``'s FULL), and row 9
+  (``codegen_partial_apply`` at granite-3-2b's wq local shard, 40 × (64, 8,
+  2048)), beside ``torch.clamp``; rows 8 and 11 also beside
+  ``Tensor.copy_`` of Y into X, which moves the kernel's Y and X bytes and
+  nothing else: what the card reaches for that traffic;
+- ``flash``: kernel row 12 f32 (``flash_attention`` at the harvest's
+  (4, 32, 2048, 64) causal) beside ``scaled_dot_product_attention``;
+- ``harvest``: one warm harvest step of the SAE factory at stablelm-1.6b's
+  full width (``chip_smoke.py``'s FACTORY) and its LM forward, on the host
+  clock, each ended by a synchronize (median of 3); ``chip_smoke.py``'s
+  phase 4 holds what they compute.
+
+Each kernel's output is held to its plain version first (which also builds
+and loads the kernel off the clock), and the PyTorch call to the same. A kernel or PyTorch call gets ``chip_smoke.py``'s three
+timers: the CUDA-event time of a lone call (median of 100), its CUDA-graph
+replay (the device's time alone, median of 100) and the host time per
+call (median of 5 runs of 200 calls enqueued back to back). The timers
+and shapes are this checkout's whichever tree is timed, so trees are timed
+alike; to compare two, time each in its own process on one machine, in
+the order a, b, b, a:
+
+    for t in a b b a; do python3 scripts/time_ab.py codegen --tree $t; done
+
+Prints the card's name and power limit (``nvidia-smi``), then one JSON
+line. Exits 2 without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+SHAPES = {"W1": (8192, 2048), "W3": (1000, 10000)}  # chip_smoke.py's W1, W3
+SEED = 0
+REPS = 100                     # lone calls (and replays) per event median
+HOST_RUNS = 5                  # host time per call: median of 5 runs
+
+
+def golden_cases(torch, cs, randn, rand):
+    """``{name: (check, {who: fn})}`` of the bi-level golden kernels."""
+    from repro_torch.kernels import bilevel_l1inf as bi
+
+    cases = {}
+    for wl, shape in SHAPES.items():
+        y = randn(shape)
+        u = bi.colmax_plain(y) * (0.2 + 0.6 * rand(shape[1:]))
+        lo, hi = -u[None, :], u[None, :]
+        table = {  # kernel, plain, library
+            "clip": (lambda y=y, u=u: bi.clip(y, u),
+                     lambda y=y, u=u: bi.clip_plain(y, u),
+                     lambda y=y, lo=lo, hi=hi: torch.clamp(y, lo, hi)),
+            "colmax": (lambda y=y: bi.colmax(y),
+                       lambda y=y: bi.colmax_plain(y),
+                       lambda y=y: torch.linalg.vector_norm(y, float("inf"), dim=0)),
+        }
+        for name, (kern, plain, lib) in table.items():
+            def check(tag, kern=kern, plain=plain, lib=lib):
+                want = plain()
+                cs.check_exact(tag, kern(), want)
+                cs.check_exact(f"{tag} library call", lib(), want)
+            cases[f"{wl} {name}"] = (check, {"kernel": kern, "library": lib})
+    return cases
+
+
+def codegen_cases(torch, cs, randn, rand):
+    """Kernel rows 8, 11 and 9 of the generated pipeline."""
+    from repro_torch.core import schedule
+    from repro_torch.kernels.codegen import lowering, tiling
+
+    cases = {}
+
+    def held(kern, plain, lib, scale):
+        def check(tag):
+            want = plain()
+            cs.check_close(tag, kern(), want, scale)
+            cs.check_close(f"{tag} library call", lib(), want, scale)
+        return check
+
+    for wl, (shape, levels) in cs.FULL.items():
+        sched = schedule.compile_schedule(shape, levels)
+        tp = tiling.plan_tiles(sched, torch.float32)
+        norms = [q for q, _ in sched.levels][:-1]
+        yc8 = randn((cs.BUCKET,) + tp.canon_shape)
+        aggs8, vfin8 = lowering.reduce_plain(yc8, norms)
+        radii = (0.05 + 0.9 * rand((cs.BUCKET,))) * vfin8.sum(1)
+        u8 = lowering._solve_outer_batched(vfin8, "1", radii, "bisect")
+        for b, row in ((1, 8), (cs.BUCKET, 11)):
+            yc, vfin, u = yc8[:b], vfin8[:b], u8[:b]
+            aggs = [a[:b] for a in aggs8]
+            out = torch.empty_like(yc)
+            w = u[:, None, :] if not aggs \
+                else torch.minimum(aggs[-1], u[:, None])[:, None]
+            lo = -w
+            kern = (lambda yc=yc, aggs=aggs, vfin=vfin, u=u, out=out, tp=tp,
+                    norms=norms: lowering.codegen_apply(yc, aggs, vfin, u, tp,
+                                                        norms, out=out))
+            lib = lambda yc=yc, lo=lo, w=w: torch.clamp(yc, lo, w)
+            plain = (lambda yc=yc, aggs=aggs, vfin=vfin, u=u, norms=norms:
+                     lowering.apply_plain(yc, aggs, vfin, u, norms))
+            cases[f"row {row} {wl} x{b}"] = (
+                held(kern, plain, lib, float(yc.abs().max())),
+                {"kernel": kern, "library": lib,
+                 "copy": lambda yc=yc, out=out: out.copy_(yc)})
+    batch, canon, norms = cs.PARTIAL_FULL
+    yc, tp, norms, aggs, w = cs.partial_apply_inputs(randn, rand, batch, canon,
+                                                     norms, False)
+    out = torch.empty_like(yc)
+    w_b, lo_b = w[:, None], -w[:, None]
+    kern = lambda: lowering.codegen_partial_apply(yc, aggs, w, tp, norms, out=out)
+    lib = lambda: torch.clamp(yc, lo_b, w_b)
+    cases[f"row 9 wq x{batch}"] = (
+        held(kern, lambda: lowering.partial_apply_plain(yc, aggs, w, norms),
+             lib, float(yc.abs().max())),
+        {"kernel": kern, "library": lib})
+    return cases
+
+
+def flash_cases(torch, cs, randn, rand):
+    """Kernel row 12 f32 at the harvest's shape."""
+    import torch.nn.functional as nnf
+
+    from repro_torch.kernels import flash_attention as flash
+
+    qs, ks, causal, window = cs.FLASH_FULL
+    q, k, v = randn(qs, 1.0), randn(ks, 1.0), randn(ks, 1.0)
+    kern = lambda: flash.flash_attention(q, k, v, causal=causal, window=window)
+    lib = lambda: nnf.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+    def check(tag):
+        po, plse = flash.flash_attention_plain(q, k, v, causal=causal,
+                                               window=window)
+        o, lse = kern()
+        cs.check_close(f"{tag} o", o, po, 2.0)
+        cs.check_close(f"{tag} lse", lse, plse, 1.0)
+        cs.check_close(f"{tag} library call", lib(), po, 2.0)
+    return {f"row 12 f32 {qs} causal": (check, {"kernel": kern, "library": lib})}
+
+
+def harvest_rows(torch, cs, tree):
+    """One warm harvest step and its LM forward: ``{name: {"host_ms": ms}}``."""
+    import dataclasses
+
+    from repro_torch.data import DataConfig, DataPipeline
+    from repro_torch.models import lm
+    from repro_torch.training import sae_factory as F
+
+    fcfg = F.SAEFactoryConfig(**cs.FACTORY)
+    cfg, _, params = F.lm_for(fcfg, device="cuda")
+    toks = DataPipeline(DataConfig(
+        vocab=cfg.vocab, seq_len=fcfg.seq_len, global_batch=fcfg.lm_batch,
+        microbatch=fcfg.lm_batch, seed=fcfg.seed)).batch(0)
+    toks = torch.from_numpy(toks.reshape(-1, fcfg.seq_len)).to("cuda")
+
+    def forward():
+        with torch.no_grad():
+            return lm.forward(params, toks, cfg, impl="flash", remat=False,
+                              collect="resid")
+
+    one = dataclasses.replace(fcfg, harvest_steps=1)
+    out = ROOT / "build" / "time_ab" / Path(tree).name
+    return {"harvest_step": {"host_ms": cs.host_ms(
+                lambda: F.harvest_activations(one, out, params=params), reps=3)},
+            "forward": {"host_ms": cs.host_ms(forward, reps=3)}}
+
+
+FAMILIES = {"golden": golden_cases, "codegen": codegen_cases,
+            "flash": flash_cases, "harvest": None}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("family", choices=sorted(FAMILIES))
+    ap.add_argument("--tree", type=Path, default=ROOT,
+                    help="checkout whose src/repro_torch is timed")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_ab: no CUDA device", file=sys.stderr)
+        return 2
+    tree = args.tree.resolve()
+    sys.path.insert(0, str(ROOT))           # chip_smoke.py's timers and shapes
+    sys.path.insert(0, str(tree / "src"))   # the tree under test
+    import chip_smoke as cs
+    import repro_torch
+
+    if not Path(repro_torch.__file__).resolve().is_relative_to(tree):
+        raise SystemExit(f"imported {repro_torch.__file__}, not {tree}'s")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def randn(shape, scale=2.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    def rand(shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
+    if args.family == "harvest":
+        rows = harvest_rows(torch, cs, tree)
+    else:
+        rows = {}
+        for name, (check, fns) in FAMILIES[args.family](
+                torch, cs, randn, rand).items():
+            check(name)
+            for who, fn in fns.items():
+                rows[f"{name} {who}"] = {
+                    "ms": cs.event_ms(fn, REPS),
+                    "graph_ms": cs.graph_ms(fn, REPS),
+                    "host_ms": statistics.median(
+                        cs.host_call_ms(fn) for _ in range(HOST_RUNS))}
+    print(smi)
+    print(json.dumps({"tree": str(tree), "family": args.family, "rows": rows}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

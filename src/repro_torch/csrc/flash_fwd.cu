@@ -729,15 +729,29 @@ tf32_planes_vt(const float* __restrict__ v, uint32_t* __restrict__ big,
   }
 }
 
+// The float32 forward's scratch, in floats: the two tf32 terms of Q and K,
+// of Vᵀ with its keys padded to a multiple of 32, and 4 floats that hold the
+// item counter (launch_tf32 carves it in this order; the export checks the
+// caller's buffer against it).
+struct Tf32Work {
+  long long nq, nk, nv;
+  int skp;
+  Tf32Work(int batch, int hq, int hkv, int sq, int sk, int d)
+      : nq(static_cast<long long>(batch) * hq * sq * d),
+        nk(static_cast<long long>(batch) * hkv * sk * d),
+        nv(static_cast<long long>(batch) * hkv * d * ((sk + 31) / 32 * 32)),
+        skp((sk + 31) / 32 * 32) {}
+  long long floats() const { return 2 * (nq + nk + nv) + 4; }
+};
+
 template <int D>
 int launch_tf32(const float* q, const float* k, const float* v, float* o, float* lse,
                 float* work, int batch, int hq, int hkv, int sq, int sk, int causal,
                 int window, float scale, int block_q, int block_k, cudaStream_t stream) {
   using C = F32Fwd<D>;
-  const long long nq = static_cast<long long>(batch) * hq * sq * D;
-  const long long nk = static_cast<long long>(batch) * hkv * sk * D;
-  const int skp = (sk + 31) / 32 * 32;
-  const long long nv = static_cast<long long>(batch) * hkv * D * skp;
+  const Tf32Work w(batch, hq, hkv, sq, sk, D);
+  const long long nq = w.nq, nk = w.nk, nv = w.nv;
+  const int skp = w.skp;
   float* qp = work;       // Q big, Q small: (2 · batch · hq, sq, D)
   float* kp = qp + 2 * nq;  // K big, K small: (2 · batch · hkv, sk, D)
   float* vp = kp + 2 * nk;  // Vᵀ big, Vᵀ small: (2 · batch · hkv, D, skp)
@@ -791,21 +805,24 @@ int dispatch_tf32(const float* q, const float* k, const float* v, float* o, floa
 
 // q, o: (batch, hq, sq, d); k, v: (batch, hkv, sk, d), all contiguous and
 // of one type, float32 (bf16 = 0) or bf16 (bf16 = 1); lse: (batch, hq, sq)
-// float32. work: float32 scratch of tf32_work_floats (float32 only; null for
-// bf16). window <= 0 means none. block_q/block_k are the emulated TPU
+// float32. work: float32 scratch of work_floats floats, at least
+// tc::Tf32Work::floats() (float32 only; null and 0 for bf16). window <= 0
+// means none. block_q/block_k are the emulated TPU
 // blocks (min(128, sq), min(128, sk)); block_q is a multiple of 64 or equals
 // sq. d is 16, 32, 64 or 128. Both types run on the tensor cores. Returns a
 // cudaError_t.
 REPRO_EXPORT int flash_fwd(const void* q, const void* k, const void* v, void* o,
-                           float* lse, void* work, int batch, int hq, int hkv,
-                           int sq, int sk, int d, int causal, int window,
+                           float* lse, void* work, long long work_floats,
+                           int batch, int hq, int hkv, int sq, int sk, int d,
+                           int causal, int window,
                            float scale, int block_q, int block_k, int bf16,
                            void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
     return tc::dispatch(q, k, v, o, lse, batch, hq, hkv, sq, sk, d, causal,
                         window, scale, block_q, block_k, st);
-  if (work == nullptr) return cudaErrorInvalidValue;
+  if (work == nullptr || work_floats < tc::Tf32Work(batch, hq, hkv, sq, sk, d).floats())
+    return cudaErrorInvalidValue;
   return tc::dispatch_tf32(static_cast<const float*>(q), static_cast<const float*>(k),
                            static_cast<const float*>(v), static_cast<float*>(o), lse,
                            static_cast<float*>(work), batch, hq, hkv, sq, sk, d, causal,

@@ -53,6 +53,7 @@ ERROR_STRING = "repro_error_string"  # every library's cudaGetErrorString
 # ctypes argument kinds of the exported C functions
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
+LONG = ctypes.c_longlong
 FLOAT = ctypes.c_float
 
 KERNELS: Dict[str, "Kernel"] = {}

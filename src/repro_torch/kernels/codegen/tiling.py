@@ -54,8 +54,10 @@ MAX_LEAD_RANK = 2                # kernels instantiated for 0, 1, 2 lead axes
 SM_COUNT = 132                   # H100 SXM
 TARGET_CTAS = 8 * SM_COUNT       # 8 CTAs of 256 threads fill an SM's 2048
 SPLIT_THREADS = 256              # positions per CTA of the lead-split apply
-SPLIT_CHUNK_MAX = 4              # lead slices per CTA: one batch of the
-                                 # kernel's 4 loads in flight per thread
+SPLIT_CHUNK_MAX = 8              # lead slices per CTA: two batches of the
+                                 # kernel's 4 loads in flight per thread (on
+                                 # an H100, 1 µs less for the tri request
+                                 # than 4; PERF.md § 6)
 
 
 class TilePlan(NamedTuple):
@@ -138,8 +140,8 @@ def lead_split(n: int, m: int, slices: int, batch: int, vec: int) -> LeadSplit:
     """Cut ``slices`` lead slices (g_1 · g_2) into chunks so that the launch
     reaches ``TARGET_CTAS`` CTAs where the slices allow it (``chunk =
     slices // want`` gives at least ``want`` chunks, the last possibly
-    short), and of at most ``SPLIT_CHUNK_MAX`` slices: short CTAs in many
-    waves rather than long ones whose last wave runs part-full. ``vec`` is
+    short), and of at most ``SPLIT_CHUNK_MAX`` slices: short CTAs in
+    several waves rather than long ones whose last wave runs part-full. ``vec`` is
     4 (16-byte loads; the caller checks ``m % 4 == 0`` and the pointers'
     alignment) or 1."""
     if vec not in (1, 4) or m % vec:

@@ -49,7 +49,7 @@ _NEG_INF = -1e30
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 _P, _I, _F = _build.PTR, _build.INT, _build.FLOAT
-_FWD_ARGS = [_P] * 6 + [_I] * 8 + [_F] + [_I] * 3 + [_P]
+_FWD_ARGS = [_P] * 6 + [_build.LONG] + [_I] * 8 + [_F] + [_I] * 3 + [_P]
 KERNEL = _build.Kernel("flash_fwd", {"flash_fwd": _FWD_ARGS})
 # the float32 forward: the same export and source, counted apart
 TF32_KERNEL = _build.Kernel("flash_fwd_tf32", {"flash_fwd": _FWD_ARGS},
@@ -141,7 +141,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
 def tf32_work_floats(b: int, hq: int, hkv: int, sq: int, sk: int, d: int) -> int:
     """Floats of the float32 forward's scratch: the two tf32 terms of q and
     k, of vᵀ with its keys padded to a multiple of 32, and the kernel's item
-    counter (``csrc/flash_fwd.cu``: ``launch_tf32``)."""
+    counter. ``csrc/flash_fwd.cu`` owns the layout (``tc::Tf32Work``): the
+    export takes the buffer's size and refuses one that is too small."""
     skp = -(-sk // 32) * 32
     return 2 * (b * hq * sq * d + b * hkv * sk * d + b * hkv * d * skp) + 4
 
@@ -173,9 +174,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None, scale=None,
         device=q.device)
     (KERNEL if bf16 else TF32_KERNEL).launch(
         "flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), _build.ptr(work), b, hq, hkv, sq, sk, d,
-        int(bool(causal)), 0 if window is None else int(window), scale, bq,
-        bk, int(bf16), _build.stream_handle(q))
+        lse.data_ptr(), _build.ptr(work), 0 if bf16 else work.numel(), b, hq,
+        hkv, sq, sk, d, int(bool(causal)), 0 if window is None else int(window),
+        scale, bq, bk, int(bf16), _build.stream_handle(q))
     return o, lse
 
 

@@ -237,5 +237,8 @@ def test_each_type_launches_its_own_forward(monkeypatch, dtype):
     o, lse = tflash.flash_attention(q, kv, kv)
     assert o.shape == q.shape and lse.shape == (1, 4, 96)
     assert used.launches == 1 and other.launches == 0
-    assert calls[-1][6:12] == (1, 4, 2, 96, 80, 64)
+    # the float32 scratch's size goes with it, for the export to check
+    assert calls[-1][6] == (0 if dtype == torch.bfloat16
+                            else tflash.tf32_work_floats(1, 4, 2, 96, 80, 64))
+    assert calls[-1][7:13] == (1, 4, 2, 96, 80, 64)
     assert calls[-1][-2] == int(dtype == torch.bfloat16)
