@@ -209,6 +209,13 @@ DESIGNS = [
     ("rank4_l2lead", (2, 3, 7, 33), (("2", 1), ("inf", 1), ("2", 1), ("1", 1))),
     ("trilevel_ragged", (4, 16, 61), TRILEVEL),
     ("trilevel_l2", (5, 9, 44), (("2", 1), ("inf", 1), ("1", 1))),
+    # the reduce's other geometries (tests/test_torch_reduce_split.py
+    # REDUCE_DESIGNS): rows cut into chunks folded by reduce_finalize (few,
+    # long columns), and slice lanes under one lead axis, vec 1 and 4
+    ("l1inf_tall", (4096, 32), BILEVEL),
+    ("trilevel_tall", (3, 2000, 20), TRILEVEL),
+    ("trilevel_deep", (64, 5, 61), TRILEVEL),
+    ("trilevel_deep_l2", (48, 3, 64), (("2", 1), ("inf", 1), ("1", 1))),
 ]
 
 REPLACES = {  # (kernel, batched) -> the TPU kernel's pallas_call site
@@ -423,6 +430,77 @@ def bound_ms(nbytes, nops, ops_per_s=F32_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def fmax(t):
+    """The largest finite |t| (a tolerance's scale)."""
+    a = t.abs()
+    return float(a[a.isfinite()].max())
+
+
+def hold_pipeline(randn, rand, tag, shape, levels, batch, nonfinite=False):
+    """Phase 1: each kernel of one design against its plain version on
+    ``batch`` items from ``randn``; returns the max errors per kernel and
+    the inputs. ``nonfinite`` puts a NaN, +inf and -inf in item 0 and a
+    +inf and -inf in item 1 of Y, and each kernel must then hold NaN and
+    ±inf where its plain version does."""
+    import torch
+
+    from repro_torch.core import schedule
+    from repro_torch.kernels import l1ball
+    from repro_torch.kernels.codegen import lowering, tiling
+
+    sched = schedule.compile_schedule(shape, levels)
+    tp = tiling.plan_tiles(sched, torch.float32)
+    if tp is None:
+        raise SmokeFailure(f"{tag}: the tiler rejects {levels} on {shape}")
+    norms = [q for q, _ in sched.levels]
+    yc = randn((batch,) + tp.canon_shape)
+    if nonfinite:
+        size = yc[0].numel()
+        yc[0].view(-1)[[5 % size, (7 * tp.m + 3) % size, size - 2]] = \
+            torch.tensor([float("nan"), INF, -INF], device=yc.device)
+        yc[1].view(-1)[[size // 2, size - 1]] = torch.tensor(
+            [INF, -INF], device=yc.device)
+    scale = fmax(yc)
+    errs = {}
+
+    def hold(what, got, want, scale_):
+        return check_close(f"{tag} {what}", got, want, scale_,
+                           nonfinite=nonfinite)
+
+    if len(norms) == 1:
+        radii = rand((batch,)) * torch.nan_to_num(
+            yc.abs(), nan=0.0, posinf=0.0).flatten(1).sum(1)
+        got = l1ball.project_l1_batched(yc, radii)
+        torch.cuda.synchronize()
+        errs["l1ball"] = hold("l1ball", got,
+                              l1ball.project_l1_plain(yc, radii), scale)
+        return errs, None
+    aggs, vfin = lowering.codegen_reduce(yc, tp, norms[:-1])
+    torch.cuda.synchronize()
+    aggs_p, vfin_p = lowering.reduce_plain(yc, norms[:-1])
+    # aggregates are held to their own magnitude
+    err = hold("reduce vfin", vfin, vfin_p, fmax(vfin_p))
+    for t, (a, ap) in enumerate(zip(aggs, aggs_p)):
+        err = max(err, hold(f"reduce v{t + 1}", a, ap, fmax(ap)))
+    errs["codegen_reduce"] = err
+    fin = torch.nan_to_num(vfin_p, nan=0.0, posinf=0.0)
+    outer = {"1": fin.sum(1), "2": fin.norm(dim=1),
+             "inf": fin.amax(1)}[norms[-1]]
+    radii = (0.05 + 0.9 * rand((batch,))) * outer
+    if norms[-1] == "1":
+        u = l1ball.project_l1_batched(vfin_p, radii)
+        torch.cuda.synchronize()
+        u_p = l1ball.project_l1_plain(vfin_p, radii)
+        errs["l1ball"] = hold("l1ball", u, u_p, fmax(vfin_p))
+    else:
+        u_p = lowering._solve_outer_batched(vfin_p, norms[-1], radii, "bisect")
+    x = lowering.codegen_apply(yc, aggs_p, vfin_p, u_p, tp, norms[:-1])
+    torch.cuda.synchronize()
+    x_p = lowering.apply_plain(yc, aggs_p, vfin_p, u_p, norms[:-1])
+    errs["codegen_apply"] = hold("apply", x, x_p, scale)
+    return errs, (yc, tp, norms, aggs_p, vfin_p, u_p, radii)
+
+
 def hold_golden_kernels(randn, rand):
     """Phase 1's golden kernels: ``colmax``, ``clip``, ``trilevel_reduce``
     and ``trilevel_apply`` against their plain versions in float32 and
@@ -630,7 +708,8 @@ def time_golden(wls, golden, kernel_errs):
             plain_ms = event_ms(plain)
             ms = event_ms(kern)
             dev_ms = graph_ms(kern)
-            lib_ms = None if lib is None else event_ms(lib)
+            lib_ms, lib_dev = (None, None) if lib is None else (
+                event_ms(lib), graph_ms(lib))
             host = {"kernel": host_call_ms(kern),
                     "library": None if lib is None else host_call_ms(lib)}
             bms, by = bound_ms(nbytes, nops)
@@ -641,12 +720,13 @@ def time_golden(wls, golden, kernel_errs):
                 "launches": golden[wl]["counts"][name], "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                 "bound_by": by, "library_ms": lib_ms, "graph_ms": dev_ms,
-                "host_ms": host["kernel"], "library_host_ms": host["library"]})
+                "host_ms": host["kernel"], "library_graph_ms": lib_dev,
+                "library_host_ms": host["library"]})
             print(f"time {wl} {name} {tuple(y.shape)}: {ms:.4f} ms (bound "
                   f"{bms:.4f} ms by {by}, {bms / ms:.2f} of bound; CUDA-graph "
                   f"replay {dev_ms:.4f} ms, {bms / dev_ms:.2f} of bound), plain "
                   f"{plain_ms:.4f} ms, library "
-                  f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
+                  f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms (replay {lib_dev:.4f})'}, "
                   f"host per call {host['kernel']:.4f} ms (library "
                   f"{'n/a' if lib_ms is None else '%.4f ms' % host['library']}), "
                   f"max_abs_err {err:.3e}")
@@ -1958,55 +2038,12 @@ def main(argv=None) -> int:
         return finish({"kernels": [row], "mesh": mesh})
 
     # ------------------------------------- phase 1: kernels vs plain versions
-    def hold_pipeline(tag, shape, levels, batch):
-        """Each kernel of one design against its plain version; returns the
-        inputs and max errors per kernel."""
-        sched = schedule.compile_schedule(shape, levels)
-        tp = tiling.plan_tiles(sched, torch.float32)
-        if tp is None:
-            raise SmokeFailure(f"{tag}: the tiler rejects {levels} on {shape}")
-        norms = [q for q, _ in sched.levels]
-        yc = randn((batch,) + tp.canon_shape)
-        scale = float(yc.abs().max())
-        errs = {}
-        if len(norms) == 1:
-            radii = rand((batch,)) * yc.abs().flatten(1).sum(1)
-            got = l1ball.project_l1_batched(yc, radii)
-            torch.cuda.synchronize()
-            errs["l1ball"] = check_close(f"{tag} l1ball", got,
-                                         l1ball.project_l1_plain(yc, radii), scale)
-            return errs, None
-        aggs, vfin = lowering.codegen_reduce(yc, tp, norms[:-1])
-        torch.cuda.synchronize()
-        aggs_p, vfin_p = lowering.reduce_plain(yc, norms[:-1])
-        # aggregates are held to their own magnitude
-        err = check_close(f"{tag} reduce vfin", vfin, vfin_p,
-                          float(vfin_p.max()))
-        for t, (a, ap) in enumerate(zip(aggs, aggs_p)):
-            err = max(err, check_close(f"{tag} reduce v{t + 1}", a, ap,
-                                       float(ap.max())))
-        errs["codegen_reduce"] = err
-        outer = {"1": vfin_p.sum(1), "2": vfin_p.norm(dim=1),
-                 "inf": vfin_p.amax(1)}[norms[-1]]
-        radii = (0.05 + 0.9 * rand((batch,))) * outer
-        if norms[-1] == "1":
-            u = l1ball.project_l1_batched(vfin_p, radii)
-            torch.cuda.synchronize()
-            u_p = l1ball.project_l1_plain(vfin_p, radii)
-            errs["l1ball"] = check_close(f"{tag} l1ball", u, u_p,
-                                         float(vfin_p.abs().max()))
-        else:
-            u_p = lowering._solve_outer_batched(vfin_p, norms[-1], radii, "bisect")
-        x = lowering.codegen_apply(yc, aggs_p, vfin_p, u_p, tp, norms[:-1])
-        torch.cuda.synchronize()
-        x_p = lowering.apply_plain(yc, aggs_p, vfin_p, u_p, norms[:-1])
-        errs["codegen_apply"] = check_close(f"{tag} apply", x, x_p, scale)
-        return errs, (yc, tp, norms, aggs_p, vfin_p, u_p, radii)
-
     for name, shape, levels in DESIGNS:
-        errs, _ = hold_pipeline(name, shape, levels, 3)
-        print(f"design {name} {shape}: " + ", ".join(
-            f"{k} max_abs_err {v:.3e}" for k, v in errs.items()))
+        for nonfinite in (False, True):
+            errs, _ = hold_pipeline(randn, rand, name, shape, levels, 3,
+                                    nonfinite)
+            print(f"design {name} {shape}{' NaN/±inf' if nonfinite else ''}: "
+                  + ", ".join(f"{k} max_abs_err {v:.3e}" for k, v in errs.items()))
 
     for n in (1, 127, 2048, tiling.L1_KERNEL_MAX):
         v = randn((4, n))
@@ -2029,7 +2066,8 @@ def main(argv=None) -> int:
 
     full_cases = {}
     for wl, (shape, levels) in FULL.items():
-        errs, inputs = hold_pipeline(f"{wl} full", shape, levels, BUCKET)
+        errs, inputs = hold_pipeline(randn, rand, f"{wl} full", shape,
+                                     levels, BUCKET)
         full_cases[wl] = (errs, inputs)
         print(f"{wl} {BUCKET}x{shape}: " + ", ".join(
             f"{k} max_abs_err {v:.3e}" for k, v in errs.items()))

@@ -9,8 +9,11 @@ that tree's kernels of FAMILY and times them, float32:
 - ``golden``: ``clip`` and ``colmax`` (``csrc/bilevel_l1inf.cu``) at W1
   (8192, 2048) and W3 (1000, 10000) beside ``torch.clamp`` with the bounds
   precomputed and the ℓ∞ ``torch.linalg.vector_norm`` over the rows;
-- ``codegen``: kernel rows 8 (``codegen_apply``, one item) and 11 (the same
-  kernel on a bucket of 8) at the server's bi-level (8192, 2048) and
+- ``codegen``: kernel rows 7 and 10 (``codegen_reduce`` on one item and
+  on a bucket of 8; the bi-level ones beside the ℓ∞
+  ``torch.linalg.vector_norm`` over the rows), rows 8 (``codegen_apply``,
+  one item) and 11 (the same kernel on a bucket of 8), each at the
+  server's bi-level (8192, 2048) and
   tri-level (256, 32, 2048) requests (``chip_smoke.py``'s FULL), and row 9
   (``codegen_partial_apply`` at granite-3-2b's wq local shard, 40 × (64, 8,
   2048)), beside ``torch.clamp``; rows 8 and 11 also beside
@@ -24,7 +27,10 @@ that tree's kernels of FAMILY and times them, float32:
   phase 4 holds what they compute.
 
 Each kernel's output is held to its plain version first (which also builds
-and loads the kernel off the clock), and the PyTorch call to the same. A kernel or PyTorch call gets ``chip_smoke.py``'s three
+and loads the kernel off the clock), and the PyTorch call to the same. A
+kernel's row also carries its bound (``bound_ms``: bytes over 3.35 TB/s,
+``chip_smoke.py``'s ``bound_ms``) where the table has one (rows 1, 7, 10).
+A kernel or PyTorch call gets ``chip_smoke.py``'s three
 timers: the CUDA-event time of a lone call (median of 100), its CUDA-graph
 replay (the device's time alone, median of 100) and the host time per
 call (median of 5 runs of 200 calls enqueued back to back). The timers
@@ -55,7 +61,8 @@ HOST_RUNS = 5                  # host time per call: median of 5 runs
 
 
 def golden_cases(torch, cs, randn, rand):
-    """``{name: (check, {who: fn})}`` of the bi-level golden kernels."""
+    """``{name: (check, {who: fn}, bound ms or None)}`` of the bi-level
+    golden kernels."""
     from repro_torch.kernels import bilevel_l1inf as bi
 
     cases = {}
@@ -76,12 +83,15 @@ def golden_cases(torch, cs, randn, rand):
                 want = plain()
                 cs.check_exact(tag, kern(), want)
                 cs.check_exact(f"{tag} library call", lib(), want)
-            cases[f"{wl} {name}"] = (check, {"kernel": kern, "library": lib})
+            bound = cs.bound_ms(4 * (y.numel() + shape[1]), 0)[0] \
+                if name == "colmax" else None
+            cases[f"{wl} {name}"] = (check, {"kernel": kern, "library": lib},
+                                     bound)
     return cases
 
 
 def codegen_cases(torch, cs, randn, rand):
-    """Kernel rows 8, 11 and 9 of the generated pipeline."""
+    """Kernel rows 7, 10, 8, 11 and 9 of the generated pipeline."""
     from repro_torch.core import schedule
     from repro_torch.kernels.codegen import lowering, tiling
 
@@ -102,9 +112,26 @@ def codegen_cases(torch, cs, randn, rand):
         aggs8, vfin8 = lowering.reduce_plain(yc8, norms)
         radii = (0.05 + 0.9 * rand((cs.BUCKET,))) * vfin8.sum(1)
         u8 = lowering._solve_outer_batched(vfin8, "1", radii, "bisect")
-        for b, row in ((1, 8), (cs.BUCKET, 11)):
+        for b, row, rrow in ((1, 8, 7), (cs.BUCKET, 11, 10)):
             yc, vfin, u = yc8[:b], vfin8[:b], u8[:b]
             aggs = [a[:b] for a in aggs8]
+
+            def check_reduce(tag, yc=yc, tp=tp, norms=norms, b=b, wl=wl):
+                aggs_k, vfin_k = lowering.codegen_reduce(yc, tp, norms)
+                aggs_p, vfin_p = lowering.reduce_plain(yc, norms)
+                for k, p_ in zip([vfin_k, *aggs_k], [vfin_p, *aggs_p]):
+                    cs.check_close(tag, k, p_, float(p_.max()))
+                if wl == "bilevel":
+                    cs.check_close(f"{tag} library call", torch.linalg.vector_norm(
+                        yc, float("inf"), dim=1), vfin_p, float(vfin_p.max()))
+            fns = {"kernel": lambda yc=yc, tp=tp, norms=norms:
+                   lowering.codegen_reduce(yc, tp, norms)}
+            if wl == "bilevel":
+                fns["library"] = lambda yc=yc: torch.linalg.vector_norm(
+                    yc, float("inf"), dim=1)
+            agg_elems = sum(a.numel() for a in aggs)
+            cases[f"row {rrow} {wl} x{b}"] = (check_reduce, fns, cs.bound_ms(
+                4 * (yc.numel() + agg_elems + b * tp.m), 0)[0])
             out = torch.empty_like(yc)
             w = u[:, None, :] if not aggs \
                 else torch.minimum(aggs[-1], u[:, None])[:, None]
@@ -118,7 +145,7 @@ def codegen_cases(torch, cs, randn, rand):
             cases[f"row {row} {wl} x{b}"] = (
                 held(kern, plain, lib, float(yc.abs().max())),
                 {"kernel": kern, "library": lib,
-                 "copy": lambda yc=yc, out=out: out.copy_(yc)})
+                 "copy": lambda yc=yc, out=out: out.copy_(yc)}, None)
     batch, canon, norms = cs.PARTIAL_FULL
     yc, tp, norms, aggs, w = cs.partial_apply_inputs(randn, rand, batch, canon,
                                                      norms, False)
@@ -129,7 +156,7 @@ def codegen_cases(torch, cs, randn, rand):
     cases[f"row 9 wq x{batch}"] = (
         held(kern, lambda: lowering.partial_apply_plain(yc, aggs, w, norms),
              lib, float(yc.abs().max())),
-        {"kernel": kern, "library": lib})
+        {"kernel": kern, "library": lib}, None)
     return cases
 
 
@@ -151,7 +178,8 @@ def flash_cases(torch, cs, randn, rand):
         cs.check_close(f"{tag} o", o, po, 2.0)
         cs.check_close(f"{tag} lse", lse, plse, 1.0)
         cs.check_close(f"{tag} library call", lib(), po, 2.0)
-    return {f"row 12 f32 {qs} causal": (check, {"kernel": kern, "library": lib})}
+    return {f"row 12 f32 {qs} causal": (check, {"kernel": kern, "library": lib},
+                                       None)}
 
 
 def harvest_rows(torch, cs, tree):
@@ -221,7 +249,7 @@ def main(argv=None) -> int:
         rows = harvest_rows(torch, cs, tree)
     else:
         rows = {}
-        for name, (check, fns) in FAMILIES[args.family](
+        for name, (check, fns, bound) in FAMILIES[args.family](
                 torch, cs, randn, rand).items():
             check(name)
             for who, fn in fns.items():
@@ -230,6 +258,8 @@ def main(argv=None) -> int:
                     "graph_ms": cs.graph_ms(fn, REPS),
                     "host_ms": statistics.median(
                         cs.host_call_ms(fn) for _ in range(HOST_RUNS))}
+                if who == "kernel" and bound is not None:
+                    rows[f"{name} {who}"]["bound_ms"] = bound
     print(smi)
     print(json.dumps({"tree": str(tree), "family": args.family, "rows": rows}))
     return 0

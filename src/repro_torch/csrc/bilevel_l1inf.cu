@@ -13,46 +13,94 @@
 // writes m values; clip reads Y once and writes X once.
 //
 // Pallas carried the column max across row blocks on a sequential grid
-// axis. Hopper runs CTAs in no order, and one CTA per column strip would
-// leave most of the 132 SMs idle (8 CTAs at 8192 x 2048), so the rows are
-// split too: a CTA covers BM * VEC columns — each thread VEC neighbouring
-// columns, one 16-byte load per row — by `rows_per_split` rows, its BR
-// thread rows walk strided rows, and it writes one partial row of maxima;
-// golden::fold_splits folds the partial rows in a fixed order. Max is exact
-// and the order is fixed, so the result is deterministic. clip uses the same
-// (column strip, row chunk) grid and keeps its VEC radii in registers.
-// Ragged column tails take VEC = 1 (the wrapper picks VEC); ragged row tails
-// end each thread's loop.
+// axis. Hopper runs CTAs in no order; colmax gives each CTA whole columns
+// instead, so one launch writes v: CTA x of COLMAX_THREADS threads owns
+// `packs` packs of VEC neighbouring columns (one 16-byte load per row each)
+// and every row of them. Thread t owns pack t % packs and row lane
+// t / packs; its row lane walks rows t / packs, + R, … (R = COLMAX_THREADS
+// / packs) with COLMAX_LOADS loads in flight, then the row lanes fold — by
+// butterfly inside each warp, then the warps through shared memory — and
+// the CTA writes its columns of v in Y's type. The wrapper
+// (kernels/bilevel_l1inf.py:colmax_shape) doubles `packs` from 64 bytes of
+// each row until the CTAs fit in one wave of the card (two per SM), so no
+// second wave runs part-full and no partial maxima go through memory: one
+// launch, and the output is the call's one allocation. Max is exact and
+// order-free, NaN included (max_nan), so the result is deterministic.
+// clip splits the rows across CTAs too (a column strip by a row chunk) and
+// keeps its VEC radii in registers. Ragged column tails take VEC = 1 (the
+// wrapper picks VEC); ragged row tails end each thread's loop.
 #include "golden.cuh"
 
 namespace {
 
 using namespace golden;
 
+constexpr int COLMAX_THREADS = 512;  // bilevel_l1inf.COLMAX_THREADS
+constexpr int COLMAX_LOADS = 8;      // rows in flight per thread (4 for
+                                     // bf16's 8-wide packs: within 64 registers)
+constexpr int WARP = 32;
+
+// acc[k] = max(acc[k], |x[u].v[k]|) over the loaded packs, NaN kept
+template <typename S, int VEC, int LOADS>
+__device__ __forceinline__ void fold_abs_max(float (&acc)[VEC],
+                                             const Pack<S, VEC> (&x)[LOADS]) {
+#pragma unroll
+  for (int u = 0; u < LOADS; ++u)
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) acc[k] = max_nan(acc[k], fabsf(widen(x[u].v[k])));
+}
+
 template <typename S, int VEC>
-__global__ void __launch_bounds__(BM * BR)
-colmax_partial(const S* __restrict__ y, float* __restrict__ partial, int n,
-               int m, int rows_per_split) {
-  __shared__ float red[BR][BM * VEC];
-  const int col0 = blockIdx.x * BM * VEC;
-  const int j0 = col0 + threadIdx.x * VEC;
-  const int r0 = blockIdx.y * rows_per_split;
-  const int r1 = min(n, r0 + rows_per_split);
+__global__ void __launch_bounds__(COLMAX_THREADS, 2)
+colmax_kernel(const S* __restrict__ y, S* __restrict__ out, int n, int m,
+              int packs) {
+  // (COLMAX_THREADS / max(32, packs)) row groups x packs · VEC columns
+  __shared__ float red[COLMAX_THREADS * VEC];
+  const int t = threadIdx.x;
+  const int p = t % packs, r = t / packs, R = COLMAX_THREADS / packs;
+  const int j0 = (blockIdx.x * packs + p) * VEC;
+  constexpr int LOADS = VEC == 8 ? COLMAX_LOADS / 2 : COLMAX_LOADS;
   float acc[VEC];
 #pragma unroll
   for (int k = 0; k < VEC; ++k) acc[k] = 0.f;  // identity of the max on |y|
   if (j0 < m) {  // VEC > 1 only when m % VEC == 0: the whole pack is valid
-#pragma unroll 4
-    for (int i = r0 + threadIdx.y; i < r1; i += BR) {
-      const Pack<S, VEC> p = load<S, VEC>(y + static_cast<long long>(i) * m + j0);
+    const S* yj = y + j0;
+    // batches of LOADS loads issued before they fold; a ragged tail
+    // is one predicated batch (0, the max's identity on |y|, past row n), so
+    // it costs one round trip to memory, not one per row
+    Pack<S, VEC> x[LOADS];
+    int i = r;
+    for (; i + (LOADS - 1) * R < n; i += LOADS * R) {
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) acc[k] = max_nan(acc[k], fabsf(widen(p.v[k])));
+      for (int u = 0; u < LOADS; ++u)
+        x[u] = load<S, VEC>(yj + static_cast<long long>(i + u * R) * m);
+      fold_abs_max<S, VEC, LOADS>(acc, x);
+    }
+    if (i < n) {
+#pragma unroll
+      for (int u = 0; u < LOADS; ++u)
+        x[u] = i + u * R < n ? load<S, VEC>(yj + static_cast<long long>(i + u * R) * m)
+                             : Pack<S, VEC>{};
+      fold_abs_max<S, VEC, LOADS>(acc, x);
     }
   }
+  // the row lanes inside a warp (lanes packs, 2·packs, … apart), then the
+  // warps (or, with packs > 32, the row lanes) through shared memory
+  for (int o = packs; o < WARP; o <<= 1)
 #pragma unroll
-  for (int k = 0; k < VEC; ++k) red[threadIdx.y][threadIdx.x * VEC + k] = acc[k];
-  write_partial<VEC>(red, partial + static_cast<long long>(blockIdx.y) * m,
-                     col0, m);
+    for (int k = 0; k < VEC; ++k) acc[k] = max_nan(acc[k], __shfl_xor_sync(0xffffffffu, acc[k], o));
+  const int span = max(WARP, packs), width = packs * VEC;
+  if (t % span < packs) {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) red[(t / span) * width + p * VEC + k] = acc[k];
+  }
+  __syncthreads();
+  const int col0 = blockIdx.x * width;
+  for (int c = t; c < width && col0 + c < m; c += COLMAX_THREADS) {
+    float a = red[c];
+    for (int g = 1; g < COLMAX_THREADS / span; ++g) a = max_nan(a, red[g * width + c]);
+    out[col0 + c] = narrow<S>(a);
+  }
 }
 
 template <typename S, int VEC>
@@ -78,16 +126,10 @@ clip_kernel(const S* __restrict__ y, const S* __restrict__ u,
 }
 
 template <typename S, int VEC>
-cudaError_t colmax_launch(const void* y, float* partial, void* out, int n,
-                          int m, int rows_per_split, int splits,
+cudaError_t colmax_launch(const void* y, void* out, int n, int m, int packs,
                           cudaStream_t s) {
-  const dim3 grid(ceil_div(m, BM * VEC), splits);
-  colmax_partial<S, VEC><<<grid, dim3(BM, BR), 0, s>>>(
-      static_cast<const S*>(y), partial, n, m, rows_per_split);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  fold_splits<S><<<ceil_div(m, BM), dim3(BM, BR), 0, s>>>(
-      partial, static_cast<S*>(out), m, splits);
+  colmax_kernel<S, VEC><<<ceil_div(m / VEC, packs), COLMAX_THREADS, 0, s>>>(
+      static_cast<const S*>(y), static_cast<S*>(out), n, m, packs);
   return cudaGetLastError();
 }
 
@@ -103,18 +145,20 @@ cudaError_t clip_launch(const void* y, const void* u, void* x, int n, int m,
 
 }  // namespace
 
-// v (m,) = column max of |y| (n, m); `partial` is float32 scratch of
-// (splits, m). `vec` is 1 or 16 / sizeof(element).
-REPRO_EXPORT int golden_colmax(const void* y, float* partial, void* out,
-                               int dtype, int vec, int n, int m,
-                               int rows_per_split, int splits, void* stream) {
+// v (m,) = column max of |y| (n, m), in y's type. `vec` is 1 or
+// 16 / sizeof(element); `packs` (a power of two dividing COLMAX_THREADS)
+// column packs per CTA.
+REPRO_EXPORT int golden_colmax(const void* y, void* out, int dtype, int vec,
+                               int n, int m, int packs, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (packs < 1 || packs > COLMAX_THREADS || COLMAX_THREADS % packs)
+    return cudaErrorInvalidValue;
   if (dtype == DTYPE_F32)
-    return vec > 1 ? colmax_launch<float, 4>(y, partial, out, n, m, rows_per_split, splits, s)
-                   : colmax_launch<float, 1>(y, partial, out, n, m, rows_per_split, splits, s);
+    return vec > 1 ? colmax_launch<float, 4>(y, out, n, m, packs, s)
+                   : colmax_launch<float, 1>(y, out, n, m, packs, s);
   if (dtype == DTYPE_BF16)
-    return vec > 1 ? colmax_launch<bf16_bits, 8>(y, partial, out, n, m, rows_per_split, splits, s)
-                   : colmax_launch<bf16_bits, 1>(y, partial, out, n, m, rows_per_split, splits, s);
+    return vec > 1 ? colmax_launch<bf16_bits, 8>(y, out, n, m, packs, s)
+                   : colmax_launch<bf16_bits, 1>(y, out, n, m, packs, s);
   return cudaErrorInvalidValue;
 }
 

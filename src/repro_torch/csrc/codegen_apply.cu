@@ -17,9 +17,10 @@
 //   64-step bisection run by the thread that owns the group.
 // ℓ2 rescales use the saved aggregates, never recomputed norms, and the
 // 1e-30 floor keeps an all-zero group out of 0/0. θ = 0 when Σ|x| <= r.
-// Levels L-2 … 1 keep the plain version's NaN rules (torch.maximum and
-// torch.minimum propagate NaN; fmaxf would drop it), so a NaN or ±inf in Y
-// lands where the plain version puts it.
+// Every level keeps the plain version's NaN rules (torch.maximum,
+// torch.minimum and torch.clamp propagate NaN; fmaxf would drop it), the ℓ1
+// bisections included (see group_theta), so a NaN or ±inf in Y lands where
+// the plain version puts it.
 //
 // codegen_partial_apply resumes that chain one level down: the mesh
 // executor (kernels/codegen/distributed.py) solves level L-1's ℓ1 groups,
@@ -60,13 +61,18 @@ constexpr int BM = 32;  // columns per CTA (tiling.BLOCK_M)
 constexpr int BR = 8;   // thread rows per CTA (tiling.BLOCK_ROWS)
 constexpr int ITERS = 64;
 
-// torch.maximum / torch.minimum: a NaN in either operand gives NaN.
-__device__ __forceinline__ float max_nan(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
-__device__ __forceinline__ float min_nan(float a, float b) {
-  return (a < b || a != a) ? a : b;
-}
+// An ℓ1 group's θ follows kernels/l1ball.py:project_l1_plain (:46-83) on
+// non-finite input too, with common.cuh's NaN-propagating max (max_nan) where
+// the plain version has amax, sum or clamp:
+//   s = Σ|x| and hi = max|x| are NaN when the group holds a NaN and +inf when
+//   it holds ±inf (:51, :55); "inside" is s <= r, false for a NaN s or r (:52);
+//   each step's φ = Σ max_nan(|x| - mid, 0) (:58, torch.clamp keeps NaN), so
+//   hi = +inf gives mid = +inf, φ = NaN (inf - inf), φ > r false and
+//   θ = (0 + inf) / 2 = +inf; a NaN hi gives θ = NaN;
+//   the shrink sgn(x) · max_nan(|x| - θ, 0) (:83) then puts NaN on every
+//   element of a group with a NaN θ, and on the ±inf elements of a group
+//   with θ = +inf (its finite elements go to 0).
+// The comparisons (s <= r, φ > r) are the plain version's, false on NaN.
 
 // One group's ℓ1 θ, thread-serial over `len` values at `stride`
 // (lowering.py:_grouped_l1_tile): bisection on [0, max|x|], step for step
@@ -152,14 +158,14 @@ __device__ __forceinline__ void lead_chain(const float* y, const float* v1,
 }
 
 // Fold one value per thread over the CTA's 8 thread rows of its column;
-// every thread of the column gets the same result.
+// every thread of the column gets the same result. The max keeps NaN.
 template <bool MAX>
 __device__ float column_reduce(float v, float (*red)[BM]) {
   __syncthreads();
   red[threadIdx.y][threadIdx.x] = v;
   __syncthreads();
   float r = red[0][threadIdx.x];
-  for (int k = 1; k < BR; ++k) r = MAX ? fmaxf(r, red[k][threadIdx.x]) : r + red[k][threadIdx.x];
+  for (int k = 1; k < BR; ++k) r = MAX ? max_nan(r, red[k][threadIdx.x]) : r + red[k][threadIdx.x];
   return r;
 }
 
@@ -187,7 +193,7 @@ apply_kernel(const float* y, const float* __restrict__ v1,
     for (int i = ty; i < n; i += BR) {
       const float a = valid ? fabsf(xs[static_cast<long long>(i) * m + j]) : 0.f;
       col[i * BM + tx] = a;
-      hi = fmaxf(hi, a);
+      hi = max_nan(hi, a);
       s += a;
     }
     hi = column_reduce<true>(hi, red);
@@ -196,7 +202,7 @@ apply_kernel(const float* y, const float* __restrict__ v1,
     for (int it = 0; it < ITERS; ++it) {  // uniform trip count: barriers inside
       const float mid = 0.5f * (lo + hi);
       float p = 0.f;
-      for (int i = ty; i < n; i += BR) p += fmaxf(col[i * BM + tx] - mid, 0.f);
+      for (int i = ty; i < n; i += BR) p += max_nan(col[i * BM + tx] - mid, 0.f);
       const float phi = column_reduce<false>(p, red);
       if (phi > uj) lo = mid; else hi = mid;
     }

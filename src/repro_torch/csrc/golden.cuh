@@ -1,7 +1,7 @@
 // golden.cuh — pieces shared by the hand-written golden kernels of the
 // paper's Algorithms 2 and 5 (bilevel_l1inf.cu, trilevel_l1infinf.cu):
-// storage types, 16-byte vector access, NaN-propagating max/min, and the
-// fold of per-split column maxima.
+// storage types, 16-byte vector access, the NaN-propagating clip (on
+// common.cuh's max_nan / min_nan), and the fold of per-split column maxima.
 //
 // These kernels are an independent second implementation of what the
 // generated pipeline (codegen_reduce.cu, codegen_apply.cu) computes for the
@@ -38,14 +38,6 @@ __device__ __forceinline__ bf16_bits narrow<bf16_bits>(float x) {
   return static_cast<bf16_bits>(__float_as_uint(x) >> 16);
 }
 
-// max / min that return NaN when either operand is NaN, as torch.maximum,
-// torch.amax and jnp.max do (fmaxf / fminf would drop the NaN).
-__device__ __forceinline__ float max_nan(float a, float b) {
-  return (a != a || a > b) ? a : b;
-}
-__device__ __forceinline__ float min_nan(float a, float b) {
-  return (a != a || a < b) ? a : b;
-}
 // clip(y, -u, u) = min(max(y, -u), u), jnp.clip's order of operations
 __device__ __forceinline__ float clip_nan(float y, float u) {
   return min_nan(max_nan(y, -u), u);

@@ -8,7 +8,10 @@
 //   1 filter — Michelot fixed point θ ← (Σ_{a>θ} a - r) / #{a > θ} from
 //              θ₀ = (Σa - r)/n while the active count changes and stays > 0,
 //              at most `iters` (n + 2) sweeps; θ = max(θ, 0), 0 inside.
-// Output sign(v) · max(|v| - θ, 0); `out` may alias `v`.
+// Output sign(v) · max(|v| - θ, 0); `out` may alias `v`. Non-finite input
+// follows the plain version (kernels/l1ball.py:project_l1_plain): every max
+// and clamp keeps NaN (common.cuh's max_nan), so a NaN in v makes θ and the
+// whole output NaN, and an +inf makes the bisection's θ +inf, as there.
 //
 // Bound: the vector is small (the aggregate row of a projection, 2048 floats
 // on the main path), so bytes are negligible and the time is the latency of
@@ -28,8 +31,8 @@ struct Sum {
   template <typename T>
   __device__ T operator()(T a, T b) const { return a + b; }
 };
-struct Max {
-  __device__ float operator()(float a, float b) const { return fmaxf(a, b); }
+struct Max {  // keeps NaN, as the plain version's amax does
+  __device__ float operator()(float a, float b) const { return max_nan(a, b); }
 };
 
 // Block-wide reduction; every thread gets the same value. The leading
@@ -60,7 +63,7 @@ l1ball_kernel(const float* v, const float* __restrict__ radii,
     const float x = fabsf(vb[i]);
     a[i] = x;
     lsum += x;
-    lmax = fmaxf(lmax, x);
+    lmax = max_nan(lmax, x);
   }
   const float s0 = block_reduce(lsum, fscratch, Sum());
   const bool inside = s0 <= r;
@@ -71,7 +74,7 @@ l1ball_kernel(const float* v, const float* __restrict__ radii,
     for (int it = 0; it < iters; ++it) {
       const float mid = 0.5f * (lo + hi);
       float p = 0.f;
-      for (int i = threadIdx.x; i < n; i += THREADS) p += fmaxf(a[i] - mid, 0.f);
+      for (int i = threadIdx.x; i < n; i += THREADS) p += max_nan(a[i] - mid, 0.f);
       const float phi = block_reduce(p, fscratch, Sum());
       if (phi > r) lo = mid; else hi = mid;  // φ too large: θ too small
     }
@@ -95,7 +98,7 @@ l1ball_kernel(const float* v, const float* __restrict__ radii,
       theta = new_theta;
       count = new_count;
     }
-    theta = inside ? 0.f : fmaxf(theta, 0.f);
+    theta = inside ? 0.f : max_nan(theta, 0.f);
   }
 
   for (int i = threadIdx.x; i < n; i += THREADS) ob[i] = soft_threshold(vb[i], theta);

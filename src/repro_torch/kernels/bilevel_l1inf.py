@@ -14,7 +14,8 @@ Y is read twice, the minimum for the split. :func:`colmax` and :func:`clip`
 launch their kernels on a CUDA tensor (float32 or bf16, output in Y's type)
 and run :func:`colmax_plain` / :func:`clip_plain` on a CPU tensor, nothing
 else. The TPU ``block_n``/``block_m`` arguments are not carried over: the
-wrappers pick the launch shape (:func:`launch_shape`).
+wrappers pick the launch shape (:func:`colmax_shape`: whole columns per CTA,
+one launch; :func:`launch_shape`: clip's column strip by row chunk).
 """
 
 from __future__ import annotations
@@ -31,12 +32,18 @@ from . import _build, l1ball
 
 BM = 32            # column threads per CTA (csrc/golden.cuh)
 BR = 8             # thread rows per CTA
-TARGET_CTAS = 4 * 132  # four 256-thread CTAs on each of the H100's SMs
+SM_COUNT = 132     # H100 SXM
+TARGET_CTAS = 4 * SM_COUNT  # four 256-thread CTAs on each of the H100's SMs
+COLMAX_THREADS = 512        # threads per colmax CTA (csrc/bilevel_l1inf.cu)
+COLMAX_CTAS = 2 * SM_COUNT  # colmax CTAs resident at once: two per SM
+COLMAX_SEGMENT = 64         # bytes of each row a warp load covers at least
+                            # (on an H100, 2–4 µs less than 32 at W1;
+                            # PERF.md § 6)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/golden.cuh
 
 _P, _I = _build.PTR, _build.INT
 COLMAX = _build.Kernel("colmax", {
-    "golden_colmax": [_P, _P, _P] + [_I] * 6 + [_P],
+    "golden_colmax": [_P, _P] + [_I] * 5 + [_P],
 }, source="bilevel_l1inf")
 CLIP = _build.Kernel("clip", {
     "golden_clip": [_P, _P, _P] + [_I] * 6 + [_P],
@@ -68,6 +75,22 @@ def launch_shape(n: int, m: int, vec: int, step: int = BR,
     want = max(1, min(math.ceil(target / strips), math.ceil(n / step)))
     rows = math.ceil(math.ceil(n / want) / step) * step
     return rows, math.ceil(n / rows)
+
+
+@functools.lru_cache(maxsize=1024)
+def colmax_shape(m: int, vec: int, itemsize: int = 4) -> Tuple[int, int]:
+    """``(packs, ctas)`` of the one-launch ``colmax``: each CTA owns
+    ``packs`` packs of ``vec`` columns and all their rows. ``packs`` starts
+    at ``COLMAX_SEGMENT`` bytes of each row and doubles until the ``ctas``
+    CTAs fit in one wave (``COLMAX_CTAS``), or a CTA holds as many packs as
+    it has threads."""
+    count = math.ceil(m / vec)
+    packs = min(max(1, COLMAX_SEGMENT // (vec * itemsize)),
+                1 << (count - 1).bit_length())
+    while packs < COLMAX_THREADS and packs < count \
+            and math.ceil(count / packs) > COLMAX_CTAS:
+        packs *= 2
+    return packs, math.ceil(count / packs)
 
 
 def check_operands(what: str, y: torch.Tensor, *others: torch.Tensor) -> int:
@@ -123,12 +146,10 @@ def colmax(y: torch.Tensor) -> torch.Tensor:
     code = check_operands("colmax", y)
     n, m = y.shape
     vec = vector_width(m, y)
-    rows, splits = launch_shape(n, m, vec)
-    partial = torch.empty((splits, m), dtype=torch.float32, device=y.device)
-    out = torch.empty((m,), dtype=y.dtype, device=y.device)
-    COLMAX.launch("golden_colmax", y.data_ptr(), partial.data_ptr(),
-                  out.data_ptr(), code, vec, n, m, rows, splits,
-                  _build.stream_handle(y))
+    packs, _ = colmax_shape(m, vec, y.element_size())
+    out = y.new_empty((m,))
+    COLMAX.launch("golden_colmax", y.data_ptr(), out.data_ptr(), code, vec,
+                  n, m, packs, _build.stream_handle(y))
     return out
 
 

@@ -31,6 +31,7 @@ batch as their leading launch axis.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -42,13 +43,14 @@ from repro_torch.core.schedule import Schedule
 from repro_torch.obs import profile as obs_profile
 
 from .. import _build, l1ball
-from .tiling import TilePlan, lead_split, plan_tiles, row_split
+from .tiling import (TilePlan, lead_split, plan_tiles, reduce_split,
+                     row_split)
 
 NORM_CODES = {"1": 0, "2": 1, "inf": 2}  # csrc/common.cuh
 
 _P, _I = _build.PTR, _build.INT
 REDUCE = _build.Kernel("codegen_reduce", {
-    "codegen_reduce": [_P, _P, _P, _P, _P] + [_I] * 12 + [_P],
+    "codegen_reduce": [_P, _P, _P, _P, _P] + [_I] * 15 + [_P],
 })
 APPLY = _build.Kernel("codegen_apply", {
     "codegen_apply": [_P] * 6 + [_I] * 13 + [_P],
@@ -159,34 +161,64 @@ def _codes(norms: Sequence[str]) -> Tuple[int, int, int]:
     return lead[0], lead[1], NORM_CODES[norms[-1]]
 
 
+_ALIGN = 32  # floats: every view of the reduce's buffer starts 128-byte aligned
+
+
+@functools.lru_cache(maxsize=256)
+def _reduce_launch(tp: TilePlan, norms: Tuple[str, ...], batch: int, vec: int):
+    """What one reduce call allocates and passes, computed once per design,
+    batch and vec: ``(views, total, ints)``. ``views`` are the ``(offset,
+    shape)`` of the aggregates, vfin and (when the rows split) the partial
+    scratch in one buffer of ``total`` floats, each offset a multiple of
+    ``_ALIGN``; ``ints`` the kernel's integer arguments from ``batch`` to
+    ``splits``."""
+    n, m = tp.n, tp.m
+    rs = reduce_split(tp.lead, n, m, batch, vec)
+    shapes = [(batch,) + tp.lead[t:] + (n, m) for t in range(1, len(tp.lead) + 1)]
+    shapes.append((batch, m))
+    if rs.splits > 1:
+        shapes.append((batch, rs.splits, m))
+    views, off = [], 0
+    for sh in shapes:
+        views.append((off, sh))
+        off += -(-math.prod(sh) // _ALIGN) * _ALIGN
+    g1, g2 = _lead_args(tp)
+    q1, q2, qlast = _codes(norms)
+    ints = (batch, len(tp.lead), g1, g2, n, m, q1, q2, qlast, rs.vec, rs.packs,
+            rs.lanes, rs.rows, rs.splits)
+    return tuple(views), off, ints
+
+
 def codegen_reduce(yc: torch.Tensor, tp: TilePlan, norms: Sequence[str],
                    raw: bool = False
                    ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Every forward aggregate of the batched canonical view ``yc``
     (B, *tp.canon_shape): ``([v_1, …, v_{L-2}], vfin (B, m))``. ``norms``
     are the reduce norms q_1 … q_{L-1}. ``raw`` returns the last level's raw
-    accumulator in place of ``vfin`` (see :func:`finalize`)."""
+    accumulator in place of ``vfin`` (see :func:`finalize`). On a CUDA
+    tensor the geometry is ``tiling.reduce_split``'s, and the aggregates,
+    vfin and the kernel's scratch are views of one allocation."""
     if tuple(yc.shape[1:]) != tp.canon_shape or len(norms) != len(tp.lead) + 1:
         raise ValueError(f"codegen_reduce: {tuple(yc.shape)} does not match "
                          f"the plan {tp.canon_shape} / norms {list(norms)}")
-    if yc.device.type == "cpu":
+    if yc.is_cpu:
         return reduce_plain(yc, norms, raw)
     _device.require_cuda(yc, "codegen_reduce")
     _check_f32_contiguous("codegen_reduce", yc)
-    b, n, m = yc.shape[0], tp.n, tp.m
-    aggs = [yc.new_empty((b,) + tp.lead[t:] + (n, m))
-            for t in range(1, len(tp.lead) + 1)]
-    rows, splits = row_split(n, m, b)
-    partial = yc.new_empty((b, splits, m))
-    vfin = yc.new_empty((b, m))
-    g1, g2 = _lead_args(tp)
-    q1, q2, qlast = _codes(norms)
-    v1 = aggs[0] if aggs else None
-    v2 = aggs[1] if len(aggs) > 1 else None
-    REDUCE.launch("codegen_reduce", yc.data_ptr(), _build.ptr(v1),
-                  _build.ptr(v2), partial.data_ptr(), vfin.data_ptr(), b,
-                  len(tp.lead), g1, g2, n, m, q1, q2, qlast, rows, splits,
-                  int(raw), _build.stream_handle(yc))
+    ptr = yc.data_ptr()
+    vec = 4 if tp.m % 4 == 0 and ptr % 16 == 0 else 1
+    views, total, ints = _reduce_launch(tp, tuple(norms), yc.shape[0], vec)
+    if len(views) == 1:  # vfin alone
+        out = [yc.new_empty(views[0][1])]
+    else:
+        buf = yc.new_empty(total)
+        out = [buf[off:off + math.prod(sh)].view(sh) for off, sh in views]
+    lead = len(tp.lead)
+    aggs, vfin = out[:lead], out[lead]
+    REDUCE.launch("codegen_reduce", ptr, aggs[0].data_ptr() if lead else None,
+                  aggs[1].data_ptr() if lead > 1 else None,
+                  out[-1].data_ptr() if len(out) > lead + 1 else None,
+                  vfin.data_ptr(), *ints, int(raw), _build.stream_handle(yc))
     return aggs, vfin
 
 

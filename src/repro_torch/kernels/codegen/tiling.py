@@ -26,8 +26,14 @@ tiler accepts and this one rejects: depth > 4, non-float32 types, an ℓ1 apply
 over more than 1600 rows, an ℓ1 solve over more than 51,200 values (see
 ROADMAP.md).
 
-Pallas walked the row axis sequentially; Hopper has no sequential grid axis,
-so :func:`row_split` cuts it across CTAs until the launch fills the card.
+Pallas walked the row axis sequentially; Hopper has no sequential grid axis.
+The reduce (:func:`reduce_split`) gives each CTA whole column strips —
+``packs`` packs of ``vec`` adjacent columns, one 16-byte load each — and all
+their rows, about one CTA per SM, so one launch writes the finalized
+aggregate; only where the strips alone leave most SMs idle does it cut the
+rows too. The apply's row-walking kernels use
+:func:`row_split`, which cuts the row axis across CTAs until the launch
+fills the card.
 Where every lead level of the apply is ℓ∞ or ℓ2 (and level L-1 is not ℓ1),
 each element of a lead group shrinks alone once its radius is known, so
 :func:`lead_split` cuts the lead slices instead: a thread owns ``vec``
@@ -58,6 +64,13 @@ SPLIT_CHUNK_MAX = 8              # lead slices per CTA: two batches of the
                                  # kernel's 4 loads in flight per thread (on
                                  # an H100, 1 µs less for the tri request
                                  # than 4; PERF.md § 6)
+REDUCE_THREADS = 512             # threads per CTA of the reduce
+REDUCE_CTAS = SM_COUNT           # reduce CTAs: one of 512 threads per SM
+                                 # (on an H100, 0.2–4 µs less than two per
+                                 # SM at the four main shapes; PERF.md § 6)
+REDUCE_SEGMENT = 64              # bytes of each row a warp load covers at
+                                 # least (4 µs less than 32 for one item)
+REDUCE_LEAD_LOADS = 4            # lead slices a slice lane folds at least
 
 
 class TilePlan(NamedTuple):
@@ -150,3 +163,55 @@ def lead_split(n: int, m: int, slices: int, batch: int, vec: int) -> LeadSplit:
     want = max(1, min(math.ceil(TARGET_CTAS / (ctas_x * batch)), slices))
     chunk = max(1, min(slices // want, SPLIT_CHUNK_MAX))
     return LeadSplit(vec, ctas_x, chunk, math.ceil(slices / chunk))
+
+
+class ReduceSplit(NamedTuple):
+    """Launch geometry of the reduce (``csrc/codegen_reduce.cu``) for a
+    batch of items: grid ``(ctas_x, splits, batch)`` of ``REDUCE_THREADS``
+    threads. Thread ``t`` of CTA ``(x, z, b)`` owns pack ``x · packs + t %
+    packs`` (columns ``[pack · vec, (pack + 1) · vec)``), slice lane ``(t //
+    packs) % lanes`` and row lane ``t // (packs · lanes)`` of ``R =
+    REDUCE_THREADS / (packs · lanes)``; it walks rows ``z · rows + r, +R, …``
+    below ``min(n, (z + 1) · rows)``, and under one lead axis the slices
+    ``s, s + lanes, …`` of each. ``splits == 1``: the CTA writes vfin."""
+
+    vec: int
+    packs: int
+    lanes: int
+    ctas_x: int
+    rows: int
+    splits: int
+
+
+@functools.lru_cache(maxsize=256)
+def reduce_split(lead: Tuple[int, ...], n: int, m: int, batch: int,
+                 vec: int) -> ReduceSplit:
+    """The reduce's geometry for ``batch`` items of lead axes ``lead``, ``n``
+    rows and ``m`` columns. ``packs`` starts at ``REDUCE_SEGMENT`` bytes of
+    each row and doubles until the ``batch · ctas_x`` CTAs number at most
+    ``REDUCE_CTAS``, one per SM, so the grid is one wave of CTAs that each
+    own whole column strips. Under one lead axis, ``lanes`` slice lanes
+    (within a warp: ``packs · lanes <= 32``) fold at least
+    ``REDUCE_LEAD_LOADS`` slices each. Only when the strips leave more than
+    half the SMs idle (few, long columns) are the rows cut into ``splits``
+    chunks, up to ``REDUCE_CTAS`` CTAs. ``vec`` is 4 (16-byte loads; the
+    caller checks ``m % 4 == 0`` and the pointers' alignment) or 1."""
+    if vec not in (1, 4) or m % vec:
+        raise ValueError(f"reduce_split: vec {vec} does not divide m = {m}")
+    count = m // vec
+    packs = min(REDUCE_SEGMENT // (4 * vec), 1 << (count - 1).bit_length())
+    while packs < REDUCE_THREADS and packs < count \
+            and math.ceil(count / packs) * batch > REDUCE_CTAS:
+        packs *= 2
+    lanes = 1
+    if len(lead) == 1:
+        while 2 * lanes * packs <= 32 and 2 * lanes * REDUCE_LEAD_LOADS <= lead[0]:
+            lanes *= 2
+    ctas_x = math.ceil(count / packs)
+    row_lanes = REDUCE_THREADS // (packs * lanes)
+    splits = 1
+    if 2 * ctas_x * batch < REDUCE_CTAS:
+        splits = max(1, min(REDUCE_CTAS // (ctas_x * batch),
+                            math.ceil(n / row_lanes)))
+    rows = math.ceil(n / splits)
+    return ReduceSplit(vec, packs, lanes, ctas_x, rows, math.ceil(n / rows))

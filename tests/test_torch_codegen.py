@@ -67,6 +67,31 @@ def test_generate_matches_pallas_interpret(name, shape, levels):
     _close(got, want, y)
 
 
+@pytest.mark.parametrize("name,shape,levels", [
+    d for d in DESIGNS + EXTRA_DESIGNS if any(q == "1" for q, _ in d[2])])
+def test_generate_matches_pallas_interpret_on_nonfinite(name, shape, levels):
+    """A NaN, +inf and -inf in Y (where chip_smoke.py's phase 1 puts them in
+    item 0) through every design with an ℓ1 level: the same NaN mask as JAX's
+    interpret-mode pipeline, the same infinities, finite values within the
+    file's tolerance."""
+    y = _rand(shape, name)
+    flat, m = y.reshape(-1), shape[-1]
+    flat[[5 % flat.size, (7 * m + 3) % flat.size, flat.size - 2]] = [
+        np.nan, np.inf, -np.inf]
+    radius = 0.3 * float(np.nansum(np.abs(y[np.isfinite(y)]))) ** 0.5
+    sched = tschedule.compile_schedule(shape, levels)
+    got = tlowering.generate(sched, torch.float32, device="cpu")(
+        torch.from_numpy(y), radius).numpy()
+    want = np.asarray(jcodegen.codegen_project(jnp.asarray(y), levels, radius,
+                                               interpret=True))
+    assert np.isnan(got).any()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(got[np.isinf(want)], want[np.isinf(want)])
+    fin = np.isfinite(want)
+    assert np.isfinite(got[fin]).all()
+    _close(got[fin], want[fin], y[np.isfinite(y)])
+
+
 @pytest.mark.parametrize("radius", [0.0, 1e6])
 def test_generate_edge_radii(radius):
     y = _rand((37, 61), "edge")

@@ -455,6 +455,33 @@ def test_clip_wrapper_launches_its_cached_shape(monkeypatch):
     assert bi.CLIP.launches == 8
 
 
+def test_colmax_wrapper_launches_one_kernel_with_its_shape(monkeypatch):
+    """The colmax wrapper makes one launch, hands the kernel Y's dtype code
+    and ``colmax_shape``'s packs, and returns its one allocation: whole
+    columns per CTA, at most ``COLMAX_CTAS`` of them (one wave) where the
+    packs allow, each warp load at least ``COLMAX_SEGMENT`` bytes of a row."""
+    import math
+
+    from repro_torch.kernels import bilevel_l1inf as bi
+
+    _reach_the_launch(monkeypatch)
+    _, calls = _stand_in(monkeypatch, bi.COLMAX, 0)
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, m in ((1000, 10000), (8192, 2048), (37, 1001), (1, 128)):
+            y = torch.empty(n, m, device="meta", dtype=dtype)
+            v = bi.colmax(y)
+            assert v.shape == (m,) and v.dtype == dtype
+            es = y.element_size()
+            vec = 16 // es if m % (16 // es) == 0 else 1
+            packs, ctas = bi.colmax_shape.__wrapped__(m, vec, es)
+            assert calls[-1][2:-1] == (bi.DTYPE_CODES[dtype], vec, n, m, packs)
+            assert packs & (packs - 1) == 0 and bi.COLMAX_THREADS % packs == 0
+            assert ctas == math.ceil(math.ceil(m / vec) / packs)
+            assert ctas <= bi.COLMAX_CTAS or packs == bi.COLMAX_THREADS
+            assert packs * vec * es >= min(bi.COLMAX_SEGMENT, m * es)
+    assert bi.COLMAX.launches == 8
+
+
 @pytest.mark.parametrize("make,match", [
     (lambda: (torch.empty(4, 8, device="meta", dtype=torch.float16),),
      "float32 or bfloat16"),
