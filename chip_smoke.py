@@ -12,7 +12,7 @@ Function's gradients and the flash rows of phase 6 alone; its launches are
 those of one bf16 Function forward+backward at granite's shape and of one
 float32 forward at the harvest's.)
 
-1. builds the twelve CUDA kernels of the seven sources in
+1. builds the fourteen CUDA kernels of the seven sources in
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, started together),
    prints each kernel's ptxas lines (registers, shared memory, spills) and
    holds each against its plain PyTorch version on the card: the three
@@ -22,13 +22,15 @@ float32 forward at the harvest's.)
    flash-attention forward (o and lse) at the harvest's shape
    (4, 32, 2048, 64) f32 causal and on small ragged cases (non-causal,
    windows, GQA, Sq < Sk and Sq > Sk, block-unaligned lengths); then, in
-   float32 and bf16 (the forward on the tensor cores in both, 3×TF32 for
-   float32; the backward on them for bf16, SIMT for float32), the forward
-   and the two backward kernels
+   float32 and bf16 (every kernel on the tensor cores, three TF32 products
+   per product for float32: ``flash_fwd_tf32``, ``flash_bwd_dq_tf32``,
+   ``flash_bwd_dkv_tf32``), the forward and the two backward kernels
    (``flash_bwd_dq``, ``flash_bwd_dkv``) at granite-3-2b's attention shape,
    q (4, 32, 2048, 64) and k/v (4, 8, 2048, 64) causal, and on the same
    ragged cases, and the ``FlashAttention`` Function's gradients at that
-   shape in float32 against autograd of ``attention_naive``; and the four
+   shape in float32 against autograd of ``attention_naive`` (one launch of
+   each float32 kernel, none of the bf16 ones), and each float32 export
+   refusing a scratch one float short of its size; and the four
    golden kernels of paper Algorithms 2 and 5 (``colmax``, ``clip``,
    ``trilevel_reduce``, ``trilevel_apply``) in float32 and bf16 at the
    golden workloads' shapes, at ``tests/test_kernels.py``'s shapes and on
@@ -74,7 +76,9 @@ float32 forward at the harvest's.)
 5. trains granite-3-2b on the card. First a held step: full width cut to 4
    layers, float32 compute, the projection on, one step with
    ``impl="flash"`` against the same step with ``impl="naive"`` from the
-   same state and batch. Then the main path, ``repro_torch.launch.train``
+   same state and batch (the float32 forward twice and each float32
+   backward kernel once per layer and microbatch, no bf16 flash kernel),
+   then that step timed warm. Then the main path, ``repro_torch.launch.train``
    at full width and depth (40 layers, 2.63 B float32 parameters, bf16
    compute, remat) with ``--batch 8 --microbatch 4 --seq 2048 --steps 3
    --ckpt <dir> --ckpt-every 3`` (one async checkpoint of 31.6 GB: the
@@ -82,7 +86,8 @@ float32 forward at the harvest's.)
    smallest per-layer ℓ1,∞ norm of ``w_up``/``w_gate``: every loss finite,
    every projected layer feasible and neither empty nor full of zero
    columns, the launch counts (2 forward launches per layer and microbatch
-   under remat, 1 of each backward kernel), the last checkpoint restored
+   under remat, 1 of each backward kernel, none of the float32 ones), the
+   last checkpoint restored
    equal to the final state, and the peak device memory;
 6. times each kernel at full width (the projection kernels for the bucket
    of 8 and for one item, the golden kernels at their workloads W1–W4) with
@@ -184,6 +189,9 @@ FULL = {  # the two requests the server sees, per workload
     "trilevel": ((256, 32, 2048), TRILEVEL),
 }
 BUCKET = 8
+# the flash kernels of each type, counted apart (kernels/flash_attention.py)
+BF16_FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+F32_FLASH = ("flash_fwd_tf32", "flash_bwd_dq_tf32", "flash_bwd_dkv_tf32")
 SERVER_KERNELS = ("codegen_reduce", "l1ball", "codegen_apply")  # the server's path
 
 # tests/test_codegen.py DESIGNS + EXTRA_DESIGNS, then the port's own
@@ -229,6 +237,8 @@ REPLACES = {  # (kernel, batched) -> the TPU kernel's pallas_call site
     ("flash_fwd_tf32", False): "src/repro/kernels/flash_attention.py:132",
     ("flash_bwd_dq", False): "src/repro/kernels/flash_attention.py:302",
     ("flash_bwd_dkv", False): "src/repro/kernels/flash_attention.py:325",
+    ("flash_bwd_dq_tf32", False): "src/repro/kernels/flash_attention.py:302",
+    ("flash_bwd_dkv_tf32", False): "src/repro/kernels/flash_attention.py:325",
     ("colmax", False): "src/repro/kernels/bilevel_l1inf.py:82",
     ("clip", False): "src/repro/kernels/bilevel_l1inf.py:103",
     ("trilevel_reduce", False): "src/repro/kernels/trilevel_l1infinf.py:70",
@@ -848,11 +858,44 @@ def hold_attention(randn, tag, qs, ks, causal, window, dtype, scale=None):
                         rtol=rtol) for n, w in zip(("dq", "dk", "dv"), want)}
     errs["flash_bwd_dq"] = e["dq"]
     errs["flash_bwd_dkv"] = max(e["dk"], e["dv"])
+    refused = ""
+    if dtype == torch.float32:
+        refuse_short_bwd_scratch(tag, q, k, v, do, lse, delta, dq, dk, dv,
+                                 causal, window, scale)
+        refused = "; a scratch one float short refused by both exports"
     print(f"flash {tag} {str(dtype)[6:]} q{qs} kv{ks} causal={causal} "
           f"window={window}" + ("" if scale is None else f" scale={scale}")
           + ": " + ", ".join(
-              f"{k_} max_abs_err {v_:.3e}" for k_, v_ in errs.items()))
+              f"{k_} max_abs_err {v_:.3e}" for k_, v_ in errs.items()) + refused)
     return errs, (q, k, v, do, o, lse, delta)
+
+
+def refuse_short_bwd_scratch(tag, q, k, v, do, lse, delta, dq, dk, dv, causal,
+                             window, scale):
+    """Each float32 backward export owns its scratch's layout: a buffer one
+    float short of ``tf32_bwd_work_floats`` is refused before anything
+    launches."""
+    import torch
+
+    from repro_torch.kernels import _build, flash_attention as flash
+
+    (b, hq, sq, d), (hkv, sk) = q.shape, k.shape[1:3]
+    tail = (b, hq, hkv, sq, sk, d, int(causal), window or 0,
+            d ** -0.5 if scale is None else scale, 0, _build.stream_handle(q))
+    head = {"flash_bwd_dq": (dq.data_ptr(),),
+            "flash_bwd_dkv": (dk.data_ptr(), dv.data_ptr())}
+    for kern, fn, dkv in ((flash.DQ_TF32_KERNEL, "flash_bwd_dq", False),
+                          (flash.DKV_TF32_KERNEL, "flash_bwd_dkv", True)):
+        short = torch.empty(flash.tf32_bwd_work_floats(
+            b, hq, hkv, sq, sk, d, dkv=dkv) - 1, device=q.device)
+        try:
+            kern.launch(fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                        *head[fn], short.data_ptr(), short.numel(), *tail)
+        except RuntimeError:
+            continue
+        raise SmokeFailure(f"flash {tag}: {fn} took a float32 scratch one "
+                           "float short of tf32_bwd_work_floats")
 
 
 
@@ -968,13 +1011,20 @@ def hold_function_grads(randn):
     logits) on the same q, k, v and cotangent."""
     import torch
 
-    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import _build, flash_attention as flash
     from repro_torch.models import layers as L
 
     qs, ks, causal, window = GRANITE_ATTN
     q, k, v, cot = randn(qs, 1.0), randn(ks, 1.0), randn(ks, 1.0), randn(qs, 1.0)
     lf = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    _build.reset_launches()
     (flash.flash(*lf, causal=causal, window=window) * cot).sum().backward()
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    want = dict.fromkeys(F32_FLASH, 1) | dict.fromkeys(BF16_FLASH, 0)
+    if any(counts[n] != c for n, c in want.items()):
+        raise SmokeFailure("flash Function float32 forward+backward: launches "
+                           f"{ {n: counts[n] for n in want} }, not {want}")
     ln = [x.clone().requires_grad_(True) for x in (q, k, v)]
     on = L.attention_naive(*(x.transpose(1, 2) for x in ln), causal=causal,
                            window=window).transpose(1, 2)
@@ -985,7 +1035,10 @@ def hold_function_grads(randn):
             for n, a, b in zip("qkv", lf, ln)}
     print(f"flash Function gradients at {qs}/{ks} f32 vs autograd of "
           "attention_naive: " + ", ".join(f"{k_} max_abs_err {v_:.3e}"
-                                          for k_, v_ in errs.items()))
+                                          for k_, v_ in errs.items())
+          + f"; launches {counts['flash_fwd_tf32']} / "
+          f"{counts['flash_bwd_dq_tf32']} / {counts['flash_bwd_dkv_tf32']} "
+          "(flash_fwd_tf32 / flash_bwd_dq_tf32 / flash_bwd_dkv_tf32), 0 bf16")
     return errs
 
 
@@ -1217,6 +1270,33 @@ def train_radius(dev):
     return RADIUS_FRACTION * min(norms), min(norms)
 
 
+def held_step_setup(dev, radius):
+    """The held step's configuration, batch and initial parameters:
+    granite-3-2b at full width cut to HELD_LAYERS layers, float32 compute,
+    the projection on (``hold_train_step``; ``scripts/time_ab.py held``
+    times the same step). Returns (cfg, tcfg, api, spec, batch, params)."""
+    import torch
+
+    from repro_torch import models
+    from repro_torch.configs import registry
+    from repro_torch.configs.types import ProjectionSpec, TrainConfig
+    from repro_torch.data import DataConfig, DataPipeline
+    from repro_torch.training import init_state
+
+    cfg = dataclasses.replace(registry.get_arch(TRAIN_ARCH), n_layers=HELD_LAYERS)
+    steps, batch, micro, seq = train_args()
+    spec = ProjectionSpec(pattern=r"(w_up|w_gate)", radius=radius)
+    tcfg = TrainConfig(microbatch=micro, total_steps=steps, warmup=1,
+                       remat=True, master_dtype="", compute_dtype="float32",
+                       projection=spec)
+    api = models.get(cfg)
+    pipe = DataPipeline(DataConfig(vocab=cfg.vocab, seq_len=seq + 1,
+                                   global_batch=batch, microbatch=micro))
+    toks = {"tokens": torch.from_numpy(pipe.batch(0)).to(dev)}
+    base = init_state(cfg, tcfg, api, SEED, device=dev)["params"]
+    return cfg, tcfg, api, spec, toks, base
+
+
 def hold_train_step(dev, radius):
     """One step of granite-3-2b at full width cut to HELD_LAYERS layers,
     float32 compute, the projection on: ``impl="flash"`` (the kernels,
@@ -1236,40 +1316,29 @@ def hold_train_step(dev, radius):
     moves with its column's max and with θ, each 1-Lipschitz)."""
     import torch
 
-    from repro_torch import _tree, models
-    from repro_torch.configs import registry
-    from repro_torch.configs.types import ProjectionSpec, TrainConfig
-    from repro_torch.data import DataConfig, DataPipeline
+    from repro_torch import _tree
     from repro_torch.kernels import _build
     from repro_torch.optim import adamw
     from repro_torch.optim.projection_hook import _matches
-    from repro_torch.training import init_state, make_train_step
+    from repro_torch.training import make_train_step
 
-    cfg = dataclasses.replace(registry.get_arch(TRAIN_ARCH), n_layers=HELD_LAYERS)
-    steps, batch, micro, seq = train_args()
-    spec = ProjectionSpec(pattern=r"(w_up|w_gate)", radius=radius)
-    tcfg = TrainConfig(microbatch=micro, total_steps=steps, warmup=1,
-                       remat=True, master_dtype="", compute_dtype="float32",
-                       projection=spec)
-    api = models.get(cfg)
-    pipe = DataPipeline(DataConfig(vocab=cfg.vocab, seq_len=seq + 1,
-                                   global_batch=batch, microbatch=micro))
-    toks = {"tokens": torch.from_numpy(pipe.batch(0)).to(dev)}
-    base = init_state(cfg, tcfg, api, SEED, device=dev)["params"]
-    runs = {}
+    cfg, tcfg, api, spec, toks, base = held_step_setup(dev, radius)
+    runs, step_fns = {}, {}
     for impl in ("flash", "naive"):
         params = _tree.tree_map(lambda p: p.clone(), base)
         state = {"params": params, "opt": adamw.init(params, tcfg)}
+        step_fns[impl] = make_train_step(cfg, tcfg, api, impl=impl)
         _build.reset_launches()
-        state, m = make_train_step(cfg, tcfg, api, impl=impl)(state, toks)
+        state, m = step_fns[impl](state, toks)
         torch.cuda.synchronize()
         runs[impl] = (state, {k: float(v) for k, v in m.items()},
                       _build.launch_counts())
     (sf, mf, cf), (sn, mn, cn) = runs["flash"], runs["naive"]
     n_micro = toks["tokens"].shape[0]
-    want = {"flash_fwd_tf32": 2 * HELD_LAYERS * n_micro, "flash_fwd": 0,
-            "flash_bwd_dq": HELD_LAYERS * n_micro,
-            "flash_bwd_dkv": HELD_LAYERS * n_micro}
+    # float32 compute: the 3×TF32 kernels only, none of the bf16 ones
+    want = {"flash_fwd_tf32": 2 * HELD_LAYERS * n_micro,
+            "flash_bwd_dq_tf32": HELD_LAYERS * n_micro,
+            "flash_bwd_dkv_tf32": HELD_LAYERS * n_micro} | dict.fromkeys(BF16_FLASH, 0)
     for k_, n in want.items():
         if cf[k_] != n or cn[k_] != 0:
             raise SmokeFailure(f"held step: {k_} launched {cf[k_]} (flash) / "
@@ -1307,9 +1376,13 @@ def hold_train_step(dev, radius):
           f"flash launches {cf}; flash vs naive max_abs_err "
           + ", ".join(f"{k_} {v_:.3e}" for k_, v_ in errs.items())
           + f"; largest lr·|Δu| slack used {slack_max:.3e}")
-    del runs, sf, sn, base
+    del runs, sn, base
+    # the flash step warm, on its own result (host clock, median of 3)
+    step_ms = host_ms(lambda: step_fns["flash"](sf, toks), reps=3)
+    print(f"held train step time (flash, warm): {step_ms:.3f} ms")
+    del sf, step_fns
     torch.cuda.empty_cache()
-    return errs
+    return errs, cf, step_ms
 
 
 def training_phase(dev, workdir):
@@ -1335,7 +1408,7 @@ def training_phase(dev, workdir):
     radius, init_norm = train_radius(dev)
     print(f"train radius {radius:.6g} = {RADIUS_FRACTION} x the init's smallest "
           f"per-layer l1,inf norm of w_up/w_gate ({init_norm:.6g})")
-    held = hold_train_step(dev, radius)
+    held, held_launches, held_ms = hold_train_step(dev, radius)
 
     # ------------------------------------------------------- the main path
     cfg = registry.get_arch(TRAIN_ARCH)
@@ -1375,6 +1448,9 @@ def training_phase(dev, workdir):
     for k_, n in want.items():
         if counts[k_] != n:
             raise SmokeFailure(f"train: {k_} launched {counts[k_]} times, not {n}")
+    if any(counts[k_] for k_ in F32_FLASH):  # bf16 compute: no float32 kernel
+        raise SmokeFailure(f"train: float32 flash kernels launched: "
+                           f"{ {k_: counts[k_] for k_ in F32_FLASH} }")
     spec = ProjectionSpec(pattern=r"(w_up|w_gate)", radius=radius)
     rep = constraint_report(state["params"], spec)
     print(f"train constraint: max per-layer norms {rep['norms']}, max_violation "
@@ -1451,7 +1527,8 @@ def training_phase(dev, workdir):
     out_losses, out_gnorms = out["losses"], out["grad_norms"]
     del state, params, leaves, mlp, out
     torch.cuda.empty_cache()
-    return {"held": held, "counts": counts, "per_step": per_step,
+    return {"held": held, "held_launches": held_launches, "held_step_ms": held_ms,
+            "counts": counts, "per_step": per_step,
             "losses": out_losses, "grad_norms": out_gnorms, "parts": parts,
             "peak_bytes": peak, "run_s": run_s,
             "radius": radius, "init_norm": init_norm,
@@ -1460,28 +1537,32 @@ def training_phase(dev, workdir):
 
 
 def function_launches():
-    """Launch counts of one bf16 ``flash`` forward+backward (the Function
-    that ``ops.attention`` calls) at granite's attention shape, counted from
-    0: ``--only attention``'s launches, since it runs no train step."""
+    """Launch counts of one ``flash`` forward+backward (the Function that
+    ``ops.attention`` calls) at granite's attention shape in bf16 and one in
+    float32, each counted from 0: ``--only attention``'s launches, since it
+    runs no train step. Each type launches its own three kernels once."""
     import torch
 
     from repro_torch.kernels import _build, flash_attention as flash
 
     qs, ks, causal, window = GRANITE_ATTN
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    q, k, v = (torch.randn(s_, generator=g, device="cuda", dtype=torch.bfloat16
-                           ).requires_grad_(True) for s_ in (qs, ks, ks))
-    _build.reset_launches()
-    flash.flash(q, k, v, causal=causal, window=window).float().sum().backward()
-    torch.cuda.synchronize()
-    counts = _build.launch_counts()
-    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-    print(f"flash Function forward+backward at {qs}/{ks} bf16: launches "
-          + ", ".join(f"{n} {counts[n]}" for n in names))
-    if any(counts[n] != 1 for n in names):
-        raise SmokeFailure("flash Function forward+backward: each flash "
-                           "kernel should launch once")
-    return counts
+    launches = {}
+    for dtype, names in ((torch.bfloat16, BF16_FLASH), (torch.float32, F32_FLASH)):
+        q, k, v = (torch.randn(s_, generator=g, device="cuda", dtype=dtype
+                               ).requires_grad_(True) for s_ in (qs, ks, ks))
+        _build.reset_launches()
+        flash.flash(q, k, v, causal=causal, window=window).float().sum().backward()
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        print(f"flash Function forward+backward at {qs}/{ks} {str(dtype)[6:]}: "
+              "launches " + ", ".join(f"{n} {counts[n]}"
+                                      for n in BF16_FLASH + F32_FLASH))
+        if any(counts[n] != (n in names) for n in BF16_FLASH + F32_FLASH):
+            raise SmokeFailure("flash Function forward+backward: each flash "
+                               "kernel of its type should launch once, none other")
+        launches |= {n: counts[n] for n in names}
+    return launches
 
 
 def time_attention(attn_full, attn_case_errs, launches, trn=None):
@@ -1489,10 +1570,16 @@ def time_attention(attn_full, attn_case_errs, launches, trn=None):
     shape in bf16 (the main path's type: the JSON rows) and in float32 (in
     each row under "float32"): the kernel, its plain version, and
     ``scaled_dot_product_attention`` (``enable_gqa``) on the same tensors,
-    its backward timed as forward+backward minus forward. The bf16 rows
-    take ``launches`` (the train step's counts, or ``function_launches``'
-    under ``--only attention``); with the train step's record ``trn`` the
-    flash kernels' share goes into the step's parts."""
+    its backward timed as forward+backward minus forward. The float32
+    backward kernels (``flash_bwd_dq_tf32``, ``flash_bwd_dkv_tf32``) also
+    get rows of their own, with the device ms of their pre-pass and kernel
+    and SDPA's backward kernels by profiler name. Float32 bounds count the
+    work at the TF32 rate; the printed line also gives the time of the
+    three TF32 products the split issues. The rows take ``launches`` (the
+    train step's bf16 counts and the held step's float32 ones, or
+    ``function_launches``' under ``--only attention``); with the train
+    step's record ``trn`` the flash kernels' share goes into the step's
+    parts."""
     import torch
 
     from repro_torch.kernels import flash_attention as flash
@@ -1501,9 +1588,10 @@ def time_attention(attn_full, attn_case_errs, launches, trn=None):
     (b, hq, sq, d), (_, hkv, sk, _) = GRANITE_ATTN[0], GRANITE_ATTN[1]
     work = b * hq * sq * sk * d           # B·Hq·Sq·Sk·D; causal halves 2x
     attn_rows, attn_ms = {}, {}
+    f32_rows = []
     for dt, (errs, (q, k, v, do, o, lse, delta)) in attn_full.items():
         tag = str(dt)[6:]
-        rate = BF16_OPS_PER_S if dt == torch.bfloat16 else F32_OPS_PER_S
+        rate = BF16_OPS_PER_S if dt == torch.bfloat16 else TF32_OPS_PER_S
         es, n_q, n_k, n_r = q.element_size(), q.numel(), k.numel(), lse.numel()
         qq, kk, vv = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
 
@@ -1533,9 +1621,7 @@ def time_attention(attn_full, attn_case_errs, launches, trn=None):
                               t["bwd_plain"], t["sdpa_bwd"]),
         }
         for name, (nbytes, nops, plain_ms, lib_ms) in spec_.items():
-            # the float32 forward runs on the TF32 tensor cores (3×TF32)
-            bms, by = bound_ms(nbytes, nops, TF32_OPS_PER_S if (
-                name == "flash_fwd" and dt == torch.float32) else rate)
+            bms, by = bound_ms(nbytes, nops, rate)
             err = max(errs[name], attn_case_errs[name, tag])
             attn_rows[name, tag] = {
                 "name": name, "workload": f"train {tuple(q.shape)}/"
@@ -1546,11 +1632,31 @@ def time_attention(attn_full, attn_case_errs, launches, trn=None):
                 "launches": launches[name],
                 "max_abs_err": err, "ms": t[name], "plain_ms": plain_ms,
                 "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+            issued = "" if dt == torch.bfloat16 else (
+                f"; 3×TF32 issued {3 * nops / TF32_OPS_PER_S * 1e3:.4f} ms")
             print(f"time {name} {tag} {tuple(q.shape)}/{tuple(k.shape)} causal: "
                   f"{t[name]:.4f} ms (bound {bms:.4f} ms by {by}, "
-                  f"{bms / t[name]:.3f} of bound), plain {plain_ms:.4f} ms, "
+                  f"{bms / t[name]:.3f} of bound{issued}), plain {plain_ms:.4f} ms, "
                   f"scaled_dot_product_attention {lib_ms:.4f} ms, max_abs_err "
                   f"{err:.3e}")
+        if dt == torch.float32:
+            # the 3×TF32 backward's own rows: pre-pass and kernel apart, and
+            # SDPA's backward kernels (those of forward+backward not in the
+            # forward)
+            fwd_k = device_kernels(sdpa)
+            lib_k = {n: ms for n, ms in device_kernels(lambda: torch.autograd.grad(
+                sdpa(), (qq, kk, vv), do)).items() if n not in fwd_k}
+            kern = {"flash_bwd_dq": flash.flash_bwd_dq,
+                    "flash_bwd_dkv": flash.flash_bwd_dkv}
+            for name, fn in kern.items():
+                row = dict(attn_rows[name, tag], name=f"{name}_tf32",
+                           replaces=REPLACES[f"{name}_tf32", False],
+                           launches=launches[f"{name}_tf32"],
+                           kernels=device_kernels(lambda fn=fn: fn(
+                               q, k, v, do, lse, delta)), library_kernels=lib_k)
+                print(f"time {row['name']}: device ms by kernel {row['kernels']}; "
+                      f"SDPA backward's {lib_k}")
+                f32_rows.append(row)
         del qq, kk, vv
     # the JSON rows are the main path's bf16 launches; the float32 times of
     # the same kernels at the same shape ride along
@@ -1560,6 +1666,7 @@ def time_attention(attn_full, attn_case_errs, launches, trn=None):
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "max_abs_err")}
         rows.append(row)
+    rows += f32_rows
     if trn is None:
         return rows
     tparts = trn["parts"]
@@ -2280,7 +2387,8 @@ def main(argv=None) -> int:
     # the float32 flash forward at the harvest's shape (row 12 f32)
     rows.append(time_flash_harvest(flash_full, fac["flash_launches"]))
     ms = rows[-1]["ms"]
-    rows += time_attention(attn_full, attn_case_errs, trn["counts"], trn)
+    rows += time_attention(attn_full, attn_case_errs, trn["counts"] | {
+        n: trn["held_launches"][n] for n in F32_FLASH[1:]}, trn)
     golden_rows, golden_ms = time_golden(wls, golden, golden_errs)
     rows += golden_rows
     del wls

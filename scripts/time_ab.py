@@ -20,11 +20,20 @@ that tree's kernels of FAMILY and times them, float32:
   ``Tensor.copy_`` of Y into X, which moves the kernel's Y and X bytes and
   nothing else: what the card reaches for that traffic;
 - ``flash``: kernel row 12 f32 (``flash_attention`` at the harvest's
-  (4, 32, 2048, 64) causal) beside ``scaled_dot_product_attention``;
+  (4, 32, 2048, 64) causal) beside ``scaled_dot_product_attention``, and
+  rows 13a and 13b f32 (``flash_bwd_dq``, ``flash_bwd_dkv``) at granite-3-2b's
+  q (4, 32, 2048, 64), k/v (4, 8, 2048, 64) causal beside SDPA's float32
+  backward (``enable_gqa``: forward+backward and forward, timed apart; the
+  backward is their difference);
 - ``harvest``: one warm harvest step of the SAE factory at stablelm-1.6b's
   full width (``chip_smoke.py``'s FACTORY) and its LM forward, on the host
   clock, each ended by a synchronize (median of 3); ``chip_smoke.py``'s
-  phase 4 holds what they compute.
+  phase 4 holds what they compute;
+- ``held``: one warm train step of ``chip_smoke.py``'s phase 5 held step
+  (granite-3-2b at full width cut to 4 layers, float32 compute, the
+  projection on, ``impl="flash"``: the float32 forward twice and each
+  float32 backward kernel once per layer and microbatch), on the host
+  clock (median of 5); phase 5 holds what it computes.
 
 Each kernel's output is held to its plain version first (which also builds
 and loads the kernel off the clock), and the PyTorch call to the same. A
@@ -33,7 +42,9 @@ kernel's row also carries its bound (``bound_ms``: bytes over 3.35 TB/s,
 A kernel or PyTorch call gets ``chip_smoke.py``'s three
 timers: the CUDA-event time of a lone call (median of 100), its CUDA-graph
 replay (the device's time alone, median of 100) and the host time per
-call (median of 5 runs of 200 calls enqueued back to back). The timers
+call (median of 5 runs of 200 calls enqueued back to back); SDPA's
+forward+backward gets the event time alone (autograd is not captured in a
+graph). The timers
 and shapes are this checkout's whichever tree is timed, so trees are timed
 alike; to compare two, time each in its own process on one machine, in
 the order a, b, b, a:
@@ -42,6 +53,13 @@ the order a, b, b, a:
 
 Prints the card's name and power limit (``nvidia-smi``), then one JSON
 line. Exits 2 without a CUDA device.
+
+    python3 scripts/time_ab.py --summarize FILE
+
+reads such JSON lines (one per process, any number of a b b a rounds) and
+prints, for every row and timer, each tree's median, the first tree's
+interquartile range, and in how many pairs the second tree read lower
+(pair i: the i-th line of each tree). It needs no card.
 """
 
 from __future__ import annotations
@@ -58,6 +76,7 @@ SHAPES = {"W1": (8192, 2048), "W3": (1000, 10000)}  # chip_smoke.py's W1, W3
 SEED = 0
 REPS = 100                     # lone calls (and replays) per event median
 HOST_RUNS = 5                  # host time per call: median of 5 runs
+EVENTS_ONLY = {"sdpa_fwd_bwd"}  # timed by events alone (autograd is not captured)
 
 
 def golden_cases(torch, cs, randn, rand):
@@ -161,7 +180,8 @@ def codegen_cases(torch, cs, randn, rand):
 
 
 def flash_cases(torch, cs, randn, rand):
-    """Kernel row 12 f32 at the harvest's shape."""
+    """Kernel row 12 f32 at the harvest's shape; rows 13a and 13b f32 at
+    granite's training shape."""
     import torch.nn.functional as nnf
 
     from repro_torch.kernels import flash_attention as flash
@@ -178,8 +198,40 @@ def flash_cases(torch, cs, randn, rand):
         cs.check_close(f"{tag} o", o, po, 2.0)
         cs.check_close(f"{tag} lse", lse, plse, 1.0)
         cs.check_close(f"{tag} library call", lib(), po, 2.0)
-    return {f"row 12 f32 {qs} causal": (check, {"kernel": kern, "library": lib},
-                                       None)}
+    cases = {f"row 12 f32 {qs} causal": (check, {"kernel": kern, "library": lib},
+                                        None)}
+
+    # granite's training shape: names of their own (the lambdas above read
+    # q, k, v, causal and window when they run)
+    gs, gk, gcausal, gwindow = cs.GRANITE_ATTN
+    gq, gkk, gv, gdo = randn(gs, 1.0), randn(gk, 1.0), randn(gk, 1.0), randn(gs, 1.0)
+    opts = dict(causal=gcausal, window=gwindow)
+    go, glse = flash.flash_attention(gq, gkk, gv, **opts)
+    delta = (gdo * go).sum(-1)
+    qq, kk, vv = (x.clone().requires_grad_(True) for x in (gq, gkk, gv))
+
+    def sdpa():
+        return nnf.scaled_dot_product_attention(qq, kk, vv, is_causal=gcausal,
+                                                enable_gqa=True)
+
+    library = {"sdpa_fwd_bwd": lambda: torch.autograd.grad(sdpa(), (qq, kk, vv), gdo),
+               "sdpa_fwd": sdpa}
+    dq = lambda: flash.flash_bwd_dq(gq, gkk, gv, gdo, glse, delta, **opts)
+    dkv = lambda: flash.flash_bwd_dkv(gq, gkk, gv, gdo, glse, delta, **opts)
+
+    def held(fn, names):
+        def check(tag):
+            want = dict(zip(("dq", "dk", "dv"), flash.flash_attention_bwd_plain(
+                gq, gkk, gv, go, glse, gdo, **opts)))
+            got = fn()
+            for n, g in zip(names, got if isinstance(got, tuple) else (got,)):
+                cs.check_close(f"{tag} {n}", g, want[n], float(want[n].abs().max()))
+        return check
+    cases[f"row 13a f32 {gs}/{gk} causal"] = (held(dq, ("dq",)),
+                                              {"kernel": dq, **library}, None)
+    cases[f"row 13b f32 {gs}/{gk} causal"] = (held(dkv, ("dk", "dv")),
+                                              {"kernel": dkv}, None)
+    return cases
 
 
 def harvest_rows(torch, cs, tree):
@@ -209,16 +261,59 @@ def harvest_rows(torch, cs, tree):
             "forward": {"host_ms": cs.host_ms(forward, reps=3)}}
 
 
+def held_rows(torch, cs, tree):
+    """One warm held train step: ``{"held_step": {"host_ms": ms}}``."""
+    from repro_torch.optim import adamw
+    from repro_torch.training import make_train_step
+
+    radius, _ = cs.train_radius("cuda")
+    cfg, tcfg, api, _, toks, params = cs.held_step_setup("cuda", radius)
+    state = {"params": params, "opt": adamw.init(params, tcfg)}
+    step = make_train_step(cfg, tcfg, api, impl="flash")
+    return {"held_step": {"host_ms": cs.host_ms(lambda: step(state, toks), reps=5)}}
+
+
 FAMILIES = {"golden": golden_cases, "codegen": codegen_cases,
-            "flash": flash_cases, "harvest": None}
+            "flash": flash_cases, "harvest": harvest_rows, "held": held_rows}
+HOST_FAMILIES = ("harvest", "held")  # whole steps on the host clock
+
+
+def summarize(path: Path) -> None:
+    """Medians, the first tree's IQR and pair wins of ``time_ab`` lines."""
+    runs = {}
+    for line in path.read_text().splitlines():
+        if line.startswith("{"):
+            r = json.loads(line)
+            runs.setdefault(r["tree"], []).append(r["rows"])
+    (a, ra), (b, rb) = runs.items()
+    print(f"a = {a} ({len(ra)} runs), b = {b} ({len(rb)} runs)")
+    for row in ra[0]:
+        for timer in ra[0][row]:
+            if timer == "bound_ms":
+                continue
+            xa = [r[row][timer] for r in ra]
+            xb = [r[row][timer] for r in rb]
+            qa = statistics.quantiles(xa, n=4)
+            wins = sum(y < x for x, y in zip(xa, xb))
+            print(f"{row} {timer}: a {statistics.median(xa):.4f} (IQR "
+                  f"{qa[2] - qa[0]:.4f}), b {statistics.median(xb):.4f}, "
+                  f"b/a {statistics.median(xb) / statistics.median(xa):.3f}, "
+                  f"b lower in {wins}/{min(len(xa), len(xb))} pairs")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("family", choices=sorted(FAMILIES))
+    ap.add_argument("family", nargs="?", choices=sorted(FAMILIES))
     ap.add_argument("--tree", type=Path, default=ROOT,
                     help="checkout whose src/repro_torch is timed")
+    ap.add_argument("--summarize", type=Path, metavar="FILE",
+                    help="summarize the JSON lines of earlier runs instead")
     args = ap.parse_args(argv)
+    if args.summarize is not None:
+        summarize(args.summarize)
+        return 0
+    if args.family is None:
+        ap.error("a family to time, or --summarize FILE")
 
     import torch
 
@@ -245,19 +340,20 @@ def main(argv=None) -> int:
     def rand(shape):
         return torch.rand(shape, generator=gen, device="cuda")
 
-    if args.family == "harvest":
-        rows = harvest_rows(torch, cs, tree)
+    if args.family in HOST_FAMILIES:
+        rows = FAMILIES[args.family](torch, cs, tree)
     else:
         rows = {}
         for name, (check, fns, bound) in FAMILIES[args.family](
                 torch, cs, randn, rand).items():
             check(name)
             for who, fn in fns.items():
-                rows[f"{name} {who}"] = {
-                    "ms": cs.event_ms(fn, REPS),
-                    "graph_ms": cs.graph_ms(fn, REPS),
-                    "host_ms": statistics.median(
-                        cs.host_call_ms(fn) for _ in range(HOST_RUNS))}
+                rows[f"{name} {who}"] = {"ms": cs.event_ms(fn, REPS)}
+                if who not in EVENTS_ONLY:
+                    rows[f"{name} {who}"] |= {
+                        "graph_ms": cs.graph_ms(fn, REPS),
+                        "host_ms": statistics.median(
+                            cs.host_call_ms(fn) for _ in range(HOST_RUNS))}
                 if who == "kernel" and bound is not None:
                     rows[f"{name} {who}"]["bound_ms"] = bound
     print(smi)

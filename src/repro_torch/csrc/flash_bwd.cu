@@ -1,17 +1,18 @@
-// flash_bwd.cu — attention backward (FlashAttention-2), two kernels:
+// flash_bwd.cu — attention backward (FlashAttention-2) on Hopper's tensor
+// cores, two kernels per input type:
 //
-//   flash_bwd_dq   dQ = scale · Σ_k dS K, with dS = P ∘ (dO Vᵀ − delta): in
-//                  float32 one SIMT CTA per (q tile of 64 rows, query head,
-//                  batch item); in bf16 the tensor-core kernel of namespace
-//                  tc (128 rows per CTA)
+//   flash_bwd_dq   dQ = scale · Σ_k dS K, with dS = P ∘ (dO Vᵀ − delta):
+//                  one CTA per (q block, query head, batch item), streaming
+//                  the keys;
 //   flash_bwd_dkv  dV = Σ Pᵀ dO and dK = scale · Σ dSᵀ Q over the kv head's
 //                  whole query group (G = Hq / Hkv heads) and every q tile:
-//                  in float32 one SIMT CTA per (k tile of 64 keys, kv head,
-//                  batch item); in bf16 the tensor-core kernel of namespace
-//                  tc
+//                  one CTA per (k block, kv head, batch item), streaming the
+//                  queries.
 //
-// No bf16 input reaches a SIMT kernel: the exports send every bf16 call,
-// at every head dim, to namespace tc.
+// bf16 runs tc::flash_bwd_dq_wgmma and tc::flash_bwd_dkv_wgmma (bf16
+// products, register operands in two bf16 terms); float32 runs
+// tc::flash_bwd_dq_tf32 and tc::flash_bwd_dkv_tf32 (three TF32 products per
+// product, after a pre-pass that writes each operand's two tf32 terms).
 //
 // where P = exp(scale · Q Kᵀ − lse) under the mask and delta = rowsum(dO ∘ O)
 // (computed by the wrapper, as the JAX package computes it in jnp).
@@ -22,384 +23,33 @@
 // (B, Hkv, Sk, D); lse, delta (B, Hq, Sq) float32; queries right-aligned to
 // the keys; causal and sliding-window masks; GQA through h / G.
 //
-// What the TPU kernels' grids did, and what the SIMT kernels do instead:
+// What the TPU kernels' grids did, and what these kernels do instead:
 //   * dQ's sequential k axis becomes a loop inside the CTA over the k tiles
-//     that hold a valid key for its rows; the accumulator lives in registers
-//     (each thread owns 4 rows × D/16 channels);
+//     that hold a valid key for its rows, the accumulator in registers;
 //   * dK/dV's sequential fused (group member, q block) axis becomes a loop
 //     inside the CTA over the G query heads of its kv head and their q tiles,
-//     so the GQA sum is taken in registers: no atomics, no second pass, and
-//     the result does not depend on the order blocks run in;
+//     so the GQA sum is taken in the accumulators: no atomics, no second
+//     pass, and the result does not depend on the order blocks run in;
 //   * a dead block contributes exactly 0 in the TPU kernels too (its mask is
 //     all false and p, dS are selected to 0 under the mask), so the loops
 //     skip every tile in which no (query, key) pair is valid, computed from
 //     the mask itself; the result does not depend on the TPU's block sizes;
-//   * ragged tails are zeroed as they are staged (q/do rows past Sq, k/v
-//     rows past Sk), so 0 · padding never turns into NaN; p and dS are
-//     selected (not multiplied) to 0 under the mask, so a row no key reaches
-//     (lse = -1e30 + log(count)) never overflows into the sums.
-//
-// Shared-memory staging: the operand whose rows a thread owns is kept
-// transposed ([D][68]), so a thread reads its 4 rows with one float4; the
-// other operand is kept in natural layout with rows padded to D + 4 floats
-// and read by the rows tx + 16j, which puts the 8 lanes of a float4 phase
-// on 8 distinct 4-bank groups (no conflicts). P and dS go through shared
-// memory for the products that contract over the other axis.
+//   * TMA reads q/do rows past Sq and k/v rows past Sk as 0, so 0 · padding
+//     never turns into NaN; p and dS are selected (not multiplied) to 0
+//     under the mask, so a row no key reaches (lse = -1e30 + log(count))
+//     never overflows into the sums.
 //
 // Bound: at granite-3-2b's shape, q (4, 32, 2048, 64), k/v (4, 8, 2048, 64),
 // causal, dQ does 3·B·Hq·Sq·Sk·D = 103 GFLOP (S, dP and dS·K, halved by the
 // mask) and dK/dV 4·B·Hq·Sq·Sk·D = 137 GFLOP, against 119 MB (dQ) and
 // 103 MB (dK/dV) of bf16 inputs and outputs, about twice that in f32: both
-// are bound by operations. The SIMT kernels are a simple float32 design
-// (FMAs fed from shared memory, no tensor cores) and take float32 only.
+// are bound by operations.
 #include <math.h>
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
 namespace {
-
-using flash::dcol;
-using flash::LD;
-using flash::THREADS;
-using flash::to_f;
-constexpr int TQ = flash::TILE;  // q rows per tile
-constexpr int TK = flash::TILE;  // keys per tile
-
-template <int D>
-constexpr int KS = D + 4;  // row stride of a natural-layout tile
-
-// stage rows [r0, r0 + 64) of a (rows, D) matrix transposed into dst[D][LD],
-// zero past n_rows
-template <int D, typename T>
-__device__ __forceinline__ void stage_t(float* dst, const T* src, int r0,
-                                        int n_rows, int tid) {
-  for (int e = tid; e < flash::TILE * D; e += THREADS) {
-    const int r = e / D, d = e % D;
-    const int row = r0 + r;
-    dst[d * LD + r] = row < n_rows ? to_f(src[static_cast<long long>(row) * D + d]) : 0.f;
-  }
-}
-
-// stage rows [r0, r0 + 64) of a (rows, D) matrix in natural layout into
-// dst[64][D + 4], zero past n_rows
-template <int D, typename T>
-__device__ __forceinline__ void stage_n(float* dst, const T* src, int r0,
-                                        int n_rows, int tid) {
-  for (int e = tid; e < flash::TILE * D / 4; e += THREADS) {
-    const int r = e / (D / 4), d = (e % (D / 4)) * 4;
-    const int row = r0 + r;
-    const float4 x = row < n_rows
-        ? flash::load4(src + static_cast<long long>(row) * D + d)
-        : make_float4(0.f, 0.f, 0.f, 0.f);
-    *reinterpret_cast<float4*>(&dst[r * KS<D> + d]) = x;
-  }
-}
-
-// acc[i][j] += Σ_d at[d][4·ty + i] · bn[tx + 16j][d]: 4 rows of a transposed
-// tile against 4 rows of a natural tile, 64 FMAs per 8 float4 loads
-template <int D>
-__device__ __forceinline__ void tile_dot(float (&acc)[4][4], const float* at,
-                                         const float* bn, int tx, int ty) {
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float a[4][4], b[4][4];  // a[dd][i], b[j][dd]
-#pragma unroll
-    for (int dd = 0; dd < 4; ++dd) {
-      const float4 t = *reinterpret_cast<const float4*>(&at[(d + dd) * LD + ty * 4]);
-      a[dd][0] = t.x; a[dd][1] = t.y; a[dd][2] = t.z; a[dd][3] = t.w;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float4 t = *reinterpret_cast<const float4*>(&bn[(tx + 16 * j) * KS<D> + d]);
-      b[j][0] = t.x; b[j][1] = t.y; b[j][2] = t.z; b[j][3] = t.w;
-    }
-#pragma unroll
-    for (int dd = 0; dd < 4; ++dd)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[dd][i], b[j][dd], acc[i][j]);
-  }
-}
-
-// acc[i][jd] += Σ_c wt[c][4·ty + i] · xn[c][dcol(tx, jd)]: a 64-long
-// contraction of a transposed weight tile with a natural tile
-template <int D>
-__device__ __forceinline__ void tile_accumulate(float (&acc)[4][D / 16],
-                                                const float* wt, const float* xn,
-                                                int tx, int ty) {
-  constexpr int ND = D / 16;
-#pragma unroll 4
-  for (int c = 0; c < flash::TILE; ++c) {
-    const float4 w = *reinterpret_cast<const float4*>(&wt[c * LD + ty * 4]);
-    const float wv[4] = {w.x, w.y, w.z, w.w};
-    float xv[ND];
-    flash::row_slots<D>(&xn[c * KS<D>], tx, xv);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jd = 0; jd < ND; ++jd) acc[i][jd] = fmaf(wv[i], xv[jd], acc[i][jd]);
-  }
-}
-
-// ------------------------------------------------------------------- dQ
-template <int D, typename T>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    T* __restrict__ dq, int hq, int hkv, int sq, int sk,
-                    int causal, int window, float scale) {
-  constexpr int ND = D / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* qT = smem;                // [D][LD]   q tile, transposed
-  float* doT = qT + D * LD;        // [D][LD]   dO tile, transposed
-  float* ks = doT + D * LD;        // [TK][D+4] k tile
-  float* vs = ks + TK * KS<D>;     // [TK][D+4] v tile
-  float* dsT = vs + TK * KS<D>;    // [TK][LD]  dS, transposed
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * TQ;  // longest causal tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const long long qbase = (static_cast<long long>(b) * hq + h) * sq * D;
-  const long long kvbase =
-      (static_cast<long long>(b) * hkv + h / (hq / hkv)) * sk * D;
-  const long long rbase = (static_cast<long long>(b) * hq + h) * sq;
-  const int shift = sk - sq;  // right alignment of q
-
-  // keys that are valid for some row of the tile: [k_lo, k_hi)
-  const int qlo = q0 + shift, qhi = min(q0 + TQ, sq) - 1 + shift;
-  int k_lo = 0, k_hi = sk;
-  if (causal) k_hi = max(0, min(sk, qhi + 1));
-  if (window > 0) k_lo = max(0, qlo - window + 1);
-
-  stage_t<D>(qT, q + qbase, q0, sq, tid);
-  stage_t<D>(doT, dout + qbase, q0, sq, tid);
-  float lse_r[4], dl_r[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    lse_r[i] = row < sq ? lse[rbase + row] : 0.f;
-    dl_r[i] = row < sq ? delta[rbase + row] : 0.f;
-  }
-
-  float acc[4][ND];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jd = 0; jd < ND; ++jd) acc[i][jd] = 0.f;
-
-  for (int k0 = (k_lo / TK) * TK; k0 < k_hi; k0 += TK) {
-    __syncthreads();  // q/dO are staged; the previous tile's ks/dsT are consumed
-    stage_n<D>(ks, k + kvbase, k0, sk, tid);
-    stage_n<D>(vs, v + kvbase, k0, sk, tid);
-    __syncthreads();
-
-    float s[4][4] = {}, dp[4][4] = {};
-    tile_dot<D>(s, qT, ks, tx, ty);
-    tile_dot<D>(dp, doT, vs, tx, ty);
-    float ds[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i + shift;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        const bool ok = flash::valid(qpos, kpos, sk, causal, window);
-        const float p = ok ? expf(s[i][j] * scale - lse_r[i]) : 0.f;
-        ds[i][j] = ok ? p * (dp[i][j] - dl_r[i]) : 0.f;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(&dsT[(tx + 16 * j) * LD + ty * 4]) =
-          make_float4(ds[0][j], ds[1][j], ds[2][j], ds[3][j]);
-    __syncthreads();
-    tile_accumulate<D>(acc, dsT, ks, tx, ty);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= sq) continue;
-    T* out = dq + qbase + static_cast<long long>(row) * D;
-#pragma unroll
-    for (int jd = 0; jd < ND; ++jd)
-      out[dcol<D>(tx, jd)] = flash::from_f<T>(acc[i][jd] * scale);
-  }
-}
-
-// ----------------------------------------------------------------- dK/dV
-template <int D, typename T>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     T* __restrict__ dk, T* __restrict__ dv, int hq, int hkv,
-                     int sq, int sk, int causal, int window, float scale) {
-  constexpr int ND = D / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* kT = smem;                // [D][LD]   k tile, transposed
-  float* vT = kT + D * LD;         // [D][LD]   v tile, transposed
-  float* qs = vT + D * LD;         // [TQ][D+4] q tile
-  float* dos = qs + TQ * KS<D>;    // [TQ][D+4] dO tile
-  float* pS = dos + TQ * KS<D>;    // [TQ][LD]  Pᵀ stored by query row
-  float* dsS = pS + TQ * LD;       // [TQ][LD]  dSᵀ stored by query row
-  float* lse_s = dsS + TQ * LD;    // [TQ]
-  float* dl_s = lse_s + TQ;        // [TQ]
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int k0 = blockIdx.x * TK;  // causal: the longest tiles come first
-  const int hk = blockIdx.y, b = blockIdx.z;
-  const int group = hq / hkv;
-  const long long kvbase = (static_cast<long long>(b) * hkv + hk) * sk * D;
-  const int shift = sk - sq;
-
-  // rows that are valid for some key of the tile: [i_lo, i_hi)
-  const int khi = min(k0 + TK, sk) - 1;
-  const int i_lo = causal ? max(0, k0 - shift) : 0;
-  const int i_hi = window > 0 ? max(0, min(sq, khi + window - shift)) : sq;
-
-  stage_t<D>(kT, k + kvbase, k0, sk, tid);
-  stage_t<D>(vT, v + kvbase, k0, sk, tid);
-
-  float dk_acc[4][ND], dv_acc[4][ND];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int jd = 0; jd < ND; ++jd) dk_acc[a][jd] = dv_acc[a][jd] = 0.f;
-
-  for (int g = 0; g < group; ++g) {
-    const int h = hk * group + g;
-    const long long qbase = (static_cast<long long>(b) * hq + h) * sq * D;
-    const long long rbase = (static_cast<long long>(b) * hq + h) * sq;
-    for (int q0 = (i_lo / TQ) * TQ; q0 < i_hi; q0 += TQ) {
-      __syncthreads();  // k/v are staged; the previous tile's qs/dos/pS/dsS are consumed
-      stage_n<D>(qs, q + qbase, q0, sq, tid);
-      stage_n<D>(dos, dout + qbase, q0, sq, tid);
-      if (tid < TQ) {
-        const int row = q0 + tid;
-        lse_s[tid] = row < sq ? lse[rbase + row] : 0.f;
-        dl_s[tid] = row < sq ? delta[rbase + row] : 0.f;
-      }
-      __syncthreads();
-
-      // Sᵀ and dPᵀ for keys 4·ty + a and query rows tx + 16i
-      float s[4][4] = {}, dp[4][4] = {};
-      tile_dot<D>(s, kT, qs, tx, ty);
-      tile_dot<D>(dp, vT, dos, tx, ty);
-      float p[4][4], ds[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = tx + 16 * i;
-        const int qpos = q0 + r + shift;
-        const float l = lse_s[r], dl = dl_s[r];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const int kpos = k0 + ty * 4 + a;
-          const bool ok = flash::valid(qpos, kpos, sk, causal, window);
-          p[a][i] = ok ? expf(s[a][i] * scale - l) : 0.f;
-          ds[a][i] = ok ? p[a][i] * (dp[a][i] - dl) : 0.f;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = tx + 16 * i;
-        *reinterpret_cast<float4*>(&pS[r * LD + ty * 4]) =
-            make_float4(p[0][i], p[1][i], p[2][i], p[3][i]);
-        *reinterpret_cast<float4*>(&dsS[r * LD + ty * 4]) =
-            make_float4(ds[0][i], ds[1][i], ds[2][i], ds[3][i]);
-      }
-      __syncthreads();
-      tile_accumulate<D>(dv_acc, pS, dos, tx, ty);
-      tile_accumulate<D>(dk_acc, dsS, qs, tx, ty);
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int key = k0 + ty * 4 + a;
-    if (key >= sk) continue;
-    T* dko = dk + kvbase + static_cast<long long>(key) * D;
-    T* dvo = dv + kvbase + static_cast<long long>(key) * D;
-#pragma unroll
-    for (int jd = 0; jd < ND; ++jd) {
-      dko[dcol<D>(tx, jd)] = flash::from_f<T>(dk_acc[a][jd] * scale);
-      dvo[dcol<D>(tx, jd)] = flash::from_f<T>(dv_acc[a][jd]);
-    }
-  }
-}
-
-template <int D>
-constexpr int dq_smem() {
-  return static_cast<int>(sizeof(float)) * (2 * D * LD + 2 * TK * KS<D> + TK * LD);
-}
-
-template <int D>
-constexpr int dkv_smem() {
-  return static_cast<int>(sizeof(float)) *
-         (2 * D * LD + 2 * TQ * KS<D> + 2 * TQ * LD + 2 * TQ);
-}
-
-struct Args {
-  const void *q, *k, *v, *dout;
-  const float *lse, *delta;
-  int batch, hq, hkv, sq, sk, causal, window;
-  float scale;
-  cudaStream_t stream;
-};
-
-template <int D, typename T>
-int launch_dq(const Args& a, void* dq) {
-  auto kern = flash_bwd_dq_kernel<D, T>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem<D>());
-  if (e != cudaSuccess) return e;
-  const dim3 grid((a.sq + TQ - 1) / TQ, a.hq, a.batch);
-  kern<<<grid, THREADS, dq_smem<D>(), a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, a.delta,
-      static_cast<T*>(dq), a.hq, a.hkv, a.sq, a.sk, a.causal, a.window, a.scale);
-  return cudaGetLastError();
-}
-
-template <int D, typename T>
-int launch_dkv(const Args& a, void* dk, void* dv) {
-  auto kern = flash_bwd_dkv_kernel<D, T>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_smem<D>());
-  if (e != cudaSuccess) return e;
-  const dim3 grid((a.sk + TK - 1) / TK, a.hkv, a.batch);
-  kern<<<grid, THREADS, dkv_smem<D>(), a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, a.delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), a.hq, a.hkv, a.sq, a.sk,
-      a.causal, a.window, a.scale);
-  return cudaGetLastError();
-}
-
-template <typename T>
-int dispatch_dq(const Args& a, int d, void* dq) {
-  switch (d) {
-    case 16: return launch_dq<16, T>(a, dq);
-    case 32: return launch_dq<32, T>(a, dq);
-    case 64: return launch_dq<64, T>(a, dq);
-    case 128: return launch_dq<128, T>(a, dq);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-int dispatch_dkv(const Args& a, int d, void* dk, void* dv) {
-  switch (d) {
-    case 16: return launch_dkv<16, T>(a, dk, dv);
-    case 32: return launch_dkv<32, T>(a, dk, dv);
-    case 64: return launch_dkv<64, T>(a, dk, dv);
-    case 128: return launch_dkv<128, T>(a, dk, dv);
-    default: return cudaErrorInvalidValue;
-  }
-}
 
 // ------------------------------------------- dK/dV in bf16: tensor cores
 // One CTA per (128 keys, kv head, batch item), k blocks slowest in a linear
@@ -448,18 +98,20 @@ struct DkvSmem {
   static constexpr int BYTES = BAR + 8 * (1 + 2 * BSTAGES) + 1024;
 };
 
-// Pᵀ and dSᵀ of one tile in place of Sᵀ and dPᵀ (MASK: some pair of the
-// tile needs its own test); the thread holds keys key and key + 8 and the
-// query columns 8j + 2·quad + e, whose lse · log2 e and delta are in rows
-template <bool MASK>
-__device__ __forceinline__ void dkv_probs(float (&st)[TQR / 2], float (&dpt)[TQR / 2],
+// Pᵀ and dSᵀ of one tile of 2·NS query rows in place of Sᵀ and dPᵀ (MASK:
+// some pair of the tile needs its own test); the thread holds keys key and
+// key + 8 and the query columns 8j + 2·quad + e, whose lse · log2 e and
+// delta are in rows
+template <bool MASK, int NS>
+__device__ __forceinline__ void dkv_probs(float (&st)[NS], float (&dpt)[NS],
                                           const float* rows, int qpos0, int key, int sk,
                                           int causal, int window, float scale_log2,
                                           int quad) {
+  constexpr int TQ = 2 * NS;  // query rows of the tile
 #pragma unroll
-  for (int j = 0; j < TQR / 8; ++j) {
+  for (int j = 0; j < TQ / 8; ++j) {
     const float2 l2 = *reinterpret_cast<const float2*>(rows + 8 * j + 2 * quad);
-    const float2 dl = *reinterpret_cast<const float2*>(rows + TQR + 8 * j + 2 * quad);
+    const float2 dl = *reinterpret_cast<const float2*>(rows + TQ + 8 * j + 2 * quad);
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -723,16 +375,17 @@ struct DqSmem {
   static constexpr int BYTES = BAR + 8 * (1 + 2 * STAGES) + 1024;
 };
 
-// dS of one tile in place of dP (MASK: some pair of the tile needs its own
-// test); the thread holds rows qpos0 and qpos0 + 8 (as query positions) and
-// the keys key0 + 8j + e, with its rows' lse · log2 e in l2 and delta in dl
-template <bool MASK>
-__device__ __forceinline__ void dq_scores(const float (&sc)[BKT / 2], float (&dp)[BKT / 2],
+// dS of one tile of 2·NS keys in place of dP (MASK: some pair of the tile
+// needs its own test); the thread holds rows qpos0 and qpos0 + 8 (as query
+// positions) and the keys key0 + 8j + e, with its rows' lse · log2 e in l2
+// and delta in dl
+template <bool MASK, int NS>
+__device__ __forceinline__ void dq_scores(const float (&sc)[NS], float (&dp)[NS],
                                           const float (&l2)[2], const float (&dl)[2],
                                           int qpos0, int key0, int sk, int causal,
                                           int window, float scale_log2) {
 #pragma unroll
-  for (int j = 0; j < BKT / 8; ++j)
+  for (int j = 0; j < NS / 4; ++j)
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -913,46 +566,663 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return cudaGetLastError();
 }
 
+// ------------------------------------------- float32: 3×TF32 on the tensor cores
+// Every product is three TF32 products, small·big + big·small + big·big,
+// with big = tf32(x) and small = tf32(x - big) (hopper::tf32_split), summed
+// in float32, as the float32 forward does: one TF32 product keeps 11 bits
+// of each operand, far outside the float32 bar. wgmma reads TF32 operands
+// K-major only, so an operand that is contracted over its rows needs a
+// transposed copy. A pre-pass (hopper::tf32_planes, tf32_planes_vt) writes
+// the two terms of each operand a kernel streams to a scratch buffer the
+// wrapper allocates (Tf32BwdWork): dQ's K, V and Kᵀ, dK/dV's Q, dO, Qᵀ and
+// dOᵀ, a transposed one with its rows permuted within each group of 8
+// (slot c holds row 2c for c < 4, 2(c - 4) + 1 above), so that P and dS
+// enter from the accumulator of S or Sᵀ straight away (hopper::tf32_frag),
+// as P enters O += P V in the forward. The streamed transposes must be
+// written anyway, and TMA then moves every term with no thread work. dQ's
+// Q and dO, which a CTA loads once, arrive raw in their big planes and
+// each warpgroup splits its own 64 rows in place (hopper::split_rows):
+// both planes share the tile's swizzle, so a 16-byte chunk splits where it
+// lies. That saves dQ a 0.14 ms pre-pass of Q and dO at granite's shape
+// and took its time from 1.3282 to 1.2713 ms in one call; the same split
+// of dK/dV's K and V made that kernel slower (2.3625 against 2.2289 ms
+// with K and V from the pre-pass, which costs 0.03 ms), for a reason not
+// found, so dK/dV reads them from the pre-pass (scripts/time_ab.py flash,
+// a b b a × 3; NVIDIA H100 80GB HBM3, 700 W).
+//
+// A product with both operands in shared memory at a narrow N reads its A
+// (64 rows × 8, 2 KB) for every wgmma, and those reads, not the tensor
+// cores, bound it. So each streamed operand's two terms sit box by box as
+// one pair of rows (big, then small): one wgmma of twice the width takes
+// A big against both (big·big and big·small in its two column halves) and
+// a second of the width takes A small against B big; the three sums meet
+// in float32 registers, small terms first. Each tile's contribution to a
+// dQ, dK or dV accumulator is taken in fresh accumulators and added in
+// float32: chained over hundreds of tiles in one wgmma accumulator the
+// sums drift (dk at granite's shape 4.5e-4 from the plain version, eight
+// times the bar; 2.1e-5 this way).
+//
+// flash_bwd_dq_tf32: one CTA per (BQ = 64 · NWG query rows, head, batch
+// item), q blocks slowest and the last first, the G heads of a kv head
+// adjacent (their K/V planes come from L2). A producer warp loads the
+// CTA's Q and dO terms once and streams tiles of BK keys (K, V and Kᵀ, two
+// terms each) through a ring of STAGES; each consumer warpgroup of 64 rows
+// runs S = Q Kᵀ and dP = dO Vᵀ (D/8 wgmma m64n{2·BK}k8 and D/8 m64n{BK}k8
+// each, operands in shared memory), dS = 2^(S · scale · log2 e − lse ·
+// log2 e) ∘ (dP − delta) where valid (else 0), and dQ += dS K (3 · BK/8
+// wgmma m64n{D}k8, dS from registers, Kᵀ in shared memory). Four planes
+// of Q and dO take 16 · BQ · D bytes, so the key tiles are narrow: 32 keys
+// (16 at D = 128, where one warpgroup of rows fits).
+//
+// flash_bwd_dkv_tf32: one CTA per (BKV = 64 · NWG keys, kv head, batch
+// item), k blocks slowest. The producer warp loads K and V (two terms each)
+// once and streams tiles of TQ query rows (Q, dO, Qᵀ, dOᵀ, two terms each)
+// over the group's heads and the q tiles that reach its keys, its lanes
+// staging each tile's lse · log2 e and delta; each consumer warpgroup of 64
+// keys runs Sᵀ = K Qᵀ and dPᵀ = V dOᵀ (D/8 wgmma m64n{2·TQ}k8 and D/8
+// m64n{TQ}k8 each), Pᵀ and
+// dSᵀ where valid, dV += Pᵀ dO and dK += dSᵀ Q (3 · TQ/8 wgmma m64n{D}k8
+// each, Pᵀ and dSᵀ from registers, dOᵀ and Qᵀ in shared memory). K and V
+// resident take 16 · BKV · D bytes and a tile 32 · TQ · D, so the tiles
+// hold 16 query rows (8 at D = 128).
+//
+// Both write their outputs in float32 once (dQ · scale, dK · scale, dV);
+// a row with no valid key writes 0 (dQ), a key with no valid row 0 (dK,
+// dV). Bound: the work above (103 and 137 GFLOP at granite's shape) at
+// 494.7 TFLOP/s of TF32: 0.208 and 0.278 ms; the split issues three times
+// that (0.625 and 0.833 ms). The pre-pass moves 0.13 GB (dQ: reads K and
+// V, writes three planes of two terms) and 0.77 GB (dK/dV: reads Q, dO, K
+// and V, writes six) at that shape.
+template <int D>
+struct F32Dq {
+  static constexpr int NWG = D == 128 ? 1 : 2;          // consumer warpgroups of 64 rows
+  static constexpr int BQ = 64 * NWG;                   // query rows per CTA
+  static constexpr int BK = D == 128 ? 16 : 32;         // keys per streamed tile
+  static constexpr int STAGES = D <= 32 ? 4 : 2;
+  static constexpr int THREADS = NWG * WG + 32;
+  static constexpr int QROW = (D < 32 ? D : 32) * 4;    // bytes of a Q/dO/K/V box row
+  static constexpr int TILE_Q = BQ * D * 4;             // one plane of Q or dO
+  static constexpr int TILE = BK * D * 4;               // one plane of K, V or Kᵀ
+  static constexpr int Q = 0;                           // Q big, Q small, dO big, dO small
+  static constexpr int RING = 4 * TILE_Q;  // stage s: K pair, V pair, Kᵀ big, Kᵀ small
+  static constexpr int BAR = RING + STAGES * 6 * TILE;
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * STAGES) + 1024;  // + alignment
+};
+
+template <int D>
+struct F32Dkv {
+  static constexpr int NWG = D == 128 ? 1 : 2;          // consumer warpgroups of 64 keys
+  static constexpr int BKV = 64 * NWG;                  // keys per CTA
+  static constexpr int TQ = D == 128 ? 8 : 16;          // query rows per streamed tile
+  static constexpr int STAGES = D <= 32 ? 4 : 3;
+  static constexpr int THREADS = NWG * WG + 32;
+  static constexpr int QROW = (D < 32 ? D : 32) * 4;    // bytes of a K/V/Q/dO box row
+  static constexpr int TILE_K = BKV * D * 4;            // one plane of K or V
+  static constexpr int TILE = TQ * D * 4;               // one plane of Q, dO, Qᵀ or dOᵀ
+  static constexpr int K = 0;                           // K big, K small, V big, V small
+  static constexpr int RING = 4 * TILE_K;  // stage s: Q pair, dO pair, Qᵀ b/s, dOᵀ b/s
+  static constexpr int ROWS = RING + STAGES * 8 * TILE;  // stage s: lse·log2 e, delta
+  static constexpr int BAR = ROWS + STAGES * 2 * TQ * 4;
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(F32Dq<D>::THREADS, 1)
+flash_bwd_dq_tf32(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tdo,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tkt, const float* __restrict__ lse,
+                  const float* __restrict__ delta, float* __restrict__ dq, int batch,
+                  int hq, int hkv, int sq, int sk, int causal, int window, float scale) {
+  using C = F32Dq<D>;
+  using KQ = KMajor<C::QROW>;    // Q, dO, K and V tiles: boxes of [rows][QROW / 4]
+  using KT = KMajor<C::BK * 4>;  // Kᵀ tiles: one box of [D][BK keys]
+  constexpr int NWG = C::NWG, BQ = C::BQ, BK = C::BK, STAGES = C::STAGES;
+  constexpr int QBOX = C::QROW / 4;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(smem + C::BAR);
+  uint64_t* full = full_q + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int hb = batch * hq, nqb = (sq + BQ - 1) / BQ;
+  const int q0 = (nqb - 1 - static_cast<int>(blockIdx.x) / hb) * BQ;
+  const int h = blockIdx.x % hq, b = (blockIdx.x % hb) / hq;
+  const int shift = sk - sq;
+  // keys that are valid for some row of the CTA: [k_lo, k_hi)
+  const int qlo = q0 + shift, qhi = min(q0 + BQ, sq) - 1 + shift;
+  const int k_hi = causal ? max(0, min(sk, qhi + 1)) : sk;
+  const int k_lo = window > 0 ? max(0, qlo - window + 1) : 0;
+  const int kfirst = (k_lo / BK) * BK;
+  const int ntiles = k_hi > kfirst ? (k_hi - kfirst + BK - 1) / BK : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4 * NWG);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG;
+  if (wg == NWG) {  // producer: its first thread issues every load
+    if (threadIdx.x == NWG * WG && ntiles > 0) {
+      const int kvmats = batch * hkv;  // a plane's matrices
+      const int qm = b * hq + h, kvm = b * hkv + h / (hq / hkv);
+      // Q and dO raw, into their big planes (the consumers split them)
+      mbar_expect_tx(full_q, 2 * C::TILE_Q);
+#pragma unroll
+      for (int c = 0; c < D / QBOX; ++c) {
+        tma_load(smem + C::Q + c * BQ * C::QROW, &tq, full_q, c * QBOX, q0, qm);
+        tma_load(smem + C::Q + 2 * C::TILE_Q + c * BQ * C::QROW, &tdo, full_q, c * QBOX, q0,
+                 qm);
+      }
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % STAGES, k0 = kfirst + t * BK;
+        mbar_wait(empty + s, ((t / STAGES) & 1) ^ 1);
+        uint8_t* st = smem + C::RING + s * 6 * C::TILE;
+        mbar_expect_tx(full + s, 6 * C::TILE);
+#pragma unroll
+        for (int pl = 0; pl < 2; ++pl) {
+#pragma unroll
+          for (int c = 0; c < D / QBOX; ++c) {  // a pair's box c: big rows, small rows
+            const int at = (2 * c + pl) * BK * C::QROW;
+            tma_load(st + at, &tk, full + s, c * QBOX, k0, pl * kvmats + kvm);
+            tma_load(st + 2 * C::TILE + at, &tv, full + s, c * QBOX, k0, pl * kvmats + kvm);
+          }
+          tma_load(st + (4 + pl) * C::TILE, &tkt, full + s, k0, 0, pl * kvmats + kvm);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers
+  const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32, quad = lane % 4;
+  const int r = warp * 16 + lane / 4;  // the thread's rows r and r + 8 of the 64
+  const int rw = q0 + wg * 64;         // this warpgroup's first row
+  const float scale_log2 = scale * LOG2E;
+  const uint32_t qb = smem_u32(smem + C::Q), qs = qb + C::TILE_Q;
+  const uint32_t ob = qb + 2 * C::TILE_Q, os = qb + 3 * C::TILE_Q;
+  const long long mat = static_cast<long long>(b) * hq + h;
+
+  float l2[2], dl[2];  // lse · log2 e and delta of rows rw + r and rw + r + 8, 0 past Sq
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = rw + r + 8 * i;
+    l2[i] = row < sq ? lse[mat * sq + row] * LOG2E : 0.f;
+    dl[i] = row < sq ? delta[mat * sq + row] : 0.f;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int c = 0; c < D / 2; ++c) acc[c] = 0.f;
+  if (ntiles > 0) {  // this warpgroup's rows of Q and dO into their two terms
+    mbar_wait(full_q, 0);
+    split_rows<D / QBOX, C::QROW>(smem + C::Q, C::TILE_Q, BQ, wg * 64, tid);
+    split_rows<D / QBOX, C::QROW>(smem + C::Q + 2 * C::TILE_Q, C::TILE_Q, BQ, wg * 64, tid);
+    wg_sync(wg);
+  }
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % STAGES, k0 = kfirst + t * BK;
+    const uint32_t ph = (t / STAGES) & 1;
+    const uint32_t kp = smem_u32(smem + C::RING + s * 6 * C::TILE), vp = kp + 2 * C::TILE;
+    const uint32_t tb = kp + 4 * C::TILE, ts = kp + 5 * C::TILE;
+    mbar_wait(full + s, ph);
+    // some row of this warpgroup has a valid key in the tile
+    if (rw < sq && k0 < sk && (!causal || k0 <= rw + 63 + shift) &&
+        (window <= 0 || k0 + BK - 1 > rw + shift - window)) {
+      // Q big times the K pair (columns: K big, then K small) in one
+      // product, Q small times K big in another; the same for dO and V
+      float s2[BK], ss[BK / 2], d2[BK], dsn[BK / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const uint64_t pair = KQ::kmajor(kp, 2 * BK, 0, kk);
+        mma_ss_tf32<2 * BK>(s2, KQ::kmajor(qb, BQ, wg * 64, kk), pair, kk > 0);
+        mma_ss_tf32<BK>(ss, KQ::kmajor(qs, BQ, wg * 64, kk), pair, kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const uint64_t pair = KQ::kmajor(vp, 2 * BK, 0, kk);
+        mma_ss_tf32<2 * BK>(d2, KQ::kmajor(ob, BQ, wg * 64, kk), pair, kk > 0);
+        mma_ss_tf32<BK>(dsn, KQ::kmajor(os, BQ, wg * 64, kk), pair, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(s2);
+      fence_regs(ss);
+      fence_regs(d2);
+      fence_regs(dsn);
+      float sc[BK / 2], dp[BK / 2];  // small terms first, then big · big
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        sc[i] = s2[i] + (s2[BK / 2 + i] + ss[i]);
+        dp[i] = d2[i] + (d2[BK / 2 + i] + dsn[i]);
+      }
+      const bool whole = k0 + BK <= sk && rw + 64 <= sq &&
+                         (!causal || k0 + BK - 1 <= rw + shift) &&
+                         (window <= 0 || k0 > rw + 63 + shift - window);
+      if (whole)
+        dq_scores<false>(sc, dp, l2, dl, rw + r + shift, k0 + 2 * quad, sk, causal, window,
+                         scale_log2);
+      else
+        dq_scores<true>(sc, dp, l2, dl, rw + r + shift, k0 + 2 * quad, sk, causal, window,
+                        scale_log2);
+      uint32_t db[BK / 8][4], dsm[BK / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 8; ++kk) tf32_frag(dp, kk, db[kk], dsm[kk]);
+      float part[D / 2];  // this tile's dS K, added to acc in float32
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 8; ++kk) {
+        const uint64_t bb = KT::kmajor(tb, D, 0, kk);
+        mma_rs_tf32<D>(part, dsm[kk], bb, kk > 0);
+        mma_rs_tf32<D>(part, db[kk], KT::kmajor(ts, D, 0, kk), 1);
+        mma_rs_tf32<D>(part, db[kk], bb, 1);
+      }
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(part);
+      fence_regs(db);
+      fence_regs(dsm);
+#pragma unroll
+      for (int c = 0; c < D / 2; ++c) acc[c] += part[c];
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + s);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = rw + r + 8 * i;
+    if (row >= sq) continue;
+    float* out = dq + (mat * sq + row) * D;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+      *reinterpret_cast<float2*>(out + 8 * c + 2 * quad) =
+          make_float2(acc[4 * c + 2 * i] * scale, acc[4 * c + 2 * i + 1] * scale);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32Dkv<D>::THREADS, 1)
+flash_bwd_dkv_tf32(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const __grid_constant__ CUtensorMap tqt,
+                   const __grid_constant__ CUtensorMap tdot,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const float* __restrict__ lse,
+                   const float* __restrict__ delta, float* __restrict__ dk,
+                   float* __restrict__ dv, int batch, int hq, int hkv, int sq, int sk,
+                   int causal, int window, float scale) {
+  using C = F32Dkv<D>;
+  using KQ = KMajor<C::QROW>;    // K, V, Q and dO tiles: boxes of [rows][QROW / 4]
+  using QT = KMajor<C::TQ * 4>;  // Qᵀ and dOᵀ tiles: one box of [D][TQ rows]
+  constexpr int NWG = C::NWG, BKV = C::BKV, TQ = C::TQ, STAGES = C::STAGES;
+  constexpr int QBOX = C::QROW / 4;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  float* rows_s = reinterpret_cast<float*>(smem + C::ROWS);
+  uint64_t* full_kv = reinterpret_cast<uint64_t*>(smem + C::BAR);
+  uint64_t* full = full_kv + 1;
+  uint64_t* empty = full + STAGES;
+
+  // one linear grid, k blocks slowest: causal's longest CTAs (k block 0)
+  // start first across every head and batch item
+  const int hb = batch * hkv;
+  const int k0 = (blockIdx.x / hb) * BKV;
+  const int hk = blockIdx.x % hkv, b = (blockIdx.x % hb) / hkv;
+  const int group = hq / hkv, shift = sk - sq;
+  // rows that are valid for some key of the CTA: [i_lo, i_hi)
+  const int khi = min(k0 + BKV, sk) - 1;
+  const int i_lo = causal ? max(0, k0 - shift) : 0;
+  const int i_hi = window > 0 ? max(0, min(sq, khi + window - shift)) : sq;
+  const int qfirst = (i_lo / TQ) * TQ;
+  const int nq = i_hi > qfirst ? (i_hi - qfirst + TQ - 1) / TQ : 0;
+  const int ntiles = group * nq;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s, 32);       // the producer warp's lanes (one of them with the bytes)
+      mbar_init(empty + s, 4 * NWG);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG;
+  if (wg == NWG) {  // producer warp
+    const int lane = threadIdx.x % 32;
+    const int qmats = batch * hq, kvmats = batch * hkv;  // a plane's matrices
+    if (ntiles > 0) {
+      if (lane == 0) {
+        const int kvm = b * hkv + hk;
+        mbar_expect_tx(full_kv, 4 * C::TILE_K);
+#pragma unroll
+        for (int pl = 0; pl < 2; ++pl)
+#pragma unroll
+          for (int c = 0; c < D / QBOX; ++c) {
+            tma_load(smem + C::K + pl * C::TILE_K + c * BKV * C::QROW, &tk, full_kv,
+                     c * QBOX, k0, pl * kvmats + kvm);
+            tma_load(smem + C::K + (2 + pl) * C::TILE_K + c * BKV * C::QROW, &tv, full_kv,
+                     c * QBOX, k0, pl * kvmats + kvm);
+          }
+      }
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % STAGES;
+        mbar_wait(empty + s, ((t / STAGES) & 1) ^ 1);
+        const int qm = b * hq + hk * group + t / nq, q0 = qfirst + (t % nq) * TQ;
+        // lse · log2 e and delta of the tile's rows, 0 past Sq
+        float* rs = rows_s + s * 2 * TQ;
+        for (int i = lane; i < TQ; i += 32) {
+          const int row = q0 + i;
+          const long long off = static_cast<long long>(qm) * sq + row;
+          rs[i] = row < sq ? lse[off] * LOG2E : 0.f;
+          rs[TQ + i] = row < sq ? delta[off] : 0.f;
+        }
+        if (lane == 0) {
+          uint8_t* st = smem + C::RING + s * 8 * C::TILE;
+          mbar_expect_tx(full + s, 8 * C::TILE);
+#pragma unroll
+          for (int pl = 0; pl < 2; ++pl) {
+#pragma unroll
+            for (int c = 0; c < D / QBOX; ++c) {  // a pair's box c: big rows, small rows
+              const int at = (2 * c + pl) * TQ * C::QROW;
+              tma_load(st + at, &tq, full + s, c * QBOX, q0, pl * qmats + qm);
+              tma_load(st + 2 * C::TILE + at, &tdo, full + s, c * QBOX, q0, pl * qmats + qm);
+            }
+            tma_load(st + (4 + pl) * C::TILE, &tqt, full + s, q0, 0, pl * qmats + qm);
+            tma_load(st + (6 + pl) * C::TILE, &tdot, full + s, q0, 0, pl * qmats + qm);
+          }
+        } else {
+          mbar_arrive(full + s);  // releases this lane's rows
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers
+  const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32, quad = lane % 4;
+  const int r = warp * 16 + lane / 4;  // the thread's keys r and r + 8 of the 64
+  const int kw = k0 + wg * 64;         // this warpgroup's first key
+  const float scale_log2 = scale * LOG2E;
+  const uint32_t kb = smem_u32(smem + C::K), ks = kb + C::TILE_K;
+  const uint32_t vb = kb + 2 * C::TILE_K, vs = kb + 3 * C::TILE_K;
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  if (ntiles > 0) mbar_wait(full_kv, 0);
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % STAGES;
+    const uint32_t ph = (t / STAGES) & 1;
+    const int q0 = qfirst + (t % nq) * TQ;
+    const uint32_t qp = smem_u32(smem + C::RING + s * 8 * C::TILE), op = qp + 2 * C::TILE;
+    const uint32_t qtb = qp + 4 * C::TILE, qts = qp + 5 * C::TILE;
+    const uint32_t otb = qp + 6 * C::TILE, ots = qp + 7 * C::TILE;
+    mbar_wait(full + s, ph);
+    // some key of this warpgroup is valid for some row of the tile
+    if (kw < sk && q0 < sq && (!causal || kw <= q0 + TQ - 1 + shift) &&
+        (window <= 0 || kw + 63 > q0 + shift - window)) {
+      // K big times the Q pair (columns: Q big, then Q small) in one
+      // product, K small times Q big in another; the same for V and dO
+      float s2[TQ], ss[TQ / 2], d2[TQ], dsn[TQ / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const uint64_t pair = KQ::kmajor(qp, 2 * TQ, 0, kk);
+        mma_ss_tf32<2 * TQ>(s2, KQ::kmajor(kb, BKV, wg * 64, kk), pair, kk > 0);
+        mma_ss_tf32<TQ>(ss, KQ::kmajor(ks, BKV, wg * 64, kk), pair, kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const uint64_t pair = KQ::kmajor(op, 2 * TQ, 0, kk);
+        mma_ss_tf32<2 * TQ>(d2, KQ::kmajor(vb, BKV, wg * 64, kk), pair, kk > 0);
+        mma_ss_tf32<TQ>(dsn, KQ::kmajor(vs, BKV, wg * 64, kk), pair, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(s2);
+      fence_regs(ss);
+      fence_regs(d2);
+      fence_regs(dsn);
+      float st[TQ / 2], dpt[TQ / 2];  // small terms first, then big · big
+#pragma unroll
+      for (int i = 0; i < TQ / 2; ++i) {
+        st[i] = s2[i] + (s2[TQ / 2 + i] + ss[i]);
+        dpt[i] = d2[i] + (d2[TQ / 2 + i] + dsn[i]);
+      }
+      const bool whole = kw + 64 <= sk && q0 + TQ <= sq &&
+                         (!causal || kw + 63 <= q0 + shift) &&
+                         (window <= 0 || kw > q0 + TQ - 1 + shift - window);
+      const float* rs = rows_s + s * 2 * TQ;
+      if (whole)
+        dkv_probs<false>(st, dpt, rs, q0 + shift, kw + r, sk, causal, window, scale_log2,
+                         quad);
+      else
+        dkv_probs<true>(st, dpt, rs, q0 + shift, kw + r, sk, causal, window, scale_log2,
+                        quad);
+      uint32_t pb[TQ / 8][4], ps[TQ / 8][4], db[TQ / 8][4], dsm[TQ / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < TQ / 8; ++kk) {
+        tf32_frag(st, kk, pb[kk], ps[kk]);
+        tf32_frag(dpt, kk, db[kk], dsm[kk]);
+      }
+      float part[D / 2];  // this tile's Pᵀ dO, then its dSᵀ Q, added in float32
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TQ / 8; ++kk) {
+        const uint64_t bb = QT::kmajor(otb, D, 0, kk);
+        mma_rs_tf32<D>(part, ps[kk], bb, kk > 0);
+        mma_rs_tf32<D>(part, pb[kk], QT::kmajor(ots, D, 0, kk), 1);
+        mma_rs_tf32<D>(part, pb[kk], bb, 1);
+      }
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(part);
+      fence_regs(pb);
+      fence_regs(ps);
+#pragma unroll
+      for (int c = 0; c < D / 2; ++c) dv_acc[c] += part[c];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TQ / 8; ++kk) {
+        const uint64_t bb = QT::kmajor(qtb, D, 0, kk);
+        mma_rs_tf32<D>(part, dsm[kk], bb, kk > 0);
+        mma_rs_tf32<D>(part, db[kk], QT::kmajor(qts, D, 0, kk), 1);
+        mma_rs_tf32<D>(part, db[kk], bb, 1);
+      }
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(part);
+      fence_regs(db);
+      fence_regs(dsm);
+#pragma unroll
+      for (int c = 0; c < D / 2; ++c) dk_acc[c] += part[c];
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + s);
+  }
+
+  const long long base = (static_cast<long long>(b) * hkv + hk) * sk;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = kw + r + 8 * i;
+    if (key >= sk) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const long long off = (base + key) * D + 8 * j + 2 * quad;
+      *reinterpret_cast<float2*>(dk + off) =
+          make_float2(dk_acc[4 * j + 2 * i] * scale, dk_acc[4 * j + 2 * i + 1] * scale);
+      *reinterpret_cast<float2*>(dv + off) =
+          make_float2(dv_acc[4 * j + 2 * i], dv_acc[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
+// The float32 backward's scratch, in floats: the two tf32 terms of each
+// operand that comes from the pre-pass, as it is and transposed (rows
+// padded to a multiple of 32): dQ's K, V and Kᵀ, or dK/dV's Q, dO, Qᵀ, dOᵀ,
+// K and V, in this order (launch_dq_tf32 and launch_dkv_tf32 carve it; the
+// exports check the caller's buffer against it). dQ splits its Q and dO
+// in shared memory, so they take no scratch.
+struct Tf32BwdWork {
+  long long nq, nk, nqt, nkt;
+  int sqp, skp;
+  Tf32BwdWork(int batch, int hq, int hkv, int sq, int sk, int d)
+      : nq(static_cast<long long>(batch) * hq * sq * d),
+        nk(static_cast<long long>(batch) * hkv * sk * d),
+        nqt(static_cast<long long>(batch) * hq * d * ((sq + 31) / 32 * 32)),
+        nkt(static_cast<long long>(batch) * hkv * d * ((sk + 31) / 32 * 32)),
+        sqp((sq + 31) / 32 * 32), skp((sk + 31) / 32 * 32) {}
+  long long floats(bool dkv) const { return dkv ? 4 * (nq + nqt + nk) : 4 * nk + 2 * nkt; }
+};
+
+template <int D>
+int launch_dq_tf32(const float* q, const float* k, const float* v, const float* dout,
+                   const float* lse, const float* delta, float* dq, float* work, int batch,
+                   int hq, int hkv, int sq, int sk, int causal, int window, float scale,
+                   cudaStream_t stream) {
+  using C = F32Dq<D>;
+  const Tf32BwdWork w(batch, hq, hkv, sq, sk, D);
+  float* kp = work;             // K big, K small: (2 · batch · hkv, sk, D)
+  float* vp = kp + 2 * w.nk;    // V big, V small
+  float* ktp = vp + 2 * w.nk;   // Kᵀ big, Kᵀ small: (2 · batch · hkv, D, skp)
+  planes_t(k, ktp, batch * hkv, sk, w.skp, D, stream, kp);
+  planes(v, vp, w.nk, nullptr, stream);
+  const cudaError_t e0 = cudaGetLastError();
+  if (e0) return e0;
+  CUtensorMap tq, tdo, tk, tv, tkt;  // Q and dO raw
+  int e = tile_map(&tq, q, batch * hq, sq, D, C::BQ, 4);
+  if (!e) e = tile_map(&tdo, dout, batch * hq, sq, D, C::BQ, 4);
+  if (!e) e = tile_map(&tk, kp, 2 * batch * hkv, sk, D, C::BK, 4);
+  if (!e) e = tile_map(&tv, vp, 2 * batch * hkv, sk, D, C::BK, 4);
+  if (!e) e = tile_map(&tkt, ktp, 2 * batch * hkv, D, w.skp, D, 4, C::BK);
+  if (e) return e;
+  constexpr int smem = C::BYTES;
+  int sms = 0;
+  e = prepare<flash_bwd_dq_tf32<D>>(smem, &sms);
+  if (e) return e;
+  const int grid = (sq + C::BQ - 1) / C::BQ * hq * batch;
+  flash_bwd_dq_tf32<D><<<grid, C::THREADS, smem, stream>>>(
+      tq, tdo, tk, tv, tkt, lse, delta, dq, batch, hq, hkv, sq, sk, causal, window, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+int launch_dkv_tf32(const float* q, const float* k, const float* v, const float* dout,
+                    const float* lse, const float* delta, float* dk, float* dv, float* work,
+                    int batch, int hq, int hkv, int sq, int sk, int causal, int window,
+                    float scale, cudaStream_t stream) {
+  using C = F32Dkv<D>;
+  const Tf32BwdWork w(batch, hq, hkv, sq, sk, D);
+  float* qp = work;               // Q big, Q small: (2 · batch · hq, sq, D)
+  float* dop = qp + 2 * w.nq;     // dO big, dO small
+  float* qtp = dop + 2 * w.nq;    // Qᵀ big, Qᵀ small: (2 · batch · hq, D, sqp)
+  float* dotp = qtp + 2 * w.nqt;  // dOᵀ big, dOᵀ small
+  float* kp = dotp + 2 * w.nqt;   // K big, K small: (2 · batch · hkv, sk, D)
+  float* vp = kp + 2 * w.nk;      // V big, V small
+  planes_t(q, qtp, batch * hq, sq, w.sqp, D, stream, qp);
+  planes_t(dout, dotp, batch * hq, sq, w.sqp, D, stream, dop);
+  planes(k, kp, w.nk, nullptr, stream);
+  planes(v, vp, w.nk, nullptr, stream);
+  const cudaError_t e0 = cudaGetLastError();
+  if (e0) return e0;
+  CUtensorMap tq, tdo, tqt, tdot, tk, tv;
+  int e = tile_map(&tq, qp, 2 * batch * hq, sq, D, C::TQ, 4);
+  if (!e) e = tile_map(&tdo, dop, 2 * batch * hq, sq, D, C::TQ, 4);
+  if (!e) e = tile_map(&tqt, qtp, 2 * batch * hq, D, w.sqp, D, 4, C::TQ);
+  if (!e) e = tile_map(&tdot, dotp, 2 * batch * hq, D, w.sqp, D, 4, C::TQ);
+  if (!e) e = tile_map(&tk, kp, 2 * batch * hkv, sk, D, C::BKV, 4);
+  if (!e) e = tile_map(&tv, vp, 2 * batch * hkv, sk, D, C::BKV, 4);
+  if (e) return e;
+  constexpr int smem = C::BYTES;
+  int sms = 0;
+  e = prepare<flash_bwd_dkv_tf32<D>>(smem, &sms);
+  if (e) return e;
+  const int grid = (sk + C::BKV - 1) / C::BKV * hkv * batch;
+  flash_bwd_dkv_tf32<D><<<grid, C::THREADS, smem, stream>>>(
+      tq, tdo, tqt, tdot, tk, tv, lse, delta, dk, dv, batch, hq, hkv, sq, sk, causal,
+      window, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace tc
 
 }  // namespace
 
 // q, do, dq: (batch, hq, sq, d); k, v, dk, dv: (batch, hkv, sk, d), all
 // contiguous and of one type, float32 (bf16 = 0) or bf16 (bf16 = 1); lse,
-// delta: (batch, hq, sq) float32. window <= 0 means none; d is 16, 32, 64
-// or 128. Each returns a cudaError_t.
+// delta: (batch, hq, sq) float32. work: float32 scratch of work_floats
+// floats, at least tc::Tf32BwdWork::floats() of the kernel (float32 only;
+// null and 0 for bf16). window <= 0 means none; d is 16, 32, 64 or 128.
+// Both types run on the tensor cores. Each returns a cudaError_t.
 REPRO_EXPORT int flash_bwd_dq(const void* q, const void* k, const void* v,
                               const void* dout, const float* lse,
-                              const float* delta, void* dq, int batch, int hq,
+                              const float* delta, void* dq, void* work,
+                              long long work_floats, int batch, int hq,
                               int hkv, int sq, int sk, int d, int causal,
                               int window, float scale, int bf16, void* stream) {
-  const Args a{q, k, v, dout, lse, delta, batch, hq, hkv, sq, sk, causal,
-               window, scale, static_cast<cudaStream_t>(stream)};
-  if (!bf16) return dispatch_dq<float>(a, d, dq);
-  // bf16: the tensor-core kernel only, for every head dim
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    switch (d) {
+      case 16: return tc::launch_dq<16>(q, k, v, dout, lse, delta, dq, batch, hq, hkv, sq, sk, causal, window, scale, st);
+      case 32: return tc::launch_dq<32>(q, k, v, dout, lse, delta, dq, batch, hq, hkv, sq, sk, causal, window, scale, st);
+      case 64: return tc::launch_dq<64>(q, k, v, dout, lse, delta, dq, batch, hq, hkv, sq, sk, causal, window, scale, st);
+      case 128: return tc::launch_dq<128>(q, k, v, dout, lse, delta, dq, batch, hq, hkv, sq, sk, causal, window, scale, st);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (work == nullptr ||
+      work_floats < tc::Tf32BwdWork(batch, hq, hkv, sq, sk, d).floats(false))
+    return cudaErrorInvalidValue;
+  const float *fq = static_cast<const float*>(q), *fk = static_cast<const float*>(k),
+              *fv = static_cast<const float*>(v), *fo = static_cast<const float*>(dout);
+  float *fdq = static_cast<float*>(dq), *fw = static_cast<float*>(work);
   switch (d) {
-    case 16: return tc::launch_dq<16>(q, k, v, dout, lse, delta, dq, batch, hq, hkv, sq, sk, causal, window, scale, a.stream);
-    case 32: return tc::launch_dq<32>(q, k, v, dout, lse, delta, dq, batch, hq, hkv, sq, sk, causal, window, scale, a.stream);
-    case 64: return tc::launch_dq<64>(q, k, v, dout, lse, delta, dq, batch, hq, hkv, sq, sk, causal, window, scale, a.stream);
-    case 128: return tc::launch_dq<128>(q, k, v, dout, lse, delta, dq, batch, hq, hkv, sq, sk, causal, window, scale, a.stream);
+    case 16: return tc::launch_dq_tf32<16>(fq, fk, fv, fo, lse, delta, fdq, fw, batch, hq, hkv, sq, sk, causal, window, scale, st);
+    case 32: return tc::launch_dq_tf32<32>(fq, fk, fv, fo, lse, delta, fdq, fw, batch, hq, hkv, sq, sk, causal, window, scale, st);
+    case 64: return tc::launch_dq_tf32<64>(fq, fk, fv, fo, lse, delta, fdq, fw, batch, hq, hkv, sq, sk, causal, window, scale, st);
+    case 128: return tc::launch_dq_tf32<128>(fq, fk, fv, fo, lse, delta, fdq, fw, batch, hq, hkv, sq, sk, causal, window, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 REPRO_EXPORT int flash_bwd_dkv(const void* q, const void* k, const void* v,
                                const void* dout, const float* lse,
-                               const float* delta, void* dk, void* dv, int batch,
-                               int hq, int hkv, int sq, int sk, int d, int causal,
-                               int window, float scale, int bf16, void* stream) {
-  const Args a{q, k, v, dout, lse, delta, batch, hq, hkv, sq, sk, causal,
-               window, scale, static_cast<cudaStream_t>(stream)};
-  if (!bf16) return dispatch_dkv<float>(a, d, dk, dv);
-  // bf16: the tensor-core kernel only, for every head dim
+                               const float* delta, void* dk, void* dv, void* work,
+                               long long work_floats, int batch, int hq, int hkv,
+                               int sq, int sk, int d, int causal, int window,
+                               float scale, int bf16, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    switch (d) {
+      case 16: return tc::launch_dkv<16>(q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, sq, sk, causal, window, scale, st);
+      case 32: return tc::launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, sq, sk, causal, window, scale, st);
+      case 64: return tc::launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, sq, sk, causal, window, scale, st);
+      case 128: return tc::launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, sq, sk, causal, window, scale, st);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (work == nullptr ||
+      work_floats < tc::Tf32BwdWork(batch, hq, hkv, sq, sk, d).floats(true))
+    return cudaErrorInvalidValue;
+  const float *fq = static_cast<const float*>(q), *fk = static_cast<const float*>(k),
+              *fv = static_cast<const float*>(v), *fo = static_cast<const float*>(dout);
+  float *fdk = static_cast<float*>(dk), *fdv = static_cast<float*>(dv),
+        *fw = static_cast<float*>(work);
   switch (d) {
-    case 16: return tc::launch_dkv<16>(q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, sq, sk, causal, window, scale, a.stream);
-    case 32: return tc::launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, sq, sk, causal, window, scale, a.stream);
-    case 64: return tc::launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, sq, sk, causal, window, scale, a.stream);
-    case 128: return tc::launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, sq, sk, causal, window, scale, a.stream);
+    case 16: return tc::launch_dkv_tf32<16>(fq, fk, fv, fo, lse, delta, fdk, fdv, fw, batch, hq, hkv, sq, sk, causal, window, scale, st);
+    case 32: return tc::launch_dkv_tf32<32>(fq, fk, fv, fo, lse, delta, fdk, fdv, fw, batch, hq, hkv, sq, sk, causal, window, scale, st);
+    case 64: return tc::launch_dkv_tf32<64>(fq, fk, fv, fo, lse, delta, fdk, fdv, fw, batch, hq, hkv, sq, sk, causal, window, scale, st);
+    case 128: return tc::launch_dkv_tf32<128>(fq, fk, fv, fo, lse, delta, fdk, fdv, fw, batch, hq, hkv, sq, sk, causal, window, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }

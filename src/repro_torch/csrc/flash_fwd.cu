@@ -434,8 +434,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, i
 // big = tf32(x) and small = tf32(x - big) rounded to nearest
 // (hopper::tf32_split), summed in float32; the dropped small·small and the
 // rounding of small leave about 2^-21 of each term, the level of a float32
-// sum in another order. A pre-pass (tf32_planes, tf32_planes_vt) writes
-// each operand's two terms to a scratch buffer the wrapper allocates: Q
+// sum in another order. A pre-pass (hopper::tf32_planes, tf32_planes_vt)
+// writes each operand's two terms to a scratch buffer the wrapper allocates: Q
 // and K as they are, V transposed to (D, keys) because wgmma reads TF32
 // operands K-major only, its keys permuted within each group of 8 (slot c
 // holds key 2c for c < 4, 2(c - 4) + 1 above) so that P enters O += P V
@@ -494,17 +494,6 @@ __device__ __forceinline__ FwdItem f32_item(int i, int batch, int hq, int sq, in
   it.b = head / hq;
   item_tiles<C::NWG, C::BK>(it, sq, sk, causal, window, block_q, block_k);
   return it;
-}
-
-// the A fragment of k step kk (keys 8kk..8kk+7 of the tile, in the
-// permuted order of Vᵀ) from the S accumulator, as two tf32 terms
-template <int NS>
-__device__ __forceinline__ void p_frag(const float (&s)[NS], int kk, uint32_t (&big)[4],
-                                       uint32_t (&small)[4]) {
-  tf32_split(s[4 * kk], big[0], small[0]);      // (g, key 2t)
-  tf32_split(s[4 * kk + 2], big[1], small[1]);  // (g + 8, key 2t)
-  tf32_split(s[4 * kk + 1], big[2], small[2]);  // (g, key 2t + 1)
-  tf32_split(s[4 * kk + 3], big[3], small[3]);  // (g + 8, key 2t + 1)
 }
 
 template <int D>
@@ -643,7 +632,7 @@ flash_fwd_tf32(const __grid_constant__ CUtensorMap tq,
         rescale(acc, corr);
         uint32_t pb[BK / 8][4], ps[BK / 8][4];
 #pragma unroll
-        for (int kk = 0; kk < BK / 8; ++kk) p_frag(sc, kk, pb[kk], ps[kk]);
+        for (int kk = 0; kk < BK / 8; ++kk) tf32_frag(sc, kk, pb[kk], ps[kk]);
         mbar_wait(full_v + s, ph);
         wgmma_fence();
 #pragma unroll
@@ -685,50 +674,6 @@ flash_fwd_tf32(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// the pre-pass: n floats (n % 4 == 0) into their tf32 terms; block 0 also
-// resets the item counter of the kernel that follows on the stream
-__global__ void __launch_bounds__(256)
-tf32_planes(const float4* __restrict__ x, uint4* __restrict__ big,
-            uint4* __restrict__ small, long long n4, int* __restrict__ counter) {
-  if (counter != nullptr && blockIdx.x == 0 && threadIdx.x == 0) *counter = 0;
-  for (long long i = blockIdx.x * 256ll + threadIdx.x; i < n4; i += 256ll * gridDim.x) {
-    const float4 v = x[i];
-    uint4 b, s;
-    tf32_split(v.x, b.x, s.x);
-    tf32_split(v.y, b.y, s.y);
-    tf32_split(v.z, b.z, s.z);
-    tf32_split(v.w, b.w, s.w);
-    big[i] = b;
-    small[i] = s;
-  }
-}
-
-// the pre-pass of V: (mats, sk, d) into the terms of Vᵀ, (mats, d, skp)
-// with skp a multiple of 32, keys permuted within groups of 8 (slot c of a
-// group holds key 2c for c < 4, 2(c - 4) + 1 above), keys past sk 0. A
-// block (32, 8) moves 32 keys × 32 (or d) columns through shared memory.
-__global__ void __launch_bounds__(256)
-tf32_planes_vt(const float* __restrict__ v, uint32_t* __restrict__ big,
-               uint32_t* __restrict__ small, int sk, int skp, int d) {
-  __shared__ float tile[32][33];
-  const int c0 = blockIdx.x * 32, d0 = blockIdx.y * 32, dt = min(32, d - d0);
-  const long long mat = blockIdx.z;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  for (int rr = ty; rr < 32; rr += 8) {
-    const int key = c0 + rr;
-    tile[rr][tx] = key < sk && tx < dt ? v[(mat * sk + key) * d + d0 + tx] : 0.f;
-  }
-  __syncthreads();
-  const int src = (tx & ~7) | ((tx & 7) < 4 ? 2 * (tx & 7) : 2 * (tx & 7) - 7);
-  for (int dd = ty; dd < dt; dd += 8) {
-    uint32_t b, s;
-    tf32_split(tile[src][dd], b, s);
-    const long long at = (mat * d + d0 + dd) * skp + c0 + tx;
-    big[at] = b;
-    small[at] = s;
-  }
-}
-
 // The float32 forward's scratch, in floats: the two tf32 terms of Q and K,
 // of Vᵀ with its keys padded to a multiple of 32, and 4 floats that hold the
 // item counter (launch_tf32 carves it in this order; the export checks the
@@ -756,17 +701,9 @@ int launch_tf32(const float* q, const float* k, const float* v, float* o, float*
   float* kp = qp + 2 * nq;  // K big, K small: (2 · batch · hkv, sk, D)
   float* vp = kp + 2 * nk;  // Vᵀ big, Vᵀ small: (2 · batch · hkv, D, skp)
   int* counter = reinterpret_cast<int*>(vp + 2 * nv);
-  auto planes = [&](const float* x, float* dst, long long n, int* ctr) {
-    const long long n4 = n / 4;
-    const long long blocks = (n4 + 255) / 256;
-    tf32_planes<<<static_cast<unsigned>(blocks < 8192 ? blocks : 8192), 256, 0, stream>>>(
-        reinterpret_cast<const float4*>(x), reinterpret_cast<uint4*>(dst),
-        reinterpret_cast<uint4*>(dst + n), n4, ctr);
-  };
-  planes(q, qp, nq, counter);
-  planes(k, kp, nk, nullptr);
-  tf32_planes_vt<<<dim3(skp / 32, (D + 31) / 32, batch * hkv), dim3(32, 8), 0, stream>>>(
-      v, reinterpret_cast<uint32_t*>(vp), reinterpret_cast<uint32_t*>(vp + nv), sk, skp, D);
+  planes(q, qp, nq, counter, stream);
+  planes(k, kp, nk, nullptr, stream);
+  planes_t(v, vp, batch * hkv, sk, skp, D, stream);
   cudaError_t e0 = cudaGetLastError();
   if (e0) return e0;
   CUtensorMap tq, tk, tv;

@@ -2,7 +2,7 @@
 // addresses, mbarriers, TMA tile loads and the tensor maps they read,
 // wgmma descriptors, issue, fences and waits, the two-term bf16 split of a
 // float32 operand, and the tf32 products and two-term tf32 split of the
-// float32 (3×TF32) kernels.
+// float32 (3×TF32) kernels, with their pre-pass.
 //
 // Tiles. A (rows, D) bf16 tile is loaded by TMA as D / BOX boxes of
 // [rows][BOX] with BOX = min(D, 64) columns, each box a row of BOX · 2 =
@@ -273,6 +273,29 @@ __device__ void mma_rs_tf32(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t 
 // d (+)= A B, m64nNk8, tf32 in, f32 accumulators; A and B K-major in
 // shared memory (acc = 0 overwrites d)
 template <>
+__device__ __forceinline__ void mma_ss_tf32<8>(float (&d)[4], uint64_t a, uint64_t b,
+                                                  int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void mma_ss_tf32<16>(float (&d)[8], uint64_t a, uint64_t b,
+                                                   int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
 __device__ __forceinline__ void mma_ss_tf32<32>(float (&d)[16], uint64_t a, uint64_t b,
                                                    int acc) {
   asm volatile(
@@ -396,6 +419,125 @@ __device__ __forceinline__ void tf32_split(float x, uint32_t& big, uint32_t& sma
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(small) : "f"(x - __uint_as_float(big)));
 }
 
+// the A fragment of k step kk (columns 8kk..8kk+7 of an m64nNk8 product's
+// accumulator, in the permuted order of a transposed operand written by
+// tf32_planes_vt) as two tf32 terms: a thread's accumulator holds columns
+// 2t, 2t + 1 of each group of 8 where the A fragment wants t and t + 4
+template <int NS>
+__device__ __forceinline__ void tf32_frag(const float (&s)[NS], int kk, uint32_t (&big)[4],
+                                          uint32_t (&small)[4]) {
+  tf32_split(s[4 * kk], big[0], small[0]);      // (g, column 2t)
+  tf32_split(s[4 * kk + 2], big[1], small[1]);  // (g + 8, column 2t)
+  tf32_split(s[4 * kk + 1], big[2], small[2]);  // (g, column 2t + 1)
+  tf32_split(s[4 * kk + 3], big[3], small[3]);  // (g + 8, column 2t + 1)
+}
+
+// the pre-pass of the float32 kernels: n floats (n % 4 == 0) into their
+// tf32 terms; block 0 also resets the item counter (if any) of the kernel
+// that follows on the stream
+__global__ void __launch_bounds__(256)
+tf32_planes(const float4* __restrict__ x, uint4* __restrict__ big,
+            uint4* __restrict__ small, long long n4, int* __restrict__ counter) {
+  if (counter != nullptr && blockIdx.x == 0 && threadIdx.x == 0) *counter = 0;
+  for (long long i = blockIdx.x * 256ll + threadIdx.x; i < n4; i += 256ll * gridDim.x) {
+    const float4 v = x[i];
+    uint4 b, s;
+    tf32_split(v.x, b.x, s.x);
+    tf32_split(v.y, b.y, s.y);
+    tf32_split(v.z, b.z, s.z);
+    tf32_split(v.w, b.w, s.w);
+    big[i] = b;
+    small[i] = s;
+  }
+}
+
+// the pre-pass of an operand read transposed: (mats, s, d) into the terms
+// of its transpose, (mats, d, sp) with sp a multiple of 32, the s axis
+// permuted within groups of 8 (slot c of a group holds row 2c for c < 4,
+// 2(c - 4) + 1 above), rows past s 0; with nbig (and nsmall) given, also
+// into the terms of the operand as it is, from the same read. A block
+// (32, 8) moves 32 rows × 32 (or d) columns through shared memory.
+__global__ void __launch_bounds__(256)
+tf32_planes_vt(const float* __restrict__ v, uint32_t* __restrict__ big,
+               uint32_t* __restrict__ small, uint32_t* __restrict__ nbig,
+               uint32_t* __restrict__ nsmall, int s, int sp, int d) {
+  __shared__ float tile[32][33];
+  const int c0 = blockIdx.x * 32, d0 = blockIdx.y * 32, dt = min(32, d - d0);
+  const long long mat = blockIdx.z;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  for (int rr = ty; rr < 32; rr += 8) {
+    const int row = c0 + rr;
+    const long long at = (mat * s + row) * d + d0 + tx;
+    const bool in = row < s && tx < dt;
+    const float x = in ? v[at] : 0.f;
+    tile[rr][tx] = x;
+    if (nbig != nullptr && in) tf32_split(x, nbig[at], nsmall[at]);
+  }
+  __syncthreads();
+  const int src = (tx & ~7) | ((tx & 7) < 4 ? 2 * (tx & 7) : 2 * (tx & 7) - 7);
+  for (int dd = ty; dd < dt; dd += 8) {
+    uint32_t b, sm;
+    tf32_split(tile[src][dd], b, sm);
+    const long long at = (mat * d + d0 + dd) * sp + c0 + tx;
+    big[at] = b;
+    small[at] = sm;
+  }
+}
+
+// both pre-passes on a stream: x (n floats) into dst (big) and dst + n
+// (small); x as (mats, s, d) transposed into dst and dst + mats · d · sp,
+// and, with ndst given, as it is into ndst and ndst + mats · s · d
+inline void planes(const float* x, float* dst, long long n, int* counter,
+                   cudaStream_t stream) {
+  const long long n4 = n / 4, blocks = (n4 + 255) / 256;
+  tf32_planes<<<static_cast<unsigned>(blocks < 8192 ? blocks : 8192), 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(x), reinterpret_cast<uint4*>(dst),
+      reinterpret_cast<uint4*>(dst + n), n4, counter);
+}
+inline void planes_t(const float* x, float* dst, int mats, int s, int sp, int d,
+                     cudaStream_t stream, float* ndst = nullptr) {
+  const long long n = static_cast<long long>(mats) * s * d;
+  tf32_planes_vt<<<dim3(sp / 32, (d + 31) / 32, mats), dim3(32, 8), 0, stream>>>(
+      x, reinterpret_cast<uint32_t*>(dst),
+      reinterpret_cast<uint32_t*>(dst + static_cast<long long>(mats) * d * sp),
+      reinterpret_cast<uint32_t*>(ndst),
+      ndst == nullptr ? nullptr : reinterpret_cast<uint32_t*>(ndst + n), s, sp, d);
+}
+
+// rows [r0, r0 + 64) of a float32 tile of `rows` rows in NBOX boxes of
+// ROW-byte rows, loaded raw into its big plane: split in place into the
+// two tf32 terms, small at +plane bytes, by the 128 threads of one
+// warpgroup (tid its thread). The swizzle moves 16-byte chunks within a
+// row and both planes share it, so each chunk splits where it lies. The
+// caller then syncs the warpgroup (wg_sync) before a wgmma reads the rows.
+template <int NBOX, int ROW>
+__device__ __forceinline__ void split_rows(uint8_t* tile, int plane, int rows, int r0,
+                                           int tid) {
+#pragma unroll
+  for (int c = 0; c < NBOX; ++c) {
+    uint8_t* at = tile + c * rows * ROW + r0 * ROW;
+#pragma unroll 4
+    for (int off = 16 * tid; off < 64 * ROW; off += 16 * WG) {
+      const float4 x = *reinterpret_cast<const float4*>(at + off);
+      uint4 b, s;
+      tf32_split(x.x, b.x, s.x);
+      tf32_split(x.y, b.y, s.y);
+      tf32_split(x.z, b.z, s.z);
+      tf32_split(x.w, b.w, s.w);
+      *reinterpret_cast<uint4*>(at + off) = b;
+      *reinterpret_cast<uint4*>(at + plane + off) = s;
+    }
+  }
+}
+
+// this thread's shared-memory writes made visible to wgmma (the async
+// proxy), then a barrier of the 128 threads of warpgroup wg (named
+// barrier 1 + wg; 0 is __syncthreads')
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + wg), "r"(WG) : "memory");
+}
+
 // 2^x on the special-function unit (relative error about 2^-22; 2^0 = 1
 // and 2^-inf = 0 exactly, subnormal results flush to 0)
 __device__ __forceinline__ float ex2(float x) {
@@ -468,14 +610,14 @@ inline int prepare(int smem, int* sms) {
 }
 
 // the tensor map of a contiguous (mats, s, d) array of bf16 (esize 2) or
-// float32 (esize 4) read in boxes of [rows][min(d, 128 / esize)] with the
-// swizzle of the box row's width; rows past s (and columns past d) read as
-// 0 within their own matrix. Returns a cudaError_t.
+// float32 (esize 4) read in boxes of [rows][cols] (cols = 0: min(d, 128 /
+// esize)) with the swizzle of the box row's width; rows past s (and
+// columns past d) read as 0 within their own matrix. Returns a cudaError_t.
 inline int tile_map(CUtensorMap* map, const void* base, int mats, int s, int d, int rows,
-                    int esize = 2) {
+                    int esize = 2, int cols = 0) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
-  const int box = d < 128 / esize ? d : 128 / esize;
+  const int box = cols > 0 ? cols : d < 128 / esize ? d : 128 / esize;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(s),
                               static_cast<cuuint64_t>(mats)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * esize,

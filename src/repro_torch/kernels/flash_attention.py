@@ -20,11 +20,12 @@ blocks, and lse = -1e30 + log(count).
 :func:`flash_attention_bwd` is ``_bwd_call``: (dq, dk, dv) from the saved
 (q, k, v, o, lse) and dO, with delta = rowsum(dO ∘ O) in float32. On a CUDA
 tensor it launches the two kernels of ``csrc/flash_bwd.cu``
-(``flash_bwd_dq`` and ``flash_bwd_dkv``, each SIMT for float32 and on the
-tensor cores for bf16); on a CPU tensor it runs
-:func:`flash_attention_bwd_plain`. A dead block's mask is all false, so
-the backward does not depend on the blocks: the plain version walks the
-TPU's blocks, the kernels their own tiles.
+(``flash_bwd_dq`` and ``flash_bwd_dkv``, both on the tensor cores: bf16
+products for bf16, three TF32 products per product for float32 with its
+operands' two tf32 terms in a scratch buffer, :func:`tf32_bwd_work_floats`);
+on a CPU tensor it runs :func:`flash_attention_bwd_plain`. A dead block's
+mask is all false, so the backward does not depend on the blocks: the
+plain version walks the TPU's blocks, the kernels their own tiles.
 
 :class:`FlashAttention` is ``_flash``'s custom VJP as a
 ``torch.autograd.Function`` and :func:`flash` its entry point: o only,
@@ -54,13 +55,18 @@ KERNEL = _build.Kernel("flash_fwd", {"flash_fwd": _FWD_ARGS})
 # the float32 forward: the same export and source, counted apart
 TF32_KERNEL = _build.Kernel("flash_fwd_tf32", {"flash_fwd": _FWD_ARGS},
                             source="flash_fwd")
-# the backward's two kernels share csrc/flash_bwd.cu and count apart
-DQ_KERNEL = _build.Kernel("flash_bwd_dq", {
-    "flash_bwd_dq": [_P] * 7 + [_I] * 8 + [_F, _I, _P],
-}, source="flash_bwd")
-DKV_KERNEL = _build.Kernel("flash_bwd_dkv", {
-    "flash_bwd_dkv": [_P] * 8 + [_I] * 8 + [_F, _I, _P],
-}, source="flash_bwd")
+# the backward's two kernels share csrc/flash_bwd.cu and count apart, each
+# in bf16 and in float32 (3×TF32: the same export, counted under its own name)
+_DQ_ARGS = [_P] * 8 + [_build.LONG] + [_I] * 8 + [_F, _I, _P]
+_DKV_ARGS = [_P] * 9 + [_build.LONG] + [_I] * 8 + [_F, _I, _P]
+DQ_KERNEL = _build.Kernel("flash_bwd_dq", {"flash_bwd_dq": _DQ_ARGS},
+                          source="flash_bwd")
+DKV_KERNEL = _build.Kernel("flash_bwd_dkv", {"flash_bwd_dkv": _DKV_ARGS},
+                           source="flash_bwd")
+DQ_TF32_KERNEL = _build.Kernel("flash_bwd_dq_tf32", {"flash_bwd_dq": _DQ_ARGS},
+                               source="flash_bwd")
+DKV_TF32_KERNEL = _build.Kernel("flash_bwd_dkv_tf32",
+                                {"flash_bwd_dkv": _DKV_ARGS}, source="flash_bwd")
 
 
 def _shapes(q, k, v, window):
@@ -145,6 +151,20 @@ def tf32_work_floats(b: int, hq: int, hkv: int, sq: int, sk: int, d: int) -> int
     export takes the buffer's size and refuses one that is too small."""
     skp = -(-sk // 32) * 32
     return 2 * (b * hq * sq * d + b * hkv * sk * d + b * hkv * d * skp) + 4
+
+
+def tf32_bwd_work_floats(b: int, hq: int, hkv: int, sq: int, sk: int, d: int,
+                         dkv: bool) -> int:
+    """Floats of a float32 backward kernel's scratch: the two tf32 terms of
+    the operands its pre-pass writes, as they are and transposed (rows
+    padded to a multiple of 32): dQ's k, v and kᵀ (it splits q and dO in
+    shared memory) or, with ``dkv``, dK/dV's q, dO, qᵀ, dOᵀ, k and v.
+    ``csrc/flash_bwd.cu`` owns the layout (``tc::Tf32BwdWork``): the exports
+    take the buffer's size and refuse one that is too small."""
+    sqp, skp = -(-sq // 32) * 32, -(-sk // 32) * 32
+    if dkv:
+        return 4 * (b * hq * sq * d + b * hq * d * sqp + b * hkv * sk * d)
+    return 4 * b * hkv * sk * d + 2 * b * hkv * d * skp
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None, scale=None,
@@ -306,29 +326,44 @@ def _bwd_args(what, q, k, v, do, lse, delta, causal, window, scale):
             int(q.dtype == torch.bfloat16), _build.stream_handle(q))
 
 
+def _bwd_work(q, args, dkv):
+    """The float32 kernels' scratch (None for bf16) and its size."""
+    if q.dtype == torch.bfloat16:
+        return None, 0
+    work = torch.empty(tf32_bwd_work_floats(*args[:6], dkv=dkv),
+                       dtype=torch.float32, device=q.device)
+    return work, work.numel()
+
+
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
                  window=None, scale=None):
     """dq by the ``flash_bwd_dq`` kernel (``_dq_kernel``), CUDA tensors only:
-    delta = rowsum(dO ∘ O) is given."""
+    delta = rowsum(dO ∘ O) is given. float32 runs the 3×TF32 kernel
+    (counted as ``flash_bwd_dq_tf32``), bf16 the bf16 one."""
     args = _bwd_args("flash_bwd_dq", q, k, v, do, lse, delta, causal, window,
                      scale)
     dq = torch.empty_like(q)
-    DQ_KERNEL.launch("flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                     dq.data_ptr(), *args)
+    work, n = _bwd_work(q, args, dkv=False)
+    (DQ_KERNEL if work is None else DQ_TF32_KERNEL).launch(
+        "flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        _build.ptr(work), n, *args)
     return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
                   window=None, scale=None):
     """(dk, dv) by the ``flash_bwd_dkv`` kernel (``_dkv_kernel``), CUDA
-    tensors only: delta = rowsum(dO ∘ O) is given."""
+    tensors only: delta = rowsum(dO ∘ O) is given. float32 runs the 3×TF32
+    kernel (counted as ``flash_bwd_dkv_tf32``), bf16 the bf16 one."""
     args = _bwd_args("flash_bwd_dkv", q, k, v, do, lse, delta, causal, window,
                      scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    DKV_KERNEL.launch("flash_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                      dk.data_ptr(), dv.data_ptr(), *args)
+    work, n = _bwd_work(q, args, dkv=True)
+    (DKV_KERNEL if work is None else DKV_TF32_KERNEL).launch(
+        "flash_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), _build.ptr(work), n, *args)
     return dk, dv
 
 

@@ -144,7 +144,8 @@ def test_kernel_wrappers_launch_or_raise():
     with pytest.raises(ValueError, match="CUDA kernel needs a CUDA tensor"):
         flash_attention.flash(qkv, qkv, qkv)
     for k in (flash_attention.KERNEL, flash_attention.TF32_KERNEL,
-              flash_attention.DQ_KERNEL, flash_attention.DKV_KERNEL):
+              flash_attention.DQ_KERNEL, flash_attention.DKV_KERNEL,
+              flash_attention.DQ_TF32_KERNEL, flash_attention.DKV_TF32_KERNEL):
         assert k.launches == 0
     fn = lowering.generate_batched(schedule.compile_schedule((8, 16), BILEVEL),
                                    torch.float32, device="cpu")
@@ -164,11 +165,12 @@ def test_a_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert l1ball.KERNEL.launches == 0
 
 
-@pytest.mark.parametrize("name", ["KERNEL", "TF32_KERNEL", "DQ_KERNEL", "DKV_KERNEL"])
+@pytest.mark.parametrize("name", ["KERNEL", "TF32_KERNEL", "DQ_KERNEL", "DKV_KERNEL",
+                                  "DQ_TF32_KERNEL", "DKV_TF32_KERNEL"])
 def test_flash_kernels_without_a_build_raise(monkeypatch, tmp_path, name):
-    """The bf16 and float32 forward and both backward kernels: a call that
-    reaches the launch without a built library raises (no nvcc here),
-    counts nothing."""
+    """The bf16 and float32 forward and both backward kernels in both types:
+    a call that reaches the launch without a built library raises (no nvcc
+    here), counts nothing."""
     from repro_torch.kernels import _build, flash_attention
 
     kern = getattr(flash_attention, name)
@@ -183,12 +185,17 @@ def test_flash_kernels_without_a_build_raise(monkeypatch, tmp_path, name):
 
 
 def test_flash_backward_kernels_share_one_source():
-    from repro_torch.kernels import _build, flash_attention
+    """dQ and dK/dV in bf16 and in float32 (3×TF32): one source, one
+    library, four launch counts; each type's pair shares its exports."""
+    from repro_torch.kernels import _build, flash_attention as fa
 
-    dq, dkv = flash_attention.DQ_KERNEL, flash_attention.DKV_KERNEL
-    assert dq.source == dkv.source == _build.CSRC / "flash_bwd.cu"
-    assert dq.library == dkv.library
-    assert {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"} <= set(_build.launch_counts())
+    kerns = (fa.DQ_KERNEL, fa.DKV_KERNEL, fa.DQ_TF32_KERNEL, fa.DKV_TF32_KERNEL)
+    assert {k.source for k in kerns} == {_build.CSRC / "flash_bwd.cu"}
+    assert len({k.library for k in kerns}) == 1
+    assert fa.DQ_KERNEL.functions == fa.DQ_TF32_KERNEL.functions
+    assert fa.DKV_KERNEL.functions == fa.DKV_TF32_KERNEL.functions
+    assert {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_tf32",
+            "flash_bwd_dkv_tf32"} <= set(_build.launch_counts())
 
 
 def test_flash_forward_kernels_share_one_source_and_count_apart():
@@ -520,7 +527,7 @@ def test_golden_operand_checks_return_the_dtype_code(monkeypatch, dtype, code):
 def test_wrappers_without_a_build_raise(monkeypatch, tmp_path, dtype):
     """A CUDA-typed call (a meta tensor let through the CUDA gate) that
     reaches the lean launch path without a built library raises and counts
-    nothing: clip, and the bf16 and float32 dQ."""
+    nothing: clip, and the bf16 and float32 (3×TF32) dQ."""
     from repro_torch.kernels import _build, bilevel_l1inf as bi
     from repro_torch.kernels import flash_attention as flash
 
@@ -530,8 +537,9 @@ def test_wrappers_without_a_build_raise(monkeypatch, tmp_path, dtype):
     monkeypatch.setenv("PATH", str(tmp_path))
     qkv = torch.empty(1, 2, 8, 16, device="meta", dtype=dtype)
     lse = torch.empty(1, 2, 8, device="meta")
+    dq = flash.DQ_TF32_KERNEL if dtype == torch.float32 else flash.DQ_KERNEL
     calls = {bi.CLIP: lambda: bi.clip(qkv[0, 0], qkv[0, 0, 0]),
-             flash.DQ_KERNEL: lambda: flash.flash_bwd_dq(qkv, qkv, qkv, qkv, lse, lse)}
+             dq: lambda: flash.flash_bwd_dq(qkv, qkv, qkv, qkv, lse, lse)}
     for kern, call in calls.items():
         monkeypatch.setattr(kern, "_lib", None)
         monkeypatch.setattr(kern, "_fns", {})
