@@ -18,7 +18,10 @@ float32 forward at the harvest's.)
    holds each against its plain PyTorch version on the card: the three
    generated-pipeline projection kernels at the two full-width
    serving shapes, over the design matrix at small ragged sizes, and for
-   ``l1ball`` both bodies over several lengths up to the tiler's limit; the
+   ``l1ball`` both bodies at 1, 127, 2048 and the tiler's limit of values,
+   each with radii a fraction of Σ|v| (one item inside its ball), just
+   under Σ|v| (the most bisection steps), 0, and with a NaN and ±inf in
+   v, as a bucket and as one item with its radius by value; the
    flash-attention forward (o and lse) at the harvest's shape
    (4, 32, 2048, 64) f32 causal and on small ragged cases (non-causal,
    windows, GQA, Sq < Sk and Sq > Sk, block-unaligned lengths); then, in
@@ -93,13 +96,19 @@ float32 forward at the harvest's.)
    of 8 and for one item, the golden kernels at their workloads W1–W4) with
    CUDA events (median of 20) beside its bound, its plain version and,
    where one PyTorch call computes the same function, that call (held
-   equal to the plain version first); the projection and golden kernels
-   also as CUDA-graph replays and by host time per call, beside the
-   library call's; times the
+   equal to the plain version first; SDPA at granite's shape held to the
+   flash kernels' float32 bars, its bf16 distance read); the projection
+   and golden kernels also as CUDA-graph replays (one call, and per call
+   of a 20-call graph) and by host time per call, beside the library
+   call's, and each golden kernel's device kernels per call counted by the
+   profiler (``trilevel_reduce``: exactly one); times the
    four golden workloads' pipelines (golden, generated, the plain schedule
    and, on W1 and W3, the exact projection; W3's exact/bi-level time ratio
-   at each η); times one warm harvest step and one SAE step with their
-   parts; and one warm train step with its parts;
+   at each η), with one golden call's host trace (its host ms under the
+   profiler and the CUDA runtime calls it made: a synchronize would show)
+   and that of a number copied to the card (``torch.as_tensor``); times
+   one warm harvest step and one SAE step with their parts; and one warm
+   train step with its parts;
 7. the mesh executor at the full width of granite-3-2b. First the partial
    apply (``codegen_partial_apply``, kernel row 9) alone: against its plain
    version at wq's local shard, 40 × (64, 8, 2048), and on eight ragged
@@ -382,10 +391,13 @@ def event_ms(fn, reps=REPS):
     return statistics.median(times)
 
 
-def graph_ms(fn, reps=REPS):
+def graph_ms(fn, reps=REPS, calls=1):
     """Median milliseconds of one replay of ``fn`` captured in a CUDA graph:
     the device's time for its launches with no host work (wrapper checks,
-    allocations, ``ctypes`` calls) inside the event window."""
+    allocations, ``ctypes`` calls) inside the event window. With ``calls``
+    > 1 the graph holds that many calls back to back and the time is per
+    call: the graph's own launch latency, a floor of 15–25 µs on an H100
+    (a graph of one ``zero_``), is spread over them."""
     import torch
 
     side = torch.cuda.Stream()
@@ -395,8 +407,9 @@ def graph_ms(fn, reps=REPS):
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
-    ms = event_ms(graph.replay, reps)
+        for _ in range(calls):
+            fn()
+    ms = event_ms(graph.replay, reps) / calls
     del graph
     return ms
 
@@ -444,6 +457,36 @@ def fmax(t):
     """The largest finite |t| (a tolerance's scale)."""
     a = t.abs()
     return float(a[a.isfinite()].max())
+
+
+# phase 1's l1ball cases: radii a random fraction of Σ|v| with one item
+# inside its ball; r just under Σ|v| (θ far below max|v|: the most
+# bisection steps); r = 0; a NaN; a +inf and a -inf
+L1_CASES = ("fraction", "just_under", "zero", "nan", "inf")
+
+
+def l1ball_case(randn, rand, n, case):
+    """Four vectors of ``n`` values and their radii for one of L1_CASES;
+    the non-finite values go into items 0 and 1, item 3 stays finite."""
+    import torch
+
+    v = randn((4, n))
+    s = v.abs().sum(1)
+    if case == "just_under":
+        radii = s * (1 - 1e-6)
+    elif case == "zero":
+        radii = torch.zeros_like(s)
+    else:
+        radii = rand((4,)) * s
+    if case == "fraction":
+        radii[0] = s[0] * 2       # one item inside its ball
+    elif case == "nan":
+        v[0, n // 2] = float("nan")
+        v[1, 0] = float("nan")
+    elif case == "inf":
+        v[0, n // 3] = INF
+        v[1, n - 1] = -INF
+    return v, radii
 
 
 def hold_pipeline(randn, rand, tag, shape, levels, batch, nonfinite=False):
@@ -715,9 +758,13 @@ def time_golden(wls, golden, kernel_errs):
             if lib is not None:  # the library call computes the same output
                 check_exact(f"{wl} {name} library call", lib(), p_out)
             del k_out, p_out
+            dev_launches = device_kernels(kern, counts=True)
+            if name == "trilevel_reduce" and sum(dev_launches.values()) != 1:
+                raise SmokeFailure(f"{wl} trilevel_reduce: device kernels "
+                                   f"{dev_launches}, not one")
             plain_ms = event_ms(plain)
             ms = event_ms(kern)
-            dev_ms = graph_ms(kern)
+            dev_ms, dev20 = graph_ms(kern), graph_ms(kern, calls=20)
             lib_ms, lib_dev = (None, None) if lib is None else (
                 event_ms(lib), graph_ms(lib))
             host = {"kernel": host_call_ms(kern),
@@ -730,11 +777,15 @@ def time_golden(wls, golden, kernel_errs):
                 "launches": golden[wl]["counts"][name], "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                 "bound_by": by, "library_ms": lib_ms, "graph_ms": dev_ms,
-                "host_ms": host["kernel"], "library_graph_ms": lib_dev,
-                "library_host_ms": host["library"]})
-            print(f"time {wl} {name} {tuple(y.shape)}: {ms:.4f} ms (bound "
+                "graph20_ms": dev20, "host_ms": host["kernel"],
+                "library_graph_ms": lib_dev,
+                "library_host_ms": host["library"],
+                "device_launches": dev_launches})
+            print(f"time {wl} {name} {tuple(y.shape)}: device kernels per call "
+                  f"{dev_launches}; {ms:.4f} ms (bound "
                   f"{bms:.4f} ms by {by}, {bms / ms:.2f} of bound; CUDA-graph "
-                  f"replay {dev_ms:.4f} ms, {bms / dev_ms:.2f} of bound), plain "
+                  f"replay {dev_ms:.4f} ms, {bms / dev_ms:.2f} of bound; per "
+                  f"call of a 20-call replay {dev20:.4f} ms), plain "
                   f"{plain_ms:.4f} ms, library "
                   f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms (replay {lib_dev:.4f})'}, "
                   f"host per call {host['kernel']:.4f} ms (library "
@@ -748,6 +799,10 @@ def time_golden(wls, golden, kernel_errs):
              "generated_ms": event_ms(lambda: generated(y, eta)),
              "plain_schedule_ms": event_ms(
                  lambda: multilevel.multilevel_project(y, lv, eta), reps=5)}
+        # the host trace of one golden call: its host ms under the profiler
+        # and the CUDA runtime calls it made (a synchronize would show)
+        t["golden_host_trace_ms"], t["golden_runtime_calls"] = host_trace(
+            lambda: fused(y, eta))
         if design == "bilevel":
             t["exact_ms"] = event_ms(
                 lambda: exact_l1inf.project_l1inf_exact(y, eta), reps=5)
@@ -762,6 +817,12 @@ def time_golden(wls, golden, kernel_errs):
                                              "ratio": e_ms / g_ms}
         pipes[wl] = t
         print(f"time {wl} pipelines {tuple(y.shape)} η={eta:.6g} (ms): {t}")
+    # what the θ-solve's radius copy cost before it went by value: a 0-d
+    # float copied to the card from a Python number, as torch.as_tensor does
+    pipes["radius_copy"] = dict(zip(("host_trace_ms", "runtime_calls"), host_trace(
+        lambda: torch.as_tensor(0.5, dtype=torch.float32, device="cuda"))))
+    print(f"time torch.as_tensor(0.5, device='cuda') host trace: "
+          f"{pipes['radius_copy']}")
     return rows, pipes
 
 
@@ -935,22 +996,53 @@ def hold_flash(randn, tag, qs, ks, causal, window):
     return err, (q, k, v)
 
 
-def device_kernels(fn):
-    """``{kernel name: device ms}`` of the device kernels one call of
-    ``fn`` launches, read from ``torch.profiler`` (empty where the profiler
-    records none)."""
+def _profile(fn, annotate=False):
+    """One warm call of ``fn`` under ``torch.profiler`` (CPU and CUDA);
+    with ``annotate`` inside a ``record_function`` range named
+    ``smoke_call`` (which the trace also lists among the device events)."""
+    import contextlib
+
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+        with record_function("smoke_call") if annotate else contextlib.nullcontext():
+            fn()
         torch.cuda.synchronize()
+    return prof
+
+
+def device_kernels(fn, counts=False):
+    """``{kernel name: device ms}`` (with ``counts``: launches) of the
+    device kernels one call of ``fn`` launches, read from
+    ``torch.profiler`` (empty where the profiler records none)."""
+    import torch
+
     cuda = torch.autograd.DeviceType.CUDA
-    return {e.key: getattr(e, "device_time_total", 0.0) / 1e3
-            for e in prof.key_averages()
+    return {e.key: e.count if counts else getattr(e, "device_time_total", 0.0) / 1e3
+            for e in _profile(fn).key_averages()
             if getattr(e, "device_type", None) == cuda}
+
+
+def host_trace(fn):
+    """The profiler's host trace of one call of ``fn``: its host ms (the
+    ``smoke_call`` range) and ``{CUDA runtime call: count}`` inside it,
+    where a ``cudaStreamSynchronize`` or ``cudaDeviceSynchronize`` shows
+    that the call waited for the device."""
+    import collections
+
+    import torch
+
+    cpu = torch.autograd.DeviceType.CPU
+    evs = [e for e in _profile(fn, annotate=True).events() if e.device_type == cpu]
+    call = next(e for e in evs if e.name == "smoke_call")
+    t0, t1 = call.time_range.start, call.time_range.end
+    runtime = collections.Counter(
+        e.name for e in evs if e.name.startswith("cuda")
+        and t0 <= e.time_range.start <= t1)
+    return (t1 - t0) / 1e3, dict(runtime)
 
 
 def time_flash_harvest(flash_full, launches):
@@ -1565,6 +1657,39 @@ def function_launches():
     return launches
 
 
+def hold_sdpa(tag, sdpa, leaves, q, k, v, o, lse, do):
+    """SDPA's distance to the plain version at granite's shape, the library
+    baseline of rows 12 and 13a/13b: its forward against
+    ``flash_attention_plain``'s o and its gradients against
+    ``flash_attention_bwd_plain``'s (from the kernel's o and lse). Read and
+    printed in both types; in float32 held to the kernels' bars (o within
+    2e-5 + 1e-5|b|, each gradient within 1e-5 of its largest entry +
+    1e-5|b|). Returns ``{"fwd": err, "bwd": err}``."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as flash
+
+    held = q.dtype == torch.float32
+    want_o = flash.flash_attention_plain(q, k, v)[0]
+    got_o = sdpa()
+    want = dict(zip(("dq", "dk", "dv"), flash.flash_attention_bwd_plain(
+        q, k, v, o, lse, do)))
+    got = dict(zip(("dq", "dk", "dv"), torch.autograd.grad(got_o, leaves, do)))
+    if held:
+        errs = {"o": check_close(f"SDPA {tag} o", got_o.detach(), want_o, 2.0)}
+        errs |= {n: check_close(f"SDPA {tag} {n}", got[n], w,
+                                float(w.abs().max())) for n, w in want.items()}
+    else:
+        errs = {"o": float((got_o.detach().float() - want_o.float()).abs().max())}
+        errs |= {n: float((got[n].float() - w.float()).abs().max())
+                 for n, w in want.items()}
+    how = "held to the kernels' float32 bars" if held else "read"
+    print(f"SDPA {tag} {tuple(q.shape)}/{tuple(k.shape)} causal vs the plain "
+          f"version ({how}): " + ", ".join(f"{n} max_abs_err {e:.3e}" for n, e in errs.items()))
+    del want_o, got_o, want, got
+    return {"fwd": errs["o"], "bwd": max(errs["dq"], errs["dk"], errs["dv"])}
+
+
 def time_attention(attn_full, attn_case_errs, launches, trn=None):
     """Phase 6's attention rows: each flash kernel at granite's training
     shape in bf16 (the main path's type: the JSON rows) and in float32 (in
@@ -1612,6 +1737,7 @@ def time_attention(attn_full, attn_case_errs, launches, trn=None):
                  sdpa(), (qq, kk, vv), do))}
         t["sdpa_bwd"] = t["sdpa_fwd_bwd"] - t["sdpa_fwd"]
         attn_ms[tag] = t
+        sdpa_err = hold_sdpa(tag, sdpa, (qq, kk, vv), q, k, v, o, lse, do)
         spec_ = {  # bytes (inputs once, outputs once), operations, plain, library
             "flash_fwd": (es * (2 * n_q + 2 * n_k) + 4 * n_r, 2 * work,
                           t["fwd_plain"], t["sdpa_fwd"]),
@@ -1631,7 +1757,9 @@ def time_attention(attn_full, attn_case_errs, launches, trn=None):
                 "replaces": REPLACES[name, False],
                 "launches": launches[name],
                 "max_abs_err": err, "ms": t[name], "plain_ms": plain_ms,
-                "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+                "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+                "library_max_abs_err": sdpa_err[
+                    "fwd" if name == "flash_fwd" else "bwd"]}
             issued = "" if dt == torch.bfloat16 else (
                 f"; 3×TF32 issued {3 * nops / TF32_OPS_PER_S * 1e3:.4f} ms")
             print(f"time {name} {tag} {tuple(q.shape)}/{tuple(k.shape)} causal: "
@@ -1664,7 +1792,7 @@ def time_attention(attn_full, attn_case_errs, launches, trn=None):
         row = dict(attn_rows[name, "bfloat16"])
         row["float32"] = {k_: attn_rows[name, "float32"][k_] for k_ in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "max_abs_err")}
+            "max_abs_err", "library_max_abs_err")}
         rows.append(row)
     rows += f32_rows
     if trn is None:
@@ -2153,16 +2281,20 @@ def main(argv=None) -> int:
                   + ", ".join(f"{k} max_abs_err {v:.3e}" for k, v in errs.items()))
 
     for n in (1, 127, 2048, tiling.L1_KERNEL_MAX):
-        v = randn((4, n))
-        radii = rand((4,)) * v.abs().sum(1)
-        radii[0] = v[0].abs().sum() * 2       # one item inside its ball
-        for method in ("bisect", "filter"):
-            got = l1ball.project_l1_batched(v, radii, method=method)
-            torch.cuda.synchronize()
-            err = check_close(f"l1ball {method} n={n}", got,
-                              l1ball.project_l1_plain(v, radii, method),
-                              float(v.abs().max()))
-            print(f"l1ball {method} n={n}: max_abs_err {err:.3e}")
+        for case in L1_CASES:
+            v, radii = l1ball_case(randn, rand, n, case)
+            nonfinite = case in ("nan", "inf")
+            for method in ("bisect", "filter"):
+                got = l1ball.project_l1_batched(v, radii, method=method)
+                # the last item alone, its radius by value (no device copy)
+                one = l1ball.project_l1(v[-1], float(radii[-1]), method=method)
+                torch.cuda.synchronize()
+                want = l1ball.project_l1_plain(v, radii, method)
+                tag = f"l1ball {method} n={n} {case}"
+                err = max(check_close(tag, got, want, fmax(v), nonfinite=nonfinite),
+                          check_close(f"{tag} one item", one, want[-1], fmax(v),
+                                      nonfinite=nonfinite))
+                print(f"{tag}: max_abs_err {err:.3e}")
 
     for i, (qs, ks, causal, window) in enumerate(FLASH_CASES):
         hold_flash(randn, f"case{i}", qs, ks, causal, window)
@@ -2354,8 +2486,10 @@ def main(argv=None) -> int:
                 torch.cuda.synchronize()
                 plain_ms = event_ms(plain)
                 ms = event_ms(kern)
-                # device time alone (CUDA-graph replay) and host time per call
+                # device time alone (CUDA-graph replay, and per call of a
+                # 20-call replay) and host time per call
                 dev_ms, host = graph_ms(kern), host_call_ms(kern)
+                dev20 = graph_ms(kern, calls=20)
                 lf = lib[name]
                 lib_ms, lib_dev, lib_host = (None, None, None) if lf is None else (
                     event_ms(lf), graph_ms(lf), host_call_ms(lf))
@@ -2367,14 +2501,15 @@ def main(argv=None) -> int:
                     "launches": launches[wl, b][name], "max_abs_err": err,
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                     "bound_by": by, "library_ms": lib_ms, "graph_ms": dev_ms,
-                    "host_ms": host, "library_graph_ms": lib_dev,
-                    "library_host_ms": lib_host})
+                    "graph20_ms": dev20, "host_ms": host,
+                    "library_graph_ms": lib_dev, "library_host_ms": lib_host})
                 lib_txt = "n/a" if lf is None else (
                     f"{lib_ms:.4f} ms (replay {lib_dev:.4f}, host per call "
                     f"{lib_host:.4f})")
                 print(f"time {wl} x{b} {name}: {ms:.4f} ms (bound {bms:.4f} ms "
                       f"by {by}, {bms / ms:.2f} of bound; CUDA-graph replay "
-                      f"{dev_ms:.4f} ms, {bms / dev_ms:.2f} of bound; host per "
+                      f"{dev_ms:.4f} ms, {bms / dev_ms:.2f} of bound; per call "
+                      f"of a 20-call replay {dev20:.4f} ms; host per "
                       f"call {host:.4f} ms), plain {plain_ms:.4f} ms, library "
                       f"{lib_txt}, max_abs_err {err:.3e}")
             if b == BUCKET:
@@ -2418,6 +2553,7 @@ def main(argv=None) -> int:
                    "flash_function_grad_err": fn_errs,
                    "golden": {wl: dict(golden[wl], pipelines_ms=golden_ms[wl])
                               for wl in golden},
+                   "radius_copy": golden_ms["radius_copy"],
                    "engine_ms": {
                        wl: {"bucket_latency": v[0] * 1e3,
                             "per_request_latency": v[1] * 1e3,

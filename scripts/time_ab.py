@@ -9,6 +9,14 @@ that tree's kernels of FAMILY and times them, float32:
 - ``golden``: ``clip`` and ``colmax`` (``csrc/bilevel_l1inf.cu``) at W1
   (8192, 2048) and W3 (1000, 10000) beside ``torch.clamp`` with the bounds
   precomputed and the ℓ∞ ``torch.linalg.vector_norm`` over the rows;
+  ``l1ball`` (kernel rows 3/4) in both methods on one item and on a bucket
+  of 8 of W1's aggregate (n = 2048: column maxima of (8192, 2048)
+  requests) at a radius fraction and with r just under Σ|v|, and bisect
+  on W3's aggregate (10000 values, the shared-memory path);
+  ``trilevel_reduce`` (row 5) at W2 (256, 32, 2048) and W4 (32, 1000,
+  2000) in float32 and bf16; the W1 and W2 golden pipelines (``bilevel_l1inf_fused``,
+  ``trilevel_l1infinf_fused`` with a number radius: events and host time,
+  no replay); and the launch floor, ``zero_`` of one float;
 - ``codegen``: kernel rows 7 and 10 (``codegen_reduce`` on one item and
   on a bucket of 8; the bi-level ones beside the ℓ∞
   ``torch.linalg.vector_norm`` over the rows), rows 8 (``codegen_apply``,
@@ -38,13 +46,15 @@ that tree's kernels of FAMILY and times them, float32:
 Each kernel's output is held to its plain version first (which also builds
 and loads the kernel off the clock), and the PyTorch call to the same. A
 kernel's row also carries its bound (``bound_ms``: bytes over 3.35 TB/s,
-``chip_smoke.py``'s ``bound_ms``) where the table has one (rows 1, 7, 10).
-A kernel or PyTorch call gets ``chip_smoke.py``'s three
+``chip_smoke.py``'s ``bound_ms``) where the table has one (rows 1, 5, 7, 10).
+A kernel or PyTorch call gets ``chip_smoke.py``'s
 timers: the CUDA-event time of a lone call (median of 100), its CUDA-graph
-replay (the device's time alone, median of 100) and the host time per
-call (median of 5 runs of 200 calls enqueued back to back); SDPA's
+replay (the device's time alone, median of 100), the same per call of a
+graph of 20 calls (``graph20_ms``: the graph's own launch latency spread
+over them) and the host time per call (median of 5 runs of 200 calls
+enqueued back to back); SDPA's
 forward+backward gets the event time alone (autograd is not captured in a
-graph). The timers
+graph), a golden pipeline no replay. The timers
 and shapes are this checkout's whichever tree is timed, so trees are timed
 alike; to compare two, time each in its own process on one machine, in
 the order a, b, b, a:
@@ -59,7 +69,8 @@ line. Exits 2 without a CUDA device.
 reads such JSON lines (one per process, any number of a b b a rounds) and
 prints, for every row and timer, each tree's median, the first tree's
 interquartile range, and in how many pairs the second tree read lower
-(pair i: the i-th line of each tree). It needs no card.
+(pair i: the i-th line of each tree); with more than two trees, each
+further tree against the first. It needs no card.
 """
 
 from __future__ import annotations
@@ -76,7 +87,9 @@ SHAPES = {"W1": (8192, 2048), "W3": (1000, 10000)}  # chip_smoke.py's W1, W3
 SEED = 0
 REPS = 100                     # lone calls (and replays) per event median
 HOST_RUNS = 5                  # host time per call: median of 5 runs
-EVENTS_ONLY = {"sdpa_fwd_bwd"}  # timed by events alone (autograd is not captured)
+# no CUDA-graph replay: autograd is not captured, and a golden pipeline's
+# radius may be copied to the card from the host (the parent's l1ball)
+NO_GRAPH = {"sdpa_fwd_bwd", "pipeline"}
 
 
 def golden_cases(torch, cs, randn, rand):
@@ -106,6 +119,70 @@ def golden_cases(torch, cs, randn, rand):
                 if name == "colmax" else None
             cases[f"{wl} {name}"] = (check, {"kernel": kern, "library": lib},
                                      bound)
+    cases.update(golden_solve_cases(torch, cs, randn, rand))
+    return cases
+
+
+def golden_solve_cases(torch, cs, randn, rand):
+    """Kernel rows 3/4 (``l1ball``), row 5 (``trilevel_reduce``), the W1 and
+    W2 golden pipelines and the launch floor (``zero_`` of one float)."""
+    from repro_torch.core import multilevel
+    from repro_torch.kernels import bilevel_l1inf as bi, codegen, l1ball
+    from repro_torch.kernels import trilevel_l1infinf as tri
+
+    cases = {}
+    # l1ball on W1's aggregate: the column maxima of BUCKET (8192, 2048)
+    # requests, at a radius fraction and with r just under Σ|v| (θ far
+    # below max|v|: the most bisection steps); one item and the bucket
+    v8 = torch.stack([bi.colmax_plain(randn(SHAPES["W1"])) for _ in range(cs.BUCKET)])
+    s8 = v8.sum(1)
+    for case, radii8 in (("W1", (0.05 + 0.45 * rand((cs.BUCKET,))) * s8),
+                         ("just_under", s8 * (1 - 1e-6))):
+        for method in ("bisect", "filter"):
+            for b in (1, cs.BUCKET):
+                v, radii = v8[:b], radii8[:b]
+                kern = lambda v=v, radii=radii, method=method: \
+                    l1ball.project_l1_batched(v, radii, method=method)
+                plain = lambda v=v, radii=radii, method=method: \
+                    l1ball.project_l1_plain(v, radii, method)
+
+                def check(tag, kern=kern, plain=plain, v=v):
+                    cs.check_close(tag, kern(), plain(), float(v.max()))
+                cases[f"l1ball {method} {case} x{b}"] = (check, {"kernel": kern}, None)
+    del v8
+    # W3's aggregate (10000 values: the shared-memory path) at η = 1
+    v3 = bi.colmax_plain(rand(SHAPES["W3"]))[None]
+    r3 = torch.ones(1, device="cuda")
+    cases["l1ball bisect W3 x1"] = (
+        lambda tag: cs.check_close(tag, l1ball.project_l1_batched(v3, r3),
+                                   l1ball.project_l1_plain(v3, r3), 1.0),
+        {"kernel": lambda: l1ball.project_l1_batched(v3, r3)}, None)
+    # row 5 at W2 and W4 (chip_smoke.py's FULL tri-level request, FIG3),
+    # float32 and bf16
+    for wl, y32 in (("W2", randn(cs.FULL["trilevel"][0])), ("W4", rand(cs.FIG3[0]))):
+        for dt, y in (("", y32), (" bf16", y32.to(torch.bfloat16))):
+            def check(tag, y=y):
+                for a, b in zip(tri.trilevel_reduce(y), tri.trilevel_reduce_plain(y)):
+                    cs.check_exact(tag, a, b)
+            c, n, m = y.shape
+            cases[f"{wl} trilevel_reduce{dt}"] = (
+                check, {"kernel": lambda y=y: tri.trilevel_reduce(y)},
+                cs.bound_ms(y.element_size() * (y.numel() + n * m + m), 0)[0])
+    # the W1 and W2 golden pipelines at a radius fraction of Y's norm
+    for wl, design, shape, levels, fused in (
+            ("W1", "bilevel", SHAPES["W1"], cs.BILEVEL, bi.bilevel_l1inf_fused),
+            ("W2", "trilevel", cs.FULL["trilevel"][0], cs.TRILEVEL,
+             tri.trilevel_l1infinf_fused)):
+        y = randn(shape)
+        eta = 0.3 * float(multilevel.multilevel_norm(y, levels))
+        generated = codegen.build(shape, levels, torch.float32, method="bisect")
+        kern = lambda y=y, eta=eta, fused=fused: fused(y, eta)
+
+        def check(tag, kern=kern, y=y, eta=eta, generated=generated):
+            cs.check_close(tag, kern(), generated(y, eta), float(y.abs().max()))
+        cases[f"{wl} golden pipeline"] = (check, {"pipeline": kern}, None)
+    z = torch.zeros(1, device="cuda")
+    cases["launch floor"] = (lambda tag: None, {"zero_": z.zero_}, None)
     return cases
 
 
@@ -285,20 +362,21 @@ def summarize(path: Path) -> None:
         if line.startswith("{"):
             r = json.loads(line)
             runs.setdefault(r["tree"], []).append(r["rows"])
-    (a, ra), (b, rb) = runs.items()
-    print(f"a = {a} ({len(ra)} runs), b = {b} ({len(rb)} runs)")
-    for row in ra[0]:
-        for timer in ra[0][row]:
-            if timer == "bound_ms":
-                continue
-            xa = [r[row][timer] for r in ra]
-            xb = [r[row][timer] for r in rb]
-            qa = statistics.quantiles(xa, n=4)
-            wins = sum(y < x for x, y in zip(xa, xb))
-            print(f"{row} {timer}: a {statistics.median(xa):.4f} (IQR "
-                  f"{qa[2] - qa[0]:.4f}), b {statistics.median(xb):.4f}, "
-                  f"b/a {statistics.median(xb) / statistics.median(xa):.3f}, "
-                  f"b lower in {wins}/{min(len(xa), len(xb))} pairs")
+    (a, ra), *others = runs.items()
+    for b, rb in others:   # each further tree against the first
+        print(f"a = {a} ({len(ra)} runs), b = {b} ({len(rb)} runs)")
+        for row in ra[0]:
+            for timer in ra[0][row]:
+                if timer == "bound_ms" or row not in rb[0]:
+                    continue
+                xa = [r[row][timer] for r in ra]
+                xb = [r[row][timer] for r in rb]
+                qa = statistics.quantiles(xa, n=4)
+                wins = sum(y < x for x, y in zip(xa, xb))
+                print(f"{row} {timer}: a {statistics.median(xa):.4f} (IQR "
+                      f"{qa[2] - qa[0]:.4f}), b {statistics.median(xb):.4f}, "
+                      f"b/a {statistics.median(xb) / statistics.median(xa):.3f}, "
+                      f"b lower in {wins}/{min(len(xa), len(xb))} pairs")
 
 
 def main(argv=None) -> int:
@@ -349,11 +427,13 @@ def main(argv=None) -> int:
             check(name)
             for who, fn in fns.items():
                 rows[f"{name} {who}"] = {"ms": cs.event_ms(fn, REPS)}
-                if who not in EVENTS_ONLY:
-                    rows[f"{name} {who}"] |= {
-                        "graph_ms": cs.graph_ms(fn, REPS),
-                        "host_ms": statistics.median(
-                            cs.host_call_ms(fn) for _ in range(HOST_RUNS))}
+                if who != "sdpa_fwd_bwd":
+                    rows[f"{name} {who}"]["host_ms"] = statistics.median(
+                        cs.host_call_ms(fn) for _ in range(HOST_RUNS))
+                if who not in NO_GRAPH:
+                    rows[f"{name} {who}"]["graph_ms"] = cs.graph_ms(fn, REPS)
+                    rows[f"{name} {who}"]["graph20_ms"] = cs.graph_ms(
+                        fn, REPS, calls=20)
                 if who == "kernel" and bound is not None:
                     rows[f"{name} {who}"]["bound_ms"] = bound
     print(smi)

@@ -40,16 +40,6 @@ constexpr int COLMAX_LOADS = 8;      // rows in flight per thread (4 for
                                      // bf16's 8-wide packs: within 64 registers)
 constexpr int WARP = 32;
 
-// acc[k] = max(acc[k], |x[u].v[k]|) over the loaded packs, NaN kept
-template <typename S, int VEC, int LOADS>
-__device__ __forceinline__ void fold_abs_max(float (&acc)[VEC],
-                                             const Pack<S, VEC> (&x)[LOADS]) {
-#pragma unroll
-  for (int u = 0; u < LOADS; ++u)
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) acc[k] = max_nan(acc[k], fabsf(widen(x[u].v[k])));
-}
-
 template <typename S, int VEC>
 __global__ void __launch_bounds__(COLMAX_THREADS, 2)
 colmax_kernel(const S* __restrict__ y, S* __restrict__ out, int n, int m,

@@ -1,7 +1,8 @@
 // golden.cuh — pieces shared by the hand-written golden kernels of the
 // paper's Algorithms 2 and 5 (bilevel_l1inf.cu, trilevel_l1infinf.cu):
 // storage types, 16-byte vector access, the NaN-propagating clip (on
-// common.cuh's max_nan / min_nan), and the fold of per-split column maxima.
+// common.cuh's max_nan / min_nan), and the fold of loaded packs into
+// column maxima.
 //
 // These kernels are an independent second implementation of what the
 // generated pipeline (codegen_reduce.cu, codegen_apply.cu) computes for the
@@ -60,43 +61,14 @@ __device__ __forceinline__ void store(S* p, const Pack<S, VEC>& x) {
   *reinterpret_cast<Pack<S, VEC>*>(p) = x;
 }
 
-// Fold a CTA's BR thread rows of per-column maxima (red[BR][BM * VEC]) and
-// write the CTA's partial row for columns [col0, col0 + BM * VEC).
-template <int VEC>
-__device__ __forceinline__ void write_partial(float (&red)[BR][BM * VEC],
-                                              float* __restrict__ partial_row,
-                                              int col0, int m) {
-  __syncthreads();
-  for (int c = threadIdx.y * BM + threadIdx.x; c < BM * VEC; c += BM * BR) {
-    float a = red[0][c];
+// acc[k] = max(acc[k], |x[u].v[k]|) over the loaded packs, NaN kept
+template <typename S, int VEC, int LOADS>
+__device__ __forceinline__ void fold_abs_max(float (&acc)[VEC],
+                                             const Pack<S, VEC> (&x)[LOADS]) {
 #pragma unroll
-    for (int r = 1; r < BR; ++r) a = max_nan(a, red[r][c]);
-    if (col0 + c < m) partial_row[col0 + c] = a;
-  }
-}
-
-// out[j] = max over the `splits` partial rows of column j, in y's type. A CTA
-// covers BM columns; its BR thread rows take every BR-th split, so each
-// thread has few dependent loads, then fold through shared memory.
-template <typename S>
-__global__ void __launch_bounds__(BM * BR)
-fold_splits(const float* __restrict__ partial, S* __restrict__ out, int m,
-            int splits) {
-  __shared__ float red[BR][BM];
-  const int j = blockIdx.x * BM + threadIdx.x;
-  float a = 0.f;  // identity of the max on |y| >= 0
-  if (j < m) {
-#pragma unroll 4
-    for (int s = threadIdx.y; s < splits; s += BR)
-      a = max_nan(a, partial[static_cast<long long>(s) * m + j]);
-  }
-  red[threadIdx.y][threadIdx.x] = a;
-  __syncthreads();
-  if (threadIdx.y == 0 && j < m) {
+  for (int u = 0; u < LOADS; ++u)
 #pragma unroll
-    for (int r = 1; r < BR; ++r) a = max_nan(a, red[r][threadIdx.x]);
-    out[j] = narrow<S>(a);
-  }
+    for (int k = 0; k < VEC; ++k) acc[k] = max_nan(acc[k], fabsf(widen(x[u].v[k])));
 }
 
 inline int ceil_div(long long a, long long b) {

@@ -15,85 +15,138 @@
 // writes v2 and v1; apply reads Y, v2 and u1 once and writes X once.
 //
 // Pallas kept the whole slice axis c of a (c, block_n, block_m) tile in
-// VMEM and carried v1 across row blocks on a sequential grid axis. Here a
-// thread owns VEC neighbouring columns of one row (16-byte loads, the row
-// contiguous across the warp) and walks the c slices at a stride of n · m,
-// so v2 never leaves registers before its one store; rows are split across
-// CTAs as in bilevel_l1inf.cu and golden::fold_splits folds the per-CTA
-// partial maxima into v1 in a fixed order. With few rows and many slices,
-// as at (256, 32, 2048), one thread per (row, columns) would fill 64 CTAs,
-// so `groups` thread rows share a row's slices (a CTA steps over
-// BR / groups rows at a time) and fold them through shared memory. apply
-// computes min(v2, u1) once per (row, column) and clips its share of the c
-// slices; the slice axis is split across CTAs (grid z) when rows and
-// columns alone give too few CTAs, as at (256, 32, 2048). Ragged column
-// tails take VEC = 1.
+// VMEM and carried v1 across row blocks on a sequential grid axis. Hopper
+// runs CTAs in no order; here a strip of `packs` packs of VEC neighbouring
+// columns (one 16-byte load per row and slice each) belongs to one thread
+// block cluster of up to 8 CTAs, and one launch writes v2 and v1 with no
+// partial maxima in device memory and no second kernel. Thread t of a CTA
+// of cluster rank r owns pack t % packs and lane r · lanes + t / packs of
+// the cluster; the lanes cut into row slots of `groups` lanes each, and
+// the lanes of a slot take every groups-th slice of its rows
+// (REDUCE_LOADS loads in flight), so a request with few rows and many
+// slices, as (256, 32, 2048), still fills every lane, and one with many
+// rows, as (32, 1000, 2000), spreads them over the cluster. The groups of
+// a row fold by butterfly inside the warp (packs · groups <= 32) and the
+// first stores the row's v2 once. Every lane folds its rows into a running
+// max; the CTA folds its lanes (butterfly inside each warp, then the warps
+// through shared memory), and after a cluster barrier each CTA folds its
+// share of the strip's columns over the cluster's CTAs, in rank order,
+// through distributed shared memory into v1. The wrapper
+// (kernels/trilevel_l1infinf.py:reduce_shape) takes the widest strip, up
+// to 512 bytes of a row, whose clusters fill the card and whose rows keep
+// the lanes busy: on an H100, 512-byte strips in clusters of 8 read W4's
+// (32, 1000, 2000) float32 as fast as the two-kernel row-split reduce
+// they replace, where 64-byte strips of one CTA each took 1.28 times as
+// long (PERF.md § 6). Max is exact and order-free, NaN included (max_nan), so
+// the result is deterministic. apply computes min(v2, u1) once per (row,
+// column) and clips its share of the c slices; the slice axis is split
+// across CTAs (grid z) when rows and columns alone give too few CTAs, as
+// at (256, 32, 2048). Ragged column tails take VEC = 1.
+#include <cooperative_groups.h>
+
 #include "golden.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 using namespace golden;
 
+constexpr int REDUCE_THREADS = 512;  // trilevel_l1infinf.REDUCE_THREADS
+constexpr int REDUCE_MIN_CTAS = 1;   // CTAs resident per SM (one wave:
+                                     // trilevel_l1infinf.REDUCE_CTAS)
+constexpr int REDUCE_LOADS = 8;      // slices in flight per thread
+constexpr int REDUCE_CLUSTER_MAX = 8;  // the portable cluster size
+constexpr int WARP = 32;
+
 template <typename S, int VEC>
-__global__ void __launch_bounds__(BM * BR)
-reduce_partial(const S* __restrict__ y, S* __restrict__ v2,
-               float* __restrict__ partial, int c, int n, int m,
-               int rows_per_split, int groups) {
-  __shared__ float red[BR][BM * VEC];
-  const int col0 = blockIdx.x * BM * VEC;
-  const int j0 = col0 + threadIdx.x * VEC;
-  const int r0 = blockIdx.y * rows_per_split;
-  const int r1 = min(n, r0 + rows_per_split);
+__global__ void __launch_bounds__(REDUCE_THREADS, REDUCE_MIN_CTAS)
+trilevel_reduce_kernel(const S* __restrict__ y, S* __restrict__ v2,
+                       S* __restrict__ v1, int c, int n, int m, int packs,
+                       int groups) {
+  __shared__ float red[REDUCE_THREADS * VEC];
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int cl = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int t = threadIdx.x;
+  const int lanes = REDUCE_THREADS / packs;             // per CTA
+  const int p = t % packs, lane = rank * lanes + t / packs;  // across the cluster
+  const int g = lane % groups, slot = lane / groups;
+  const int slots = cl * lanes / groups;                // rows per step
+  const int strip = blockIdx.x / cl;
+  const int j0 = (strip * packs + p) * VEC;
   const long long nm = static_cast<long long>(n) * m;
-  // thread row ty takes row `ty / groups` of each step and every
-  // `groups`-th slice from `ty % groups`
-  const int rows_per_step = BR / groups;
-  const int lsub = threadIdx.y % groups;
   float acc[VEC];
 #pragma unroll
   for (int k = 0; k < VEC; ++k) acc[k] = 0.f;  // identity of the max on |y|
-  for (int i0 = r0; i0 < r1; i0 += rows_per_step) {  // same trip count CTA-wide
-    const int i = i0 + threadIdx.y / groups;
-    const long long ij = static_cast<long long>(i) * m + j0;
+  // the same trip count CTA-wide: every lane reaches the shuffles below
+  for (int i0 = 0; i0 < n; i0 += slots) {
+    const int i = i0 + slot;
+    const bool owns = j0 < m && i < n;  // VEC > 1 only when m % VEC == 0
     float a[VEC];
 #pragma unroll
     for (int k = 0; k < VEC; ++k) a[k] = 0.f;
-    if (j0 < m && i < r1) {  // VEC > 1 only when m % VEC == 0
-      // unrolled so that several slices' loads are in flight per thread
-#pragma unroll 8
-      for (int l = lsub; l < c; l += groups) {
-        const Pack<S, VEC> p = load<S, VEC>(y + l * nm + ij);
+    if (owns) {
+      const S* yij = y + static_cast<long long>(i) * m + j0;
+      // slices g, g + groups, …: batches of REDUCE_LOADS loads issued before
+      // fold; a ragged tail is one predicated batch (0 past slice c)
+      Pack<S, VEC> x[REDUCE_LOADS];
+      int l = g;
+      for (; l + (REDUCE_LOADS - 1) * groups < c; l += REDUCE_LOADS * groups) {
 #pragma unroll
-        for (int k = 0; k < VEC; ++k) a[k] = max_nan(a[k], fabsf(widen(p.v[k])));
+        for (int u = 0; u < REDUCE_LOADS; ++u)
+          x[u] = load<S, VEC>(yij + (l + u * groups) * nm);
+        fold_abs_max<S, VEC, REDUCE_LOADS>(a, x);
+      }
+      if (l < c) {
+#pragma unroll
+        for (int u = 0; u < REDUCE_LOADS; ++u)
+          x[u] = l + u * groups < c ? load<S, VEC>(yij + (l + u * groups) * nm)
+                                    : Pack<S, VEC>{};
+        fold_abs_max<S, VEC, REDUCE_LOADS>(a, x);
       }
     }
-    if (groups > 1) {  // fold the slice groups of each row (uniform branch)
+    // the groups of row i: lanes packs, 2·packs, … apart in one warp
+    for (int o = packs; o < packs * groups; o <<= 1)
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) red[threadIdx.y][threadIdx.x * VEC + k] = a[k];
-      __syncthreads();
-      if (lsub == 0) {
-        for (int g = 1; g < groups; ++g) {
-#pragma unroll
-          for (int k = 0; k < VEC; ++k)
-            a[k] = max_nan(a[k], red[threadIdx.y + g][threadIdx.x * VEC + k]);
-        }
-      }
-      __syncthreads();
-    }
-    if (lsub == 0 && j0 < m && i < r1) {
+      for (int k = 0; k < VEC; ++k) a[k] = max_nan(a[k], __shfl_xor_sync(0xffffffffu, a[k], o));
+    if (owns && g == 0) {
       Pack<S, VEC> o;
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) {
-        o.v[k] = narrow<S>(a[k]);
-        acc[k] = max_nan(acc[k], a[k]);
-      }
-      store<S, VEC>(v2 + ij, o);
+      for (int k = 0; k < VEC; ++k) o.v[k] = narrow<S>(a[k]);
+      store<S, VEC>(v2 + static_cast<long long>(i) * m + j0, o);
     }
-  }
 #pragma unroll
-  for (int k = 0; k < VEC; ++k) red[threadIdx.y][threadIdx.x * VEC + k] = acc[k];
-  write_partial<VEC>(red, partial + static_cast<long long>(blockIdx.y) * m,
-                     col0, m);
+    for (int k = 0; k < VEC; ++k) acc[k] = max_nan(acc[k], a[k]);
+  }
+  // v1: the row slots inside a warp (a slot's lanes already agree), then
+  // the warps (or, with packs > 32, the lanes) through shared memory
+  for (int o = packs * groups; o < WARP; o <<= 1)
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) acc[k] = max_nan(acc[k], __shfl_xor_sync(0xffffffffu, acc[k], o));
+  const int span = max(WARP, packs), width = packs * VEC;
+  if (t % span < packs) {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) red[(t / span) * width + p * VEC + k] = acc[k];
+  }
+  __syncthreads();
+  // the CTA's partial of each column into red[0, width) (column q is read
+  // and written by thread q alone), then across the cluster: CTA `rank`
+  // folds columns rank, rank + cl, … of every CTA's partial in rank order
+  // through distributed shared memory and writes them to v1
+  for (int q = t; q < width; q += REDUCE_THREADS) {
+    float a = red[q];
+    for (int w = 1; w < REDUCE_THREADS / span; ++w) a = max_nan(a, red[w * width + q]);
+    red[q] = a;
+  }
+  cluster.sync();
+  const int col0 = strip * width;
+  for (int q = rank + t * cl; q < width && col0 + q < m; q += REDUCE_THREADS * cl) {
+    float a = 0.f;
+    for (int r = 0; r < cl; ++r) a = max_nan(a, cluster.map_shared_rank(red, r)[q]);
+    v1[col0 + q] = narrow<S>(a);
+  }
+  cluster.sync();  // every CTA's partial stays until the cluster has read it
 }
 
 template <typename S, int VEC>
@@ -126,19 +179,23 @@ apply_kernel(const S* __restrict__ y, const S* __restrict__ v2,
 }
 
 template <typename S, int VEC>
-cudaError_t reduce_launch(const void* y, void* v2, float* partial, void* v1,
-                          int c, int n, int m, int rows_per_split, int splits,
-                          int groups, cudaStream_t s) {
-  if (groups < 1 || BR % groups != 0) return cudaErrorInvalidValue;
-  const dim3 grid(ceil_div(m, BM * VEC), splits);
-  reduce_partial<S, VEC><<<grid, dim3(BM, BR), 0, s>>>(
-      static_cast<const S*>(y), static_cast<S*>(v2), partial, c, n, m,
-      rows_per_split, groups);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  fold_splits<S><<<ceil_div(m, BM), dim3(BM, BR), 0, s>>>(
-      partial, static_cast<S*>(v1), m, splits);
-  return cudaGetLastError();
+cudaError_t reduce_launch(const void* y, void* v2, void* v1, int c, int n,
+                          int m, int packs, int groups, int cluster,
+                          cudaStream_t s) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ceil_div(m / VEC, packs) * cluster);
+  cfg.blockDim = dim3(REDUCE_THREADS);
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, trilevel_reduce_kernel<S, VEC>,
+                            static_cast<const S*>(y), static_cast<S*>(v2),
+                            static_cast<S*>(v1), c, n, m, packs, groups);
 }
 
 template <typename S, int VEC>
@@ -155,20 +212,27 @@ cudaError_t apply_launch(const void* y, const void* v2, const void* u1, void* x,
 
 }  // namespace
 
-// v2 (n, m) and v1 (m,) of y (c, n, m); `partial` is float32 scratch of
-// (splits, m). `vec` is 1 or 16 / sizeof(element); `groups` (1, 2, 4 or 8)
-// thread rows share each row's slices.
-REPRO_EXPORT int golden_trilevel_reduce(const void* y, void* v2, float* partial,
-                                        void* v1, int dtype, int vec, int c,
-                                        int n, int m, int rows_per_split,
-                                        int splits, int groups, void* stream) {
+// v2 (n, m) and v1 (m,) of y (c, n, m), in y's type. `vec` is 1 or
+// 16 / sizeof(element); `packs` (a power of two dividing REDUCE_THREADS)
+// column packs per strip; `cluster` (1, 2, 4 or 8) CTAs per strip, one
+// thread block cluster; `groups` (a power of two, packs · groups <= 32
+// when above 1) lanes share each row's slices.
+REPRO_EXPORT int golden_trilevel_reduce(const void* y, void* v2, void* v1,
+                                        int dtype, int vec, int c, int n,
+                                        int m, int packs, int groups,
+                                        int cluster, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (packs < 1 || packs > REDUCE_THREADS || REDUCE_THREADS % packs ||
+      groups < 1 || (groups & (groups - 1)) ||
+      (groups > 1 && packs * groups > WARP) ||
+      cluster < 1 || cluster > REDUCE_CLUSTER_MAX || (cluster & (cluster - 1)))
+    return cudaErrorInvalidValue;
   if (dtype == DTYPE_F32)
-    return vec > 1 ? reduce_launch<float, 4>(y, v2, partial, v1, c, n, m, rows_per_split, splits, groups, s)
-                   : reduce_launch<float, 1>(y, v2, partial, v1, c, n, m, rows_per_split, splits, groups, s);
+    return vec > 1 ? reduce_launch<float, 4>(y, v2, v1, c, n, m, packs, groups, cluster, s)
+                   : reduce_launch<float, 1>(y, v2, v1, c, n, m, packs, groups, cluster, s);
   if (dtype == DTYPE_BF16)
-    return vec > 1 ? reduce_launch<bf16_bits, 8>(y, v2, partial, v1, c, n, m, rows_per_split, splits, groups, s)
-                   : reduce_launch<bf16_bits, 1>(y, v2, partial, v1, c, n, m, rows_per_split, splits, groups, s);
+    return vec > 1 ? reduce_launch<bf16_bits, 8>(y, v2, v1, c, n, m, packs, groups, cluster, s)
+                   : reduce_launch<bf16_bits, 1>(y, v2, v1, c, n, m, packs, groups, cluster, s);
   return cudaErrorInvalidValue;
 }
 

@@ -3,17 +3,20 @@ pipeline (port of ``repro/kernels/l1ball.py``).
 
 :func:`project_l1_batched` projects every row of ``v`` (B, n) onto its own
 ℓ1 ball. On a CUDA tensor it launches ``csrc/l1ball.cu`` (one CTA per row,
-the row staged in shared memory, so ``n <= L1_KERNEL_MAX``); on a CPU tensor
-it runs :func:`project_l1_plain`, the same two algorithms in PyTorch ops:
+the row in registers up to 2048 values and in shared memory up to
+``L1_KERNEL_MAX``); on a CPU tensor it runs :func:`project_l1_plain`, the
+same two algorithms in PyTorch ops:
 
-* ``bisect`` — 64 fixed bisection steps on θ over [0, max|v|];
+* ``bisect`` — at most 64 bisection steps on θ over [0, max|v|] (the kernel
+  stops at the float fixed point, where further steps leave θ as it is,
+  and evaluates φ for two steps per block reduction);
 * ``filter`` — Michelot/Condat fixed point, at most n + 2 sweeps.
 
 Both return θ = 0 inside the ball (the ball contract of ``core.ball``).
 
-:func:`project_l1` is the single-vector form (B = 1) and
-:func:`outer_l1_solve` the golden pipelines' outer θ-solve, routed by method
-as in the JAX package.
+:func:`project_l1` is the single-vector form (B = 1; a number radius goes to
+the kernel by value, with no copy to the device) and :func:`outer_l1_solve`
+the golden pipelines' outer θ-solve, routed by method as in the JAX package.
 """
 
 from __future__ import annotations
@@ -33,8 +36,9 @@ REF_ROUTE_ABOVE = 512 * 1024
 _METHOD_CODES = {"bisect": 0, "filter": 1}
 
 KERNEL = _build.Kernel("l1ball", {
-    "l1ball_project": [_build.PTR, _build.PTR, _build.PTR, _build.INT,
-                       _build.INT, _build.INT, _build.INT, _build.PTR],
+    "l1ball_project": [_build.PTR, _build.PTR, _build.FLOAT, _build.PTR,
+                       _build.INT, _build.INT, _build.INT, _build.INT,
+                       _build.PTR],
 })
 
 
@@ -83,19 +87,45 @@ def project_l1_plain(v: torch.Tensor, radii: torch.Tensor,
     return torch.sign(v) * torch.clamp(a - theta, min=0.0)
 
 
-def _check(v: torch.Tensor, radii: torch.Tensor, method: str) -> None:
+def _check_method(method: str) -> None:
     if method not in KERNEL_METHODS:
         raise ValueError(
             f"no l1ball kernel for method {method!r}; available: "
             f"{list(KERNEL_METHODS)}")
+
+
+def _check(v: torch.Tensor, radii: torch.Tensor, method: str) -> None:
+    _check_method(method)
     if v.ndim != 2 or radii.shape != (v.shape[0],):
         raise ValueError(
             f"l1ball takes v (B, n) and radii (B,), got {tuple(v.shape)} and "
             f"{tuple(radii.shape)}")
     if v.dtype != torch.float32 or radii.dtype != torch.float32:
         raise ValueError(f"l1ball takes float32, got {v.dtype}/{radii.dtype}")
-    if radii.device != v.device:
+    if radii.get_device() != v.get_device():  # no torch.device built
         raise ValueError("v and radii must lie on one device")
+
+
+def _launch(v: torch.Tensor, b: int, n: int, radii: torch.Tensor | None,
+            radius: float, method: str, out: torch.Tensor | None
+            ) -> torch.Tensor:
+    """Launch the kernel on ``b`` rows of ``n`` values of ``v`` (any shape of
+    ``b · n`` values): radius ``radii[i]`` for row i, or ``radius`` for every
+    row when ``radii`` is None."""
+    _device.require_cuda(v, "l1ball")
+    if not 1 <= n <= L1_KERNEL_MAX:
+        raise ValueError(f"l1ball takes 1 <= n <= {L1_KERNEL_MAX}, got n={n}")
+    if not (v.is_contiguous() and (radii is None or radii.is_contiguous())):
+        raise ValueError("l1ball takes contiguous v and radii")
+    if out is None:
+        out = torch.empty_like(v)
+    elif out.shape != v.shape or out.dtype != v.dtype or not out.is_contiguous() \
+            or out.get_device() != v.get_device():
+        raise ValueError("out must be a contiguous float32 tensor like v")
+    KERNEL.launch("l1ball_project", v.data_ptr(), _build.ptr(radii), radius,
+                  out.data_ptr(), b, n, _METHOD_CODES[method],
+                  _iters(method, n), _build.stream_handle(v))
+    return out
 
 
 def project_l1_batched(v: torch.Tensor, radii: torch.Tensor, *,
@@ -107,24 +137,10 @@ def project_l1_batched(v: torch.Tensor, radii: torch.Tensor, *,
     None; may be ``v`` itself). CPU tensor: :func:`project_l1_plain`.
     """
     _check(v, radii, method)
-    if v.device.type == "cpu":
+    if v.is_cpu:
         x = project_l1_plain(v, radii, method)
         return x if out is None else out.copy_(x)
-    _device.require_cuda(v, "l1ball")
-    b, n = v.shape
-    if not 1 <= n <= L1_KERNEL_MAX:
-        raise ValueError(f"l1ball takes 1 <= n <= {L1_KERNEL_MAX}, got n={n}")
-    if not (v.is_contiguous() and radii.is_contiguous()):
-        raise ValueError("l1ball takes contiguous v and radii")
-    if out is None:
-        out = torch.empty_like(v)
-    elif out.shape != v.shape or out.dtype != v.dtype or not out.is_contiguous() \
-            or out.device != v.device:
-        raise ValueError("out must be a contiguous float32 tensor like v")
-    KERNEL.launch("l1ball_project", v.data_ptr(), radii.data_ptr(),
-                  out.data_ptr(), b, n, _METHOD_CODES[method],
-                  _iters(method, n), _build.stream_handle(v))
-    return out
+    return _launch(v, *v.shape, radii, 0.0, method, out)
 
 
 def project_l1(v: torch.Tensor, radius, *, method: str = "bisect") -> torch.Tensor:
@@ -132,12 +148,19 @@ def project_l1(v: torch.Tensor, radius, *, method: str = "bisect") -> torch.Tens
     batched kernel (or its plain version on a CPU tensor) with B = 1.
 
     ``method`` is "bisect" or "filter"; a CUDA vector over
-    ``L1_KERNEL_MAX`` values raises (the kernel keeps it in shared memory).
+    ``L1_KERNEL_MAX`` values raises (the kernel keeps it on chip). A number
+    radius reaches the kernel by value (rounded to float32), so the call
+    copies nothing to the device; a tensor radius is read there.
     """
     if v.ndim != 1:
         raise ValueError(f"project_l1 takes a vector, got {tuple(v.shape)}")
-    radii = torch.as_tensor(radius, dtype=v.dtype, device=v.device).reshape(1)
-    return project_l1_batched(v[None], radii, method=method)[0]
+    if v.is_cpu or isinstance(radius, torch.Tensor):
+        radii = torch.as_tensor(radius, dtype=v.dtype, device=v.device).reshape(1)
+        return project_l1_batched(v[None], radii, method=method)[0]
+    _check_method(method)
+    if v.dtype != torch.float32:
+        raise ValueError(f"l1ball takes float32, got {v.dtype}")
+    return _launch(v, 1, v.shape[0], None, float(radius), method, None)
 
 
 def outer_l1_solve(v: torch.Tensor, radius, *, method: str = "bisect"

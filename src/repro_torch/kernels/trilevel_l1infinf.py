@@ -13,40 +13,75 @@ Y ∈ R^{c,n,m} is
 :func:`trilevel_reduce` and :func:`trilevel_apply` launch their kernels on a
 CUDA tensor (float32 or bf16, outputs in Y's type) and run their ``_plain``
 versions on a CPU tensor, nothing else. The launch shape is the wrappers'
-(``bilevel_l1inf.launch_shape``), not the TPU's ``block_n``/``block_m``.
+(:func:`reduce_shape`: whole column strips per CTA, one launch;
+``bilevel_l1inf.launch_shape`` for the apply), not the TPU's
+``block_n``/``block_m``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
 import torch
 
 from . import _build, l1ball
-from .bilevel_l1inf import (BM, BR, TARGET_CTAS, check_fused, check_operands,
-                            launch_shape, vector_width)
+from .bilevel_l1inf import (BM, SM_COUNT, TARGET_CTAS, check_fused,
+                            check_operands, launch_shape, vector_width)
+
+REDUCE_THREADS = 512   # threads per reduce CTA (csrc/trilevel_l1infinf.cu)
+REDUCE_CTAS = SM_COUNT  # reduce CTAs resident at once: one per SM
+REDUCE_SEGMENT = 512   # bytes of a row one strip's warp load covers at most
+REDUCE_CLUSTER_MAX = 8  # CTAs per strip: the portable cluster size
+WARP = 32
 
 _P, _I = _build.PTR, _build.INT
 REDUCE = _build.Kernel("trilevel_reduce", {
-    "golden_trilevel_reduce": [_P] * 4 + [_I] * 8 + [_P],
+    "golden_trilevel_reduce": [_P] * 3 + [_I] * 8 + [_P],
 }, source="trilevel_l1infinf")
 APPLY = _build.Kernel("trilevel_apply", {
     "golden_trilevel_apply": [_P] * 4 + [_I] * 9 + [_P],
 }, source="trilevel_l1infinf")
 
 
-def reduce_shape(c: int, n: int, m: int, vec: int) -> Tuple[int, int, int]:
-    """``(rows_per_cta, row_ctas, groups)`` of the reduce: ``groups`` thread
-    rows share each row's c slices, the fewest (1, 2, 4 or 8) with which
-    the column strips times the row chunks reach ``TARGET_CTAS``, and no
-    more than c slices can feed."""
-    strips = math.ceil(m / (BM * vec))
-    groups = 1
-    while (groups < BR and 2 * groups <= c
-           and strips * math.ceil(n * groups / BR) < TARGET_CTAS):
-        groups *= 2
-    return (*launch_shape(n, m, vec, step=BR // groups), groups)
+@functools.lru_cache(maxsize=1024)
+def reduce_shape(c: int, n: int, m: int, vec: int,
+                 itemsize: int = 4) -> Tuple[int, int, int, int]:
+    """``(packs, groups, cluster, ctas)`` of the one-launch reduce. A strip
+    of ``packs`` packs of ``vec`` columns belongs to one thread block
+    cluster of ``cluster`` CTAs (as many as fit ``REDUCE_CTAS`` with the
+    strips, up to the portable 8), whose lanes split its rows and fold v1
+    through distributed shared memory; ``groups`` lanes share each row's c
+    slices (as many as the rows leave lanes for, the slices feed and a
+    warp holds). Of the strip widths from ``REDUCE_SEGMENT`` bytes down to
+    one wave of strips, the widest that best keeps both the card (CTAs over
+    ``REDUCE_CTAS``) and the lanes (rows per step over lanes) busy. Cached:
+    a wrapper asks for the same few shapes on every call."""
+    count = math.ceil(m / vec)
+    packs = min(max(1, REDUCE_SEGMENT // (vec * itemsize)),
+                1 << (count - 1).bit_length())
+    best, best_score = None, -1.0
+    while packs >= 1:
+        strips = math.ceil(count / packs)
+        if best is not None and strips > REDUCE_CTAS:
+            break   # narrower strips only add waves
+        cluster = 1
+        while cluster < REDUCE_CLUSTER_MAX and 2 * strips * cluster <= REDUCE_CTAS:
+            cluster *= 2
+        lanes = cluster * REDUCE_THREADS // packs
+        groups = 1
+        while (2 * groups <= c and 2 * groups * n <= lanes
+               and 2 * groups * packs <= WARP):
+            groups *= 2
+        slots = lanes // groups
+        busy = n / (math.ceil(n / slots) * slots)
+        ctas = strips * cluster
+        score = busy * min(1.0, ctas / REDUCE_CTAS)
+        if score > best_score * (1 + 1e-9):
+            best, best_score = (packs, groups, cluster, ctas), score
+        packs //= 2
+    return best
 
 
 def _check_order3(what: str, y: torch.Tensor) -> None:
@@ -89,13 +124,12 @@ def trilevel_reduce(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     code = check_operands("trilevel_reduce", y)
     c, n, m = y.shape
     vec = vector_width(m, y)
-    rows, splits, groups = reduce_shape(c, n, m, vec)
-    v2 = torch.empty((n, m), dtype=y.dtype, device=y.device)
-    partial = torch.empty((splits, m), dtype=torch.float32, device=y.device)
-    v1 = torch.empty((m,), dtype=y.dtype, device=y.device)
+    packs, groups, cluster, _ = reduce_shape(c, n, m, vec, y.element_size())
+    v2 = y.new_empty((n, m))
+    v1 = y.new_empty((m,))
     REDUCE.launch("golden_trilevel_reduce", y.data_ptr(), v2.data_ptr(),
-                  partial.data_ptr(), v1.data_ptr(), code, vec,
-                  c, n, m, rows, splits, groups, _build.stream_handle(y))
+                  v1.data_ptr(), code, vec, c, n, m, packs, groups, cluster,
+                  _build.stream_handle(y))
     return v2, v1
 
 

@@ -81,8 +81,8 @@ def trace_files(path):
 KINDS = (
     ("flash", ("flash_",)),
     ("optimizer", ("multi_tensor_apply", "foreach")),
-    ("projection", ("apply_kernel", "reduce_partial", "l1ball_kernel", "clip_kernel",
-                    "colmax_partial", "fold_splits", "trilevel_")),
+    ("projection", ("apply_kernel", "namespace)::reduce_kernel", "reduce_finalize",
+                    "l1ball_kernel", "clip_kernel", "colmax_kernel", "trilevel_")),
     ("matmul", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "splitKreduce")),
     ("softmax/loss", ("softmax", "SoftMax", "nll_loss", "cross_entropy")),
     ("reduction", ("reduce_kernel",)),

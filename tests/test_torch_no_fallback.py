@@ -547,3 +547,127 @@ def test_wrappers_without_a_build_raise(monkeypatch, tmp_path, dtype):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             call()
         assert kern.launches == 0
+
+
+def test_trilevel_reduce_wrapper_launches_one_kernel_with_its_shape(monkeypatch):
+    """The tri-level reduce makes one export call per reduce with
+    ``reduce_shape``'s packs, groups and cluster size (cached), takes no
+    scratch (its export has three pointers: Y, v2, v1), and returns its two
+    allocations. Each strip of columns belongs to one cluster of at most 8
+    CTAs, one wave of the card where the strips allow; a row's slice groups
+    stay inside one warp, fit its slices, and share one step of the
+    cluster's lanes."""
+    import math
+
+    from repro_torch.kernels import _build, bilevel_l1inf as bi
+    from repro_torch.kernels import trilevel_l1infinf as tri
+
+    assert tri.REDUCE.functions["golden_trilevel_reduce"].count(_build.PTR) == 4
+    _reach_the_launch(monkeypatch)
+    _, calls = _stand_in(monkeypatch, tri.REDUCE, 0)
+    shapes = [(256, 32, 2048), (32, 1000, 2000), (2, 8, 128), (3, 17, 130),
+              (8, 250, 64), (1, 64, 257), (4, 300, 700), (3, 9, 1001)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for c, n, m in shapes:
+            y = torch.empty(c, n, m, device="meta", dtype=dtype)
+            v2, v1 = tri.trilevel_reduce(y)
+            assert v2.shape == (n, m) and v1.shape == (m,)
+            assert v2.dtype == v1.dtype == dtype
+            es = y.element_size()
+            vec = 16 // es if m % (16 // es) == 0 else 1
+            shape = tri.reduce_shape.__wrapped__(c, n, m, vec, es)
+            assert tri.reduce_shape(c, n, m, vec, es) == shape
+            packs, groups, cluster, ctas = shape
+            assert calls[-1][3:-1] == (bi.DTYPE_CODES[dtype], vec, c, n, m,
+                                       packs, groups, cluster)
+            strips = math.ceil(math.ceil(m / vec) / packs)
+            assert ctas == strips * cluster
+            assert cluster in (1, 2, 4, 8) and (ctas <= tri.REDUCE_CTAS or cluster == 1)
+            assert packs & (packs - 1) == 0 and packs * vec * es <= tri.REDUCE_SEGMENT
+            assert groups & (groups - 1) == 0 and groups <= max(1, c)
+            assert groups == 1 or (packs * groups <= tri.WARP and groups * n
+                                   <= cluster * tri.REDUCE_THREADS // packs)
+    assert tri.REDUCE.launches == len(calls) == 2 * len(shapes)
+    # the main path: W2 fills 128 CTAs with 128-byte strips, 2 CTAs a
+    # cluster and 4 slice groups a row; W4 with the widest 512-byte strips
+    # and 8 CTAs a cluster splitting its 1000 rows
+    assert tri.reduce_shape(256, 32, 2048, 4, 4) == (8, 4, 2, 128)
+    assert tri.reduce_shape(32, 1000, 2000, 4, 4) == (32, 1, 8, 128)
+
+
+@pytest.mark.parametrize("c,n,m,vec", [
+    (256, 32, 256, 4), (32, 100, 200, 4), (2, 8, 128, 4), (3, 17, 130, 1),
+    (1, 64, 257, 1), (3, 9, 1001, 1), (5, 3, 64, 8), (7, 5, 48, 4),
+    (32, 1000, 64, 4)])
+def test_trilevel_reduce_lanes_cover_every_element_once(c, n, m, vec):
+    """The reduce kernel's index arithmetic (csrc/trilevel_l1infinf.cu:
+    reduce_kernel) replayed on the host: over every cluster, CTA and
+    thread, each element of Y is loaded once, each (row, column) of v2
+    stored once (by the group's first lane, after the group's butterfly,
+    whose partners share the row), and each column of v1 written once, by
+    one CTA of its strip's cluster."""
+    import numpy as np
+
+    from repro_torch.kernels import trilevel_l1infinf as tri
+
+    packs, groups, cl, ctas = tri.reduce_shape(c, n, m, vec, 4)
+    threads = tri.REDUCE_THREADS
+    lanes = threads // packs
+    t = np.arange(threads)
+    p = t % packs
+    o = packs   # butterfly partners (offsets packs, 2·packs, …): one warp, one row
+    while o < packs * groups:
+        q = t ^ o
+        assert (q // 32 == t // 32).all() and (q % packs == p).all()
+        assert ((q // packs) // groups == (t // packs) // groups).all()
+        o <<= 1
+    slots = cl * lanes // groups
+    loads = np.zeros((c, n, m), np.int64)
+    stores = np.zeros((n, m), np.int64)
+    written = np.zeros(m, np.int64)
+    width = packs * vec
+    for b in range(ctas):
+        rank, strip = b % cl, b // cl
+        lane = rank * lanes + t // packs
+        g, slot = lane % groups, lane // groups
+        j0 = (strip * packs + p) * vec
+        for i0 in range(0, n, slots):
+            i = i0 + slot
+            for tt in np.nonzero((j0 < m) & (i < n))[0]:
+                cols = slice(j0[tt], j0[tt] + vec)
+                loads[g[tt]::groups, i[tt], cols] += 1
+                if g[tt] == 0:
+                    stores[i[tt], cols] += 1
+        for tt in range(threads):
+            for col in range(rank + tt * cl, width, threads * cl):
+                if strip * width + col < m:
+                    written[strip * width + col] += 1
+    assert (loads == 1).all() and (stores == 1).all() and (written == 1).all()
+
+
+def test_project_l1_launches_without_a_copy_to_the_device(monkeypatch):
+    """A number radius reaches the l1ball export by value with a null radii
+    pointer: no ``torch.as_tensor`` to the device (a pageable host-to-device
+    copy that may synchronize the stream) on the golden pipelines' θ-solve."""
+    from repro_torch.kernels import l1ball
+
+    _reach_the_launch(monkeypatch)
+    _, calls = _stand_in(monkeypatch, l1ball.KERNEL, 0)
+    as_tensor = torch.as_tensor
+
+    def no_device_copy(data, *args, **kwargs):
+        if kwargs.get("device") is not None and torch.device(
+                kwargs["device"]).type != "cpu":
+            raise AssertionError("project_l1 copied its radius to the device")
+        return as_tensor(data, *args, **kwargs)
+
+    monkeypatch.setattr(torch, "as_tensor", no_device_copy)
+    v = torch.empty(2048, device="meta")
+    for method, code in (("bisect", 0), ("filter", 1)):
+        x = l1ball.project_l1(v, 1.5, method=method)
+        assert x.shape == (2048,)
+        assert calls[-1][1] is None and calls[-1][2] == 1.5
+        assert calls[-1][4:-1] == (1, 2048, code, l1ball._iters(method, 2048))
+        l1ball.outer_l1_solve(v, 2.5, method=method)
+        assert calls[-1][1] is None and calls[-1][2] == 2.5
+    assert l1ball.KERNEL.launches == 4

@@ -80,6 +80,10 @@ def test_a_trace_without_steps_raises(tmp_path, events):
     ("void flash_fwd_wgmma<64>(CUtensorMap)", "flash"),
     ("void (anonymous namespace)::clip_kernel<float, 4>", "projection"),
     ("void (anonymous namespace)::apply_kernel<2>", "projection"),
+    ("void (anonymous namespace)::reduce_kernel<1, 4>(float const*)", "projection"),
+    ("void (anonymous namespace)::colmax_kernel<float, 4>", "projection"),
+    ("void (anonymous namespace)::trilevel_reduce_kernel<float, 4>", "projection"),
+    ("void (anonymous namespace)::l1ball_kernel<8>", "projection"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n", "matmul"),
     ("void at::native::(anonymous namespace)::cunn_SoftMaxForward<4>", "softmax/loss"),
     ("void at::native::reduce_kernel<512, 1, ReduceOp<float, sum>>", "reduction"),
