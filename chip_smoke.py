@@ -38,7 +38,12 @@ float32 forward at the harvest's.)
    ``trilevel_reduce``, ``trilevel_apply``) in float32 and bf16 at the
    golden workloads' shapes, at ``tests/test_kernels.py``'s shapes and on
    ragged cases with a NaN, +inf and -inf in Y: every output equal to the
-   plain version's, NaN in the same places;
+   plain version's, NaN in the same places; and the clip stream that
+   ``clip`` and ``trilevel_apply`` share (``STREAM_SHAPES``: widths whose
+   packs straddle rows, ragged element counts, one-row planes, c = 1),
+   each operand aligned or a view one element off its allocation, with a
+   NaN, +inf and -inf in Y, u and v2: equal, one launch per call, and the
+   stream's kernels at 0 spill bytes;
 2. serves full-width requests through ``ProjectionEngine`` — 8 bi-level
    (8192, 2048) and 8 tri-level (256, 32, 2048) f32 requests through
    ``codegen_batch`` buckets of 8, one of each through ``codegen`` — checks
@@ -172,6 +177,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -317,6 +323,16 @@ GOLDEN_SHAPES = {
                 (1, 128), (250, 333), (1024, 512), (37, 1001)],
     "trilevel": [(2, 8, 128), (3, 17, 130), (8, 250, 64), (1, 64, 257),
                  (4, 300, 700), (3, 9, 1001)],
+}
+# phase 1's cases of the clip stream (csrc/golden.cuh: stream_clip) that
+# ``clip`` and ``trilevel_apply`` share: row widths that are no multiple of
+# a pack (packs straddle rows; m = 7 is narrower than a bf16 pack), planes
+# of a ragged element count (no multiple of a pack or of a round), one-row
+# planes, c = 1, and planes of n · m % 8 ≠ 0 (one element per load)
+STREAM_SHAPES = {
+    "bilevel": [(37, 1001), (3, 2001), (5, 7), (1, 9), (64, 257)],
+    "trilevel": [(3, 8, 1001), (2, 16, 257), (1, 5, 7), (4, 3, 2001),
+                 (2, 1, 9)],
 }
 
 
@@ -602,11 +618,71 @@ def hold_golden_kernels(randn, rand):
                         errs[name] = max(errs[name],
                                          check_exact(f"{tag} {name}", a, b))
                 cases += 1
+    stream = hold_stream_kernels(randn, rand)
+    for name, err in stream["errs"].items():
+        errs[name] = max(errs[name], err)
     print(f"golden kernels vs plain versions, float32 and bf16, {cases} "
-          "cases (full width, tests/test_kernels.py shapes, NaN/±inf): "
-          "all equal; " + ", ".join(f"{k} max_abs_err {v:.3e}"
-                                     for k, v in errs.items()))
+          "cases (full width, tests/test_kernels.py shapes, NaN/±inf) and "
+          f"{stream['cases']} of the clip stream: all equal; "
+          + ", ".join(f"{k} max_abs_err {v:.3e}" for k, v in errs.items()))
     return errs
+
+
+def hold_stream_kernels(randn, rand):
+    """Phase 1's cases of the clip stream: ``clip`` and ``trilevel_apply``
+    at STREAM_SHAPES in float32 and bf16, each with every operand either
+    16-byte aligned or a view one element past its allocation (so the
+    kernel takes one element per load), and with a NaN, +inf and -inf in
+    Y, in u (u1, in Y's type) and in v2; every output must equal the plain
+    version's, and each call launch its kernel once."""
+    import torch
+
+    from repro_torch.kernels import bilevel_l1inf as bi, trilevel_l1infinf as tri
+
+    def operand(t, offset):
+        """``t``'s values in a fresh tensor ``offset`` elements past the
+        start of its allocation."""
+        buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+        out = buf[offset:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    def nonfinite(t):
+        flat = t.view(-1)
+        for k, v in zip((0, flat.numel() // 2, flat.numel() - 1),
+                        (float("nan"), INF, -INF)):
+            flat[k] = v
+        return t
+
+    errs, cases = {"clip": 0.0, "trilevel_apply": 0.0}, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for design, shapes in STREAM_SHAPES.items():
+            for shape in shapes:
+                m = shape[-1]
+                y0 = nonfinite(randn(shape, 3.0).to(dtype))
+                u0 = nonfinite((rand((m,)) * 3.0).to(dtype))
+                v20 = nonfinite(y0.abs().amax(0)) if design == "trilevel" else None
+                for offset in (0, 1):
+                    y, u = operand(y0, offset), operand(u0, offset)
+                    tag = f"stream {str(dtype)[6:]} {shape} offset {offset}"
+                    if design == "bilevel":
+                        name, kern = "clip", bi.CLIP
+                        before = kern.launches
+                        got, want = bi.clip(y, u), bi.clip_plain(y, u)
+                    else:
+                        name, kern = "trilevel_apply", tri.APPLY
+                        v2 = operand(v20, offset)
+                        before = kern.launches
+                        got = tri.trilevel_apply(y, v2, u)
+                        want = tri.trilevel_apply_plain(y, v2, u)
+                    torch.cuda.synchronize()
+                    if kern.launches != before + 1:
+                        raise SmokeFailure(f"{tag} {name}: "
+                                           f"{kern.launches - before} launches")
+                    errs[name] = max(errs[name],
+                                     check_exact(f"{tag} {name}", got, want))
+                    cases += 1
+    return {"errs": errs, "cases": cases}
 
 
 def golden_workloads(server_reqs):
@@ -2213,13 +2289,22 @@ def main(argv=None) -> int:
           + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()))
     logs = dict.fromkeys(k.library.with_suffix(".log")
                          for k in _build.KERNELS.values())  # one per source
+    spills = []   # the clip stream's kernels must not spill
     for log in logs:  # each register/spill line after its kernel's mangled name
         entry = "?"
+        source = log.stem.rsplit("-", 1)[0]
         for line in (log.read_text().splitlines() if log.exists() else ()):
             if "Compiling entry function" in line:
                 entry = line.split("'")[1]
             elif "registers" in line or "spill" in line:
-                print(f"ptxas {log.stem.rsplit('-', 1)[0]} {entry}: {line.strip()}")
+                print(f"ptxas {source} {entry}: {line.strip()}")
+                spilled = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                if (source in ("bilevel_l1inf", "trilevel_l1infinf")
+                        and ("clip_kernel" in entry or "apply_kernel" in entry)
+                        and spilled and spilled.groups() != ("0", "0")):
+                    spills.append(entry)
+    if spills:
+        raise SmokeFailure(f"the clip stream spills: {spills}")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
 

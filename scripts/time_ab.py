@@ -9,6 +9,10 @@ that tree's kernels of FAMILY and times them, float32:
 - ``golden``: ``clip`` and ``colmax`` (``csrc/bilevel_l1inf.cu``) at W1
   (8192, 2048) and W3 (1000, 10000) beside ``torch.clamp`` with the bounds
   precomputed and the ℓ∞ ``torch.linalg.vector_norm`` over the rows;
+  ``trilevel_apply`` (kernel row 6) at W2 (256, 32, 2048) and W4 (32,
+  1000, 2000) in float32 and bf16 beside ``torch.clamp`` with the bounds
+  min(v2, u1) precomputed; ``clip`` and ``trilevel_apply`` also beside
+  ``Tensor.copy_`` of Y into X (the HBM rate of their traffic);
   ``l1ball`` (kernel rows 3/4) in both methods on one item and on a bucket
   of 8 of W1's aggregate (n = 2048: column maxima of (8192, 2048)
   requests) at a radius fraction and with r just under Σ|v|, and bisect
@@ -115,11 +119,43 @@ def golden_cases(torch, cs, randn, rand):
                 want = plain()
                 cs.check_exact(tag, kern(), want)
                 cs.check_exact(f"{tag} library call", lib(), want)
-            bound = cs.bound_ms(4 * (y.numel() + shape[1]), 0)[0] \
-                if name == "colmax" else None
-            cases[f"{wl} {name}"] = (check, {"kernel": kern, "library": lib},
-                                     bound)
+            fns = {"kernel": kern, "library": lib}
+            if name == "clip":   # Y's and X's bytes and nothing else
+                out = torch.empty_like(y)
+                fns["copy"] = lambda y=y, out=out: out.copy_(y)
+            nbytes = 4 * ((2 if name == "clip" else 1) * y.numel() + shape[1])
+            cases[f"{wl} {name}"] = (check, fns, cs.bound_ms(nbytes, 0)[0])
+    cases.update(golden_apply_cases(torch, cs, randn, rand))
     cases.update(golden_solve_cases(torch, cs, randn, rand))
+    return cases
+
+
+def golden_apply_cases(torch, cs, randn, rand):
+    """Kernel row 6 (``trilevel_apply``) at W2 (256, 32, 2048) and W4 (32,
+    1000, 2000) in float32 and bf16, beside ``torch.clamp`` with the bounds
+    min(v2, u1) precomputed."""
+    from repro_torch.kernels import trilevel_l1infinf as tri
+
+    cases = {}
+    for wl, y32 in (("W2", randn(cs.FULL["trilevel"][0])), ("W4", rand(cs.FIG3[0]))):
+        for dt, y in (("", y32), (" bf16", y32.to(torch.bfloat16))):
+            v2, v1 = tri.trilevel_reduce_plain(y)
+            u1 = v1.float() * (0.2 + 0.6 * rand(v1.shape))
+            w2 = torch.minimum(v2, u1.to(y.dtype)[None, :])[None]
+            lo2 = -w2
+            kern = lambda y=y, v2=v2, u1=u1: tri.trilevel_apply(y, v2, u1)
+            lib = lambda y=y, lo2=lo2, w2=w2: torch.clamp(y, lo2, w2)
+
+            def check(tag, kern=kern, lib=lib, y=y, v2=v2, u1=u1):
+                want = tri.trilevel_apply_plain(y, v2, u1)
+                cs.check_exact(tag, kern(), want)
+                cs.check_exact(f"{tag} library call", lib(), want)
+            c, n, m = y.shape
+            out = torch.empty_like(y)
+            cases[f"{wl} trilevel_apply{dt}"] = (
+                check, {"kernel": kern, "library": lib,
+                        "copy": lambda y=y, out=out: out.copy_(y)},
+                cs.bound_ms(y.element_size() * (2 * y.numel() + n * m + m), 0)[0])
     return cases
 
 

@@ -26,9 +26,8 @@
 // second wave runs part-full and no partial maxima go through memory: one
 // launch, and the output is the call's one allocation. Max is exact and
 // order-free, NaN included (max_nan), so the result is deterministic.
-// clip splits the rows across CTAs too (a column strip by a row chunk) and
-// keeps its VEC radii in registers. Ragged column tails take VEC = 1 (the
-// wrapper picks VEC); ragged row tails end each thread's loop.
+// clip streams Y as one run of packs (golden.cuh: stream_clip), one CTA
+// per 8 KB tile, its radii gathered from u by column.
 #include "golden.cuh"
 
 namespace {
@@ -93,26 +92,20 @@ colmax_kernel(const S* __restrict__ y, S* __restrict__ out, int n, int m,
   }
 }
 
+// clip's radius: u[j] of the element's column
 template <typename S, int VEC>
-__global__ void __launch_bounds__(BM * BR)
+struct ColumnRadius {
+  const S* __restrict__ u;
+  int m;
+  __device__ Pack<S, VEC> pack(long long, int j) const { return column_radius<S, VEC>(u, j, m); }
+  __device__ float one(long long, int j) const { return widen(u[j]); }
+};
+
+template <typename S, int VEC>
+__global__ void __launch_bounds__(STREAM_THREADS, stream_min_ctas<S>())
 clip_kernel(const S* __restrict__ y, const S* __restrict__ u,
-            S* __restrict__ x, int n, int m, int rows_per_cta) {
-  const int j0 = (blockIdx.x * BM + threadIdx.x) * VEC;
-  if (j0 >= m) return;
-  const Pack<S, VEC> up = load<S, VEC>(u + j0);
-  float hi[VEC];
-#pragma unroll
-  for (int k = 0; k < VEC; ++k) hi[k] = widen(up.v[k]);
-  const int r0 = blockIdx.y * rows_per_cta;
-  const int r1 = min(n, r0 + rows_per_cta);
-#pragma unroll 4
-  for (int i = r0 + threadIdx.y; i < r1; i += BR) {
-    const long long off = static_cast<long long>(i) * m + j0;
-    Pack<S, VEC> p = load<S, VEC>(y + off);
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) p.v[k] = narrow<S>(clip_nan(widen(p.v[k]), hi[k]));
-    store<S, VEC>(x + off, p);
-  }
+            S* __restrict__ x, int m, long long plane) {
+  stream_clip<S, VEC>(y, x, ColumnRadius<S, VEC>{u, m}, 1, m, plane, 1);
 }
 
 template <typename S, int VEC>
@@ -125,11 +118,13 @@ cudaError_t colmax_launch(const void* y, void* out, int n, int m, int packs,
 
 template <typename S, int VEC>
 cudaError_t clip_launch(const void* y, const void* u, void* x, int n, int m,
-                        int rows_per_cta, int row_ctas, cudaStream_t s) {
-  const dim3 grid(ceil_div(m, BM * VEC), row_ctas);
-  clip_kernel<S, VEC><<<grid, dim3(BM, BR), 0, s>>>(
+                        cudaStream_t s) {
+  const long long plane = static_cast<long long>(n) * m;
+  const long long ctas = stream_ctas(plane, VEC, 1);
+  if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
+  clip_kernel<S, VEC><<<static_cast<unsigned>(ctas), STREAM_THREADS, 0, s>>>(
       static_cast<const S*>(y), static_cast<const S*>(u), static_cast<S*>(x),
-      n, m, rows_per_cta);
+      m, plane);
   return cudaGetLastError();
 }
 
@@ -152,16 +147,17 @@ REPRO_EXPORT int golden_colmax(const void* y, void* out, int dtype, int vec,
   return cudaErrorInvalidValue;
 }
 
-// x (n, m) = clip(y, ±u) with u (m,) in y's type.
+// x (n, m) = clip(y, ±u) with u (m,) in y's type. `vec` is 1 or
+// 16 / sizeof(element) (every pointer 16-byte aligned).
 REPRO_EXPORT int golden_clip(const void* y, const void* u, void* x, int dtype,
-                             int vec, int n, int m, int rows_per_cta,
-                             int row_ctas, void* stream) {
+                             int vec, int n, int m, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n < 1 || m < 1) return cudaErrorInvalidValue;
   if (dtype == DTYPE_F32)
-    return vec > 1 ? clip_launch<float, 4>(y, u, x, n, m, rows_per_cta, row_ctas, s)
-                   : clip_launch<float, 1>(y, u, x, n, m, rows_per_cta, row_ctas, s);
+    return vec > 1 ? clip_launch<float, 4>(y, u, x, n, m, s)
+                   : clip_launch<float, 1>(y, u, x, n, m, s);
   if (dtype == DTYPE_BF16)
-    return vec > 1 ? clip_launch<bf16_bits, 8>(y, u, x, n, m, rows_per_cta, row_ctas, s)
-                   : clip_launch<bf16_bits, 1>(y, u, x, n, m, rows_per_cta, row_ctas, s);
+    return vec > 1 ? clip_launch<bf16_bits, 8>(y, u, x, n, m, s)
+                   : clip_launch<bf16_bits, 1>(y, u, x, n, m, s);
   return cudaErrorInvalidValue;
 }

@@ -38,10 +38,11 @@
 // (32, 1000, 2000) float32 as fast as the two-kernel row-split reduce
 // they replace, where 64-byte strips of one CTA each took 1.28 times as
 // long (PERF.md § 6). Max is exact and order-free, NaN included (max_nan), so
-// the result is deterministic. apply computes min(v2, u1) once per (row,
-// column) and clips its share of the c slices; the slice axis is split
-// across CTAs (grid z) when rows and columns alone give too few CTAs, as
-// at (256, 32, 2048). Ragged column tails take VEC = 1.
+// the result is deterministic. apply streams Y's c planes as runs of packs
+// (golden.cuh: stream_clip): each CTA holds min(v2, u1) of its 8 KB tile
+// of the plane in registers across a group of planes, so v2 is read once
+// per group; the wrapper (kernels/bilevel_l1inf.py:stream_shape) picks the
+// groups.
 #include <cooperative_groups.h>
 
 #include "golden.cuh"
@@ -149,33 +150,32 @@ trilevel_reduce_kernel(const S* __restrict__ y, S* __restrict__ v2,
   cluster.sync();  // every CTA's partial stays until the cluster has read it
 }
 
+// apply's radius: min(v2[i, j], u1[j]) of the element at plane offset f
+// = i · m + j, taken in Y's type (min_nan returns one of its operands)
 template <typename S, int VEC>
-__global__ void __launch_bounds__(BM * BR)
-apply_kernel(const S* __restrict__ y, const S* __restrict__ v2,
-             const S* __restrict__ u1, S* __restrict__ x, int c, int n, int m,
-             int rows_per_cta, int slices_per_cta) {
-  const int j0 = (blockIdx.x * BM + threadIdx.x) * VEC;
-  if (j0 >= m) return;
-  const Pack<S, VEC> up = load<S, VEC>(u1 + j0);
-  const int r0 = blockIdx.y * rows_per_cta;
-  const int r1 = min(n, r0 + rows_per_cta);
-  const int l0 = blockIdx.z * slices_per_cta;
-  const int l1 = min(c, l0 + slices_per_cta);
-  const long long nm = static_cast<long long>(n) * m;
-  for (int i = r0 + threadIdx.y; i < r1; i += BR) {
-    const long long ij = static_cast<long long>(i) * m + j0;
-    const Pack<S, VEC> vp = load<S, VEC>(v2 + ij);
-    float r[VEC];  // the (i, j) ∞-radius of the recursion
+struct GroupRadius {
+  const S* __restrict__ v2;
+  const S* __restrict__ u1;
+  int m;
+  __device__ Pack<S, VEC> pack(long long f, int j) const {
+    Pack<S, VEC> r = load_stream<S, VEC>(v2 + f);
+    const Pack<S, VEC> u = column_radius<S, VEC>(u1, j, m);
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) r[k] = min_nan(widen(vp.v[k]), widen(up.v[k]));
-#pragma unroll 4
-    for (int l = l0; l < l1; ++l) {
-      Pack<S, VEC> p = load<S, VEC>(y + l * nm + ij);
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) p.v[k] = narrow<S>(clip_nan(widen(p.v[k]), r[k]));
-      store<S, VEC>(x + l * nm + ij, p);
-    }
+    for (int k = 0; k < VEC; ++k) r.v[k] = narrow<S>(min_nan(widen(r.v[k]), widen(u.v[k])));
+    return r;
   }
+  __device__ float one(long long e, int j) const {
+    return min_nan(widen(v2[e]), widen(u1[j]));
+  }
+};
+
+template <typename S, int VEC>
+__global__ void __launch_bounds__(STREAM_THREADS, stream_min_ctas<S>())
+apply_kernel(const S* __restrict__ y, const S* __restrict__ v2,
+             const S* __restrict__ u1, S* __restrict__ x, int c, int m,
+             long long plane, int groups) {
+  stream_clip<S, VEC>(y, x, GroupRadius<S, VEC>{v2, u1, m}, c, m, plane,
+                      groups);
 }
 
 template <typename S, int VEC>
@@ -200,13 +200,13 @@ cudaError_t reduce_launch(const void* y, void* v2, void* v1, int c, int n,
 
 template <typename S, int VEC>
 cudaError_t apply_launch(const void* y, const void* v2, const void* u1, void* x,
-                         int c, int n, int m, int rows_per_cta, int row_ctas,
-                         int slices_per_cta, int slice_ctas, cudaStream_t s) {
-  const dim3 grid(ceil_div(m, BM * VEC), row_ctas, slice_ctas);
-  apply_kernel<S, VEC><<<grid, dim3(BM, BR), 0, s>>>(
+                         int c, int n, int m, int groups, cudaStream_t s) {
+  const long long plane = static_cast<long long>(n) * m;
+  const long long ctas = stream_ctas(plane, VEC, groups);
+  if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
+  apply_kernel<S, VEC><<<static_cast<unsigned>(ctas), STREAM_THREADS, 0, s>>>(
       static_cast<const S*>(y), static_cast<const S*>(v2),
-      static_cast<const S*>(u1), static_cast<S*>(x), c, n, m, rows_per_cta,
-      slices_per_cta);
+      static_cast<const S*>(u1), static_cast<S*>(x), c, m, plane, groups);
   return cudaGetLastError();
 }
 
@@ -237,18 +237,19 @@ REPRO_EXPORT int golden_trilevel_reduce(const void* y, void* v2, void* v1,
 }
 
 // x (c, n, m) = clip(y, ±min(v2, u1)); v2 (n, m) and u1 (m,) in y's type.
+// `vec` is 1 or 16 / sizeof(element) (every pointer and every plane of y
+// 16-byte aligned); `groups` (1 to c) groups of planes.
 REPRO_EXPORT int golden_trilevel_apply(const void* y, const void* v2,
                                        const void* u1, void* x, int dtype,
                                        int vec, int c, int n, int m,
-                                       int rows_per_cta, int row_ctas,
-                                       int slices_per_cta, int slice_ctas,
-                                       void* stream) {
+                                       int groups, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (groups < 1 || groups > c || n < 1 || m < 1) return cudaErrorInvalidValue;
   if (dtype == DTYPE_F32)
-    return vec > 1 ? apply_launch<float, 4>(y, v2, u1, x, c, n, m, rows_per_cta, row_ctas, slices_per_cta, slice_ctas, s)
-                   : apply_launch<float, 1>(y, v2, u1, x, c, n, m, rows_per_cta, row_ctas, slices_per_cta, slice_ctas, s);
+    return vec > 1 ? apply_launch<float, 4>(y, v2, u1, x, c, n, m, groups, s)
+                   : apply_launch<float, 1>(y, v2, u1, x, c, n, m, groups, s);
   if (dtype == DTYPE_BF16)
-    return vec > 1 ? apply_launch<bf16_bits, 8>(y, v2, u1, x, c, n, m, rows_per_cta, row_ctas, slices_per_cta, slice_ctas, s)
-                   : apply_launch<bf16_bits, 1>(y, v2, u1, x, c, n, m, rows_per_cta, row_ctas, slices_per_cta, slice_ctas, s);
+    return vec > 1 ? apply_launch<bf16_bits, 8>(y, v2, u1, x, c, n, m, groups, s)
+                   : apply_launch<bf16_bits, 1>(y, v2, u1, x, c, n, m, groups, s);
   return cudaErrorInvalidValue;
 }

@@ -15,7 +15,8 @@ launch their kernels on a CUDA tensor (float32 or bf16, output in Y's type)
 and run :func:`colmax_plain` / :func:`clip_plain` on a CPU tensor, nothing
 else. The TPU ``block_n``/``block_m`` arguments are not carried over: the
 wrappers pick the launch shape (:func:`colmax_shape`: whole columns per CTA,
-one launch; :func:`launch_shape`: clip's column strip by row chunk).
+one launch; :func:`stream_shape`: one CTA per 8 KB tile of the plane and
+group of planes, for ``clip`` and the tri-level apply).
 """
 
 from __future__ import annotations
@@ -30,10 +31,10 @@ from repro_torch import _device
 
 from . import _build, l1ball
 
-BM = 32            # column threads per CTA (csrc/golden.cuh)
-BR = 8             # thread rows per CTA
 SM_COUNT = 132     # H100 SXM
-TARGET_CTAS = 4 * SM_COUNT  # four 256-thread CTAs on each of the H100's SMs
+STREAM_THREADS = 256        # threads per clip / apply CTA (csrc/golden.cuh)
+STREAM_TILE = 2 * STREAM_THREADS  # packs of a CTA's tile (8 KB)
+STREAM_CTAS = 6 * SM_COUNT  # float32 clip / apply CTAs resident at once
 COLMAX_THREADS = 512        # threads per colmax CTA (csrc/bilevel_l1inf.cu)
 COLMAX_CTAS = 2 * SM_COUNT  # colmax CTAs resident at once: two per SM
 COLMAX_SEGMENT = 64         # bytes of each row a warp load covers at least
@@ -46,7 +47,7 @@ COLMAX = _build.Kernel("colmax", {
     "golden_colmax": [_P, _P] + [_I] * 5 + [_P],
 }, source="bilevel_l1inf")
 CLIP = _build.Kernel("clip", {
-    "golden_clip": [_P, _P, _P] + [_I] * 6 + [_P],
+    "golden_clip": [_P, _P, _P] + [_I] * 4 + [_P],
 }, source="bilevel_l1inf")
 
 
@@ -64,17 +65,22 @@ def vector_width(m: int, *ts: torch.Tensor) -> int:
 
 
 @functools.lru_cache(maxsize=1024)
-def launch_shape(n: int, m: int, vec: int, step: int = BR,
-                 target: int = TARGET_CTAS) -> Tuple[int, int]:
-    """``(rows_per_cta, row_ctas)``: cut n rows into chunks of a multiple of
-    ``step`` rows (a CTA walks ``step`` rows at a time), enough that the
-    ``ceil(m / (BM·vec))`` column strips times the chunks reach ``target``
-    CTAs (or one chunk per ``step`` rows). Cached: a wrapper asks for the
-    same few shapes on every call."""
-    strips = math.ceil(m / (BM * vec))
-    want = max(1, min(math.ceil(target / strips), math.ceil(n / step)))
-    rows = math.ceil(math.ceil(n / want) / step) * step
-    return rows, math.ceil(n / rows)
+def stream_shape(c: int, n: int, m: int, itemsize: int,
+                 aligned: bool) -> Tuple[int, int]:
+    """``(vec, groups)`` of the clip stream (csrc/golden.cuh:
+    ``stream_clip``) over c planes of (n, m). ``vec`` elements per pack: 16
+    bytes when every base pointer is 16-byte ``aligned`` (and, with c > 1,
+    every plane of Y too), else one. The kernel runs one CTA per tile of
+    ``STREAM_TILE`` packs of the plane and group of planes; each group
+    takes as many planes (reading v2 once for them) as leave at least four
+    waves of ``STREAM_CTAS`` CTAs. Cached: a wrapper asks for the same few
+    shapes on every call."""
+    vec = 16 // itemsize
+    if not aligned or (c > 1 and n * m % vec):
+        vec = 1
+    tiles = math.ceil(n * m / vec / STREAM_TILE)
+    per = max(1, min(c, tiles * c // (4 * STREAM_CTAS)))   # planes per group
+    return vec, math.ceil(c / per)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -97,13 +103,15 @@ def check_operands(what: str, y: torch.Tensor, *others: torch.Tensor) -> int:
     """The kernels take contiguous, non-empty float32 or bf16 tensors of one
     type on one CUDA device; returns Y's code in :data:`DTYPE_CODES`.
     Devices are compared by index (``get_device``), which builds no
-    ``torch.device`` on the launch path."""
+    ``torch.device`` on the launch path; each operand is looked at once."""
     _device.require_cuda(y, what)
     code = DTYPE_CODES.get(y.dtype)
     if code is None:
         raise ValueError(f"{what} takes float32 or bfloat16, got {y.dtype}")
+    if not y.is_contiguous():
+        raise ValueError(f"{what} takes contiguous tensors")
     index = y.get_device()
-    for t in (y, *others):
+    for t in others:
         if t.dtype != y.dtype or t.get_device() != index:
             raise ValueError(f"{what}: every operand must be {y.dtype} on "
                              f"{y.device}, got {t.dtype} on {t.device}")
@@ -162,14 +170,15 @@ def clip(y: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
                          f"{tuple(y.shape)} and {tuple(u.shape)}")
     if y.is_cpu:
         return clip_plain(y, u)
-    u = u.to(y.dtype).contiguous()   # JAX: u.astype(y.dtype) outside the kernel
+    if u.dtype != y.dtype or not u.is_contiguous():
+        u = u.to(y.dtype).contiguous()  # JAX: u.astype(y.dtype) outside the kernel
     code = check_operands("clip", y, u)
     n, m = y.shape
     x = torch.empty_like(y)
-    vec = vector_width(m, y, u, x)
-    rows, ctas = launch_shape(n, m, vec)
-    CLIP.launch("golden_clip", y.data_ptr(), u.data_ptr(), x.data_ptr(),
-                code, vec, n, m, rows, ctas, _build.stream_handle(y))
+    py, pu, px = y.data_ptr(), u.data_ptr(), x.data_ptr()
+    vec, _ = stream_shape(1, n, m, y.element_size(), not (py | pu | px) % 16)
+    CLIP.launch("golden_clip", py, pu, px, code, vec, n, m,
+                _build.stream_handle(y))
     return x
 
 

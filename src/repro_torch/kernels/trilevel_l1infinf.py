@@ -14,7 +14,7 @@ Y ∈ R^{c,n,m} is
 CUDA tensor (float32 or bf16, outputs in Y's type) and run their ``_plain``
 versions on a CPU tensor, nothing else. The launch shape is the wrappers'
 (:func:`reduce_shape`: whole column strips per CTA, one launch;
-``bilevel_l1inf.launch_shape`` for the apply), not the TPU's
+``bilevel_l1inf.stream_shape`` for the apply), not the TPU's
 ``block_n``/``block_m``.
 """
 
@@ -27,8 +27,8 @@ from typing import Tuple
 import torch
 
 from . import _build, l1ball
-from .bilevel_l1inf import (BM, SM_COUNT, TARGET_CTAS, check_fused,
-                            check_operands, launch_shape, vector_width)
+from .bilevel_l1inf import (SM_COUNT, check_fused, check_operands,
+                            stream_shape, vector_width)
 
 REDUCE_THREADS = 512   # threads per reduce CTA (csrc/trilevel_l1infinf.cu)
 REDUCE_CTAS = SM_COUNT  # reduce CTAs resident at once: one per SM
@@ -41,7 +41,7 @@ REDUCE = _build.Kernel("trilevel_reduce", {
     "golden_trilevel_reduce": [_P] * 3 + [_I] * 8 + [_P],
 }, source="trilevel_l1infinf")
 APPLY = _build.Kernel("trilevel_apply", {
-    "golden_trilevel_apply": [_P] * 4 + [_I] * 9 + [_P],
+    "golden_trilevel_apply": [_P] * 4 + [_I] * 6 + [_P],
 }, source="trilevel_l1infinf")
 
 
@@ -145,18 +145,15 @@ def trilevel_apply(y: torch.Tensor, v2: torch.Tensor,
                          f"got {tuple(v2.shape)} and {tuple(u1.shape)}")
     if y.is_cpu:
         return trilevel_apply_plain(y, v2, u1)
-    u1 = u1.to(y.dtype).contiguous()  # JAX: u1.astype(y.dtype) outside the kernel
+    if u1.dtype != y.dtype or not u1.is_contiguous():
+        u1 = u1.to(y.dtype).contiguous()  # JAX: u1.astype(y.dtype) outside the kernel
     code = check_operands("trilevel_apply", y, v2, u1)
     x = torch.empty_like(y)
-    vec = vector_width(m, y, v2, u1, x)
-    rows, row_ctas = launch_shape(n, m, vec)
-    # split the slice axis when rows and columns give too few CTAs
-    ctas = math.ceil(m / (BM * vec)) * row_ctas
-    per = math.ceil(c / max(1, min(c, math.ceil(TARGET_CTAS / ctas))))
-    APPLY.launch("golden_trilevel_apply", y.data_ptr(), v2.data_ptr(),
-                 u1.data_ptr(), x.data_ptr(), code, vec, c, n,
-                 m, rows, row_ctas, per, math.ceil(c / per),
-                 _build.stream_handle(y))
+    py, pv, pu, px = y.data_ptr(), v2.data_ptr(), u1.data_ptr(), x.data_ptr()
+    vec, groups = stream_shape(c, n, m, y.element_size(),
+                               not (py | pv | pu | px) % 16)
+    APPLY.launch("golden_trilevel_apply", py, pv, pu, px, code, vec, c, n, m,
+                 groups, _build.stream_handle(y))
     return x
 
 

@@ -444,22 +444,76 @@ def _reach_the_launch(monkeypatch):
     monkeypatch.setattr(_build, "stream_handle", lambda t: 0)
 
 
+def _spy_on_to(monkeypatch):
+    """Record every ``Tensor.to`` call (the radius's cast to Y's type)."""
+    calls = []
+    to = torch.Tensor.to
+
+    def spy(self, *args, **kwargs):
+        calls.append((self.dtype, args, kwargs))
+        return to(self, *args, **kwargs)
+
+    monkeypatch.setattr(torch.Tensor, "to", spy)
+    return calls
+
+
 def test_clip_wrapper_launches_its_cached_shape(monkeypatch):
-    """The clip wrapper hands the kernel Y's dtype code and the launch shape
-    that the uncached ``launch_shape`` gives, for aligned and ragged widths."""
+    """The clip wrapper makes one export call with Y's dtype code and the
+    shape the uncached ``stream_shape`` gives (aligned: meta tensors start
+    at 0), for aligned and ragged widths; it casts a float32 radius to a
+    bf16 Y's type and makes no ``.to`` call when the radius is in Y's type
+    already."""
     from repro_torch.kernels import bilevel_l1inf as bi
 
     _reach_the_launch(monkeypatch)
     _, calls = _stand_in(monkeypatch, bi.CLIP, 0)
+    to_calls = _spy_on_to(monkeypatch)
     for dtype in (torch.float32, torch.bfloat16):
-        for n, m in ((1000, 10000), (8192, 2048), (37, 1001), (1, 128)):
+        for n, m in ((1000, 10000), (8192, 2048), (37, 1001), (1, 128), (5, 7)):
             y = torch.empty(n, m, device="meta", dtype=dtype)
-            bi.clip(y, torch.empty(m, device="meta"))  # u is rounded to y's type
-            vec = 16 // y.element_size() if m % (16 // y.element_size()) == 0 else 1
-            want = (bi.DTYPE_CODES[dtype], vec, n, m,
-                    *bi.launch_shape.__wrapped__(n, m, vec))
-            assert calls[-1][3:-1] == want  # ctypes hands a null stream over as None
-    assert bi.CLIP.launches == 8
+            for u_dtype in (torch.float32, dtype):
+                del to_calls[:]
+                before = len(calls)
+                x = bi.clip(y, torch.empty(m, device="meta", dtype=u_dtype))
+                assert x.shape == (n, m) and x.dtype == dtype
+                assert len(calls) == before + 1
+                vec, _ = bi.stream_shape.__wrapped__(1, n, m, y.element_size(),
+                                                     True)
+                assert calls[-1][3:-1] == (bi.DTYPE_CODES[dtype], vec, n, m)
+                assert len(to_calls) == (u_dtype != dtype)
+    assert bi.CLIP.launches == len(calls) == 20
+
+
+def test_trilevel_apply_wrapper_launches_its_cached_shape(monkeypatch):
+    """The tri-level apply makes one export call with Y's dtype code and
+    ``stream_shape``'s pack width and plane groups (cached), and no
+    ``.to`` call when u1 is in Y's type already; a float32 u1 with a bf16
+    Y is cast once."""
+    from repro_torch.kernels import bilevel_l1inf as bi
+    from repro_torch.kernels import trilevel_l1infinf as tri
+
+    _reach_the_launch(monkeypatch)
+    _, calls = _stand_in(monkeypatch, tri.APPLY, 0)
+    to_calls = _spy_on_to(monkeypatch)
+    shapes = [(256, 32, 2048), (32, 1000, 2000), (3, 8, 1001), (3, 17, 130),
+              (1, 64, 257), (2, 1, 9)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for c, n, m in shapes:
+            y = torch.empty(c, n, m, device="meta", dtype=dtype)
+            v2 = torch.empty(n, m, device="meta", dtype=dtype)
+            for u_dtype in (torch.float32, dtype):
+                del to_calls[:]
+                before = len(calls)
+                x = tri.trilevel_apply(y, v2, torch.empty(m, device="meta",
+                                                          dtype=u_dtype))
+                assert x.shape == (c, n, m) and x.dtype == dtype
+                assert len(calls) == before + 1
+                shape = bi.stream_shape.__wrapped__(c, n, m, y.element_size(),
+                                                    True)
+                assert calls[-1][4:-1] == (bi.DTYPE_CODES[dtype], shape[0], c,
+                                           n, m, *shape[1:])
+                assert len(to_calls) == (u_dtype != dtype)
+    assert tri.APPLY.launches == len(calls) == 4 * len(shapes)
 
 
 def test_colmax_wrapper_launches_one_kernel_with_its_shape(monkeypatch):
