@@ -29,6 +29,29 @@ def resolve(device=None) -> torch.device:
     return dev
 
 
+def records_grad(*ts) -> bool:
+    """True when autograd records a call on ``ts``: grad mode is on and a
+    tensor among them requires grad (anything else is ignored)."""
+    if torch.is_grad_enabled():
+        for t in ts:
+            if isinstance(t, torch.Tensor) and t.requires_grad:
+                return True
+    return False
+
+
+def refuse_grad(what: str, *ts) -> None:
+    """Raise where autograd would record a kernel that has no backward: its
+    result would be cut from the graph. The generated pipeline
+    (``kernels.codegen.build``, ``core.multilevel_project(...,
+    method="auto")``) is the differentiable route."""
+    if records_grad(*ts):
+        raise ValueError(
+            f"{what}: the kernel has no backward, so its result would be cut "
+            "from the autograd graph; differentiate through "
+            "kernels.codegen.build(...) or core.multilevel_project(..., "
+            "method='auto'), or call it under torch.no_grad()")
+
+
 def require_cuda(t: torch.Tensor, what: str) -> None:
     """Raise unless ``t`` lies on a CUDA device (a kernel's launch gate)."""
     if not t.is_cuda:

@@ -22,6 +22,7 @@ solve the equality (θ may be negative).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Dict, NamedTuple, Sequence, Union
 
@@ -246,6 +247,11 @@ def project_l1(y: torch.Tensor, radius: Scalar,
         a, torch.clamp(theta, min=0.0)[..., None])
 
 
+project_l1_sort = functools.partial(project_l1, method="sort")
+project_l1_bisect = functools.partial(project_l1, method="bisect")
+project_l1_filter = functools.partial(project_l1, method="filter")
+
+
 def _l2_scale(nrm: torch.Tensor, radius: torch.Tensor) -> torch.Tensor:
     """Rescale factor onto the ℓ2 ball; the 1e-30 floor keeps 0/0 out."""
     return torch.where(nrm > radius, radius / torch.clamp(nrm, min=1e-30),
@@ -309,6 +315,11 @@ def norm_reduce(y: torch.Tensor, norm, axes) -> torch.Tensor:
     if q == "2":
         return torch.sqrt(torch.square(y).sum(dim=dims))
     return torch.amax(torch.abs(y), dim=dims)
+
+
+def ball_norm(x: torch.Tensor, norm, axis=-1) -> torch.Tensor:
+    """Vector norm along ``axis`` (thin wrapper used by tests/invariants)."""
+    return norm_reduce(x, norm, axis)
 
 
 def expand_at(radii: torch.Tensor, axes) -> torch.Tensor:

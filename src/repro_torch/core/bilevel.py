@@ -9,6 +9,7 @@
 
 One pass, always feasible. For q = ∞ step 3 is a clip, for q = 2 a rescale,
 for q = 1 a per-column soft threshold with a per-column radius.
+``bilevel_project_axes`` takes any tensor and any set of aggregated axes.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from repro_torch import _device
 
 from . import ball, multilevel
 
@@ -56,3 +59,30 @@ def bilevel_l12(y: torch.Tensor, radius, method: str = "sort") -> torch.Tensor:
 def bilevel_l21(y: torch.Tensor, radius, method: str = "sort") -> torch.Tensor:
     """Paper Algorithm 7."""
     return bilevel_project(y, radius, p=2, q=1, method=method)
+
+
+def bilevel_project_axes(y: torch.Tensor, radius, p=1, q=math.inf, *,
+                         inner_axes, method: str = "sort") -> torch.Tensor:
+    """Bi-level projection of an arbitrary tensor.
+
+    ``inner_axes`` are aggregated by the q-norm (the "column" axes); all
+    other axes index the groups whose aggregate is projected onto the
+    p-ball. ``method="auto"`` takes the planner's θ-solver for the
+    aggregate's length on ``y``'s device (generic solvers only: the
+    arbitrary-axes form has no kernel), timed under autograd on an input
+    autograd records.
+    """
+    inner_axes = tuple(a % y.ndim for a in inner_axes)
+    if method == "auto":
+        from . import plan as _plan
+
+        n_outer = math.prod(d for a, d in enumerate(y.shape)
+                            if a not in inner_axes)
+        method = _plan.best_l1_method(
+            max(n_outer, 1), y.dtype, device=y.device.type,
+            grad=_device.records_grad(y, radius))
+    method = ball.resolve_method(method)
+    v = ball.norm_reduce(y, q, axes=inner_axes)  # shape = outer dims
+    u = ball.project_ball(v.reshape(-1), p, radius,
+                          method=method).reshape(v.shape)
+    return ball.project_grouped(y, q, u, inner_axes=inner_axes, method=method)

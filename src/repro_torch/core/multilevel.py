@@ -12,7 +12,10 @@ LAST entry is the final vector projection. For Y ∈ R^{c,n,m}:
 The design compiles to a reduce → solve → apply schedule
 (``core.schedule``) that runs with plain PyTorch ops on ``y``'s device.
 ``method="auto"`` routes through the planner (``core.plan``), which may pick
-the generated CUDA kernels for a CUDA tensor.
+the generated CUDA kernels for a CUDA tensor; on an input that requires
+grad (grad mode on) it takes the planner's ``grad`` key, whose verdict is
+timed forward plus backward and whose backends all differentiate (the
+generated pipeline through its residual VJP).
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ import math
 from typing import Sequence, Tuple
 
 import torch
+
+from repro_torch import _device
 
 from . import ball, plan as _plan, schedule as sched_mod
 
@@ -31,16 +36,23 @@ def _check_levels(shape, levels: Sequence[Level]):
     sched_mod.check_levels(shape, levels)
 
 
+def _final_level_size(shape, levels: Sequence[Level]) -> int:
+    """Length of the vector the LAST level's θ-solver sees (autotune key)."""
+    return sched_mod.compile_schedule(shape, levels).solve_size
+
+
 def multilevel_project(y: torch.Tensor, levels: Sequence[Level], radius,
                        method: str = "sort") -> torch.Tensor:
     """MP^ν_radius(Y) — Algorithm 6 via the compiled schedule.
 
     ``method="auto"`` builds (or fetches) the cached planner plan for
-    ``y``'s shape, dtype and device and runs it.
+    ``y``'s shape, dtype and device and runs it: the ``grad`` key's plan on
+    an input autograd records.
     """
     if method == "auto":
         p = _plan.make_plan(y.shape, y.dtype, levels, method="auto",
-                            device=y.device.type)
+                            device=y.device.type,
+                            grad=_device.records_grad(y, radius))
         return p(y, radius)
     sched = sched_mod.compile_schedule(y.shape, levels)
     return sched_mod.execute(y, sched, radius, method=method)
@@ -55,6 +67,13 @@ def trilevel_l1infinf(y: torch.Tensor, radius,
                               radius, method)
 
 
+def trilevel_l111(y: torch.Tensor, radius, method: str = "sort") -> torch.Tensor:
+    """The ℓ1,1,1 tri-level of the paper's Figure 3 benchmark."""
+    if y.ndim != 3:
+        raise ValueError("trilevel_l111 expects an order-3 tensor")
+    return multilevel_project(y, [(1, 1), (1, 1), (1, 1)], radius, method)
+
+
 def multilevel_norm(x: torch.Tensor, levels: Sequence[Level]) -> torch.Tensor:
     """The mixed norm induced by ν: aggregate each level in turn.
 
@@ -66,3 +85,25 @@ def multilevel_norm(x: torch.Tensor, levels: Sequence[Level]) -> torch.Tensor:
         cur = ball.norm_reduce(cur, q, axes=tuple(range(k)))
     q, _ = levels[-1]
     return ball.norm_reduce(cur.reshape(-1), q, axes=0)
+
+
+def work_depth(shape, levels: Sequence[Level]):
+    """(work, depth) model of Prop. 6.4: work = sequential element touches;
+    depth = the longest dependency chain with unbounded parallelism (tree
+    reductions are log2 of the reduced extent)."""
+    _check_levels(shape, levels)
+    work = 0
+    depth = 0.0
+    cur = list(shape)
+    for q, k in levels[:-1]:
+        red = math.prod(cur[:k])
+        rest = math.prod(cur[k:])
+        work += red * rest          # aggregation pass
+        work += red * rest          # final per-group projection pass
+        depth += math.log2(max(red, 2))  # tree-reduce the aggregated axes
+        depth += 1                  # the elementwise apply
+        cur = cur[k:]
+    n = math.prod(cur)
+    work += n * int(math.log2(max(n, 2)))  # final vector projection (sort)
+    depth += math.log2(max(n, 2))
+    return work, depth

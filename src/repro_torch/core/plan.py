@@ -18,6 +18,11 @@ design the Hopper tiler accepts, and the exact ℓ1,∞ projection
 scalar-radius keys on either device. ``make_plan`` plans for the card unless
 ``device="cpu"`` is asked for, and raises without a CUDA device.
 
+``grad=True`` keys are training keys: the autotuner times forward plus
+backward, ``codegen`` competes through its residual VJP
+(``kernels/codegen/backward.py``), and ``exact_l1inf`` and the mesh
+executor, which have no backward, are not offered.
+
 ``sharding=(mesh, spec)`` makes a plan mesh-aware: the key carries the
 global shape and a :class:`ShardingKey`, the plan takes this rank's shard,
 and the candidates are the mesh executor's bodies, ``sharded`` (plain
@@ -85,6 +90,7 @@ class PlanKey(NamedTuple):
     radius_kind: str                      # 'scalar' | 'batch'
     device: str                           # 'cuda' | 'cpu'
     sharding: Optional[ShardingKey] = None  # None = single-device workload
+    grad: bool = False                    # training key: timed under autograd
 
 
 class PlanBackend(NamedTuple):
@@ -202,9 +208,10 @@ def _key_mesh(key: PlanKey):
 
 def _sharded_available(key: PlanKey) -> bool:
     # scalar radius only: a served bucket stacks items, the mesh executor
-    # projects one sharded tensor per call
+    # projects one sharded tensor per call; forward keys only, as in the
+    # JAX package (no backward through the collectives)
     return (key.sharding is not None and key.radius_kind == "scalar"
-            and _key_mesh(key) is not None)
+            and not key.grad and _key_mesh(key) is not None)
 
 
 def _build_sharded(key: PlanKey) -> Callable:
@@ -249,10 +256,11 @@ def _exact_l1inf_available(key: PlanKey) -> bool:
     # The EXACT ℓ1,∞ projection (Chu et al. semismooth Newton) targets the
     # same ball as the bi-level design but is a different operator; offering
     # it under method="auto" trades bi-level's looseness for measured speed,
-    # as the JAX planner does. 2-D scalar-radius keys only (the port's keys
-    # are unsharded forward keys).
+    # as the JAX planner does. Unsharded 2-D scalar-radius forward keys only:
+    # its Newton loop and per-column sorts make a pathological backward.
     return (key.levels == _L1INF_LEVELS and len(key.shape) == 2
-            and key.radius_kind == "scalar" and key.sharding is None)
+            and key.radius_kind == "scalar" and key.sharding is None
+            and not key.grad)
 
 
 def _build_exact_l1inf(key: PlanKey) -> Callable:
@@ -309,6 +317,9 @@ def _build_backend_fn(key: PlanKey, name: str) -> Callable:
 
         def per_item(ys, radii, out):
             # the counterpart of JAX's vmap over a per-item executable
+            if _device.records_grad(ys, radii):
+                x = torch.stack([built(y, r) for y, r in zip(ys, radii)])
+                return x if out is None else out.copy_(x)
             out = torch.empty_like(ys) if out is None else out
             for i in range(ys.shape[0]):
                 built(ys[i], radii[i], out=out[i])
@@ -380,6 +391,21 @@ def _sync(device: str) -> None:
         torch.cuda.synchronize()
 
 
+def _grad_fn(key: PlanKey, name: str) -> Callable:
+    """The gradient of ``sum(x ** 2)`` through one backend with respect to
+    y: what a training step runs for a ``grad`` key, so what the autotuner
+    times there (a backend that wins the forward can lose under autograd)."""
+    base = _get_executable(key, name)
+
+    def fn(y, radius, out):
+        y = y.detach().requires_grad_(True)
+        with torch.enable_grad():
+            return torch.autograd.grad(base(y, radius, None).square().sum(),
+                                       y)[0]
+
+    return fn
+
+
 def _autotune(key: PlanKey, names: Optional[List[str]] = None
               ) -> Tuple[str, Dict[str, float]]:
     """Interleaved min-of-rounds shoot-out over every candidate backend
@@ -390,11 +416,13 @@ def _autotune(key: PlanKey, names: Optional[List[str]] = None
     favouring one candidate. Every call is closed by a device synchronise, so
     the host clock measures the work, not the enqueue. On a sharded key every
     rank runs the same rounds (the candidates are collective) and rank 0's
-    winner is broadcast.
+    winner is broadcast. A ``grad`` key times forward plus backward
+    (:func:`_grad_fn`).
     """
     y, radius = _bench_args(key)
     names = _candidates(key) if names is None else names
-    fns = {name: _get_executable(key, name) for name in names}
+    make = _grad_fn if key.grad else _get_executable
+    fns = {name: make(key, name) for name in names}
     for fn in fns.values():
         for _ in range(2):
             fn(y, radius, None)  # build + warm
@@ -415,13 +443,17 @@ def _autotune(key: PlanKey, names: Optional[List[str]] = None
     return winner, timings
 
 
-def best_l1_method(n: int, dtype=torch.float32, *, device=None) -> str:
+def best_l1_method(n: int, dtype=torch.float32, *, device=None,
+                   grad: bool = False) -> str:
     """Autotuned θ-solver name for flat length-``n`` ℓ1 projections: only
     ``core.ball`` registry methods compete, so the winner runs anywhere a
-    method name does (the mesh executor's replicated outer solve). Timed
-    once per (n, dtype, device) and cached."""
+    method name does (the mesh executor's replicated outer solve, the
+    training hook). Timed once per (n, dtype, device, grad) and cached;
+    ``grad=True`` times each solver forward plus backward, for a caller
+    that differentiates through the solve."""
     dev = _device.resolve(device)
-    key = PlanKey((int(n),), dtype_name(dtype), (("1", 1),), "scalar", dev.type)
+    key = PlanKey((int(n),), dtype_name(dtype), (("1", 1),), "scalar", dev.type,
+                  grad=bool(grad))
     if key in _L1_WINNERS:
         _count("autotune_hits")
     else:
@@ -493,8 +525,8 @@ class ProjectionPlan:
 
 
 def make_plan(shape, dtype, levels, radius_kind: str = "scalar",
-              method: str = AUTO, *, device=None,
-              sharding=None) -> ProjectionPlan:
+              method: str = AUTO, *, device=None, sharding=None,
+              grad: bool = False) -> ProjectionPlan:
     """Build (or fetch from cache) the projection plan for one workload.
 
     ``shape``/``dtype`` describe one tensor to project (for
@@ -505,6 +537,14 @@ def make_plan(shape, dtype, levels, radius_kind: str = "scalar",
     without a CUDA device) or ``"cpu"``. ``sharding=(mesh, spec)``: ``shape``
     is the global shape and the plan projects this rank's shard through the
     mesh executor (every rank makes the same plan, in the same order).
+
+    ``grad=True`` marks a training key: the projection will be
+    differentiated through, so ``method="auto"`` times forward plus
+    backward of each candidate, and forward and grad keys keep separate
+    verdicts. The plan's executable is the forward either way: every
+    backend offered is differentiable (``codegen`` through its residual
+    VJP); those without a backward (``exact_l1inf``, the mesh executor) are
+    not offered for a grad key.
     """
     _maybe_register_kernel_backends()
     dev = _device.resolve(device)
@@ -515,7 +555,7 @@ def make_plan(shape, dtype, levels, radius_kind: str = "scalar",
         raise ValueError(
             f"radius_kind must be one of {_RADIUS_KINDS}, got {radius_kind!r}")
     key = PlanKey(shape, dtype_name(dtype), lv, radius_kind, dev.type,
-                  canonical_sharding(sharding, len(shape)))
+                  canonical_sharding(sharding, len(shape)), bool(grad))
     cache_key = (key, method)
     if cache_key in _PLANS:
         _count("plan_hits")

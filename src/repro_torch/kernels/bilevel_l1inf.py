@@ -101,9 +101,11 @@ def colmax_shape(m: int, vec: int, itemsize: int = 4) -> Tuple[int, int]:
 
 def check_operands(what: str, y: torch.Tensor, *others: torch.Tensor) -> int:
     """The kernels take contiguous, non-empty float32 or bf16 tensors of one
-    type on one CUDA device; returns Y's code in :data:`DTYPE_CODES`.
+    type on one CUDA device, none of which autograd records (the kernels
+    have no backward); returns Y's code in :data:`DTYPE_CODES`.
     Devices are compared by index (``get_device``), which builds no
-    ``torch.device`` on the launch path; each operand is looked at once."""
+    ``torch.device`` on the launch path; each operand is looked at once,
+    and grad mode only when one requires grad."""
     _device.require_cuda(y, what)
     code = DTYPE_CODES.get(y.dtype)
     if code is None:
@@ -111,12 +113,16 @@ def check_operands(what: str, y: torch.Tensor, *others: torch.Tensor) -> int:
     if not y.is_contiguous():
         raise ValueError(f"{what} takes contiguous tensors")
     index = y.get_device()
+    grad = y.requires_grad
     for t in others:
         if t.dtype != y.dtype or t.get_device() != index:
             raise ValueError(f"{what}: every operand must be {y.dtype} on "
                              f"{y.device}, got {t.dtype} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{what} takes contiguous tensors")
+        grad = grad or t.requires_grad
+    if grad:
+        _device.refuse_grad(what, y, *others)
     if y.numel() == 0:
         raise ValueError(f"{what} takes a non-empty tensor")
     return code
@@ -184,7 +190,9 @@ def clip(y: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 
 def check_fused(what: str, y: torch.Tensor) -> None:
     """The fused pipelines take float32: the outer solve's ``l1ball``
-    kernel is float32-only."""
+    kernel is float32-only. (On the card their first launch refuses a Y
+    that autograd records: the kernels have no backward, nor has the JAX
+    package's.)"""
     if y.dtype != torch.float32:
         raise ValueError(f"{what} takes float32 (the l1ball outer solve is "
                          f"float32-only), got {y.dtype}")

@@ -1,10 +1,12 @@
 """repro_torch.kernels.codegen — compile any schedule IR to the generated
-CUDA pipeline (port of ``repro/kernels/codegen``, forward only).
+CUDA pipeline (port of ``repro/kernels/codegen``).
 
 * ``tiling``   — the Hopper launch planner: canonical view, row splits, and
   the limits that make it reject a design;
 * ``lowering`` — the reduce and apply kernel wrappers beside their plain
-  versions, and ``generate``/``generate_batched``;
+  versions, and ``generate``/``generate_batched`` (differentiable: their
+  backward is ``backward.schedule_vjp``);
+* ``backward`` — the residual VJP of a compiled schedule in PyTorch ops;
 * this module — the cached entry points the planner backends
   (``kernels/plan_backends.py``) and ``kernels/ops.py`` build on.
 
@@ -23,7 +25,7 @@ from repro_torch import _device
 from repro_torch.core.plan import dtype_name, torch_dtype
 from repro_torch.core.schedule import canonical_levels, compile_schedule
 
-from . import lowering, tiling  # noqa: F401
+from . import backward, lowering, tiling  # noqa: F401
 from .lowering import generate, generate_batched  # noqa: F401
 from .tiling import TilePlan, plan_tiles  # noqa: F401
 

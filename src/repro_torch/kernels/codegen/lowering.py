@@ -1,5 +1,5 @@
 """Schedule IR → the generated CUDA pipeline (port of
-``repro/kernels/codegen/lowering.py``, forward only).
+``repro/kernels/codegen/lowering.py``).
 
 A compiled ``Schedule`` is ``ReduceLevel* → OuterSolve → ApplyGroup*``; any
 design the tiler (``tiling.plan_tiles``) accepts runs as three launches over
@@ -27,6 +27,11 @@ the wrappers (:func:`codegen_reduce`, :func:`codegen_apply`,
 the kernel for a CUDA tensor — nothing else. ``generate``
 builds the single-item callable from the batched one: the kernels take the
 batch as their leading launch axis.
+
+Under autograd (an input that requires grad, grad mode on) the pipeline
+runs as a ``torch.autograd.Function`` whose backward is the residual VJP
+of ``codegen/backward.py`` in PyTorch ops, as the JAX package's
+``custom_vjp`` carries its jnp backward.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from repro_torch.core.schedule import Schedule
 from repro_torch.obs import profile as obs_profile
 
 from .. import _build, l1ball
+from . import backward as bwd_mod
 from .tiling import (TilePlan, lead_split, plan_tiles, reduce_split,
                      row_split)
 
@@ -328,6 +334,38 @@ def _solve_outer_batched(v: torch.Tensor, norm: str, radii: torch.Tensor,
 
 
 
+class _Pipeline(torch.autograd.Function):
+    """The generated pipeline under autograd: the forward runs the three
+    launches (or their plain versions) with grad mode off, the backward is
+    the residual VJP of ``backward.schedule_vjp`` on what the forward saved
+    (``yc``, ``x``, the aggregates, ``vfin`` and ``u``: the JAX package's
+    residuals), with no second forward."""
+
+    @staticmethod
+    def forward(ctx, yc, radii, run, norms):
+        x, internals = run(yc, radii)
+        ctx.norms = norms
+        saved = ()
+        if internals:
+            aggs, vfin, u = internals
+            saved = (*aggs, vfin, u)
+        ctx.save_for_backward(yc, x, radii, *saved)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        yc, x, radii, *rest = ctx.saved_tensors
+        norms = ctx.norms
+        if len(norms) == 1:
+            stages, u = [yc], x
+        else:
+            *aggs, vfin, u = rest
+            stages = [yc, *aggs, vfin]
+        dy, dr = bwd_mod.schedule_vjp(norms, stages, u, x, radii,
+                                      g.contiguous())
+        return dy, dr, None, None
+
+
 def generate_batched(sched: Schedule, dtype, *, method: str = "bisect",
                      device=None) -> Callable:
     """Compile ``sched`` into ``(ys, radii, out=None) -> xs`` for a bucket of
@@ -338,6 +376,10 @@ def generate_batched(sched: Schedule, dtype, *, method: str = "bisect",
     inputs on any other device raise. ``method`` is the outer ℓ1 θ-solve,
     ``"bisect"`` or ``"filter"``; the grouped solves inside the apply are
     always the 64-step bisection. ``out`` receives X and may be ``ys``.
+
+    When ``ys`` or ``radii`` requires grad (and grad mode is on) the call
+    runs under :class:`_Pipeline`: the same launches, and a backward that
+    gives ``ys`` and ``radii`` their cotangents; ``out`` is then refused.
     """
     dev = _device.resolve(device)
     if sched.batch_dims:
@@ -354,6 +396,21 @@ def generate_batched(sched: Schedule, dtype, *, method: str = "bisect",
             f"{sched.shape} as {dtype}: the Hopper tiler rejects it")
     norms = [q for q, _ in sched.levels]
 
+    def run(yc, radii, oc=None):
+        """The three launches: ``(x, (aggs, vfin, u))``, or ``(x, ())`` for
+        a design that is its outer solve."""
+        if len(norms) == 1:
+            with obs_profile.scope(f"codegen_solve_{norms[0]}"):
+                x = l1ball.project_l1_batched(yc, radii, method=method, out=oc)
+            return x, ()
+        with obs_profile.scope("codegen_reduce"):
+            aggs, vfin = codegen_reduce(yc, tp, norms[:-1])
+        with obs_profile.scope(f"codegen_solve_{norms[-1]}"):
+            u = _solve_outer_batched(vfin, norms[-1], radii, method)
+        with obs_profile.scope("codegen_apply"):
+            x = codegen_apply(yc, aggs, vfin, u, tp, norms[:-1], out=oc)
+        return x, (aggs, vfin, u)
+
     def fused(ys: torch.Tensor, radii, out: torch.Tensor | None = None):
         if ys.device.type != dev.type:
             raise ValueError(f"kernel built for {dev.type}, got a tensor on "
@@ -367,17 +424,15 @@ def generate_batched(sched: Schedule, dtype, *, method: str = "bisect",
             raise ValueError(f"radii must be one scalar per stacked item: got "
                              f"{tuple(radii.shape)} for batch {batch}")
         yc = ys.reshape((batch,) + tp.canon_shape)
-        oc = None if out is None else out.view((batch,) + tp.canon_shape)
-        if len(norms) == 1:
-            with obs_profile.scope(f"codegen_solve_{norms[0]}"):
-                x = l1ball.project_l1_batched(yc, radii, method=method, out=oc)
-            return x.reshape(ys.shape)
-        with obs_profile.scope("codegen_reduce"):
-            aggs, vfin = codegen_reduce(yc, tp, norms[:-1])
-        with obs_profile.scope(f"codegen_solve_{norms[-1]}"):
-            u = _solve_outer_batched(vfin, norms[-1], radii, method)
-        with obs_profile.scope("codegen_apply"):
-            x = codegen_apply(yc, aggs, vfin, u, tp, norms[:-1], out=oc)
+        if _device.records_grad(ys, radii):
+            if out is not None:
+                raise ValueError("out= writes in place, which autograd cannot "
+                                 "follow: drop it for an input that requires "
+                                 "grad")
+            x = _Pipeline.apply(yc, radii, run, tuple(norms))
+        else:
+            oc = None if out is None else out.view((batch,) + tp.canon_shape)
+            x = run(yc, radii, oc)[0]
         return x.reshape(ys.shape)
 
     return fused

@@ -111,8 +111,12 @@ def _launch(v: torch.Tensor, b: int, n: int, radii: torch.Tensor | None,
             ) -> torch.Tensor:
     """Launch the kernel on ``b`` rows of ``n`` values of ``v`` (any shape of
     ``b · n`` values): radius ``radii[i]`` for row i, or ``radius`` for every
-    row when ``radii`` is None."""
+    row when ``radii`` is None. Autograd may not record the call: the
+    kernel has no backward of its own (the generated pipeline's Function
+    calls it with grad mode off)."""
     _device.require_cuda(v, "l1ball")
+    if v.requires_grad or (radii is not None and radii.requires_grad):
+        _device.refuse_grad("l1ball", v, radii)
     if not 1 <= n <= L1_KERNEL_MAX:
         raise ValueError(f"l1ball takes 1 <= n <= {L1_KERNEL_MAX}, got n={n}")
     if not (v.is_contiguous() and (radii is None or radii.is_contiguous())):

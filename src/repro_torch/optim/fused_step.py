@@ -54,7 +54,7 @@ def fused_update(grads, state, params, cfg: TrainConfig,
         pnew, mq, vq = one_leaf(g, m, v, ps)
         if project_now and match(name, pnew):
             pnew = _project_leaf(pnew, spec.levels, spec.radius,
-                                 resolve(pnew.shape, pnew.dtype),
+                                 resolve(pnew.shape, pnew.dtype, pnew.device),
                                  transpose=spec.transpose)
         p.copy_(pnew)
         m.copy_(mq)

@@ -24,8 +24,11 @@ of the aggregates, a gathered small outer solve, local applies — with its
 leading stacked axes as batch dims. On a CUDA leaf whose design
 ``kernels.codegen.distributed.shardable`` accepts, the shard-local stages
 are the generated kernels. Leaves with unsharded trailing axes (or without
-specs) keep the single-device path. ``method="auto"`` waits for the hook's
-use of the planner's ``best_l1_method``.
+specs) keep the single-device path.
+
+``method="auto"`` is resolved once per hook and per (final-level length,
+dtype, device) through the planner's ``best_l1_method`` on the leaf's
+device, and memoised; on a sharded leaf rank 0's verdict is broadcast.
 """
 
 from __future__ import annotations
@@ -36,23 +39,47 @@ import torch
 
 from repro_torch import _tree
 from repro_torch.configs.types import ProjectionSpec
-from repro_torch.core import ball, schedule as sched_mod, sharded
+from repro_torch.core import ball, multilevel, schedule as sched_mod, sharded
 from repro_torch.core.masks import sparsity
 
 SHARD_BACKENDS = ("auto",) + sharded.BACKENDS
 
 
 def _method_resolver(spec: ProjectionSpec):
-    """Per-leaf θ-solver resolution, done once per hook: a fixed name is
-    validated through the registry immediately (config errors surface
-    once)."""
-    if spec.method == "auto":
-        raise ValueError("method='auto': this hook does not yet resolve the "
-                         "solver once per hook through the planner's "
-                         "best_l1_method (core/plan.py); name a solver "
-                         f"({', '.join(ball.available_methods())})")
-    method = ball.resolve_method(spec.method)
-    return lambda shape, dtype: method
+    """Per-leaf θ-solver resolution, done once per hook.
+
+    A fixed name is validated through the registry immediately (config
+    errors surface once). ``"auto"`` returns ``resolve(shape, dtype,
+    device, mesh=None)``: the planner's ``best_l1_method`` for the final
+    level's length of the leaf's trailing axes (reversed under
+    ``transpose``), memoised per (length, dtype, device). With ``mesh`` (a
+    sharded leaf, ``shape`` its global shape) rank 0 times and broadcasts,
+    so that every rank solves alike.
+    """
+    if spec.method != "auto":
+        method = ball.resolve_method(spec.method)
+        return lambda shape, dtype, device, mesh=None: method
+    from repro_torch.core import plan as planmod
+
+    need = sum(k for _, k in spec.levels)
+    cache = {}
+
+    def resolve(shape, dtype, device, mesh=None):
+        trailing = tuple(shape[len(shape) - need:])
+        if spec.transpose:
+            trailing = trailing[::-1]
+        n_final = multilevel._final_level_size(trailing, spec.levels)
+        key = (n_final, planmod.dtype_name(dtype), torch.device(device).type,
+               mesh is not None)
+        if key not in cache:
+            def pick():
+                return planmod.best_l1_method(n_final, dtype, device=key[2])
+
+            cache[key] = pick() if mesh is None else mesh.broadcast_choice(
+                sorted(ball.available_methods()), pick)
+        return cache[key]
+
+    return resolve
 
 
 def _project_leaf(w: torch.Tensor, levels, radius, method: str,
@@ -153,15 +180,18 @@ def _projector(spec: ProjectionSpec, mesh=None, param_specs=None,
 
     def one(name, w):
         if match(name, w):
-            method = resolve(w.shape, w.dtype)
             names = None
             if mesh is not None:
                 names = _sharded_leaf_names(mesh, specs_by_path.get(name),
                                             w.ndim, need)
             if names is not None:
+                padded = tuple(d * mesh.shape[n] if n else d
+                               for d, n in zip(w.shape, names))
+                method = resolve(padded, w.dtype, w.device, mesh)
                 return _project_leaf_sharded(
                     w, spec, spec.radius, method, mesh, names,
                     backend=backend).to(w.dtype)
+            method = resolve(w.shape, w.dtype, w.device)
             return _project_leaf(w, spec.levels, spec.radius, method,
                                  transpose=spec.transpose).to(w.dtype)
         return w

@@ -1,6 +1,7 @@
-"""repro_torch.runtime — checkpointing and fault tolerance (port of
-``repro/runtime``; ``double_descent`` waits for the §7.3 slice)."""
+"""repro_torch.runtime — checkpointing, fault tolerance and the
+double-descent schedule (port of ``repro/runtime``)."""
 from .checkpoint import CheckpointManager  # noqa: F401
+from .double_descent import double_descent  # noqa: F401
 from .resilience import (  # noqa: F401
     HeartbeatFile, StragglerMonitor, StragglerReport, run_with_restarts,
 )
