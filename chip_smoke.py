@@ -12,7 +12,7 @@ Function's gradients and the flash rows of phase 6 alone; its launches are
 those of one bf16 Function forward+backward at granite's shape and of one
 float32 forward at the harvest's. ``--only autograd`` builds them and runs
 phases 3b and 3c on W1–W4 made from the seed; ``--only sae_tables`` runs
-phase 8.)
+phase 8, ``--only train_mesh`` phase 9.)
 
 1. builds the fourteen CUDA kernels of the seven sources in
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, started together),
@@ -172,7 +172,41 @@ phase 8.)
    synthetic bi-level ℓ1,∞ row on the CPU from the same init: descent-1
    losses within ``SAE_TABLES_LOSS_RTOL`` of the card's, the differing
    mask columns printed. The path launches no kernel (the plain schedule,
-   as the JAX hook's jnp one).
+   as the JAX hook's jnp one);
+9. trains granite-3-2b sharded (``train_mesh_phase``): four ranks
+   (``torch.multiprocessing``, spawn; gloo with all four on the one card,
+   or NCCL one per card when the machine has four) on a ("data", "model")
+   = (2, 2) mesh, tensor parallel over "model" and FSDP over "data", at
+   phase 5's batch, microbatch, sequence and radius. First its kernels at
+   the shapes this path gives them on each rank, read from the mesh's
+   specs (``hold_mesh_train_kernels``: the flash forward, dQ and dK/dV in
+   float32 and bf16 at q (2, 16, 2048, 64) and k/v (2, 4, 2048, 64); the
+   hook's reduce, l1ball and apply on w_up's shard (L, 1024, 4096) at (a)'s
+   and (b)'s depths), against their plain versions with phase 1's bars,
+   and their event times. (a) float32 at 2
+   layers for 2 steps through ``make_train_step(mesh=, param_specs=)``:
+   losses and gradient norms within 1e-4 relative of the single-device
+   unfused step run first in this process, the gathered AdamW moments of
+   w_up / w_gate within 1e-4 of their largest entry at each step, the
+   gathered w_up / w_gate within 1e-4 of their largest entry plus AdamW's
+   slack read where the first gradient is within 1e3 eps of 0 (and within
+   2 Σ lr everywhere), feasible (phase 5's bound), every copy of a replicated slice bit-identical across ranks (SHA-1 of
+   params and moments), collectives per step equal to
+   ``training.step.step_collectives``. (b) bf16 through the launcher's CLI
+   (``launch.train.run([... "--mesh", "2x2", "--layers", N])``, 20 layers
+   on one card, 40 on four) for 3 steps: finite losses within 2e-2
+   relative of the single-device launcher at the same depth, per rank the
+   step ms, tokens/s, peak memory, collectives per step (= the model) and
+   launches (flash forward 2 · layers · micro-batches · steps, dQ and dK/dV
+   half that; per step 2 each of ``codegen_reduce``, ``l1ball`` and
+   ``codegen_apply`` from the mesh-native hook). (c) GSP
+   (``gsp_whole_network``'s run, ``sae_factory._gsp``) on a (1, 4) mesh
+   against one device, in float32 and in bf16 compute: the same leaves
+   projected, both feasible, losses and per-leaf column sparsity within
+   ``MESH_GSP_TOL`` (float32 1e-5 and 0.1 point; bf16 1e-4 and 2 points);
+   the same sharded run with the psum over "model" of ``collectives.enter``'s
+   backward skipped must fall outside those bars. ``--only train_mesh`` builds the kernels and runs phase
+   9 alone.
 
 The widths are the SAE factory's on stablelm-1.6b: d_model 2048, d_dict
 4 x 2048 = 8192, 32 heads; the projected tensor is the transposed encoder.
@@ -205,6 +239,7 @@ Output: one line per check, then a JSON line ``{"kernels": [...]}``, the
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -2275,6 +2310,583 @@ def mesh_phase(backend):
     return ranks, seconds
 
 
+# sharded training (phase 9): launch/train.py's step on a ("data", "model")
+# = (2, 2) mesh (tensor parallel over "model", FSDP over "data") of
+# granite-3-2b at full width, phase 5's batch, microbatch and sequence, the
+# bi-level constraint on (w_up|w_gate) at phase 5's radius
+MESH_TRAIN_SIZES = (2, 2)
+MESH_TRAIN_F32 = (2, 2)          # (a): layers, steps; float32 compute
+MESH_TRAIN_BF16_STEPS = 3        # (b): bf16 compute, the launcher's CLI
+# (b)'s depth: four ranks on one card share its 80 GB (about 10 GB a rank
+# at 20 layers); on four cards the full 40
+MESH_TRAIN_LAYERS = {"gloo": 20, "nccl": 40}
+MESH_TRAIN_RTOL = {"f32": 1e-4, "bf16": 2e-2}
+# per rank and step, the sharded hook's kernels on w_up and w_gate: the
+# bi-level ν with both trailing axes sharded ((None, "data", "model")) is
+# the pmax + gather path: reduce, l1ball, apply, and no partial apply
+MESH_TRAIN_HOOK = {"codegen_reduce": 2, "l1ball": 2, "codegen_apply": 2,
+                   "codegen_partial_apply": 0}
+# (c): GSP whole-network sparsification on a (1, 4) mesh against one device
+MESH_GSP_SIZES = (1, 4)
+# sharded against one device, per compute dtype: (loss rtol, per-leaf
+# column sparsity in points). float32: sums in another order only. bf16 (the
+# JAX package's setting): the sharded forward sums its bf16 partial products
+# over ranks, AdamW's first steps (lr 1e-3) carry gradients that round the
+# other way into the weights, and a column whose norm lies within that of
+# its level's threshold goes either way: the CPU runs differ by 1-2 of the
+# smoke unembedding's 256 columns (tests/test_torch_gsp.py), an H100 by 3
+# (1.17 points) with the loss 2.2e-5 apart. The bars must catch a skipped
+# psum over "model" in enter's backward, which (c) runs on every call
+# (``skipped_enter_psum``): on the CPU it moves a leaf by 5.47 (bf16) and
+# 6.64 (float32) points and the loss by 4.3e-5 / 3.6e-5
+# (tests/test_torch_gsp.py); the card's readings are printed
+MESH_GSP_TOL = {"float32": (1e-5, 0.1), "bfloat16": (1e-4, 2.0)}
+
+
+def _mesh_train_tcfg(layers, steps, radius, compute):
+    """(cfg, tcfg, pipeline) of a phase 9 run at ``layers``: the
+    launcher's TrainConfig with ``compute``."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.types import ProjectionSpec, TrainConfig
+    from repro_torch.data import DataConfig, DataPipeline
+
+    cfg = dataclasses.replace(registry.get_arch(TRAIN_ARCH), n_layers=layers)
+    _, batch, micro, seq = train_args()
+    tcfg = TrainConfig(microbatch=micro, total_steps=steps,
+                       warmup=min(20, steps // 5 + 1), remat=True,
+                       master_dtype="", compute_dtype=compute,
+                       projection=ProjectionSpec(pattern=r"(w_up|w_gate)",
+                                                 radius=radius))
+    pipe = DataPipeline(DataConfig(vocab=cfg.vocab, seq_len=seq + 1,
+                                   global_batch=batch, microbatch=micro))
+    return cfg, tcfg, pipe
+
+
+def _digest(t):
+    import hashlib
+
+    return hashlib.sha1(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def _mlp_moments(state):
+    """w_up's and w_gate's AdamW moments, on the host."""
+    return {k: (state["opt"]["m"]["blocks"]["mlp"][k].cpu(),
+                state["opt"]["v"]["blocks"]["mlp"][k].cpu())
+            for k in ("w_up", "w_gate")}
+
+
+@contextlib.contextmanager
+def skipped_enter_psum():
+    """A fault phase 9 (c) must catch: ``collectives.enter``'s backward
+    returns this rank's own gradient, without the psum over "model"."""
+    from repro_torch.parallel import collectives
+
+    keep = collectives._Enter.backward
+    collectives._Enter.backward = staticmethod(lambda ctx, g: (g, None, None))
+    try:
+        yield
+    finally:
+        collectives._Enter.backward = keep
+
+
+def gsp_gap(got, want):
+    """(largest per-leaf column sparsity gap in points, loss relative gap)
+    of two GSP records."""
+    gap = max(abs(got["per_leaf_sparsity"][k] - v)
+              for k, v in want["per_leaf_sparsity"].items())
+    return gap, abs(got["loss"] - want["loss"]) / abs(want["loss"])
+
+
+def mesh_train_shapes(layers):
+    """The shapes phase 9's sharded step gives its kernels on each rank,
+    read from the mesh's specs: flash's q and k/v (B, H, S, hd) of a
+    micro-batch's slice over the batch axes and the rank's heads
+    (granite's 8 kv heads shard over "model" as its 32 q heads do), and
+    w_up's (and w_gate's) shard (L, d / D, ffn / M)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    from repro_torch.models.params import param_specs
+    from repro_torch.parallel import sharding
+
+    cfg = dataclasses.replace(registry.get_arch(TRAIN_ARCH), n_layers=layers)
+    sizes = dict(zip(("data", "model"), MESH_TRAIN_SIZES))
+    tpl = lm.template(cfg)["blocks"]
+    specs = param_specs(tpl, sharding.param_rules(sizes), sizes)
+
+    def local(grp, name):
+        return sharding.local_shape(tpl[grp][name].shape, specs[grp][name], sizes)
+
+    _, batch, micro, seq = train_args()
+    mb = sharding.local_shape((batch // micro, micro, seq),
+                              sharding.tokens_spec(sizes, None, micro), sizes)[1]
+    h, hd = local("attn", "wq")[-2:]
+    return ((mb, h, seq, hd), (mb, local("attn", "wk")[-2], seq, hd),
+            cfg.window, local("mlp", "w_up"))
+
+
+def hold_mesh_train_kernels(randn, rand, depths):
+    """Phase 9's kernels against their plain versions at the shapes its
+    path gives them on each rank (``mesh_train_shapes``), with phase 1's
+    bars: the flash forward, dQ and dK/dV in float32 ((a)'s compute) and
+    bf16 ((b)'s), and the sharded hook's kernels on w_up's shard at each
+    of ``depths``: ``codegen_reduce`` (raw, as the hook takes it before its
+    pmax over "data"), ``l1ball`` on the aggregate gathered over "model"
+    (radii RADIUS_FRACTION of each layer's sum) and ``codegen_apply`` with
+    this shard's columns of its radii. Returns {kernel: max error} and the
+    event ms of each kernel and its plain version at the last depth."""
+    import torch
+
+    from repro_torch.core import schedule
+    from repro_torch.kernels import flash_attention as flash, l1ball
+    from repro_torch.kernels.codegen import lowering, tiling
+
+    errs, times = {}, {}
+
+    def keep(name, e):
+        errs[name] = max(errs.get(name, 0.0), e)
+
+    qs, ks, window, _ = mesh_train_shapes(depths[-1])
+    for dtype in (torch.float32, torch.bfloat16):
+        e, (q, k, v, do, o, lse, delta) = hold_attention(
+            randn, "train mesh local", qs, ks, True, window, dtype)
+        tag = str(dtype)[6:]
+        for name, err in e.items():
+            keep(f"{name} {tag}", err)
+        opts = dict(causal=True, window=window)
+        times[f"flash {tag}"] = {
+            "fwd_ms": event_ms(lambda: flash.flash_attention(q, k, v, **opts)),
+            "dq_ms": event_ms(lambda: flash.flash_bwd_dq(q, k, v, do, lse, delta,
+                                                         **opts)),
+            "dkv_ms": event_ms(lambda: flash.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                           **opts)),
+            "plain_fwd_ms": event_ms(lambda: flash.flash_attention_plain(
+                q, k, v, **opts)),
+            "plain_bwd_ms": event_ms(lambda: flash.flash_attention_bwd_plain(
+                q, k, v, o, lse, do, **opts))}
+        del q, k, v, do, o, lse, delta
+    norms = [n for n, _ in BILEVEL]
+    parts = MESH_TRAIN_SIZES[1]                      # the "model" gather
+    for layers in depths:
+        w_loc = mesh_train_shapes(layers)[3]
+        tag = f"train mesh w_up shard {w_loc}"
+        tp = tiling.plan_tiles(schedule.compile_schedule(w_loc[1:], BILEVEL),
+                               torch.float32)
+        yc = randn((w_loc[0],) + tp.canon_shape)
+        aggs, acc = lowering.codegen_reduce(yc, tp, norms[:-1], raw=True)
+        vfin = lowering.finalize(norms[-2], acc)
+        torch.cuda.synchronize()
+        aggs_p, vfin_p = lowering.reduce_plain(yc, norms[:-1])
+        keep("codegen_reduce", max([check_close(f"{tag} reduce", vfin, vfin_p,
+                                                fmax(vfin_p))]
+                                   + [check_close(f"{tag} reduce v{t + 1}", a, b,
+                                                  fmax(b))
+                                      for t, (a, b) in enumerate(zip(aggs, aggs_p))]))
+        del aggs, acc, vfin
+        vg = torch.cat([vfin_p] + [lowering.reduce_plain(
+            randn(yc.shape), norms[:-1])[1] for _ in range(parts - 1)], dim=1)
+        radii = RADIUS_FRACTION * vg.sum(1)
+        u = l1ball.project_l1_batched(vg, radii)
+        torch.cuda.synchronize()
+        u_p = l1ball.project_l1_plain(vg, radii)
+        keep("l1ball", check_close(f"{tag} l1ball {tuple(vg.shape)}", u, u_p,
+                                   fmax(vg)))
+        u_loc = u_p[:, :vfin_p.shape[1]].contiguous()
+        x = lowering.codegen_apply(yc, aggs_p, vfin_p, u_loc, tp, norms[:-1])
+        torch.cuda.synchronize()
+        keep("codegen_apply", check_close(
+            f"{tag} apply", x, lowering.apply_plain(yc, aggs_p, vfin_p, u_loc,
+                                                   norms[:-1]), fmax(yc)))
+        del x
+        if layers == depths[-1]:
+            out = torch.empty_like(yc)
+            for name, kern, plain in (
+                    ("codegen_reduce",
+                     lambda: lowering.codegen_reduce(yc, tp, norms[:-1], raw=True),
+                     lambda: lowering.reduce_plain(yc, norms[:-1])),
+                    ("l1ball", lambda: l1ball.project_l1_batched(vg, radii),
+                     lambda: l1ball.project_l1_plain(vg, radii)),
+                    ("codegen_apply",
+                     lambda: lowering.codegen_apply(yc, aggs_p, vfin_p, u_loc, tp,
+                                                    norms[:-1], out=out),
+                     lambda: lowering.apply_plain(yc, aggs_p, vfin_p, u_loc,
+                                                  norms[:-1]))):
+                times[f"{name} {tuple(w_loc)}"] = {"ms": event_ms(kern),
+                                                   "plain_ms": event_ms(plain)}
+            del out
+        del yc, aggs_p, vfin_p, vg, u, u_p, u_loc
+        torch.cuda.empty_cache()
+    print(f"train mesh kernels at the ranks' shapes (q {qs}, kv {ks}; w_up "
+          f"shards at {list(depths)} layers) vs their plain versions: "
+          + ", ".join(f"{k_} max_abs_err {v_:.3e}" for k_, v_ in errs.items()))
+    print(f"train mesh kernel times at the ranks' shapes (events, ms): {times}")
+    return errs, times
+
+
+def train_mesh_rank(rank, world, backend, tmp, radius, layers):
+    """One rank of phase 9 (``torch.multiprocessing`` spawns it): (a) the
+    sharded float32 step from the seed, (b) ``launch.train.run`` on the
+    2x2 mesh in bf16, (c) GSP on a (1, 4) mesh, correct and with
+    ``skipped_enter_psum``; writes its numbers to
+    ``<tmp>/rank<rank>.json`` and its float32 w_up/w_gate shards to
+    ``<tmp>/rank<rank>.pt``."""
+    import datetime
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import _tree, models
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.params import param_specs
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.mesh import Mesh
+    from repro_torch.training import init_state, make_train_step
+    from repro_torch.training.sae_factory import _gsp
+    from repro_torch.training.step import step_collectives
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=600),
+                            device_id=dev if backend == "nccl" else None)
+    mesh = Mesh(MESH_TRAIN_SIZES, ("data", "model"))
+    out = {"rank": rank, "coords": mesh.coords}
+
+    # (a) float32: the step the launcher builds, on its shards of the seed
+    f_layers, f_steps = MESH_TRAIN_F32
+    cfg, tcfg, pipe = _mesh_train_tcfg(f_layers, f_steps, radius, "float32")
+    api = models.get(cfg)
+    specs = param_specs(api.template(cfg), sharding.param_rules(mesh),
+                        sharding.mesh_shape_dict(mesh))
+    state = init_state(cfg, tcfg, api, tcfg.seed, device=dev, mesh=mesh,
+                       param_specs=specs)
+    step = make_train_step(cfg, tcfg, api, impl="flash", mesh=mesh,
+                           param_specs=specs)
+    a = {"losses": [], "grad_norms": [], "collectives": []}
+    moments = []
+    _build.reset_launches()
+    for i in range(f_steps):
+        mesh.reset_counts()
+        state, m = step(state, {"tokens": torch.from_numpy(pipe.batch(i)).to(dev)})
+        torch.cuda.synchronize()
+        a["collectives"].append(mesh.counts()["by_op"])
+        a["losses"].append(float(m["loss"]))
+        a["grad_norms"].append(float(m["grad_norm"]))
+        moments.append(_mlp_moments(state))
+    a["launches"] = _build.launch_counts()
+    a["model"] = step_collectives(cfg, tcfg, specs, mesh, pipe.batch(0).shape)
+    a["digests"] = {key: {name: _digest(x) for name, x in _tree.leaves_with_paths(
+        state["params"] if key == "params" else state["opt"][key])}
+        for key in ("params", "m", "v")}
+    a["specs"] = {name: list(sp) for name, sp in _tree.leaves_with_paths(specs)}
+    torch.save({"params": {k: state["params"]["blocks"]["mlp"][k].cpu()
+                           for k in ("w_up", "w_gate")}, "moments": moments},
+               tmp / f"rank{rank}.pt")
+    out["f32"] = a
+    del state, step
+    torch.cuda.empty_cache()
+
+    # (b) bf16: the launcher's CLI on the 2x2 mesh
+    argv = TRAIN_ARGV[:-4] + ["--steps", str(MESH_TRAIN_BF16_STEPS),
+                              "--radius", repr(radius), "--layers", str(layers),
+                              "--mesh", "x".join(map(str, MESH_TRAIN_SIZES))]
+    torch.cuda.reset_peak_memory_stats(dev)
+    dist.barrier()
+    _build.reset_launches()
+    run = train_cli.run(argv)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    cfg, tcfg, pipe = _mesh_train_tcfg(layers, MESH_TRAIN_BF16_STEPS, radius,
+                                       "bfloat16")
+    specs = param_specs(api.template(cfg), sharding.param_rules(mesh),
+                        sharding.mesh_shape_dict(mesh))
+    out["bf16"] = {"argv": argv, "losses": run["losses"],
+                   "grad_norms": run["grad_norms"],
+                   "step_seconds": run["step_seconds"],
+                   "collectives": [c["by_op"] for c in run["collectives"]],
+                   "model": step_collectives(cfg, tcfg, specs, mesh,
+                                             pipe.batch(0).shape),
+                   "launches": counts,
+                   "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                   "sparsity": run["sparsity"]}
+    del run
+    torch.cuda.empty_cache()
+
+    # (c) GSP whole-network sparsification on a (1, 4) mesh, then again
+    # with a fault its check must catch
+    gmesh = Mesh(MESH_GSP_SIZES, ("data", "model"))
+    out["gsp"] = {dt: _gsp(mesh=gmesh, device=dev, compute_dtype=dt)
+                  for dt in MESH_GSP_TOL}
+    with skipped_enter_psum():
+        out["gsp_fault"] = {dt: _gsp(mesh=gmesh, device=dev, compute_dtype=dt)
+                            for dt in MESH_GSP_TOL}
+    dist.barrier()
+    dist.destroy_process_group()
+    (tmp / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def train_mesh_phase(dev, backend, randn, rand):
+    """Phase 9: its kernels at the ranks' shapes
+    (``hold_mesh_train_kernels``), the single-device references (the
+    unfused float32 step at MESH_TRAIN_F32's depth; the bf16 launcher at
+    (b)'s; GSP), then four ranks (``train_mesh_rank``), then every hold.
+    Returns the JSON record and each rank's launches on the bf16 main
+    path."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    from repro_torch import models
+    from repro_torch.configs.types import ProjectionSpec
+    from repro_torch.launch import train as train_cli
+    from repro_torch.parallel import sharding
+    from repro_torch.training import init_state, make_train_step
+    from repro_torch.training.sae_factory import _gsp, constraint_report
+
+    layers = MESH_TRAIN_LAYERS[backend]
+    f_layers, f_steps = MESH_TRAIN_F32
+    kernel_errs, kernel_times = hold_mesh_train_kernels(randn, rand,
+                                                        (f_layers, layers))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    radius, _ = train_radius(dev)
+    cfg, tcfg, pipe = _mesh_train_tcfg(f_layers, f_steps, radius, "float32")
+    api = models.get(cfg)
+    state = init_state(cfg, tcfg, api, tcfg.seed, device=dev)
+    step = make_train_step(cfg, tcfg, api, impl="flash", fused=False)
+    ref = {"losses": [], "grad_norms": [], "lr": []}
+    ref_moments = []
+    for i in range(f_steps):
+        state, m = step(state, {"tokens": torch.from_numpy(pipe.batch(i)).to(dev)})
+        ref["losses"].append(float(m["loss"]))
+        ref["grad_norms"].append(float(m["grad_norm"]))
+        ref["lr"].append(float(m["lr"]))
+        ref_moments.append(_mlp_moments(state))
+    ref_mlp = {k: state["params"]["blocks"]["mlp"][k] for k in ("w_up", "w_gate")}
+    del state, step
+    torch.cuda.empty_cache()
+    # the single-device bf16 launcher at (b)'s depth
+    argv1 = TRAIN_ARGV[:-4] + ["--steps", str(MESH_TRAIN_BF16_STEPS),
+                               "--radius", repr(radius), "--layers", str(layers)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    one = train_cli.run(argv1)
+    one_peak = torch.cuda.max_memory_allocated(dev)
+    one.pop("state")
+    torch.cuda.empty_cache()
+    gsp_one = {dt: _gsp(device=dev, compute_dtype=dt) for dt in MESH_GSP_TOL}
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+
+    tmp = ROOT / "build" / "chip_smoke_train_mesh"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    t1 = time.perf_counter()
+    try:
+        mp.start_processes(train_mesh_rank, args=(MESH_RANKS, backend, tmp,
+                                                  radius, layers),
+                           nprocs=MESH_RANKS, join=True, start_method="spawn")
+    except ProcessException as e:
+        raise SmokeFailure(f"train mesh phase: a rank failed:\n{e}") from None
+    ranks_s = time.perf_counter() - t1
+    ranks = [json.loads((tmp / f"rank{r}.json").read_text())
+             for r in range(MESH_RANKS)]
+    shards = [torch.load(tmp / f"rank{r}.pt") for r in range(MESH_RANKS)]
+    shutil.rmtree(tmp, ignore_errors=True)
+    sizes = dict(zip(("data", "model"), MESH_TRAIN_SIZES))
+
+    fails = []
+
+    def fail(msg):
+        print(f"train mesh FAILED: {msg}")
+        fails.append(msg)
+
+    # (a) float32 against the single-device unfused step
+    rt = MESH_TRAIN_RTOL["f32"]
+    for o in ranks:
+        a = o["f32"]
+        for k_ in ("losses", "grad_norms"):
+            if not np.allclose(a[k_], ref[k_], rtol=rt, atol=0):
+                fail(f"f32 rank {o['rank']} {k_} {a[k_]} vs one device {ref[k_]}")
+            if a[k_] != ranks[0]["f32"][k_]:
+                fail(f"f32 rank {o['rank']} {k_} differ from rank 0's")
+        want = {op: {"calls": a["model"]["calls"][op], "bytes": a["model"]["bytes"][op]}
+                for op in a["model"]["calls"]}
+        if any(c != want for c in a["collectives"]):
+            fail(f"f32 rank {o['rank']}: collectives {a['collectives']} != "
+                 f"the model {want}")
+        if not all(a["launches"][k_] for k_ in F32_FLASH):
+            fail(f"f32 rank {o['rank']}: launches {a['launches']}")
+    specs = ranks[0]["f32"]["specs"]
+    mlp_err, mlp_slack, mom_err = {}, {}, {}
+    spec = ProjectionSpec(pattern=r"(w_up|w_gate)", radius=radius)
+    b1, b2 = tcfg.beta1, tcfg.beta2
+
+    def unit(mv, t):  # AdamW's normalised update at step t
+        m_, v_ = mv
+        return (m_ / (1 - b1 ** t)) / (torch.sqrt(v_ / (1 - b2 ** t)) + tcfg.eps)
+
+    for k_ in ("w_up", "w_gate"):
+        sp = tuple(specs[f"blocks/mlp/{k_}"])
+        mv = [tuple(sharding.unshard_tree([s_["moments"][t][k_][j] for s_ in shards],
+                                          sp, sizes) for j in (0, 1))
+              for t in range(f_steps)]
+        # the moments hold the sharded gradients: each step's m and v within
+        # 1e-4 of their largest entry
+        mom_err[k_] = {}
+        for t in range(f_steps):
+            for j, what in enumerate(("m", "v")):
+                want_ = ref_moments[t][k_][j]
+                e = float((mv[t][j] - want_).abs().max()) / float(want_.abs().max())
+                mom_err[k_][f"{what}{t + 1}"] = e
+                if not e <= rt:
+                    fail(f"f32 {k_} step {t + 1} {what}: {e:.3e} of its largest "
+                         f"entry from one device")
+        full = sharding.unshard_tree([s_["params"][k_] for s_ in shards], sp, sizes)
+        want = ref_mlp[k_].cpu()
+        scale = float(want.abs().max())
+        err = float((full - want).abs().max())
+        # AdamW's own sensitivity (hold_train_step's rule): Σ_t lr_t |Δu_t|
+        # from the two runs' moments, read only where the first step's
+        # gradient lies within 1e3 eps of 0 (there g / (|g| + eps) turns on
+        # the gradient's last bits; elsewhere the moments' hold bounds Δu),
+        # and 3 × its largest entry on a projected leaf (the clip moves with
+        # its column's max and with θ)
+        near = (ref_moments[0][k_][0] / (1 - b1)).abs() < 1e3 * tcfg.eps
+        du = sum(ref["lr"][t] * (unit(ref_moments[t][k_], t + 1)
+                                 - unit(mv[t], t + 1)).abs() for t in range(f_steps))
+        slack = 3.0 * float(du[near].max()) if bool(near.any()) else 0.0
+        mlp_err[k_], mlp_slack[k_] = err / scale, slack
+        if not err <= rt * scale + slack:
+            fail(f"f32 {k_}: max abs err {err:.3e} > {rt} x {scale:.3e} + "
+                 f"AdamW's slack {slack:.3e}")
+        if not err <= 2 * sum(ref["lr"]):   # AdamW's largest move, 2 steps
+            fail(f"f32 {k_}: max abs err {err:.3e} > 2 Σ lr")
+        rep = constraint_report({"blocks": {"mlp": {k_: full}}}, spec)
+        if not rep["max_violation"] <= 1e-5 * radius:
+            fail(f"f32 {k_}: max_violation {rep['max_violation']:.3e}")
+    coords = [o["coords"] for o in ranks]
+    identical = 0
+    for key in ("params", "m", "v"):
+        for name, sp in specs.items():
+            axes = sharding.spec_axes(tuple(sp))
+            for r in range(MESH_RANKS):
+                for q in range(r):
+                    if all(coords[r][ax] == coords[q][ax] for ax in axes):
+                        if ranks[r]["f32"]["digests"][key][name] != \
+                                ranks[q]["f32"]["digests"][key][name]:
+                            fail(f"f32 {key} {name} differs on ranks {q} and {r}")
+                        else:
+                            identical += 1
+    print(f"train mesh (a) {TRAIN_ARCH} full width {f_layers} layers f32, "
+          f"{MESH_TRAIN_SIZES} mesh over {backend}: losses {ranks[0]['f32']['losses']} "
+          f"(one device {ref['losses']}), grad norms {ranks[0]['f32']['grad_norms']} "
+          f"(one device {ref['grad_norms']}); w_up/w_gate vs one device "
+          f"{mlp_err['w_up']:.3e}/{mlp_err['w_gate']:.3e} of the largest entry "
+          f"(AdamW's slack {mlp_slack['w_up']:.3e}/{mlp_slack['w_gate']:.3e}), "
+          f"their moments (per step, of the largest entry) "
+          f"{ {k_: {n: f'{e:.3e}' for n, e in d.items()} for k_, d in mom_err.items()} }; "
+          f"every layer feasible; {identical} copy pairs bit-identical; "
+          f"collectives per step = the model "
+          f"{ranks[0]['f32']['model']['calls']}; launches "
+          f"{ {k_: ranks[0]['f32']['launches'][k_] for k_ in F32_FLASH} }")
+
+    # (b) bf16: the launcher on the mesh against the launcher on one device
+    steps, batch, micro, seq = train_args()
+    n_micro = batch // micro
+    bsteps = MESH_TRAIN_BF16_STEPS
+    want_l = {"flash_fwd": 2 * layers * n_micro * bsteps,
+              "flash_bwd_dq": layers * n_micro * bsteps,
+              "flash_bwd_dkv": layers * n_micro * bsteps}
+    want_l.update({k_: v_ * bsteps for k_, v_ in MESH_TRAIN_HOOK.items()})
+    rt = MESH_TRAIN_RTOL["bf16"]
+    per_rank = []
+    for o in ranks:
+        b = o["bf16"]
+        if not (len(b["losses"]) == bsteps and all(np.isfinite(b["losses"]))):
+            fail(f"bf16 rank {o['rank']}: losses {b['losses']}")
+        if not np.allclose(b["losses"], one["losses"], rtol=rt, atol=0):
+            fail(f"bf16 rank {o['rank']}: losses {b['losses']} vs one device "
+                 f"{one['losses']}")
+        want = {op: {"calls": b["model"]["calls"][op], "bytes": b["model"]["bytes"][op]}
+                for op in b["model"]["calls"]}
+        if any(c != want for c in b["collectives"]):
+            fail(f"bf16 rank {o['rank']}: collectives {b['collectives']} != "
+                 f"the model {want}")
+        got = {k_: b["launches"][k_] for k_ in want_l}
+        if got != want_l:
+            fail(f"bf16 rank {o['rank']}: launches {got} != {want_l}")
+        warm = statistics.median(b["step_seconds"][1:])
+        per_rank.append({"rank": o["rank"], "step_ms": [x * 1e3 for x in b["step_seconds"]],
+                         "warm_step_ms": warm * 1e3,
+                         "tokens_per_s": batch * seq / warm,
+                         "peak_gib": b["peak_bytes"] / 2**30,
+                         "collectives_per_step": b["collectives"][0],
+                         "launches": got})
+        print(f"train mesh (b) rank {o['rank']} ({layers} layers bf16, "
+              f"{' '.join(b['argv'])}): losses {b['losses']} (one device "
+              f"{one['losses']}), step ms {[round(x * 1e3, 2) for x in b['step_seconds']]}, "
+              f"{batch * seq / warm:.1f} tokens/s warm, peak "
+              f"{b['peak_bytes'] / 2**30:.2f} GiB, collectives per step "
+              f"{b['collectives'][0]} (= the model), launches {got}")
+    print(f"train mesh (b) one device: losses {one['losses']}, step ms "
+          f"{[round(x * 1e3, 2) for x in one['step_seconds']]}, peak "
+          f"{one_peak / 2**30:.2f} GiB")
+
+    # (c) GSP: sharded against one device, in each compute dtype; the run
+    # with enter's psum skipped must lie outside the same bars
+    gaps, fault_gaps = {}, {}
+    for o in ranks:
+        if o["gsp"] != ranks[0]["gsp"]:
+            fail(f"gsp: rank {o['rank']} reports another record")
+    for dt, (l_rtol, pts) in MESH_GSP_TOL.items():
+        g4, g1, gf = ranks[0]["gsp"][dt], gsp_one[dt], ranks[0]["gsp_fault"][dt]
+        if not (g4["n_projected"] == g1["n_projected"] and g4["feasible"]
+                and g1["feasible"]):
+            fail(f"gsp {dt}: {g4} vs one device {g1}")
+        gap, loss_rel = gaps[dt] = gsp_gap(g4, g1)
+        if gap > pts or loss_rel > l_rtol:
+            fail(f"gsp {dt}: sparsity {g4['per_leaf_sparsity']} loss {g4['loss']} "
+                 f"vs one device {g1['per_leaf_sparsity']} {g1['loss']}")
+        f_gap, f_loss = fault_gaps[dt] = gsp_gap(gf, g1)
+        if f_gap <= pts and f_loss <= l_rtol:
+            fail(f"gsp {dt}: the bars ({pts} points, {l_rtol} relative) miss a "
+                 f"skipped psum over 'model' ({f_gap:.4f} points, loss "
+                 f"{f_loss:.3e})")
+        print(f"train mesh (c) gsp {dt} {MESH_GSP_SIZES} mesh: n_projected "
+              f"{g4['n_projected']}, loss {g4['loss']:.7g} (one device "
+              f"{g1['loss']:.7g}, {loss_rel:.3e} relative, bar {l_rtol}), largest "
+              f"per-leaf sparsity gap {gap:.4f} points (bar {pts}), mean column "
+              f"sparsity {g4['mean_col_sparsity']:.4f} % (one device "
+              f"{g1['mean_col_sparsity']:.4f} %), both feasible; with enter's "
+              f"psum over 'model' skipped: {f_gap:.4f} points, loss "
+              f"{f_loss:.3e} relative (caught)")
+    print(f"train mesh phase: {MESH_RANKS} ranks over {backend}, references "
+          f"{ref_s:.1f} s, ranks {ranks_s:.1f} s wall")
+    if fails:
+        raise SmokeFailure("train mesh phase: " + "; ".join(fails))
+    return {"backend": backend, "layers_bf16": layers, "radius": radius,
+            "seconds": {"references": ref_s, "ranks": ranks_s},
+            "f32": {"losses": ranks[0]["f32"]["losses"], "one_device": ref,
+                    "w_err_rel": mlp_err, "adamw_slack": mlp_slack,
+                    "moments_err_rel": mom_err,
+                    "identical_pairs": identical,
+                    "collectives_per_step": ranks[0]["f32"]["model"]["calls"]},
+            "bf16": {"per_rank": per_rank, "one_device": {
+                "losses": one["losses"], "step_ms": [x * 1e3 for x in one["step_seconds"]],
+                "peak_gib": one_peak / 2**30}},
+            "gsp": {"sharded": ranks[0]["gsp"], "one_device": gsp_one,
+                    "gap_pts_and_loss_rel": gaps,
+                    "skipped_psum_gap_pts_and_loss_rel": fault_gaps},
+            "kernels_at_rank_shapes": {"max_abs_err": kernel_errs,
+                                       "ms": kernel_times}}
+
+
 # the generated pipeline under autograd (phase 3b): W1 and W2 of phase 3,
 # each through these entry points, held against autograd through the plain
 # schedule (method="sort") on the card
@@ -2603,7 +3215,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Drive the port on the card.")
     ap.add_argument("--only", choices=("mesh", "attention", "autograd",
-                                       "sae_tables"),
+                                       "sae_tables", "train_mesh"),
                     help="run one phase alone: 'mesh' builds the kernels and "
                          "runs phase 7 (the partial apply, then the mesh "
                          "executor on four ranks); 'attention' builds them "
@@ -2612,7 +3224,8 @@ def main(argv=None) -> int:
                          "Function's gradients, then times the kernels "
                          "beside their plain versions and SDPA; 'autograd' "
                          "builds them and runs phases 3b and 3c on W1–W4 "
-                         "made from the seed; 'sae_tables' runs phase 8")
+                         "made from the seed; 'sae_tables' runs phase 8; "
+                         "'train_mesh' builds them and runs phase 9")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2689,6 +3302,17 @@ def main(argv=None) -> int:
             "codegen_partial_apply"]
         return row, {"backend": mesh_backend, "seconds": seconds, "ranks": ranks}
 
+    def train_mesh_phases(rows=()):
+        """Phase 9 from freed memory; each kernel row of its path gets the
+        launches every rank made on (b), the bf16 main path."""
+        torch.cuda.empty_cache()
+        rec = train_mesh_phase(dev, mesh_backend, randn, rand)
+        for row in rows:
+            if row["name"] in rec["bf16"]["per_rank"][0]["launches"]:
+                row["launches_train_mesh"] = [
+                    r["launches"][row["name"]] for r in rec["bf16"]["per_rank"]]
+        return rec
+
     def finish(result):
         """The last three lines: the result's JSON, the card, the verdict."""
         print(json.dumps(result))
@@ -2726,6 +3350,9 @@ def main(argv=None) -> int:
 
     if args.only == "sae_tables":
         return finish({"kernels": [], "sae_tables": sae_tables_phase()})
+
+    if args.only == "train_mesh":
+        return finish({"kernels": [], "train_mesh": train_mesh_phases()})
 
     # ------------------------------------- phase 1: kernels vs plain versions
     for name, shape, levels in DESIGNS:
@@ -3005,7 +3632,11 @@ def main(argv=None) -> int:
 
     # ------------------- phase 8: the §7.3 application at the paper's size
     tables = sae_tables_phase()
+
+    # ------------------------------------------ phase 9: sharded training
+    train_mesh = train_mesh_phases(rows)
     return finish({"kernels": rows, "mesh": mesh, "grad": grad,
+                   "train_mesh": train_mesh,
                    "refuse_grad": refused, "sae_tables": tables,
                    "factory": {"harvest_step_ms": step_parts,
                                "sae_step_ms": sae_parts,

@@ -245,7 +245,10 @@ def sharded_collective_bytes(shape, levels: Sequence[Level], spec,
       collectives over the group count.
 
     The leading ``batch_dims`` axes ride along in every payload at their
-    per-rank extent (a sharded batch axis carries its own slice only). Each
+    per-rank extent (a sharded batch axis carries its own slice only), and
+    so does a sharded axis that survives into a reduce's or an ℓ1 apply's
+    aggregate (the JAX model counts that axis whole; the two agree wherever
+    one axis is sharded). Each
     step also gives its number of collective ``calls`` (one per reduce or
     gather, ``_L1_APPLY_SWEEPS`` per distributed bisection).
     """
@@ -255,18 +258,26 @@ def sharded_collective_bytes(shape, levels: Sequence[Level], spec,
     batch_local = math.prod(-(-d // mesh_sizes[n]) if n else d
                             for d, n in zip(shape[:b], names[:b]))
 
-    def payload(stage_shape) -> int:
-        return batch_local * math.prod(stage_shape[b:]) * itemsize
+    def payload(stage_shape, stage_names=None) -> int:
+        """Bytes of a stage's aggregate on one rank: with ``stage_names``,
+        a sharded axis that survives to the stage at its per-rank extent."""
+        dims = stage_shape[b:]
+        if stage_names is not None:
+            dims = [-(-d // mesh_sizes[n]) if n else d
+                    for d, n in zip(dims, stage_names[b:])]
+        return batch_local * math.prod(dims) * itemsize
 
     steps = []
     stage_names = [list(names)]
     for i, red in enumerate(sched.reduces):
         cur = stage_names[-1]
         coll = [cur[a] for a in red.axes if cur[a]]
+        out_names = [n for a, n in enumerate(cur) if a not in red.axes]
         steps.append({"step": f"reduce_{red.norm}",
-                      "bytes": payload(sched.stage_shapes[i + 1]) if coll else 0,
+                      "bytes": payload(sched.stage_shapes[i + 1], out_names)
+                      if coll else 0,
                       "calls": int(bool(coll))})
-        stage_names.append([n for a, n in enumerate(cur) if a not in red.axes])
+        stage_names.append(out_names)
     gather = any(stage_names[-1][b:])
     steps.append({"step": f"solve_{sched.solve.norm}",
                   "bytes": payload(sched.stage_shapes[-1]) if gather else 0,
@@ -275,7 +286,8 @@ def sharded_collective_bytes(shape, levels: Sequence[Level], spec,
         coll = [stage_names[i][a] for a in app.axes if stage_names[i][a]]
         spans = app.norm == "1" and coll
         steps.append({"step": f"apply_{app.norm}",
-                      "bytes": payload(sched.stage_shapes[i + 1])
+                      "bytes": payload(sched.stage_shapes[i + 1],
+                                       stage_names[i + 1])
                       * _L1_APPLY_SWEEPS if spans else 0,
                       "calls": _L1_APPLY_SWEEPS if spans else 0})
     total = sum(s["bytes"] for s in steps)

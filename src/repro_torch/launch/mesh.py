@@ -22,13 +22,19 @@ def make_host_mesh(data: int = 1, model: int = 1) -> Mesh:
     return Mesh((data, model), ("data", "model"))
 
 
-def make_production_mesh() -> Mesh:
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """The world in the production layout: the cards of one host (at most
-    the world) on the tensor-parallel "model" axis, the rest data parallel."""
+    the world) on the tensor-parallel "model" axis, the rest data parallel.
+    ``multi_pod`` adds a leading "pod" axis of 2 data-parallel halves (the
+    JAX package's two-pod mesh), over which only gradients travel."""
     require_process_group("make_production_mesh")
     world = dist.get_world_size()
     model = max(1, min(world, torch.cuda.device_count()))
-    if world % model:
-        raise ValueError(f"a model axis of {model} does not divide the "
-                         f"world of {world} ranks")
-    return Mesh((world // model, model), ("data", "model"))
+    pods = 2 if multi_pod else 1
+    if world % (model * pods):
+        raise ValueError(f"{pods} pod(s) of a model axis of {model} do not "
+                         f"divide the world of {world} ranks")
+    data = world // (model * pods)
+    if multi_pod:
+        return Mesh((pods, data, model), ("pod", "data", "model"))
+    return Mesh((data, model), ("data", "model"))

@@ -7,18 +7,46 @@ Layers keep the JAX package's **stacked** layout — ``blocks/attn/wq`` is
 crosses over with ``interop.from_numpy_tree`` unchanged. ``lax.scan`` over
 the stack becomes a Python loop over the layer index.
 
-    forward(params, tokens, cfg, *, impl, collect) -> logits, aux[, acts]
+    forward(params, tokens, cfg, *, impl, n_groups, remat, act_spec,
+            collect, mesh, param_specs) -> logits, aux[, acts]
+
+Under a mesh (``mesh=`` a ``parallel.mesh.Mesh``, ``param_specs=`` the
+spec tree of ``models.params.param_specs``) ``params`` are this rank's
+shards and ``tokens`` this rank's slice of the batch, and the forward is
+the one GSPMD makes of the JAX package's under its shardings, with the
+collectives written out (``parallel/collectives.py``):
+
+* each weight's FSDP axis ('embed' over "data") is all-gathered where it
+  is used — inside the checkpointed block body, so the recompute gathers
+  again — and its gradient psummed back to the shard;
+* attention runs on this rank's heads (q (B/D, S, H/M, hd) and the kv
+  heads those q heads read: the local slice when ``kv_heads`` is sharded,
+  else the replicated kv heads each local q head maps to, h // (H/KV)),
+  the MLP on its ffn slice; each branch is entered with an identity whose
+  gradient is psummed over "model" and left with a psum over "model"
+  after ``wo`` and after ``w_down``. Weights the branch uses whole (a
+  replicated ``wk``/``wv``, the qk-norm scales) are entered too, so their
+  gradient is summed over the heads of every rank;
+* a vocabulary sharded over "model" gives a masked lookup plus psum, and
+  logits of this rank's slice of the vocabulary (:func:`logits_spec`),
+  which ``training.step`` turns into the loss with ``vocab_xent``.
+
+A dimension that the mesh does not divide is replicated
+(``param_specs``), and its part of the forward runs whole on every rank.
 
 MLA, MoE, ``prefill``, ``decode_step`` and the caches wait for their slices.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch import _tree
 from repro_torch.configs.types import ArchConfig
+from repro_torch.parallel import collectives as C
 
 from . import layers as L
 from .params import ParamDef
@@ -82,8 +110,10 @@ def template(cfg: ArchConfig):
 
 
 # ------------------------------------------------------------------ attention
-def _attn_dense(lp, h, cfg: ArchConfig, *, positions, impl, window):
-    """Standard (GQA) attention. h (B,S,D) -> (B,S,D)."""
+def _attn_dense(lp, h, cfg: ArchConfig, *, positions, impl, window,
+                pick_kv=None):
+    """Standard (GQA) attention. h (B,S,D) -> (B,S,D). ``pick_kv`` selects
+    the kv heads the q heads read (a rank's own q heads, under a mesh)."""
     hd = cfg.resolved_head_dim
     q = torch.einsum("bsd,dhk->bshk", h, lp["wq"])
     k = torch.einsum("bsd,dhk->bshk", h, lp["wk"])
@@ -91,6 +121,8 @@ def _attn_dense(lp, h, cfg: ArchConfig, *, positions, impl, window):
     if cfg.qk_norm:
         q = L.rms_norm(q, lp["qn"], cfg.norm_eps)
         k = L.rms_norm(k, lp["kn"], cfg.norm_eps)
+    if pick_kv is not None:
+        k, v = pick_kv(k), pick_kv(v)
     freqs = L.rope_frequencies(hd, cfg.rope_pct, cfg.rope_theta, positions)
     q = L.apply_rope(q, freqs)
     k = L.apply_rope(k, freqs)
@@ -98,12 +130,79 @@ def _attn_dense(lp, h, cfg: ArchConfig, *, positions, impl, window):
     return torch.einsum("bshk,hkd->bsd", out, lp["wo"])
 
 
+# -------------------------------------------------------------- under a mesh
+class _Sharded:
+    """A mesh and one layer's (or the top level's) specs: which axes are
+    tensor parallel, and each weight made ready for use."""
+
+    def __init__(self, mesh, specs):
+        self.mesh, self.specs = mesh, specs
+
+    def tp(self, entry) -> bool:
+        """Is an axis with this spec entry split over a live "model" axis?"""
+        return entry == "model" and self.mesh.shape["model"] > 1
+
+    def weight(self, w, spec, whole: bool = False):
+        """The FSDP-gathered weight; ``whole``: it is replicated over
+        "model" but used inside a tensor-parallel branch, so its gradient
+        is psummed over "model"."""
+        w = C.gather_spec(w, spec, self.mesh)
+        return C.enter(w, self.mesh) if whole else w
+
+
+def _kv_for_local_heads(k, cfg: ArchConfig, sh: _Sharded):
+    """The replicated kv heads (B, S, KV, hd) this rank's q heads read:
+    global q head h reads kv head h // (H / KV). Returns GQA groups of the
+    local heads where they form them, else one kv head per q head."""
+    m, size = sh.mesh.axis_index("model"), sh.mesh.shape["model"]
+    h_loc = cfg.n_heads // size
+    group = cfg.n_heads // cfg.n_kv_heads
+    idx = [(m * h_loc + i) // group for i in range(h_loc)]
+    uniq = sorted(set(idx))
+    per = h_loc // len(uniq)
+    if h_loc % len(uniq) == 0 and idx == [uniq[i // per] for i in range(h_loc)]:
+        return k[:, :, uniq]
+    return k[:, :, idx]
+
+
+def _attn_sharded(lp, sp, h, cfg: ArchConfig, sh: _Sharded, *, positions,
+                  impl, window):
+    """:func:`_attn_dense` on this rank's heads (module docstring)."""
+    heads_tp, kv_tp = sh.tp(sp["wq"][-2]), sh.tp(sp["wk"][-2])
+    # inside a tensor-parallel branch, weights used whole get their gradient
+    # summed over the ranks' heads
+    whole = {"qn", "kn"} | (set() if kv_tp else {"wk", "wv"})
+    w = {k: sh.weight(x, sp[k], heads_tp and k in whole) for k, x in lp.items()}
+    if not heads_tp:  # heads replicated: the whole attention on every rank
+        return _attn_dense(w, h, cfg, positions=positions, impl=impl,
+                           window=window)
+    pick = None if kv_tp else (lambda t: _kv_for_local_heads(t, cfg, sh))
+    out = _attn_dense(w, C.enter(h, sh.mesh), cfg, positions=positions,
+                      impl=impl, window=window, pick_kv=pick)
+    return C.leave(out, sh.mesh)
+
+
+def _mlp_sharded(p, sp, x, act, sh: _Sharded):
+    """``layers.mlp_apply`` on this rank's ffn slice (module docstring)."""
+    full = {k: sh.weight(w, sp[k]) for k, w in p.items()}
+    if not sh.tp(sp["w_up"][-1]):
+        return L.mlp_apply(full, x, act)
+    return C.leave(L.mlp_apply(full, C.enter(x, sh.mesh), act), sh.mesh)
+
+
 # --------------------------------------------------------------------- blocks
-def _block(lp, x, cfg: ArchConfig, *, positions, impl, collect=None):
+def _block(lp, x, cfg: ArchConfig, *, positions, impl, collect=None, sh=None):
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    x = x + _attn_dense(lp["attn"], h, cfg, positions=positions, impl=impl,
-                        window=cfg.window)
-    y = L.mlp_apply(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg.act)
+    if sh is None:
+        x = x + _attn_dense(lp["attn"], h, cfg, positions=positions, impl=impl,
+                            window=cfg.window)
+        y = L.mlp_apply(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps),
+                        cfg.act)
+    else:
+        x = x + _attn_sharded(lp["attn"], sh.specs["attn"], h, cfg, sh,
+                              positions=positions, impl=impl, window=cfg.window)
+        y = _mlp_sharded(lp["mlp"], sh.specs["mlp"],
+                         L.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg.act, sh)
     out = x + y
     # harvest sites (data/activations.py): the post-block residual stream or
     # the MLP branch output (pre-residual-add)
@@ -111,9 +210,106 @@ def _block(lp, x, cfg: ArchConfig, *, positions, impl, collect=None):
     return out, cap
 
 
-def forward(params, tokens, cfg: ArchConfig, *, impl="chunked", remat=True,
-            collect=None):
+def logits_spec(cfg: ArchConfig, param_specs, mesh) -> tuple:
+    """The spec of the forward's (B, S, V) logits under a mesh: the batch
+    over the batch axes, the vocabulary over "model" where the output
+    embedding shards it (``tie_embeddings``: the input embedding)."""
+    from repro_torch.parallel import sharding
+
+    un = param_specs.get("unembed")
+    vocab = un[1] if un is not None else param_specs["embed"][0]
+    b = sharding.batch_axes(mesh)
+    size = sharding.mesh_shape_dict(mesh)["model"]
+    return (b[0] if len(b) == 1 else b, None,
+            "model" if vocab == "model" and size > 1 else None)
+
+
+def sharded_collectives(cfg: ArchConfig, param_specs, mesh, batch: int,
+                        seq: int, *, remat: bool, itemsize: int) -> dict:
+    """The collectives one forward and backward of the sharded forward make
+    on each rank, ``{"calls": {op: n}, "bytes": {op: n}}`` (the mesh's
+    ``counts()`` ops): ``batch`` × ``seq`` tokens on this rank, weights and
+    activations of ``itemsize`` bytes (the compute dtype), the logits'
+    reductions in float32. ``mesh`` is a mesh or a ``{name: size}``
+    mapping. The model of the module docstring, counted:
+
+    * an FSDP gather: an all-gather of the weight's "model"-local shape
+      forward (twice under ``remat`` inside a block: the recompute runs
+      the whole body) and a psum of it backward;
+    * a tensor-parallel attention or MLP: one psum forward (twice under
+      ``remat``), one backward for its input, and one backward for each
+      weight it uses whole (a replicated wk/wv, the qk-norm scales);
+    * a "model"-sharded vocabulary: a psum of the embedded rows; a pmax and
+      two psums of (B, S) in the loss; one psum backward for the final
+      activations.
+    """
+    shp = dict(mesh.shape) if hasattr(mesh, "shape") else dict(mesh)
+    live = {a for a, n in shp.items() if n > 1}
+    calls = {"psum": 0, "pmax": 0, "all_gather": 0}
+    nbytes = dict.fromkeys(calls, 0)
+    act = batch * seq * cfg.d_model * itemsize
+
+    def add(op, n, times=1):
+        calls[op] += times
+        nbytes[op] += n * times
+
+    def weight(shape, spec, times=1, whole=False):
+        """A weight's gathers (forward ``times``) and their backward psums."""
+        loc = [d // shp[n] if n in live else d for d, n in zip(shape, spec)]
+        for i, (d, n) in enumerate(zip(shape, spec)):
+            if n is not None and n != "model" and n in live:
+                loc[i] = d
+                full = math.prod(loc) * itemsize
+                add("all_gather", full, times)
+                add("psum", full)
+        if whole and "model" in live:
+            add("psum", math.prod(loc) * itemsize)
+
+    tpl = template(cfg)
+    tp = lambda e: e == "model" and "model" in live  # noqa: E731
+    weight(tpl["embed"].shape, param_specs["embed"])
+    if tp(param_specs["embed"][0]):
+        add("psum", act)
+    vocab_tp = logits_spec(cfg, param_specs, shp)[-1] == "model"
+    if "unembed" in param_specs:
+        weight(tpl["unembed"].shape, param_specs["unembed"])
+    else:
+        weight(tpl["embed"].shape, param_specs["embed"])
+    if vocab_tp:
+        add("pmax", batch * seq * 4)
+        add("psum", batch * seq * 4, 2)
+        add("psum", act)
+    fwd = 2 if remat else 1
+    blocks, bspecs = tpl["blocks"], param_specs["blocks"]
+    for _ in range(cfg.n_layers):
+        a, asp = blocks["attn"], bspecs["attn"]
+        heads_tp, kv_tp = tp(asp["wq"][-2]), tp(asp["wk"][-2])
+        for name in sorted(a):
+            whole = heads_tp and (name in ("qn", "kn")
+                                  or (name in ("wk", "wv") and not kv_tp))
+            weight(a[name].shape[1:], asp[name][1:], fwd, whole)
+        if heads_tp:
+            add("psum", act, fwd + 1)
+        m, msp = blocks["mlp"], bspecs["mlp"]
+        for name in sorted(m):
+            weight(m[name].shape[1:], msp[name][1:], fwd)
+        if tp(msp["w_up"][-1]):
+            add("psum", act, fwd + 1)
+    return {"calls": calls, "bytes": nbytes}
+
+
+def forward(params, tokens, cfg: ArchConfig, *, impl="chunked", n_groups=1,
+            remat=True, act_spec=None, collect=None, mesh=None,
+            param_specs=None):
     """tokens (B, S) int -> (logits (B, S, V), aux).
+
+    ``n_groups`` reaches only the MoE family's dispatch (as in the JAX
+    package); the dense forward takes and ignores it. ``act_spec`` is the
+    (B, S, D) activations' layout: under a mesh the caller hands this rank
+    its slice of the batch, the layout JAX's constraint pins, and without
+    one it has no effect. ``mesh`` and ``param_specs`` run the sharded
+    forward (module docstring): ``params`` and ``tokens`` are this rank's
+    shards, and the logits are this rank's shard under :func:`logits_spec`.
 
     ``collect``: None | "resid" | "mlp" — also return the per-layer
     activations stacked on a leading layer axis, shape (L, B, S, D): the
@@ -124,10 +320,22 @@ def forward(params, tokens, cfg: ArchConfig, *, impl="chunked", remat=True,
     package has no dense counterpart).
     """
     _check_dense(cfg)
+    if (mesh is None) != (param_specs is None):
+        raise ValueError("a sharded forward takes both mesh= and param_specs=")
     b, s = tokens.shape
-    x = params["embed"][tokens].to(params["final_norm"].dtype)
+    top = None if mesh is None else _Sharded(mesh, param_specs)
+    if top is None:
+        x = params["embed"][tokens]
+    else:
+        table = top.weight(params["embed"], param_specs["embed"])
+        x = (C.vocab_embed(table, tokens, mesh)
+             if top.tp(param_specs["embed"][0]) else table[tokens])
+    x = x.to(params["final_norm"].dtype)
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
     blocks = params["blocks"]
+    # each layer's specs: the stacked leaves' without the layer axis
+    layer_sh = None if mesh is None else _Sharded(
+        mesh, _tree.tree_map(lambda sp: tuple(sp[1:]), param_specs["blocks"]))
     # unbind each stacked leaf once: its backward stacks the layers'
     # gradients in one pass, where a[i] per layer would give every layer a
     # full-size zero gradient of the stack to sum
@@ -138,13 +346,27 @@ def forward(params, tokens, cfg: ArchConfig, *, impl="chunked", remat=True,
 
         def body(x, lp=lp):
             return _block(lp, x, cfg, positions=positions, impl=impl,
-                          collect=collect)
+                          collect=collect, sh=layer_sh)
 
-        x, cap = checkpoint(body, x, use_reentrant=False) if remat else body(x)
+        if not remat:
+            x, cap = body(x)
+        elif layer_sh is None:
+            x, cap = checkpoint(body, x, use_reentrant=False)
+        else:
+            # the recompute runs the whole body, so every rank's collectives
+            # are the forward's twice whatever the checkpoint's early stop
+            with set_checkpoint_early_stop(False):
+                x, cap = checkpoint(body, x, use_reentrant=False)
         caps.append(cap)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     un = params.get("unembed")
-    logits = x @ un if un is not None else x @ params["embed"].T
+    if top is None:
+        logits = x @ un if un is not None else x @ params["embed"].T
+    else:
+        if logits_spec(cfg, param_specs, mesh)[-1] == "model":
+            x = C.enter(x, mesh)
+        logits = (x @ top.weight(un, param_specs["unembed"]) if un is not None
+                  else x @ top.weight(params["embed"], param_specs["embed"]).T)
     if collect is not None:
         return logits, 0.0, torch.stack(caps)
     return logits, 0.0

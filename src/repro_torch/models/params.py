@@ -53,14 +53,21 @@ def _leaf_seed(seed: int, path: str) -> int:
     return (int(seed) * 0x9E3779B97F4A7C15 + zlib.crc32(path.encode())) % (1 << 63)
 
 
-def init_params(template, seed: int, dtype=torch.float32, *, device=None):
+def init_params(template, seed: int, dtype=torch.float32, *, device=None,
+                shard=None):
     """Materialize a template on ``device`` (``"cuda"`` by default; ``"cpu"``
     when asked). Each leaf draws from a ``torch.Generator`` on that device
     seeded from ``seed`` and the leaf's path, so layouts can be refactored
-    without changing unrelated leaves."""
+    without changing unrelated leaves. ``shard(path, leaf)``, when given,
+    replaces each leaf as soon as it is drawn (a rank keeping its shard
+    holds one whole leaf at a time)."""
     dev = _device.resolve(device)
+    keep = shard or (lambda path, x: x)
 
     def one(path: str, pd: ParamDef):
+        return keep(path, draw(path, pd))
+
+    def draw(path: str, pd: ParamDef):
         if pd.init == "zeros":
             return torch.zeros(pd.shape, dtype=dtype, device=dev)
         if pd.init == "ones":

@@ -1,5 +1,5 @@
 """Sparse-SAE training factory — the paper's application, end to end (port of
-``repro/training/sae_factory.py``, stages 1–2).
+``repro/training/sae_factory.py``).
 
 1. **Harvest** (``data/activations.py``): run a configured LM from
    ``configs/`` over the deterministic token stream and shard per-layer
@@ -14,8 +14,12 @@
    epilogue (the plain schedule executor, as in the JAX step). Learned
    dictionaries are compared across seeds with MMCS (``training/mmcs.py``).
 
-GSP whole-network sparsification (stage 3 of the JAX factory) waits for the
-mesh executor, and harvesting from a checkpoint for ``runtime/checkpoint``.
+3. **GSP whole-network sparsification** (:func:`gsp_whole_network`): every
+   weight of the LM projected per step; with a mesh, the sharded train
+   step, whose sharded leaves project in place through the mesh executor.
+
+``run_factory(lm_params=...)`` harvests from given LM weights, e.g. a
+``runtime/checkpoint`` state (the CLI's ``--checkpoint``).
 Everything here is deterministic given (arch, seeds): the data cursor is the
 step index, inits are seeded ``torch.Generator``s.
 """
@@ -36,7 +40,8 @@ from repro_torch.data import DataConfig, DataPipeline
 from repro_torch.data.activations import HarvestConfig, harvest, read_meta
 from repro_torch.models import params as PM, sae
 from repro_torch.optim import adamw
-from repro_torch.optim.projection_hook import tree_sparsity
+from repro_torch.optim.projection_hook import matched_names, tree_sparsity
+from repro_torch.parallel import collectives, sharding as SH
 from repro_torch.training import step as TS
 from repro_torch.training.mmcs import mmcs_sym
 
@@ -141,11 +146,16 @@ def init_sae_state(d_in: int, d_dict: int, tcfg: TrainConfig, seed: int, *,
     return {"params": params, "opt": adamw.init(params, tcfg)}
 
 
-def make_sae_train_step(tcfg: TrainConfig):
+def make_sae_train_step(tcfg: TrainConfig, *, l1: float = 0.0,
+                        fused="auto", mesh=None, param_specs=None):
     """The projected dictionary-SAE step: ``make_train_step`` with the
-    reconstruction loss and the fused AdamW+project epilogue."""
+    reconstruction loss (plus ``l1`` times the features' mean magnitude) —
+    the fused AdamW+project epilogue on the single-device path, the
+    mesh-native in-place projection when ``mesh``/``param_specs`` are
+    given."""
     return TS.make_train_step(
-        None, tcfg, None, loss_fn=lambda p, xb: sae.dict_loss(p, xb.float()))
+        None, tcfg, None, fused=fused, mesh=mesh, param_specs=param_specs,
+        loss_fn=lambda p, xb: sae.dict_loss(p, xb.float(), l1=l1))
 
 
 def train_sae(harvest_dir, layer: int, fcfg: SAEFactoryConfig, *,
@@ -246,3 +256,84 @@ def constraint_report(params, spec: ProjectionSpec) -> dict:
     viol = max((v - spec.radius for v in report.values()), default=0.0)
     return {"norms": report, "max_violation": max(viol, 0.0),
             "feasible": viol <= spec.radius * 1e-3 + 1e-5}
+
+
+# ------------------------------------------------------------------- stage 3
+def gsp_whole_network(arch: str = "stablelm-1.6b", *, mesh=None,
+                      steps: int = 2, radius: float = 3.0,
+                      pattern: str = r".*", microbatch: int = 2,
+                      seq_len: int = 17, seed: int = 0, device=None) -> dict:
+    """GSP-style whole-network sparsification: project EVERY weight per step.
+
+    ``pattern=r".*"`` matches every >=2-D parameter of the LM's smoke config
+    — embeddings, attention projections (trailing (heads, head_dim) axes:
+    the paper's §6 head-structured sparsity), MLP weights and the stacked
+    norm scales alike — under the bi-level ball of ``radius`` (θ by
+    bisection), after ``steps`` steps of the LM (``impl="naive"``, bf16
+    compute: the JAX package's settings). With ``mesh`` (a
+    ``parallel.mesh.Mesh``) the state is sharded by ``param_specs(...,
+    param_rules(mesh, fsdp=True))`` and ``adamw.state_specs``, and the step
+    is the sharded one: leaves whose trailing axes are sharded project in
+    place through the mesh executor (no gather), the rest on each rank's own
+    copy. Returns the JAX package's dict (per-leaf column sparsity,
+    feasibility, the last loss), the same on every rank."""
+    return _gsp(arch, mesh=mesh, steps=steps, radius=radius, pattern=pattern,
+                microbatch=microbatch, seq_len=seq_len, seed=seed,
+                device=device)
+
+
+def _gsp(arch: str = "stablelm-1.6b", *, mesh=None, steps: int = 2,
+         radius: float = 3.0, pattern: str = r".*", microbatch: int = 2,
+         seq_len: int = 17, seed: int = 0, device=None, params=None,
+         compute_dtype: str = "bfloat16") -> dict:
+    """:func:`gsp_whole_network` with two options that only the checks
+    set (tests and ``chip_smoke.py``): ``params`` starts from given (full) LM parameters instead of the
+    seeded init (the JAX package's, to hold the port against it), and
+    ``compute_dtype`` replaces the step's bf16 (float32 makes a sharded run
+    agree with an unsharded one to float32 rounding)."""
+    dev = _device.resolve(device)
+    cfg = registry.smoke_config(arch)
+    api = models.get(cfg)
+    proj = ProjectionSpec(pattern=pattern, radius=radius, every=1,
+                          method="bisect")
+    tcfg = TrainConfig(microbatch=microbatch, lr=1e-3, warmup=2,
+                       total_steps=max(steps, 2), master_dtype="",
+                       remat=False, projection=proj, seed=seed,
+                       compute_dtype=compute_dtype)
+    pspecs = None
+    if mesh is not None:
+        tpl = api.template(cfg)
+        pspecs = PM.param_specs(tpl, SH.param_rules(mesh, fsdp=True),
+                                SH.mesh_shape_dict(mesh))
+    if params is None:
+        state = TS.init_state(cfg, tcfg, api, seed, device=dev, mesh=mesh,
+                              param_specs=pspecs)
+    else:
+        params = _tree.tree_map(lambda x: x.to(dev), params)
+        if mesh is not None:
+            params = SH.shard_tree(params, pspecs, mesh)
+        state = {"params": params, "opt": adamw.init(params, tcfg)}
+    step = TS.make_train_step(cfg, tcfg, api, impl="naive", mesh=mesh,
+                              param_specs=pspecs)
+    pipe = DataPipeline(DataConfig(vocab=cfg.vocab, seq_len=seq_len,
+                                   global_batch=2 * microbatch,
+                                   microbatch=microbatch, seed=seed))
+    for i in range(steps):
+        state, metrics = step(state, {"tokens": torch.from_numpy(
+            pipe.batch(i)).to(dev)})
+    params = state["params"]
+    if mesh is not None:
+        params = _tree.tree_map(lambda x, sp: collectives.gather_full(x, sp, mesh),
+                                params, pspecs)
+    names = matched_names(params, proj)
+    rep = constraint_report(params, proj)
+    sp = tree_sparsity(params, proj)
+    return {
+        "n_projected": len(names),
+        "n_devices": mesh.size if mesh is not None else 1,
+        "feasible": rep["feasible"],
+        "max_violation": rep["max_violation"],
+        "mean_col_sparsity": float(sum(float(v) for v in sp.values()) / len(sp)),
+        "per_leaf_sparsity": {k: float(v) for k, v in sp.items()},
+        "loss": float(metrics["loss"]),
+    }
