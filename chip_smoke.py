@@ -12,7 +12,7 @@ Function's gradients and the flash rows of phase 6 alone; its launches are
 those of one bf16 Function forward+backward at granite's shape and of one
 float32 forward at the harvest's. ``--only autograd`` builds them and runs
 phases 3b and 3c on W1–W4 made from the seed; ``--only sae_tables`` runs
-phase 8, ``--only train_mesh`` phase 9.)
+phase 8, ``--only train_mesh`` phase 9, ``--only serve`` phase 10.)
 
 1. builds the fourteen CUDA kernels of the seven sources in
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, started together),
@@ -206,7 +206,48 @@ phase 8, ``--only train_mesh`` phase 9.)
    ``MESH_GSP_TOL`` (float32 1e-5 and 0.1 point; bf16 1e-4 and 2 points);
    the same sharded run with the psum over "model" of ``collectives.enter``'s
    backward skipped must fall outside those bars. ``--only train_mesh`` builds the kernels and runs phase
-   9 alone.
+   9 alone;
+10. serves and trains the rest of the port (``serve_phase``). (a)
+   ``launch/serve.py``'s ``run`` at the full width and depth of
+   granite-3-2b (seeded float32 params) with ``SERVE_ARGV`` (8 requests,
+   128 prompt tokens, 64 new): the last prompt position's decode logits
+   (the prompt replayed through ``make_decode_step``) within 5e-3 ·
+   max|logits| of the teacher-forced ``forward(impl="chunked")``'s; then
+   the ms per decode step (32 steps after the prompt, host clock), tok/s,
+   peak memory, the step's byte bound (every weight and the cache read
+   once over 3.35 TB/s), and the profiler's device kernels and busy time
+   per step, which say whether the step is host- or device-bound. (b) the
+   ring cache: h2o-danube-1.8b (window 4096) at full width cut to 2
+   layers, one request of 4160 prompt tokens, held the same way. (c)
+   ``ProjectionService(method="codegen_batch")`` at the server's two
+   shapes: a bad request refused at submit, then 8 requests of each shape
+   and one (3000, 1000) bi-level request with ``method="codegen"`` in one
+   flush: 3 groups, one pipeline each (``codegen_reduce``, ``l1ball`` and
+   ``codegen_apply`` launched 3 times), every result within phase 2's bars
+   of the plain projection and feasible. (d) the train launcher at full
+   width, 8 layers, 3 steps, phase 5's batch and radius, once plain and
+   once with ``--telemetry-every 1 --telemetry-marks``: the registry holds
+   ``train_loss`` (the last step's), ``train_grad_norm``, and per projected
+   leaf ``train_param_zero_frac`` (inside (0, 1)) and
+   ``train_feasibility_gap`` (at most 1e-5), and ``train_epilogue_seconds``
+   3 times; the same launches in both runs; an unfused instrumented step's
+   ``train_projection_seconds``; with the bridge off a step built with
+   ``telemetry_every=1`` makes the aten operation sequence, the launches
+   of one built with 0 in each of four profiled rounds (each step from one
+   snapshot of the state, restored outside the profiler's window, after
+   128 uncounted spin kernels that open it; the order alternating), and
+   per device kernel or copy the same largest count over the rounds (the
+   profiler leaves out some of the first events of its window, never adds
+   one); the warm step time with telemetry on and off. (e)
+   ``make_train_step`` at the full width and depth of granite-3-2b for 3
+   steps of phase 5's batch with int8 moments, then with float32 moments
+   from the same init: finite losses, feasible projected layers, the
+   optimizer state's bytes and each run's peak device memory; after step
+   2, the first update from dequantized moments, the int8 run's m and √v
+   within per-block bars of the float32 run's that follow from the
+   rounding (β1·s1 + s2)/2 and (√β2·s1 + s2)/2, s1 and s2 the block's
+   scales after steps 1 and 2, and each leaf's params apart by at most
+   INT8_PARAM_BAR of the float32 run's step-2 move.
 
 The widths are the SAE factory's on stablelm-1.6b: d_model 2048, d_dict
 4 x 2048 = 8192, 32 heads; the projected tensor is the transposed encoder.
@@ -241,7 +282,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
+import math
 import re
 import shutil
 import statistics
@@ -1141,16 +1184,19 @@ def hold_flash(randn, tag, qs, ks, causal, window):
     return err, (q, k, v)
 
 
-def _profile(fn, annotate=False):
+def _profile(fn, annotate=False, setup=None):
     """One warm call of ``fn`` under ``torch.profiler`` (CPU and CUDA);
     with ``annotate`` inside a ``record_function`` range named
-    ``smoke_call`` (which the trace also lists among the device events)."""
+    ``smoke_call`` (which the trace also lists among the device events);
+    ``setup()`` runs before each call of ``fn``, outside the profiler."""
     import contextlib
 
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    fn()
+    for step in (setup, fn, setup):
+        if step:
+            step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with record_function("smoke_call") if annotate else contextlib.nullcontext():
@@ -1159,15 +1205,16 @@ def _profile(fn, annotate=False):
     return prof
 
 
-def device_kernels(fn, counts=False):
+def device_kernels(fn, counts=False, setup=None):
     """``{kernel name: device ms}`` (with ``counts``: launches) of the
     device kernels one call of ``fn`` launches, read from
-    ``torch.profiler`` (empty where the profiler records none)."""
+    ``torch.profiler`` (empty where the profiler records none); ``setup``
+    as :func:`_profile`'s."""
     import torch
 
     cuda = torch.autograd.DeviceType.CUDA
     return {e.key: e.count if counts else getattr(e, "device_time_total", 0.0) / 1e3
-            for e in _profile(fn).key_averages()
+            for e in _profile(fn, setup=setup).key_averages()
             if getattr(e, "device_type", None) == cuda}
 
 
@@ -3208,6 +3255,626 @@ def sae_tables_phase():
                          "cpu_seconds": host_s}}
 
 
+# serving and the rest of the port (phase 10): launch/serve.py at the full
+# width and depth of granite-3-2b (seeded float32 params; the hold's bar is
+# tests/test_serving.py:70-83's, 5e-3 of the largest logit), the ring cache
+# of h2o-danube-1.8b (window 4096) cut to 2 layers with a prompt that wraps
+# it, the flush()-driven ProjectionService at the server's shapes, the
+# train launcher's in-step telemetry, and int8 AdamW moments
+SERVE_ARGV = ["--arch", "granite-3-2b", "--batch", "8", "--prompt-len", "128",
+              "--new", "64"]
+RING_ARGV = ["--arch", "h2o-danube-1.8b", "--layers", "2", "--batch", "1",
+             "--prompt-len", "4160", "--new", "4"]
+SERVE_BAR = 5e-3
+DECODE_TIMED = 32             # decode steps timed after the held prompt
+SERVICE_ODD = ((3000, 1000), BILEVEL)   # one request alone, method="codegen"
+TELEMETRY_LAYERS = 8
+GATE_ROUNDS = 4               # profiled calls of each step, (d)
+WINDOW_PAD = 128              # uncounted spin kernels opening each window
+INT8_STEPS = 3
+INT8_PARAM_BAR = 0.2          # params after step 2, of the step's move (H100: 0.061)
+
+
+def serve_args(argv):
+    """{flag: value} of a launcher argv of flag/value pairs."""
+    return dict(zip(argv[::2], argv[1::2]))
+
+
+def _decode_replay(cfg, params, prompts, max_len):
+    """The prompt replayed through ``make_decode_step`` (as ``generate``
+    does): (the last position's logits, the cache, the step)."""
+    import torch
+
+    from repro_torch import models
+    from repro_torch.serving import lm
+
+    api = models.get(cfg)
+    b, s = prompts.shape
+    cache = api.make_cache(cfg, b, max_len, dtype=torch.float32,
+                           device=prompts.device)
+    step = lm.make_decode_step(cfg, api)
+    logits = None
+    with torch.inference_mode():
+        for i in range(s):
+            _, logits, cache = step(params, prompts[:, i], cache, i)
+    return logits, cache, step
+
+
+def hold_decode(tag, res, max_len):
+    """The last prompt position's decode logits against the teacher-forced
+    ``forward(impl="chunked")``'s, within SERVE_BAR · max|logits|."""
+    import torch
+
+    from repro_torch import models
+
+    cfg, params, prompts = res["cfg"], res["params"], res["prompts"]
+    logits, cache, step = _decode_replay(cfg, params, prompts, max_len)
+    with torch.inference_mode():
+        full, _ = models.get(cfg).forward(params, prompts, cfg, impl="chunked",
+                                          remat=False)
+    want = full[:, -1]
+    scale = float(want.abs().max())
+    err = float((logits - want).abs().max())
+    print(f"serve {tag}: decode vs chunked forward at position "
+          f"{prompts.shape[1] - 1}: max_abs_err {err:.3e} (bar {SERVE_BAR} x "
+          f"max|logits| {scale:.4g}); ring slots {cache['k'].shape[2]}")
+    if not (torch.isfinite(logits).all() and err <= SERVE_BAR * scale):
+        raise SmokeFailure(f"serve {tag}: decode logits {err:.3e} from the "
+                           f"forward's (bar {SERVE_BAR * scale:.3e})")
+    toks = res["tokens"]
+    if not (toks.dtype == torch.int32 and int(toks.min()) >= 0
+            and int(toks.max()) < cfg.vocab):
+        raise SmokeFailure(f"serve {tag}: tokens {toks.dtype} outside "
+                           f"[0, {cfg.vocab})")
+    return err, logits, cache, step
+
+
+def decode_bound_ms(cfg, params, batch, length):
+    """One decode step's byte bound: every weight read once (the input
+    embedding's rows of the batch only, unless it is also the output
+    embedding), the cache's valid slots read once, over HBM's rate."""
+    import torch
+
+    from repro_torch import _tree
+
+    nbytes = 0
+    for name, p in _tree.leaves_with_paths(params):
+        if name == "embed" and "unembed" in params:
+            nbytes += batch * p.shape[1] * p.element_size()
+        else:
+            nbytes += p.numel() * p.element_size()
+    kv = 2 * cfg.n_layers * batch * length * cfg.n_kv_heads \
+        * cfg.resolved_head_dim * torch.float32.itemsize
+    return (nbytes + kv) / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def serve_decode(dev):
+    """(a) and (b): the serve launcher on the card, each held against the
+    teacher-forced forward; (a) also timed per decode step, beside its
+    byte bound and the profiler's launches and device time per step."""
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve as serve_cli
+
+    out = {}
+    # ------------------------------------------------------------- (a)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()        # left by earlier phases
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    res = serve_cli.run(SERVE_ARGV)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {k: n for k, n in _build.launch_counts().items() if n}
+    a = serve_args(SERVE_ARGV)
+    b, plen, new = int(a["--batch"]), int(a["--prompt-len"]), int(a["--new"])
+    cfg, params = res["cfg"], res["params"]
+    print(f"serve (a) python -m repro_torch.launch.serve {' '.join(SERVE_ARGV)}: "
+          f"{cfg.n_layers} layers d_model {cfg.d_model}, "
+          f"{sum(p.numel() for p in _tree.leaves(params))} float32 params; {res['seconds']:.3f} s for {b} x {new} new tokens "
+          f"after {plen} prompt tokens ({res['tok_per_s']:.1f} tok/s, host "
+          f"clock, prompt replay included); kernel launches {launches}; peak "
+          f"device memory {peak / 2**30:.2f} GiB above the {base / 2**30:.2f} "
+          f"GiB allocated before")
+    err, _, cache, step = hold_decode("(a) granite-3-2b", res, plen + new
+                                      + DECODE_TIMED + 2)
+    # ms per decode step, continuing after the held prompt
+    toks = res["tokens"][:, 0]
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(DECODE_TIMED):
+            toks, _, cache = step(params, toks, cache, plen + i)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / DECODE_TIMED
+        pos = plen + DECODE_TIMED
+
+        def one():
+            step(params, toks, cache, pos)
+        per_kernel = device_kernels(one)
+        per_count = device_kernels(one, counts=True)
+        n_launch = sum(per_count.values())
+    busy = sum(per_kernel.values())
+    top = sorted(per_count, key=lambda k: -per_count[k])[:8]
+    print("serve (a) a decode step's most frequent device kernels: " + "; ".join(
+        f"{per_count[k]} x {k[:60]} ({per_kernel.get(k, 0.0):.3f} ms)"
+        for k in top))
+    bms, wbytes = decode_bound_ms(cfg, params, b, pos + 1)
+    bound_by = "host" if busy < 0.5 * step_ms else "device"
+    print(f"serve (a) decode step at position {pos} (batch {b}): {step_ms:.3f} ms "
+          f"(host clock, mean of {DECODE_TIMED}), {b / step_ms * 1e3:.1f} tok/s; "
+          f"byte bound {bms:.3f} ms ({wbytes} bytes of weights + the cache over "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); {n_launch} device kernels and "
+          f"copies a step ({n_launch / cfg.n_layers:.1f} a layer), device busy "
+          f"{busy:.3f} ms: "
+          f"{bound_by}-bound")
+    out["a"] = {"argv": SERVE_ARGV, "seconds": res["seconds"],
+                "tok_per_s": res["tok_per_s"], "peak_bytes": peak,
+                "max_abs_err": err, "decode_step_ms": step_ms,
+                "decode_tok_per_s": b / step_ms * 1e3, "bound_ms": bms,
+                "weight_bytes": wbytes, "kernels_per_step": n_launch,
+                "device_busy_ms": busy, "bound_by": bound_by,
+                "launches": launches}
+    del res, params, cache, step, toks
+    torch.cuda.empty_cache()
+    # ------------------------------------------------------------- (b)
+    res = serve_cli.run(RING_ARGV)
+    torch.cuda.synchronize()
+    a = serve_args(RING_ARGV)
+    cfg = res["cfg"]
+    plen = int(a["--prompt-len"])
+    if not plen > cfg.window:
+        raise SmokeFailure(f"serve (b): prompt {plen} does not wrap the ring "
+                           f"of {cfg.window}")
+    err, *_ = hold_decode(f"(b) {cfg.name} {cfg.n_layers} layers window "
+                          f"{cfg.window}", res, plen + int(a["--new"]))
+    step_ms = res["seconds"] * 1e3 / (plen + int(a["--new"]))
+    print(f"serve (b): {step_ms:.3f} ms a decode step (the launcher's run over "
+          f"its {plen + int(a['--new'])} steps, host clock)")
+    out["b"] = {"argv": RING_ARGV, "seconds": res["seconds"],
+                "tok_per_s": res["tok_per_s"], "max_abs_err": err,
+                "decode_step_ms": step_ms}
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_service(randn, rand):
+    """(c): ``ProjectionService(method="codegen_batch")`` at the server's
+    shapes: 8 requests of each and one odd-shaped ``codegen`` request in
+    one flush (one pipeline per group, by launch counts), a bad request
+    refused at submit, every result held to the plain projection."""
+    import torch
+
+    from repro_torch.core import multilevel
+    from repro_torch.kernels import _build
+    from repro_torch.serving import ProjectionService
+
+    svc = ProjectionService(method="codegen_batch")
+    try:
+        svc.submit(randn((4, 6, 2)), list(BILEVEL), 1.0)
+    except ValueError as e:
+        print(f"service: bad request refused at submit ({e})")
+    else:
+        raise SmokeFailure("service: a bad request was queued")
+    reqs = []
+    for i in range(BUCKET):
+        for shape, levels in FULL.values():
+            y = randn(shape)
+            r = float(multilevel.multilevel_norm(y, levels)) \
+                * (0.05 + 0.45 * float(rand(())))
+            reqs.append((y, levels, r, None))
+    shape, levels = SERVICE_ODD
+    y = randn(shape)
+    reqs.append((y, levels, 0.25 * float(multilevel.multilevel_norm(y, levels)),
+                 "codegen"))
+    tickets = [svc.submit(y, levels, r, method=m) for y, levels, r, m in reqs]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    svc.flush()
+    torch.cuda.synchronize()
+    flush_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: n for k, n in _build.launch_counts().items() if n}
+    groups = len(FULL) + 1
+    print(f"service: one flush of {len(reqs)} requests in {groups} groups, "
+          f"{flush_ms:.3f} ms (host clock, first call of each plan included); "
+          f"launches {launches}; stats {svc.stats}")
+    if launches != dict.fromkeys(SERVER_KERNELS, groups):
+        raise SmokeFailure(f"service: launches {launches}, not one pipeline "
+                           f"per group ({groups})")
+    if svc.stats["executed_batches"] != groups or \
+            svc.stats["batched_requests"] != BUCKET * len(FULL):
+        raise SmokeFailure(f"service: stats {svc.stats}")
+    worst = 0.0
+    for i, (t, (y, levels, r, _)) in enumerate(zip(tickets, reqs)):
+        x = svc.result(t)
+        want = multilevel.multilevel_project(y, list(levels), r,
+                                             method="bisect")
+        worst = max(worst, check_close(f"service request {i}", x, want,
+                                       float(y.abs().max())))
+        nrm = float(multilevel.multilevel_norm(x, list(levels)))
+        slack = r * RTOL + y.shape[-1] * 2.0 ** -23 * float(y.abs().max())
+        if not nrm <= r + slack:
+            raise SmokeFailure(f"service request {i}: norm {nrm} > radius {r}")
+    print(f"service: {len(reqs)} results equal to the plain projection "
+          f"(max_abs_err {worst:.3e}) and feasible")
+    return {"flush_ms": flush_ms, "launches": launches, "stats": svc.stats,
+            "max_abs_err": worst}
+
+
+def _telemetry_argv(radius):
+    steps, batch, micro, seq = train_args()
+    return ["--arch", TRAIN_ARCH, "--layers", str(TELEMETRY_LAYERS),
+            "--batch", str(batch), "--microbatch", str(micro), "--seq",
+            str(seq), "--steps", "3", "--radius", repr(radius)]
+
+
+def serve_telemetry(dev, radius):
+    """(d): the train launcher at full width, TELEMETRY_LAYERS layers, 3
+    steps, once without telemetry and once with ``--telemetry-every 1
+    --telemetry-marks``; the unfused step's projection marks; and, with
+    the bridge off, one step built with ``telemetry_every=1`` against one
+    built with 0: the same launches and device kernels."""
+    import dataclasses as dc
+
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch import _tree, models
+    from repro_torch.configs import registry
+    from repro_torch.configs.types import ProjectionSpec, TrainConfig
+    from repro_torch.data import DataConfig, DataPipeline
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train as train_cli
+    from repro_torch.obs import bridge, metrics
+    from repro_torch.training import init_state, make_train_step
+
+    argv = _telemetry_argv(radius)
+    runs = {}
+    for tag, extra in (("off", []), ("on", ["--telemetry-every", "1",
+                                            "--telemetry-marks"])):
+        torch.cuda.empty_cache()
+        prev = metrics.set_registry(metrics.Registry())
+        _build.reset_launches()
+        try:
+            out = train_cli.run(argv + extra)
+            snap = metrics.get_registry().snapshot()
+        finally:
+            metrics.set_registry(prev)
+        runs[tag] = {"step_seconds": out["step_seconds"],
+                     "losses": out["losses"],
+                     "launches": {k: n for k, n in
+                                  _build.launch_counts().items() if n},
+                     "snapshot": snap}
+        del out
+        print(f"telemetry {tag}: python -m repro_torch.launch.train "
+              f"{' '.join(argv + extra)}: step seconds "
+              + " ".join(f"{x:.4f}" for x in runs[tag]["step_seconds"])
+              + f"; launches {runs[tag]['launches']}")
+    on = runs["on"]["snapshot"]
+    leaves = ("blocks/mlp/w_gate", "blocks/mlp/w_up")
+    gauges = {}
+    for name in ("train_loss", "train_grad_norm", "train_param_zero_frac",
+                 "train_feasibility_gap"):
+        if name not in on:
+            raise SmokeFailure(f"telemetry: {name} missing from the registry")
+        gauges[name] = {"/".join(v["labels"].values()) or "-": v["value"]
+                        for v in on[name]["values"]}
+    for name in ("train_param_zero_frac", "train_feasibility_gap"):
+        if sorted(gauges[name]) != sorted(leaves):
+            raise SmokeFailure(f"telemetry: {name} leaves {sorted(gauges[name])}")
+    loss = runs["on"]["losses"][-1]
+    if not abs(gauges["train_loss"]["-"] - loss) <= 1e-6 * abs(loss):
+        raise SmokeFailure(f"telemetry: train_loss {gauges['train_loss']} is not "
+                           f"the last step's loss {loss}")
+    if not all(v <= 1e-5 for v in gauges["train_feasibility_gap"].values()):
+        raise SmokeFailure(f"telemetry: infeasible {gauges['train_feasibility_gap']}")
+    if not all(0.0 < v < 1.0 for v in gauges["train_param_zero_frac"].values()):
+        raise SmokeFailure(f"telemetry: zero fractions "
+                           f"{gauges['train_param_zero_frac']}")
+    ep = on.get("train_epilogue_seconds", {}).get("values", [])
+    if not (ep and ep[0]["count"] == 3):
+        raise SmokeFailure(f"telemetry: train_epilogue_seconds {ep}")
+    if runs["on"]["launches"] != runs["off"]["launches"]:
+        raise SmokeFailure(f"telemetry: launches on {runs['on']['launches']} "
+                           f"off {runs['off']['launches']}")
+    print(f"telemetry gauges {gauges}; train_epilogue_seconds: "
+          f"{ep[0]['count']} observations, mean {ep[0]['sum'] / 3 * 1e3:.3f} ms "
+          f"(device time in stream order)")
+    # the unfused step's marks, and the gate off against telemetry_every=0
+    cfg = dc.replace(registry.get_arch(TRAIN_ARCH), n_layers=TELEMETRY_LAYERS)
+    steps, batch, micro, seq = train_args()
+    spec = ProjectionSpec(pattern=r"(w_up|w_gate)", radius=radius)
+    tcfg = TrainConfig(microbatch=micro, lr=3e-4, total_steps=3, warmup=1,
+                       remat=True, master_dtype="", projection=spec)
+    api = models.get(cfg)
+    pipe = DataPipeline(DataConfig(vocab=cfg.vocab, seq_len=seq + 1,
+                                   global_batch=batch, microbatch=micro))
+    toks = {"tokens": torch.from_numpy(pipe.batch(0)).to(dev)}
+    torch.cuda.empty_cache()
+    state = init_state(cfg, tcfg, api, SEED, device=dev)
+    prev = metrics.set_registry(metrics.Registry())
+    try:
+        with bridge.enabled_scope(True):
+            unfused = make_train_step(cfg, tcfg, api, impl="flash", fused=False,
+                                      telemetry_every=1, telemetry_marks=True)
+            unfused(state, toks)
+            bridge.drain()
+        pr = metrics.get_registry().snapshot().get(
+            "train_projection_seconds", {}).get("values", [])
+    finally:
+        metrics.set_registry(prev)
+    if not (pr and pr[0]["count"] == 1):
+        raise SmokeFailure(f"telemetry: train_projection_seconds {pr}")
+    print(f"telemetry unfused: train_projection_seconds {pr[0]['sum'] * 1e3:.3f} "
+          f"ms (one observation)")
+    built = {every: make_train_step(cfg, tcfg, api, impl="flash",
+                                    telemetry_every=every)
+             for every in (0, 1)}
+    # every call starts from the same state: the plain θ-solve's launches
+    # depend on the data
+    snap = _tree.tree_map(torch.clone, state)
+
+    def restore():
+        for d, s_ in zip(_tree.leaves(state), _tree.leaves(snap)):
+            d.copy_(s_)
+
+    def padded(fn):
+        """The step after WINDOW_PAD spin kernels, which are not counted:
+        the profiler leaves out some of the first few dozen events of its
+        window (scripts/profile_window.py)."""
+        def call():
+            for _ in range(WINDOW_PAD):
+                torch.cuda._sleep(1)
+            fn(state, toks)
+        return call
+
+    steps = {every: padded(fn) for every, fn in built.items()}
+
+    class Ops(TorchDispatchMode):
+        """The aten operations dispatched inside it, in order."""
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            names.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    ops, launches, seen = {}, {0: [], 1: []}, {0: [], 1: []}
+    with bridge.enabled_scope(False):
+        for every, step in steps.items():
+            names = []
+            restore()
+            with Ops():
+                step()
+            ops[every] = names
+        # GATE_ROUNDS rounds, the order alternating, each step a warm call
+        # and a profiled one from the snapshot (restored outside the
+        # profiler's window). Should the profiler still leave out an event,
+        # it never adds one, so each step's count of a device kernel or
+        # copy is its largest over the rounds: an event the gate-off step
+        # issues on every call still shows
+        for rnd in range(GATE_ROUNDS):
+            for every in ((0, 1), (1, 0))[rnd % 2]:
+                _build.reset_launches()
+                seen[every].append({k: n for k, n in device_kernels(
+                    steps[every], counts=True, setup=restore).items()
+                                    if "spin_kernel" not in k})
+                launches[every].append({k: n for k, n in
+                                        _build.launch_counts().items() if n})
+    copies = ("Memcpy", "Memset")
+    most = {every: {k: max(d.get(k, 0) for d in seen[every])
+                    for k in set().union(*seen[0], *seen[1])}
+            for every in (0, 1)}
+    for every in (0, 1):
+        kern = [sum(n for k, n in d.items() if not k.startswith(copies))
+                for d in seen[every]]
+        copy = [sum(n for k, n in d.items() if k.startswith(copies))
+                for d in seen[every]]
+        print(f"telemetry gate off, telemetry_every={every}: launches "
+              f"{launches[every][0]} each round; device kernels {kern} and "
+              f"copies {copy} by round (order 0 1, 1 0, ...); per name the "
+              f"largest count over the rounds sums to "
+              f"{sum(most[every].values())}")
+    print(f"telemetry gate off: {len(ops[1])} aten operations a step, "
+          f"{'the same sequence' if ops[0] == ops[1] else 'ANOTHER sequence'} "
+          f"as telemetry_every=0 ({len(ops[0])})")
+    if ops[0] != ops[1] or most[0] != most[1] or any(
+            d != launches[0][0] for d in launches[0] + launches[1]):
+        diff = {k: (most[0][k], most[1][k]) for k in most[0]
+                if most[0][k] != most[1][k]}
+        raise SmokeFailure(f"telemetry: the gate-off step's operations, launches, "
+                           f"device kernels or copies differ from "
+                           f"telemetry_every=0's: {diff}; launches {launches}")
+    del state, snap, built, unfused
+    torch.cuda.empty_cache()
+    off_ms = 1e3 * runs["off"]["step_seconds"][-1]
+    on_ms = 1e3 * runs["on"]["step_seconds"][-1]
+    print(f"telemetry warm step: {on_ms:.2f} ms on, {off_ms:.2f} ms off "
+          f"({on_ms / off_ms - 1:+.2%}; host clock, step 3)")
+    return {"argv": argv, "step_ms_on": on_ms, "step_ms_off": off_ms,
+            "gauges": gauges, "epilogue_ms_mean": ep[0]["sum"] / 3 * 1e3,
+            "projection_ms": pr[0]["sum"] * 1e3,
+            "launches": runs["on"]["launches"],
+            "gate_off_events": {every: sum(most[every].values())
+                                for every in (0, 1)},
+            "gate_off_ops": len(ops[1])}
+
+
+def _blocks(x):
+    """x (..., n) as (..., n_blocks, 256), zero-padded: the blocks of
+    ``adamw.quantize_blockwise``."""
+    import torch.nn.functional as F
+
+    n = x.shape[-1]
+    npad = -(-n // 256) * 256
+    return F.pad(x, (0, npad - n)).reshape(x.shape[:-1] + (npad // 256, 256))
+
+
+def hold_int8_step2(i8, state, tcfg, dev):
+    """Step 2's update is the first that reads dequantized moments (step 1
+    reads moments of zero, so both runs reach step 2 from the same params
+    and the same gradient). Hold the int8 run's state after it (``i8``:
+    its scales after step 1 on the device; its moments and params after
+    step 2 and params after step 1 on the host) against the float32-moment
+    run's ``state`` after step 2, leaf by leaf.
+
+    With s1, s2 a 256-block's int8 scales after steps 1 and 2 (its largest
+    value / 127; rounding moves a value at most s/2), the dequantized m
+    lies within (β1·s1 + s2)/2 of the float32 m, and the dequantized √v (v
+    is kept in the square-root domain, and the root of β2·a² + c is
+    √β2-Lipschitz in a) within (√β2·s1 + s2)/2 of the float32 √v; each
+    bar gets 1e-3·s2 for float32 rounding. The params: the distance
+    between the runs over the float32 run's step-2 move, per leaf.
+    Returns (worst m and √v error over its bar, {leaf: that ratio})."""
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.optim import dequantize_blockwise
+
+    params, opt = state["params"], state["opt"]
+    coef = {"m": tcfg.beta1, "v": math.sqrt(tcfg.beta2)}
+    worst = {"m": 0.0, "v": 0.0}
+    moved = {}
+    with torch.no_grad():
+        for i, (name, p) in enumerate(_tree.leaves_with_paths(params)):
+            for part, ref in (("m", opt["m"]), ("v", opt["v"])):
+                ref = _tree.leaves(ref)[i]
+                ref = ref.sqrt() if part == "v" else ref
+                s1, qs = i8["s1"][part][i], i8["q2"][part][i]
+                s2 = qs["s"].to(dev)
+                got = dequantize_blockwise({"q": qs["q"].to(dev), "s": s2},
+                                           p.shape[-1])
+                err = _blocks((got - ref).abs()).amax(dim=-1)
+                bar = 0.5 * (coef[part] * s1 + s2) + 1e-3 * s2
+                worst[part] = max(worst[part], float((err / bar).max()))
+                del ref, got, err
+            step = float(torch.linalg.vector_norm(p - i8["p1"][i].to(dev)))
+            apart = float(torch.linalg.vector_norm(i8["p2"][i].to(dev) - p))
+            moved[name] = apart / step if step else (0.0 if not apart
+                                                     else math.inf)
+    return worst, moved
+
+
+def serve_int8(dev, radius):
+    """(e): ``make_train_step`` at the full width and depth of
+    granite-3-2b for INT8_STEPS steps with int8 moments, then with float32
+    moments from the same init and batches: finite losses, feasible
+    projected layers, each run's peak device memory, and the int8 run's
+    state after step 2 held to the float32 run's
+    (:func:`hold_int8_step2`)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import _tree, models
+    from repro_torch.configs import registry
+    from repro_torch.configs.types import ProjectionSpec, TrainConfig
+    from repro_torch.data import DataConfig, DataPipeline
+    from repro_torch.training import init_state, make_train_step
+    from repro_torch.training.sae_factory import constraint_report
+
+    cfg = registry.get_arch(TRAIN_ARCH)
+    steps, batch, micro, seq = train_args()
+    spec = ProjectionSpec(pattern=r"(w_up|w_gate)", radius=radius)
+    api = models.get(cfg)
+    pipe = DataPipeline(DataConfig(vocab=cfg.vocab, seq_len=seq + 1,
+                                   global_batch=batch, microbatch=micro))
+    out, i8 = {}, {}
+
+    def moments_of(state, part):
+        return _tree.leaves_up_to(state["params"], state["opt"][part])
+
+    for moments in ("int8", "float32"):
+        tcfg = TrainConfig(microbatch=micro, lr=3e-4, total_steps=INT8_STEPS,
+                           warmup=1, remat=True, master_dtype="",
+                           moment_dtype=moments, projection=spec)
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()    # left by earlier phases
+        torch.cuda.reset_peak_memory_stats()
+        state = init_state(cfg, tcfg, api, SEED, device=dev)
+        opt_bytes = sum(t.numel() * t.element_size() for t in
+                        _tree.leaves(state["opt"]))
+        fn = make_train_step(cfg, tcfg, api, impl="flash")
+        losses, secs = [], []
+        for s in range(INT8_STEPS):
+            t0 = time.perf_counter()
+            state, m = fn(state, {"tokens": torch.from_numpy(
+                pipe.batch(s)).to(dev)})
+            losses.append(float(m["loss"]))
+            secs.append(time.perf_counter() - t0)
+            if moments == "int8" and s == 0:
+                i8["s1"] = {part: [qs["s"].clone() for qs in
+                                   moments_of(state, part)]
+                            for part in ("m", "v")}
+                i8["p1"] = [p.to("cpu", copy=True) for p in _tree.leaves(state["params"])]
+            elif moments == "int8" and s == 1:
+                i8["q2"] = {part: [{k: t.to("cpu", copy=True) for k, t in qs.items()}
+                                   for qs in moments_of(state, part)]
+                            for part in ("m", "v")}
+                i8["p2"] = [p.to("cpu", copy=True) for p in _tree.leaves(state["params"])]
+            elif moments == "float32" and s == 1:
+                worst, moved = hold_int8_step2(i8, state, tcfg, dev)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        rep = constraint_report(state["params"], spec)
+        print(f"{moments} moments: granite-3-2b {cfg.n_layers} layers, "
+              f"{INT8_STEPS} steps of {batch} x {seq} tokens: losses {losses}, "
+              f"step seconds " + " ".join(f"{x:.3f}" for x in secs)
+              + f"; optimizer state {opt_bytes / 1e9:.3f} GB; peak device "
+              f"memory {peak / 2**30:.2f} GiB above the {base / 2**30:.2f} GiB "
+              f"allocated before; max_violation "
+              f"{rep['max_violation']:.3e} (radius {radius:.6g})")
+        if not all(np.isfinite(losses)):
+            raise SmokeFailure(f"{moments} moments: losses {losses}")
+        if not rep["max_violation"] <= 1e-5 * radius:
+            raise SmokeFailure(f"{moments} moments: infeasible {rep}")
+        out[moments] = {"losses": losses, "step_seconds": secs,
+                        "peak_bytes": peak, "opt_bytes": opt_bytes,
+                        "max_violation": rep["max_violation"]}
+        del state, fn, m
+        torch.cuda.empty_cache()
+    del i8
+    far = max(moved, key=moved.get)
+    print(f"int8 moments after step 2 (the first update from dequantized "
+          f"moments): m within {worst['m']:.4f} and sqrt(v) within "
+          f"{worst['v']:.4f} of their per-block bars of the float32 run's; "
+          f"params apart by at most {moved[far]:.4f} of the float32 run's "
+          f"step-2 move ({far}; bar {INT8_PARAM_BAR}); "
+          + "; ".join(f"{k} {v:.4f}" for k, v in sorted(moved.items())))
+    l8, l32 = out["int8"]["losses"], out["float32"]["losses"]
+    print(f"int8 moments: losses equal to the float32 run's through step 2 "
+          f"by construction ({l8[:2] == l32[:2]}); step {INT8_STEPS}'s, the "
+          f"first after a quantized update, {l8[-1]!r} against {l32[-1]!r} "
+          f"({(l8[-1] - l32[-1]) / abs(l32[-1]):+.3e} relative)")
+    if not (worst["m"] <= 1.0 and worst["v"] <= 1.0
+            and moved[far] <= INT8_PARAM_BAR):
+        raise SmokeFailure(f"int8 moments: after step 2, m {worst['m']:.4f} "
+                           f"and sqrt(v) {worst['v']:.4f} of their bars, "
+                           f"params {moved[far]:.4f} of the step ({far}, "
+                           f"bar {INT8_PARAM_BAR})")
+    saved = out["float32"]["peak_bytes"] - out["int8"]["peak_bytes"]
+    print(f"int8 moments: peak {out['int8']['peak_bytes'] / 2**30:.2f} GiB against "
+          f"{out['float32']['peak_bytes'] / 2**30:.2f} GiB with float32 moments "
+          f"({saved / 2**30:.2f} GiB less; the state "
+          f"{(out['float32']['opt_bytes'] - out['int8']['opt_bytes']) / 2**30:.2f}"
+          f" GiB smaller)")
+    out.update(peak_saved_bytes=saved, step2_moments=worst, step2_params=moved)
+    return out
+
+
+def serve_phase(dev, randn, rand):
+    """Phase 10: (a)-(e) of the module docstring."""
+    rec = serve_decode(dev)
+    rec["service"] = serve_service(randn, rand)
+    radius, _ = train_radius(dev)
+    rec["telemetry"] = serve_telemetry(dev, radius)
+    rec["int8"] = serve_int8(dev, radius)
+    return rec
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3215,7 +3882,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Drive the port on the card.")
     ap.add_argument("--only", choices=("mesh", "attention", "autograd",
-                                       "sae_tables", "train_mesh"),
+                                       "sae_tables", "train_mesh", "serve"),
                     help="run one phase alone: 'mesh' builds the kernels and "
                          "runs phase 7 (the partial apply, then the mesh "
                          "executor on four ranks); 'attention' builds them "
@@ -3225,7 +3892,8 @@ def main(argv=None) -> int:
                          "beside their plain versions and SDPA; 'autograd' "
                          "builds them and runs phases 3b and 3c on W1–W4 "
                          "made from the seed; 'sae_tables' runs phase 8; "
-                         "'train_mesh' builds them and runs phase 9")
+                         "'train_mesh' builds them and runs phase 9; "
+                         "'serve' builds them and runs phase 10")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3353,6 +4021,20 @@ def main(argv=None) -> int:
 
     if args.only == "train_mesh":
         return finish({"kernels": [], "train_mesh": train_mesh_phases()})
+
+    def serve_phases(rows=()):
+        """Phase 10 from freed memory; each kernel row of its paths gets the
+        launches of the service's flush or of the instrumented launcher."""
+        torch.cuda.empty_cache()
+        rec = serve_phase(dev, randn, rand)
+        for row in rows:
+            for part in ("service", "telemetry"):
+                if row["name"] in rec[part]["launches"]:
+                    row["launches_serve"] = rec[part]["launches"][row["name"]]
+        return rec
+
+    if args.only == "serve":
+        return finish({"kernels": [], "serve": serve_phases()})
 
     # ------------------------------------- phase 1: kernels vs plain versions
     for name, shape, levels in DESIGNS:
@@ -3635,8 +4317,11 @@ def main(argv=None) -> int:
 
     # ------------------------------------------ phase 9: sharded training
     train_mesh = train_mesh_phases(rows)
+
+    # ------------------------- phase 10: serving, telemetry, int8 moments
+    serve = serve_phases(rows)
     return finish({"kernels": rows, "mesh": mesh, "grad": grad,
-                   "train_mesh": train_mesh,
+                   "train_mesh": train_mesh, "serve": serve,
                    "refuse_grad": refused, "sae_tables": tables,
                    "factory": {"harvest_step_ms": step_parts,
                                "sae_step_ms": sae_parts,

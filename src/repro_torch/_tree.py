@@ -26,6 +26,19 @@ def leaves(tree) -> list:
     return [leaf for _, leaf in leaves_with_paths(tree)]
 
 
+def leaves_up_to(structure, tree) -> list:
+    """``tree``'s nodes at the leaf positions of ``structure``, in
+    sorted-key order (``jax.tree_util``'s ``flatten_up_to``): a node where
+    ``structure`` has a leaf may itself be a tree, as an int8 moment's
+    ``{"q", "s"}`` is where the parameter tree has a tensor."""
+    if isinstance(structure, dict):
+        out = []
+        for k in sorted(structure):
+            out += leaves_up_to(structure[k], tree[k])
+        return out
+    return [tree]
+
+
 def map_with_path(fn: Callable, tree, prefix: str = ""):
     """The tree with each leaf replaced by ``fn(path, leaf)``."""
     if isinstance(tree, dict):

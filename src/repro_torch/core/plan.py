@@ -299,7 +299,9 @@ def _backend_available(backend: PlanBackend, key: PlanKey) -> bool:
 
 def is_batch_native(name: str) -> bool:
     """True when ``name`` is a registered batch-native specialized backend
-    (its executables take stacked ``(ys, radii)`` buckets only)."""
+    (its executables take stacked ``(ys, radii)`` buckets only); the kernel
+    backends register first."""
+    _maybe_register_kernel_backends()
     backend = _SPECIALIZED.get(name)
     return backend is not None and backend.batch_native
 

@@ -40,13 +40,16 @@ dK/dV backward kernels on the card, the counterpart of the JAX package's
 ``"pallas"`` (the JAX launcher trains with ``"chunked"``, or ``"naive"``
 under ``--smoke``); under a mesh on each rank's own heads.
 ``--layers N`` (the port's own option) cuts the model to its first N
-layers at full width. ``--telemetry-every``/``--telemetry-marks`` raise
-(the telemetry bridge waits for its slice).
+layers at full width. ``--telemetry-every N`` / ``--telemetry-marks``
+turn the in-step telemetry bridge (``obs/bridge.py``) on for the run and
+give the step its cadence and marks (``training/step.py``); the pending
+values are drained into the registry before the run returns.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import sys
 import time
@@ -72,9 +75,12 @@ def _parser() -> argparse.ArgumentParser:
                     help="capture a torch.profiler trace of the run here "
                          "(schedule stages show up as proj/* ranges)")
     ap.add_argument("--telemetry-every", type=int, default=0,
-                    help="not ported: raises when set")
+                    help=">0 enables the in-step telemetry bridge and "
+                         "ships loss/grad-norm/sparsity/feasibility every "
+                         "that many steps")
     ap.add_argument("--telemetry-marks", action="store_true",
-                    help="not ported: raises when set")
+                    help="also bracket the optimizer/projection epilogue "
+                         "with a timing mark pair (device time on the card)")
     ap.add_argument("--metrics-out", default="",
                     help="write the final obs-registry snapshot (JSON lines) "
                          "to this path")
@@ -149,10 +155,15 @@ def run(argv=None) -> dict:
     sparsity per projected leaf). Under a mesh ``state`` is this rank's
     shards."""
     args = _parser().parse_args(argv)
-    if args.telemetry_every > 0 or args.telemetry_marks:
-        raise ValueError("--telemetry-every/--telemetry-marks: the in-step "
-                         "telemetry bridge waits for its slice")
 
+    from repro_torch.obs import bridge
+
+    telemetry = args.telemetry_every > 0 or args.telemetry_marks
+    with bridge.enabled_scope(True) if telemetry else contextlib.nullcontext():
+        return _run(args)
+
+
+def _run(args) -> dict:
     import torch
     import torch.distributed
 
@@ -161,6 +172,7 @@ def run(argv=None) -> dict:
     from repro_torch.configs.types import ProjectionSpec, TrainConfig
     from repro_torch.data import DataConfig, DataPipeline
     from repro_torch.models import params as PM
+    from repro_torch.obs import bridge
     from repro_torch.obs import metrics as obs_metrics
     from repro_torch.obs import profile as obs_profile
     from repro_torch.optim import adamw
@@ -241,7 +253,8 @@ def run(argv=None) -> dict:
         cfg, tcfg, api, impl="flash", n_groups=1 if mesh is None else
         sharding.dp_shards(mesh), act_spec=(b_ax if len(b_ax) > 1 else b_ax[0],
                                             None, None),
-        mesh=mesh, param_specs=specs)
+        mesh=mesh, param_specs=specs, telemetry_every=args.telemetry_every,
+        telemetry_marks=args.telemetry_marks)
     out = {"losses": [], "grad_norms": [], "step_seconds": [],
            "collectives": [], "start": start}
     saved = None
@@ -289,6 +302,7 @@ def run(argv=None) -> dict:
             for name, sp in tree_sparsity(params, proj).items():
                 out["sparsity"][name] = float(sp)
                 say(f"column sparsity {name}: {float(sp):.1f}%")
+    bridge.drain()
     if args.metrics_out and rank == 0:
         obs_metrics.get_registry().write_jsonl(args.metrics_out)
         say(f"metrics snapshot -> {args.metrics_out}")

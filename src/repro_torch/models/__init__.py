@@ -3,16 +3,18 @@
     api = models.get(cfg)        # family-dispatched function bundle
     params = params.init_params(api.template(cfg), seed, device="cuda")
     logits, aux = api.forward(params, tokens, cfg, ...)
+    cache = api.make_cache(cfg, batch, max_len, device="cuda")  (None for the SAE)
+    logits, cache = api.decode_step(params, toks, cache, pos, cfg)
 
-The port covers the dense LM families (``lm``) and the paper's SAE
-(``sae``). MoE/MLA, audio, SSM and hybrid models and the decode caches wait
-for their slices.
+The port covers the dense LM families (``lm``, with its KV-cache decode)
+and the paper's SAE (``sae``, train-only). MoE/MLA, audio, SSM and hybrid
+models wait for their slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 from repro_torch.configs.types import ArchConfig
 
@@ -23,12 +25,14 @@ from . import layers, lm, params, sae  # noqa: F401
 class ModelAPI:
     template: Callable
     forward: Callable
+    make_cache: Optional[Callable] = None
+    decode_step: Optional[Callable] = None
 
 
 def get(cfg: ArchConfig) -> ModelAPI:
     fam = cfg.family
     if fam in ("dense", "vlm") and cfg.moe is None and cfg.mla is None:
-        return ModelAPI(lm.template, lm.forward)
+        return ModelAPI(lm.template, lm.forward, lm.make_cache, lm.decode_step)
     if fam == "sae":
         return ModelAPI(sae.template, sae.forward)
     raise ValueError(f"{cfg.name}: family {fam!r} is not ported yet; the port "

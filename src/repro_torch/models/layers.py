@@ -1,5 +1,5 @@
 """Neural-net building blocks of the dense LM (port of
-``repro/models/layers.py``, lines 35-171 and 201-229).
+``repro/models/layers.py``, lines 35-198 and 201-229).
 
 Everything is a plain function of (params, inputs) on tensors. Attention
 comes in three implementations selected by ``impl``:
@@ -12,8 +12,9 @@ comes in three implementations selected by ``impl``:
                 bf16), their plain versions on a CPU tensor; differentiable
                 (the counterpart of the JAX package's ``"pallas"``)
 
-All attention math accumulates in f32 regardless of compute dtype. MoE,
-Mamba2 and single-token decode wait for their slices.
+All attention math accumulates in f32 regardless of compute dtype.
+:func:`attention_decode` is the single-token step against a KV cache. MoE
+and Mamba2 wait for their slices.
 """
 
 from __future__ import annotations
@@ -156,6 +157,33 @@ def attention(q, k, v, *, causal=True, window=None, q_offset=0,
         o = ops.attention(qt, kt, vt, causal=causal, window=window)
         return o.transpose(1, 2)
     raise ValueError(f"unknown attention impl {impl!r}")
+
+
+def attention_decode(q, k_cache, v_cache, cur_len, *, window=None):
+    """Single-token decode. q (B,H,D); caches (B,T,KV,D); ``cur_len`` (B,)
+    int, the valid length of each request's cache.
+
+    A GQA product in float32 over the whole cache, the slots past
+    ``cur_len`` masked, then the softmax: every shape is fixed by the
+    cache, whatever the position. ``window`` caches are ring buffers: every
+    slot is valid once the ring wraps (``min(cur_len, T)``), and positions
+    are the caller's.
+    """
+    b, h, d = q.shape
+    t, kv, dv = k_cache.shape[1], k_cache.shape[2], v_cache.shape[-1]
+    g = h // kv
+    qg = (q.float() * (d ** -0.5)).reshape(b, kv, g, d)
+    logits = torch.einsum("bkgd,btkd->bkgt", qg, k_cache.float())
+    pos = torch.arange(t, device=q.device)[None, :]
+    lim = cur_len if window is None else torch.clamp(cur_len, max=t)
+    valid = pos < lim[:, None]                             # (B, T)
+    logits = torch.where(valid[:, None, None], logits,
+                         torch.full((), _NEG, device=q.device))
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgt,btkd->bkgd", p / l, v_cache.float())
+    return out.reshape(b, h, dv).to(q.dtype)
 
 
 # ------------------------------------------------------------------------ mlp

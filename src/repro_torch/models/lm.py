@@ -34,12 +34,19 @@ collectives written out (``parallel/collectives.py``):
 A dimension that the mesh does not divide is replicated
 (``param_specs``), and its part of the forward runs whole on every rank.
 
-MLA, MoE, ``prefill``, ``decode_step`` and the caches wait for their slices.
+Serving (``repro/models/lm.py:149-176, 335-400``): :func:`make_cache`
+allocates the stacked per-layer KV cache (a ring buffer of ``window``
+slots when the model is windowed) and :func:`decode_step` runs one token
+for the whole batch, writing each layer's new k/v into the cache in place
+at a slot the caller's Python ``pos`` decides on the host.
+
+MLA and MoE wait for their slice.
 """
 
 from __future__ import annotations
 
 import math
+import operator
 
 import torch
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
@@ -128,6 +135,29 @@ def _attn_dense(lp, h, cfg: ArchConfig, *, positions, impl, window,
     k = L.apply_rope(k, freqs)
     out = L.attention(q, k, v, causal=True, window=window, impl=impl)
     return torch.einsum("bshk,hkd->bsd", out, lp["wo"])
+
+
+def _attn_dense_decode(lp, h, cfg: ArchConfig, *, pos: int, cur, freqs,
+                       cache, window):
+    """h (B,1,D); ``cache`` this layer's {"k", "v"} (B,T,KV,hd), written in
+    place at slot ``pos`` (``pos % T`` for a windowed model's ring);
+    ``cur`` (B,) the valid length ``pos + 1`` on the device; ``freqs`` the
+    rotary angles of ``pos``."""
+    hq = h[:, 0]
+    q = torch.einsum("bd,dhk->bhk", hq, lp["wq"])
+    k = torch.einsum("bd,dhk->bhk", hq, lp["wk"])
+    v = torch.einsum("bd,dhk->bhk", hq, lp["wv"])
+    if cfg.qk_norm:
+        q = L.rms_norm(q, lp["qn"], cfg.norm_eps)
+        k = L.rms_norm(k, lp["kn"], cfg.norm_eps)
+    q = L.apply_rope(q[:, None], freqs)[:, 0]
+    k = L.apply_rope(k[:, None], freqs)[:, 0]
+    kc, vc = cache["k"], cache["v"]
+    slot = pos % kc.shape[1] if window is not None else pos
+    kc[:, slot].copy_(k)
+    vc[:, slot].copy_(v)
+    out = L.attention_decode(q, kc, vc, cur, window=window)
+    return torch.einsum("bhk,hkd->bd", out, lp["wo"])[:, None]
 
 
 # -------------------------------------------------------------- under a mesh
@@ -370,3 +400,52 @@ def forward(params, tokens, cfg: ArchConfig, *, impl="chunked", n_groups=1,
     if collect is not None:
         return logits, 0.0, torch.stack(caps)
     return logits, 0.0
+
+
+# -------------------------------------------------------------------- serving
+def make_cache(cfg: ArchConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, *, device=None):
+    """Stacked per-layer cache ``{"k", "v"}`` of (L, B, T, KV, hd) zeros on
+    ``device`` (the card by default). Windowed archs get ring buffers of
+    ``T = min(max_len, window)`` slots."""
+    from repro_torch import _device
+
+    _check_dense(cfg)
+    dev = _device.resolve(device)
+    t = min(max_len, cfg.window) if cfg.window else max_len
+    shape = (cfg.n_layers, batch, t, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def decode_step(params, tokens, cache, pos, cfg: ArchConfig, *, n_groups=1):
+    """One token for the whole batch: tokens (B,) int, ``pos`` a Python int
+    (the position of ``tokens``; the caller counts it on the host, so no
+    step reads it back from the device). Returns ``(logits (B, V), cache)``
+    with ``cache`` updated in place. ``n_groups`` reaches only the MoE
+    family's dispatch, as in ``forward``."""
+    _check_dense(cfg)
+    pos = operator.index(pos)
+    b = tokens.shape[0]
+    x = params["embed"][tokens][:, None].to(params["final_norm"].dtype)
+    # the rotary angles of pos and the valid length, shared by every layer
+    freqs = L.rope_frequencies(
+        cfg.resolved_head_dim, cfg.rope_pct, cfg.rope_theta,
+        torch.full((b, 1), pos, dtype=torch.int32, device=tokens.device))
+    cur = torch.full((b,), pos + 1, dtype=torch.int32, device=tokens.device)
+    blocks = params["blocks"]
+    per_layer = [a.unbind(0) for a in _tree.leaves(blocks)]
+    ks, vs = cache["k"].unbind(0), cache["v"].unbind(0)
+    for i in range(cfg.n_layers):
+        lp = _tree.unflatten_like(blocks, [u[i] for u in per_layer])
+        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        x = x + _attn_dense_decode(lp["attn"], h, cfg, pos=pos, cur=cur,
+                                   freqs=freqs,
+                                   cache={"k": ks[i], "v": vs[i]},
+                                   window=cfg.window)
+        x = x + L.mlp_apply(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps),
+                            cfg.act)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    un = params.get("unembed")
+    logits = x[:, 0] @ un if un is not None else x[:, 0] @ params["embed"].T
+    return logits, cache

@@ -50,6 +50,11 @@ def scope(name: str):
     return torch.profiler.record_function(f"{SCOPE_PREFIX}/{name}")
 
 
+def host_span(name: str):
+    """A host-only range for work outside the device stream (dispatcher
+    picks, plan builds): a ``record_function`` named ``name``."""
+    return torch.profiler.record_function(name)
+
 
 @contextlib.contextmanager
 def capture(path):

@@ -7,15 +7,22 @@ update; on the f32/no-master path the sequence is operation for operation
 the unfused ``adamw.update`` + projection hook.
 
 The JAX package donates the incoming state and params to the step (XLA
-reuses their buffers for the outputs); here the step writes the new values
-into the incoming param, moment and master tensors and returns them, so a
-training loop holds one live copy of its state.
+reuses their buffers for the outputs); here :func:`fused_update` writes the
+new values into the incoming param, moment and master tensors and returns
+them, so a training loop holds one live copy of its state.
+:func:`make_fused_step` is the single entry ``step(grads, state,
+params)``: with ``donate=True`` it updates in place, with ``donate=False``
+it leaves the caller's params and state untouched and returns new ones.
+int8 block-quantized moments (``moment_dtype="int8"``) dequantize, update
+and requantize inside the same per-leaf pass.
 
 The θ-solver resolution reuses the projection hook's resolver, so a fused
 step and the standalone hook always agree on solvers.
 """
 
 from __future__ import annotations
+
+import torch
 
 from repro_torch import _tree
 from repro_torch.configs.types import ProjectionSpec, TrainConfig
@@ -48,8 +55,9 @@ def fused_update(grads, state, params, cfg: TrainConfig,
     master = state.get("master")
     src = master if master is not None else params
     flat_g = _tree.leaves_with_paths(grads)
-    flat = zip(flat_g, _tree.leaves(state["m"]), _tree.leaves(state["v"]),
-               _tree.leaves(src), _tree.leaves(params))
+    flat = zip(flat_g, _tree.leaves_up_to(grads, state["m"]),
+               _tree.leaves_up_to(grads, state["v"]), _tree.leaves(src),
+               _tree.leaves(params))
     for (name, g), m, v, ps, p in flat:
         pnew, mq, vq = one_leaf(g, m, v, ps)
         if project_now and match(name, pnew):
@@ -57,11 +65,30 @@ def fused_update(grads, state, params, cfg: TrainConfig,
                                  resolve(pnew.shape, pnew.dtype, pnew.device),
                                  transpose=spec.transpose)
         p.copy_(pnew)
-        m.copy_(mq)
-        v.copy_(vq)
+        adamw._assign(m, mq)
+        adamw._assign(v, vq)
         if master is not None:
             ps.copy_(pnew)
     state["step"].add_(1)
     metrics = {"grad_norm": gnorm, "lr": adamw.lr_schedule(step, cfg)}
     return params, state, metrics
+
+
+def make_fused_step(cfg: TrainConfig, spec: ProjectionSpec | None = None, *,
+                    donate: bool = True):
+    """Single entry ``step(grads, state, params) -> (params, state,
+    metrics)`` of :func:`fused_update`.
+
+    ``donate=True`` (the incoming state and params are dead after the
+    step) writes the outputs into them, one live copy of the state;
+    ``donate=False`` leaves the caller's params and state as they were and
+    returns new tensors.
+    """
+    def step(grads, state, params):
+        if not donate:
+            state = _tree.tree_map(torch.clone, state)
+            params = _tree.tree_map(torch.clone, params)
+        return fused_update(grads, state, params, cfg, spec)
+
+    return step
 

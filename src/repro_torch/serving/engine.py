@@ -128,6 +128,21 @@ class _Request:
         self.enqueued = _now()
 
 
+class EngineStats(dict):
+    """The engine's operational counters: a plain dict
+    (``eng.stats["dispatches"]``) that can also be called: ``eng.stats()``
+    returns :meth:`ProjectionEngine.stats_snapshot`, the full structured
+    snapshot (counters, queue state, per-key latency summaries, the
+    planner's cache counters)."""
+
+    def __init__(self, engine: "ProjectionEngine", *args, **kw):
+        super().__init__(*args, **kw)
+        self._engine = engine
+
+    def __call__(self) -> dict:
+        return self._engine.stats_snapshot()
+
+
 class _EngineMetrics:
     """The engine's handles in the process-global obs registry, built once
     per engine; ``instrument=False`` engines skip it entirely."""
@@ -213,10 +228,10 @@ class ProjectionEngine:
         self._inflight_reqs = 0
         self._next_ticket = 0
         self._stopping = False
-        self.stats = {"submitted": 0, "dispatches": 0, "batched_requests": 0,
-                      "rejected": 0, "expired": 0, "requeues": 0,
-                      "failures": 0, "max_group": 0, "completed": 0,
-                      "failed": 0, "discarded": 0}
+        self.stats = EngineStats(
+            self, submitted=0, dispatches=0, batched_requests=0, rejected=0,
+            expired=0, requeues=0, failures=0, max_group=0, completed=0,
+            failed=0, discarded=0)
         self._metrics = _EngineMetrics() if instrument else None
         self._warm = ThreadPoolExecutor(max_workers=int(warm_workers),
                                         thread_name_prefix="plan-warm")

@@ -42,8 +42,21 @@ mesh ``global_norm`` clip, ``adamw.update`` and the mesh-native hook
 every metric are global and the same on every rank. The epilogue is
 unfused there (``fused=True`` with a mesh raises, as in the JAX package).
 
-In-step telemetry (``telemetry_every``/``telemetry_marks``) waits for its
-slice and raises when asked for.
+**In-step telemetry** rides :mod:`repro_torch.obs.bridge`.
+``telemetry_every > 0`` reports, every that many steps, ``train_loss``,
+``train_grad_norm`` and, when projecting, per projected leaf
+``train_param_zero_frac`` and ``train_feasibility_gap`` (the worst
+multi-level norm over the leaf's leading axes over the radius, minus 1),
+without a sync. The JAX package gates the cadence with a ``lax.cond`` on
+the device step; here a host counter does, read once from the state at
+the first step that emits and counted on the host after, so off-cadence
+steps compute nothing and no step reads the device's counter.
+``telemetry_marks=True`` brackets the epilogue with a mark pair:
+``train_epilogue_*`` (fused) or ``train_projection_*`` (unfused), device
+time in stream order on the card. With the bridge off a step built with
+``telemetry_every > 0`` issues exactly the operations of one built with 0.
+Under a mesh each projected leaf's statistics are taken on the leaf
+gathered whole (every rank gathers; a cadence step only).
 """
 
 from __future__ import annotations
@@ -55,10 +68,12 @@ import torch
 
 from repro_torch import _tree
 from repro_torch.configs.types import ArchConfig, TrainConfig
+from repro_torch.core import multilevel
 from repro_torch.models import lm
 from repro_torch.models import params as PM
+from repro_torch.obs import bridge
 from repro_torch.optim import adamw, fused_step
-from repro_torch.optim.projection_hook import make_projection_hook
+from repro_torch.optim.projection_hook import _matches, make_projection_hook
 from repro_torch.parallel import collectives, sharding
 
 
@@ -135,12 +150,15 @@ def make_train_step(cfg: ArchConfig | None, tcfg: TrainConfig, api=None, *,
     ``loss_fn(params, microbatch) -> scalar tensor`` overrides the LM
     next-token loss of ``make_loss_fn(cfg, api, impl=impl, ...)``; the SAE
     factory passes the dictionary reconstruction loss.
+    ``telemetry_every``/``telemetry_marks``: the in-step telemetry of the
+    module docstring.
     """
-    if telemetry_every or telemetry_marks:
-        raise ValueError("telemetry_every/telemetry_marks: the in-step "
-                         "telemetry bridge waits for its slice")
     if (mesh is None) != (param_specs is None):
         raise ValueError("a sharded step takes both mesh= and param_specs=")
+    if isinstance(telemetry_every, bool) or not isinstance(
+            telemetry_every, int) or telemetry_every < 0:
+        raise ValueError(f"telemetry_every is a cadence in steps, an int >= 0 "
+                         f"(0: off), got {telemetry_every!r}")
     compute_dtype = getattr(torch, tcfg.compute_dtype)
     if loss_fn is None:
         loss_fn = make_loss_fn(cfg, api, impl=impl, remat=tcfg.remat,
@@ -163,6 +181,10 @@ def make_train_step(cfg: ArchConfig | None, tcfg: TrainConfig, api=None, *,
         tcfg.projection, mesh=mesh, param_specs=param_specs)
     acc_dtype = (torch.bfloat16 if tcfg.grad_allreduce_dtype == "bfloat16"
                  else torch.float32)
+    emit = _telemetry(tcfg, telemetry_every, mesh, param_specs) \
+        if telemetry_every else None
+    marks = ("train_epilogue" if use_fused else "train_projection") \
+        if telemetry_marks else None
     if mesh is not None:
         b_axes = sharding.batch_axes(mesh)
         dp = sharding.dp_shards(mesh)
@@ -205,28 +227,90 @@ def make_train_step(cfg: ArchConfig | None, tcfg: TrainConfig, api=None, *,
         grads = _tree.unflatten_like(params, gsum)
         loss = lsum / n_micro
 
+        dev = leaves[0].device
         if use_fused:
             # one pass per leaf: update → project (f32) → cast, in place
+            if marks:
+                bridge.mark(f"{marks}_start", device=dev)
             new_params, new_opt, metrics = fused_step.fused_update(
                 grads, state["opt"], params, tcfg)
+            if marks:
+                bridge.mark(f"{marks}_end", device=dev)
         else:
             new_params, new_opt, metrics = adamw.update(
                 grads, state["opt"], params, tcfg, mesh=mesh,
                 param_specs=param_specs, inplace=True)
             # the paper's constraint: project back onto the norm ball
+            if marks:
+                bridge.mark(f"{marks}_start", device=dev)
             projected = project(new_params, new_opt["step"])
             for p, x in zip(_tree.leaves(new_params), _tree.leaves(projected)):
                 if x is not p:
                     p.copy_(x)
+            if marks:
+                bridge.mark(f"{marks}_end", device=dev)
             # keep the master copy consistent with the projected params
             if "master" in new_opt and projecting:
                 for p, m in zip(_tree.leaves(new_params),
                                 _tree.leaves(new_opt["master"])):
                     m.copy_(p)
         metrics = dict(metrics, loss=loss)
+        if emit is not None:
+            emit(new_opt, new_params, metrics)
         return {"params": new_params, "opt": new_opt}, metrics
 
     return train_step
+
+
+def _telemetry(tcfg: TrainConfig, every: int, mesh, param_specs) -> Callable:
+    """``emit(opt, params, metrics)``, called after every step: on every
+    ``every``-th step, with the bridge on, report the loss, the gradient
+    norm and each projected leaf's zero fraction and feasibility gap. The
+    step number is read from ``opt`` at the first step that emits and
+    counted on the host after (module docstring)."""
+    spec = tcfg.projection
+    projecting = spec is not None and spec.enabled
+    match = _matches(spec) if projecting else None
+    need = sum(k for _, k in spec.levels) if projecting else 0
+    specs = (dict(_tree.leaves_with_paths(param_specs))
+             if mesh is not None else None)
+    clock = [None]   # the host's count of the state's step
+
+    def leaf_stats(w):
+        x = w.float()
+        if spec.transpose:
+            lead = tuple(range(x.ndim - need))
+            x = x.permute(lead + tuple(reversed(range(x.ndim - need, x.ndim))))
+        fn = lambda v: multilevel.multilevel_norm(v, list(spec.levels))  # noqa: E731
+        for _ in range(x.ndim - need):
+            fn = torch.func.vmap(fn)
+        worst = fn(x).max()
+        return (w == 0).float().mean(), worst / spec.radius - 1.0
+
+    def emit(opt, params, metrics):
+        if clock[0] is not None:
+            clock[0] += 1
+        elif bridge.enabled():
+            clock[0] = int(opt["step"])     # the one read of the device step
+        if not bridge.enabled() or clock[0] % every:
+            return
+        bridge.report("train_loss", metrics["loss"])
+        bridge.report("train_grad_norm", metrics["grad_norm"])
+        if not projecting:
+            return
+        with torch.no_grad():
+            for name, w in _tree.leaves_with_paths(params):
+                if not match(name, w):
+                    continue
+                if specs is not None:
+                    w = collectives.gather_full(w, specs[name], mesh)
+                zero_frac, gap = leaf_stats(w)
+                bridge.report("train_param_zero_frac", zero_frac,
+                              labels={"leaf": name})
+                bridge.report("train_feasibility_gap", gap,
+                              labels={"leaf": name})
+
+    return emit
 
 
 def _hook_collectives(spec, param_specs, shapes, mesh_sizes) -> dict:

@@ -340,8 +340,8 @@ def test_launcher_run_is_the_step_function(tmp_path):
 
 @pytest.mark.parametrize("flags,match", [
     (["--mesh", "2x2"], "one device"),
-    (["--telemetry-every", "5"], "telemetry"),
-    (["--telemetry-marks"], "telemetry"),
+    (["--telemetry-every", "-5"], "telemetry"),
+    (["--telemetry-every", "-1", "--telemetry-marks"], "telemetry"),
 ])
 def test_launcher_rejects_unported_options(flags, match):
     with pytest.raises(ValueError, match=match):

@@ -176,8 +176,9 @@ def test_fused_with_a_mesh_raises():
         tstep.make_train_step(cfg, tt, api, mesh=_StandIn)
 
 
-@pytest.mark.parametrize("kw", [{"telemetry_every": 5},
-                                {"telemetry_marks": True}])
+@pytest.mark.parametrize("kw", [{"telemetry_every": -5},
+                                {"telemetry_every": 2.5,
+                                 "telemetry_marks": True}])
 def test_telemetry_raises(kw):
     cfg = treg.smoke_config(ARCH)
     tt = ttypes.TrainConfig()
