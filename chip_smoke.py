@@ -12,7 +12,8 @@ Function's gradients and the flash rows of phase 6 alone; its launches are
 those of one bf16 Function forward+backward at granite's shape and of one
 float32 forward at the harvest's. ``--only autograd`` builds them and runs
 phases 3b and 3c on W1–W4 made from the seed; ``--only sae_tables`` runs
-phase 8, ``--only train_mesh`` phase 9, ``--only serve`` phase 10.)
+phase 8, ``--only train_mesh`` phase 9, ``--only serve`` phase 10,
+``--only moe`` phase 11.)
 
 1. builds the fourteen CUDA kernels of the seven sources in
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, started together),
@@ -247,7 +248,35 @@ phase 8, ``--only train_mesh`` phase 9, ``--only serve`` phase 10.)
    within per-block bars of the float32 run's that follow from the
    rounding (β1·s1 + s2)/2 and (√β2·s1 + s2)/2, s1 and s2 the block's
    scales after steps 1 and 2, and each leaf's params apart by at most
-   INT8_PARAM_BAR of the float32 run's step-2 move.
+   INT8_PARAM_BAR of the float32 run's step-2 move;
+11. runs the MoE family (``moe_phase``) from freed memory: deepseek-v3-671b
+   at full width cut to 4 layers (3 dense MLA layers, then one MoE layer
+   of 256 experts, top-8, one shared; seeded float32, 15.11 B parameters).
+   (a) ``launch/serve.py``'s ``run`` with ``MOE_SERVE_ARGV`` (8 requests,
+   128 prompt tokens, 16 new): tokens in the vocabulary, the ms per decode
+   step after the prompt (host clock) beside its byte bound (every weight
+   read once, every expert's with the einsum dispatch, the embedding by
+   row), tok/s, the profiler's device kernels and busy time per step, the
+   peak memory and the latent cache's bytes (576 float32 values a token and
+   layer). (b) layer 0's absorbed decode over the prompt's hidden states
+   against the full expansion (``_attn_mla``, chunked) at every position,
+   within MOE_ABSORB_BAR · max|out|. (c) the einsum and the scatter dispatch
+   on 4096 tokens of layer 3 (cap 160): routing and keep equal, outputs
+   within MOE_DISPATCH_BAR · max|out|, aux within 1e-5 relative; the
+   dropped share there and at decode (batch 8, cap 1); the router's choice
+   against the CPU's on the same inputs, shown only. (d) ``run_factory``
+   from the same cut model with ``impl="chunked"``: one harvest step of 2 x
+   2048 tokens at layer 3, SAEs of d_dict 14336 at d_model 7168 for seeds
+   0 and 1, finite losses, feasible encoders, and the LM freed before the
+   first SAE step. (e) the train launcher on deepseek-v3's and kimi-k2's
+   smoke configs (``MOE_SMOKE_ARGV``: chunked attention, every
+   ``w_up``/``w_gate`` projected, 3 steps, the launcher's bf16 compute) on
+   the card and on the CPU from one saved init: losses within
+   MOE_LOSS_RTOL, gradient norms within MOE_GNORM_RTOL, params within 2 ·
+   steps · lr + MOE_PARAM_ATOL of each leaf's largest entry, and the first
+   router decision that differs on a near tie (MOE_TIE). No kernel launches in the
+   phase (MLA's 192/128-wide heads fit no flash kernel; the trainer
+   projects with the plain schedule), and the phase fails if one does.
 
 The widths are the SAE factory's on stablelm-1.6b: d_model 2048, d_dict
 4 x 2048 = 8192, 32 heads; the projected tensor is the transposed encoder.
@@ -3343,8 +3372,9 @@ def decode_bound_ms(cfg, params, batch, length):
             nbytes += batch * p.shape[1] * p.element_size()
         else:
             nbytes += p.numel() * p.element_size()
-    kv = 2 * cfg.n_layers * batch * length * cfg.n_kv_heads \
-        * cfg.resolved_head_dim * torch.float32.itemsize
+    per = (cfg.mla.kv_lora_rank + cfg.mla.qk_rope_dim if cfg.mla is not None
+           else 2 * cfg.n_kv_heads * cfg.resolved_head_dim)
+    kv = cfg.n_layers * batch * length * per * torch.float32.itemsize
     return (nbytes + kv) / HBM_BYTES_PER_S * 1e3, nbytes
 
 
@@ -3875,6 +3905,431 @@ def serve_phase(dev, randn, rand):
     return rec
 
 
+# the MoE family (phase 11): deepseek-v3-671b at full width cut to 4
+# layers (3 dense MLA layers, 1 MoE layer of 256 experts, top-8, 1 shared),
+# seeded float32: 15.11 B parameters, 60.4 GB. Kimi-k2's 384 experts would
+# take about 80 GB in float32, so kimi-k2 trains its smoke config only.
+MOE_ARCH = "deepseek-v3-671b"
+MOE_LAYERS = 4
+MOE_SERVE_ARGV = ["--arch", MOE_ARCH, "--layers", str(MOE_LAYERS), "--batch",
+                  "8", "--prompt-len", "128", "--new", "16"]
+MOE_DECODE_TIMED = 8          # decode steps timed after the held prompt
+MOE_TOKENS = (8, 512)         # (c): 4096 tokens of layer 3, cap 160
+MOE_ABSORB_BAR = 1e-4         # (b): of max|out|, float32
+MOE_DISPATCH_BAR = 1e-5       # (c): of max|out|, float32
+MOE_FACTORY = dict(arch=MOE_ARCH, smoke=False, depth=MOE_LAYERS, layers=(3,),
+                   harvest_steps=1, seq_len=2048, lm_batch=2, expansion=2,
+                   train_steps=4, sae_batch=4096, microbatch=1024)
+MOE_SMOKE_STEPS, MOE_SMOKE_LR = 3, 3e-4
+MOE_SMOKE_ARGV = ["--smoke", "--attn", "chunked", "--steps", str(MOE_SMOKE_STEPS),
+                  "--lr", repr(MOE_SMOKE_LR), "--seq", "32", "--batch", "8",
+                  "--microbatch", "4", "--radius", "0.5"]
+# (e) trains in the launcher's bf16 compute, so its bars are
+# tests/test_torch_train.py's bf16 ones: losses and gradient norms
+# relative, params 2 · steps · lr (AdamW moves an entry about lr a step, and
+# a gradient entry of the other sign moves it the other way) + 1e-5 of the
+# leaf's largest entry; a router decision that flips sits within one bf16
+# rounding (2^-7) of a tie
+MOE_LOSS_RTOL, MOE_GNORM_RTOL, MOE_PARAM_ATOL = 1e-2, 5e-2, 1e-5
+MOE_TIE = BF16_RTOL
+
+
+def moe_serve(dev, smi):
+    """(a) the serve launcher at full width, 4 layers, timed per decode step
+    beside its byte bound; (b) layer 0's absorbed decode against the full
+    expansion on the same hidden states. Returns the record and the
+    launcher's result (its params serve (c))."""
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    res = serve_cli.run(MOE_SERVE_ARGV)
+    torch.cuda.synchronize()
+    a = serve_args(MOE_SERVE_ARGV)
+    b, plen, new = int(a["--batch"]), int(a["--prompt-len"]), int(a["--new"])
+    cfg, params, prompts = res["cfg"], res["params"], res["prompts"]
+    n_params = sum(p.numel() for p in _tree.leaves(params))
+    toks = res["tokens"]
+    if not (toks.dtype == torch.int32 and int(toks.min()) >= 0
+            and int(toks.max()) < cfg.vocab and toks.shape == (b, new)):
+        raise SmokeFailure(f"moe (a): tokens {toks.dtype} {tuple(toks.shape)} "
+                           f"outside [0, {cfg.vocab})")
+    print(f"moe (a) python -m repro_torch.launch.serve "
+          f"{' '.join(MOE_SERVE_ARGV)}: {cfg.n_layers} layers ("
+          f"{cfg.moe.first_dense} dense MLA, {cfg.n_layers - cfg.moe.first_dense}"
+          f" MoE of {cfg.moe.n_experts} experts, top-{cfg.moe.top_k}, "
+          f"{cfg.moe.n_shared} shared, dispatch {cfg.moe.dispatch}) at d_model "
+          f"{cfg.d_model}, {n_params} float32 params ({n_params * 4 / 1e9:.2f} "
+          f"GB); {res['seconds']:.3f} s for {b} x {new} new tokens after {plen} "
+          f"prompt tokens ({res['tok_per_s']:.2f} tok/s, host clock, prompt "
+          f"replay included; {res['seconds'] * 1e3 / (plen + new):.3f} ms a "
+          f"decode step over the run's {plen + new}); {smi}")
+    logits, cache, step = _decode_replay(cfg, params, prompts,
+                                         plen + MOE_DECODE_TIMED + 2)
+    if not bool(torch.isfinite(logits).all()):
+        raise SmokeFailure("moe (a): non-finite decode logits")
+    nxt = logits.argmax(-1).to(torch.int32)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(MOE_DECODE_TIMED):
+            nxt, _, cache = step(params, nxt, cache, plen + i)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / MOE_DECODE_TIMED
+        pos = plen + MOE_DECODE_TIMED
+
+        def one():
+            step(params, nxt, cache, pos)
+        per_kernel = device_kernels(one)
+        n_launch = sum(device_kernels(one, counts=True).values())
+    busy = sum(per_kernel.values())
+    top = sorted(per_kernel, key=lambda k: -per_kernel[k])[:6]
+    print("moe (a) a decode step's largest device kernels: " + "; ".join(
+        f"{per_kernel[k]:.3f} ms {k[:70]}" for k in top))
+    bms, wbytes = decode_bound_ms(cfg, params, b, pos + 1)
+    per_token = sum(c[:, 0, 0].numel() * c.element_size() for c in cache.values())
+    cache_bytes = sum(c.numel() * c.element_size() for c in cache.values())
+    peak = torch.cuda.max_memory_allocated()
+    print(f"moe (a) decode step at position {pos} (batch {b}): {step_ms:.3f} "
+          f"ms (host clock, mean of {MOE_DECODE_TIMED}), {b / step_ms * 1e3:.2f} "
+          f"tok/s; byte bound {bms:.3f} ms ({wbytes} bytes of weights, every "
+          f"expert's with the einsum dispatch, + the cache over "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); {n_launch} device kernels and "
+          f"copies a step, device busy {busy:.3f} ms; peak device memory "
+          f"{peak / 2**30:.2f} GiB; cache {per_token} bytes a token "
+          f"({cfg.n_layers} layers x {cfg.mla.kv_lora_rank + cfg.mla.qk_rope_dim}"
+          f" x 4 B), {cache_bytes} bytes for {b} x {cache['c_kv'].shape[2]} "
+          f"slots; {smi}")
+    rec = {"argv": MOE_SERVE_ARGV, "params": n_params, "seconds": res["seconds"],
+           "tok_per_s": res["tok_per_s"], "decode_step_ms": step_ms,
+           "decode_tok_per_s": b / step_ms * 1e3, "bound_ms": bms,
+           "weight_bytes": wbytes, "kernels_per_step": n_launch,
+           "device_busy_ms": busy, "peak_bytes": peak,
+           "top_kernels_ms": {k: per_kernel[k] for k in top},
+           "cache_bytes_per_token": per_token, "cache_bytes": cache_bytes}
+    del cache, step, logits
+
+    # (b) layer 0's absorbed decode over the prompt against the full
+    # expansion's rows, on the same hidden states
+    lp = _tree.tree_map(lambda t: t[0], params["dense_blocks"])
+    m = cfg.mla
+    with torch.inference_mode():
+        h = L.rms_norm(params["embed"][prompts].float(), lp["ln1"], cfg.norm_eps)
+        positions = torch.arange(plen, device=dev)[None].expand(b, plen)
+        full = lm._attn_mla(lp["attn"], h, cfg, positions=positions,
+                            impl="chunked", window=None)
+        lat = {"c_kv": torch.zeros(b, plen, m.kv_lora_rank, device=dev),
+               "k_rope": torch.zeros(b, plen, m.qk_rope_dim, device=dev)}
+        outs = []
+        for p in range(plen):
+            freqs = L.rope_frequencies(m.qk_rope_dim, 1.0, cfg.rope_theta,
+                                       torch.full((b, 1), p, device=dev))
+            outs.append(lm._attn_mla_decode(lp["attn"], h[:, p:p + 1], cfg,
+                                            pos=p, freqs=freqs, cache=lat))
+        got = torch.cat(outs, dim=1)
+    scale = float(full.abs().max())
+    err_last = float((got[:, -1] - full[:, -1]).abs().max())
+    err = float((got - full).abs().max())
+    print(f"moe (b) layer 0 absorbed decode vs the full expansion (chunked) on "
+          f"the prompt's hidden states: position {plen - 1} max_abs_err "
+          f"{err_last:.3e}, all {plen} positions {err:.3e} (bar "
+          f"{MOE_ABSORB_BAR} x max|out| {scale:.4g}, float32); {smi}")
+    if not (bool(torch.isfinite(got).all()) and err <= MOE_ABSORB_BAR * scale):
+        raise SmokeFailure(f"moe (b): absorbed decode {err:.3e} from the "
+                           f"expansion (bar {MOE_ABSORB_BAR * scale:.3e})")
+    rec["absorb"] = {"max_abs_err_last": err_last, "max_abs_err": err,
+                     "scale": scale, "bar": MOE_ABSORB_BAR}
+    del full, got, outs, lat, h
+    return rec, res
+
+
+def moe_dispatch(dev, res, smi):
+    """(c) the einsum and the scatter dispatch on the same 4096 tokens of
+    layer 3 (the hidden states of seeded tokens through layers 0-2 and
+    layer 3's attention): equal routing, outputs and aux within float32
+    bars; the dropped share there and at decode (cap 1 at batch 8)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    cfg, params = res["cfg"], res["params"]
+    toks = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, MOE_TOKENS), device=dev)
+    bsz, seq = MOE_TOKENS
+    positions = torch.arange(seq, device=dev)[None].expand(bsz, seq)
+    with torch.inference_mode():
+        x = params["embed"][toks]
+        dense = params["dense_blocks"]
+        for i in range(cfg.moe.first_dense):
+            x, _, _ = lm._block(_tree.tree_map(lambda t: t[i], dense), x, cfg,
+                                positions=positions, impl="chunked")
+        lp = _tree.tree_map(lambda t: t[0], params["moe_blocks"])
+        x = x + lm._attn_mla(lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps),
+                             cfg, positions=positions, impl="chunked",
+                             window=None)
+        h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        flat = h2.reshape(bsz * seq, cfg.d_model)
+        out, ms = {}, {}
+        for d in ("einsum", "scatter"):
+            mcfg = dataclasses.replace(cfg.moe, dispatch=d)
+            route = L.moe_route(lp["mlp"], flat, mcfg, n_groups=1)
+            out[d] = (route, *L.moe_apply(lp["mlp"], flat, mcfg, n_groups=1))
+            torch.cuda.synchronize()
+            ms[d] = event_ms(lambda: L.moe_apply(lp["mlp"], flat, mcfg,
+                                                 n_groups=1), reps=3)
+        (r_e, y_e, aux_e), (r_s, y_s, aux_s) = out["einsum"], out["scatter"]
+        # the router again on the CPU, from the same inputs (shown only)
+        cpu_i = L.moe_route({"router": lp["mlp"]["router"].cpu()}, flat.cpu(),
+                            cfg.moe, n_groups=1)["top_i"]
+        dec = L.moe_route(lp["mlp"], h2[:, -1], cfg.moe, n_groups=1)
+    if r_e["cap"] != 160:
+        raise SmokeFailure(f"moe (c): cap {r_e['cap']} at {bsz * seq} tokens, "
+                           "not 160")
+    if not (torch.equal(r_e["top_i"], r_s["top_i"])
+            and torch.equal(r_e["keep"], r_s["keep"])):
+        raise SmokeFailure("moe (c): the two dispatches routed differently")
+    scale = float(y_e.abs().max())
+    err = check_close("moe (c) scatter vs einsum", y_s, y_e, scale, rtol=0.0)
+    if not err <= MOE_DISPATCH_BAR * scale:
+        raise SmokeFailure(f"moe (c): outputs {err:.3e} apart (bar "
+                           f"{MOE_DISPATCH_BAR * scale:.3e})")
+    aux_err = abs(float(aux_e) - float(aux_s))
+    if not (math.isfinite(float(aux_e)) and aux_err <= RTOL * abs(float(aux_e))):
+        raise SmokeFailure(f"moe (c): aux {float(aux_e)} vs {float(aux_s)}")
+    dropped = float((~r_e["keep"]).float().mean())
+    dec_dropped = float((~dec["keep"]).float().mean())
+    same_cpu = float((cpu_i == r_e["top_i"].cpu()).all(-1).float().mean())
+    print(f"moe (c) layer 3 at {bsz * seq} tokens (cap {r_e['cap']}): routing "
+          f"and keep equal for the two dispatches; scatter vs einsum max_abs_err "
+          f"{err:.3e} (bar {MOE_DISPATCH_BAR} x max|out| {scale:.4g}), aux "
+          f"{float(aux_e):.6f} vs {float(aux_s):.6f}; dropped share "
+          f"{dropped:.4f} of {r_e['keep'].numel()} slots; at decode (batch "
+          f"{bsz}, cap {dec['cap']}) {dec_dropped:.4f}; einsum {ms['einsum']:.2f} "
+          f"ms, scatter {ms['scatter']:.2f} ms (events, median of 3); tokens "
+          f"routed as on the CPU {same_cpu:.4f}; {smi}")
+    return {"tokens": bsz * seq, "cap": r_e["cap"], "max_abs_err": err,
+            "scale": scale, "aux": [float(aux_e), float(aux_s)],
+            "dropped_share": dropped, "decode_cap": dec["cap"],
+            "decode_dropped_share": dec_dropped, "einsum_ms": ms["einsum"],
+            "scatter_ms": ms["scatter"], "routed_as_cpu": same_cpu}
+
+
+def moe_harvest(dev, workdir, smi):
+    """(d) ``run_factory`` from the same cut model (``depth`` 4, seed 0,
+    as the launcher's) with ``impl="chunked"``: one harvest step of 2 x
+    2048 tokens at layer 3, then SAE steps at d_model 7168; the LM's
+    parameters are gone before the first SAE step (the memory allocated
+    there, read through a wrapper of ``train_sae``)."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.models import params as PM
+    from repro_torch.training import sae_factory as F
+
+    fcfg = F.SAEFactoryConfig(**MOE_FACTORY)
+    shutil.rmtree(workdir, ignore_errors=True)
+    before = torch.cuda.memory_allocated()
+    at_sae = []
+    train_sae = F.train_sae
+
+    def watched(*a, **k):
+        at_sae.append(torch.cuda.memory_allocated())
+        return train_sae(*a, **k)
+
+    F.train_sae = watched
+    t0 = time.perf_counter()
+    try:
+        summary = F.run_factory(fcfg, workdir, seeds=(0, 1), impl="chunked")
+    finally:
+        F.train_sae = train_sae
+        shutil.rmtree(workdir, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    rec = summary["layers"][3]
+    losses = rec["losses"]
+    feasible = all(c["feasible"] for c in rec["constraint"].values())
+    finite = all(math.isfinite(v) for ls in losses.values() for v in ls)
+    lm_bytes = 4 * PM.count_params(lm.template(F._arch(fcfg)))
+    print(f"moe (d) run_factory {MOE_ARCH} depth {MOE_LAYERS} chunked: "
+          f"{summary['meta']['rows_per_shard']} rows at layer 3 (d_model "
+          f"{summary['meta']['d_model']}), {fcfg.train_steps} SAE steps of "
+          f"{fcfg.sae_batch} rows, d_dict "
+          f"{fcfg.expansion * summary['meta']['d_model']}, seeds 0 and "
+          f"1 in {seconds:.1f} s; losses {losses}; feasible {feasible}; mmcs "
+          f"{rec['mmcs']}; memory allocated at each SAE start "
+          f"{[round(x / 2**30, 2) for x in at_sae]} GiB ({before / 2**30:.2f} "
+          f"GiB before the factory); {smi}")
+    if not (finite and feasible):
+        raise SmokeFailure(f"moe (d): finite {finite}, feasible {feasible}")
+    if not at_sae or max(at_sae) - before > 0.25 * lm_bytes:
+        raise SmokeFailure(f"moe (d): {at_sae} bytes allocated at an SAE "
+                           "start: the LM was not freed")
+    return {"seconds": seconds, "losses": losses, "feasible": feasible,
+            "mmcs": rec["mmcs"], "allocated_at_sae": at_sae,
+            "meta": summary["meta"]}
+
+
+def _routing_flips(card, cpu):
+    """Compare the router's decisions of two runs call by call (each a list
+    of ``{"top_i", "keep", "probs"}`` on the host): ``(calls that differ,
+    the first such call's index, the largest gap, in the CPU's
+    probabilities, between the expert each run chose where they chose
+    differently there)``. Before the runs diverge both compute one function
+    up to rounding, so their first difference must sit on a near tie."""
+    import torch
+
+    if len(card) != len(cpu):
+        raise SmokeFailure(f"moe (e): {len(card)} router calls on the card, "
+                           f"{len(cpu)} on the CPU")
+    differ = [i for i, (a, b) in enumerate(zip(card, cpu))
+              if not (torch.equal(a["top_i"], b["top_i"])
+                      and torch.equal(a["keep"], b["keep"]))]
+    if not differ:
+        return 0, None, 0.0
+    a, b = card[differ[0]], cpu[differ[0]]
+    moved = a["top_i"] != b["top_i"]
+    if not bool(moved.any()):
+        raise SmokeFailure("moe (e): keep differs where the experts agree")
+    p = b["probs"]
+    gap = (p.gather(-1, a["top_i"]) - p.gather(-1, b["top_i"])).abs()[moved]
+    return len(differ), differ[0], float(gap.max())
+
+
+def moe_smoke_trains(smi, workdir):
+    """(e) the train launcher on both MoE archs' smoke configs, 3 steps in
+    its bf16 compute with every ``w_up``/``w_gate`` projected, on the card
+    and on the CPU from one init (the launcher's own state at step 0, drawn
+    on the CPU and saved with ``--steps 0``, which both runs restore with
+    ``--ckpt``), each router decision recorded: losses within
+    MOE_LOSS_RTOL, gradient norms within MOE_GNORM_RTOL, the final params
+    within 2 · steps · lr + MOE_PARAM_ATOL of each leaf's largest entry;
+    where the routing first differs, the experts the two runs chose within
+    MOE_TIE of each other in the CPU's probabilities."""
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import layers as L
+
+    route = L.moe_route
+    out = {}
+    for arch in (MOE_ARCH, "kimi-k2-1t-a32b"):
+        shutil.rmtree(workdir, ignore_errors=True)
+        argv = ["--arch", arch] + MOE_SMOKE_ARGV
+        with contextlib.redirect_stdout(None):
+            train_cli.run(argv + ["--device", "cpu", "--steps", "0", "--ckpt",
+                                  str(workdir / "init")])
+        runs, calls = {}, {}
+        for device in ("cuda", "cpu"):
+            calls[device] = []
+
+            def recording(*a, log=calls[device], **k):
+                r = route(*a, **k)
+                log.append({n: r[n].detach().cpu()
+                            for n in ("top_i", "keep", "probs")})
+                return r
+
+            shutil.copytree(workdir / "init", workdir / device)
+            L.moe_route = recording
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(None):
+                    runs[device] = train_cli.run(
+                        argv + ["--device", device, "--ckpt", str(workdir / device)])
+            finally:
+                L.moe_route = route
+            runs[device]["wall"] = time.perf_counter() - t0
+        shutil.rmtree(workdir, ignore_errors=True)
+        card, cpu = runs["cuda"], runs["cpu"]
+        n_diff, first, gap = _routing_flips(calls["cuda"], calls["cpu"])
+        # each (layer, expert) slice's columns that the projection zeroed
+        experts = {k: float((card["state"]["params"]["moe_blocks"]["mlp"][k]
+                             .abs().amax(dim=2) == 0).float().mean())
+                   for k in ("w_up", "w_gate")}
+        rel = {k: max(abs(a - b) / abs(b) for a, b in zip(card[k], cpu[k]))
+               for k in ("losses", "grad_norms")}
+        slack = 2 * MOE_SMOKE_STEPS * MOE_SMOKE_LR
+        worst = 0.0
+        for (name, p), (_, q) in zip(
+                _tree.leaves_with_paths(card["state"]["params"]),
+                _tree.leaves_with_paths(cpu["state"]["params"])):
+            q = q.float()
+            d = (p.cpu().float() - q).abs() - slack
+            worst = max(worst, float(d.max()) / max(float(q.abs().max()), 1e-30))
+        flips = ("the same routing in all " if not n_diff else
+                 f"routing differs in {n_diff} of ") + \
+            f"{len(calls['cpu'])} router calls" + (
+                "" if not n_diff else f", first at call {first} on a near tie "
+                f"(chosen experts' CPU probabilities {gap:.3e} apart, bar "
+                f"{MOE_TIE})")
+        print(f"moe (e) launch.train {arch} {' '.join(MOE_SMOKE_ARGV)} (bf16 "
+              f"compute): {flips}; losses card {card['losses']} cpu "
+              f"{cpu['losses']}, max rel {rel['losses']:.3e} (bar "
+              f"{MOE_LOSS_RTOL}); gradient norms max rel "
+              f"{rel['grad_norms']:.3e} (bar {MOE_GNORM_RTOL}); params worst "
+              f"{worst:.3e} of the leaf's largest entry past {slack:.1e} (bar "
+              f"{MOE_PARAM_ATOL}); column sparsity "
+              f"{card['sparsity']}, per (layer, expert) slice {experts}; "
+              f"{card['wall']:.1f} s on the card, "
+              f"{cpu['wall']:.1f} s on the CPU; {smi}")
+        if not (all(math.isfinite(v) for v in card["losses"])
+                and rel["losses"] <= MOE_LOSS_RTOL
+                and rel["grad_norms"] <= MOE_GNORM_RTOL
+                and worst <= MOE_PARAM_ATOL and gap <= MOE_TIE
+                and min(experts.values()) > 0):
+            raise SmokeFailure(f"moe (e) {arch}: card vs CPU {rel}, params "
+                               f"{worst:.3e}, tie gap {gap:.3e}")
+        out[arch] = {"losses": card["losses"], "cpu_losses": cpu["losses"],
+                     "max_rel": rel, "params_worst": worst,
+                     "router_calls": len(calls["cpu"]),
+                     "router_calls_differ": n_diff, "first_differ": first,
+                     "tie_gap": gap, "sparsity": card["sparsity"],
+                     "expert_columns_zero": experts}
+        del runs, card, cpu, calls
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_phase(dev, smi):
+    """Phase 11: (a)-(e) of the module docstring, from freed memory; the
+    launch counts of every kernel over the phase (all 0: MLA runs the
+    chunked attention and the trainer the plain projection)."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    rec, res = moe_serve(dev, smi)
+    rec["dispatch"] = moe_dispatch(dev, res, smi)
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["harvest"] = moe_harvest(dev, ROOT / "build" / "chip_smoke_moe", smi)
+    rec["smoke_train"] = moe_smoke_trains(smi, ROOT / "build" /
+                                          "chip_smoke_moe_train")
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    rec.update(launches=launches, phase_seconds=time.perf_counter() - t0,
+               base_bytes=base, phase_peak_bytes=torch.cuda.max_memory_allocated())
+    print(f"moe: phase 11 in {rec['phase_seconds']:.1f} s; peak device memory "
+          f"{rec['phase_peak_bytes'] / 2**30:.2f} GiB ({base / 2**30:.2f} GiB "
+          f"allocated before); kernel launches {launches}; {smi}")
+    if any(launches.values()):
+        raise SmokeFailure(f"moe: phase 11 launched kernels {launches}; its "
+                           "paths run none")
+    return rec
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3882,7 +4337,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Drive the port on the card.")
     ap.add_argument("--only", choices=("mesh", "attention", "autograd",
-                                       "sae_tables", "train_mesh", "serve"),
+                                       "sae_tables", "train_mesh", "serve",
+                                       "moe"),
                     help="run one phase alone: 'mesh' builds the kernels and "
                          "runs phase 7 (the partial apply, then the mesh "
                          "executor on four ranks); 'attention' builds them "
@@ -3893,7 +4349,8 @@ def main(argv=None) -> int:
                          "builds them and runs phases 3b and 3c on W1–W4 "
                          "made from the seed; 'sae_tables' runs phase 8; "
                          "'train_mesh' builds them and runs phase 9; "
-                         "'serve' builds them and runs phase 10")
+                         "'serve' builds them and runs phase 10; 'moe' "
+                         "builds them and runs phase 11")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -4035,6 +4492,9 @@ def main(argv=None) -> int:
 
     if args.only == "serve":
         return finish({"kernels": [], "serve": serve_phases()})
+
+    if args.only == "moe":
+        return finish({"kernels": [], "moe": moe_phase(dev, smi)})
 
     # ------------------------------------- phase 1: kernels vs plain versions
     for name, shape, levels in DESIGNS:
@@ -4320,8 +4780,13 @@ def main(argv=None) -> int:
 
     # ------------------------- phase 10: serving, telemetry, int8 moments
     serve = serve_phases(rows)
+
+    # ---------------------------- phase 11: the MoE family at full width
+    moe = moe_phase(dev, smi)
+    for row in rows:
+        row["launches_moe"] = moe["launches"].get(row["name"], 0)
     return finish({"kernels": rows, "mesh": mesh, "grad": grad,
-                   "train_mesh": train_mesh, "serve": serve,
+                   "train_mesh": train_mesh, "serve": serve, "moe": moe,
                    "refuse_grad": refused, "sae_tables": tables,
                    "factory": {"harvest_step_ms": step_parts,
                                "sae_step_ms": sae_parts,

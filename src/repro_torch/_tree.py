@@ -57,11 +57,13 @@ def tree_map(fn: Callable, tree, *rest):
 def unflatten_like(tree, flat: list):
     """A tree of ``tree``'s structure whose leaves, in sorted-key order, are
     ``flat``."""
-    it = iter(flat)
+    return _fill(tree, iter(flat))
 
-    def walk(node):
-        if isinstance(node, dict):
-            return {k: walk(node[k]) for k in sorted(node)}
-        return next(it)
 
-    return walk(tree)
+def _fill(node, it):
+    # a module-level recursion: a nested function that calls itself is a
+    # reference cycle, which would keep ``flat`` (a model's per-layer views
+    # of its weights) alive until the next garbage collection
+    if isinstance(node, dict):
+        return {k: _fill(node[k], it) for k in sorted(node)}
+    return next(it)

@@ -5,11 +5,13 @@
         --arch stablelm-1.6b --out /tmp/sae_run --layers 0,2 \\
         --train-steps 200 --expansion 8
 
-Runs harvest (through the flash-attention kernel on the card) → projected
-SAE training (one per layer × seed) → MMCS cross-comparison and writes
-``summary.json`` and ``metrics.jsonl`` into ``--out``. ``--full`` harvests
-from the full-size architecture instead of its smoke config; ``--device
-cpu`` runs the plain PyTorch paths on the CPU (the default is the card).
+Runs harvest (through the flash-attention kernel on the card; ``--attn
+chunked`` or ``naive`` for the PyTorch paths, which an MLA model such as
+deepseek-v3-671b needs) → projected SAE training (one per layer × seed) →
+MMCS cross-comparison and writes ``summary.json`` and ``metrics.jsonl``
+into ``--out``. ``--full`` harvests from the full-size architecture
+instead of its smoke config; ``--device cpu`` runs the plain PyTorch paths
+on the CPU (the default is the card).
 ``--checkpoint DIR`` harvests from the LM parameters of the latest
 ``runtime/checkpoint`` state there (a training state's ``params``, or a bare
 parameter tree), for example one the JAX launcher wrote. ``--gsp`` also
@@ -60,6 +62,10 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the LM and the SAEs run (cpu: the plain "
                          "PyTorch paths)")
+    ap.add_argument("--attn", default="flash",
+                    choices=["naive", "chunked", "flash"],
+                    help="the harvest's attention (flash: the CUDA kernels "
+                         "on the card; MLA models need chunked or naive)")
     args = ap.parse_args(argv)
 
     import torch.distributed as dist
@@ -109,7 +115,7 @@ def main(argv=None) -> int:
             return 0
         out.mkdir(parents=True, exist_ok=True)
         summary = F.run_factory(fcfg, out, seeds=seeds, lm_params=lm_params,
-                                device=device)
+                                device=device, impl=args.attn)
     if gsp is not None:
         summary["gsp"] = gsp
     obs_metrics.get_registry().write_jsonl(out / "metrics.jsonl")

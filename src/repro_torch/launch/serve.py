@@ -6,7 +6,9 @@ greedy decoding against a seeded or checkpoint-initialized model.
 
 decodes on the card (``--device cpu`` runs on the CPU; ``--smoke`` the
 reduced config; ``--layers N``, the port's own option, cuts the model to
-its first N layers at full width). The parameters come from
+its first N layers at full width: an MoE model keeps its dense leading
+layers and needs more than those). An MLA model (deepseek-v3-671b,
+kimi-k2-1t-a32b) decodes from its compressed latent cache. The parameters come from
 ``--ckpt``'s latest checkpoint (its ``params``) or are drawn from seed 0 in
 float32; the prompts from ``np.random.default_rng(0)``, as in the JAX
 launcher. ``lm.generate`` replays each prompt through the decode step and
@@ -17,7 +19,6 @@ tok/s, and the first request's tokens.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import sys
 import time
 
@@ -54,6 +55,7 @@ def run(argv=None) -> dict:
 
     from repro_torch import _device, _tree, models
     from repro_torch.configs import registry
+    from repro_torch.models import lm as LM
     from repro_torch.models import params as PM
     from repro_torch.obs import bridge
     from repro_torch.obs import metrics as obs_metrics
@@ -65,7 +67,7 @@ def run(argv=None) -> dict:
     cfg = (registry.smoke_config(args.arch) if args.smoke
            else registry.get_arch(args.arch))
     if args.layers:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+        cfg = LM.cut_depth(cfg, args.layers)
     api = models.get(cfg)
     if args.ckpt:
         # on the host first: only the parameters go to the device, not the

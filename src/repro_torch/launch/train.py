@@ -35,12 +35,15 @@ on restore every rank loads it on the host and keeps its shard.
 ``--mesh 1x1`` is the single-device step with the fused AdamW+project
 epilogue (the JAX launcher runs its mesh path, unfused, even at 1x1).
 
-Attention runs ``impl="flash"``: the hand-written CUDA forward and dQ /
-dK/dV backward kernels on the card, the counterpart of the JAX package's
-``"pallas"`` (the JAX launcher trains with ``"chunked"``, or ``"naive"``
-under ``--smoke``); under a mesh on each rank's own heads.
-``--layers N`` (the port's own option) cuts the model to its first N
-layers at full width. ``--telemetry-every N`` / ``--telemetry-marks``
+Attention runs ``--attn flash`` by default: the hand-written CUDA forward
+and dQ / dK/dV backward kernels on the card, the counterpart of the JAX
+package's ``"pallas"`` (the JAX launcher trains with ``"chunked"``, or
+``"naive"`` under ``--smoke``); under a mesh on each rank's own heads.
+``--attn chunked`` or ``naive`` run the PyTorch paths; an MLA model
+(deepseek-v3-671b, kimi-k2-1t-a32b), whose q/k and v heads differ in
+width, needs one of them. ``--layers N`` (the port's own option) cuts the
+model to its first N layers at full width; an MoE model keeps its dense
+leading layers and needs more than those. ``--telemetry-every N`` / ``--telemetry-marks``
 turn the in-step telemetry bridge (``obs/bridge.py``) on for the run and
 give the step its cadence and marks (``training/step.py``); the pending
 values are drained into the registry before the run returns.
@@ -50,7 +53,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import dataclasses
 import sys
 import time
 
@@ -89,6 +91,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the model to this many layers at full width "
                          "(0: the config's depth)")
+    ap.add_argument("--attn", default="flash",
+                    choices=["naive", "chunked", "flash"],
+                    help="attention (flash: the CUDA kernels on the card; "
+                         "MLA models need chunked or naive)")
     return ap
 
 
@@ -171,6 +177,7 @@ def _run(args) -> dict:
     from repro_torch.configs import registry
     from repro_torch.configs.types import ProjectionSpec, TrainConfig
     from repro_torch.data import DataConfig, DataPipeline
+    from repro_torch.models import lm
     from repro_torch.models import params as PM
     from repro_torch.obs import bridge
     from repro_torch.obs import metrics as obs_metrics
@@ -196,7 +203,7 @@ def _run(args) -> dict:
     cfg = (registry.smoke_config(args.arch) if args.smoke
            else registry.get_arch(args.arch))
     if args.layers:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+        cfg = lm.cut_depth(cfg, args.layers)
     api = models.get(cfg)
     micro = args.microbatch or args.batch
     proj = None
@@ -250,7 +257,7 @@ def _run(args) -> dict:
         "train_step_seconds", "end-to-end wall time of one training step")
     b_ax = sharding.batch_axes(mesh) if mesh is not None else ("data",)
     step_fn = make_train_step(
-        cfg, tcfg, api, impl="flash", n_groups=1 if mesh is None else
+        cfg, tcfg, api, impl=args.attn, n_groups=1 if mesh is None else
         sharding.dp_shards(mesh), act_spec=(b_ax if len(b_ax) > 1 else b_ax[0],
                                             None, None),
         mesh=mesh, param_specs=specs, telemetry_every=args.telemetry_every,

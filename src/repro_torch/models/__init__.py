@@ -6,9 +6,10 @@
     cache = api.make_cache(cfg, batch, max_len, device="cuda")  (None for the SAE)
     logits, cache = api.decode_step(params, toks, cache, pos, cfg)
 
-The port covers the dense LM families (``lm``, with its KV-cache decode)
-and the paper's SAE (``sae``, train-only). MoE/MLA, audio, SSM and hybrid
-models wait for their slices.
+The port covers the LM families of ``lm`` (dense, and the MoE family with
+MLA attention, each with its cache decode) and the paper's SAE (``sae``,
+train-only). The audio (whisper), SSM (xLSTM) and hybrid (zamba) models
+wait for their slices.
 """
 
 from __future__ import annotations
@@ -31,9 +32,13 @@ class ModelAPI:
 
 def get(cfg: ArchConfig) -> ModelAPI:
     fam = cfg.family
-    if fam in ("dense", "vlm") and cfg.moe is None and cfg.mla is None:
+    if fam in ("dense", "moe", "vlm"):
         return ModelAPI(lm.template, lm.forward, lm.make_cache, lm.decode_step)
     if fam == "sae":
         return ModelAPI(sae.template, sae.forward)
-    raise ValueError(f"{cfg.name}: family {fam!r} is not ported yet; the port "
-                     "covers the dense LM and the SAE")
+    waiting = {"audio": "whisper", "ssm": "xLSTM", "hybrid": "zamba"}
+    if fam in waiting:
+        raise ValueError(f"{cfg.name}: family {fam!r} ({waiting[fam]}) is not "
+                         "ported yet; the port covers the dense and MoE LMs "
+                         "and the SAE")
+    raise ValueError(f"unknown family {fam!r}")

@@ -1,5 +1,5 @@
-"""Neural-net building blocks of the dense LM (port of
-``repro/models/layers.py``, lines 35-198 and 201-229).
+"""Neural-net building blocks of the LM (port of ``repro/models/layers.py``,
+lines 35-198 and 201-312).
 
 Everything is a plain function of (params, inputs) on tensors. Attention
 comes in three implementations selected by ``impl``:
@@ -13,11 +13,14 @@ comes in three implementations selected by ``impl``:
                 (the counterpart of the JAX package's ``"pallas"``)
 
 All attention math accumulates in f32 regardless of compute dtype.
-:func:`attention_decode` is the single-token step against a KV cache. MoE
-and Mamba2 wait for their slices.
+:func:`attention_decode` is the single-token step against a KV cache.
+:func:`moe_apply` is the GShard capacity-dispatch mixture of experts, with
+both of the JAX package's dispatches. Mamba2 waits for its slice.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -214,3 +217,111 @@ def mlp_apply(p, x, act="silu"):
     else:
         up = _act(up, act)
     return up @ p["w_down"]
+
+
+# ------------------------------------------------------------------------ moe
+def moe_template(d_model: int, cfg):
+    e, f = cfg.n_experts, cfg.d_expert
+    t = {
+        "router": ParamDef((d_model, e), ("embed", None), "scaled"),
+        "w_gate": ParamDef((e, d_model, f), ("experts", "embed", "expert_ff"), "scaled"),
+        "w_up": ParamDef((e, d_model, f), ("experts", "embed", "expert_ff"), "scaled"),
+        "w_down": ParamDef((e, f, d_model), ("experts", "expert_ff", "embed"), "scaled"),
+    }
+    if cfg.n_shared:
+        ds = cfg.d_shared or cfg.d_expert
+        t["shared"] = mlp_template(d_model, ds * cfg.n_shared, "silu")
+    return t
+
+
+def moe_route(p, x, cfg, *, n_groups: int) -> dict:
+    """The router of :func:`moe_apply` on x (T, M): ``{"g", "tg", "cap",
+    "probs" (g, tg, e), "onehot" (g, tg, k, e), "top_v", "top_i", "pos",
+    "keep" (g, tg, k)}``.
+
+    Tokens split into ``gcd(n_groups, T)`` groups of ``tg``; each expert
+    takes ``cap = max(1, ceil(tg·k/e·capacity_factor))`` per group. The
+    router runs in float32; top-k is a stable descending sort, so equal
+    probabilities go to the lower expert first, as ``jax.lax.top_k``
+    orders them. A (token, slot)'s place in its expert's queue counts the
+    slots before it in token-major, slot-minor order; it is kept when that
+    place is under ``cap``."""
+    tkns, m = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    g = math.gcd(n_groups, tkns)
+    tg = tkns // g
+    cap = int(max(1, math.ceil(tg * k / e * cfg.capacity_factor)))
+    logits = x.reshape(g, tg, m).float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)                     # (g, tg, e)
+    top_v, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_v, top_i = top_v[..., :k], top_i[..., :k]             # (g, tg, k)
+    top_v = top_v / top_v.sum(dim=-1, keepdim=True)
+    onehot = F.one_hot(top_i, e).float()                      # (g, tg, k, e)
+    flat = onehot.reshape(g, tg * k, e)
+    pos = torch.cumsum(flat, dim=1) - flat
+    pos = (pos.reshape(g, tg, k, e) * onehot).sum(dim=-1)     # (g, tg, k)
+    return {"g": g, "tg": tg, "cap": cap, "probs": probs, "onehot": onehot,
+            "top_v": top_v, "top_i": top_i, "pos": pos, "keep": pos < cap}
+
+
+def _experts(p, xe, act):
+    """Every expert's gated MLP on its slots: xe (g, e, cap, m)."""
+    h = torch.einsum("gecm,emf->gecf", xe, p["w_up"])
+    hg = _act(torch.einsum("gecm,emf->gecf", xe, p["w_gate"]), act)
+    return torch.einsum("gecf,efm->gecm", h * hg, p["w_down"])
+
+
+def moe_apply(p, x, cfg, *, n_groups: int, act="silu"):
+    """GShard-style capacity-dispatch MoE on x (T, M) flattened tokens;
+    returns ``(out (T, M), aux)``, the Switch load-balance loss.
+
+    Dispatch is per group (:func:`moe_route`), so the queue never crosses
+    groups. ``cfg.dispatch == "einsum"`` builds one-hot dispatch and
+    combine tensors (g, tg, e, cap) and runs every expert on its ``cap``
+    slots; ``"scatter"`` adds each kept (token, slot) into row
+    ``expert·cap + place`` of an (e·cap + 1)-row buffer with ``index_add``
+    (the dropped go to the last row, which is thrown away) and gathers the
+    experts' rows back. The two give the same output."""
+    tkns, m = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    r = moe_route(p, x, cfg, n_groups=n_groups)
+    g, tg, cap = r["g"], r["tg"], r["cap"]
+    xg = x.reshape(g, tg, m)
+    pos, keep, expert_of = r["pos"], r["keep"], r["top_i"]
+    gate = r["top_v"] * keep
+    if cfg.dispatch == "einsum":
+        # collapse the k slots: a token holds at most one slot per expert
+        oh_e = r["onehot"]
+        mask_te = torch.einsum("gtke,gtk->gte", oh_e, keep.float())
+        pos_te = torch.einsum("gtke,gtk->gte", oh_e, pos)
+        gate_te = torch.einsum("gtke,gtk->gte", oh_e, gate)
+        # a place at or past cap is no slot (jax.nn.one_hot gives zeros)
+        oh_c = (pos_te.long()[..., None]
+                == torch.arange(cap, device=x.device)).float()
+        disp_te = (mask_te[..., None] * oh_c).to(x.dtype)    # (g, tg, e, cap)
+        xe = torch.einsum("gtec,gtm->gecm", disp_te, xg)      # (g, e, cap, m)
+        ye = _experts(p, xe, act)
+        comb = gate_te[..., None].to(x.dtype) * disp_te
+        out = torch.einsum("gtec,gecm->gtm", comb, ye)
+    elif cfg.dispatch == "scatter":
+        slot = expert_of * cap + pos.long()                   # (g, tg, k)
+        slot = torch.where(keep, slot, torch.full_like(slot, e * cap))
+        rows = slot + (torch.arange(g, device=x.device)
+                       * (e * cap + 1))[:, None, None]
+        src = xg[:, :, None, :].expand(g, tg, k, m).reshape(-1, m)
+        buf = torch.zeros(g * (e * cap + 1), m, dtype=x.dtype, device=x.device)
+        buf = buf.index_add(0, rows.reshape(-1), src)
+        xe = buf.reshape(g, e * cap + 1, m)[:, :e * cap].reshape(g, e, cap, m)
+        ye = _experts(p, xe, act).reshape(g, e * cap, m)
+        ye = torch.cat([ye, ye.new_zeros(g, 1, m)], dim=1).reshape(-1, m)
+        gath = ye[rows.reshape(-1)].reshape(g, tg, k, m)
+        out = (gath * gate[..., None].to(x.dtype)).sum(dim=2)
+    else:
+        raise ValueError(f"unknown MoE dispatch {cfg.dispatch!r}")
+    if cfg.n_shared:
+        out = out + mlp_apply(p["shared"], xg, act)
+    # aux load-balance loss (Switch): mean fraction * mean prob per expert
+    me = r["onehot"].sum(dim=2).mean(dim=1)                   # (g, e)
+    pe = r["probs"].mean(dim=1)
+    aux = e * (me * pe).sum(dim=-1).mean()
+    return out.reshape(tkns, m), aux

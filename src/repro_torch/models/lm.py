@@ -1,20 +1,32 @@
-"""Decoder-only LM, dense family (port of ``repro/models/lm.py:34-331``):
+"""Decoder-only LM (port of ``repro/models/lm.py``): the dense family,
 stablelm / danube / granite / qwen3 / chameleon (GQA, sliding window,
-qk-norm, partial rotary).
+qk-norm, partial rotary), and the MoE family, deepseek-v3 / kimi-k2 (MLA
+attention and GShard mixture-of-experts layers).
 
 Layers keep the JAX package's **stacked** layout — ``blocks/attn/wq`` is
 (L, d, H, hd), ``blocks/mlp/w_up`` (L, d, f) — so a JAX parameter tree
 crosses over with ``interop.from_numpy_tree`` unchanged. ``lax.scan`` over
-the stack becomes a Python loop over the layer index.
+the stack becomes a Python loop over the layer index. An MoE model has two
+stacks, ``dense_blocks`` (its ``first_dense`` leading dense layers) and
+``moe_blocks``, whose expert leaves carry an ``experts`` axis after the
+layer axis (``moe_blocks/mlp/w_up`` is (L, E, d, f)).
 
     forward(params, tokens, cfg, *, impl, n_groups, remat, act_spec,
             collect, mesh, param_specs) -> logits, aux[, acts]
+
+MLA (``cfg.mla``) trains and prefills with the full expansion
+(:func:`_attn_mla`): q/k heads of ``qk_nope + qk_rope`` channels (the rope
+part of k is one head, rotated and broadcast to all), v heads of
+``v_head_dim``. Those widths differ, which the flash kernels do not take:
+MLA runs ``impl="chunked"`` or ``"naive"``, and ``"flash"`` raises.
 
 Under a mesh (``mesh=`` a ``parallel.mesh.Mesh``, ``param_specs=`` the
 spec tree of ``models.params.param_specs``) ``params`` are this rank's
 shards and ``tokens`` this rank's slice of the batch, and the forward is
 the one GSPMD makes of the JAX package's under its shardings, with the
-collectives written out (``parallel/collectives.py``):
+collectives written out (``parallel/collectives.py``). It covers the dense
+family; an MLA or MoE model under a mesh raises (its sharded step, experts
+over "model", is a slice of its own):
 
 * each weight's FSDP axis ('embed' over "data") is all-gathered where it
   is used — inside the checkpointed block body, so the recompute gathers
@@ -34,17 +46,19 @@ collectives written out (``parallel/collectives.py``):
 A dimension that the mesh does not divide is replicated
 (``param_specs``), and its part of the forward runs whole on every rank.
 
-Serving (``repro/models/lm.py:149-176, 335-400``): :func:`make_cache`
-allocates the stacked per-layer KV cache (a ring buffer of ``window``
-slots when the model is windowed) and :func:`decode_step` runs one token
-for the whole batch, writing each layer's new k/v into the cache in place
-at a slot the caller's Python ``pos`` decides on the host.
-
-MLA and MoE wait for their slice.
+Serving (``repro/models/lm.py:149-241, 335-414``): :func:`make_cache`
+allocates the stacked per-layer cache and :func:`decode_step` runs one
+token for the whole batch, writing each layer's new entries into the
+cache in place at a slot the caller's Python ``pos`` decides on the host.
+A dense model caches k/v (a ring buffer of ``window`` slots when the model
+is windowed); an MLA model caches only the compressed ``c_kv`` and the
+rotated ``k_rope`` (``kv_lora_rank + qk_rope_dim`` values a token and
+layer) and decodes with weight absorption (:func:`_attn_mla_decode`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import operator
 
@@ -59,16 +73,71 @@ from . import layers as L
 from .params import ParamDef
 
 
-def _check_dense(cfg: ArchConfig) -> None:
+def _refuse_mesh(cfg: ArchConfig) -> None:
     if cfg.mla is not None or cfg.moe is not None:
         raise ValueError(
-            f"{cfg.name}: the port's LM covers the dense family; MLA and MoE "
-            "wait for their slice")
+            f"{cfg.name}: the sharded forward covers the dense family; the "
+            "sharded MoE/MLA step (experts over \"model\") waits for its "
+            "slice")
+
+
+def _check_impl(cfg: ArchConfig, impl: str) -> None:
+    """MLA's q/k and v heads differ in width, which no flash kernel takes."""
+    if cfg.mla is not None and impl == "flash":
+        from repro_torch.kernels.flash_attention import KERNEL_HEAD_DIMS
+
+        m = cfg.mla
+        raise ValueError(
+            f"{cfg.name}: MLA's q/k heads are {m.qk_nope_dim + m.qk_rope_dim} "
+            f"wide ({m.qk_nope_dim} nope + {m.qk_rope_dim} rope) and its v "
+            f"heads {m.v_head_dim}; the flash kernels take q, k and v of one "
+            f"width in {KERNEL_HEAD_DIMS}: use impl='chunked' or 'naive'")
+
+
+def cut_depth(cfg: ArchConfig, n_layers: int) -> ArchConfig:
+    """``cfg`` cut to its first ``n_layers`` layers at full width (the
+    launchers' ``--layers``). An MoE model keeps its ``first_dense`` dense
+    layers, so it needs more than that many, or no MoE layer is left."""
+    if n_layers < 1:
+        raise ValueError(f"{cfg.name}: a model needs a layer, got {n_layers}")
+    if cfg.moe is not None and n_layers <= cfg.moe.first_dense:
+        raise ValueError(
+            f"{cfg.name}: {n_layers} layers leave no MoE layer; its first "
+            f"{cfg.moe.first_dense} layers are dense, so cut to more than "
+            f"{cfg.moe.first_dense}")
+    return dataclasses.replace(cfg, n_layers=n_layers)
+
+
+def stacks(cfg: ArchConfig) -> list:
+    """``[(name, moe, n_layers), ...]``: the model's layer stacks in order
+    (an MoE model's dense stack first)."""
+    if cfg.moe is None:
+        return [("blocks", False, cfg.n_layers)]
+    fd = cfg.moe.first_dense
+    out = [("dense_blocks", False, fd)] if fd else []
+    return out + [("moe_blocks", True, cfg.n_layers - fd)]
 
 
 # ------------------------------------------------------------------ templates
 def _attn_template(cfg: ArchConfig, n: int):
     d, hd = cfg.d_model, cfg.resolved_head_dim
+    if cfg.mla is not None:
+        m = cfg.mla
+        qk = m.qk_nope_dim + m.qk_rope_dim
+        return {
+            "wq_a": ParamDef((n, d, m.q_lora_rank), ("layers", "embed", None), "scaled"),
+            "q_norm": ParamDef((n, m.q_lora_rank), ("layers", None), "ones"),
+            "wq_b": ParamDef((n, m.q_lora_rank, cfg.n_heads, qk),
+                             ("layers", None, "heads", None), "scaled"),
+            "wkv_a": ParamDef((n, d, m.kv_lora_rank + m.qk_rope_dim),
+                              ("layers", "embed", None), "scaled"),
+            "kv_norm": ParamDef((n, m.kv_lora_rank), ("layers", None), "ones"),
+            "wkv_b": ParamDef((n, m.kv_lora_rank, cfg.n_heads,
+                               m.qk_nope_dim + m.v_head_dim),
+                              ("layers", None, "heads", None), "scaled"),
+            "wo": ParamDef((n, cfg.n_heads, m.v_head_dim, d),
+                           ("layers", "heads", None, "embed"), "scaled"),
+        }
     t = {
         "wq": ParamDef((n, d, cfg.n_heads, hd), ("layers", "embed", "heads", None),
                        "scaled"),
@@ -94,23 +163,45 @@ def _stack_mlp(cfg: ArchConfig, n: int):
     }
 
 
-def _block_template(cfg: ArchConfig, n: int):
+def _stack_moe(cfg: ArchConfig, n: int):
+    mo = cfg.moe
+    d, e, f = cfg.d_model, mo.n_experts, mo.d_expert
+    t = {
+        "router": ParamDef((n, d, e), ("layers", "embed", None), "scaled"),
+        "w_gate": ParamDef((n, e, d, f), ("layers", "experts", "embed", "expert_ff"),
+                           "scaled"),
+        "w_up": ParamDef((n, e, d, f), ("layers", "experts", "embed", "expert_ff"),
+                         "scaled"),
+        "w_down": ParamDef((n, e, f, d), ("layers", "experts", "expert_ff", "embed"),
+                           "scaled"),
+    }
+    if mo.n_shared:
+        ds = (mo.d_shared or mo.d_expert) * mo.n_shared
+        t["shared"] = {
+            "w_up": ParamDef((n, d, ds), ("layers", "embed", "ffn"), "scaled"),
+            "w_gate": ParamDef((n, d, ds), ("layers", "embed", "ffn"), "scaled"),
+            "w_down": ParamDef((n, ds, d), ("layers", "ffn", "embed"), "scaled"),
+        }
+    return t
+
+
+def _block_template(cfg: ArchConfig, n: int, moe: bool = False):
     return {
         "ln1": ParamDef((n, cfg.d_model), ("layers", None), "ones"),
         "ln2": ParamDef((n, cfg.d_model), ("layers", None), "ones"),
         "attn": _attn_template(cfg, n),
-        "mlp": _stack_mlp(cfg, n),
+        "mlp": _stack_moe(cfg, n) if moe else _stack_mlp(cfg, n),
     }
 
 
 def template(cfg: ArchConfig):
-    _check_dense(cfg)
     d = cfg.d_model
     t = {
         "embed": ParamDef((cfg.vocab, d), ("vocab", "embed"), "normal", 0.02),
         "final_norm": ParamDef((d,), (None,), "ones"),
-        "blocks": _block_template(cfg, cfg.n_layers),
     }
+    for name, moe, n in stacks(cfg):
+        t[name] = _block_template(cfg, n, moe)
     if not cfg.tie_embeddings:
         t["unembed"] = ParamDef((d, cfg.vocab), ("embed", "vocab"), "scaled")
     return t
@@ -157,6 +248,71 @@ def _attn_dense_decode(lp, h, cfg: ArchConfig, *, pos: int, cur, freqs,
     kc[:, slot].copy_(k)
     vc[:, slot].copy_(v)
     out = L.attention_decode(q, kc, vc, cur, window=window)
+    return torch.einsum("bhk,hkd->bd", out, lp["wo"])[:, None]
+
+
+def _attn_mla(lp, h, cfg: ArchConfig, *, positions, impl, window):
+    """MLA training/prefill attention, the full expansion. h (B,S,D) ->
+    (B,S,D). k's rope part is one head, rotated, then broadcast to every
+    head; the scale is (qk_nope + qk_rope)^-0.5, q's width."""
+    m = cfg.mla
+    b, s, _ = h.shape
+    q_lat = L.rms_norm(torch.einsum("bsd,dr->bsr", h, lp["wq_a"]),
+                       lp["q_norm"], cfg.norm_eps)
+    q = torch.einsum("bsr,rhk->bshk", q_lat, lp["wq_b"])
+    q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    kv_a = torch.einsum("bsd,dr->bsr", h, lp["wkv_a"])
+    c_kv = L.rms_norm(kv_a[..., :m.kv_lora_rank], lp["kv_norm"], cfg.norm_eps)
+    k_rope = kv_a[..., m.kv_lora_rank:]                       # (B,S,rope)
+    kv = torch.einsum("bsr,rhk->bshk", c_kv, lp["wkv_b"])
+    k_nope, v = kv[..., :m.qk_nope_dim], kv[..., m.qk_nope_dim:]
+
+    freqs = L.rope_frequencies(m.qk_rope_dim, 1.0, cfg.rope_theta, positions)
+    q_rope = L.apply_rope(q_rope, freqs)
+    k_rope = L.apply_rope(k_rope[:, :, None, :], freqs)       # one kv head
+    k_rope = k_rope.expand(b, s, cfg.n_heads, m.qk_rope_dim)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope], dim=-1)
+    out = L.attention(q_full, k_full, v, causal=True, window=window, impl=impl)
+    return torch.einsum("bshk,hkd->bsd", out, lp["wo"])
+
+
+def _attn_mla_decode(lp, h, cfg: ArchConfig, *, pos: int, freqs, cache):
+    """MLA decode with weight absorption. h (B,1,D); ``cache`` this layer's
+    {"c_kv" (B,T,r), "k_rope" (B,T,rope)}, written in place at slot
+    ``pos``; ``freqs`` the rotary angles of ``pos``.
+
+    ``W_kv_b``'s k part folds into the query (``q_eff = q_nope·W_kᵀ``, in
+    the latent space of ``c_kv``) and its v part into the output, so the
+    logits and the softmax-weighted sum run over the cached latents
+    themselves, in float32; the latent output is cast to the compute dtype
+    before ``W_kv_b``."""
+    m = cfg.mla
+    hq = h[:, 0]
+    q_lat = L.rms_norm(hq @ lp["wq_a"], lp["q_norm"], cfg.norm_eps)
+    q = torch.einsum("br,rhk->bhk", q_lat, lp["wq_b"])
+    q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    kv_a = hq @ lp["wkv_a"]
+    c_kv = L.rms_norm(kv_a[..., :m.kv_lora_rank], lp["kv_norm"], cfg.norm_eps)
+    q_rope = L.apply_rope(q_rope[:, None], freqs)[:, 0]
+    k_rope = L.apply_rope(kv_a[:, None, None, m.kv_lora_rank:], freqs)[:, 0, 0]
+    ck, kr = cache["c_kv"], cache["k_rope"]
+    ck[:, pos].copy_(c_kv)
+    kr[:, pos].copy_(k_rope)
+
+    wk = lp["wkv_b"][..., :m.qk_nope_dim]                      # (r, H, nope)
+    q_eff = torch.einsum("bhk,rhk->bhr", q_nope, wk)           # (B, H, r)
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    ckf = ck.float()
+    lat = torch.einsum("bhr,btr->bht", q_eff.float(), ckf)
+    rop = torch.einsum("bhk,btk->bht", q_rope.float(), kr.float())
+    logits = (lat + rop) * scale
+    valid = torch.arange(ck.shape[1], device=h.device) <= pos
+    logits = torch.where(valid, logits, torch.full((), L._NEG, device=h.device))
+    w = torch.softmax(logits, dim=-1)
+    lat_out = torch.einsum("bht,btr->bhr", w, ckf)             # (B, H, r)
+    wv = lp["wkv_b"][..., m.qk_nope_dim:]                      # (r, H, v)
+    out = torch.einsum("bhr,rhk->bhk", lat_out.to(h.dtype), wv)
     return torch.einsum("bhk,hkd->bd", out, lp["wo"])[:, None]
 
 
@@ -221,23 +377,34 @@ def _mlp_sharded(p, sp, x, act, sh: _Sharded):
 
 
 # --------------------------------------------------------------------- blocks
-def _block(lp, x, cfg: ArchConfig, *, positions, impl, collect=None, sh=None):
+def _block(lp, x, cfg: ArchConfig, *, positions, impl, collect=None, sh=None,
+           moe=False, n_groups=1):
+    """One layer: ``(out, aux, cap)``. ``aux`` is the MoE layer's balance
+    loss (0.0 for a dense layer)."""
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    if sh is None:
-        x = x + _attn_dense(lp["attn"], h, cfg, positions=positions, impl=impl,
-                            window=cfg.window)
-        y = L.mlp_apply(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps),
-                        cfg.act)
-    else:
+    aux = 0.0
+    if sh is not None:
         x = x + _attn_sharded(lp["attn"], sh.specs["attn"], h, cfg, sh,
                               positions=positions, impl=impl, window=cfg.window)
         y = _mlp_sharded(lp["mlp"], sh.specs["mlp"],
                          L.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg.act, sh)
+    else:
+        attn = _attn_mla if cfg.mla is not None else _attn_dense
+        x = x + attn(lp["attn"], h, cfg, positions=positions, impl=impl,
+                     window=cfg.window)
+        h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        if moe:
+            b, s, d = h2.shape
+            y, aux = L.moe_apply(lp["mlp"], h2.reshape(b * s, d), cfg.moe,
+                                 n_groups=n_groups, act=cfg.act)
+            y = y.reshape(b, s, d)
+        else:
+            y = L.mlp_apply(lp["mlp"], h2, cfg.act)
     out = x + y
     # harvest sites (data/activations.py): the post-block residual stream or
     # the MLP branch output (pre-residual-add)
     cap = None if collect is None else (out if collect == "resid" else y)
-    return out, cap
+    return out, aux, cap
 
 
 def logits_spec(cfg: ArchConfig, param_specs, mesh) -> tuple:
@@ -273,6 +440,7 @@ def sharded_collectives(cfg: ArchConfig, param_specs, mesh, batch: int,
       two psums of (B, S) in the loss; one psum backward for the final
       activations.
     """
+    _refuse_mesh(cfg)
     shp = dict(mesh.shape) if hasattr(mesh, "shape") else dict(mesh)
     live = {a for a, n in shp.items() if n > 1}
     calls = {"psum": 0, "pmax": 0, "all_gather": 0}
@@ -333,25 +501,29 @@ def forward(params, tokens, cfg: ArchConfig, *, impl="chunked", n_groups=1,
             param_specs=None):
     """tokens (B, S) int -> (logits (B, S, V), aux).
 
-    ``n_groups`` reaches only the MoE family's dispatch (as in the JAX
-    package); the dense forward takes and ignores it. ``act_spec`` is the
-    (B, S, D) activations' layout: under a mesh the caller hands this rank
-    its slice of the batch, the layout JAX's constraint pins, and without
-    one it has no effect. ``mesh`` and ``param_specs`` run the sharded
-    forward (module docstring): ``params`` and ``tokens`` are this rank's
-    shards, and the logits are this rank's shard under :func:`logits_spec`.
+    ``n_groups`` is the MoE dispatch's number of token groups (the dense
+    family takes and ignores it, as in the JAX package). ``act_spec`` is
+    the (B, S, D) activations' layout: under a mesh the caller hands this
+    rank its slice of the batch, the layout JAX's constraint pins, and
+    without one it has no effect. ``mesh`` and ``param_specs`` run the
+    sharded forward of the dense family (module docstring): ``params`` and
+    ``tokens`` are this rank's shards, and the logits are this rank's shard
+    under :func:`logits_spec`.
 
     ``collect``: None | "resid" | "mlp" — also return the per-layer
     activations stacked on a leading layer axis, shape (L, B, S, D): the
     post-block residual stream or the MLP branch output (the capture point
-    of ``data/activations.py``). ``remat=True`` recomputes each block in the
-    backward pass (``torch.utils.checkpoint``); harvesting passes
-    ``remat=False``. ``aux`` is 0.0 (the MoE balance loss of the JAX
-    package has no dense counterpart).
+    of ``data/activations.py``), an MoE model's dense layers first.
+    ``remat=True`` recomputes each block in the backward pass
+    (``torch.utils.checkpoint``); harvesting passes ``remat=False``.
+    ``aux`` is the sum of the MoE layers' balance losses, 0.0 for a dense
+    model.
     """
-    _check_dense(cfg)
     if (mesh is None) != (param_specs is None):
         raise ValueError("a sharded forward takes both mesh= and param_specs=")
+    if mesh is not None:
+        _refuse_mesh(cfg)
+    _check_impl(cfg, impl)
     b, s = tokens.shape
     top = None if mesh is None else _Sharded(mesh, param_specs)
     if top is None:
@@ -362,32 +534,37 @@ def forward(params, tokens, cfg: ArchConfig, *, impl="chunked", n_groups=1,
              if top.tp(param_specs["embed"][0]) else table[tokens])
     x = x.to(params["final_norm"].dtype)
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
-    blocks = params["blocks"]
-    # each layer's specs: the stacked leaves' without the layer axis
-    layer_sh = None if mesh is None else _Sharded(
-        mesh, _tree.tree_map(lambda sp: tuple(sp[1:]), param_specs["blocks"]))
-    # unbind each stacked leaf once: its backward stacks the layers'
-    # gradients in one pass, where a[i] per layer would give every layer a
-    # full-size zero gradient of the stack to sum
-    per_layer = [a.unbind(0) for a in _tree.leaves(blocks)]
+    aux = 0.0
     caps = []
-    for i in range(cfg.n_layers):
-        lp = _tree.unflatten_like(blocks, [u[i] for u in per_layer])
+    for name, moe, n in stacks(cfg):
+        blocks = params[name]
+        # each layer's specs: the stacked leaves' without the layer axis
+        layer_sh = None if mesh is None else _Sharded(
+            mesh, _tree.tree_map(lambda sp: tuple(sp[1:]), param_specs[name]))
+        # unbind each stacked leaf once: its backward stacks the layers'
+        # gradients in one pass, where a[i] per layer would give every layer
+        # a full-size zero gradient of the stack to sum
+        per_layer = [a.unbind(0) for a in _tree.leaves(blocks)]
+        for i in range(n):
+            lp = _tree.unflatten_like(blocks, [u[i] for u in per_layer])
 
-        def body(x, lp=lp):
-            return _block(lp, x, cfg, positions=positions, impl=impl,
-                          collect=collect, sh=layer_sh)
+            def body(x, lp=lp, moe=moe):
+                return _block(lp, x, cfg, positions=positions, impl=impl,
+                              collect=collect, sh=layer_sh, moe=moe,
+                              n_groups=n_groups)
 
-        if not remat:
-            x, cap = body(x)
-        elif layer_sh is None:
-            x, cap = checkpoint(body, x, use_reentrant=False)
-        else:
-            # the recompute runs the whole body, so every rank's collectives
-            # are the forward's twice whatever the checkpoint's early stop
-            with set_checkpoint_early_stop(False):
-                x, cap = checkpoint(body, x, use_reentrant=False)
-        caps.append(cap)
+            if not remat:
+                x, a, cap = body(x)
+            elif layer_sh is None:
+                x, a, cap = checkpoint(body, x, use_reentrant=False)
+            else:
+                # the recompute runs the whole body, so every rank's
+                # collectives are the forward's twice whatever the
+                # checkpoint's early stop
+                with set_checkpoint_early_stop(False):
+                    x, a, cap = checkpoint(body, x, use_reentrant=False)
+            aux = aux + a
+            caps.append(cap)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     un = params.get("unembed")
     if top is None:
@@ -398,22 +575,30 @@ def forward(params, tokens, cfg: ArchConfig, *, impl="chunked", n_groups=1,
         logits = (x @ top.weight(un, param_specs["unembed"]) if un is not None
                   else x @ top.weight(params["embed"], param_specs["embed"]).T)
     if collect is not None:
-        return logits, 0.0, torch.stack(caps)
-    return logits, 0.0
+        return logits, aux, torch.stack(caps)
+    return logits, aux
 
 
 # -------------------------------------------------------------------- serving
 def make_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, *, device=None):
-    """Stacked per-layer cache ``{"k", "v"}`` of (L, B, T, KV, hd) zeros on
-    ``device`` (the card by default). Windowed archs get ring buffers of
-    ``T = min(max_len, window)`` slots."""
+    """Stacked per-layer cache of zeros on ``device`` (the card by
+    default), every layer of every stack in order: a dense model's
+    ``{"k", "v"}`` of (L, B, T, KV, hd), an MLA model's ``{"c_kv" (L, B, T,
+    kv_lora_rank), "k_rope" (L, B, T, qk_rope_dim)}``. Windowed archs get
+    ring buffers of ``T = min(max_len, window)`` slots."""
     from repro_torch import _device
 
-    _check_dense(cfg)
     dev = _device.resolve(device)
     t = min(max_len, cfg.window) if cfg.window else max_len
-    shape = (cfg.n_layers, batch, t, cfg.n_kv_heads, cfg.resolved_head_dim)
+    n = cfg.n_layers
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {"c_kv": torch.zeros((n, batch, t, m.kv_lora_rank), dtype=dtype,
+                                    device=dev),
+                "k_rope": torch.zeros((n, batch, t, m.qk_rope_dim), dtype=dtype,
+                                      device=dev)}
+    shape = (n, batch, t, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
@@ -422,29 +607,44 @@ def decode_step(params, tokens, cache, pos, cfg: ArchConfig, *, n_groups=1):
     """One token for the whole batch: tokens (B,) int, ``pos`` a Python int
     (the position of ``tokens``; the caller counts it on the host, so no
     step reads it back from the device). Returns ``(logits (B, V), cache)``
-    with ``cache`` updated in place. ``n_groups`` reaches only the MoE
-    family's dispatch, as in ``forward``."""
-    _check_dense(cfg)
+    with ``cache`` updated in place. ``n_groups`` is the MoE dispatch's, as
+    in ``forward``; its B tokens form one queue per group."""
     pos = operator.index(pos)
     b = tokens.shape[0]
     x = params["embed"][tokens][:, None].to(params["final_norm"].dtype)
     # the rotary angles of pos and the valid length, shared by every layer
-    freqs = L.rope_frequencies(
-        cfg.resolved_head_dim, cfg.rope_pct, cfg.rope_theta,
-        torch.full((b, 1), pos, dtype=torch.int32, device=tokens.device))
-    cur = torch.full((b,), pos + 1, dtype=torch.int32, device=tokens.device)
-    blocks = params["blocks"]
-    per_layer = [a.unbind(0) for a in _tree.leaves(blocks)]
-    ks, vs = cache["k"].unbind(0), cache["v"].unbind(0)
-    for i in range(cfg.n_layers):
-        lp = _tree.unflatten_like(blocks, [u[i] for u in per_layer])
-        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        x = x + _attn_dense_decode(lp["attn"], h, cfg, pos=pos, cur=cur,
-                                   freqs=freqs,
-                                   cache={"k": ks[i], "v": vs[i]},
-                                   window=cfg.window)
-        x = x + L.mlp_apply(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps),
-                            cfg.act)
+    where = torch.full((b, 1), pos, dtype=torch.int32, device=tokens.device)
+    if cfg.mla is not None:
+        freqs = L.rope_frequencies(cfg.mla.qk_rope_dim, 1.0, cfg.rope_theta,
+                                   where)
+    else:
+        freqs = L.rope_frequencies(cfg.resolved_head_dim, cfg.rope_pct,
+                                   cfg.rope_theta, where)
+        cur = torch.full((b,), pos + 1, dtype=torch.int32, device=tokens.device)
+    layer = {k: c.unbind(0) for k, c in cache.items()}
+    off = 0
+    for name, moe, n in stacks(cfg):
+        blocks = params[name]
+        per_layer = [a.unbind(0) for a in _tree.leaves(blocks)]
+        for i in range(n):
+            lp = _tree.unflatten_like(blocks, [u[i] for u in per_layer])
+            cl = {k: c[off + i] for k, c in layer.items()}
+            h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+            if cfg.mla is not None:
+                x = x + _attn_mla_decode(lp["attn"], h, cfg, pos=pos,
+                                         freqs=freqs, cache=cl)
+            else:
+                x = x + _attn_dense_decode(lp["attn"], h, cfg, pos=pos,
+                                           cur=cur, freqs=freqs, cache=cl,
+                                           window=cfg.window)
+            h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+            if moe:
+                y, _ = L.moe_apply(lp["mlp"], h2[:, 0], cfg.moe,
+                                   n_groups=n_groups, act=cfg.act)
+                x = x + y[:, None]
+            else:
+                x = x + L.mlp_apply(lp["mlp"], h2, cfg.act)
+        off += n
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     un = params.get("unembed")
     logits = x[:, 0] @ un if un is not None else x[:, 0] @ params["embed"].T

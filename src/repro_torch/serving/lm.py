@@ -3,9 +3,12 @@ and eager greedy generation (port of ``repro/serving/lm.py``). The
 projection engine, the async continuous-batching tier, lives in
 ``serving/engine.py``.
 
-The port's LMs are the dense family: a KV cache (a ring buffer when the
-model is windowed) written in place by ``models.lm.decode_step``, whose
-position is a Python int the caller counts on the host.
+The port's LMs are the dense and MoE families: a KV cache (a ring buffer
+when the model is windowed), or an MLA model's latent cache (``c_kv`` and
+``k_rope``), written in place by ``models.lm.decode_step``, whose position
+is a Python int the caller counts on the host. ``n_groups`` reaches the
+MoE dispatch of every decode step: the batch's tokens queue for the
+experts in that many groups.
 """
 
 from __future__ import annotations

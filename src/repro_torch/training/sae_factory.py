@@ -2,11 +2,15 @@
 ``repro/training/sae_factory.py``).
 
 1. **Harvest** (``data/activations.py``): run a configured LM from
-   ``configs/`` over the deterministic token stream and shard per-layer
-   residual/MLP activations to disk. The port harvests with
-   ``impl="flash"``, so on the card every layer's attention runs the
-   hand-written flash kernel (``csrc/flash_fwd.cu``); the JAX factory
-   harvests with ``harvest``'s default ``impl="naive"``, the same function.
+   ``configs/`` — dense, or MoE with MLA attention — over the
+   deterministic token stream and shard per-layer residual/MLP activations
+   to disk. The port harvests with ``impl="flash"`` by default, so on the
+   card every layer's attention runs the hand-written flash kernel
+   (``csrc/flash_fwd.cu``); the JAX factory harvests with ``harvest``'s
+   default ``impl="naive"``, the same function. MLA's q/k and v heads
+   differ in width, which the flash kernels do not take, so an MLA model
+   harvests with ``impl="chunked"`` (or ``"naive"``) and raises with
+   ``"flash"``.
 2. **Projected SAE training**: stream the shards back through
    ``DataPipeline`` into ``make_train_step`` with the
    dictionary SAE (``models/sae.py``) — the encoder weight is projected onto
@@ -38,7 +42,7 @@ from repro_torch.configs.types import ProjectionSpec, TrainConfig
 from repro_torch.core.multilevel import multilevel_norm
 from repro_torch.data import DataConfig, DataPipeline
 from repro_torch.data.activations import HarvestConfig, harvest, read_meta
-from repro_torch.models import params as PM, sae
+from repro_torch.models import lm, params as PM, sae
 from repro_torch.optim import adamw
 from repro_torch.optim.projection_hook import matched_names, tree_sparsity
 from repro_torch.parallel import collectives, sharding as SH
@@ -68,6 +72,8 @@ class SAEFactoryConfig:
                                      # 3-D encoder + tri-level projection
     method: str = "bisect"
     seed: int = 0
+    depth: int = 0                   # >0: the LM cut to its first `depth`
+                                     # layers at full width (models.lm.cut_depth)
 
 
 def effective_levels(fcfg: SAEFactoryConfig) -> tuple:
@@ -81,8 +87,9 @@ def effective_levels(fcfg: SAEFactoryConfig) -> tuple:
 
 
 def _arch(fcfg: SAEFactoryConfig):
-    return (registry.smoke_config(fcfg.arch) if fcfg.smoke
-            else registry.get_arch(fcfg.arch))
+    cfg = (registry.smoke_config(fcfg.arch) if fcfg.smoke
+           else registry.get_arch(fcfg.arch))
+    return lm.cut_depth(cfg, fcfg.depth) if fcfg.depth else cfg
 
 
 def lm_for(fcfg: SAEFactoryConfig, *, device=None):
@@ -95,11 +102,11 @@ def lm_for(fcfg: SAEFactoryConfig, *, device=None):
 
 
 def harvest_activations(fcfg: SAEFactoryConfig, out_dir, params=None, *,
-                        device=None) -> dict:
-    """Stage 1: run the LM through the flash attention path and shard
-    activations. ``params`` (e.g. carried over from the JAX package) harvest
-    in place of the seeded init, on their own device. Returns the
-    manifest."""
+                        device=None, impl: str = "flash") -> dict:
+    """Stage 1: run the LM through the ``impl`` attention path (the flash
+    kernels by default) and shard activations. ``params`` (e.g. carried
+    over from the JAX package) harvest in place of the seeded init, on
+    their own device. Returns the manifest."""
     if params is None:
         cfg, api, params = lm_for(fcfg, device=device)
     else:
@@ -111,7 +118,7 @@ def harvest_activations(fcfg: SAEFactoryConfig, out_dir, params=None, *,
     hcfg = HarvestConfig(site=fcfg.site, layers=fcfg.layers,
                          n_steps=fcfg.harvest_steps)
     return harvest(params, cfg, pipe, out_dir, hcfg=hcfg, forward=api.forward,
-                   impl="flash")
+                   impl=impl)
 
 
 def sae_projection_spec(fcfg: SAEFactoryConfig) -> ProjectionSpec:
@@ -204,14 +211,18 @@ def train_sae(harvest_dir, layer: int, fcfg: SAEFactoryConfig, *,
 
 
 def run_factory(fcfg: SAEFactoryConfig, workdir, *, seeds=(0, 1),
-                lm_params=None, device=None) -> dict:
-    """Harvest once, train one SAE per (layer, seed), cross-compare with MMCS.
+                lm_params=None, device=None, impl: str = "flash") -> dict:
+    """Harvest once (attention ``impl``), train one SAE per (layer, seed),
+    cross-compare with MMCS.
 
     Each layer's record holds the per-seed ``metrics``, ``sparsity``, the
     per-step ``losses`` and the encoder's ``constraint`` report, and the
     cross-seed ``mmcs``. ``lm_params`` harvests from given LM weights instead
-    of the seeded init."""
-    meta = harvest_activations(fcfg, workdir, params=lm_params, device=device)
+    of the seeded init; the factory drops its reference to them before the
+    SAE steps, so they are freed there unless the caller keeps one."""
+    meta = harvest_activations(fcfg, workdir, params=lm_params, device=device,
+                               impl=impl)
+    lm_params = None
     spec = sae_projection_spec(fcfg)
     out = {"meta": meta, "layers": {}}
     for layer in meta["layers"]:

@@ -141,8 +141,19 @@ def test_rope_and_norm_match_jax():
 
 
 def test_unported_families_raise():
-    for arch in ("deepseek-v3-671b", "zamba2-7b", "whisper-large-v3"):
-        with pytest.raises(ValueError, match="not ported|dense family"):
+    """zamba, whisper and xLSTM wait for their slice and say so by name;
+    the MoE family (deepseek-v3, kimi-k2) is served by ``lm`` since its
+    slice, with its two stacks."""
+    for arch, name in (("zamba2-7b", "zamba"), ("whisper-large-v3", "whisper"),
+                       ("xlstm-1.3b", "xLSTM")):
+        with pytest.raises(ValueError, match=f"\\({name}\\) is not ported"):
             tmodels.get(treg.smoke_config(arch))
-    with pytest.raises(ValueError, match="dense family"):
-        tlm.template(treg.smoke_config("kimi-k2-1t-a32b"))
+    for arch in ("deepseek-v3-671b", "kimi-k2-1t-a32b"):
+        cfg = treg.smoke_config(arch)
+        api = tmodels.get(cfg)
+        assert (api.template, api.forward, api.decode_step) == (
+            tlm.template, tlm.forward, tlm.decode_step)
+        t = tlm.template(cfg)
+        assert t["dense_blocks"]["mlp"]["w_up"].shape == (1, 64, 128)
+        assert t["moe_blocks"]["mlp"]["w_up"].shape == (3, 8, 64, 32)
+        assert t["moe_blocks"]["attn"]["wkv_b"].shape == (3, 16, 4, 32)

@@ -193,10 +193,19 @@ def test_decode_api_and_refusals():
     assert api.make_cache is not None and api.decode_step is not None
     sae = tmodels.get(treg.get_arch("sae-paper"))
     assert sae.make_cache is None and sae.decode_step is None
-    with pytest.raises(ValueError, match="MLA and MoE"):
-        from repro_torch.models import lm as tlm
-        tlm.make_cache(treg.smoke_config("deepseek-v3-671b"), 1, 4,
-                       device="cpu")
+    # the MoE family decodes from MLA's latent cache: c_kv and k_rope
+    # (kv_lora_rank 16 and qk_rope_dim 8 at smoke size) for every layer
+    for arch in ("deepseek-v3-671b", "kimi-k2-1t-a32b"):
+        mcfg = treg.smoke_config(arch)
+        mapi = tmodels.get(mcfg)
+        assert mapi.make_cache is not None and mapi.decode_step is not None
+        cache = mapi.make_cache(mcfg, 1, 4, device="cpu")
+        assert {k: (tuple(v.shape), v.dtype) for k, v in cache.items()} == {
+            "c_kv": ((4, 1, 4, 16), torch.bfloat16),
+            "k_rope": ((4, 1, 4, 8), torch.bfloat16)}
+    for arch in ("zamba2-7b", "whisper-large-v3"):
+        with pytest.raises(ValueError, match="not ported"):
+            tmodels.get(treg.smoke_config(arch))
 
 
 # ------------------------------------------------------------ the launcher
