@@ -13,7 +13,7 @@ those of one bf16 Function forward+backward at granite's shape and of one
 float32 forward at the harvest's. ``--only autograd`` builds them and runs
 phases 3b and 3c on W1–W4 made from the seed; ``--only sae_tables`` runs
 phase 8, ``--only train_mesh`` phase 9, ``--only serve`` phase 10,
-``--only moe`` phase 11.)
+``--only moe`` phase 11, ``--only recurrent`` phase 12.)
 
 1. builds the fourteen CUDA kernels of the seven sources in
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, started together),
@@ -276,7 +276,38 @@ phase 8, ``--only train_mesh`` phase 9, ``--only serve`` phase 10,
    steps · lr + MOE_PARAM_ATOL of each leaf's largest entry, and the first
    router decision that differs on a near tie (MOE_TIE). No kernel launches in the
    phase (MLA's 192/128-wide heads fit no flash kernel; the trainer
-   projects with the plain schedule), and the phase fails if one does.
+   projects with the plain schedule), and the phase fails if one does;
+12. runs the recurrent families (``recurrent_phase``) from freed memory,
+   seeded float32 weights. (a) ``launch/serve.py``'s ``run`` with
+   ``REC_SERVE_ARGV`` on zamba2-7b at full width and depth (81 layers: 13
+   x (5 Mamba2 + the shared attention) + 3; 5.79 B parameters): tokens in
+   the vocabulary, the prompt's last decode logits against the
+   teacher-forced forward's (``make_prefill``) within SERVE_BAR ·
+   max|logits|, the ms per decode step (host clock) beside its byte bound
+   (every weight read once, the embedding by row, the recurrent state read
+   and written once, the valid KV slots read once), the profiler's device
+   kernels and busy time per step, the peak memory. (b) zamba's layer 0
+   on REC_SSD_TOKENS tokens (two 128-token chunks): the chunked SSD
+   against the token-by-token recurrence within REC_SSD_BAR · max|y|, and
+   the dt-gradient through the chunked form finite, beside the largest
+   off-triangle exponent 127 · max dt that the mask keeps from ``exp``.
+   (c) the train launcher on zamba2-7b at full width, ``--layers 13`` (2
+   super-groups + 1 trailing layer, 1.32 B parameters), 3 bf16 steps of 8
+   x 2048 tokens with the bi-level constraint on ``(w_up|w_gate|w_in)``:
+   finite losses and gradient norms, every projected slice feasible, each
+   slice's column sparsity under 100 % and above 0 in some slice of each
+   leaf (min, mean and max printed), step seconds and peak memory. (d) the same for xlstm-1.3b: (a)'s readings at full width
+   and depth (48 layers, 2.02 B parameters), layer 0's chunkwise mLSTM
+   against its sequential form within REC_MLSTM_BAR · max|y|, the sLSTM's
+   time loop timed at the training shape, and (c)'s at ``--layers 16`` (14
+   mLSTM + 2 sLSTM). (e) the train launcher on both
+   archs' smoke configs, 3 bf16 steps with the constraint on, on the card
+   and on the CPU from one saved init, within MOE_LOSS_RTOL,
+   MOE_GNORM_RTOL and 2 · steps · lr + MOE_PARAM_ATOL (``tests/
+   test_torch_train.py``'s bf16 bars). No kernel launches in the phase
+   (the shared attention is 112 wide and runs chunked, xLSTM has none,
+   and the trainer projects with the plain schedule), and the phase fails
+   if one does.
 
 The widths are the SAE factory's on stablelm-1.6b: d_model 2048, d_dict
 4 x 2048 = 8192, 32 heads; the projected tensor is the transposed encoder.
@@ -3934,6 +3965,29 @@ MOE_LOSS_RTOL, MOE_GNORM_RTOL, MOE_PARAM_ATOL = 1e-2, 5e-2, 1e-5
 MOE_TIE = BF16_RTOL
 
 
+def time_decode(step, params, nxt, cache, start, n):
+    """``n`` greedy decode steps from position ``start`` (host clock between
+    two synchronizes), then one more profiled: (ms a step, {device kernel:
+    ms} of one step, device kernels and copies a step, that step's
+    position)."""
+    import torch
+
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            nxt, _, cache = step(params, nxt, cache, start + i)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / n
+        pos = start + n
+
+        def one():
+            step(params, nxt, cache, pos)
+        per_kernel = device_kernels(one)
+        n_launch = sum(device_kernels(one, counts=True).values())
+    return step_ms, per_kernel, n_launch, pos
+
+
 def moe_serve(dev, smi):
     """(a) the serve launcher at full width, 4 layers, timed per decode step
     beside its byte bound; (b) layer 0's absorbed decode against the full
@@ -3971,20 +4025,9 @@ def moe_serve(dev, smi):
                                          plen + MOE_DECODE_TIMED + 2)
     if not bool(torch.isfinite(logits).all()):
         raise SmokeFailure("moe (a): non-finite decode logits")
-    nxt = logits.argmax(-1).to(torch.int32)
-    with torch.inference_mode():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(MOE_DECODE_TIMED):
-            nxt, _, cache = step(params, nxt, cache, plen + i)
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) * 1e3 / MOE_DECODE_TIMED
-        pos = plen + MOE_DECODE_TIMED
-
-        def one():
-            step(params, nxt, cache, pos)
-        per_kernel = device_kernels(one)
-        n_launch = sum(device_kernels(one, counts=True).values())
+    step_ms, per_kernel, n_launch, pos = time_decode(
+        step, params, logits.argmax(-1).to(torch.int32), cache, plen,
+        MOE_DECODE_TIMED)
     busy = sum(per_kernel.values())
     top = sorted(per_kernel, key=lambda k: -per_kernel[k])[:6]
     print("moe (a) a decode step's largest device kernels: " + "; ".join(
@@ -4174,6 +4217,24 @@ def moe_harvest(dev, workdir, smi):
             "meta": summary["meta"]}
 
 
+def card_vs_cpu(card, cpu, slack):
+    """Two launcher runs' largest relative gaps in losses and gradient norms
+    (``{"losses", "grad_norms"}``), and the worst parameter gap past
+    ``slack``, over its leaf's largest entry."""
+    from repro_torch import _tree
+
+    rel = {k: max(abs(a - b) / abs(b) for a, b in zip(card[k], cpu[k]))
+           for k in ("losses", "grad_norms")}
+    worst = 0.0
+    for (_, p), (_, q) in zip(
+            _tree.leaves_with_paths(card["state"]["params"]),
+            _tree.leaves_with_paths(cpu["state"]["params"])):
+        q = q.float()
+        d = (p.cpu().float() - q).abs() - slack
+        worst = max(worst, float(d.max()) / max(float(q.abs().max()), 1e-30))
+    return rel, worst
+
+
 def _routing_flips(card, cpu):
     """Compare the router's decisions of two runs call by call (each a list
     of ``{"top_i", "keep", "probs"}`` on the host): ``(calls that differ,
@@ -4212,7 +4273,6 @@ def moe_smoke_trains(smi, workdir):
     MOE_TIE of each other in the CPU's probabilities."""
     import torch
 
-    from repro_torch import _tree
     from repro_torch.launch import train as train_cli
     from repro_torch.models import layers as L
 
@@ -4251,16 +4311,8 @@ def moe_smoke_trains(smi, workdir):
         experts = {k: float((card["state"]["params"]["moe_blocks"]["mlp"][k]
                              .abs().amax(dim=2) == 0).float().mean())
                    for k in ("w_up", "w_gate")}
-        rel = {k: max(abs(a - b) / abs(b) for a, b in zip(card[k], cpu[k]))
-               for k in ("losses", "grad_norms")}
         slack = 2 * MOE_SMOKE_STEPS * MOE_SMOKE_LR
-        worst = 0.0
-        for (name, p), (_, q) in zip(
-                _tree.leaves_with_paths(card["state"]["params"]),
-                _tree.leaves_with_paths(cpu["state"]["params"])):
-            q = q.float()
-            d = (p.cpu().float() - q).abs() - slack
-            worst = max(worst, float(d.max()) / max(float(q.abs().max()), 1e-30))
+        rel, worst = card_vs_cpu(card, cpu, slack)
         flips = ("the same routing in all " if not n_diff else
                  f"routing differs in {n_diff} of ") + \
             f"{len(calls['cpu'])} router calls" + (
@@ -4330,6 +4382,430 @@ def moe_phase(dev, smi):
     return rec
 
 
+# the recurrent families (phase 12): zamba2-7b and xlstm-1.3b at full width,
+# seeded float32. Served at full depth; trained cut to 13 and 16 layers.
+REC_SERVE_ARGV = ["--batch", "8", "--prompt-len", "128", "--new", "16"]
+REC_DECODE_TIMED = 8          # decode steps timed after the held prompt
+REC_SSD_TOKENS = 256          # (b): two of zamba's 128-token chunks
+REC_SSD_BAR = 1e-4            # (b): of max|y|, float32
+REC_MLSTM_BAR = 1e-4          # (d): of max|y|, float32
+REC_PATTERN = r"(w_up|w_gate|w_in)"   # the launcher's; mLSTM's w_gates too
+REC_RADIUS_FRACTION = 0.05    # of the init's smallest per-slice l1,inf norm
+REC_TRAIN = {  # arch -> the train launcher's argv at full width
+    "zamba2-7b": ["--layers", "13", "--batch", "8", "--microbatch", "4",
+                  "--seq", "2048", "--steps", "3"],
+    "xlstm-1.3b": ["--layers", "16", "--batch", "8", "--microbatch", "8",
+                   "--seq", "2048", "--steps", "3"],
+}
+REC_SMOKE_RADIUS = {"zamba2-7b": 5.0, "xlstm-1.3b": 0.5}
+REC_SMOKE_ARGV = ["--smoke", "--steps", str(MOE_SMOKE_STEPS), "--lr",
+                  repr(MOE_SMOKE_LR), "--seq", "32", "--batch", "8",
+                  "--microbatch", "4"]
+
+
+def _bilevel_slices(w):
+    """A matched leaf's (rows, cols) slices over its leading axes."""
+    return w.reshape((-1,) + tuple(w.shape[-2:]))
+
+
+def rec_radius(dev, cfg):
+    """REC_RADIUS_FRACTION of the smallest per-slice bi-level l1,inf norm of
+    the launcher's seed-0 init of the leaves REC_PATTERN matches (each leaf
+    drawn alone: its generator is seeded from its path), and that norm."""
+    from repro_torch import _tree, models
+    from repro_torch.configs.types import ProjectionSpec
+    from repro_torch.core.multilevel import multilevel_norm
+    from repro_torch.models import params as PM
+
+    levels = list(ProjectionSpec().levels)
+    norms = []
+    for path, pd in _tree.leaves_with_paths(models.get(cfg).template(cfg)):
+        if len(pd.shape) < 2 or not re.search(REC_PATTERN, path):
+            continue
+        one = pd
+        for k in reversed(path.split("/")):
+            one = {k: one}
+        w = _tree.leaves(PM.init_params(one, SEED, device=dev))[0]
+        norms += [float(multilevel_norm(x, levels)) for x in _bilevel_slices(w)]
+        del w
+    return REC_RADIUS_FRACTION * min(norms), min(norms)
+
+
+def rec_bound_ms(params, cache, batch, valid):
+    """One decode step's byte bound: every weight read once (the input
+    embedding by the batch's rows), the recurrent state read and written
+    once, and the KV cache's ``valid`` slots read once."""
+    from repro_torch import _tree
+
+    nbytes = sum(batch * p.shape[1] * p.element_size() if name == "embed"
+                 else p.numel() * p.element_size()
+                 for name, p in _tree.leaves_with_paths(params))
+    state = kv = 0
+    for name, c in cache.items():
+        if name in ("k", "v"):
+            kv += c[:, :, :valid].numel() * c.element_size()
+        else:
+            state += 2 * c.numel() * c.element_size()
+    return (nbytes + state + kv) / HBM_BYTES_PER_S * 1e3, nbytes, state, kv
+
+
+def rec_serve(dev, smi, arch):
+    """(a), and (d)'s serving: the serve launcher at full width and depth,
+    held against the teacher-forced forward and timed per decode step."""
+    import torch
+
+    from repro_torch import _tree, models
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serving import lm
+
+    argv = ["--arch", arch] + REC_SERVE_ARGV
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = serve_cli.run(argv)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    a = serve_args(argv)
+    b, plen, new = int(a["--batch"]), int(a["--prompt-len"]), int(a["--new"])
+    cfg, params, prompts = res["cfg"], res["params"], res["prompts"]
+    n_params = sum(p.numel() for p in _tree.leaves(params))
+    toks = res["tokens"]
+    if not (toks.dtype == torch.int32 and int(toks.min()) >= 0
+            and int(toks.max()) < cfg.vocab and toks.shape == (b, new)):
+        raise SmokeFailure(f"recurrent (a) {arch}: tokens {toks.dtype} "
+                           f"{tuple(toks.shape)} outside [0, {cfg.vocab})")
+    print(f"recurrent {arch} python -m repro_torch.launch.serve {' '.join(argv)}"
+          f": {cfg.n_layers} layers d_model {cfg.d_model}, {n_params} float32 "
+          f"params ({n_params * 4 / 1e9:.2f} GB); {res['seconds']:.3f} s for "
+          f"{b} x {new} new tokens after {plen} prompt tokens "
+          f"({res['tok_per_s']:.2f} tok/s, host clock, prompt replay included;"
+          f" {res['seconds'] * 1e3 / (plen + new):.3f} ms a decode step over "
+          f"the run's {plen + new}); peak device memory {peak / 2**30:.2f} GiB;"
+          f" {smi}")
+    logits, cache, step = _decode_replay(cfg, params, prompts,
+                                         plen + REC_DECODE_TIMED + 2)
+    want = lm.make_prefill(cfg, models.get(cfg))(params, prompts)
+    scale = float(want.abs().max())
+    err = float((logits - want).abs().max())
+    print(f"recurrent {arch}: decode vs the teacher-forced forward at position "
+          f"{plen - 1}: max_abs_err {err:.3e} (bar {SERVE_BAR} x max|logits| "
+          f"{scale:.4g})")
+    if not (bool(torch.isfinite(logits).all()) and err <= SERVE_BAR * scale):
+        raise SmokeFailure(f"recurrent {arch}: decode logits {err:.3e} from the "
+                           f"forward's (bar {SERVE_BAR * scale:.3e})")
+    del want
+    step_ms, per_kernel, n_launch, pos = time_decode(
+        step, params, logits.argmax(-1).to(torch.int32), cache, plen,
+        REC_DECODE_TIMED)
+    busy = sum(per_kernel.values())
+    top = sorted(per_kernel, key=lambda k: -per_kernel[k])[:6]
+    print(f"recurrent {arch} a decode step's largest device kernels: " + "; ".join(
+        f"{per_kernel[k]:.3f} ms {k[:70]}" for k in top))
+    bms, wbytes, sbytes, kvbytes = rec_bound_ms(params, cache, b, pos + 1)
+    bound_by = "host" if busy < 0.5 * step_ms else "device"
+    print(f"recurrent {arch} decode step at position {pos} (batch {b}): "
+          f"{step_ms:.3f} ms (host clock, mean of {REC_DECODE_TIMED}), "
+          f"{b / step_ms * 1e3:.2f} tok/s; byte bound {bms:.3f} ms ({wbytes} "
+          f"bytes of weights + {sbytes} of recurrent state read and written + "
+          f"{kvbytes} of KV read, over {HBM_BYTES_PER_S / 1e12:.2f} TB/s); "
+          f"{n_launch} device kernels and copies a step "
+          f"({n_launch / cfg.n_layers:.1f} a layer), device busy {busy:.3f} ms: "
+          f"{bound_by}-bound; {smi}")
+    rec = {"argv": argv, "params": n_params, "seconds": res["seconds"],
+           "tok_per_s": res["tok_per_s"], "peak_bytes": peak,
+           "max_abs_err": err, "scale": scale, "decode_step_ms": step_ms,
+           "decode_tok_per_s": b / step_ms * 1e3, "bound_ms": bms,
+           "weight_bytes": wbytes, "state_bytes_rw": sbytes,
+           "kv_bytes": kvbytes, "kernels_per_step": n_launch,
+           "device_busy_ms": busy, "bound_by": bound_by,
+           "top_kernels_ms": {k: per_kernel[k] for k in top}}
+    del cache, step, logits
+    return rec, res
+
+
+def zamba_ssd(dev, smi, res):
+    """(b): zamba's layer 0 at full width on REC_SSD_TOKENS seeded tokens,
+    the chunked SSD against the token-by-token recurrence (``mamba2_apply``
+    with a state, one token a call); then one backward through the chunked
+    form, whose dt-gradient must be finite."""
+    import numpy as np
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.models import layers as L
+
+    cfg, params = res["cfg"], res["params"]
+    ssm = cfg.ssm
+    lp = _tree.tree_map(lambda t: t[0, 0], params["mamba_super"])
+    norm = params["mamba_norm"]["super"][0, 0]
+    toks = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (2, REC_SSD_TOKENS)), device=dev)
+    di = ssm.expand * cfg.d_model
+    h = di // ssm.head_dim
+    gn = ssm.n_groups * ssm.d_state
+    with torch.inference_mode():
+        x = L.rms_norm(params["embed"][toks], norm, cfg.norm_eps)
+        y, _ = L.mamba2_apply(lp, x, ssm)
+        state = (torch.zeros(2, ssm.d_conv, di + 2 * gn, device=dev),
+                 torch.zeros(2, h, ssm.d_state, ssm.head_dim, device=dev))
+        ys = []
+        for t in range(REC_SSD_TOKENS):
+            yt, state = L.mamba2_apply(lp, x[:, t:t + 1], ssm, state=state)
+            ys.append(yt)
+        seq = torch.cat(ys, dim=1)
+        # the largest exponent off the causal triangle: (chunk - 1) · max dt
+        dt = torch.nn.functional.softplus(
+            (x @ lp["w_in"])[..., -h:].float() + lp["dt_bias"].float())
+    scale = float(seq.abs().max())
+    err = float((y - seq).abs().max())
+    off = (ssm.chunk - 1) * float(dt.max())
+    x = x.clone().requires_grad_(True)
+    w = {k: v.detach().clone().requires_grad_(k == "dt_bias") for k, v in lp.items()}
+    out, _ = L.mamba2_apply(w, x, ssm)
+    out.float().square().mean().backward()
+    finite = bool(torch.isfinite(w["dt_bias"].grad).all()
+                  and torch.isfinite(x.grad).all())
+    print(f"recurrent (b) zamba layer 0 on {REC_SSD_TOKENS} tokens "
+          f"({REC_SSD_TOKENS // ssm.chunk} chunks of {ssm.chunk}, {h} heads "
+          f"over {ssm.n_groups} groups): chunked vs token-by-token max_abs_err "
+          f"{err:.3e} (bar {REC_SSD_BAR} x max|y| {scale:.4g}); the largest "
+          f"off-triangle exponent {off:.2f} (float32 exp overflows past 88.72)"
+          f"; dt_bias and input gradients finite {finite}; {smi}")
+    if not (err <= REC_SSD_BAR * scale and finite):
+        raise SmokeFailure(f"recurrent (b): SSD {err:.3e} from the recurrence "
+                           f"(bar {REC_SSD_BAR * scale:.3e}), finite grads {finite}")
+    return {"tokens": REC_SSD_TOKENS, "max_abs_err": err, "scale": scale,
+            "off_triangle_exponent": off, "grads_finite": finite}
+
+
+def xlstm_layers(dev, smi, res):
+    """(d): xLSTM's layer 0 at full width on the prompts' embeddings, the
+    chunkwise mLSTM against the sequential recurrence; then super-block 0's
+    sLSTM at the training shape (REC_TRAIN's batch and sequence, bf16
+    compute), its time loop timed forward and forward+backward (host clock
+    around a synchronize) and its device kernels per time step counted on
+    16 steps."""
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.models import xlstm
+
+    cfg, params, prompts = res["cfg"], res["params"], res["prompts"]
+    lp = _tree.tree_map(lambda t: t[0, 0], params["mlstm"])
+    with torch.inference_mode():
+        x = params["embed"][prompts]
+        ch, st_c = xlstm._mlstm_block(lp, x, cfg, seq_mode="chunkwise")
+        sq, st_s = xlstm._mlstm_block(lp, x, cfg, seq_mode="sequential")
+    scale = float(sq.abs().max())
+    err = float((ch - sq).abs().max())
+    c_err = float((st_c[0] - st_s[0]).abs().max()) / float(st_s[0].abs().max())
+    print(f"recurrent (d) xlstm layer 0 on the prompts ({tuple(prompts.shape)}, "
+          f"chunk {cfg.xlstm.chunk}): chunkwise vs sequential max_abs_err "
+          f"{err:.3e} (bar {REC_MLSTM_BAR} x max|y| {scale:.4g}), final C "
+          f"{c_err:.3e} of its largest entry; {smi}")
+    if not (err <= REC_MLSTM_BAR * scale and c_err <= REC_MLSTM_BAR):
+        raise SmokeFailure(f"recurrent (d): chunkwise mLSTM {err:.3e} from the "
+                           f"sequential (bar {REC_MLSTM_BAR * scale:.3e}), C "
+                           f"{c_err:.3e}")
+    del ch, sq, st_c, st_s
+    a = serve_args(REC_TRAIN["xlstm-1.3b"])
+    b, s = int(a["--microbatch"]), int(a["--seq"])
+    sp = _tree.tree_map(lambda t: t[0].to(torch.bfloat16).requires_grad_(),
+                        params["slstm"])
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    xs = torch.randn(b, s, cfg.d_model, generator=gen, device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        xlstm._slstm_block(sp, xs[:, :16], cfg)                # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xlstm._slstm_block(sp, xs, cfg)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        per_step = sum(device_kernels(
+            lambda: xlstm._slstm_block(sp, xs[:, :16], cfg), counts=True)
+            .values()) / 16
+    t0 = time.perf_counter()
+    y, _ = xlstm._slstm_block(sp, xs, cfg)
+    y.float().square().mean().backward()
+    torch.cuda.synchronize()
+    fb_ms = (time.perf_counter() - t0) * 1e3
+    print(f"recurrent (d) xlstm sLSTM block at ({b}, {s}) bf16: forward "
+          f"{fwd_ms:.1f} ms ({fwd_ms / s * 1e3:.1f} us a time step), forward+"
+          f"backward {fb_ms:.1f} ms ({fb_ms / s * 1e3:.1f} us a time step; host "
+          f"clock); {per_step:.1f} device kernels a forward time step; {smi}")
+    del sp, xs, y
+    return {"max_abs_err": err, "scale": scale, "state_rel_err": c_err,
+            "slstm_shape": [b, s], "slstm_fwd_ms": fwd_ms,
+            "slstm_fwd_bwd_ms": fb_ms, "slstm_kernels_per_step": per_step}
+
+
+def rec_train(dev, smi, arch):
+    """(c), and (d)'s training: the train launcher at full width, cut to
+    REC_TRAIN's depth, 3 bf16 steps with the constraint on REC_PATTERN."""
+    import numpy as np
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.configs import registry
+    from repro_torch.configs.types import ProjectionSpec
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import lm
+    from repro_torch.training.sae_factory import constraint_report
+
+    argv = ["--arch", arch] + REC_TRAIN[arch]
+    a = serve_args(REC_TRAIN[arch])
+    cfg = lm.cut_depth(registry.get_arch(arch), int(a["--layers"]))
+    radius, init_norm = rec_radius(dev, cfg)
+    argv += ["--radius", repr(radius)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train_cli.run(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    params = out["state"]["params"]
+    n_params = sum(p.numel() for p in _tree.leaves(params))
+    losses, gnorms = out["losses"], out["grad_norms"]
+    step_s = out["step_seconds"]
+    steps = int(a["--steps"])
+    print(f"recurrent {arch} python -m repro_torch.launch.train {' '.join(argv)}"
+          f": {cfg.n_layers} layers d_model {cfg.d_model}, {n_params} float32 "
+          f"params; {run_s:.1f} s (init and {steps} steps); step seconds "
+          + " ".join(f"{x:.3f}" for x in step_s)
+          + f"; losses {losses} gradient norms {gnorms}; peak device memory "
+          f"{peak / 2**30:.2f} GiB; radius {radius:.6g} = {REC_RADIUS_FRACTION} x "
+          f"the init's smallest per-slice l1,inf norm ({init_norm:.6g}); {smi}")
+    if not (len(losses) == steps and all(np.isfinite(losses))
+            and all(np.isfinite(gnorms))):
+        raise SmokeFailure(f"recurrent {arch} train: losses {losses}, gradient "
+                           f"norms {gnorms}")
+    spec = ProjectionSpec(pattern=REC_PATTERN, radius=radius)
+    rep = constraint_report(params, spec)
+    if not rep["max_violation"] <= 1e-5 * radius:
+        raise SmokeFailure(f"recurrent {arch} train: infeasible {rep}")
+    sparsity = {}
+    for name, w in _tree.leaves_with_paths(params):
+        if name not in rep["norms"]:
+            continue
+        cols = _bilevel_slices(w).abs().amax(dim=1)
+        per = (100.0 * (cols == 0).float().mean(dim=1)).tolist()
+        sparsity[name] = per
+        print(f"recurrent {arch} train {name} {tuple(w.shape)}: per-slice "
+              f"column sparsity min {min(per):.2f}% mean "
+              f"{sum(per) / len(per):.2f}% max {max(per):.2f}% over "
+              f"{len(per)} slices; largest norm {rep['norms'][name]:.6g}")
+        # every slice keeps a column, and the constraint zeroes columns in
+        # every leaf: a slice of few columns (mLSTM's 8-column w_gates) may
+        # have all of them back after AdamW's next move of about lr
+        if not (all(x < 100.0 for x in per) and max(per) > 0.0):
+            raise SmokeFailure(f"recurrent {arch} train: {name} per-slice column "
+                               f"sparsity {per}: a slice lost every column, or "
+                               "the leaf none")
+    del out, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"argv": argv, "params": n_params, "losses": losses,
+            "grad_norms": gnorms, "step_seconds": step_s, "run_s": run_s,
+            "peak_bytes": peak,
+            "radius": radius, "init_norm": init_norm,
+            "max_violation": rep["max_violation"], "sparsity": sparsity}
+
+
+def rec_smoke_trains(smi, workdir):
+    """(e): the train launcher on both archs' smoke configs, 3 steps in its
+    bf16 compute with the constraint on, on the card and on the CPU from one
+    init (drawn on the CPU and saved with ``--steps 0``, which both runs
+    restore with ``--ckpt``): losses within MOE_LOSS_RTOL, gradient norms
+    within MOE_GNORM_RTOL, the final params within 2 · steps · lr +
+    MOE_PARAM_ATOL of each leaf's largest entry."""
+    import torch
+
+    from repro_torch.launch import train as train_cli
+
+    out = {}
+    for arch, radius in REC_SMOKE_RADIUS.items():
+        shutil.rmtree(workdir, ignore_errors=True)
+        argv = ["--arch", arch, "--radius", repr(radius)] + REC_SMOKE_ARGV
+        with contextlib.redirect_stdout(None):
+            train_cli.run(argv + ["--device", "cpu", "--steps", "0", "--ckpt",
+                                  str(workdir / "init")])
+        runs = {}
+        for device in ("cuda", "cpu"):
+            shutil.copytree(workdir / "init", workdir / device)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(None):
+                runs[device] = train_cli.run(
+                    argv + ["--device", device, "--ckpt", str(workdir / device)])
+            runs[device]["wall"] = time.perf_counter() - t0
+        shutil.rmtree(workdir, ignore_errors=True)
+        card, cpu = runs["cuda"], runs["cpu"]
+        slack = 2 * MOE_SMOKE_STEPS * MOE_SMOKE_LR
+        rel, worst = card_vs_cpu(card, cpu, slack)
+        print(f"recurrent (e) launch.train {' '.join(argv)} (bf16 compute): "
+              f"losses card {card['losses']} cpu {cpu['losses']}, max rel "
+              f"{rel['losses']:.3e} (bar {MOE_LOSS_RTOL}); gradient norms max "
+              f"rel {rel['grad_norms']:.3e} (bar {MOE_GNORM_RTOL}); params worst "
+              f"{worst:.3e} of the leaf's largest entry past {slack:.1e} (bar "
+              f"{MOE_PARAM_ATOL}); column sparsity {card['sparsity']}; "
+              f"{card['wall']:.1f} s on the card, {cpu['wall']:.1f} s on the "
+              f"CPU; {smi}")
+        if not (all(math.isfinite(v) for v in card["losses"])
+                and rel["losses"] <= MOE_LOSS_RTOL
+                and rel["grad_norms"] <= MOE_GNORM_RTOL
+                and worst <= MOE_PARAM_ATOL):
+            raise SmokeFailure(f"recurrent (e) {arch}: card vs CPU {rel}, params "
+                               f"{worst:.3e}")
+        out[arch] = {"losses": card["losses"], "cpu_losses": cpu["losses"],
+                     "max_rel": rel, "params_worst": worst,
+                     "sparsity": card["sparsity"], "card_s": card["wall"],
+                     "cpu_s": cpu["wall"]}
+        del runs, card, cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def recurrent_phase(dev, smi):
+    """Phase 12: (a)-(e) of the module docstring, from freed memory, each
+    model freed before the next; the launch counts of every kernel over the
+    phase (all 0)."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    rec = {}
+    rec["zamba_serve"], res = rec_serve(dev, smi, "zamba2-7b")
+    rec["zamba_ssd"] = zamba_ssd(dev, smi, res)
+    del res
+    rec["zamba_train"] = rec_train(dev, smi, "zamba2-7b")
+    rec["xlstm_serve"], res = rec_serve(dev, smi, "xlstm-1.3b")
+    rec["xlstm_layers"] = xlstm_layers(dev, smi, res)
+    del res
+    rec["xlstm_train"] = rec_train(dev, smi, "xlstm-1.3b")
+    rec["smoke_train"] = rec_smoke_trains(smi, ROOT / "build" /
+                                          "chip_smoke_recurrent")
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    if len(launches) != 14:
+        raise SmokeFailure(f"recurrent: {len(launches)} kernels registered, "
+                           "not the 14 whose launches the phase counts")
+    rec.update(launches=launches, phase_seconds=time.perf_counter() - t0,
+               base_bytes=base)
+    print(f"recurrent: phase 12 in {rec['phase_seconds']:.1f} s "
+          f"({base / 2**30:.2f} GiB allocated before); kernel launches "
+          f"{launches}; {smi}")
+    if any(launches.values()):
+        raise SmokeFailure(f"recurrent: phase 12 launched kernels {launches}; "
+                           "its paths run none")
+    return rec
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4338,7 +4814,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on the card.")
     ap.add_argument("--only", choices=("mesh", "attention", "autograd",
                                        "sae_tables", "train_mesh", "serve",
-                                       "moe"),
+                                       "moe", "recurrent"),
                     help="run one phase alone: 'mesh' builds the kernels and "
                          "runs phase 7 (the partial apply, then the mesh "
                          "executor on four ranks); 'attention' builds them "
@@ -4350,7 +4826,8 @@ def main(argv=None) -> int:
                          "made from the seed; 'sae_tables' runs phase 8; "
                          "'train_mesh' builds them and runs phase 9; "
                          "'serve' builds them and runs phase 10; 'moe' "
-                         "builds them and runs phase 11")
+                         "builds them and runs phase 11; 'recurrent' builds "
+                         "them and runs phase 12")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -4495,6 +4972,9 @@ def main(argv=None) -> int:
 
     if args.only == "moe":
         return finish({"kernels": [], "moe": moe_phase(dev, smi)})
+
+    if args.only == "recurrent":
+        return finish({"kernels": [], "recurrent": recurrent_phase(dev, smi)})
 
     # ------------------------------------- phase 1: kernels vs plain versions
     for name, shape, levels in DESIGNS:
@@ -4783,10 +5263,15 @@ def main(argv=None) -> int:
 
     # ---------------------------- phase 11: the MoE family at full width
     moe = moe_phase(dev, smi)
+
+    # ------------------------ phase 12: the recurrent families at full width
+    recurrent = recurrent_phase(dev, smi)
     for row in rows:
         row["launches_moe"] = moe["launches"].get(row["name"], 0)
+        row["launches_recurrent"] = recurrent["launches"].get(row["name"], 0)
     return finish({"kernels": rows, "mesh": mesh, "grad": grad,
                    "train_mesh": train_mesh, "serve": serve, "moe": moe,
+                   "recurrent": recurrent,
                    "refuse_grad": refused, "sae_tables": tables,
                    "factory": {"harvest_step_ms": step_parts,
                                "sae_step_ms": sae_parts,

@@ -41,6 +41,20 @@ class HarvestConfig:
             raise ValueError(f"unknown harvest site {self.site!r}")
 
 
+def check_family(cfg) -> None:
+    """Harvesting reads per-layer activations through ``forward(collect=)``,
+    which the dense and MoE LMs have. The recurrent families' forwards have
+    none (the JAX package's harvest unpacks three values from their
+    two-valued forward and fails), so they are refused by name."""
+    from repro_torch.models.lm import RECURRENT
+
+    if cfg.family in RECURRENT:
+        raise ValueError(
+            f"{cfg.name}: harvesting captures the per-layer activations of the "
+            f"dense and MoE LMs; the {cfg.family} family's forward collects "
+            "none")
+
+
 def _shard_name(layer: int, step: int) -> str:
     return f"layer{layer:03d}_shard{step:05d}.npy"
 
@@ -59,6 +73,7 @@ def harvest(params, cfg, pipe, out_dir, *, hcfg: HarvestConfig = None,
     """
     from repro_torch.models import lm
 
+    check_family(cfg)
     hcfg = hcfg or HarvestConfig()
     fwd = forward or lm.forward
     out = pathlib.Path(out_dir)

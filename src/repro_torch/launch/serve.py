@@ -7,8 +7,10 @@ greedy decoding against a seeded or checkpoint-initialized model.
 decodes on the card (``--device cpu`` runs on the CPU; ``--smoke`` the
 reduced config; ``--layers N``, the port's own option, cuts the model to
 its first N layers at full width: an MoE model keeps its dense leading
-layers and needs more than those). An MLA model (deepseek-v3-671b,
-kimi-k2-1t-a32b) decodes from its compressed latent cache. The parameters come from
+layers and needs more than those, an xLSTM model whole super-blocks). An
+MLA model (deepseek-v3-671b, kimi-k2-1t-a32b) decodes from its compressed
+latent cache, zamba2-7b from its Mamba2 states and its shared attention's
+KV cache, xlstm-1.3b from its recurrent state. The parameters come from
 ``--ckpt``'s latest checkpoint (its ``params``) or are drawn from seed 0 in
 float32; the prompts from ``np.random.default_rng(0)``, as in the JAX
 launcher. ``lm.generate`` replays each prompt through the decode step and

@@ -10,7 +10,10 @@ checkpoint in ``--ckpt``), the deterministic data pipeline, the projected
 train step, async checkpointing every ``--ckpt-every`` steps and a final
 save (skipped when the loop has just written the last step: the JAX
 launcher writes that state twice), the straggler monitor, and the
-paper's bi-level ℓ1,∞ constraint on ``(w_up|w_gate)`` when ``--radius > 0``.
+paper's bi-level ℓ1,∞ constraint on ``(w_up|w_gate|w_in)`` when ``--radius >
+0``: the JAX launcher's ``(w_up|w_gate)`` on every dense and MoE model,
+which have no ``w_in``, and on the recurrent ones also the Mamba2 and sLSTM
+input projections (and, by ``re.search``, mLSTM's ``w_gates``).
 It prints the JAX launcher's lines: ``step N loss L gnorm G`` every 10
 steps and at the last, and ``column sparsity <leaf>: x%``.
 
@@ -41,9 +44,14 @@ package's ``"pallas"`` (the JAX launcher trains with ``"chunked"``, or
 ``"naive"`` under ``--smoke``); under a mesh on each rank's own heads.
 ``--attn chunked`` or ``naive`` run the PyTorch paths; an MLA model
 (deepseek-v3-671b, kimi-k2-1t-a32b), whose q/k and v heads differ in
-width, needs one of them. ``--layers N`` (the port's own option) cuts the
-model to its first N layers at full width; an MoE model keeps its dense
-leading layers and needs more than those. ``--telemetry-every N`` / ``--telemetry-marks``
+width, needs one of them. The recurrent families take no ``--attn``, as in
+the JAX package: zamba2-7b's shared attention runs chunked and xlstm-1.3b
+has none; the launcher says which ran. ``--layers N`` (the port's own
+option) cuts the model to its first N layers at full width
+(``models.lm.cut_depth``): an MoE model keeps its dense leading layers and
+needs more than those, an xLSTM model whole super-blocks of
+``slstm_every`` layers. The recurrent families train on one device: a
+``--mesh`` beyond ``1x1`` is refused. ``--telemetry-every N`` / ``--telemetry-marks``
 turn the in-step telemetry bridge (``obs/bridge.py``) on for the run and
 give the step its cadence and marks (``training/step.py``); the pending
 values are drained into the registry before the run returns.
@@ -188,9 +196,14 @@ def _run(args) -> dict:
     from repro_torch.runtime import CheckpointManager, StragglerMonitor
     from repro_torch.training import init_state, make_train_step
 
+    cfg = (registry.smoke_config(args.arch) if args.smoke
+           else registry.get_arch(args.arch))
+    if args.layers:
+        cfg = lm.cut_depth(cfg, args.layers)
     sizes, _ = mesh_dims(args.mesh)
     sharded = any(d > 1 for d in sizes)
     if sharded:
+        lm._refuse_mesh(cfg)
         dev = join_world(int(torch.tensor(sizes).prod()), args.device)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
@@ -200,15 +213,16 @@ def _run(args) -> dict:
         dev = _device.resolve(args.device)
         mesh, rank, world = None, 0, 1
     say = print if rank == 0 else (lambda *a, **k: None)
-    cfg = (registry.smoke_config(args.arch) if args.smoke
-           else registry.get_arch(args.arch))
-    if args.layers:
-        cfg = lm.cut_depth(cfg, args.layers)
     api = models.get(cfg)
+    if cfg.family in lm.RECURRENT:
+        # the step passes these forwards no impl, as the JAX package's does
+        ran = "chunked (the shared block)" if cfg.family == "hybrid" else "none"
+        say(f"attention: {ran}; a {cfg.family} model takes no --attn "
+            f"({args.attn} not used)")
     micro = args.microbatch or args.batch
     proj = None
     if args.radius > 0:
-        proj = ProjectionSpec(pattern=r"(w_up|w_gate)", radius=args.radius)
+        proj = ProjectionSpec(pattern=r"(w_up|w_gate|w_in)", radius=args.radius)
     tcfg = TrainConfig(microbatch=micro, lr=args.lr, total_steps=args.steps,
                        warmup=min(20, args.steps // 5 + 1), remat=not args.smoke,
                        master_dtype="", projection=proj,

@@ -7,9 +7,10 @@
     logits, cache = api.decode_step(params, toks, cache, pos, cfg)
 
 The port covers the LM families of ``lm`` (dense, and the MoE family with
-MLA attention, each with its cache decode) and the paper's SAE (``sae``,
-train-only). The audio (whisper), SSM (xLSTM) and hybrid (zamba) models
-wait for their slices.
+MLA attention, each with its cache decode), the recurrent families, hybrid
+(``zamba``: Mamba2 with a shared attention block) and SSM (``xlstm``),
+each with an O(1) recurrent decode state, and the paper's SAE (``sae``,
+train-only). The audio model (whisper) waits for its slice.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Callable, Optional
 
 from repro_torch.configs.types import ArchConfig
 
-from . import layers, lm, params, sae  # noqa: F401
+from . import layers, lm, params, sae, xlstm, zamba  # noqa: F401
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,11 +35,24 @@ def get(cfg: ArchConfig) -> ModelAPI:
     fam = cfg.family
     if fam in ("dense", "moe", "vlm"):
         return ModelAPI(lm.template, lm.forward, lm.make_cache, lm.decode_step)
+    if fam == "ssm":
+        return ModelAPI(xlstm.template, xlstm.forward, _xlstm_cache,
+                        xlstm.decode_step)
+    if fam == "hybrid":
+        return ModelAPI(zamba.template, zamba.forward, zamba.make_cache,
+                        zamba.decode_step)
     if fam == "sae":
         return ModelAPI(sae.template, sae.forward)
-    waiting = {"audio": "whisper", "ssm": "xLSTM", "hybrid": "zamba"}
-    if fam in waiting:
-        raise ValueError(f"{cfg.name}: family {fam!r} ({waiting[fam]}) is not "
-                         "ported yet; the port covers the dense and MoE LMs "
-                         "and the SAE")
+    if fam == "audio":
+        raise ValueError(f"{cfg.name}: family {fam!r} (whisper) is not ported "
+                         "yet; the port covers the dense, MoE, hybrid and SSM "
+                         "LMs and the SAE")
     raise ValueError(f"unknown family {fam!r}")
+
+
+def _xlstm_cache(cfg: ArchConfig, batch: int, _max_len: int, dtype=None, *,
+                 device=None):
+    """``make_cache`` of the SSM family: the recurrent state, whose size
+    does not depend on the length (its dtype is float32 whatever ``dtype``
+    asks, as in the JAX package)."""
+    return xlstm.make_state(cfg, batch, device=device)

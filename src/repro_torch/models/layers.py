@@ -1,5 +1,5 @@
-"""Neural-net building blocks of the LM (port of ``repro/models/layers.py``,
-lines 35-198 and 201-312).
+"""Neural-net building blocks of the LMs (port of ``repro/models/layers.py``,
+lines 35-198 and 201-428).
 
 Everything is a plain function of (params, inputs) on tensors. Attention
 comes in three implementations selected by ``impl``:
@@ -15,7 +15,9 @@ comes in three implementations selected by ``impl``:
 All attention math accumulates in f32 regardless of compute dtype.
 :func:`attention_decode` is the single-token step against a KV cache.
 :func:`moe_apply` is the GShard capacity-dispatch mixture of experts, with
-both of the JAX package's dispatches. Mamba2 waits for its slice.
+both of the JAX package's dispatches. :func:`mamba2_apply` is the Mamba2
+block of the hybrid family: the chunked SSD (:func:`_ssd_chunked`) over a
+sequence, or one step of the recurrence against a (conv, ssm) state.
 """
 
 from __future__ import annotations
@@ -325,3 +327,127 @@ def moe_apply(p, x, cfg, *, n_groups: int, act="silu"):
     pe = r["probs"].mean(dim=1)
     aux = e * (me * pe).sum(dim=-1).mean()
     return out.reshape(tkns, m), aux
+
+
+# --------------------------------------------------------------------- mamba2
+def mamba2_template(d_model: int, cfg):
+    di = cfg.expand * d_model
+    h = di // cfg.head_dim
+    gn = cfg.n_groups * cfg.d_state
+    return {
+        # fused input projection: [z(di), x(di), B(gn), C(gn), dt(h)]
+        "w_in": ParamDef((d_model, 2 * di + 2 * gn + h), ("embed", "ssm_in"), "scaled"),
+        "conv_w": ParamDef((cfg.d_conv, di + 2 * gn), (None, None), "scaled", 0.1),
+        "a_log": ParamDef((h,), (None,), "zeros"),
+        "d_skip": ParamDef((h,), (None,), "ones"),
+        "dt_bias": ParamDef((h,), (None,), "zeros"),
+        "norm": ParamDef((di,), (None,), "ones"),
+        "w_out": ParamDef((di, d_model), ("ssm_in", "embed"), "scaled"),
+    }
+
+
+def _ssd_chunked(x, dt, A, B, C, *, chunk: int):
+    """Mamba2 SSD, chunked-parallel. x (b,s,h,p), dt (b,s,h), A (h,),
+    B/C (b,s,g,n) with h % g == 0: head i reads group i // (h/g). Returns
+    (b,s,h,p) in float32.
+
+    The intra-chunk decay ``L[i,j] = exp(cum_i - cum_j)`` is masked to the
+    causal triangle *before* the ``exp`` (``repro/models/layers.py:356``
+    masks after it). Off the triangle ``cum_i - cum_j`` is positive, up to
+    (chunk - 1)·max dt, and overflows float32's ``exp`` near 88.7: the
+    forward is the same either way, but the backward of ``where(causal,
+    exp(li), 0)`` multiplies that inf by 0, a NaN. Every other ``exp``
+    here has an exponent <= 0."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    c = min(chunk, s)
+    nc = -(-s // c)
+    pad = nc * c - s
+    if pad:  # dt pads with 0: no decay and no input through the pad
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, 0, 0, pad))
+    xc = x.reshape(b, nc, c, h, p).float()
+    dtc = dt.reshape(b, nc, c, h).float()
+    Bc = B.reshape(b, nc, c, g, n).repeat_interleave(rep, dim=3).float()
+    Cc = C.reshape(b, nc, c, g, n).repeat_interleave(rep, dim=3).float()
+
+    dA = dtc * (-torch.exp(A.float()))                          # <= 0
+    cum = torch.cumsum(dA, dim=2)                               # (b,nc,c,h)
+    li = cum[:, :, :, None, :] - cum[:, :, None, :, :]          # (b,nc,i,j,h)
+    ii = torch.arange(c, device=x.device)
+    causal = (ii[:, None] >= ii[None, :])[:, :, None]           # (i,j,1)
+    decay = torch.exp(li.masked_fill(~causal, -math.inf))
+    scores = torch.einsum("bzihn,bzjhn->bzijh", Cc, Bc) * decay
+    y_diag = torch.einsum("bzijh,bzjhp->bzihp", scores, xc * dtc[..., None])
+    # chunk end-states: S_z = sum_j exp(cum_end - cum_j) * B_j x_j dt_j
+    decay_out = torch.exp(cum[:, :, -1:, :] - cum)              # (b,nc,c,h)
+    S = torch.einsum("bzjhn,bzjhp->bzhnp", Bc * (decay_out * dtc)[..., None], xc)
+    chunk_decay = torch.exp(cum[:, :, -1, :])                   # (b,nc,h)
+    # the state entering each chunk, by the recurrence over chunks
+    hz = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    h_in = []
+    for z in range(nc):
+        h_in.append(hz)
+        hz = hz * chunk_decay[:, z, :, None, None] + S[:, z]
+    h_in = torch.stack(h_in, dim=1)                             # (b,nc,h,n,p)
+    y_off = torch.einsum("bzihn,bzhnp->bzihp", Cc * torch.exp(cum)[..., None], h_in)
+    y = (y_diag + y_off).reshape(b, nc * c, h, p)
+    return y[:, :s]
+
+
+def mamba2_apply(p, x, cfg, *, state=None):
+    """Mamba2 block on x (b, s, d) -> ``(y (b, s, d), new_state)``.
+
+    Without ``state`` the sequence runs through the chunked SSD and
+    ``new_state`` is None. With ``state = (conv_state (b, d_conv,
+    di + 2gn), ssm_state (b, h, n, p) float32)`` s must be 1: one step of
+    the recurrence ``h' = h·exp(dt·A) + dt·B⊗x, y = C·h'``, and
+    ``new_state`` is the rolled conv window and ``h'``."""
+    b, s, d = x.shape
+    di = cfg.expand * d
+    h = di // cfg.head_dim
+    gn = cfg.n_groups * cfg.d_state
+    proj = x @ p["w_in"]
+    z, xs, Bf, Cf, dt = torch.split(proj, [di, di, gn, gn, h], dim=-1)
+    dt = F.softplus(dt.float() + p["dt_bias"].float())
+
+    conv_in = torch.cat([xs, Bf, Cf], dim=-1)                  # (b, s, di+2gn)
+    if state is None:
+        # causal depthwise conv over time
+        ci = F.pad(conv_in, (0, 0, cfg.d_conv - 1, 0))
+        win = torch.stack([ci[:, i:i + s] for i in range(cfg.d_conv)], dim=-1)
+        conv = torch.einsum("bsdk,kd->bsd", win, p["conv_w"])
+        conv_state_new = None
+    else:
+        conv_state, ssm_state = state
+        roll = torch.cat([conv_state[:, 1:], conv_in], dim=1)  # promotes
+        conv = torch.einsum("bkd,kd->bd", roll,
+                            p["conv_w"].to(roll.dtype))[:, None, :]
+        conv_state_new = roll
+    conv = F.silu(conv)
+    xs2, Bf2, Cf2 = torch.split(conv, [di, gn, gn], dim=-1)
+    xh = xs2.reshape(b, s, h, cfg.head_dim)
+    Bm = Bf2.reshape(b, s, cfg.n_groups, cfg.d_state)
+    Cm = Cf2.reshape(b, s, cfg.n_groups, cfg.d_state)
+
+    if state is None:
+        y = _ssd_chunked(xh, dt, p["a_log"], Bm, Cm, chunk=cfg.chunk)
+        new_state = None
+    else:
+        rep = h // cfg.n_groups
+        dA = torch.exp(dt[:, 0] * (-torch.exp(p["a_log"].float())))   # (b,h)
+        Br = Bm[:, 0].repeat_interleave(rep, dim=1).float()            # (b,h,n)
+        Cr = Cm[:, 0].repeat_interleave(rep, dim=1).float()
+        xf = xh[:, 0].float()                                          # (b,h,p)
+        upd = (dt[:, 0, :, None, None] * Br[..., None]) * xf[:, :, None, :]
+        hnew = ssm_state * dA[..., None, None] + upd                   # (b,h,n,p)
+        y = torch.einsum("bhn,bhnp->bhp", Cr, hnew)[:, None]
+        new_state = (conv_state_new, hnew)
+
+    y = y + xh.float() * p["d_skip"].float()[None, None, :, None]
+    y = y.reshape(b, s, di).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["norm"])
+    return y @ p["w_out"], new_state

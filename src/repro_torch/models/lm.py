@@ -72,6 +72,8 @@ from repro_torch.parallel import collectives as C
 from . import layers as L
 from .params import ParamDef
 
+RECURRENT = ("ssm", "hybrid")   # the families with a recurrent decode state
+
 
 def _refuse_mesh(cfg: ArchConfig) -> None:
     if cfg.mla is not None or cfg.moe is not None:
@@ -79,6 +81,11 @@ def _refuse_mesh(cfg: ArchConfig) -> None:
             f"{cfg.name}: the sharded forward covers the dense family; the "
             "sharded MoE/MLA step (experts over \"model\") waits for its "
             "slice")
+    if cfg.family in RECURRENT:
+        raise ValueError(
+            f"{cfg.name}: the sharded forward covers the dense family; the "
+            f"sharded recurrent step ({cfg.family} family) waits for its "
+            "slice: train it on one device (--mesh 1x1)")
 
 
 def _check_impl(cfg: ArchConfig, impl: str) -> None:
@@ -97,7 +104,12 @@ def _check_impl(cfg: ArchConfig, impl: str) -> None:
 def cut_depth(cfg: ArchConfig, n_layers: int) -> ArchConfig:
     """``cfg`` cut to its first ``n_layers`` layers at full width (the
     launchers' ``--layers``). An MoE model keeps its ``first_dense`` dense
-    layers, so it needs more than that many, or no MoE layer is left."""
+    layers, so it needs more than that many, or no MoE layer is left. A
+    hybrid (zamba) model takes any depth: ``attn_every`` layers make a
+    super-group (Mamba layers and one shared-attention application), the
+    rest trail. An xLSTM model counts whole super-blocks of
+    ``slstm_every`` layers (the rest are dropped, as its template does), so
+    it needs at least one."""
     if n_layers < 1:
         raise ValueError(f"{cfg.name}: a model needs a layer, got {n_layers}")
     if cfg.moe is not None and n_layers <= cfg.moe.first_dense:
@@ -105,6 +117,12 @@ def cut_depth(cfg: ArchConfig, n_layers: int) -> ArchConfig:
             f"{cfg.name}: {n_layers} layers leave no MoE layer; its first "
             f"{cfg.moe.first_dense} layers are dense, so cut to more than "
             f"{cfg.moe.first_dense}")
+    if cfg.xlstm is not None and n_layers < cfg.xlstm.slstm_every:
+        raise ValueError(
+            f"{cfg.name}: {n_layers} layers leave no xLSTM super-block; it "
+            f"stacks blocks of {cfg.xlstm.slstm_every} layers "
+            f"({cfg.xlstm.slstm_every - 1} mLSTM + 1 sLSTM), so cut to at "
+            f"least {cfg.xlstm.slstm_every}")
     return dataclasses.replace(cfg, n_layers=n_layers)
 
 

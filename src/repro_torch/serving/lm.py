@@ -3,12 +3,18 @@ and eager greedy generation (port of ``repro/serving/lm.py``). The
 projection engine, the async continuous-batching tier, lives in
 ``serving/engine.py``.
 
-The port's LMs are the dense and MoE families: a KV cache (a ring buffer
-when the model is windowed), or an MLA model's latent cache (``c_kv`` and
-``k_rope``), written in place by ``models.lm.decode_step``, whose position
-is a Python int the caller counts on the host. ``n_groups`` reaches the
-MoE dispatch of every decode step: the batch's tokens queue for the
-experts in that many groups.
+Decode state per family, each written in place by its ``decode_step``,
+whose position is a Python int the caller counts on the host:
+
+  dense / moe : a KV cache (a ring buffer when the model is windowed), or
+                an MLA model's latent cache (``c_kv`` and ``k_rope``)
+  hybrid      : zamba's O(1) Mamba states and its shared attention's KV
+  ssm         : xLSTM's O(1) recurrent state
+
+``n_groups`` reaches the MoE dispatch of every decode step (the batch's
+tokens queue for the experts in that many groups); as in the JAX package
+only the dense, MoE and VLM families take it, and the recurrent families'
+forwards take no ``impl``.
 """
 
 from __future__ import annotations
@@ -19,15 +25,17 @@ import torch
 
 from repro_torch import models
 from repro_torch.configs.types import ArchConfig
+from repro_torch.models.lm import RECURRENT
 
 
 def make_decode_step(cfg: ArchConfig, api, *, n_groups: int = 1):
     """``step(params, tokens (B,), cache, pos) -> (next_tokens, logits,
     cache)``: greedy argmax as int32; ``pos`` a Python int."""
 
+    kw = {"n_groups": n_groups} if cfg.family in ("dense", "moe", "vlm") else {}
+
     def step(params, tokens, cache, pos):
-        logits, cache = api.decode_step(params, tokens, cache, pos, cfg,
-                                        n_groups=n_groups)
+        logits, cache = api.decode_step(params, tokens, cache, pos, cfg, **kw)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         return nxt, logits, cache
 
@@ -38,10 +46,13 @@ def make_prefill(cfg: ArchConfig, api, *, impl="chunked", act_spec=None):
     """``prefill(params, tokens (B, S)) -> logits (B, V)``: the
     teacher-forced pass's last-position logits."""
 
+    kw = {"remat": True, "act_spec": act_spec}
+    if cfg.family not in RECURRENT:
+        kw["impl"] = impl
+
     def prefill(params, tokens):
         with torch.inference_mode():
-            logits, _ = api.forward(params, tokens, cfg, remat=True,
-                                    act_spec=act_spec, impl=impl)
+            logits, _ = api.forward(params, tokens, cfg, **kw)
         return logits[:, -1]
 
     return prefill

@@ -41,7 +41,8 @@ from repro_torch.configs import registry
 from repro_torch.configs.types import ProjectionSpec, TrainConfig
 from repro_torch.core.multilevel import multilevel_norm
 from repro_torch.data import DataConfig, DataPipeline
-from repro_torch.data.activations import HarvestConfig, harvest, read_meta
+from repro_torch.data.activations import (HarvestConfig, check_family, harvest,
+                                         read_meta)
 from repro_torch.models import lm, params as PM, sae
 from repro_torch.optim import adamw
 from repro_torch.optim.projection_hook import matched_names, tree_sparsity
@@ -106,7 +107,9 @@ def harvest_activations(fcfg: SAEFactoryConfig, out_dir, params=None, *,
     """Stage 1: run the LM through the ``impl`` attention path (the flash
     kernels by default) and shard activations. ``params`` (e.g. carried
     over from the JAX package) harvest in place of the seeded init, on
-    their own device. Returns the manifest."""
+    their own device. Returns the manifest. A recurrent family is refused
+    before its weights are drawn (``data.activations.check_family``)."""
+    check_family(_arch(fcfg))
     if params is None:
         cfg, api, params = lm_for(fcfg, device=device)
     else:

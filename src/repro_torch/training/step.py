@@ -94,17 +94,25 @@ def make_loss_fn(cfg: ArchConfig, api, *, impl: str, remat: bool,
     float32/bf16 leaves cast to ``compute_dtype``, next-token :func:`xent`
     against ``tokens[:, 1:]``, plus 0.01 of a non-zero aux term.
 
-    ``n_groups`` and ``act_spec`` go to the forward as in the JAX package.
+    The forward gets the keywords the JAX package gives it: ``impl`` only
+    outside the recurrent families (their forwards run their own attention,
+    zamba's chunked), ``n_groups`` only for the dense, MoE and VLM
+    families, and ``act_spec``.
     With ``mesh``/``param_specs`` the forward is the sharded one on this
     rank's shards and batch slice, and the loss is this slice's mean; where
     the logits hold a "model" slice of the vocabulary
     (``models.lm.logits_spec``) it is ``collectives.vocab_xent``. The
     logits' layout follows from the parameter specs, so ``logits_spec``
     (JAX's sharding constraint on them) is accepted and has no effect."""
+    if mesh is not None:
+        lm._refuse_mesh(cfg)
     vocab_tp = mesh is not None and \
         lm.logits_spec(cfg, param_specs, mesh)[-1] == "model"
-    kw = {"remat": remat, "act_spec": act_spec, "impl": impl,
-          "n_groups": n_groups}
+    kw = {"remat": remat, "act_spec": act_spec}
+    if cfg.family not in lm.RECURRENT:
+        kw["impl"] = impl
+    if cfg.family in ("dense", "moe", "vlm"):
+        kw["n_groups"] = n_groups
     if mesh is not None:
         kw.update(mesh=mesh, param_specs=param_specs)
 

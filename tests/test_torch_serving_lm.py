@@ -203,9 +203,8 @@ def test_decode_api_and_refusals():
         assert {k: (tuple(v.shape), v.dtype) for k, v in cache.items()} == {
             "c_kv": ((4, 1, 4, 16), torch.bfloat16),
             "k_rope": ((4, 1, 4, 8), torch.bfloat16)}
-    for arch in ("zamba2-7b", "whisper-large-v3"):
-        with pytest.raises(ValueError, match="not ported"):
-            tmodels.get(treg.smoke_config(arch))
+    with pytest.raises(ValueError, match="not ported"):
+        tmodels.get(treg.smoke_config("whisper-large-v3"))
 
 
 # ------------------------------------------------------------ the launcher
