@@ -13,7 +13,8 @@ those of one bf16 Function forward+backward at granite's shape and of one
 float32 forward at the harvest's. ``--only autograd`` builds them and runs
 phases 3b and 3c on W1–W4 made from the seed; ``--only sae_tables`` runs
 phase 8, ``--only train_mesh`` phase 9, ``--only serve`` phase 10,
-``--only moe`` phase 11, ``--only recurrent`` phase 12.)
+``--only moe`` phase 11, ``--only recurrent`` phase 12, ``--only whisper``
+phase 13.)
 
 1. builds the fourteen CUDA kernels of the seven sources in
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, started together),
@@ -307,7 +308,43 @@ phase 8, ``--only train_mesh`` phase 9, ``--only serve`` phase 10,
    test_torch_train.py``'s bf16 bars). No kernel launches in the phase
    (the shared attention is 112 wide and runs chunked, xLSTM has none,
    and the trainer projects with the plain schedule), and the phase fails
-   if one does.
+   if one does;
+13. runs whisper-large-v3 (``whisper_phase``) from freed memory, seeded
+   float32 weights (32 encoder + 32 decoder layers, 1.58 B parameters).
+   (a) the flash forward, dQ and dK/dV in bf16 and float32 at its three
+   attention shapes with micro-batch 4 (``WHISPER_FLASH``: the encoder's
+   non-causal 1500 frames, the cross-attention's 448 queries against 1500
+   keys, the decoder's causal 448), held against their plain versions
+   with phase 1's bars and timed (events) beside their bounds and
+   scaled_dot_product_attention (held to the float32 bars first); the
+   flash Function's gradients in float32 and bf16 on keys that share most
+   of their value (k̄ + 0.01·ε, the zero audio's regime; dQ sums dS (K −
+   k̄)) against float64, each within NAIVE_FACTOR × the naive attention's
+   distance or 1e-5 of its largest entry (``whisper_common_keys``: at the
+   cross and decoder shapes; with common values too, at the cross shape,
+   dq held and dk, dv printed). (b)
+   ``launch/serve.py``'s ``run`` with ``WHISPER_SERVE_ARGV`` (8 requests,
+   128 prompt tokens, 64 new): tokens in the vocabulary; the prompt's last
+   decode logits with the cross cache filled from ``encode`` of the zero
+   audio within SERVE_BAR · max|logits| of ``make_prefill``'s, the
+   launcher's zero cross cache's distance printed beside them; the ms per
+   decode step beside its byte bound (the decoder's weights but the cross
+   wk/wv/bv, the unembedding, the whole cross cache and the valid self
+   slots), the profiler's kernels and busy ms per step, the peak memory.
+   (c) a held float32 step at full width cut to 4 + 4 layers with the
+   constraint on, ``impl="flash"`` against ``"naive"`` from one state and
+   batch with phase 5's bars: 2 float32 forwards (remat) and one dQ and
+   one dK/dV per attention site and micro-batch, no bf16 kernel. (d) the
+   train launcher at full width and depth, bf16, remat,
+   ``WHISPER_TRAIN_ARGV`` (8 x 448 a step in micro-batches of 4, 3 steps)
+   and a radius of 0.05 of the init's smallest per-layer ℓ1,∞ norm of both
+   stacks' ``w_up``: finite losses and gradient norms, every slice
+   feasible, under 100 % column-sparse and above 0 in some slice of each
+   leaf, the step seconds and peak memory, and exactly 2 bf16 forwards and
+   one dQ and one dK/dV per attention site (32 + 2 x 32) and micro-batch
+   (1152 / 576 / 576), no other kernel. (e) the train launcher on the
+   smoke config on the card and on the CPU from one saved init, phase
+   12 (e)'s bars.
 
 The widths are the SAE factory's on stablelm-1.6b: d_model 2048, d_dict
 4 x 2048 = 8192, 32 heads; the projected tensor is the transposed encoder.
@@ -1182,7 +1219,7 @@ def hold_attention(randn, tag, qs, ks, causal, window, dtype, scale=None):
 def refuse_short_bwd_scratch(tag, q, k, v, do, lse, delta, dq, dk, dv, causal,
                              window, scale):
     """Each float32 backward export owns its scratch's layout: a buffer one
-    float short of ``tf32_bwd_work_floats`` is refused before anything
+    float short of ``bwd_work_floats`` is refused before anything
     launches."""
     import torch
 
@@ -1195,8 +1232,8 @@ def refuse_short_bwd_scratch(tag, q, k, v, do, lse, delta, dq, dk, dv, causal,
             "flash_bwd_dkv": (dk.data_ptr(), dv.data_ptr())}
     for kern, fn, dkv in ((flash.DQ_TF32_KERNEL, "flash_bwd_dq", False),
                           (flash.DKV_TF32_KERNEL, "flash_bwd_dkv", True)):
-        short = torch.empty(flash.tf32_bwd_work_floats(
-            b, hq, hkv, sq, sk, d, dkv=dkv) - 1, device=q.device)
+        short = torch.empty(flash.bwd_work_floats(
+            b, hq, hkv, sq, sk, d, dkv=dkv, bf16=False) - 1, device=q.device)
         try:
             kern.launch(fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
@@ -1204,7 +1241,7 @@ def refuse_short_bwd_scratch(tag, q, k, v, do, lse, delta, dq, dk, dv, causal,
         except RuntimeError:
             continue
         raise SmokeFailure(f"flash {tag}: {fn} took a float32 scratch one "
-                           "float short of tf32_bwd_work_floats")
+                           "float short of its size")
 
 
 
@@ -1641,12 +1678,15 @@ def held_step_setup(dev, radius):
     return cfg, tcfg, api, spec, toks, base
 
 
-def hold_train_step(dev, radius):
-    """One step of granite-3-2b at full width cut to HELD_LAYERS layers,
+def hold_train_step(dev, radius, setup=None, sites=HELD_LAYERS,
+                    tag="held train step"):
+    """One step of granite-3-2b at full width cut to HELD_LAYERS layers
+    (``setup``, another model's, as ``held_step_setup`` returns it),
     float32 compute, the projection on: ``impl="flash"`` (the kernels,
     through the Function and remat) against ``impl="naive"`` from the same
     state and batch. The flash run launches the forward twice and each
-    backward kernel once per layer and microbatch, the naive run none.
+    backward kernel once per attention site (``sites`` a microbatch) and
+    microbatch, the naive run none.
 
     Tolerances. Loss and gradient norm within 1e-5 |b|. The first moments,
     m = (1 - β1) · the clipped gradient after one step, hold the kernels'
@@ -1657,7 +1697,11 @@ def hold_train_step(dev, radius):
     update has slope 1/ε = 1e8 at g = 0, so a gradient entry of order ε
     whose last digits differ moves its parameter by a fraction of lr. A
     projected leaf takes 3 × the leaf's largest lr · |Δu| instead (the clip
-    moves with its column's max and with θ, each 1-Lipschitz)."""
+    moves with its column's max and with θ, each 1-Lipschitz).
+
+    Every leaf is checked before a failure is raised, with all of them
+    named, and the first moments farthest from the naive step's are
+    printed in units of their bar's first term."""
     import torch
 
     from repro_torch import _tree
@@ -1666,7 +1710,7 @@ def hold_train_step(dev, radius):
     from repro_torch.optim.projection_hook import _matches
     from repro_torch.training import make_train_step
 
-    cfg, tcfg, api, spec, toks, base = held_step_setup(dev, radius)
+    cfg, tcfg, api, spec, toks, base = (setup or held_step_setup)(dev, radius)
     runs, step_fns = {}, {}
     for impl in ("flash", "naive"):
         params = _tree.tree_map(lambda p: p.clone(), base)
@@ -1680,14 +1724,14 @@ def hold_train_step(dev, radius):
     (sf, mf, cf), (sn, mn, cn) = runs["flash"], runs["naive"]
     n_micro = toks["tokens"].shape[0]
     # float32 compute: the 3×TF32 kernels only, none of the bf16 ones
-    want = {"flash_fwd_tf32": 2 * HELD_LAYERS * n_micro,
-            "flash_bwd_dq_tf32": HELD_LAYERS * n_micro,
-            "flash_bwd_dkv_tf32": HELD_LAYERS * n_micro} | dict.fromkeys(BF16_FLASH, 0)
+    want = {"flash_fwd_tf32": 2 * sites * n_micro,
+            "flash_bwd_dq_tf32": sites * n_micro,
+            "flash_bwd_dkv_tf32": sites * n_micro} | dict.fromkeys(BF16_FLASH, 0)
     for k_, n in want.items():
         if cf[k_] != n or cn[k_] != 0:
-            raise SmokeFailure(f"held step: {k_} launched {cf[k_]} (flash) / "
+            raise SmokeFailure(f"{tag}: {k_} launched {cf[k_]} (flash) / "
                                f"{cn[k_]} (naive) times, not {n} / 0")
-    errs = {k_: check_close(f"held step {k_}", torch.tensor(mf[k_]),
+    errs = {k_: check_close(f"{tag} {k_}", torch.tensor(mf[k_]),
                             torch.tensor(mn[k_]), 0.0)
             for k_ in ("loss", "grad_norm")}
     match = _matches(spec)
@@ -1696,34 +1740,45 @@ def hold_train_step(dev, radius):
     def unit(m_, v_):
         return (m_ / bc1) / (torch.sqrt(v_ / bc2) + tcfg.eps)
 
-    moved, slack_max = 0.0, 0.0
+    moved, slack_max, failed, ratio = 0.0, 0.0, [], {}
     for (name, pf), pn, p0, m_f, m_n, v_f, v_n in zip(
             _tree.leaves_with_paths(sf["params"]), _tree.leaves(sn["params"]),
             _tree.leaves(base), _tree.leaves(sf["opt"]["m"]),
             _tree.leaves(sn["opt"]["m"]), _tree.leaves(sf["opt"]["v"]),
             _tree.leaves(sn["opt"]["v"])):
-        errs[f"m/{name}"] = check_close(f"held step first moment {name}", m_f,
-                                        m_n, float(m_n.abs().max()))
+        scale = float(m_n.abs().max())
+        merr = (m_f - m_n).abs()
+        errs[f"m/{name}"] = float(merr.max())
+        ratio[name] = errs[f"m/{name}"] / max(1e-5 * scale, 1e-30)
+        if not bool(torch.isfinite(m_f).all()) or bool(
+                (merr > 1e-5 * scale + RTOL * m_n.abs()).any()):
+            failed.append(f"first moment {name}: max abs err "
+                          f"{errs[f'm/{name}']:.3e} (scale {scale:.3e})")
         du = mn["lr"] * (unit(m_f, v_f) - unit(m_n, v_n)).abs()
         slack = 3.0 * du.max() if match(name, pn) else du
         err = (pf - pn).abs()
         bad = err > 1e-5 * float(pn.abs().max()) + RTOL * pn.abs() + slack
         if bool(bad.any()) or not bool(torch.isfinite(pf).all()):
-            raise SmokeFailure(f"held step {name}: max abs err "
-                               f"{float(err.max()):.3e} past tolerance")
+            failed.append(f"{name}: max abs err {float(err.max()):.3e}")
         errs[name] = float(err.max())
         moved = max(moved, float((pn - p0).abs().max()))
         slack_max = max(slack_max, float(slack.max()))
-    print(f"held train step ({cfg.name} full width, {HELD_LAYERS} layers, f32, "
+    print(f"{tag} ({cfg.name} full width, {cfg.n_layers} layers, f32, "
           f"radius {radius:.6g}): loss {mn['loss']:.6g} grad_norm "
           f"{mn['grad_norm']:.6g}, parameters moved by up to {moved:.3e}; "
           f"flash launches {cf}; flash vs naive max_abs_err "
           + ", ".join(f"{k_} {v_:.3e}" for k_, v_ in errs.items())
           + f"; largest lr·|Δu| slack used {slack_max:.3e}")
+    worst = sorted(ratio, key=lambda n: -ratio[n])[:4]
+    print(f"{tag}: first moments farthest from the naive step's, in units of "
+          f"1e-5 of the leaf's largest entry: "
+          + ", ".join(f"{n} {ratio[n]:.2f}" for n in worst))
+    if failed:
+        raise SmokeFailure(f"{tag}: past tolerance: " + "; ".join(failed))
     del runs, sn, base
     # the flash step warm, on its own result (host clock, median of 3)
     step_ms = host_ms(lambda: step_fns["flash"](sf, toks), reps=3)
-    print(f"held train step time (flash, warm): {step_ms:.3f} ms")
+    print(f"{tag} time (flash, warm): {step_ms:.3f} ms")
     del sf, step_fns
     torch.cuda.empty_cache()
     return errs, cf, step_ms
@@ -1909,8 +1964,9 @@ def function_launches():
     return launches
 
 
-def hold_sdpa(tag, sdpa, leaves, q, k, v, o, lse, do):
-    """SDPA's distance to the plain version at granite's shape, the library
+def hold_sdpa(tag, sdpa, leaves, q, k, v, o, lse, do, causal=True):
+    """SDPA's distance to the plain version at granite's shape (and
+    whisper's, non-causal where ``causal`` is False), the library
     baseline of rows 12 and 13a/13b: its forward against
     ``flash_attention_plain``'s o and its gradients against
     ``flash_attention_bwd_plain``'s (from the kernel's o and lse). Read and
@@ -1922,10 +1978,10 @@ def hold_sdpa(tag, sdpa, leaves, q, k, v, o, lse, do):
     from repro_torch.kernels import flash_attention as flash
 
     held = q.dtype == torch.float32
-    want_o = flash.flash_attention_plain(q, k, v)[0]
+    want_o = flash.flash_attention_plain(q, k, v, causal=causal)[0]
     got_o = sdpa()
     want = dict(zip(("dq", "dk", "dv"), flash.flash_attention_bwd_plain(
-        q, k, v, o, lse, do)))
+        q, k, v, o, lse, do, causal=causal)))
     got = dict(zip(("dq", "dk", "dv"), torch.autograd.grad(got_o, leaves, do)))
     if held:
         errs = {"o": check_close(f"SDPA {tag} o", got_o.detach(), want_o, 2.0)}
@@ -1936,8 +1992,8 @@ def hold_sdpa(tag, sdpa, leaves, q, k, v, o, lse, do):
         errs |= {n: float((got[n].float() - w.float()).abs().max())
                  for n, w in want.items()}
     how = "held to the kernels' float32 bars" if held else "read"
-    print(f"SDPA {tag} {tuple(q.shape)}/{tuple(k.shape)} causal vs the plain "
-          f"version ({how}): " + ", ".join(f"{n} max_abs_err {e:.3e}" for n, e in errs.items()))
+    print(f"SDPA {tag} {tuple(q.shape)}/{tuple(k.shape)} causal={causal} vs "
+          f"the plain version ({how}): " + ", ".join(f"{n} max_abs_err {e:.3e}" for n, e in errs.items()))
     del want_o, got_o, want, got
     return {"fwd": errs["o"], "bwd": max(errs["dq"], errs["dk"], errs["dv"])}
 
@@ -4639,9 +4695,10 @@ def xlstm_layers(dev, smi, res):
             "slstm_fwd_bwd_ms": fb_ms, "slstm_kernels_per_step": per_step}
 
 
-def rec_train(dev, smi, arch):
+def rec_train(dev, smi, arch, train_argv=None, tag="recurrent"):
     """(c), and (d)'s training: the train launcher at full width, cut to
-    REC_TRAIN's depth, 3 bf16 steps with the constraint on REC_PATTERN."""
+    REC_TRAIN's depth (``train_argv``'s, at full depth without
+    ``--layers``), 3 bf16 steps with the constraint on REC_PATTERN."""
     import numpy as np
     import torch
 
@@ -4652,9 +4709,12 @@ def rec_train(dev, smi, arch):
     from repro_torch.models import lm
     from repro_torch.training.sae_factory import constraint_report
 
-    argv = ["--arch", arch] + REC_TRAIN[arch]
-    a = serve_args(REC_TRAIN[arch])
-    cfg = lm.cut_depth(registry.get_arch(arch), int(a["--layers"]))
+    train_argv = train_argv or REC_TRAIN[arch]
+    argv = ["--arch", arch] + train_argv
+    a = serve_args(train_argv)
+    cfg = registry.get_arch(arch)
+    if "--layers" in a:
+        cfg = lm.cut_depth(cfg, int(a["--layers"]))
     radius, init_norm = rec_radius(dev, cfg)
     argv += ["--radius", repr(radius)]
     gc.collect()
@@ -4670,8 +4730,10 @@ def rec_train(dev, smi, arch):
     losses, gnorms = out["losses"], out["grad_norms"]
     step_s = out["step_seconds"]
     steps = int(a["--steps"])
-    print(f"recurrent {arch} python -m repro_torch.launch.train {' '.join(argv)}"
-          f": {cfg.n_layers} layers d_model {cfg.d_model}, {n_params} float32 "
+    depth = (f"{cfg.n_enc_layers} encoder + {cfg.n_layers} decoder"
+             if cfg.n_enc_layers else str(cfg.n_layers))
+    print(f"{tag} {arch} python -m repro_torch.launch.train {' '.join(argv)}"
+          f": {depth} layers d_model {cfg.d_model}, {n_params} float32 "
           f"params; {run_s:.1f} s (init and {steps} steps); step seconds "
           + " ".join(f"{x:.3f}" for x in step_s)
           + f"; losses {losses} gradient norms {gnorms}; peak device memory "
@@ -4679,12 +4741,12 @@ def rec_train(dev, smi, arch):
           f"the init's smallest per-slice l1,inf norm ({init_norm:.6g}); {smi}")
     if not (len(losses) == steps and all(np.isfinite(losses))
             and all(np.isfinite(gnorms))):
-        raise SmokeFailure(f"recurrent {arch} train: losses {losses}, gradient "
+        raise SmokeFailure(f"{tag} {arch} train: losses {losses}, gradient "
                            f"norms {gnorms}")
     spec = ProjectionSpec(pattern=REC_PATTERN, radius=radius)
     rep = constraint_report(params, spec)
     if not rep["max_violation"] <= 1e-5 * radius:
-        raise SmokeFailure(f"recurrent {arch} train: infeasible {rep}")
+        raise SmokeFailure(f"{tag} {arch} train: infeasible {rep}")
     sparsity = {}
     for name, w in _tree.leaves_with_paths(params):
         if name not in rep["norms"]:
@@ -4692,7 +4754,7 @@ def rec_train(dev, smi, arch):
         cols = _bilevel_slices(w).abs().amax(dim=1)
         per = (100.0 * (cols == 0).float().mean(dim=1)).tolist()
         sparsity[name] = per
-        print(f"recurrent {arch} train {name} {tuple(w.shape)}: per-slice "
+        print(f"{tag} {arch} train {name} {tuple(w.shape)}: per-slice "
               f"column sparsity min {min(per):.2f}% mean "
               f"{sum(per) / len(per):.2f}% max {max(per):.2f}% over "
               f"{len(per)} slices; largest norm {rep['norms'][name]:.6g}")
@@ -4700,7 +4762,7 @@ def rec_train(dev, smi, arch):
         # every leaf: a slice of few columns (mLSTM's 8-column w_gates) may
         # have all of them back after AdamW's next move of about lr
         if not (all(x < 100.0 for x in per) and max(per) > 0.0):
-            raise SmokeFailure(f"recurrent {arch} train: {name} per-slice column "
+            raise SmokeFailure(f"{tag} {arch} train: {name} per-slice column "
                                f"sparsity {per}: a slice lost every column, or "
                                "the leaf none")
     del out, params
@@ -4713,8 +4775,9 @@ def rec_train(dev, smi, arch):
             "max_violation": rep["max_violation"], "sparsity": sparsity}
 
 
-def rec_smoke_trains(smi, workdir):
-    """(e): the train launcher on both archs' smoke configs, 3 steps in its
+def rec_smoke_trains(smi, workdir, radii=None, tag="recurrent (e)"):
+    """(e): the train launcher on both archs' smoke configs (``radii``'s
+    archs, each with its radius; REC_SMOKE_RADIUS's), 3 steps in its
     bf16 compute with the constraint on, on the card and on the CPU from one
     init (drawn on the CPU and saved with ``--steps 0``, which both runs
     restore with ``--ckpt``): losses within MOE_LOSS_RTOL, gradient norms
@@ -4725,7 +4788,7 @@ def rec_smoke_trains(smi, workdir):
     from repro_torch.launch import train as train_cli
 
     out = {}
-    for arch, radius in REC_SMOKE_RADIUS.items():
+    for arch, radius in (radii or REC_SMOKE_RADIUS).items():
         shutil.rmtree(workdir, ignore_errors=True)
         argv = ["--arch", arch, "--radius", repr(radius)] + REC_SMOKE_ARGV
         with contextlib.redirect_stdout(None):
@@ -4743,7 +4806,7 @@ def rec_smoke_trains(smi, workdir):
         card, cpu = runs["cuda"], runs["cpu"]
         slack = 2 * MOE_SMOKE_STEPS * MOE_SMOKE_LR
         rel, worst = card_vs_cpu(card, cpu, slack)
-        print(f"recurrent (e) launch.train {' '.join(argv)} (bf16 compute): "
+        print(f"{tag} launch.train {' '.join(argv)} (bf16 compute): "
               f"losses card {card['losses']} cpu {cpu['losses']}, max rel "
               f"{rel['losses']:.3e} (bar {MOE_LOSS_RTOL}); gradient norms max "
               f"rel {rel['grad_norms']:.3e} (bar {MOE_GNORM_RTOL}); params worst "
@@ -4755,7 +4818,7 @@ def rec_smoke_trains(smi, workdir):
                 and rel["losses"] <= MOE_LOSS_RTOL
                 and rel["grad_norms"] <= MOE_GNORM_RTOL
                 and worst <= MOE_PARAM_ATOL):
-            raise SmokeFailure(f"recurrent (e) {arch}: card vs CPU {rel}, params "
+            raise SmokeFailure(f"{tag} {arch}: card vs CPU {rel}, params "
                                f"{worst:.3e}")
         out[arch] = {"losses": card["losses"], "cpu_losses": cpu["losses"],
                      "max_rel": rel, "params_worst": worst,
@@ -4806,6 +4869,427 @@ def recurrent_phase(dev, smi):
     return rec
 
 
+# whisper-large-v3 (phase 13): the encoder-decoder at full width, seeded
+# float32 (1.58 B parameters, 6.3 GB). Its three attentions have heads of
+# 1280 / 20 = 64: the encoder's non-causal self-attention over 1500 frames
+# (11 x 128 + 92: a ragged last block of keys and of queries), the
+# decoder's causal self-attention over its 448-token context, and its
+# non-causal cross-attention, 448 queries against 1500 keys
+WHISPER_ARCH = "whisper-large-v3"
+WHISPER_FLASH = (  # (site, q, k/v, causal) at the train step's micro-batch 4
+    ("encoder", (4, 20, 1500, 64), (4, 20, 1500, 64), False),
+    ("cross", (4, 20, 448, 64), (4, 20, 1500, 64), False),
+    ("decoder", (4, 20, 448, 64), (4, 20, 448, 64), True),
+)
+WHISPER_SERVE_ARGV = ["--arch", WHISPER_ARCH, "--batch", "8", "--prompt-len",
+                      "128", "--new", "64"]
+WHISPER_DECODE_TIMED = 8      # decode steps timed after the held prompt
+WHISPER_HELD_LAYERS = 4       # (c): 4 encoder and 4 decoder layers
+WHISPER_TRAIN_ARGV = ["--batch", "8", "--microbatch", "4", "--seq", "448",
+                      "--steps", "3"]
+WHISPER_SMOKE_RADIUS = {WHISPER_ARCH: 2.0}
+
+
+def whisper_flash(randn, smi):
+    """(a): the forward, dQ and dK/dV kernels at WHISPER_FLASH's shapes in
+    bf16 and float32, held against their plain versions with phase 1's
+    bars (``hold_attention``), then timed (CUDA events, median of 20; the
+    plain versions median of 5) beside their bounds and one
+    scaled_dot_product_attention call without a mask (held to the float32
+    bars first, its bf16 distance read: ``hold_sdpa``; its backward is
+    forward+backward minus forward). The bounds count causal work as half
+    of the non-causal 4·B·H·Sq·Sk·D forward (6 and 8 of it for dQ and
+    dK/dV), bf16 at the bf16 rate, float32 at the TF32 rate. Returns
+    {kernel: {site: its numbers}}, bf16 under BF16_FLASH's names and
+    float32 under F32_FLASH's."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as flash
+
+    out = {n: {} for n in BF16_FLASH + F32_FLASH}
+    for site, qs, ks, causal in WHISPER_FLASH:
+        for dt, names in ((torch.bfloat16, BF16_FLASH),
+                          (torch.float32, F32_FLASH)):
+            tag = f"whisper (a) {site}"
+            errs, (q, k, v, do, o, lse, delta) = hold_attention(
+                randn, tag, qs, ks, causal, None, dt)
+            qq, kk, vv = (x.detach().clone().requires_grad_(True)
+                          for x in (q, k, v))
+
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qq, kk, vv, is_causal=causal, enable_gqa=True)
+
+            lib_err = hold_sdpa(f"{tag} {str(dt)[6:]}", sdpa, (qq, kk, vv), q,
+                                k, v, o, lse, do, causal=causal)
+            opt = {"causal": causal}
+            t = {"flash_fwd": event_ms(lambda: flash.flash_attention(
+                     q, k, v, **opt)),
+                 "flash_bwd_dq": event_ms(lambda: flash.flash_bwd_dq(
+                     q, k, v, do, lse, delta, **opt)),
+                 "flash_bwd_dkv": event_ms(lambda: flash.flash_bwd_dkv(
+                     q, k, v, do, lse, delta, **opt)),
+                 "fwd_plain": event_ms(lambda: flash.flash_attention_plain(
+                     q, k, v, **opt), reps=5),
+                 "bwd_plain": event_ms(lambda: flash.flash_attention_bwd_plain(
+                     q, k, v, o, lse, do, **opt), reps=5),
+                 "sdpa_fwd": event_ms(sdpa),
+                 "sdpa_fwd_bwd": event_ms(lambda: torch.autograd.grad(
+                     sdpa(), (qq, kk, vv), do))}
+            t["sdpa_bwd"] = t["sdpa_fwd_bwd"] - t["sdpa_fwd"]
+            (b, h, sq, d), sk = qs, ks[2]
+            work = b * h * sq * sk * d * (1 if causal else 2)
+            rate = BF16_OPS_PER_S if dt == torch.bfloat16 else TF32_OPS_PER_S
+            es, n_q, n_k, n_r = q.element_size(), q.numel(), k.numel(), lse.numel()
+            spec_ = {  # bytes, operations, plain, library, library's distance
+                "flash_fwd": (es * (2 * n_q + 2 * n_k) + 4 * n_r, 2 * work,
+                              t["fwd_plain"], t["sdpa_fwd"], lib_err["fwd"]),
+                "flash_bwd_dq": (es * (3 * n_q + 2 * n_k) + 8 * n_r, 3 * work,
+                                 t["bwd_plain"], t["sdpa_bwd"], lib_err["bwd"]),
+                "flash_bwd_dkv": (es * (2 * n_q + 4 * n_k) + 8 * n_r, 4 * work,
+                                  t["bwd_plain"], t["sdpa_bwd"], lib_err["bwd"]),
+            }
+            for kern, name in zip(BF16_FLASH, names):
+                nbytes, nops, plain_ms, lib_ms, lerr = spec_[kern]
+                bms, by = bound_ms(nbytes, nops, rate)
+                out[name][site] = {
+                    "q": list(qs), "kv": list(ks), "causal": causal,
+                    "ms": t[kern], "plain_ms": plain_ms, "bound_ms": bms,
+                    "bound_by": by, "library_ms": lib_ms,
+                    "max_abs_err": errs[kern], "library_max_abs_err": lerr}
+                print(f"time whisper {site} {name} q{qs} kv{ks} causal={causal}"
+                      f": {t[kern]:.4f} ms (bound {bms:.4f} ms by {by}, "
+                      f"{bms / t[kern]:.3f} of bound), plain {plain_ms:.4f} ms, "
+                      f"scaled_dot_product_attention {lib_ms:.4f} ms, "
+                      f"max_abs_err {errs[kern]:.3e}; {smi}")
+            del q, k, v, do, o, lse, delta, qq, kk, vv
+    return out
+
+
+COMMON_PART = 0.01   # keys (and values) k̄ + COMMON_PART · ε, k̄ ~ 2 · N(0, 1)
+NAIVE_FACTOR = 2.0   # a flash gradient's bar: this times the naive attention's
+
+
+def whisper_common_keys(smi):
+    """(a): the flash Function's gradients where keys share most of their
+    value (k = k̄ + 0.01·ε: the cross-attention over the encoder states of
+    the zero audio the trainer feeds), against float64 autograd of softmax
+    attention on the same values, beside the naive attention's
+    (``layers.attention_naive``) in the same dtype. dQ sums dS (K − k̄)
+    (``csrc/flash_bwd.cu``); against K itself it was rounding, not signal
+    (4.5e+03 of its largest entry in bf16, 62× in float32). With random
+    values, at the cross (non-causal) and decoder (causal) shapes, each
+    gradient must lie within NAIVE_FACTOR × the naive attention's distance
+    or 1e-5 of its largest entry, whichever is larger. With values that
+    share most of their value too (v̄ + 0.01·ε, the zero audio's cross
+    keys and values), at the cross shape, dq is held so; dk and dv are
+    printed beside the naive attention's (delta = rowsum(dO ∘ O) from the
+    bf16 O carries O's rounding of v̄ into dS: ROADMAP § 2(c))."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    def rel(got, want):
+        return {n: float((g.double() - w).abs().max() / w.abs().max())
+                for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+
+    out, fails = {}, []
+    for regime, site in (("keys", 1), ("keys", 2), ("keys+values", 1)):
+        name, qs, ks, causal = WHISPER_FLASH[site]
+        q, do = rn(*qs), rn(*qs)
+        k = 2 * rn(*ks[:2], 1, ks[3]) + COMMON_PART * rn(*ks)
+        v = (2 * rn(*ks[:2], 1, ks[3]) + COMMON_PART * rn(*ks)
+             if regime == "keys+values" else rn(*ks))
+        for dt in (torch.float32, torch.bfloat16):
+            xs = [x.to(dt) for x in (q, k, v)]
+            dod = do.to(dt)
+            ref = [x.double().requires_grad_(True) for x in xs]
+            s = ref[0] @ ref[1].transpose(-1, -2) * qs[-1] ** -0.5
+            if causal:
+                s = s.masked_fill(torch.ones(
+                    qs[2], ks[2], dtype=torch.bool, device="cuda").triu(
+                        ks[2] - qs[2] + 1), float("-inf"))
+            want = torch.autograd.grad(torch.softmax(s, -1) @ ref[2], ref,
+                                       dod.double())
+            del s, ref
+            fl = [x.clone().requires_grad_(True) for x in xs]
+            got = rel(torch.autograd.grad(flash.flash(*fl, causal=causal), fl,
+                                          dod), want)
+            nv = [x.clone().requires_grad_(True) for x in xs]
+            naive = rel(torch.autograd.grad(L.attention_naive(
+                *(x.transpose(1, 2) for x in nv), causal=causal
+            ).transpose(1, 2), nv, dod), want)
+            held = ("dq",) if regime == "keys+values" else ("dq", "dk", "dv")
+            bars = {n: max(NAIVE_FACTOR * naive[n], 1e-5) for n in held}
+            tag = f"{regime} {name} {str(dt)[6:]}"
+            print(f"whisper (a) the flash Function's gradients on common "
+                  f"{regime} (k̄ + {COMMON_PART}·ε) at q{qs} kv{ks} "
+                  f"causal={causal} {str(dt)[6:]} vs float64: "
+                  + ", ".join(f"{n} {e:.3e}" for n, e in got.items())
+                  + " of the largest entry; the naive attention's "
+                  + ", ".join(f"{n} {e:.3e}" for n, e in naive.items())
+                  + "; held: " + ", ".join(
+                      f"{n} bar {b:.3e} ({got[n] / b:.3f} of it)"
+                      for n, b in bars.items()) + f"; {smi}")
+            fails += [f"{tag} {n} {got[n]:.3e} (bar {b:.3e})"
+                      for n, b in bars.items() if not got[n] <= b]
+            out[tag] = {"flash": got, "naive": naive, "bars": bars}
+            del xs, fl, nv, want
+    if fails:
+        raise SmokeFailure("whisper (a): flash gradients past their bars: "
+                           + "; ".join(fails))
+    return out
+
+
+def whisper_bound_ms(params, cache, batch, valid):
+    """One decode step's byte bound: the decoder's weights read once but
+    the cross-attention's wk, wv and bv (they made the cross cache, which
+    the step reads instead), the tied embedding whole as the unembedding,
+    one row of the decoder's positions, the whole cross cache and the self
+    cache's ``valid`` slots read once."""
+    from repro_torch import _tree
+
+    skip = ("dec_blocks/cross/wk", "dec_blocks/cross/wv", "dec_blocks/cross/bv",
+            "pos_enc")
+    nbytes = 0
+    for name, p in _tree.leaves_with_paths(params):
+        if name.startswith("enc_") or name in skip:
+            continue
+        rows = 1 if name == "pos_dec" else p.shape[0]
+        nbytes += rows * p[0].numel() * p.element_size()
+    cross = sum(cache[n].numel() * cache[n].element_size() for n in ("xk", "xv"))
+    kv = sum(cache[n][:, :, :valid].numel() * cache[n].element_size()
+             for n in ("k", "v"))
+    return (nbytes + cross + kv) / HBM_BYTES_PER_S * 1e3, nbytes, cross, kv
+
+
+def whisper_serve(dev, smi):
+    """(b): the serve launcher at full width and depth (its zero cross
+    cache, as the JAX launcher's); the prompt replayed through the decode
+    step against that cache and against one filled from ``encode`` of the
+    prefill's zero audio, each held against the teacher-forced forward
+    (``make_prefill``): the filled one within SERVE_BAR · max|logits|, the
+    zero one printed beside it; then the ms per decode step (host clock)
+    beside its byte bound, the profiler's device kernels and busy ms per
+    step, and the peak memory."""
+    import torch
+
+    from repro_torch import _tree, models
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import whisper
+    from repro_torch.serving import lm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = serve_cli.run(WHISPER_SERVE_ARGV)
+    torch.cuda.synchronize()
+    run_peak = torch.cuda.max_memory_allocated()
+    a = serve_args(WHISPER_SERVE_ARGV)
+    b, plen, new = int(a["--batch"]), int(a["--prompt-len"]), int(a["--new"])
+    cfg, params, prompts = res["cfg"], res["params"], res["prompts"]
+    n_params = sum(p.numel() for p in _tree.leaves(params))
+    toks = res["tokens"]
+    if not (toks.dtype == torch.int32 and int(toks.min()) >= 0
+            and int(toks.max()) < cfg.vocab and toks.shape == (b, new)):
+        raise SmokeFailure(f"whisper (b): tokens {toks.dtype} "
+                           f"{tuple(toks.shape)} outside [0, {cfg.vocab})")
+    print(f"whisper (b) python -m repro_torch.launch.serve "
+          f"{' '.join(WHISPER_SERVE_ARGV)}: {cfg.n_enc_layers} encoder + "
+          f"{cfg.n_layers} decoder layers d_model {cfg.d_model}, {n_params} "
+          f"float32 params ({n_params * 4 / 1e9:.2f} GB); {res['seconds']:.3f} "
+          f"s for {b} x {new} new tokens after {plen} prompt tokens "
+          f"({res['tok_per_s']:.2f} tok/s, host clock, prompt replay included;"
+          f" {res['seconds'] * 1e3 / (plen + new):.3f} ms a decode step over "
+          f"the run's {plen + new}); peak device memory {run_peak / 2**30:.2f} "
+          f"GiB; {smi}")
+    zero_logits, cache, step = _decode_replay(cfg, params, prompts,
+                                              plen + WHISPER_DECODE_TIMED + 2)
+    want = lm.make_prefill(cfg, models.get(cfg))(params, prompts)
+    scale = float(want.abs().max())
+    zero_err = float((zero_logits - want).abs().max())
+    cross = params["dec_blocks"]["cross"]
+    with torch.inference_mode():
+        # the prefill's audio: zero frames, through the encoder once
+        enc = whisper.encode(params, torch.zeros(
+            b, cfg.enc_frames, cfg.d_model, device=dev), cfg, remat=False)
+        for i in range(cfg.n_layers):
+            cache["xk"][i] = torch.einsum("bsd,dhk->bshk", enc, cross["wk"][i])
+            cache["xv"][i] = torch.einsum("bsd,dhk->bshk", enc,
+                                          cross["wv"][i]) + cross["bv"][i]
+        del enc
+        cache["k"].zero_()
+        cache["v"].zero_()
+        for i in range(plen):
+            _, logits, cache = step(params, prompts[:, i], cache, i)
+    err = float((logits - want).abs().max())
+    print(f"whisper (b) decode vs the teacher-forced forward (make_prefill, "
+          f"zero audio) at position {plen - 1}: cross cache filled from encode "
+          f"max_abs_err {err:.3e} (bar {SERVE_BAR} x max|logits| {scale:.4g}); "
+          f"the launcher's zero cross cache (the JAX package's serving) "
+          f"{zero_err:.3e}; {smi}")
+    if not (bool(torch.isfinite(logits).all()) and err <= SERVE_BAR * scale):
+        raise SmokeFailure(f"whisper (b): decode logits {err:.3e} from the "
+                           f"forward's (bar {SERVE_BAR * scale:.3e})")
+    del want, zero_logits
+    step_ms, per_kernel, n_launch, pos = time_decode(
+        step, params, logits.argmax(-1).to(torch.int32), cache, plen,
+        WHISPER_DECODE_TIMED)
+    busy = sum(per_kernel.values())
+    top = sorted(per_kernel, key=lambda k: -per_kernel[k])[:6]
+    print("whisper (b) a decode step's largest device kernels: " + "; ".join(
+        f"{per_kernel[k]:.3f} ms {k[:70]}" for k in top))
+    bms, wbytes, xbytes, kvbytes = whisper_bound_ms(params, cache, b, pos + 1)
+    peak = torch.cuda.max_memory_allocated()
+    bound_by = "host" if busy < 0.5 * step_ms else "device"
+    print(f"whisper (b) decode step at position {pos} (batch {b}): "
+          f"{step_ms:.3f} ms (host clock, mean of {WHISPER_DECODE_TIMED}), "
+          f"{b / step_ms * 1e3:.2f} tok/s; byte bound {bms:.3f} ms ({wbytes} "
+          f"bytes of decoder weights and unembedding + {xbytes} of cross cache "
+          f"+ {kvbytes} of self cache, over {HBM_BYTES_PER_S / 1e12:.2f} TB/s);"
+          f" {n_launch} device kernels and copies a step "
+          f"({n_launch / cfg.n_layers:.1f} a layer), device busy {busy:.3f} ms:"
+          f" {bound_by}-bound; peak device memory {peak / 2**30:.2f} GiB; {smi}")
+    rec = {"argv": WHISPER_SERVE_ARGV, "params": n_params,
+           "seconds": res["seconds"], "tok_per_s": res["tok_per_s"],
+           "launcher_peak_bytes": run_peak, "peak_bytes": peak,
+           "max_abs_err": err, "zero_cross_max_abs_err": zero_err,
+           "scale": scale, "decode_step_ms": step_ms,
+           "decode_tok_per_s": b / step_ms * 1e3, "bound_ms": bms,
+           "weight_bytes": wbytes, "cross_cache_bytes": xbytes,
+           "self_cache_bytes": kvbytes, "kernels_per_step": n_launch,
+           "device_busy_ms": busy, "bound_by": bound_by,
+           "top_kernels_ms": {k: per_kernel[k] for k in top}}
+    del cache, step, logits, res, params
+    return rec
+
+
+def whisper_held_setup(dev, radius):
+    """(c)'s configuration, batch and initial parameters, as
+    ``held_step_setup`` returns granite's: whisper-large-v3 at full width
+    cut to WHISPER_HELD_LAYERS encoder and decoder layers, float32
+    compute, the constraint on both stacks' ``w_up`` (REC_PATTERN, the
+    launcher's), the first batch of WHISPER_TRAIN_ARGV's pipeline."""
+    import torch
+
+    from repro_torch import models
+    from repro_torch.configs import registry
+    from repro_torch.configs.types import ProjectionSpec, TrainConfig
+    from repro_torch.data import DataConfig, DataPipeline
+    from repro_torch.models import lm
+    from repro_torch.training import init_state
+
+    cfg = lm.cut_depth(registry.get_arch(WHISPER_ARCH), WHISPER_HELD_LAYERS)
+    a = serve_args(WHISPER_TRAIN_ARGV)
+    batch, micro, seq = (int(a[k]) for k in ("--batch", "--microbatch", "--seq"))
+    spec = ProjectionSpec(pattern=REC_PATTERN, radius=radius)
+    tcfg = TrainConfig(microbatch=micro, total_steps=int(a["--steps"]),
+                       warmup=1, remat=True, master_dtype="",
+                       compute_dtype="float32", projection=spec)
+    api = models.get(cfg)
+    pipe = DataPipeline(DataConfig(vocab=cfg.vocab, seq_len=seq + 1,
+                                   global_batch=batch, microbatch=micro))
+    toks = {"tokens": torch.from_numpy(pipe.batch(0)).to(dev)}
+    base = init_state(cfg, tcfg, api, SEED, device=dev)["params"]
+    return cfg, tcfg, api, spec, toks, base
+
+
+def whisper_train(dev, smi):
+    """(d): the train launcher at full width and depth, the main path of
+    the phase: the launches counted from 0 around it, 2 bf16 forwards (remat)
+    and one dQ and one dK/dV per attention site (32 encoder + 2 x 32
+    decoder) and micro-batch, no float32 kernel and no other kernel."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import _build
+
+    cfg = registry.get_arch(WHISPER_ARCH)
+    a = serve_args(WHISPER_TRAIN_ARGV)
+    runs = int(a["--steps"]) * int(a["--batch"]) // int(a["--microbatch"])
+    sites = cfg.n_enc_layers + 2 * cfg.n_layers
+    _build.reset_launches()
+    rec = rec_train(dev, smi, WHISPER_ARCH, WHISPER_TRAIN_ARGV,
+                    tag="whisper (d)")
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    want = dict.fromkeys(counts, 0) | {
+        "flash_fwd": 2 * sites * runs, "flash_bwd_dq": sites * runs,
+        "flash_bwd_dkv": sites * runs}
+    print(f"whisper (d) launches over {runs} micro-batches of {sites} attention "
+          f"sites: {counts}")
+    if counts != want:
+        raise SmokeFailure(f"whisper (d): launches {counts}, not {want}")
+    rec["launches"] = counts
+    return rec
+
+
+def whisper_phase(dev, smi, randn):
+    """Phase 13: (a)-(e) of the module docstring, from freed memory; (d)'s
+    launch counts (the main path's) and (c)'s (the float32 kernels')."""
+    import torch
+
+    from repro_torch import models
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    rec = {"flash": whisper_flash(randn, smi),
+           "common_keys": whisper_common_keys(smi)}
+    rec["serve"] = whisper_serve(dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = lm.cut_depth(registry.get_arch(WHISPER_ARCH), WHISPER_HELD_LAYERS)
+    radius, init_norm = rec_radius(dev, cfg)
+    errs, counts, step_ms = hold_train_step(
+        dev, radius, setup=whisper_held_setup,
+        sites=cfg.n_enc_layers + 2 * cfg.n_layers, tag="whisper (c) held step")
+    rec["held"] = {"radius": radius, "init_norm": init_norm, "errs": errs,
+                   "launches": counts, "step_ms": step_ms,
+                   "params": models.params.count_params(
+                       models.get(cfg).template(cfg))}
+    rec["train"] = whisper_train(dev, smi)
+    rec["smoke_train"] = rec_smoke_trains(
+        smi, ROOT / "build" / "chip_smoke_whisper", WHISPER_SMOKE_RADIUS,
+        tag="whisper (e)")
+    torch.cuda.synchronize()
+    rec.update(phase_seconds=time.perf_counter() - t0, base_bytes=base)
+    print(f"whisper: phase 13 in {rec['phase_seconds']:.1f} s "
+          f"({base / 2**30:.2f} GiB allocated before); (d)'s launches "
+          f"{rec['train']['launches']}; (c)'s {counts}; {smi}")
+    return rec
+
+
+def whisper_rows(rec):
+    """``--only whisper``'s kernel rows: each flash kernel at the encoder's
+    shape (its other shapes under ``"whisper"``), with (d)'s launches for
+    the bf16 kernels and (c)'s for the float32 ones."""
+    rows = []
+    for name in BF16_FLASH + F32_FLASH:
+        enc = rec["flash"][name]["encoder"]
+        rows.append({
+            "name": name, "workload": f"whisper encoder q{tuple(enc['q'])} "
+            f"kv{tuple(enc['kv'])} non-causal", "route": "cuda",
+            "source": "src/repro_torch/csrc/" + (
+                "flash_fwd.cu" if name.startswith("flash_fwd") else "flash_bwd.cu"),
+            "replaces": REPLACES[name, False],
+            "launches": (rec["train"]["launches"] if name in BF16_FLASH
+                         else rec["held"]["launches"])[name],
+            **{k: enc[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms")},
+            "whisper": rec["flash"][name]})
+    return rows
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4814,7 +5298,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on the card.")
     ap.add_argument("--only", choices=("mesh", "attention", "autograd",
                                        "sae_tables", "train_mesh", "serve",
-                                       "moe", "recurrent"),
+                                       "moe", "recurrent", "whisper"),
                     help="run one phase alone: 'mesh' builds the kernels and "
                          "runs phase 7 (the partial apply, then the mesh "
                          "executor on four ranks); 'attention' builds them "
@@ -4827,7 +5311,8 @@ def main(argv=None) -> int:
                          "'train_mesh' builds them and runs phase 9; "
                          "'serve' builds them and runs phase 10; 'moe' "
                          "builds them and runs phase 11; 'recurrent' builds "
-                         "them and runs phase 12")
+                         "them and runs phase 12; 'whisper' builds them and "
+                         "runs phase 13")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -4975,6 +5460,10 @@ def main(argv=None) -> int:
 
     if args.only == "recurrent":
         return finish({"kernels": [], "recurrent": recurrent_phase(dev, smi)})
+
+    if args.only == "whisper":
+        rec = whisper_phase(dev, smi, randn)
+        return finish({"kernels": whisper_rows(rec), "whisper": rec})
 
     # ------------------------------------- phase 1: kernels vs plain versions
     for name, shape, levels in DESIGNS:
@@ -5266,12 +5755,19 @@ def main(argv=None) -> int:
 
     # ------------------------ phase 12: the recurrent families at full width
     recurrent = recurrent_phase(dev, smi)
+
+    # ---------------------------- phase 13: whisper-large-v3 at full width
+    whisper = whisper_phase(dev, smi, randn)
     for row in rows:
         row["launches_moe"] = moe["launches"].get(row["name"], 0)
         row["launches_recurrent"] = recurrent["launches"].get(row["name"], 0)
+        row["launches_whisper"] = whisper["train"]["launches"].get(row["name"], 0)
+        if row["name"] in whisper["flash"]:
+            row["whisper"] = whisper["flash"][row["name"]]
+            row["launches_whisper_held"] = whisper["held"]["launches"][row["name"]]
     return finish({"kernels": rows, "mesh": mesh, "grad": grad,
                    "train_mesh": train_mesh, "serve": serve, "moe": moe,
-                   "recurrent": recurrent,
+                   "recurrent": recurrent, "whisper": whisper,
                    "refuse_grad": refused, "sae_tables": tables,
                    "factory": {"harvest_step_ms": step_parts,
                                "sae_step_ms": sae_parts,

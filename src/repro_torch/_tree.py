@@ -60,6 +60,15 @@ def unflatten_like(tree, flat: list):
     return _fill(tree, iter(flat))
 
 
+def unstack(stack) -> list:
+    """The per-layer trees of a stacked tree (every leaf's leading axis),
+    each leaf unbound once: the backward stacks the layers' gradients in
+    one pass."""
+    per = [a.unbind(0) for a in leaves(stack)]
+    n = len(per[0]) if per else 0
+    return [unflatten_like(stack, [u[i] for u in per]) for i in range(n)]
+
+
 def _fill(node, it):
     # a module-level recursion: a nested function that calls itself is a
     # reference cycle, which would keep ``flat`` (a model's per-layer views

@@ -1,7 +1,8 @@
 // flash_bwd.cu — attention backward (FlashAttention-2) on Hopper's tensor
 // cores, two kernels per input type:
 //
-//   flash_bwd_dq   dQ = scale · Σ_k dS K, with dS = P ∘ (dO Vᵀ − delta):
+//   flash_bwd_dq   dQ = scale · Σ_k dS (K − k̄), with dS = P ∘ (dO Vᵀ − delta)
+//                  and k̄ each kv head's mean key (a pre-pass, head_means):
 //                  one CTA per (q block, query head, batch item), streaming
 //                  the keys;
 //   flash_bwd_dkv  dV = Σ Pᵀ dO and dK = scale · Σ dSᵀ Q over the kv head's
@@ -16,6 +17,18 @@
 //
 // where P = exp(scale · Q Kᵀ − lse) under the mask and delta = rowsum(dO ∘ O)
 // (computed by the wrapper, as the JAX package computes it in jnp).
+//
+// Why K − k̄: each row of dS sums to 0, but only up to the rounding of lse,
+// delta and the products, and Σ_k dS K carries that rounding times the
+// keys' common part. Where keys share most of their value (a cross-
+// attention over encoder states of near-silent audio) it swamps dQ: on
+// keys k̄ + 0.01·ε at whisper's cross shape, bf16 dQ came out 4.5e+03 of
+// its largest true entry and float32 dQ 62× (chip_smoke.py phase 13).
+// Subtracting a common vector changes nothing in exact arithmetic. The
+// float32 kernel takes the products against K − k̄, formed in float32
+// before the TF32 split (the pre-pass writes Kᵀ that way); the bf16 kernel
+// keeps K in its bf16 tiles and subtracts rowsum(dS) · k̄ in float32 from
+// its accumulator at the end.
 //
 // Replaces the TPU kernels of repro/kernels/flash_attention.py: _bwd_call's
 // two pallas_calls, _dq_kernel (:181, call at :302) and _dkv_kernel (:226,
@@ -86,6 +99,64 @@ constexpr int BKV = 128;  // keys per CTA
 constexpr int TQR = 64;   // query rows per streamed tile
 constexpr int BSTAGES = 3;
 constexpr int THREADS = 2 * WG + 32;  // two consumer warpgroups and a producer warp
+
+// k̄ of dQ: each (batch, kv head)'s mean key over its sk keys, float32,
+// into kbar (mats, D). One block of 1024 threads per (batch, kv
+// head): a thread sums the VEC columns of a 16-byte chunk over every
+// RPP-th key, four chunks in flight, then D threads add the RPP partial
+// sums of their column in order (the result does not depend on timing).
+__device__ __forceinline__ void add_chunk(const uint4& x, float (&sum)[4]) {
+  const float4 f = *reinterpret_cast<const float4*>(&x);
+  sum[0] += f.x;
+  sum[1] += f.y;
+  sum[2] += f.z;
+  sum[3] += f.w;
+}
+__device__ __forceinline__ void add_chunk(const uint4& x, float (&sum)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(h[e]);
+    sum[2 * e] += f.x;
+    sum[2 * e + 1] += f.y;
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(1024)
+head_means(const T* __restrict__ k, float* __restrict__ kbar, int sk) {
+  constexpr int VEC = 16 / sizeof(T), TPR = D / VEC, RPP = 1024 / TPR;
+  __shared__ float part[RPP][D + 1];
+  const long long mat = blockIdx.x;
+  const int c = threadIdx.x % TPR, r0 = threadIdx.x / TPR;
+  const uint4* rows = reinterpret_cast<const uint4*>(k + mat * sk * D);
+  float sum[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) sum[e] = 0.f;
+  for (int j0 = r0; j0 < sk; j0 += 4 * RPP) {
+    uint4 x[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = j0 + u * RPP;
+      x[u] = j < sk ? rows[static_cast<long long>(j) * TPR + c] : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) add_chunk(x[u], sum);
+  }
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) part[r0][c * VEC + e] = sum[e];
+  __syncthreads();
+  if (threadIdx.x < D) {
+    float total = 0.f;
+    for (int i = 0; i < RPP; ++i) total += part[i][threadIdx.x];
+    kbar[mat * D + threadIdx.x] = total / sk;
+  }
+}
+
+template <typename T, int D>
+void head_mean(const T* k, float* kbar, int mats, int sk, cudaStream_t stream) {
+  head_means<T, D><<<mats, 1024, 0, stream>>>(k, kbar, sk);
+}
 
 template <int D>
 struct DkvSmem {
@@ -347,7 +418,9 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 //   dQ += dS K                  wgmma m64n{D}k16, dS from registers split
 //                               into two bf16 terms (hopper::split), K
 //                               MN-major: the forward's P V with K in V's
-//                               place.
+//                               place;
+//   rowsum(dS)                  in float32, in registers;
+// and at the end dQ −= rowsum(dS) · k̄ (k̄ from head_means, float32).
 // P and dS are selected, not multiplied, to 0, so a row that no key
 // reaches (lse = -1e30 + log n, where 2^(...) overflows) never reaches the
 // sum; TMA reads q/do rows past Sq and k/v rows past Sk as 0. A warpgroup
@@ -405,9 +478,9 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
                    const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
-                   const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
-                   int batch, int hq, int hkv, int sq, int sk, int causal, int window,
-                   float scale) {
+                   const float* __restrict__ delta, const float* __restrict__ kbar,
+                   __nv_bfloat16* __restrict__ dq, int batch, int hq, int hkv, int sq,
+                   int sk, int causal, int window, float scale) {
   using L = Layout<D>;
   using S = DqSmem<D>;
   constexpr int STAGES = S::STAGES;
@@ -478,7 +551,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     l2[i] = row < sq ? lse[mat * sq + row] * LOG2E : 0.f;
     dl[i] = row < sq ? delta[mat * sq + row] : 0.f;
   }
-  float acc[D / 2];
+  float acc[D / 2], rs[2] = {0.f, 0.f};  // rs: the rows' sums of dS
 #pragma unroll
   for (int c = 0; c < D / 2; ++c) acc[c] = 0.f;
   if (ntiles > 0) mbar_wait(full_q, 0);
@@ -513,6 +586,15 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
       else
         dq_scores<true>(sc, dp, l2, dl, rw + r + shift, k0 + 2 * quad, sk, causal, window,
                         scale_log2);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {  // dp[4j + 2i + e] is row i's: four chains of sums
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < BKT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) part[2 * (j & 1) + e] += dp[4 * j + 2 * i + e];
+        rs[i] += (part[0] + part[1]) + (part[2] + part[3]);
+      }
       uint32_t dhi[BKT / 16][4], dlo[BKT / 16][4];
 #pragma unroll
       for (int kk = 0; kk < BKT / 16; ++kk) a_split(dp, kk, dhi[kk], dlo[kk]);
@@ -533,22 +615,37 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     if (lane == 0) mbar_arrive(empty + s);
   }
 
+  // the quad's four threads hold a row's keys between them
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
+    rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
+  }
+  const float* kb = kbar + (static_cast<long long>(b) * hkv + h / (hq / hkv)) * D;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = rw + r + 8 * i;
     if (row >= sq) continue;
     __nv_bfloat16* out = dq + (mat * sq + row) * D;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c)
-      *reinterpret_cast<__nv_bfloat162*>(out + 8 * c + 2 * quad) = __floats2bfloat162_rn(
-          acc[4 * c + 2 * i] * scale, acc[4 * c + 2 * i + 1] * scale);
+    for (int c = 0; c < D / 8; ++c) {
+      const int col = 8 * c + 2 * quad;
+      *reinterpret_cast<__nv_bfloat162*>(out + col) = __floats2bfloat162_rn(
+          fmaf(-rs[i], kb[col], acc[4 * c + 2 * i]) * scale,
+          fmaf(-rs[i], kb[col + 1], acc[4 * c + 2 * i + 1]) * scale);
+    }
   }
 }
 
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const float* lse, const float* delta, void* dq, int batch, int hq, int hkv,
-              int sq, int sk, int causal, int window, float scale, cudaStream_t stream) {
+              const float* lse, const float* delta, void* dq, float* kbar, int batch,
+              int hq, int hkv, int sq, int sk, int causal, int window, float scale,
+              cudaStream_t stream) {
+  head_mean<__nv_bfloat16, D>(static_cast<const __nv_bfloat16*>(k), kbar, batch * hkv, sk,
+                             stream);
+  const cudaError_t e0 = cudaGetLastError();
+  if (e0) return e0;
   CUtensorMap tq, tk, tv, tdo;
   int e = tile_map(&tq, q, batch * hq, sq, D, BQR);
   if (!e) e = tile_map(&tdo, dout, batch * hq, sq, D, BQR);
@@ -561,8 +658,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   if (e) return e;
   const int grid = (sq + BQR - 1) / BQR * hq * batch;
   flash_bwd_dq_wgmma<D><<<grid, THREADS, smem, stream>>>(
-      tq, tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dq), batch, hq, hkv, sq, sk,
-      causal, window, scale);
+      tq, tk, tv, tdo, lse, delta, kbar, static_cast<__nv_bfloat16*>(dq), batch, hq, hkv, sq,
+      sk, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -574,7 +671,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 // K-major only, so an operand that is contracted over its rows needs a
 // transposed copy. A pre-pass (hopper::tf32_planes, tf32_planes_vt) writes
 // the two terms of each operand a kernel streams to a scratch buffer the
-// wrapper allocates (Tf32BwdWork): dQ's K, V and Kᵀ, dK/dV's Q, dO, Qᵀ and
+// wrapper allocates (Tf32BwdWork): dQ's K, V and Kᵀ − k̄, dK/dV's Q, dO, Qᵀ and
 // dOᵀ, a transposed one with its rows permuted within each group of 8
 // (slot c holds row 2c for c < 4, 2(c - 4) + 1 above), so that P and dS
 // enter from the accumulator of S or Sᵀ straight away (hopper::tf32_frag),
@@ -609,8 +706,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 // terms each) through a ring of STAGES; each consumer warpgroup of 64 rows
 // runs S = Q Kᵀ and dP = dO Vᵀ (D/8 wgmma m64n{2·BK}k8 and D/8 m64n{BK}k8
 // each, operands in shared memory), dS = 2^(S · scale · log2 e − lse ·
-// log2 e) ∘ (dP − delta) where valid (else 0), and dQ += dS K (3 · BK/8
-// wgmma m64n{D}k8, dS from registers, Kᵀ in shared memory). Four planes
+// log2 e) ∘ (dP − delta) where valid (else 0), and dQ += dS (K − k̄) (3 ·
+// BK/8 wgmma m64n{D}k8, dS from registers, (K − k̄)ᵀ in shared memory). Four planes
 // of Q and dO take 16 · BQ · D bytes, so the key tiles are narrow: 32 keys
 // (16 at D = 128, where one warpgroup of rows fits).
 //
@@ -1069,20 +1166,28 @@ flash_bwd_dkv_tf32(const __grid_constant__ CUtensorMap tq,
 
 // The float32 backward's scratch, in floats: the two tf32 terms of each
 // operand that comes from the pre-pass, as it is and transposed (rows
-// padded to a multiple of 32): dQ's K, V and Kᵀ, or dK/dV's Q, dO, Qᵀ, dOᵀ,
-// K and V, in this order (launch_dq_tf32 and launch_dkv_tf32 carve it; the
-// exports check the caller's buffer against it). dQ splits its Q and dO
-// in shared memory, so they take no scratch.
+// padded to a multiple of 32): dQ's K, V and (K − k̄)ᵀ, or dK/dV's Q, dO,
+// Qᵀ, dOᵀ, K and V, in this order (launch_dq_tf32 and launch_dkv_tf32
+// carve it; the exports check the caller's buffer against it). dQ splits
+// its Q and dO in shared memory, so they take no scratch. dQ's scratch
+// starts with k̄ (kbar floats), in both types.
 struct Tf32BwdWork {
-  long long nq, nk, nqt, nkt;
+  long long nq, nk, nqt, nkt, kbar;
   int sqp, skp;
   Tf32BwdWork(int batch, int hq, int hkv, int sq, int sk, int d)
       : nq(static_cast<long long>(batch) * hq * sq * d),
         nk(static_cast<long long>(batch) * hkv * sk * d),
         nqt(static_cast<long long>(batch) * hq * d * ((sq + 31) / 32 * 32)),
         nkt(static_cast<long long>(batch) * hkv * d * ((sk + 31) / 32 * 32)),
+        kbar(static_cast<long long>(batch) * hkv * d),
         sqp((sq + 31) / 32 * 32), skp((sk + 31) / 32 * 32) {}
   long long floats(bool dkv) const { return dkv ? 4 * (nq + nqt + nk) : 4 * nk + 2 * nkt; }
+  // the whole scratch an export checks: dQ's k̄ and, in float32, the
+  // planes; dK/dV's planes in float32, none in bf16
+  long long needed(bool dkv, bool bf16) const {
+    const long long planes = bf16 ? 0 : floats(dkv);
+    return dkv ? planes : kbar + planes;
+  }
 };
 
 template <int D>
@@ -1092,10 +1197,12 @@ int launch_dq_tf32(const float* q, const float* k, const float* v, const float* 
                    cudaStream_t stream) {
   using C = F32Dq<D>;
   const Tf32BwdWork w(batch, hq, hkv, sq, sk, D);
-  float* kp = work;             // K big, K small: (2 · batch · hkv, sk, D)
+  float* kbar = work;           // k̄: (batch · hkv, D)
+  float* kp = kbar + w.kbar;    // K big, K small: (2 · batch · hkv, sk, D)
   float* vp = kp + 2 * w.nk;    // V big, V small
-  float* ktp = vp + 2 * w.nk;   // Kᵀ big, Kᵀ small: (2 · batch · hkv, D, skp)
-  planes_t(k, ktp, batch * hkv, sk, w.skp, D, stream, kp);
+  float* ktp = vp + 2 * w.nk;   // (K − k̄)ᵀ big, small: (2 · batch · hkv, D, skp)
+  head_mean<float, D>(k, kbar, batch * hkv, sk, stream);
+  planes_t(k, ktp, batch * hkv, sk, w.skp, D, stream, kp, kbar);
   planes(v, vp, w.nk, nullptr, stream);
   const cudaError_t e0 = cudaGetLastError();
   if (e0) return e0;
@@ -1161,8 +1268,9 @@ int launch_dkv_tf32(const float* q, const float* k, const float* v, const float*
 // q, do, dq: (batch, hq, sq, d); k, v, dk, dv: (batch, hkv, sk, d), all
 // contiguous and of one type, float32 (bf16 = 0) or bf16 (bf16 = 1); lse,
 // delta: (batch, hq, sq) float32. work: float32 scratch of work_floats
-// floats, at least tc::Tf32BwdWork::floats() of the kernel (float32 only;
-// null and 0 for bf16). window <= 0 means none; d is 16, 32, 64 or 128.
+// floats, at least tc::Tf32BwdWork::needed() of the kernel (dQ: k̄, then in
+// float32 the pre-pass's planes; dK/dV: the planes in float32, null and 0
+// in bf16). window <= 0 means none; d is 16, 32, 64 or 128.
 // Both types run on the tensor cores. Each returns a cudaError_t.
 REPRO_EXPORT int flash_bwd_dq(const void* q, const void* k, const void* v,
                               const void* dout, const float* lse,
@@ -1171,26 +1279,27 @@ REPRO_EXPORT int flash_bwd_dq(const void* q, const void* k, const void* v,
                               int hkv, int sq, int sk, int d, int causal,
                               int window, float scale, int bf16, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (work == nullptr ||
+      work_floats < tc::Tf32BwdWork(batch, hq, hkv, sq, sk, d).needed(false, bf16))
+    return cudaErrorInvalidValue;
+  float* kb = static_cast<float*>(work);
   if (bf16) {
     switch (d) {
-      case 16: return tc::launch_dq<16>(q, k, v, dout, lse, delta, dq, batch, hq, hkv, sq, sk, causal, window, scale, st);
-      case 32: return tc::launch_dq<32>(q, k, v, dout, lse, delta, dq, batch, hq, hkv, sq, sk, causal, window, scale, st);
-      case 64: return tc::launch_dq<64>(q, k, v, dout, lse, delta, dq, batch, hq, hkv, sq, sk, causal, window, scale, st);
-      case 128: return tc::launch_dq<128>(q, k, v, dout, lse, delta, dq, batch, hq, hkv, sq, sk, causal, window, scale, st);
+      case 16: return tc::launch_dq<16>(q, k, v, dout, lse, delta, dq, kb, batch, hq, hkv, sq, sk, causal, window, scale, st);
+      case 32: return tc::launch_dq<32>(q, k, v, dout, lse, delta, dq, kb, batch, hq, hkv, sq, sk, causal, window, scale, st);
+      case 64: return tc::launch_dq<64>(q, k, v, dout, lse, delta, dq, kb, batch, hq, hkv, sq, sk, causal, window, scale, st);
+      case 128: return tc::launch_dq<128>(q, k, v, dout, lse, delta, dq, kb, batch, hq, hkv, sq, sk, causal, window, scale, st);
       default: return cudaErrorInvalidValue;
     }
   }
-  if (work == nullptr ||
-      work_floats < tc::Tf32BwdWork(batch, hq, hkv, sq, sk, d).floats(false))
-    return cudaErrorInvalidValue;
   const float *fq = static_cast<const float*>(q), *fk = static_cast<const float*>(k),
               *fv = static_cast<const float*>(v), *fo = static_cast<const float*>(dout);
-  float *fdq = static_cast<float*>(dq), *fw = static_cast<float*>(work);
+  float* fdq = static_cast<float*>(dq);
   switch (d) {
-    case 16: return tc::launch_dq_tf32<16>(fq, fk, fv, fo, lse, delta, fdq, fw, batch, hq, hkv, sq, sk, causal, window, scale, st);
-    case 32: return tc::launch_dq_tf32<32>(fq, fk, fv, fo, lse, delta, fdq, fw, batch, hq, hkv, sq, sk, causal, window, scale, st);
-    case 64: return tc::launch_dq_tf32<64>(fq, fk, fv, fo, lse, delta, fdq, fw, batch, hq, hkv, sq, sk, causal, window, scale, st);
-    case 128: return tc::launch_dq_tf32<128>(fq, fk, fv, fo, lse, delta, fdq, fw, batch, hq, hkv, sq, sk, causal, window, scale, st);
+    case 16: return tc::launch_dq_tf32<16>(fq, fk, fv, fo, lse, delta, fdq, kb, batch, hq, hkv, sq, sk, causal, window, scale, st);
+    case 32: return tc::launch_dq_tf32<32>(fq, fk, fv, fo, lse, delta, fdq, kb, batch, hq, hkv, sq, sk, causal, window, scale, st);
+    case 64: return tc::launch_dq_tf32<64>(fq, fk, fv, fo, lse, delta, fdq, kb, batch, hq, hkv, sq, sk, causal, window, scale, st);
+    case 128: return tc::launch_dq_tf32<128>(fq, fk, fv, fo, lse, delta, fdq, kb, batch, hq, hkv, sq, sk, causal, window, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1212,7 +1321,7 @@ REPRO_EXPORT int flash_bwd_dkv(const void* q, const void* k, const void* v,
     }
   }
   if (work == nullptr ||
-      work_floats < tc::Tf32BwdWork(batch, hq, hkv, sq, sk, d).floats(true))
+      work_floats < tc::Tf32BwdWork(batch, hq, hkv, sq, sk, d).needed(true, false))
     return cudaErrorInvalidValue;
   const float *fq = static_cast<const float*>(q), *fk = static_cast<const float*>(k),
               *fv = static_cast<const float*>(v), *fo = static_cast<const float*>(dout);

@@ -449,7 +449,13 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, i
 // run, per tile, S = Q Kᵀ (3 · D/8 wgmma m64n{BK}k8, both operands in shared
 // memory), the same online softmax (ex2 on logits scaled by scale · log2 e,
 // the max moving only past a jump of 8), and O += P V (3 · BK/8 wgmma
-// m64n{D}k8, P's two terms from registers). Shared memory holds one Q
+// m64n{D}k8, P's two terms from registers, into fresh accumulators added
+// to O in float32: chained over every tile in one wgmma accumulator, O
+// drifted from its float32 sum, and where the values share most of their
+// value (v̄ + 0.01·ε) that drift is a large part of O − v̄, which the
+// backward's delta = rowsum(dO ∘ O) carries into dK: 2.1e-03 of its
+// largest entry from float64 at whisper's cross shape, 6e-05 this way,
+// chip_smoke.py phase 13). Shared memory holds one Q
 // buffer; the next item's Q loads once both warpgroups are done with this
 // one. Items of NWG · 64 rows are handed out by an atomic counter in
 // order of groups of HG heads, each group's q blocks last first, so the
@@ -634,19 +640,22 @@ flash_fwd_tf32(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int kk = 0; kk < BK / 8; ++kk) tf32_frag(sc, kk, pb[kk], ps[kk]);
         mbar_wait(full_v + s, ph);
+        float part[D / 2];  // this tile's P V, added to acc in float32
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 8; ++kk) {
           const uint64_t bb = VT::kmajor(vb, D, 0, kk);
-          mma_rs_tf32<D>(acc, ps[kk], bb, 1);
-          mma_rs_tf32<D>(acc, pb[kk], VT::kmajor(vs, D, 0, kk), 1);
-          mma_rs_tf32<D>(acc, pb[kk], bb, 1);
+          mma_rs_tf32<D>(part, ps[kk], bb, kk > 0);
+          mma_rs_tf32<D>(part, pb[kk], VT::kmajor(vs, D, 0, kk), 1);
+          mma_rs_tf32<D>(part, pb[kk], bb, 1);
         }
         wgmma_commit();
         wgmma_wait();
-        fence_regs(acc);
+        fence_regs(part);
         fence_regs(pb);
         fence_regs(ps);
+#pragma unroll
+        for (int c = 0; c < D / 2; ++c) acc[c] += part[c];
       } else {
         mbar_wait(full_v + s, ph);
       }

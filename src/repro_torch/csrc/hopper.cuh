@@ -455,12 +455,15 @@ tf32_planes(const float4* __restrict__ x, uint4* __restrict__ big,
 // of its transpose, (mats, d, sp) with sp a multiple of 32, the s axis
 // permuted within groups of 8 (slot c of a group holds row 2c for c < 4,
 // 2(c - 4) + 1 above), rows past s 0; with nbig (and nsmall) given, also
-// into the terms of the operand as it is, from the same read. A block
-// (32, 8) moves 32 rows × 32 (or d) columns through shared memory.
+// into the terms of the operand as it is, from the same read; with centre
+// given ((mats, d) floats), the transpose's rows (not those past s) are
+// x - centre, the subtraction in float32 before the split. A block (32, 8)
+// moves 32 rows × 32 (or d) columns through shared memory.
 __global__ void __launch_bounds__(256)
 tf32_planes_vt(const float* __restrict__ v, uint32_t* __restrict__ big,
                uint32_t* __restrict__ small, uint32_t* __restrict__ nbig,
-               uint32_t* __restrict__ nsmall, int s, int sp, int d) {
+               uint32_t* __restrict__ nsmall, const float* __restrict__ centre, int s,
+               int sp, int d) {
   __shared__ float tile[32][33];
   const int c0 = blockIdx.x * 32, d0 = blockIdx.y * 32, dt = min(32, d - d0);
   const long long mat = blockIdx.z;
@@ -477,7 +480,9 @@ tf32_planes_vt(const float* __restrict__ v, uint32_t* __restrict__ big,
   const int src = (tx & ~7) | ((tx & 7) < 4 ? 2 * (tx & 7) : 2 * (tx & 7) - 7);
   for (int dd = ty; dd < dt; dd += 8) {
     uint32_t b, sm;
-    tf32_split(tile[src][dd], b, sm);
+    float x = tile[src][dd];
+    if (centre != nullptr && c0 + src < s) x -= centre[mat * d + d0 + dd];
+    tf32_split(x, b, sm);
     const long long at = (mat * d + d0 + dd) * sp + c0 + tx;
     big[at] = b;
     small[at] = sm;
@@ -485,8 +490,9 @@ tf32_planes_vt(const float* __restrict__ v, uint32_t* __restrict__ big,
 }
 
 // both pre-passes on a stream: x (n floats) into dst (big) and dst + n
-// (small); x as (mats, s, d) transposed into dst and dst + mats · d · sp,
-// and, with ndst given, as it is into ndst and ndst + mats · s · d
+// (small); x as (mats, s, d) transposed into dst and dst + mats · d · sp
+// (less centre, if given), and, with ndst given, as it is into ndst and
+// ndst + mats · s · d
 inline void planes(const float* x, float* dst, long long n, int* counter,
                    cudaStream_t stream) {
   const long long n4 = n / 4, blocks = (n4 + 255) / 256;
@@ -495,13 +501,14 @@ inline void planes(const float* x, float* dst, long long n, int* counter,
       reinterpret_cast<uint4*>(dst + n), n4, counter);
 }
 inline void planes_t(const float* x, float* dst, int mats, int s, int sp, int d,
-                     cudaStream_t stream, float* ndst = nullptr) {
+                     cudaStream_t stream, float* ndst = nullptr,
+                     const float* centre = nullptr) {
   const long long n = static_cast<long long>(mats) * s * d;
   tf32_planes_vt<<<dim3(sp / 32, (d + 31) / 32, mats), dim3(32, 8), 0, stream>>>(
       x, reinterpret_cast<uint32_t*>(dst),
       reinterpret_cast<uint32_t*>(dst + static_cast<long long>(mats) * d * sp),
       reinterpret_cast<uint32_t*>(ndst),
-      ndst == nullptr ? nullptr : reinterpret_cast<uint32_t*>(ndst + n), s, sp, d);
+      ndst == nullptr ? nullptr : reinterpret_cast<uint32_t*>(ndst + n), centre, s, sp, d);
 }
 
 // rows [r0, r0 + 64) of a float32 tile of `rows` rows in NBOX boxes of

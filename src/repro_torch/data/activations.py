@@ -43,12 +43,12 @@ class HarvestConfig:
 
 def check_family(cfg) -> None:
     """Harvesting reads per-layer activations through ``forward(collect=)``,
-    which the dense and MoE LMs have. The recurrent families' forwards have
-    none (the JAX package's harvest unpacks three values from their
-    two-valued forward and fails), so they are refused by name."""
+    which the dense and MoE LMs have. The recurrent and audio families'
+    forwards have none (the JAX package's harvest unpacks three values from
+    their two-valued forward and fails), so they are refused by name."""
     from repro_torch.models.lm import RECURRENT
 
-    if cfg.family in RECURRENT:
+    if cfg.family in RECURRENT + ("audio",):
         raise ValueError(
             f"{cfg.name}: harvesting captures the per-layer activations of the "
             f"dense and MoE LMs; the {cfg.family} family's forward collects "

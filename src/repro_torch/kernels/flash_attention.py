@@ -27,6 +27,15 @@ on a CPU tensor it runs :func:`flash_attention_bwd_plain`. A dead block's
 mask is all false, so the backward does not depend on the blocks: the
 plain version walks the TPU's blocks, the kernels their own tiles.
 
+dQ is taken against the keys less k̄, each kv head's mean key (in float32):
+dQ = scale · Σ dS (K − k̄), which is the TPU kernel's scale · Σ dS K in
+exact arithmetic because each row of dS sums to 0. In floating point that
+sum is 0 only up to the rounding of lse, delta and the products, and where
+the keys share most of their value (whisper's cross-attention over the
+encoder states of silent audio) Σ dS K turns that rounding times k̄ into
+most of dQ. The kernel and the plain version both take the difference
+(:func:`bwd_work_floats` sizes the kernel's k̄).
+
 :class:`FlashAttention` is ``_flash``'s custom VJP as a
 ``torch.autograd.Function`` and :func:`flash` its entry point: o only,
 differentiable in q, k and v.
@@ -157,7 +166,7 @@ def tf32_bwd_work_floats(b: int, hq: int, hkv: int, sq: int, sk: int, d: int,
                          dkv: bool) -> int:
     """Floats of a float32 backward kernel's scratch: the two tf32 terms of
     the operands its pre-pass writes, as they are and transposed (rows
-    padded to a multiple of 32): dQ's k, v and kᵀ (it splits q and dO in
+    padded to a multiple of 32): dQ's k, v and (k − k̄)ᵀ (it splits q and dO in
     shared memory) or, with ``dkv``, dK/dV's q, dO, qᵀ, dOᵀ, k and v.
     ``csrc/flash_bwd.cu`` owns the layout (``tc::Tf32BwdWork``): the exports
     take the buffer's size and refuse one that is too small."""
@@ -165,6 +174,18 @@ def tf32_bwd_work_floats(b: int, hq: int, hkv: int, sq: int, sk: int, d: int,
     if dkv:
         return 4 * (b * hq * sq * d + b * hq * d * sqp + b * hkv * sk * d)
     return 4 * b * hkv * sk * d + 2 * b * hkv * d * skp
+
+
+def bwd_work_floats(b: int, hq: int, hkv: int, sq: int, sk: int, d: int, *,
+                    dkv: bool, bf16: bool) -> int:
+    """Floats of a backward kernel's scratch: dQ's k̄ (b · hkv · d floats,
+    the mean key its product takes the keys' differences from) in both
+    types, then in float32 the pre-pass's planes
+    (:func:`tf32_bwd_work_floats`); bf16 dK/dV takes none.
+    ``csrc/flash_bwd.cu`` owns the layout (``tc::Tf32BwdWork::needed``) and
+    refuses a smaller buffer."""
+    planes = 0 if bf16 else tf32_bwd_work_floats(b, hq, hkv, sq, sk, d, dkv=dkv)
+    return planes if dkv else b * hkv * d + planes
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None, scale=None,
@@ -234,14 +255,16 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     loops over k blocks, all q blocks at once, a (q block, k block) pair
     applied only where it is live, its ``_block_mask`` (ragged q rows are
     ``qpos >= sk``), ragged q/do/k/v rows zeroed before any contraction and
-    delta = rowsum(dO ∘ O) in float32. The GQA group's dK/dV are summed
-    after the loop. Returns ``(dq, dk, dv)`` in the input dtypes."""
+    delta = rowsum(dO ∘ O) in float32; dq sums dS (K − k̄), k̄ the mean of
+    each kv head's keys, as the kernels do. The GQA group's dK/dV are
+    summed after the loop. Returns ``(dq, dk, dv)`` in the input dtypes."""
     b, hq, hkv, sq, sk, d = _check_bwd(q, k, v, o, lse, do, window)
     g = hq // hkv
     scale = d ** -0.5 if scale is None else float(scale)
     bq, bk = min(block_q, sq), min(block_k, sk)
     nq, nk = -(-sq // bq), -(-sk // bk)
     dev = q.device
+    kbar = k.float().mean(dim=2, keepdim=True).repeat_interleave(g, dim=1)
     delta = (do.float() * o.float()).sum(-1)
 
     def rows(x):  # (b, h, s, ...) -> padded q blocks (b, h, nq, bq, ...)
@@ -280,7 +303,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
         p = torch.where(mask, torch.exp(s - lsef[..., None]), 0.0)
         dp = torch.einsum("bhnqd,bhkd->bhnqk", dof, vb)
         ds = torch.where(mask, p * (dp - deltaf[..., None]), 0.0)
-        dq += torch.einsum("bhnqk,bhkd->bhnqd", ds, kb)
+        dq += torch.einsum("bhnqk,bhkd->bhnqd", ds, kb - kbar)
         dk[:, :, ks:ks + bk] += torch.einsum("bhnqk,bhnqd->bhkd", ds, qf)
         dv[:, :, ks:ks + bk] += torch.einsum("bhnqk,bhnqd->bhkd", p, dof)
     dq = (dq * scale).reshape(b, hq, nq * bq, d)[:, :, :sq]
@@ -327,12 +350,12 @@ def _bwd_args(what, q, k, v, do, lse, delta, causal, window, scale):
 
 
 def _bwd_work(q, args, dkv):
-    """The float32 kernels' scratch (None for bf16) and its size."""
-    if q.dtype == torch.bfloat16:
+    """A kernel's scratch (:func:`bwd_work_floats`; None for bf16 dK/dV)
+    and its size."""
+    n = bwd_work_floats(*args[:6], dkv=dkv, bf16=q.dtype == torch.bfloat16)
+    if n == 0:
         return None, 0
-    work = torch.empty(tf32_bwd_work_floats(*args[:6], dkv=dkv),
-                       dtype=torch.float32, device=q.device)
-    return work, work.numel()
+    return torch.empty(n, dtype=torch.float32, device=q.device), n
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
@@ -344,7 +367,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
                      scale)
     dq = torch.empty_like(q)
     work, n = _bwd_work(q, args, dkv=False)
-    (DQ_KERNEL if work is None else DQ_TF32_KERNEL).launch(
+    (DQ_KERNEL if q.dtype == torch.bfloat16 else DQ_TF32_KERNEL).launch(
         "flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         _build.ptr(work), n, *args)
@@ -360,7 +383,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
                      scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     work, n = _bwd_work(q, args, dkv=True)
-    (DKV_KERNEL if work is None else DKV_TF32_KERNEL).launch(
+    (DKV_KERNEL if q.dtype == torch.bfloat16 else DKV_TF32_KERNEL).launch(
         "flash_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), _build.ptr(work), n, *args)

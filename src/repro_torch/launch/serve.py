@@ -10,7 +10,9 @@ its first N layers at full width: an MoE model keeps its dense leading
 layers and needs more than those, an xLSTM model whole super-blocks). An
 MLA model (deepseek-v3-671b, kimi-k2-1t-a32b) decodes from its compressed
 latent cache, zamba2-7b from its Mamba2 states and its shared attention's
-KV cache, xlstm-1.3b from its recurrent state. The parameters come from
+KV cache, xlstm-1.3b from its recurrent state, whisper-large-v3 from its
+decoder's self-attention cache and a cross-attention cache that stays
+zero, as in the JAX launcher (``models/whisper.py``). The parameters come from
 ``--ckpt``'s latest checkpoint (its ``params``) or are drawn from seed 0 in
 float32; the prompts from ``np.random.default_rng(0)``, as in the JAX
 launcher. ``lm.generate`` replays each prompt through the decode step and

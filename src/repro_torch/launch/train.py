@@ -46,11 +46,16 @@ package's ``"pallas"`` (the JAX launcher trains with ``"chunked"``, or
 (deepseek-v3-671b, kimi-k2-1t-a32b), whose q/k and v heads differ in
 width, needs one of them. The recurrent families take no ``--attn``, as in
 the JAX package: zamba2-7b's shared attention runs chunked and xlstm-1.3b
-has none; the launcher says which ran. ``--layers N`` (the port's own
-option) cuts the model to its first N layers at full width
-(``models.lm.cut_depth``): an MoE model keeps its dense leading layers and
-needs more than those, an xLSTM model whole super-blocks of
-``slstm_every`` layers. The recurrent families train on one device: a
+has none; the launcher says which ran. whisper-large-v3 (the audio
+family) trains on zero audio frames, as the JAX package's does, with
+``--attn`` in its encoder's and cross-attention's non-causal and its
+decoder's causal attention, and the constraint on both stacks' ``w_up``.
+With the constraint on, the launcher names the leaves it projects.
+``--layers N`` (the port's own option) cuts the model to its first N
+layers at full width (``models.lm.cut_depth``): an MoE model keeps its
+dense leading layers and needs more than those, an xLSTM model whole
+super-blocks of ``slstm_every`` layers, and whisper keeps N encoder and N
+decoder layers. The recurrent and audio families train on one device: a
 ``--mesh`` beyond ``1x1`` is refused. ``--telemetry-every N`` / ``--telemetry-marks``
 turn the in-step telemetry bridge (``obs/bridge.py``) on for the run and
 give the step its cadence and marks (``training/step.py``); the pending
@@ -191,7 +196,7 @@ def _run(args) -> dict:
     from repro_torch.obs import metrics as obs_metrics
     from repro_torch.obs import profile as obs_profile
     from repro_torch.optim import adamw
-    from repro_torch.optim.projection_hook import tree_sparsity
+    from repro_torch.optim.projection_hook import matched_names, tree_sparsity
     from repro_torch.parallel import collectives, sharding
     from repro_torch.runtime import CheckpointManager, StragglerMonitor
     from repro_torch.training import init_state, make_train_step
@@ -267,6 +272,11 @@ def _run(args) -> dict:
     if state is None:
         state = init_state(cfg, tcfg, api, tcfg.seed, device=dev, mesh=mesh,
                            param_specs=specs)
+    if proj:
+        params = dict(_tree.leaves_with_paths(state["params"]))
+        say(f"constraint {proj.pattern} radius {proj.radius:g} on: " + ", ".join(
+            f"{name} {tuple(params[name].shape)}"
+            for name in matched_names(state["params"], proj)))
     step_hist = obs_metrics.get_registry().histogram(
         "train_step_seconds", "end-to-end wall time of one training step")
     b_ax = sharding.batch_axes(mesh) if mesh is not None else ("data",)

@@ -9,8 +9,10 @@
 The port covers the LM families of ``lm`` (dense, and the MoE family with
 MLA attention, each with its cache decode), the recurrent families, hybrid
 (``zamba``: Mamba2 with a shared attention block) and SSM (``xlstm``),
-each with an O(1) recurrent decode state, and the paper's SAE (``sae``,
-train-only). The audio model (whisper) waits for its slice.
+each with an O(1) recurrent decode state, the audio family (``whisper``:
+an encoder-decoder with cross-attention, decoding against a self-attention
+cache and the encoder's cross K/V), and the paper's SAE (``sae``,
+train-only).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from typing import Callable, Optional
 
 from repro_torch.configs.types import ArchConfig
 
-from . import layers, lm, params, sae, xlstm, zamba  # noqa: F401
+from . import layers, lm, params, sae, whisper, xlstm, zamba  # noqa: F401
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +37,9 @@ def get(cfg: ArchConfig) -> ModelAPI:
     fam = cfg.family
     if fam in ("dense", "moe", "vlm"):
         return ModelAPI(lm.template, lm.forward, lm.make_cache, lm.decode_step)
+    if fam == "audio":
+        return ModelAPI(whisper.template, whisper.forward, whisper.make_cache,
+                        whisper.decode_step)
     if fam == "ssm":
         return ModelAPI(xlstm.template, xlstm.forward, _xlstm_cache,
                         xlstm.decode_step)
@@ -43,10 +48,6 @@ def get(cfg: ArchConfig) -> ModelAPI:
                         zamba.decode_step)
     if fam == "sae":
         return ModelAPI(sae.template, sae.forward)
-    if fam == "audio":
-        raise ValueError(f"{cfg.name}: family {fam!r} (whisper) is not ported "
-                         "yet; the port covers the dense, MoE, hybrid and SSM "
-                         "LMs and the SAE")
     raise ValueError(f"unknown family {fam!r}")
 
 

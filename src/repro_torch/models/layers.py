@@ -40,6 +40,17 @@ def rms_norm(x, scale, eps=1e-5):
     return (out * scale.float()).to(x.dtype)
 
 
+def layer_norm(x, scale, bias, eps=1e-5):
+    """LayerNorm over the last axis in float32, cast back to ``x.dtype``;
+    the variance is the population variance (``jnp.var``), not torch's
+    unbiased default."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    out = (xf - mu) * torch.rsqrt(var + eps) * scale + bias
+    return out.to(x.dtype)
+
+
 # ----------------------------------------------------------------------- rope
 def rope_frequencies(head_dim: int, rope_pct: float, theta: float, positions):
     """positions (…,) int -> (cos, sin, rot) with cos/sin (…, rot//2)."""

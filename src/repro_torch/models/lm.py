@@ -86,6 +86,11 @@ def _refuse_mesh(cfg: ArchConfig) -> None:
             f"{cfg.name}: the sharded forward covers the dense family; the "
             f"sharded recurrent step ({cfg.family} family) waits for its "
             "slice: train it on one device (--mesh 1x1)")
+    if cfg.family == "audio":
+        raise ValueError(
+            f"{cfg.name}: the sharded forward covers the dense family; the "
+            "sharded encoder-decoder step (audio family, whisper) waits for "
+            "its slice: train it on one device (--mesh 1x1)")
 
 
 def _check_impl(cfg: ArchConfig, impl: str) -> None:
@@ -109,7 +114,8 @@ def cut_depth(cfg: ArchConfig, n_layers: int) -> ArchConfig:
     super-group (Mamba layers and one shared-attention application), the
     rest trail. An xLSTM model counts whole super-blocks of
     ``slstm_every`` layers (the rest are dropped, as its template does), so
-    it needs at least one."""
+    it needs at least one. An encoder-decoder (whisper) is cut to
+    ``n_layers`` encoder and ``n_layers`` decoder layers."""
     if n_layers < 1:
         raise ValueError(f"{cfg.name}: a model needs a layer, got {n_layers}")
     if cfg.moe is not None and n_layers <= cfg.moe.first_dense:
@@ -123,6 +129,8 @@ def cut_depth(cfg: ArchConfig, n_layers: int) -> ArchConfig:
             f"stacks blocks of {cfg.xlstm.slstm_every} layers "
             f"({cfg.xlstm.slstm_every - 1} mLSTM + 1 sLSTM), so cut to at "
             f"least {cfg.xlstm.slstm_every}")
+    if cfg.n_enc_layers:
+        return dataclasses.replace(cfg, n_layers=n_layers, n_enc_layers=n_layers)
     return dataclasses.replace(cfg, n_layers=n_layers)
 
 

@@ -28,11 +28,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import _tree
 from repro_torch.configs.types import ArchConfig
 
 from . import layers as L
 from .params import ParamDef
-from .zamba import _layers
 
 _NEG = -1e30
 
@@ -276,8 +276,8 @@ def forward(params, tokens, cfg: ArchConfig, *, seq_mode="chunkwise",
 
         return checkpoint(body, x, use_reentrant=False) if remat else body(x)
 
-    for lps, sp in zip(_layers(params["mlstm"]), _layers(params["slstm"])):
-        for lp in _layers(lps):
+    for lps, sp in zip(_tree.unstack(params["mlstm"]), _tree.unstack(params["slstm"])):
+        for lp in _tree.unstack(lps):
             x = m_block(lp, x)
         x, _ = _slstm_block(sp, x, cfg)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -320,9 +320,9 @@ def decode_step(params, tokens, state, pos, cfg: ArchConfig):
     x = params["embed"][tokens][:, None].to(params["final_norm"].dtype)
     mlstm = ("mlstm_C", "mlstm_n", "mlstm_m")
     slstm = ("slstm_c", "slstm_n", "slstm_h", "slstm_m")
-    for i, (lps, sp) in enumerate(zip(_layers(params["mlstm"]),
-                                      _layers(params["slstm"]))):
-        for j, lp in enumerate(_layers(lps)):
+    for i, (lps, sp) in enumerate(zip(_tree.unstack(params["mlstm"]),
+                                      _tree.unstack(params["slstm"]))):
+        for j, lp in enumerate(_tree.unstack(lps)):
             own = tuple(state[k][i, j] for k in mlstm)
             x, new = _mlstm_block(lp, x, cfg, seq_mode="sequential", state=own)
             for dst, src in zip(own, new):

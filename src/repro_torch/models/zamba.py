@@ -96,14 +96,6 @@ def _check_impl(cfg: ArchConfig, impl: str) -> None:
             "'naive'")
 
 
-def _layers(stack) -> list:
-    """The per-layer trees of a stacked tree (leading axis), each leaf
-    unbound once: the backward stacks the layers' gradients in one pass."""
-    per = [a.unbind(0) for a in _tree.leaves(stack)]
-    n = len(per[0]) if per else 0
-    return [_tree.unflatten_like(stack, [u[i] for u in per]) for i in range(n)]
-
-
 def _shared_attn(sp, x, x0, cfg: ArchConfig, *, positions, impl, window,
                  cache=None, pos=None, cur=None, freqs=None):
     """The weight-shared transformer block: x + attention + MLP of
@@ -151,12 +143,12 @@ def forward(params, tokens, cfg: ArchConfig, *, impl="chunked", remat=True,
         return checkpoint(body, x, use_reentrant=False) if remat else body(x)
 
     norms = params["mamba_norm"]
-    for lps, ns in zip(_layers(params["mamba_super"]), norms["super"].unbind(0)):
-        for lp, norm in zip(_layers(lps), ns.unbind(0)):
+    for lps, ns in zip(_tree.unstack(params["mamba_super"]), norms["super"].unbind(0)):
+        for lp, norm in zip(_tree.unstack(lps), ns.unbind(0)):
             x = mamba(lp, norm, x)
         x = _shared_attn(params["shared"], x, x0, cfg, positions=positions,
                          impl=impl, window=window)
-    for lp, norm in zip(_layers(params["mamba_trailing"]),
+    for lp, norm in zip(_tree.unstack(params["mamba_trailing"]),
                         norms["trailing"].unbind(0)):
         x = mamba(lp, norm, x)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -228,16 +220,16 @@ def decode_step(params, tokens, cache, pos, cfg: ArchConfig, *, max_len=None):
         return x + y
 
     norms = params["mamba_norm"]
-    for i, (lps, ns) in enumerate(zip(_layers(params["mamba_super"]),
+    for i, (lps, ns) in enumerate(zip(_tree.unstack(params["mamba_super"]),
                                       norms["super"].unbind(0))):
-        for j, (lp, norm) in enumerate(zip(_layers(lps), ns.unbind(0))):
+        for j, (lp, norm) in enumerate(zip(_tree.unstack(lps), ns.unbind(0))):
             x = mamba(lp, norm, x, cache["conv_super"][i, j],
                       cache["ssm_super"][i, j])
         x = _shared_attn(params["shared"], x, x0, cfg, positions=None,
                          impl=None, window=window,
                          cache={"k": cache["k"][i], "v": cache["v"][i]},
                          pos=pos, cur=cur, freqs=freqs)
-    for j, (lp, norm) in enumerate(zip(_layers(params["mamba_trailing"]),
+    for j, (lp, norm) in enumerate(zip(_tree.unstack(params["mamba_trailing"]),
                                        norms["trailing"].unbind(0))):
         x = mamba(lp, norm, x, cache["conv_trail"][j], cache["ssm_trail"][j])
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -10,6 +10,8 @@ whose position is a Python int the caller counts on the host:
                 an MLA model's latent cache (``c_kv`` and ``k_rope``)
   hybrid      : zamba's O(1) Mamba states and its shared attention's KV
   ssm         : xLSTM's O(1) recurrent state
+  audio       : whisper's decoder self-cache and the encoder's cross K/V
+                (zero unless the caller fills them, as in the JAX package)
 
 ``n_groups`` reaches the MoE dispatch of every decode step (the batch's
 tokens queue for the experts in that many groups); as in the JAX package

@@ -107,8 +107,8 @@ def harvest_activations(fcfg: SAEFactoryConfig, out_dir, params=None, *,
     """Stage 1: run the LM through the ``impl`` attention path (the flash
     kernels by default) and shard activations. ``params`` (e.g. carried
     over from the JAX package) harvest in place of the seeded init, on
-    their own device. Returns the manifest. A recurrent family is refused
-    before its weights are drawn (``data.activations.check_family``)."""
+    their own device. Returns the manifest. A recurrent or audio family is
+    refused before its weights are drawn (``data.activations.check_family``)."""
     check_family(_arch(fcfg))
     if params is None:
         cfg, api, params = lm_for(fcfg, device=device)

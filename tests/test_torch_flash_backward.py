@@ -174,3 +174,35 @@ def test_backward_wrapper_rejects_bad_operands():
         tflash.flash_attention_bwd(torch.zeros(1, 3, 8, 16), q, q,
                                    torch.zeros(1, 3, 8, 16), torch.zeros(1, 3, 8),
                                    torch.zeros(1, 3, 8, 16))
+
+
+@pytest.mark.parametrize("sq,causal", [(48, False), (96, False), (96, True)])
+def test_function_gradients_hold_float64_on_common_keys(sq, causal):
+    """Keys that share most of their value (k = k̄ + 0.01·ε: whisper's
+    cross-attention over the encoder states of silent audio), 96 of them
+    against fewer or as many queries: the Function's float32 gradients hold
+    a float64 autograd reference within 1e-5 of each gradient's largest
+    entry. dq sums dS (K - k̄); the kernels' arithmetic against K itself
+    would carry the rounding of dS's rows, which sum to 0 in exact
+    arithmetic, times k̄ (``test_torch_flash_split.py`` and
+    ``test_torch_flash_bwd_tf32.py`` model both)."""
+    rng = np.random.default_rng(15)
+    b, h, sk, d = 1, 2, 96, 16
+    # float32 operands; the reference takes the same values in float64
+    q, v, cot = (rng.normal(size=s_).astype(np.float32)
+                 for s_ in ((b, h, sq, d), (b, h, sk, d), (b, h, sq, d)))
+    k = (rng.normal(size=(b, h, 1, d)) * 2
+         + 0.01 * rng.normal(size=(b, h, sk, d))).astype(np.float32)
+    ref = [torch.from_numpy(x).double().requires_grad_(True) for x in (q, k, v)]
+    s = ref[0] @ ref[1].transpose(-1, -2) * d ** -0.5
+    if causal:
+        s = s.masked_fill(torch.ones(sq, sk, dtype=torch.bool).triu(sk - sq + 1),
+                          -torch.inf)
+    (torch.softmax(s, -1) @ ref[2] * torch.from_numpy(cot).double()
+     ).sum().backward()
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    (tflash.flash(*leaves, causal=causal) * torch.from_numpy(cot)).sum().backward()
+    for t, r, name in zip(leaves, ref, ("dq", "dk", "dv")):
+        w = r.grad.numpy()
+        np.testing.assert_allclose(t.grad.double().numpy(), w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max(), err_msg=name)

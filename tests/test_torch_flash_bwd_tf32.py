@@ -8,9 +8,10 @@ operand of a product in two TF32 terms, big = tf32(x) and small = tf32(x -
 big), each product as three, small·big + big·small + big·big, summed in
 float32 (``test_torch_flash_tf32.mm3``); S = Q Kᵀ and dP = dO Vᵀ, P =
 2^(S · scale · log2 e - lse · log2 e) and dS = P ∘ (dP - delta) selected
-to 0 where a pair is not valid; dQ summed over tiles of 32 keys (16 at D =
-128) and dK, dV over tiles of 16 query rows (8 at D = 128), the GQA group
-summed last; dq · scale, dk · scale and dv in float32. The (o, lse) that
+to 0 where a pair is not valid; dQ = dS (K - k̄), k̄ each kv head's mean
+key and K - k̄ formed in float32 before the split, summed over tiles of 32
+keys (16 at D = 128) and dK, dV over tiles of 16 query rows (8 at D =
+128), the GQA group summed last; dq · scale, dk · scale and dv in float32. The (o, lse) that
 feed it come from the float32 forward's model, as on the card the
 kernel's forward feeds the backward. With one TF32 product per product
 (big·big) the same model misses the bar, and the tests assert that it
@@ -62,10 +63,14 @@ def _scores(q, k, v, do, lse, delta, causal, window, terms):
     return torch.where(ok, p, 0.0), ds, kf
 
 
-def model_dq(q, k, v, do, lse, delta, *, causal, window, terms=3):
-    """dq as the float32 dQ kernel computes it: dS times K tile by tile."""
+def model_dq(q, k, v, do, lse, delta, *, causal, window, terms=3, centre=True):
+    """dq as the float32 dQ kernel computes it: dS times K - k̄ (K with
+    ``centre=False``) tile by tile."""
     d, sk = q.shape[-1], k.shape[2]
     _, ds, kf = _scores(q, k, v, do, lse, delta, causal, window, terms)
+    if centre:
+        kf = kf - k.mean(dim=2, keepdim=True).repeat_interleave(
+            q.shape[1] // k.shape[1], dim=1)
     dq = torch.zeros_like(q)
     bk = dq_tile(d)
     for k0 in range(0, sk, bk):  # a tile with no valid pair adds 0
@@ -151,6 +156,41 @@ def test_permuted_transposes_equal_unpermuted(rows, d):
     assert torch.equal(a @ xt.T, a_acc @ x)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_dq_takes_the_keys_less_their_mean(causal):
+    """Keys that share most of their value, k̄ + 0.01·ε (a cross-attention
+    over the encoder states of silent audio): the model's dq against
+    K - k̄ holds the float32 bar against the plain version; against K, the
+    rounding of dS's rows, which sum to 0 in exact arithmetic, times k̄
+    lands far outside it."""
+    rng = np.random.default_rng(41)
+    qs, ks = (1, 2, 96, 64), (1, 1, 160, 64)
+    q, v, do = (torch.from_numpy(rng.normal(size=s_).astype(np.float32))
+                for s_ in (qs, ks, qs))
+    k = torch.from_numpy((2 * rng.normal(size=(1, 1, 1, 64))
+                          + 0.01 * rng.normal(size=ks)).astype(np.float32))
+    o, lse = model_forward(q, k, v, causal=causal, window=None)
+    delta = (do * o).sum(-1)
+    want = tflash.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                            causal=causal)[0]
+    opts = dict(causal=causal, window=None)
+    assert _worst(model_dq(q, k, v, do, lse, delta, **opts), want) <= 1.0
+    assert _worst(model_dq(q, k, v, do, lse, delta, centre=False, **opts),
+                  want) > 1.0
+
+
+def test_bwd_scratch_holds_the_mean_key_first():
+    """``bwd_work_floats``: dQ's k̄ (b · hkv · d floats) in both types, then
+    in float32 its planes; dK/dV's planes in float32, none in bf16."""
+    g = (2, 8, 2, 100, 70, 64)
+    assert tflash.bwd_work_floats(*g, dkv=False, bf16=True) == 2 * 2 * 64
+    assert tflash.bwd_work_floats(*g, dkv=True, bf16=True) == 0
+    assert tflash.bwd_work_floats(*g, dkv=False, bf16=False) \
+        == 2 * 2 * 64 + tflash.tf32_bwd_work_floats(*g, dkv=False)
+    assert tflash.bwd_work_floats(*g, dkv=True, bf16=False) \
+        == tflash.tf32_bwd_work_floats(*g, dkv=True)
+
+
 def test_bwd_work_buffer_holds_every_plane():
     """``tf32_bwd_work_floats``: the two terms of the operands the pre-pass
     writes, as they are and transposed with their rows padded to a multiple
@@ -194,7 +234,7 @@ def test_each_type_launches_its_own_backward(monkeypatch, dtype):
         assert used.launches == 1 and other.launches == 0
     suffix = "_tf32" if f32 else ""
     (dq_call,), (dkv_call,) = calls[f"flash_bwd_dq{suffix}"], calls[f"flash_bwd_dkv{suffix}"]
-    want = [tflash.tf32_bwd_work_floats(b, hq, hkv, sq, sk, d, dkv=x) if f32 else 0
+    want = [tflash.bwd_work_floats(b, hq, hkv, sq, sk, d, dkv=x, bf16=not f32)
             for x in (False, True)]
     assert dq_call[8] == want[0] and dkv_call[9] == want[1]
     assert dq_call[9:15] == dkv_call[10:16] == (b, hq, hkv, sq, sk, d)

@@ -12,8 +12,9 @@ reference max m only when the tile's max passes it by more than 8;
 every register operand of a second product (P in the forward, Pᵀ and dSᵀ
 in dK/dV, dS in dQ) is split into two bf16 terms, hi = x with its low 16 bits
 dropped (bf16 rounded toward zero) and lo = bf16(x - hi) rounded to
-nearest, so |x - hi - lo| <= 2**-16 |x|; o, dq, dk and dv are rounded to
-bf16 once. The plain versions run at the kernels' default TPU blocks (128), the
+nearest, so |x - hi - lo| <= 2**-16 |x|; dQ subtracts rowsum(dS) · k̄ (the
+mean key, float32) from its float32 sum before · scale; o, dq, dk and dv
+are rounded to bf16 once. The plain versions run at the kernels' default TPU blocks (128), the
 blocks the kernels take.
 
 Bars (``chip_smoke.py``: ``hold_attention``, ``BF16_RTOL`` = 2**-7): o
@@ -146,11 +147,12 @@ def model_dkv(q, k, v, do, lse, delta, *, causal, window):
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def model_dq(q, k, v, do, lse, delta, *, causal, window):
+def model_dq(q, k, v, do, lse, delta, *, causal, window, centre=True):
     """dq as the tensor-core dQ kernel computes it: S = Q Kᵀ and dP = dO Vᵀ
     in float32 from bf16 operands, dS selected to 0 where a pair is not
-    valid, dS split into hi + lo, each times bf16 K; dq · scale rounded to
-    bf16 once."""
+    valid, dS split into hi + lo, each times bf16 K, less rowsum(dS) · k̄
+    (``centre``; the float32 sum of dS, k̄ the float32 mean of each kv
+    head's keys); dq · scale rounded to bf16 once."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -165,6 +167,9 @@ def model_dq(q, k, v, do, lse, delta, *, causal, window):
     ds = torch.where(ok, p * (dp - delta[..., None]), 0.0)
     ds_hi, ds_lo = _split(ds)
     dq = ds_hi @ kf + ds_lo @ kf
+    if centre:
+        kbar = k.float().mean(dim=2, keepdim=True).repeat_interleave(g, dim=1)
+        dq = dq - ds.sum(-1, keepdim=True) * kbar
     return (dq * scale).to(q.dtype)
 
 
@@ -231,6 +236,34 @@ def test_split_dq_holds_the_bf16_bar(case):
     dq, want = _dq_case(case)
     assert dq.dtype == torch.bfloat16
     _assert_bar(f"{case[0]} dq", dq, want, float(want.float().abs().max()), RTOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_dq_subtracts_the_rowsum_times_the_mean_key(causal):
+    """Keys that share most of their value, k̄ + 0.01·ε (a cross-attention
+    over the encoder states of silent audio): the model's dq, less
+    rowsum(dS) · k̄, lies within one bf16 rounding of its largest entry
+    (2**-7 of it) from the plain version's; without the subtraction, dS's
+    rows, which sum to 0 only up to rounding, carry that rounding times k̄
+    into dq, 50 times farther. (The per-entry bar of the other cases does
+    not hold here: dS's split, 2**-16 of it, times k̄ is about 2**-16 ·
+    200 of dq's largest entry, more than 1e-5 of it.)"""
+    rng = np.random.default_rng(23)
+    qs, ks = (1, 2, 96, 64), (1, 1, 160, 64)
+    q, v, do = (torch.from_numpy(rng.normal(size=s_).astype(np.float32))
+                .to(torch.bfloat16) for s_ in (qs, ks, qs))
+    k = torch.from_numpy((2 * rng.normal(size=(1, 1, 1, 64))
+                          + 0.01 * rng.normal(size=ks)).astype(np.float32)
+                         ).to(torch.bfloat16)
+    o, lse = model_forward(q, k, v, causal=causal, window=None)
+    delta = (do.float() * o.float()).sum(-1)
+    want = tflash.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                            causal=causal)[0]
+    bar = RTOL * float(want.float().abs().max())
+    dq, raw = (model_dq(q, k, v, do, lse, delta, causal=causal, window=None,
+                        centre=c).float() for c in (True, False))
+    assert float((dq - want.float()).abs().max()) <= bar
+    assert float((raw - want.float()).abs().max()) > 20 * bar
 
 
 def test_one_bf16_ds_term_misses_the_dq_bar(monkeypatch):

@@ -141,12 +141,18 @@ def test_rope_and_norm_match_jax():
 
 
 def test_unported_families_raise():
-    """whisper waits for its slice and says so by name; the MoE family
-    (deepseek-v3, kimi-k2) is served by ``lm`` since its slice, with its two
-    stacks (the recurrent families by ``zamba`` and ``xlstm``:
-    ``tests/test_torch_zamba.py``, ``tests/test_torch_xlstm.py``)."""
-    with pytest.raises(ValueError, match="\\(whisper\\) is not ported"):
-        tmodels.get(treg.smoke_config("whisper-large-v3"))
+    """Every family of the registry is served: whisper by ``models.whisper``
+    (``tests/test_torch_whisper.py``), the recurrent families by ``zamba``
+    and ``xlstm`` (``tests/test_torch_zamba.py``, ``tests/test_torch_xlstm.
+    py``) and the MoE family (deepseek-v3, kimi-k2) by ``lm``, with its two
+    stacks; a family the port does not know raises by name."""
+    wcfg = treg.smoke_config("whisper-large-v3")
+    api = tmodels.get(wcfg)
+    assert (api.template, api.forward, api.make_cache, api.decode_step) == (
+        tmodels.whisper.template, tmodels.whisper.forward,
+        tmodels.whisper.make_cache, tmodels.whisper.decode_step)
+    with pytest.raises(ValueError, match="unknown family 'encdec'"):
+        tmodels.get(dataclasses.replace(wcfg, family="encdec"))
     for arch in ("deepseek-v3-671b", "kimi-k2-1t-a32b"):
         cfg = treg.smoke_config(arch)
         api = tmodels.get(cfg)

@@ -203,8 +203,17 @@ def test_decode_api_and_refusals():
         assert {k: (tuple(v.shape), v.dtype) for k, v in cache.items()} == {
             "c_kv": ((4, 1, 4, 16), torch.bfloat16),
             "k_rope": ((4, 1, 4, 8), torch.bfloat16)}
-    with pytest.raises(ValueError, match="not ported"):
-        tmodels.get(treg.smoke_config("whisper-large-v3"))
+    # whisper decodes from its self-attention cache and the encoder's cross
+    # K/V (enc_frames 32 at smoke size), whatever the length asked
+    wcfg = treg.smoke_config("whisper-large-v3")
+    wapi = tmodels.get(wcfg)
+    assert wapi.make_cache is not None and wapi.decode_step is not None
+    cache = wapi.make_cache(wcfg, 1, 4, device="cpu")
+    assert {k: (tuple(v.shape), v.dtype) for k, v in cache.items()} == {
+        "k": ((4, 1, 4, 2, 16), torch.bfloat16),
+        "v": ((4, 1, 4, 2, 16), torch.bfloat16),
+        "xk": ((4, 1, 32, 2, 16), torch.bfloat16),
+        "xv": ((4, 1, 32, 2, 16), torch.bfloat16)}
 
 
 # ------------------------------------------------------------ the launcher
