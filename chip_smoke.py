@@ -345,6 +345,40 @@ phase 13.)
    (1152 / 576 / 576), no other kernel. (e) the train launcher on the
    smoke config on the card and on the CPU from one saved init, phase
    12 (e)'s bars.
+14. the dry run, the cost model and the tile search (``launch_phase``).
+   (a) the measured tile search (``codegen.autotune_tiles``) at W1 (8192 ×
+   2048 bi-level) and W2 (256 × 32 × 2048 tri-level), float32: each
+   candidate plan's search ms a call and spread (``_TUNE_CALLS`` calls
+   between events behind a spin kernel, best of ``_TUNE_REPS``
+   interleaved rounds) and, apart, the per-call ms of a
+   20-call CUDA-graph replay of its pipeline (median of REPS), its reduce
+   and apply held to ``reduce_plain``/``apply_plain`` at phase 1's bars,
+   the fastest and the verdict (the heuristic unless beaten by more than
+   the spread); the search's launches held to its protocol
+   (``tile_search_launches``) and a second ask searching nothing; then
+   ``make_plan(method="auto")`` from cleared caches must run the search
+   through rows 7 and 8, exactly by that protocol, and again from a cleared
+   plan cache none, and its plan, if it is the codegen pipeline, launches
+   each kernel once. Phases 7, 9 and 10 hold their tile searches' launches
+   to the protocol too, and a second call of the same workload to none.
+   (b) the cost model against a real step: granite-3-2b at full width cut
+   to LAUNCH_LAYERS layers, phase 5's batch (8 × 2048 in micro-batches of
+   4), bf16 compute, ``impl="flash"``, the constraint on: the walk
+   (``roofline/costs.py``) of one warm step on the card equals the walk of
+   the same step on ``meta`` in FLOPs, bytes and the flash kernels'
+   declared costs; the step (CUDA events, median of 3 warm steps) takes at
+   least the roofline's largest term (``roofline/analysis.py``, one H100)
+   — the ratio is printed —; the meta walk's memory (arguments + peak) is
+   within 0.5–2× of ``torch.cuda.max_memory_allocated`` over a step.
+   (c) ``python -m repro_torch.launch.dryrun --shape all`` for every
+   assigned arch on both production meshes (two processes a mesh, each
+   with half the archs, ``LAUNCH_ARCH_HALVES``; no card visible:
+   ``CUDA_VISIBLE_DEVICES`` empty) and ``roofline.report`` on the records:
+   the counts of ok, skip and error, no error but the mesh refusal of the
+   MoE, recurrent and audio families. (d) ``launch.hillclimb`` on every
+   variant the port's mesh takes (stablelm_*, sae_factory*), each delta of
+   the baseline's dominant term printed. (c) and (d) run in the
+   background while (a) and (b) hold the card.
 
 The widths are the SAE factory's on stablelm-1.6b: d_model 2048, d_dict
 4 x 2048 = 8192, 32 heads; the projected tensor is the transposed encoder.
@@ -633,6 +667,49 @@ def graph_ms(fn, reps=REPS, calls=1):
     ms = event_ms(graph.replay, reps) / calls
     del graph
     return ms
+
+
+def tile_search_mark():
+    """The ordinal of the last tile search so far (``codegen.autotune_tiles``),
+    for :func:`tile_search_launches`."""
+    from repro_torch.kernels import codegen
+
+    return max((e["search"] for e in codegen.tile_search_log().values()),
+               default=0)
+
+
+def tile_search_launches(mark):
+    """The launches that the tile searches logged after ``mark`` made, by
+    the search's own protocol: each candidate's ``_TUNE_WARM`` warm-up calls
+    and ``_TUNE_REPS`` rounds of ``_TUNE_CALLS`` timed calls, through the
+    reduce, the apply and, for an ℓ1 outer solve, ``l1ball``. A phase holds
+    ``search_counts`` to it exactly: a cache that searched again would
+    double it."""
+    from repro_torch.kernels import codegen
+
+    per = codegen._TUNE_WARM + codegen._TUNE_REPS * codegen._TUNE_CALLS
+    want = {}
+    for key, entry in codegen.tile_search_log().items():
+        if entry["search"] <= mark:
+            continue
+        kernels = ("codegen_reduce", "codegen_apply") \
+            + (("l1ball",) if key[1][-1][0] == "1" else ())
+        for k in kernels:
+            want[k] = want.get(k, 0) + per * len(entry["plans"])
+    return want
+
+
+def check_search(what, mark):
+    """``search_counts`` (the nonzero ones) must equal
+    :func:`tile_search_launches` since ``mark``; returns them."""
+    from repro_torch.kernels import _build
+
+    got = {k: n for k, n in _build.search_counts().items() if n}
+    want = tile_search_launches(mark)
+    if got != want:
+        raise SmokeFailure(f"{what}: tile search launches {got} != {want}, "
+                           "one search per new workload")
+    return got
 
 
 def host_ms(fn, reps=5):
@@ -997,6 +1074,7 @@ def time_golden(wls, golden, kernel_errs):
     from repro_torch.core import exact_l1inf, multilevel
     from repro_torch.kernels import (bilevel_l1inf as bi, codegen, l1ball,
                                      trilevel_l1infinf as tri)
+    from repro_torch.roofline import costs as C
 
     rows, pipes = [], {}
     for wl, (design, y, radii) in wls.items():
@@ -1007,10 +1085,10 @@ def time_golden(wls, golden, kernel_errs):
             lo, hi = -u[None, :], u[None, :]  # the bounds, precomputed
             cases = {  # kernel, plain, bytes, operations, library
                 "colmax": (lambda: bi.colmax(y), lambda: bi.colmax_plain(y),
-                           es * (elems + m), 2 * elems,
+                           *C.colmax(es, elems, m),
                            lambda: torch.linalg.vector_norm(y, INF, dim=0)),
                 "clip": (lambda: bi.clip(y, u), lambda: bi.clip_plain(y, u),
-                         es * (2 * elems + m), 2 * elems,
+                         *C.clip(es, elems, m),
                          lambda: torch.clamp(y, lo, hi)),
             }
         else:
@@ -1022,11 +1100,11 @@ def time_golden(wls, golden, kernel_errs):
             cases = {
                 "trilevel_reduce": (lambda: tri.trilevel_reduce(y),
                                     lambda: tri.trilevel_reduce_plain(y),
-                                    es * (elems + nm + m), 2 * elems + nm,
+                                    *C.trilevel_reduce(es, elems, nm, m),
                                     None),
                 "trilevel_apply": (lambda: tri.trilevel_apply(y, v2, u1),
                                    lambda: tri.trilevel_apply_plain(y, v2, u1),
-                                   es * (2 * elems + nm + m), 2 * elems + nm,
+                                   *C.trilevel_apply(es, elems, nm, m),
                                    lambda: torch.clamp(y, lo2, w2)),
             }
         for name, (kern, plain, nbytes, nops, lib) in cases.items():
@@ -1346,6 +1424,7 @@ def time_flash_harvest(flash_full, launches):
     import torch
 
     from repro_torch.kernels import flash_attention as flash
+    from repro_torch.roofline import costs as C
 
     ferr, (q, k, v) = flash_full
     (b, hq, sq, d), sk = q.shape, k.shape[2]
@@ -1364,10 +1443,9 @@ def time_flash_harvest(flash_full, launches):
     sdpa_kernels = device_kernels(sdpa)
     own_kernels = device_kernels(kern)   # the pre-pass and the kernel apart
     # causal work 2·B·Hq·Sq·Sk·D (half of QKᵀ and of PV); bytes: q, k, v, o
-    # once each and the f32 lse
-    work = 2 * b * hq * sq * sk * d
-    bms, by = bound_ms(4 * (2 * q.numel() + 2 * k.numel() + b * hq * sq), work,
-                       TF32_OPS_PER_S)
+    # once each and the f32 lse (roofline/costs.py's table)
+    nbytes, work = C.flash_fwd(q, k, True)
+    bms, by = bound_ms(nbytes, work, TF32_OPS_PER_S)
     issued_ms = 3 * work / TF32_OPS_PER_S * 1e3
     row = {
         "name": "flash_fwd_tf32", "workload": f"harvest {tuple(q.shape)} causal f32",
@@ -2016,16 +2094,15 @@ def time_attention(attn_full, attn_case_errs, launches, trn=None):
     import torch
 
     from repro_torch.kernels import flash_attention as flash
+    from repro_torch.roofline import costs as C
 
     rows = []
     (b, hq, sq, d), (_, hkv, sk, _) = GRANITE_ATTN[0], GRANITE_ATTN[1]
-    work = b * hq * sq * sk * d           # B·Hq·Sq·Sk·D; causal halves 2x
     attn_rows, attn_ms = {}, {}
     f32_rows = []
     for dt, (errs, (q, k, v, do, o, lse, delta)) in attn_full.items():
         tag = str(dt)[6:]
         rate = BF16_OPS_PER_S if dt == torch.bfloat16 else TF32_OPS_PER_S
-        es, n_q, n_k, n_r = q.element_size(), q.numel(), k.numel(), lse.numel()
         qq, kk, vv = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
 
         def sdpa():
@@ -2046,13 +2123,13 @@ def time_attention(attn_full, attn_case_errs, launches, trn=None):
         t["sdpa_bwd"] = t["sdpa_fwd_bwd"] - t["sdpa_fwd"]
         attn_ms[tag] = t
         sdpa_err = hold_sdpa(tag, sdpa, (qq, kk, vv), q, k, v, o, lse, do)
-        spec_ = {  # bytes (inputs once, outputs once), operations, plain, library
-            "flash_fwd": (es * (2 * n_q + 2 * n_k) + 4 * n_r, 2 * work,
-                          t["fwd_plain"], t["sdpa_fwd"]),
-            "flash_bwd_dq": (es * (3 * n_q + 2 * n_k) + 8 * n_r, 3 * work,
-                             t["bwd_plain"], t["sdpa_bwd"]),
-            "flash_bwd_dkv": (es * (2 * n_q + 4 * n_k) + 8 * n_r, 4 * work,
-                              t["bwd_plain"], t["sdpa_bwd"]),
+        spec_ = {  # bytes (inputs once, outputs once), operations, plain,
+                   # library (roofline/costs.py's table)
+            "flash_fwd": (*C.flash_fwd(q, k, True), t["fwd_plain"], t["sdpa_fwd"]),
+            "flash_bwd_dq": (*C.flash_bwd_dq(q, k, True), t["bwd_plain"],
+                             t["sdpa_bwd"]),
+            "flash_bwd_dkv": (*C.flash_bwd_dkv(q, k, True), t["bwd_plain"],
+                              t["sdpa_bwd"]),
         }
         for name, (nbytes, nops, plain_ms, lib_ms) in spec_.items():
             bms, by = bound_ms(nbytes, nops, rate)
@@ -2179,6 +2256,7 @@ def hold_partial_apply(randn, rand):
     import torch
 
     from repro_torch.kernels.codegen import lowering
+    from repro_torch.roofline import costs as C
 
     err = 0.0
     for batch, canon, norms in PARTIAL_CASES:
@@ -2217,9 +2295,9 @@ def hold_partial_apply(randn, rand):
     lib_ms = event_ms(lib)
     # Y read and X written once, w read once; v1 only where an ℓ2 at level
     # L-2 rescales by it (an ℓ∞ clamps to ±w, an ℓ1 thresholds Y's group)
-    nbytes = 4 * (2 * yc.numel() + w.numel()
-                  + (aggs[0].numel() if norms[0] == "2" else 0))
-    bms, by = bound_ms(nbytes, 2 * yc.numel())
+    nbytes, nops = C.codegen_partial_apply(
+        yc.numel(), w.numel(), aggs[0].numel() if norms[0] == "2" else 0)
+    bms, by = bound_ms(nbytes, nops)
     print(f"time codegen_partial_apply {batch}x{canon}: {ms:.4f} ms (bound "
           f"{bms:.4f} ms by {by}, {bms / ms:.2f} of bound; CUDA-graph replay "
           f"{dev_ms:.4f} ms, {bms / dev_ms:.2f} of bound), plain {plain_ms:.4f} "
@@ -2343,13 +2421,29 @@ def mesh_rank(rank, world, backend, tmp):
             dist.barrier()
             _build.reset_launches()
             mesh.reset_counts()
+            mark = tile_search_mark()
             x = h(params, 0)["blocks"][grp][name]
             torch.cuda.synchronize()
             counts = _build.launch_counts()
+            # the first call tunes the shard's tile plan (codegen's
+            # autotune_tiles): those launches are the search's, held to its
+            # protocol and apart
+            search = check_search(f"rank {rank} {leaf} {body}", mark)
             results[body, leaf] = x
             o = out["leaves"][leaf]
             o[f"{body}_collectives"] = mesh.counts()
-            o[f"{body}_launches"] = {k: counts[k] for k in MESH_LAUNCHES[leaf]}
+            o[f"{body}_launches"] = {k: counts[k] - search.get(k, 0)
+                                     for k in MESH_LAUNCHES[leaf]}
+            o[f"{body}_search_launches"] = search
+            # a second call of the same workload: the cached verdict, no search
+            _build.reset_launches()
+            h(params, 0)
+            torch.cuda.synchronize()
+            if any(_build.search_counts().values()):
+                raise SmokeFailure(f"rank {rank} {leaf} {body}: the second call "
+                                   f"searched again {_build.search_counts()}")
+            counts = _build.launch_counts()
+            o[f"{body}_launches_again"] = {k: counts[k] for k in MESH_LAUNCHES[leaf]}
     for leaf, (grp, name), fields in MESH_HOOKS:
         o = out["leaves"][leaf]
         levels, scale = fields["levels"], o["scale"]
@@ -2366,10 +2460,11 @@ def mesh_rank(rank, world, backend, tmp):
                 f"rank {rank} {leaf} {body} body vs the single-device projection",
                 got, refs[leaf], scale, rtol=0.0)
         want = dict(MESH_LAUNCHES[leaf])
-        if o["codegen_launches"] != want:
-            raise SmokeFailure(f"rank {rank} {leaf}: launches {o['codegen_launches']}"
-                               f" != {want}")
-        if any(o["plain_launches"].values()):
+        for again in ("", "_again"):
+            if o[f"codegen_launches{again}"] != want:
+                raise SmokeFailure(f"rank {rank} {leaf}: launches "
+                                   f"{o[f'codegen_launches{again}']} != {want}")
+        if any(o["plain_launches"].values()) or any(o["plain_launches_again"].values()):
             raise SmokeFailure(f"rank {rank} {leaf}: the plain body launched "
                                f"{o['plain_launches']}")
         perm = (0,) + tuple(reversed(range(1, x.ndim))) \
@@ -2733,6 +2828,7 @@ def train_mesh_rank(rank, world, backend, tmp, radius, layers):
     a = {"losses": [], "grad_norms": [], "collectives": []}
     moments = []
     _build.reset_launches()
+    mark = tile_search_mark()
     for i in range(f_steps):
         mesh.reset_counts()
         state, m = step(state, {"tokens": torch.from_numpy(pipe.batch(i)).to(dev)})
@@ -2742,6 +2838,8 @@ def train_mesh_rank(rank, world, backend, tmp, radius, layers):
         a["grad_norms"].append(float(m["grad_norm"]))
         moments.append(_mlp_moments(state))
     a["launches"] = _build.launch_counts()
+    # the first step tunes each shard workload's tile plan, once in all
+    a["search_launches"] = check_search(f"rank {rank} f32 train steps", mark)
     a["model"] = step_collectives(cfg, tcfg, specs, mesh, pipe.batch(0).shape)
     a["digests"] = {key: {name: _digest(x) for name, x in _tree.leaves_with_paths(
         state["params"] if key == "params" else state["opt"][key])}
@@ -2761,9 +2859,13 @@ def train_mesh_rank(rank, world, backend, tmp, radius, layers):
     torch.cuda.reset_peak_memory_stats(dev)
     dist.barrier()
     _build.reset_launches()
+    mark = tile_search_mark()
     run = train_cli.run(argv)
     torch.cuda.synchronize()
-    counts = _build.launch_counts()
+    # the main path's launches: the tile search's (the first step tunes
+    # each new shard workload's plan, once over all the steps) apart
+    search = check_search(f"rank {rank} bf16 train CLI", mark)
+    counts = {k: n - search.get(k, 0) for k, n in _build.launch_counts().items()}
     cfg, tcfg, pipe = _mesh_train_tcfg(layers, MESH_TRAIN_BF16_STEPS, radius,
                                        "bfloat16")
     specs = param_specs(api.template(cfg), sharding.param_rules(mesh),
@@ -2775,6 +2877,7 @@ def train_mesh_rank(rank, world, backend, tmp, radius, layers):
                    "model": step_collectives(cfg, tcfg, specs, mesh,
                                              pipe.batch(0).shape),
                    "launches": counts,
+                   "search_launches": search,
                    "peak_bytes": torch.cuda.max_memory_allocated(dev),
                    "sparsity": run["sparsity"]}
     del run
@@ -3591,15 +3694,22 @@ def serve_service(randn, rand):
     tickets = [svc.submit(y, levels, r, method=m) for y, levels, r, m in reqs]
     torch.cuda.synchronize()
     _build.reset_launches()
+    mark = tile_search_mark()
     t0 = time.perf_counter()
     svc.flush()
     torch.cuda.synchronize()
     flush_ms = (time.perf_counter() - t0) * 1e3
-    launches = {k: n for k, n in _build.launch_counts().items() if n}
+    # the odd request's codegen plan tunes its tile plan at its first call
+    # (codegen's autotune_tiles): those launches are the search's, held to
+    # its protocol and apart
+    search = check_search("service flush", mark)
+    launches = {k: n - search.get(k, 0)
+                for k, n in _build.launch_counts().items() if n}
     groups = len(FULL) + 1
     print(f"service: one flush of {len(reqs)} requests in {groups} groups, "
-          f"{flush_ms:.3f} ms (host clock, first call of each plan included); "
-          f"launches {launches}; stats {svc.stats}")
+          f"{flush_ms:.3f} ms (host clock, first call of each plan and the "
+          f"odd request's tile search included); launches {launches}, the "
+          f"tile search's {search} apart; stats {svc.stats}")
     if launches != dict.fromkeys(SERVER_KERNELS, groups):
         raise SmokeFailure(f"service: launches {launches}, not one pipeline "
                            f"per group ({groups})")
@@ -3619,8 +3729,26 @@ def serve_service(randn, rand):
             raise SmokeFailure(f"service request {i}: norm {nrm} > radius {r}")
     print(f"service: {len(reqs)} results equal to the plain projection "
           f"(max_abs_err {worst:.3e}) and feasible")
-    return {"flush_ms": flush_ms, "launches": launches, "stats": svc.stats,
-            "max_abs_err": worst}
+    # the odd request again, alone: its cached plan, no search
+    y, levels, r, m = reqs[-1]
+    again = svc.submit(y, levels, r, method=m)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    svc.flush()
+    torch.cuda.synchronize()
+    again_launches = {k: n for k, n in _build.launch_counts().items() if n}
+    if any(_build.search_counts().values()) or \
+            again_launches != dict.fromkeys(SERVER_KERNELS, 1):
+        raise SmokeFailure(f"service: the odd request again launched "
+                           f"{again_launches}, its search {_build.search_counts()}")
+    check_close("service odd request again", svc.result(again),
+                multilevel.multilevel_project(y, list(levels), r, method="bisect"),
+                float(y.abs().max()))
+    print(f"service: the odd request again in a flush of its own: launches "
+          f"{again_launches}, no tile search")
+    return {"flush_ms": flush_ms, "launches": launches,
+            "search_launches": search, "again_launches": again_launches,
+            "stats": svc.stats, "max_abs_err": worst}
 
 
 def _telemetry_argv(radius):
@@ -4905,6 +5033,7 @@ def whisper_flash(randn, smi):
     import torch
 
     from repro_torch.kernels import flash_attention as flash
+    from repro_torch.roofline import costs as C
 
     out = {n: {} for n in BF16_FLASH + F32_FLASH}
     for site, qs, ks, causal in WHISPER_FLASH:
@@ -4937,17 +5066,15 @@ def whisper_flash(randn, smi):
                  "sdpa_fwd_bwd": event_ms(lambda: torch.autograd.grad(
                      sdpa(), (qq, kk, vv), do))}
             t["sdpa_bwd"] = t["sdpa_fwd_bwd"] - t["sdpa_fwd"]
-            (b, h, sq, d), sk = qs, ks[2]
-            work = b * h * sq * sk * d * (1 if causal else 2)
             rate = BF16_OPS_PER_S if dt == torch.bfloat16 else TF32_OPS_PER_S
-            es, n_q, n_k, n_r = q.element_size(), q.numel(), k.numel(), lse.numel()
-            spec_ = {  # bytes, operations, plain, library, library's distance
-                "flash_fwd": (es * (2 * n_q + 2 * n_k) + 4 * n_r, 2 * work,
-                              t["fwd_plain"], t["sdpa_fwd"], lib_err["fwd"]),
-                "flash_bwd_dq": (es * (3 * n_q + 2 * n_k) + 8 * n_r, 3 * work,
-                                 t["bwd_plain"], t["sdpa_bwd"], lib_err["bwd"]),
-                "flash_bwd_dkv": (es * (2 * n_q + 4 * n_k) + 8 * n_r, 4 * work,
-                                  t["bwd_plain"], t["sdpa_bwd"], lib_err["bwd"]),
+            spec_ = {  # bytes, operations (roofline/costs.py's table), plain,
+                       # library, library's distance
+                "flash_fwd": (*C.flash_fwd(q, k, causal), t["fwd_plain"],
+                              t["sdpa_fwd"], lib_err["fwd"]),
+                "flash_bwd_dq": (*C.flash_bwd_dq(q, k, causal), t["bwd_plain"],
+                                 t["sdpa_bwd"], lib_err["bwd"]),
+                "flash_bwd_dkv": (*C.flash_bwd_dkv(q, k, causal), t["bwd_plain"],
+                                  t["sdpa_bwd"], lib_err["bwd"]),
             }
             for kern, name in zip(BF16_FLASH, names):
                 nbytes, nops, plain_ms, lib_ms, lerr = spec_[kern]
@@ -5290,6 +5417,340 @@ def whisper_rows(rec):
     return rows
 
 
+# phase 14: the dry run, the cost model and the tile search
+LAUNCH_LAYERS = 8             # (b): granite-3-2b at full width, 8 layers
+LAUNCH_MEM_BAND = (0.5, 2.0)  # (b): meta estimate / max_memory_allocated
+LAUNCH_HILLCLIMB = ("stablelm_probsbf16", "stablelm_chunk2048",
+                    "stablelm_probsbf16_c2048", "stablelm_mb64",
+                    "stablelm_proj_all", "stablelm_gsp_all", "sae_factory",
+                    "sae_factory_heads8")
+# (c): the one error a dry-run cell may end in, the mesh refusal of the
+# MoE/MLA, recurrent and audio families (models/lm.py: _refuse_mesh)
+LAUNCH_REFUSAL = "the sharded forward covers the dense family"
+LAUNCH_REFUSED = {"deepseek-v3-671b", "kimi-k2-1t-a32b", "whisper-large-v3",
+                  "xlstm-1.3b", "zamba2-7b"}
+# (c): the archs in two halves of about equal walking time, one process a
+# half and mesh (every assigned arch once)
+LAUNCH_ARCH_HALVES = (
+    ("qwen3-32b", "stablelm-1.6b", "deepseek-v3-671b", "kimi-k2-1t-a32b",
+     "whisper-large-v3"),
+    ("chameleon-34b", "granite-3-2b", "h2o-danube-1.8b", "xlstm-1.3b",
+     "zamba2-7b"))
+
+
+def launch_search(randn):
+    """Phase 14 (a): the tile search at W1 and W2, each candidate held and
+    timed, then ``make_plan(method="auto")`` through the tuned plan."""
+    import torch
+
+    from repro_torch.core import plan as planmod, schedule
+    from repro_torch.kernels import _build, codegen, l1ball
+    from repro_torch.kernels.codegen import lowering
+
+    out = {}
+    for wl, (shape, levels) in FULL.items():
+        codegen.clear_tile_cache()
+        _build.reset_launches()
+        mark = tile_search_mark()
+        t0 = time.perf_counter()
+        winner = codegen.autotune_tiles(shape, levels, torch.float32,
+                                        device="cuda")
+        torch.cuda.synchronize()
+        search_s = time.perf_counter() - t0
+        search = check_search(f"tile search {wl}", mark)
+        if search != {k: n for k, n in _build.launch_counts().items() if n}:
+            raise SmokeFailure(f"tile search {wl}: launches outside the search")
+        log = codegen.tile_search_log()[codegen._tile_key(
+            shape, levels, torch.float32, "cuda")]
+        if log["plans"][log["winner"]] != winner:
+            raise SmokeFailure(f"tile search {wl}: the cached plan is not the winner")
+        _build.reset_launches()
+        if codegen.autotune_tiles(shape, levels, torch.float32,
+                                  device="cuda") is not winner \
+                or any(_build.launch_counts().values()):
+            raise SmokeFailure(f"tile search {wl}: the second ask searched again")
+        sched = schedule.compile_schedule(shape, levels)
+        norms = [q for q, _ in sched.levels]
+        y = randn(shape)
+        yc = y.reshape((1,) + winner.canon_shape)
+        aggs_p, vfin_p = lowering.reduce_plain(yc, norms[:-1])
+        radius = 0.25 * float(vfin_p.sum())
+        radii = torch.full((1,), radius, device=y.device)
+        u_p = l1ball.project_l1_plain(vfin_p, radii)
+        x_p = lowering.apply_plain(yc, aggs_p, vfin_p, u_p, norms[:-1])
+        r_dev = torch.tensor(radius, device=y.device)
+        cands = []
+        for i, tp in enumerate(log["plans"]):
+            aggs, vfin = lowering.codegen_reduce(yc, tp, norms[:-1])
+            x = lowering.codegen_apply(yc, aggs_p, vfin_p, u_p, tp, norms[:-1])
+            torch.cuda.synchronize()
+            tag = f"tile search {wl} plan {i}"
+            e_r = check_close(f"{tag} reduce vfin", vfin, vfin_p, fmax(vfin_p))
+            for t, (a, ap) in enumerate(zip(aggs, aggs_p)):
+                e_r = max(e_r, check_close(f"{tag} reduce v{t + 1}", a, ap, fmax(ap)))
+            e_a = check_close(f"{tag} apply", x, x_p, fmax(yc))
+            fn = codegen.build(shape, levels, torch.float32, method="bisect",
+                               device="cuda", tile_plan=tp)
+            check_close(f"{tag} pipeline", fn(y, r_dev), x_p.reshape(shape),
+                        fmax(yc))
+            ms20 = graph_ms(lambda: fn(y, r_dev), calls=20)
+            geo = {k: getattr(tp, k) for k in ("packs", "splits", "rows", "chunk")}
+            cands.append({"plan": geo, "search_ms": log["ms"][i],
+                          "search_spread_ms": log["spread"][i],
+                          "graph20_ms": ms20, "reduce_err": e_r, "apply_err": e_a,
+                          "winner": i == log["winner"]})
+            print(f"tile search {wl} {shape} plan {i} {geo}: search {log['ms'][i]:.4f} "
+                  f"ms a call (spread {log['spread'][i]:.4f}), 20-call replay "
+                  f"{ms20:.4f} ms a call; reduce max_abs_err {e_r:.3e}, apply "
+                  f"{e_a:.3e}{' <- verdict' if i == log['winner'] else ''}"
+                  f"{' <- fastest' if i == log['fastest'] else ''}")
+        # method="auto" from cleared caches: its codegen build runs the
+        # search; again from a cleared plan cache: the cached verdict
+        planmod.clear_cache()
+        codegen.clear_tile_cache()
+        _build.reset_launches()
+        mark = tile_search_mark()
+        plan = planmod.make_plan(shape, torch.float32, levels, method="auto",
+                                 device="cuda")
+        torch.cuda.synchronize()
+        auto_search = check_search(f"{wl} make_plan(method='auto')", mark)
+        for k in ("codegen_reduce", "codegen_apply"):
+            if not auto_search.get(k):
+                raise SmokeFailure(f"{wl}: make_plan(method='auto') ran no tile "
+                                   f"search through {k}: {auto_search}")
+        planmod.clear_cache()
+        _build.reset_launches()
+        planmod.make_plan(shape, torch.float32, levels, method="auto",
+                          device="cuda")
+        torch.cuda.synchronize()
+        if any(_build.search_counts().values()):
+            raise SmokeFailure(f"{wl}: make_plan(method='auto') searched again "
+                               f"{_build.search_counts()}")
+        _build.reset_launches()
+        x = plan(y, radius)
+        torch.cuda.synchronize()
+        call = {k: n for k, n in _build.launch_counts().items() if n}
+        if plan.method == "codegen" and call != {"codegen_reduce": 1,
+                                                 "l1ball": 1, "codegen_apply": 1}:
+            raise SmokeFailure(f"{wl}: the auto plan (codegen) launched {call}")
+        check_close(f"{wl} auto plan", x, x_p.reshape(shape), fmax(yc))
+        w = log["winner"]
+        out[wl] = {"shape": list(shape), "seconds": search_s,
+                   "search_launches": search, "candidates": cands,
+                   "verdict": w, "fastest": log["fastest"],
+                   "verdict_graph20_ms": cands[w]["graph20_ms"],
+                   "heuristic_graph20_ms": cands[0]["graph20_ms"],
+                   "auto": {"method": plan.method, "search_launches": auto_search,
+                            "call_launches": call}}
+        print(f"tile search {wl}: {len(cands)} plans in {search_s:.2f} s, launches "
+              f"{search}; fastest {log['fastest']}, verdict {w} (the heuristic "
+              f"unless beaten by more than the spread); 20-call replay of the "
+              f"verdict {cands[w]['graph20_ms']:.4f} ms a call, of the heuristic "
+              f"{cands[0]['graph20_ms']:.4f}; make_plan(auto) -> {plan.method}, "
+              f"its search {auto_search}, one call {call}")
+    return out
+
+
+def launch_cost_model(dev, smi):
+    """Phase 14 (b): the walk of one warm step on the card against the walk
+    of the same step on meta, the step's time against its roofline bound,
+    and the meta memory estimate against max_memory_allocated."""
+    import numpy as np
+    import torch
+
+    from repro_torch import _tree, models
+    from repro_torch.configs import registry
+    from repro_torch.configs.types import ProjectionSpec, TrainConfig
+    from repro_torch.data import DataConfig, DataPipeline
+    from repro_torch.launch import specs as SP
+    from repro_torch.roofline import analysis as RF, costs as C
+    from repro_torch.training import init_state, make_train_step
+
+    cfg = dataclasses.replace(registry.get_arch(TRAIN_ARCH), n_layers=LAUNCH_LAYERS)
+    steps, batch, micro, seq = train_args()
+    tcfg = TrainConfig(microbatch=micro, total_steps=10, warmup=1, remat=True,
+                       projection=ProjectionSpec(pattern=r"(w_up|w_gate)",
+                                                 radius=5.0))
+    api = models.get(cfg)
+    pipe = DataPipeline(DataConfig(vocab=cfg.vocab, seq_len=seq + 1,
+                                   global_batch=batch, microbatch=micro))
+    toks = {"tokens": torch.from_numpy(pipe.batch(0)).to(dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = init_state(cfg, tcfg, api, SEED, device=dev)
+    step = make_train_step(cfg, tcfg, api, impl="flash")
+    step(state, toks)                       # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    with C.walk(device="cuda") as wc:
+        step(state, toks)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    mstate = SP.abstract_train_state(cfg, tcfg, api)
+    mtoks = {"tokens": torch.empty(toks["tokens"].shape,
+                                   dtype=toks["tokens"].dtype, device="meta")}
+    with C.walk(device="meta") as wm:
+        make_train_step(cfg, tcfg, api, impl="flash")(mstate, mtoks)
+    cuda, meta = wc.costs, wm.costs
+    kern = {k: dict(v) for k, v in meta.kernels.items()}
+    if (cuda.flops, cuda.bytes) != (meta.flops, meta.bytes) or kern != {
+            k: dict(v) for k, v in cuda.kernels.items()}:
+        raise SmokeFailure(f"cost walk: the card's step {cuda.flops:.6e} FLOPs "
+                           f"{cuda.bytes:.6e} bytes {dict(cuda.kernels)}, meta "
+                           f"{meta.flops:.6e} / {meta.bytes:.6e} {kern}")
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if not kern.get(name, {}).get("calls"):
+            raise SmokeFailure(f"cost walk: no declared {name} in {kern}")
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(state, toks)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    step_ms = statistics.median(times)
+    roof = RF.analyze(meta, 1)
+    bound = roof.bound_s() * 1e3
+    ratio = step_ms / bound
+    args = sum(t.numel() * t.element_size() for t in _tree.leaves(mstate)) \
+        + mtoks["tokens"].numel() * mtoks["tokens"].element_size()
+    est = args + meta.peak_bytes
+    mem_ratio = est / peak
+    print(f"cost model {TRAIN_ARCH} x{LAUNCH_LAYERS} layers, batch {batch} x {seq} "
+          f"(micro {micro}), flash, bf16: {meta.flops:.6e} FLOPs, {meta.bytes:.6e} "
+          f"bytes (card walk = meta walk), kernels {kern}; step {step_ms:.3f} ms "
+          f"(median of {times}) vs the bound {bound:.3f} ms ({roof.bottleneck}: "
+          f"compute {roof.t_compute * 1e3:.3f} ms, memory {roof.t_memory * 1e3:.3f} "
+          f"ms): {ratio:.3f}x the bound; memory: meta {args} arguments + "
+          f"{meta.peak_bytes} peak = {est} bytes vs max_memory_allocated {peak} "
+          f"({before} before the step): {mem_ratio:.3f}; {smi}")
+    if step_ms < bound:
+        raise SmokeFailure(f"cost model: the step took {step_ms:.3f} ms, under "
+                           f"its bound {bound:.3f} ms: the count is wrong")
+    lo, hi = LAUNCH_MEM_BAND
+    if not lo <= mem_ratio <= hi:
+        raise SmokeFailure(f"cost model: memory estimate {est} vs {peak} "
+                           f"({mem_ratio:.3f}, outside {LAUNCH_MEM_BAND})")
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": LAUNCH_LAYERS, "flops": meta.flops, "bytes": meta.bytes,
+            "card_flops": cuda.flops, "card_bytes": cuda.bytes, "kernels": kern,
+            "step_ms": times, "step_ms_median": step_ms, "bound_ms": bound,
+            "bound_by": roof.bottleneck, "t_compute_ms": roof.t_compute * 1e3,
+            "t_memory_ms": roof.t_memory * 1e3, "ratio": ratio,
+            "argument_bytes": args, "peak_bytes": meta.peak_bytes,
+            "card_peak_bytes": cuda.peak_bytes, "max_memory_allocated": peak,
+            "memory_ratio": mem_ratio, "card": smi}
+
+
+def launch_background(workdir):
+    """Phase 14 (c) and (d) in the background, with no card visible: the
+    dry run on each mesh and the hillclimb. Returns the processes."""
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    # the children see the checkout's src and no card (env(1) sets both)
+    env = ["env", f"PYTHONPATH={ROOT / 'src'}", "CUDA_VISIBLE_DEVICES="]
+    procs = {}
+    for mesh in ("single", "multi"):
+        for i, half in enumerate(LAUNCH_ARCH_HALVES):
+            name = f"dryrun_{mesh}_{i}"
+            procs[name] = subprocess.Popen(
+                env + [sys.executable, "-m", "repro_torch.launch.dryrun",
+                       "--arch", ",".join(half), "--shape", "all", "--mesh",
+                       mesh, "--out", str(workdir / "dryrun")],
+                stdout=open(workdir / f"{name}.log", "w"),
+                stderr=subprocess.STDOUT, cwd=ROOT)
+    procs["hillclimb"] = subprocess.Popen(
+        env + [sys.executable, "-m", "repro_torch.launch.hillclimb", "--cell",
+               ",".join(LAUNCH_HILLCLIMB), "--out", str(workdir / "hillclimb")],
+        stdout=open(workdir / "hillclimb.log", "w"), stderr=subprocess.STDOUT,
+        cwd=ROOT)
+    return procs
+
+
+def launch_sweep(workdir, procs, t0):
+    """Phase 14 (c) and (d): wait for the background runs, check and print
+    their results."""
+    from repro_torch.roofline import fill_experiments, report
+
+    rcs = {k: p.wait(timeout=900) for k, p in procs.items()}
+    wall = time.perf_counter() - t0
+    for name in procs:
+        text = (workdir / f"{name}.log").read_text()
+        print(f"phase 14 {name} (exit {rcs[name]}):\n" + text.strip())
+    recs = report.load(str(workdir / "dryrun"))
+    counts, bad = {}, []
+    for r in recs:
+        key = (r["mesh"], r["status"])
+        counts[key] = counts.get(key, 0) + 1
+        if r["status"] == "error" and not (
+                r["arch"] in LAUNCH_REFUSED and LAUNCH_REFUSAL in r["error"]):
+            bad.append((r["arch"], r["shape"], r["mesh"], r["error"]))
+        if r["status"] != "error" and r["arch"] in LAUNCH_REFUSED \
+                and r["status"] != "skipped":
+            bad.append((r["arch"], r["shape"], r["mesh"], "not refused"))
+    if len(recs) != 80:
+        bad.append(("records", len(recs)))
+    print("dry run: " + ", ".join(f"{m} {st} {n}" for (m, st), n in sorted(counts.items()))
+          + f" ({wall:.1f} s wall, five processes in parallel: each mesh's "
+          "two halves of the archs and the hillclimb)")
+    report.main([str(workdir / "dryrun")])
+    if bad:
+        raise SmokeFailure(f"dry run: errors beyond the mesh refusals: {bad}")
+    hc = {}
+    for f in sorted((workdir / "hillclimb").glob("*.json")):
+        v = json.loads(f.read_text())
+        hc[v["variant"]] = v
+    failed = [k for k in LAUNCH_HILLCLIMB if hc.get(k, {}).get("status") != "ok"]
+    if rcs["hillclimb"] or failed:
+        raise SmokeFailure(f"hillclimb: failed variants {failed}")
+    base = next(r for r in recs if (r["arch"], r["shape"], r["mesh"])
+                == ("stablelm-1.6b", "train_4k", "single"))
+    deltas = {}
+    for prefix, b in (("stablelm", base), ("sae_factory_", hc["sae_factory"])):
+        variants = [hc[k] for k in sorted(hc) if k.startswith(prefix)]
+        name = b.get("variant", "the dry run's stablelm-1.6b x train_4k x single")
+        print(f"hillclimb against {name}:")
+        print(fill_experiments.perf_table(b, variants))
+        dom = b["roofline"]["bottleneck"]
+        for v in variants:
+            deltas[v["variant"]] = {
+                "dominant": dom,
+                "delta": (v["roofline"][f"t_{dom}"] - b["roofline"][f"t_{dom}"])
+                / b["roofline"][f"t_{dom}"]}
+    return {"counts": {f"{m} {st}": n for (m, st), n in counts.items()},
+            "records": len(recs), "wall_s": wall, "hillclimb": deltas,
+            "rcs": rcs}
+
+
+def launch_phase(dev, smi, randn):
+    """Phase 14: (c) and (d) start in the background, then (a) and (b) on
+    the card, then (c) and (d) are read."""
+    import torch
+
+    t0 = time.perf_counter()
+    workdir = ROOT / "build" / "chip_smoke_launch"
+    procs = launch_background(workdir)
+    try:
+        rec = {"search": launch_search(randn)}
+        torch.cuda.empty_cache()
+        rec["cost_model"] = launch_cost_model(dev, smi)
+        rec["sweep"] = launch_sweep(workdir, procs, t0)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    shutil.rmtree(workdir, ignore_errors=True)
+    rec["phase_seconds"] = time.perf_counter() - t0
+    print(f"launch: phase 14 in {rec['phase_seconds']:.1f} s; {smi}")
+    return rec
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5298,7 +5759,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on the card.")
     ap.add_argument("--only", choices=("mesh", "attention", "autograd",
                                        "sae_tables", "train_mesh", "serve",
-                                       "moe", "recurrent", "whisper"),
+                                       "moe", "recurrent", "whisper",
+                                       "launch"),
                     help="run one phase alone: 'mesh' builds the kernels and "
                          "runs phase 7 (the partial apply, then the mesh "
                          "executor on four ranks); 'attention' builds them "
@@ -5312,7 +5774,8 @@ def main(argv=None) -> int:
                          "'serve' builds them and runs phase 10; 'moe' "
                          "builds them and runs phase 11; 'recurrent' builds "
                          "them and runs phase 12; 'whisper' builds them and "
-                         "runs phase 13")
+                         "runs phase 13; 'launch' builds them and runs "
+                         "phase 14")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -5327,6 +5790,7 @@ def main(argv=None) -> int:
     from repro_torch.core import multilevel, plan as planmod, schedule
     from repro_torch.kernels import _build, flash_attention as flash, l1ball
     from repro_torch.kernels.codegen import lowering, tiling
+    from repro_torch.roofline import costs as C
     from repro_torch.serving.engine import ProjectionEngine
     from repro_torch.training import sae_factory as F
 
@@ -5464,6 +5928,9 @@ def main(argv=None) -> int:
     if args.only == "whisper":
         rec = whisper_phase(dev, smi, randn)
         return finish({"kernels": whisper_rows(rec), "whisper": rec})
+
+    if args.only == "launch":
+        return finish({"kernels": [], "launch": launch_phase(dev, smi, randn)})
 
     # ------------------------------------- phase 1: kernels vs plain versions
     for name, shape, levels in DESIGNS:
@@ -5643,13 +6110,13 @@ def main(argv=None) -> int:
                                                  float(c.max()))
                                      for a, c in zip([k[1], *k[0]],
                                                      [p[1], *p[0]])),
-                    4 * (elems + agg_elems + b * m), 2 * elems + 2 * agg_elems),
+                    *C.codegen_reduce(elems, agg_elems, b, m)),
                 "l1ball": (
                     lambda: l1ball.project_l1_batched(vfin_p, radii),
                     lambda: l1ball.project_l1_plain(vfin_p, radii),
                     lambda k, p: check_close(f"{wl} x{b} l1ball", k, p,
                                              float(vfin_p.max())),
-                    4 * (2 * b * m + b), b * m * (3 * 64 + 6)),
+                    *C.l1ball(b, m)),
                 "codegen_apply": (
                     lambda: lowering.codegen_apply(yc, aggs_p, vfin_p, u_p, tp,
                                                    norms[:-1], out=out),
@@ -5657,9 +6124,7 @@ def main(argv=None) -> int:
                                                  norms[:-1]),
                     lambda k, p: check_close(f"{wl} x{b} apply", k, p, scale),
                     # vfin is read only for an ℓ2 at the final reduce level
-                    4 * (2 * elems + agg_elems + b * m
-                         + (b * m if norms[-2] == "2" else 0)),
-                    2 * elems + 2 * agg_elems),
+                    *C.codegen_apply(elems, agg_elems, b, m, norms[-2] == "2")),
             }
             # one PyTorch call computing the same output, where there is one:
             # the bi-level reduce's single aggregate (an ℓ∞ vector norm), and
@@ -5758,6 +6223,17 @@ def main(argv=None) -> int:
 
     # ---------------------------- phase 13: whisper-large-v3 at full width
     whisper = whisper_phase(dev, smi, randn)
+
+    # ------------- phase 14: the dry run, the cost model, the tile search
+    launch = launch_phase(dev, smi, randn)
+    for row in rows:
+        if row["name"] in ("codegen_reduce", "codegen_apply"):
+            row["search_launches"] = {
+                wl: r["search_launches"].get(row["name"], 0)
+                for wl, r in launch["search"].items()}
+            row["search_launches_auto"] = {
+                wl: r["auto"]["search_launches"].get(row["name"], 0)
+                for wl, r in launch["search"].items()}
     for row in rows:
         row["launches_moe"] = moe["launches"].get(row["name"], 0)
         row["launches_recurrent"] = recurrent["launches"].get(row["name"], 0)
@@ -5768,6 +6244,7 @@ def main(argv=None) -> int:
     return finish({"kernels": rows, "mesh": mesh, "grad": grad,
                    "train_mesh": train_mesh, "serve": serve, "moe": moe,
                    "recurrent": recurrent, "whisper": whisper,
+                   "launch": launch,
                    "refuse_grad": refused, "sae_tables": tables,
                    "factory": {"harvest_step_ms": step_parts,
                                "sae_step_ms": sae_parts,

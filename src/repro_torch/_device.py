@@ -4,6 +4,14 @@ An entry point that takes ``device=`` resolves it here. ``None`` means the
 card: the port exists to run there, so a caller who wants the plain PyTorch
 path on the CPU asks for ``"cpu"`` by name. Without a CUDA device a request
 for ``"cuda"`` (explicit or by default) raises; nothing falls back to the CPU.
+``"meta"`` is taken by name too: shapes and dtypes with no storage, what
+the dry run (``launch/dryrun.py``) builds its abstract state and caches on.
+
+A kernel's wrapper launches on a CUDA tensor and runs its plain version on a
+CPU one (:func:`require_cuda` is the gate). Inside a cost walk
+(``roofline/costs.py``) it also takes a ``meta`` tensor: it then allocates
+its outputs on ``meta``, reports the kernel's cost to the walk and launches
+nothing.
 """
 
 from __future__ import annotations
@@ -24,8 +32,9 @@ def resolve(device=None) -> torch.device:
                 "repro_torch runs on a CUDA device by default and none is "
                 "available; pass device='cpu' to run the plain PyTorch path")
         return dev
-    if dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    if dev.type not in ("cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda', 'cpu' or "
+                         "'meta'")
     return dev
 
 
@@ -53,8 +62,15 @@ def refuse_grad(what: str, *ts) -> None:
 
 
 def require_cuda(t: torch.Tensor, what: str) -> None:
-    """Raise unless ``t`` lies on a CUDA device (a kernel's launch gate)."""
-    if not t.is_cuda:
+    """Raise unless ``t`` lies on a CUDA device (a kernel's launch gate), or
+    is a ``meta`` tensor inside a cost walk (module docstring)."""
+    if not t.is_cuda and not (t.is_meta and _walking()):
         raise ValueError(
             f"{what}: the CUDA kernel needs a CUDA tensor, got one on "
             f"{t.device}; the plain version runs only for CPU tensors")
+
+
+def _walking() -> bool:
+    from repro_torch.roofline import costs
+
+    return costs.active() is not None

@@ -1,0 +1,7 @@
+"""--arch kimi-k2-1t-a32b — the port's copy; see registry.py for the full definition."""
+
+from .registry import get_arch, smoke_config
+
+ARCH_ID = "kimi-k2-1t-a32b"
+CONFIG = get_arch(ARCH_ID)
+SMOKE = smoke_config(ARCH_ID)

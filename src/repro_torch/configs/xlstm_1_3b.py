@@ -1,0 +1,7 @@
+"""--arch xlstm-1.3b — the port's copy; see registry.py for the full definition."""
+
+from .registry import get_arch, smoke_config
+
+ARCH_ID = "xlstm-1.3b"
+CONFIG = get_arch(ARCH_ID)
+SMOKE = smoke_config(ARCH_ID)

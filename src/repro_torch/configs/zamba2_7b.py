@@ -1,0 +1,7 @@
+"""--arch zamba2-7b — the port's copy; see registry.py for the full definition."""
+
+from .registry import get_arch, smoke_config
+
+ARCH_ID = "zamba2-7b"
+CONFIG = get_arch(ARCH_ID)
+SMOKE = smoke_config(ARCH_ID)

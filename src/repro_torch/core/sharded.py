@@ -209,9 +209,11 @@ def multilevel_project_sharded(y: torch.Tensor, levels, radius, *, mesh,
     ``"codegen"`` (the generated kernels on a CUDA shard, their plain
     versions on a CPU one); gate ``"codegen"`` with
     ``kernels.codegen.distributed.shardable``, ineligible designs raise.
-    Raises without an initialized process group.
+    Raises without an initialized process group (an ``AbstractMesh``
+    needs none: its collectives take meta tensors).
     """
-    mesh_mod.require_process_group("multilevel_project_sharded")
+    if not isinstance(mesh, mesh_mod.AbstractMesh):
+        mesh_mod.require_process_group("multilevel_project_sharded")
     if backend not in BACKENDS:
         raise ValueError(f"unknown sharded backend {backend!r}: expected one "
                          f"of {BACKENDS}")
@@ -231,7 +233,7 @@ def multilevel_project_sharded(y: torch.Tensor, levels, radius, *, mesh,
         from repro_torch.kernels.codegen import distributed as _dist
 
         body = _dist.make_codegen_schedule_body(sched, names, mesh, y.dtype,
-                                                method=meth)
+                                                method=meth, device=y.device)
     else:
         body = make_schedule_body(sched, names, mesh, method=meth)
     return body(y, torch.as_tensor(radius, dtype=y.dtype, device=y.device))

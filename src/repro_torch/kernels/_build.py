@@ -19,7 +19,10 @@ load it.
 
 A :class:`Kernel` owns one library and the plain integer ``launches`` that
 its wrapper bumps after every successful launch, so a run can show which
-kernels the main path went through. The library's functions are bound
+kernels the main path went through. Launches made inside :func:`searching`
+(the measured tile search of ``kernels/codegen``, which times candidate
+launch geometries on the main path) also count in ``search_launches``, so
+a run can tell them apart. The library's functions are bound
 once, when it loads; a launch after that takes no lock and looks nothing
 up by name. Two kernels of one source (``source=``,
 as ``flash_bwd_dq`` and ``flash_bwd_dkv`` share ``csrc/flash_bwd.cu``) share
@@ -57,6 +60,7 @@ LONG = ctypes.c_longlong
 FLOAT = ctypes.c_float
 
 KERNELS: Dict[str, "Kernel"] = {}
+_SEARCHING = [0]   # depth of searching() blocks in progress
 _BUILD_LOCK = threading.Lock()  # one nvcc per library, whichever kernel asks
 
 
@@ -97,6 +101,7 @@ class Kernel:
         self.source = CSRC / f"{source or name}.cu"
         self.functions = dict(functions)
         self.launches = 0
+        self.search_launches = 0
         self.build_seconds: Optional[float] = None
         self._t0 = 0.0
         self._lib: Optional[ctypes.CDLL] = None
@@ -167,12 +172,18 @@ class Kernel:
             msg = self._fns[ERROR_STRING](rc).decode()
             raise RuntimeError(f"{self.name}.{fn} failed: CUDA error {rc} ({msg})")
         self.launches += 1
+        if _SEARCHING[0]:
+            self.search_launches += 1
 
 
 def stream_handle(t: torch.Tensor) -> int:
     """The raw ``cudaStream_t`` of PyTorch's current stream on ``t``'s device:
     one call into PyTorch's CUDA module, with no ``torch.cuda.Stream``
-    object built around it (``torch.cuda.current_stream`` builds one)."""
+    object built around it (``torch.cuda.current_stream`` builds one). 0
+    for a ``meta`` tensor, whose call launches nothing
+    (``roofline/costs.py``)."""
+    if t.is_meta:
+        return 0
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
@@ -202,7 +213,23 @@ def build_all() -> Dict[str, float]:
 def reset_launches() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        k.search_launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+def search_counts() -> Dict[str, int]:
+    """The part of :func:`launch_counts` made inside :func:`searching`."""
+    return {name: k.search_launches for name, k in KERNELS.items()}
+
+
+@contextlib.contextmanager
+def searching():
+    """Count the launches of the block in ``search_launches`` too."""
+    _SEARCHING[0] += 1
+    try:
+        yield
+    finally:
+        _SEARCHING[0] -= 1

@@ -28,6 +28,7 @@ from typing import Tuple
 import torch
 
 from repro_torch import _device
+from repro_torch.roofline import costs as _costs
 
 from . import _build, l1ball
 
@@ -162,6 +163,9 @@ def colmax(y: torch.Tensor) -> torch.Tensor:
     vec = vector_width(m, y)
     packs, _ = colmax_shape(m, vec, y.element_size())
     out = y.new_empty((m,))
+    if _costs.active() and _costs.declare(
+            COLMAX, y, *_costs.colmax(y.element_size(), y.numel(), m)):
+        return out
     COLMAX.launch("golden_colmax", y.data_ptr(), out.data_ptr(), code, vec,
                   n, m, packs, _build.stream_handle(y))
     return out
@@ -183,6 +187,9 @@ def clip(y: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     x = torch.empty_like(y)
     py, pu, px = y.data_ptr(), u.data_ptr(), x.data_ptr()
     vec, _ = stream_shape(1, n, m, y.element_size(), not (py | pu | px) % 16)
+    if _costs.active() and _costs.declare(
+            CLIP, y, *_costs.clip(y.element_size(), y.numel(), m)):
+        return x
     CLIP.launch("golden_clip", py, pu, px, code, vec, n, m,
                 _build.stream_handle(y))
     return x

@@ -111,15 +111,17 @@ def _solve_outer(v: torch.Tensor, norm: str, radii: torch.Tensor,
 
 def make_codegen_schedule_body(sched: Schedule,
                                axis_names: Sequence[Optional[str]], mesh,
-                               dtype, *, method: str = "bisect"
-                               ) -> Callable:
+                               dtype, *, method: str = "bisect",
+                               device=None) -> Callable:
     """Build ``(y_local, radius) -> x_local`` with the shard-local stages
     lowered through the generated kernels.
 
     ``sched`` is the GLOBAL schedule on the (padded, evenly divisible)
     shape; the local schedule and its tile plan derive from the per-shard
-    shape. The tile plan is the heuristic one, a function of shapes alone
-    and so the same on every rank. Gate with
+    shape. On a CUDA ``device`` the tile plan is the measured one of the
+    local shard's shape (``codegen.autotune_tiles`` on it, batch axes
+    included), rank 0's verdict on every rank; otherwise the heuristic
+    one, a function of shapes alone. Gate with
     :func:`shardable` first; raises ``ValueError`` when the design has no
     codegen lowering on this mesh.
     """
@@ -142,6 +144,11 @@ def make_codegen_schedule_body(sched: Schedule,
     lsched = sched_mod.compile_schedule(lshape[b:], levels)
     norms = [q for q, _ in levels]
     tp = plan_tiles(lsched, dtype)
+    if device is not None and torch.device(device).type == "cuda":
+        from . import autotune_tiles
+
+        tp = autotune_tiles(lshape, levels, dtype, method=method,
+                            device=device, mesh=mesh)
     count = math.prod(lshape[:b])
 
     # final reduce level (index L-2): the mesh axes its combine spans

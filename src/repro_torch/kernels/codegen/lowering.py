@@ -46,11 +46,12 @@ from repro_torch import _device
 from repro_torch.core import ball, schedule as sched_mod
 from repro_torch.core.schedule import Schedule
 from repro_torch.obs import profile as obs_profile
+from repro_torch.roofline import costs as _costs
 
 from .. import _build, l1ball
 from . import backward as bwd_mod
-from .tiling import (TilePlan, lead_split, plan_tiles, reduce_split,
-                     row_split)
+from .tiling import (TilePlan, apply_rows, lead_geometry, plan_tiles,
+                     reduce_geometry)
 
 NORM_CODES = {"1": 0, "2": 1, "inf": 2}  # csrc/common.cuh
 
@@ -173,13 +174,14 @@ _ALIGN = 32  # floats: every view of the reduce's buffer starts 128-byte aligned
 @functools.lru_cache(maxsize=256)
 def _reduce_launch(tp: TilePlan, norms: Tuple[str, ...], batch: int, vec: int):
     """What one reduce call allocates and passes, computed once per design,
-    batch and vec: ``(views, total, ints)``. ``views`` are the ``(offset,
+    batch and vec (``tiling.reduce_geometry``: the plan's packs and splits
+    where it fixes them): ``(views, total, ints)``. ``views`` are the ``(offset,
     shape)`` of the aggregates, vfin and (when the rows split) the partial
     scratch in one buffer of ``total`` floats, each offset a multiple of
     ``_ALIGN``; ``ints`` the kernel's integer arguments from ``batch`` to
     ``splits``."""
     n, m = tp.n, tp.m
-    rs = reduce_split(tp.lead, n, m, batch, vec)
+    rs = reduce_geometry(tp, batch, vec)
     shapes = [(batch,) + tp.lead[t:] + (n, m) for t in range(1, len(tp.lead) + 1)]
     shapes.append((batch, m))
     if rs.splits > 1:
@@ -221,6 +223,10 @@ def codegen_reduce(yc: torch.Tensor, tp: TilePlan, norms: Sequence[str],
         out = [buf[off:off + math.prod(sh)].view(sh) for off, sh in views]
     lead = len(tp.lead)
     aggs, vfin = out[:lead], out[lead]
+    if _costs.active() and _costs.declare(
+            REDUCE, yc, *_costs.codegen_reduce(
+                yc.numel(), sum(a.numel() for a in aggs), yc.shape[0], tp.m)):
+        return aggs, vfin
     REDUCE.launch("codegen_reduce", ptr, aggs[0].data_ptr() if lead else None,
                   aggs[1].data_ptr() if lead > 1 else None,
                   out[-1].data_ptr() if len(out) > lead + 1 else None,
@@ -261,10 +267,16 @@ def codegen_apply(yc: torch.Tensor, aggs: Sequence[torch.Tensor],
         ptrs = yc.data_ptr() | out.data_ptr() | vfin.data_ptr() | u.data_ptr()
         for a in aggs:
             ptrs |= a.data_ptr()
-        ls = lead_split(n, m, g1 * g2, b, 4 if ptrs % 16 == 0 and m % 4 == 0 else 1)
+        ls = lead_geometry(tp, g1 * g2, b,
+                           4 if ptrs % 16 == 0 and m % 4 == 0 else 1)
         rows, splits, chunk, vec = 0, ls.splits, ls.chunk, ls.vec
     else:
-        rows, splits = (n, 1) if tp.n_resident else row_split(n, m, b)
+        rows, splits = apply_rows(tp, b)
+    if _costs.active() and _costs.declare(
+            APPLY, yc, *_costs.codegen_apply(
+                yc.numel(), sum(a.numel() for a in aggs), b, m,
+                norms[-1] == "2")):
+        return out
     APPLY.launch("codegen_apply", yc.data_ptr(), _build.ptr(v1),
                  _build.ptr(v2), vfin.data_ptr(), u.data_ptr(),
                  out.data_ptr(), b, len(tp.lead), g1, g2, n, m, q1, q2,
@@ -305,11 +317,15 @@ def codegen_partial_apply(yc: torch.Tensor, aggs: Sequence[torch.Tensor],
     elif out.shape != yc.shape or out.dtype != yc.dtype \
             or not out.is_contiguous() or out.device != yc.device:
         raise ValueError("out must be a contiguous float32 tensor like yc")
-    rows, splits = row_split(n, m, b)
+    rows, splits = apply_rows(tp, b)
     g1, g2 = _lead_args(tp)
     q1, q2, _ = _codes(norms)
     v1 = aggs[0]
     v2 = aggs[1] if len(aggs) > 1 else None
+    if _costs.active() and _costs.declare(
+            PARTIAL_APPLY, yc, *_costs.codegen_partial_apply(
+                yc.numel(), w.numel(), v1.numel() if norms[0] == "2" else 0)):
+        return out
     PARTIAL_APPLY.launch("codegen_partial_apply", yc.data_ptr(), v1.data_ptr(),
                          _build.ptr(v2), w.data_ptr(), out.data_ptr(), b,
                          len(tp.lead), g1, g2, n, m, q1, q2, rows, splits,
@@ -367,7 +383,8 @@ class _Pipeline(torch.autograd.Function):
 
 
 def generate_batched(sched: Schedule, dtype, *, method: str = "bisect",
-                     device=None) -> Callable:
+                     device=None, tile_plan: Optional[TilePlan] = None
+                     ) -> Callable:
     """Compile ``sched`` into ``(ys, radii, out=None) -> xs`` for a bucket of
     B items stacked on a leading axis with one radius each.
 
@@ -380,6 +397,9 @@ def generate_batched(sched: Schedule, dtype, *, method: str = "bisect",
     When ``ys`` or ``radii`` requires grad (and grad mode is on) the call
     runs under :class:`_Pipeline`: the same launches, and a backward that
     gives ``ys`` and ``radii`` their cotangents; ``out`` is then refused.
+
+    ``tile_plan`` (one of ``tiling.candidate_tile_plans``) fixes the launch
+    geometry; by default it is ``plan_tiles``' heuristic.
     """
     dev = _device.resolve(device)
     if sched.batch_dims:
@@ -394,6 +414,11 @@ def generate_batched(sched: Schedule, dtype, *, method: str = "bisect",
         raise ValueError(
             f"codegen cannot lower levels={sched.levels} on shape="
             f"{sched.shape} as {dtype}: the Hopper tiler rejects it")
+    if tile_plan is not None:
+        if tile_plan[:6] != tp[:6]:
+            raise ValueError(f"tile plan {tile_plan} is not a plan of "
+                             f"{sched.shape} (the tiler's is {tp})")
+        tp = tile_plan
     norms = [q for q, _ in sched.levels]
 
     def run(yc, radii, oc=None):
@@ -439,13 +464,15 @@ def generate_batched(sched: Schedule, dtype, *, method: str = "bisect",
 
 
 def generate(sched: Schedule, dtype, *, method: str = "bisect",
-             device=None) -> Callable:
+             device=None, tile_plan: Optional[TilePlan] = None) -> Callable:
     """Compile ``sched`` into ``(y, radius, out=None) -> x`` with one scalar
     radius. Leading batch axes of the schedule join the kernels' batch axis
-    (every item gets ``radius``), the counterpart of JAX's vmap."""
+    (every item gets ``radius``), the counterpart of JAX's vmap.
+    ``tile_plan``: as :func:`generate_batched`'s."""
     base = sched if not sched.batch_dims else sched_mod.compile_schedule(
         sched.shape[sched.batch_dims:], sched.levels)
-    batched = generate_batched(base, dtype, method=method, device=device)
+    batched = generate_batched(base, dtype, method=method, device=device,
+                               tile_plan=tile_plan)
     count = math.prod(sched.shape[:sched.batch_dims])
 
     def fused(y: torch.Tensor, radius, out: torch.Tensor | None = None):

@@ -80,6 +80,14 @@ class TilePlan(NamedTuple):
     its folded prefix; ``n``/``m`` the row and column extents; ``n_resident``
     that an ℓ1 apply at level L-1 keeps whole columns in one CTA;
     ``smem_bytes`` the dynamic shared memory the apply kernel claims.
+
+    The last four fields fix the geometry the wrappers otherwise derive
+    per call from the batch (0: the heuristic's choice): the reduce's
+    ``packs`` (:func:`reduce_split`) and row ``splits``; the row-walking
+    apply's ``rows`` per split (:func:`row_split`; also the partial
+    apply's); the lead-split apply's ``chunk`` of lead slices
+    (:func:`lead_split`). :func:`plan_tiles` leaves them at 0;
+    :func:`candidate_tile_plans` sets them for the measured search.
     """
 
     canon_shape: Tuple[int, ...]
@@ -88,6 +96,10 @@ class TilePlan(NamedTuple):
     m: int
     n_resident: bool
     smem_bytes: int
+    packs: int = 0
+    splits: int = 0
+    rows: int = 0
+    chunk: int = 0
 
 
 def plan_tiles(sched: Schedule, dtype: torch.dtype) -> Optional[TilePlan]:
@@ -185,7 +197,7 @@ class ReduceSplit(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def reduce_split(lead: Tuple[int, ...], n: int, m: int, batch: int,
-                 vec: int) -> ReduceSplit:
+                 vec: int, packs: int = 0, splits: int = 0) -> ReduceSplit:
     """The reduce's geometry for ``batch`` items of lead axes ``lead``, ``n``
     rows and ``m`` columns. ``packs`` starts at ``REDUCE_SEGMENT`` bytes of
     each row and doubles until the ``batch · ctas_x`` CTAs number at most
@@ -195,23 +207,113 @@ def reduce_split(lead: Tuple[int, ...], n: int, m: int, batch: int,
     ``REDUCE_LEAD_LOADS`` slices each. Only when the strips leave more than
     half the SMs idle (few, long columns) are the rows cut into ``splits``
     chunks, up to ``REDUCE_CTAS`` CTAs. ``vec`` is 4 (16-byte loads; the
-    caller checks ``m % 4 == 0`` and the pointers' alignment) or 1."""
+    caller checks ``m % 4 == 0`` and the pointers' alignment) or 1.
+    ``packs``/``splits`` > 0 replace those choices (a tile plan's: a power
+    of two that divides ``REDUCE_THREADS``; any count of row chunks)."""
     if vec not in (1, 4) or m % vec:
         raise ValueError(f"reduce_split: vec {vec} does not divide m = {m}")
     count = m // vec
-    packs = min(REDUCE_SEGMENT // (4 * vec), 1 << (count - 1).bit_length())
-    while packs < REDUCE_THREADS and packs < count \
-            and math.ceil(count / packs) * batch > REDUCE_CTAS:
-        packs *= 2
+    if packs:
+        if packs & (packs - 1) or REDUCE_THREADS % packs:
+            raise ValueError(f"reduce_split: {packs} packs do not divide "
+                             f"{REDUCE_THREADS} threads in a power of two")
+    else:
+        packs = min(REDUCE_SEGMENT // (4 * vec), 1 << (count - 1).bit_length())
+        while packs < REDUCE_THREADS and packs < count \
+                and math.ceil(count / packs) * batch > REDUCE_CTAS:
+            packs *= 2
     lanes = 1
     if len(lead) == 1:
         while 2 * lanes * packs <= 32 and 2 * lanes * REDUCE_LEAD_LOADS <= lead[0]:
             lanes *= 2
     ctas_x = math.ceil(count / packs)
     row_lanes = REDUCE_THREADS // (packs * lanes)
-    splits = 1
-    if 2 * ctas_x * batch < REDUCE_CTAS:
-        splits = max(1, min(REDUCE_CTAS // (ctas_x * batch),
-                            math.ceil(n / row_lanes)))
-    rows = math.ceil(n / splits)
+    if not splits:
+        splits = 1
+        if 2 * ctas_x * batch < REDUCE_CTAS:
+            splits = max(1, min(REDUCE_CTAS // (ctas_x * batch),
+                                math.ceil(n / row_lanes)))
+    rows = math.ceil(n / min(splits, n))
     return ReduceSplit(vec, packs, lanes, ctas_x, rows, math.ceil(n / rows))
+
+
+def reduce_geometry(tp: TilePlan, batch: int, vec: int) -> ReduceSplit:
+    """The reduce's geometry under ``tp`` (its ``packs``/``splits`` where
+    set, the heuristic's otherwise)."""
+    return reduce_split(tp.lead, tp.n, tp.m, batch, vec, tp.packs, tp.splits)
+
+
+def apply_rows(tp: TilePlan, batch: int) -> Tuple[int, int]:
+    """``(rows_per_split, splits)`` of the row-walking apply (and of the
+    partial apply) under ``tp``: whole columns when ``n_resident``, else
+    ``tp.rows`` rows a chunk where set, :func:`row_split`'s otherwise."""
+    if tp.n_resident:
+        return tp.n, 1
+    rows = tp.rows or row_split(tp.n, tp.m, batch)[0]
+    return rows, math.ceil(tp.n / rows)
+
+
+def lead_geometry(tp: TilePlan, slices: int, batch: int, vec: int) -> LeadSplit:
+    """The lead-split apply's geometry under ``tp`` (its ``chunk`` where
+    set, :func:`lead_split`'s otherwise)."""
+    ls = lead_split(tp.n, tp.m, slices, batch, vec)
+    if not tp.chunk:
+        return ls
+    chunk = min(tp.chunk, slices)
+    return LeadSplit(ls.vec, ls.ctas_x, chunk, math.ceil(slices / chunk))
+
+
+def candidate_tile_plans(sched: Schedule, dtype: torch.dtype,
+                         batch: int = 1) -> Tuple[TilePlan, ...]:
+    """The measured search's grid for one batch-free schedule run on
+    ``batch`` items: the default plan first, then its neighbours — half and
+    double the reduce's packs, its row splits, and the apply's rows a split
+    (or, for the lead-split apply, its chunk of lead slices) — each only
+    where the kernels' contracts take it (packs a power of two dividing
+    ``REDUCE_THREADS``, a chunk within the slices, rows a multiple of
+    ``BLOCK_ROWS``; an ``n_resident`` apply keeps whole columns, so it has
+    no row neighbours) and where it changes the launch. At most 7 plans;
+    ``()`` when the design cannot be generated, the default alone for a
+    design that is its outer solve."""
+    default = plan_tiles(sched, dtype)
+    if default is None:
+        return ()
+    if len(sched.levels) == 1:
+        return (default,)
+    tp, n, m = default, default.n, default.m
+    vec = 4 if m % 4 == 0 else 1
+    rs = reduce_geometry(tp, batch, vec)
+    plans = [tp]
+
+    def add(**kw):
+        cand = tp._replace(**kw)
+        if cand not in plans:
+            plans.append(cand)
+
+    count = m // vec
+    for p in (rs.packs // 2, rs.packs * 2):
+        if 1 <= p <= min(REDUCE_THREADS, 1 << (count - 1).bit_length()) \
+                and p != rs.packs:
+            alt = reduce_split(tp.lead, n, m, batch, vec, p)
+            if alt != rs:
+                add(packs=p)
+    for z in (rs.splits // 2, rs.splits * 2):
+        if 1 <= z <= n and z != rs.splits:
+            alt = reduce_split(tp.lead, n, m, batch, vec, 0, z)
+            if alt.splits != rs.splits:
+                add(splits=z)
+    norms = [q for q, _ in sched.levels][:-1]
+    if tp.lead and "1" not in norms:          # lowering.split_lead
+        slices = math.prod(tp.lead)
+        ls = lead_split(n, m, slices, batch, vec)
+        for c in (ls.chunk // 2, ls.chunk * 2):
+            if 1 <= c <= slices and c != ls.chunk:
+                add(chunk=c)
+    elif not tp.n_resident:
+        rows, _ = row_split(n, m, batch)
+        top = math.ceil(n / BLOCK_ROWS) * BLOCK_ROWS
+        for r in (rows // 2, rows * 2):
+            r = max(BLOCK_ROWS, min(top, r // BLOCK_ROWS * BLOCK_ROWS))
+            if r != rows:
+                add(rows=r)
+    return tuple(plans)

@@ -47,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import _device
+from repro_torch.roofline import costs as _costs
 
 from . import _build
 
@@ -213,7 +214,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None, scale=None,
     work = None if bf16 else torch.empty(
         tf32_work_floats(b, hq, hkv, sq, sk, d), dtype=torch.float32,
         device=q.device)
-    (KERNEL if bf16 else TF32_KERNEL).launch(
+    kernel = KERNEL if bf16 else TF32_KERNEL
+    if _costs.active() and _costs.declare(
+            kernel, q, *_costs.flash_fwd(q, k, causal, window), matmul=True):
+        return o, lse
+    kernel.launch(
         "flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), _build.ptr(work), 0 if bf16 else work.numel(), b, hq,
         hkv, sq, sk, d, int(bool(causal)), 0 if window is None else int(window),
@@ -367,7 +372,11 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
                      scale)
     dq = torch.empty_like(q)
     work, n = _bwd_work(q, args, dkv=False)
-    (DQ_KERNEL if q.dtype == torch.bfloat16 else DQ_TF32_KERNEL).launch(
+    kernel = DQ_KERNEL if q.dtype == torch.bfloat16 else DQ_TF32_KERNEL
+    if _costs.active() and _costs.declare(
+            kernel, q, *_costs.flash_bwd_dq(q, k, causal, window), matmul=True):
+        return dq
+    kernel.launch(
         "flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         _build.ptr(work), n, *args)
@@ -383,7 +392,11 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
                      scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     work, n = _bwd_work(q, args, dkv=True)
-    (DKV_KERNEL if q.dtype == torch.bfloat16 else DKV_TF32_KERNEL).launch(
+    kernel = DKV_KERNEL if q.dtype == torch.bfloat16 else DKV_TF32_KERNEL
+    if _costs.active() and _costs.declare(
+            kernel, q, *_costs.flash_bwd_dkv(q, k, causal, window), matmul=True):
+        return dk, dv
+    kernel.launch(
         "flash_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), _build.ptr(work), n, *args)

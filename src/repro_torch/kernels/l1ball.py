@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import _device
+from repro_torch.roofline import costs as _costs
 
 from . import _build
 from .codegen.tiling import L1_KERNEL_MAX
@@ -126,6 +127,8 @@ def _launch(v: torch.Tensor, b: int, n: int, radii: torch.Tensor | None,
     elif out.shape != v.shape or out.dtype != v.dtype or not out.is_contiguous() \
             or out.get_device() != v.get_device():
         raise ValueError("out must be a contiguous float32 tensor like v")
+    if _costs.active() and _costs.declare(KERNEL, v, *_costs.l1ball(b, n)):
+        return out
     KERNEL.launch("l1ball_project", v.data_ptr(), _build.ptr(radii), radius,
                   out.data_ptr(), b, n, _METHOD_CODES[method],
                   _iters(method, n), _build.stream_handle(v))

@@ -26,6 +26,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.roofline import costs as _costs
+
 from . import _build, l1ball
 from .bilevel_l1inf import (SM_COUNT, check_fused, check_operands,
                             stream_shape, vector_width)
@@ -127,6 +129,10 @@ def trilevel_reduce(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     packs, groups, cluster, _ = reduce_shape(c, n, m, vec, y.element_size())
     v2 = y.new_empty((n, m))
     v1 = y.new_empty((m,))
+    if _costs.active() and _costs.declare(
+            REDUCE, y, *_costs.trilevel_reduce(y.element_size(), y.numel(),
+                                               n * m, m)):
+        return v2, v1
     REDUCE.launch("golden_trilevel_reduce", y.data_ptr(), v2.data_ptr(),
                   v1.data_ptr(), code, vec, c, n, m, packs, groups, cluster,
                   _build.stream_handle(y))
@@ -152,6 +158,10 @@ def trilevel_apply(y: torch.Tensor, v2: torch.Tensor,
     py, pv, pu, px = y.data_ptr(), v2.data_ptr(), u1.data_ptr(), x.data_ptr()
     vec, groups = stream_shape(c, n, m, y.element_size(),
                                not (py | pv | pu | px) % 16)
+    if _costs.active() and _costs.declare(
+            APPLY, y, *_costs.trilevel_apply(y.element_size(), y.numel(),
+                                             n * m, m)):
+        return x
     APPLY.launch("golden_trilevel_apply", py, pv, pu, px, code, vec, c, n, m,
                  groups, _build.stream_handle(y))
     return x

@@ -13,7 +13,13 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from repro_torch.parallel.mesh import Mesh, require_process_group
+from repro_torch.parallel.mesh import AbstractMesh, Mesh, require_process_group
+
+CARDS_PER_NODE = 8
+PRODUCTION = {  # the dry run's meshes: (sizes, axis names)
+    "single": ((32, CARDS_PER_NODE), ("data", "model")),
+    "multi": ((2, 32, CARDS_PER_NODE), ("pod", "data", "model")),
+}
 
 
 def make_host_mesh(data: int = 1, model: int = 1) -> Mesh:
@@ -38,3 +44,12 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     if multi_pod:
         return Mesh((pods, data, model), ("pod", "data", "model"))
     return Mesh((data, model), ("data", "model"))
+
+
+def make_abstract_mesh(kind: str = "single") -> AbstractMesh:
+    """The production mesh ``kind`` ("single" or "multi", module
+    docstring) seen from its first rank, with no process group."""
+    if kind not in PRODUCTION:
+        raise ValueError(f"mesh kind {kind!r}: expected one of {sorted(PRODUCTION)}")
+    sizes, names = PRODUCTION[kind]
+    return AbstractMesh(sizes, names)

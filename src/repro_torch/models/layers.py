@@ -31,6 +31,12 @@ from .params import ParamDef
 
 _NEG = -1e30
 
+# the chunked attention's knobs (``launch/specs.py``'s ``apply_tuning`` sets
+# them for a dry-run or hillclimb cell): the KV chunk, and the dtype the
+# probabilities take before the P·V product (None: float32), which still
+# accumulates in float32. The flash path ignores both.
+ATTN_TUNE = {"chunk": 1024, "probs_dtype": None}
+
 
 # ---------------------------------------------------------------------- norms
 def rms_norm(x, scale, eps=1e-5):
@@ -147,8 +153,13 @@ def attention_chunked(q, k, v, *, causal=True, window=None, q_offset=0,
         p = torch.exp(logits - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bkgst,btkd->bkgsd", p,
-                                                   vb.float())
+        pd = ATTN_TUNE.get("probs_dtype")
+        if pd is None:
+            pv = torch.einsum("bkgst,btkd->bkgsd", p, vb.float())
+        else:  # probabilities rounded to pd, the product accumulated in f32
+            pv = torch.einsum("bkgst,btkd->bkgsd", p.to(pd).float(),
+                              vb.to(pd).float())
+        acc = acc * corr[..., None] + pv
         m = m_new
     out = acc / torch.where(l == 0, torch.ones_like(l), l)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dv).to(q.dtype)
@@ -161,7 +172,8 @@ def attention(q, k, v, *, causal=True, window=None, q_offset=0,
                                q_offset=q_offset)
     if impl == "chunked":
         return attention_chunked(q, k, v, causal=causal, window=window,
-                                 q_offset=q_offset, chunk=chunk or 1024)
+                                 q_offset=q_offset,
+                                 chunk=chunk or ATTN_TUNE["chunk"])
     if impl == "flash":
         from repro_torch.kernels import ops
 

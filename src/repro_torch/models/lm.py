@@ -629,6 +629,19 @@ def make_cache(cfg: ArchConfig, batch: int, max_len: int,
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
+def cache_specs(cfg: ArchConfig, rules, mesh_shape):
+    """The cache's specs from the activation rules
+    (``parallel.sharding.act_rules``): the batch over its "batch" axes, the
+    cache's length over "cache_seq" (flash-decode), the layer stack and the
+    heads replicated. ``mesh_shape`` is unused, as in the JAX package."""
+    batch_ax, seq_ax = rules.get("batch"), rules.get("cache_seq")
+    if cfg.mla is not None:
+        return {"c_kv": (None, batch_ax, seq_ax, None),
+                "k_rope": (None, batch_ax, seq_ax, None)}
+    return {"k": (None, batch_ax, seq_ax, None, None),
+            "v": (None, batch_ax, seq_ax, None, None)}
+
+
 def decode_step(params, tokens, cache, pos, cfg: ArchConfig, *, n_groups=1):
     """One token for the whole batch: tokens (B,) int, ``pos`` a Python int
     (the position of ``tokens``; the caller counts it on the host, so no

@@ -7,6 +7,8 @@ axes + init). From the same template:
   * ``init_params``  — materialized tensors on a device, each leaf drawn from
                        its own ``torch.Generator`` seeded from (seed, path)
   * ``count_params`` — exact parameter count without allocation
+  * ``abstract_params`` — ``meta`` tensors of each leaf's shape (the dry
+                       run's stand-ins: shapes and dtypes, no storage)
 
   * ``param_specs``  — the spec tree (logical axes → mesh axes) a mesh
                        shards the parameters by
@@ -82,6 +84,17 @@ def init_params(template, seed: int, dtype=torch.float32, *, device=None,
         return x.mul_(std).to(dtype)
 
     return _tree.map_with_path(one, template)
+
+
+def abstract_params(template, dtype=torch.float32, *, shape=None):
+    """The template as ``meta`` tensors of ``dtype``: each leaf's shape, or
+    ``shape(path, pd)`` when given (a rank's local shard shape), and no
+    allocation on any device (``jax.ShapeDtypeStruct`` leaves in the JAX
+    package)."""
+    size = shape or (lambda path, pd: pd.shape)
+    return _tree.map_with_path(
+        lambda path, pd: torch.empty(size(path, pd), dtype=dtype, device="meta"),
+        template)
 
 
 def count_params(template) -> int:

@@ -24,6 +24,13 @@ every backend (gloo's ``all_gather`` refuses CUDA tensors).
 Each collective counts its calls and bytes (:meth:`Mesh.counts`): an
 all-reduce its tensor's bytes, an all-gather the gathered result's — the
 payloads ``core.schedule.sharded_collective_bytes`` models.
+
+:class:`AbstractMesh` is the same interface with no process group: its
+collectives take and return ``meta`` tensors of the shapes a rank would
+see, and count exactly as a :class:`Mesh` counts. It is how the dry run
+(``launch/dryrun.py``) follows one rank of a production mesh of hundreds
+of cards; a real tensor handed to it raises, so no sharded call ever runs
+quietly as one rank.
 """
 
 from __future__ import annotations
@@ -122,6 +129,7 @@ class Mesh:
     def reset_counts(self) -> None:
         self._calls = dict.fromkeys(OPS, 0)
         self._bytes = dict.fromkeys(OPS, 0)
+        self._axis_bytes: Dict[Tuple[str, Tuple[str, ...]], int] = {}
 
     def counts(self) -> Dict[str, object]:
         """Collective calls and bytes since the last :meth:`reset_counts`:
@@ -131,9 +139,17 @@ class Mesh:
                 "by_op": {op: {"calls": self._calls[op], "bytes": self._bytes[op]}
                           for op in OPS}}
 
-    def _count(self, op: str, t: torch.Tensor) -> None:
+    def axis_bytes(self) -> Dict[Tuple[str, Tuple[str, ...]], int]:
+        """The bytes of :meth:`counts` by op and by the mesh axes each
+        collective spanned (in mesh order), ``{(op, axes): bytes}``: what
+        the roofline prices at each link's rate (``roofline/analysis.py``)."""
+        return dict(self._axis_bytes)
+
+    def _count(self, op: str, t: torch.Tensor, names: Tuple[str, ...]) -> None:
+        n = t.numel() * t.element_size()
         self._calls[op] += 1
-        self._bytes[op] += t.numel() * t.element_size()
+        self._bytes[op] += n
+        self._axis_bytes[op, names] = self._axis_bytes.get((op, names), 0) + n
 
     def _all_reduce(self, op: str, x: torch.Tensor, axes: Axes,
                     reduce_op) -> torch.Tensor:
@@ -141,7 +157,7 @@ class Mesh:
         if not names:
             return x
         out = x.contiguous().clone()
-        self._count(op, out)
+        self._count(op, out, names)
         group = self._groups[names]
         if group is not None:
             dist.all_reduce(out, op=reduce_op, group=group)
@@ -167,7 +183,7 @@ class Mesh:
         shape[axis] = local * size
         out = x.new_zeros(shape)
         out.narrow(axis, idx * local, local).copy_(x)
-        self._count("all_gather", out)
+        self._count("all_gather", out, (name,))
         group = self._groups[(name,)]
         if group is not None:
             dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
@@ -184,6 +200,65 @@ class Mesh:
             t[0] = choices.index(pick())
         dist.broadcast(t, src=0)
         return choices[int(t[0])]
+
+
+class AbstractMesh(Mesh):
+    """The :class:`Mesh` of ``sizes`` over ``axis_names`` seen from one
+    rank (``coords``, every axis at 0 by default), with no process group:
+    every collective checks that its tensor is a ``meta`` tensor, counts
+    its call and bytes as :meth:`Mesh.counts` does, and returns a ``meta``
+    tensor of the shape the real collective would give. A tensor on any
+    other device raises."""
+
+    def __init__(self, sizes: Sequence[int], axis_names: Sequence[str],
+                 coords: Optional[Dict[str, int]] = None):
+        if len(sizes) != len(axis_names) or len(set(axis_names)) != len(axis_names):
+            raise ValueError(f"mesh axes {tuple(axis_names)} vs sizes {tuple(sizes)}")
+        self.axis_names = tuple(str(a) for a in axis_names)
+        self.shape = dict(zip(self.axis_names, (int(s) for s in sizes)))
+        self.size = math.prod(self.shape.values())
+        coords = dict.fromkeys(self.axis_names, 0) if coords is None else dict(coords)
+        if set(coords) != set(self.axis_names) or any(
+                not 0 <= coords[a] < self.shape[a] for a in self.axis_names):
+            raise ValueError(f"coords {coords} are not a rank of mesh {self.shape}")
+        self.coords = {a: int(coords[a]) for a in self.axis_names}
+        self.rank = 0
+        for a in self.axis_names:
+            self.rank = self.rank * self.shape[a] + self.coords[a]
+        self.device = torch.device("meta")
+        # no process group: every collective stops at its count
+        self._groups = {subset: None for k in range(1, len(self.axis_names) + 1)
+                        for subset in itertools.combinations(self.axis_names, k)}
+        self.reset_counts()
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({self.shape}, coords={self.coords})"
+
+    @staticmethod
+    def _meta(x: torch.Tensor, what: str) -> None:
+        if not isinstance(x, torch.Tensor) or x.device.type != "meta":
+            where = x.device if isinstance(x, torch.Tensor) else type(x).__name__
+            raise ValueError(
+                f"AbstractMesh.{what} takes meta tensors, got one on {where}: "
+                "an abstract mesh has no ranks to reduce over, and a real "
+                "tensor would run as one rank")
+
+    def psum(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
+        self._meta(x, "psum")
+        return super().psum(x, axes)
+
+    def pmax(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
+        self._meta(x, "pmax")
+        return super().pmax(x, axes)
+
+    def all_gather(self, x: torch.Tensor, name: str, axis: int) -> torch.Tensor:
+        self._meta(x, "all_gather")
+        return super().all_gather(x, name, axis)
+
+    def broadcast_choice(self, choices: Sequence[str],
+                         pick: Callable[[], str]) -> str:
+        """Rank 0's ``pick()`` (every abstract rank is this one)."""
+        return pick()
 
 
 def rank_coords(rank: int, shape: Dict[str, int]) -> Dict[str, int]:

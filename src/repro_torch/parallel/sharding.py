@@ -10,7 +10,8 @@ over ('pod', 'data'). A spec is a tuple with one entry per tensor axis: a
 mesh axis name, a tuple of them (the axis sharded over their product,
 the first major) or None (the port's ``PartitionSpec``).
 
-The decode caches' ``cache_spec_tree`` comes with the caches themselves.
+:func:`cache_spec_tree` gives the specs of any family's decode cache (or
+recurrent state) from its leaves' shapes.
 
 A rank holds the ceil-division slice of each sharded axis; the last ranks'
 slices run past the end of the axis and hold zeros there, exactly the
@@ -96,6 +97,46 @@ def batch_spec(mesh, global_batch: int, extra_dims: int = 1) -> tuple:
 def tokens_spec(mesh, shape, microbatch: int) -> tuple:
     """(n_micro, micro_global, seq) training batch."""
     return (None, _batch_entry(mesh, microbatch), None)
+
+
+def cache_spec_tree(cfg, mesh, cache_tree, shape):
+    """Specs for a decode cache tree (``make_cache`` of any family, e.g.
+    built on ``meta``): the batch dim over the batch axes, the cache's
+    length over "model". ``cfg`` is unused, as in the JAX package.
+
+    Per leaf: the leading axis is a layer stack (replicated); the first
+    later axis of ``shape.global_batch`` entries is the batch, sharded over
+    ('pod', 'data') where that divides it, else over 'data'; the axis right
+    after it, if at least 1024 long and divisible by the "model" size, is
+    the cache length and goes over "model"; failing that, a matrix-memory
+    state (mLSTM's C: trailing (dk, dv)) shards dk over "model" where it is
+    at least 512 and divisible."""
+    shp = mesh_shape_dict(mesh)
+    b = shape.global_batch
+    b_ax = batch_axes(mesh)
+    b_ax = b_ax if len(b_ax) > 1 else b_ax[0]
+
+    def one(leaf):
+        dims = tuple(leaf.shape)
+        parts = [None] * len(dims)
+        for i, size in enumerate(dims):
+            if size == b and i >= 1:
+                if _shardable(size, b_ax, shp):
+                    parts[i] = b_ax
+                elif isinstance(b_ax, tuple) and _shardable(size, b_ax[-1], shp):
+                    parts[i] = b_ax[-1]
+                break
+        for i in range(1, len(dims)):
+            if parts[i - 1] is not None or dims[i - 1] == b:
+                if dims[i] >= 1024 and dims[i] % shp["model"] == 0:
+                    parts[i] = "model"
+                break
+        if "model" not in parts and len(dims) >= 2 and dims[-2] >= 512 \
+                and dims[-2] % shp["model"] == 0:
+            parts[-2] = "model"
+        return tuple(parts)
+
+    return _tree.tree_map(one, cache_tree)
 
 
 def _names(entry) -> Tuple[str, ...]:

@@ -75,6 +75,7 @@ from repro_torch.obs import bridge
 from repro_torch.optim import adamw, fused_step
 from repro_torch.optim.projection_hook import _matches, make_projection_hook
 from repro_torch.parallel import collectives, sharding
+from repro_torch.roofline import costs
 
 
 def xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -205,23 +206,26 @@ def make_train_step(cfg: ArchConfig | None, tcfg: TrainConfig, api=None, *,
     def train_step(state, batch):
         params = state["params"]
         tokens = batch["tokens"]              # (n_micro, mb, ...)
-        if mesh is not None:
-            tokens = sharding.shard(
-                tokens, sharding.tokens_spec(mesh, None, tokens.shape[1]), mesh)
+        if mesh is not None:  # each micro-batch's slice, taken in its turn
+            mb_spec = sharding.tokens_spec(mesh, None, tokens.shape[1])[1:]
         n_micro = tokens.shape[0]
         leaves = _tree.leaves(params)
         gsum = [torch.zeros(p.shape, dtype=acc_dtype, device=p.device)
                 for p in leaves]
         lsum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
         for mb in tokens:
-            live = [p.detach().requires_grad_(True) for p in leaves]
-            loss = loss_fn(_tree.unflatten_like(params, live), mb)
-            grads = torch.autograd.grad(loss, live, allow_unused=True)
-            for a, g in zip(gsum, grads):
-                if g is not None:
-                    a.add_(g.to(acc_dtype))
-            lsum += loss.detach().float()
-            del loss, grads, live  # free this microbatch's graph and grads
+            # one micro-batch: a cost walk multiplies it (roofline/costs.py)
+            with costs.section("micro_batch"):
+                if mesh is not None:
+                    mb = sharding.shard(mb, mb_spec, mesh)
+                live = [p.detach().requires_grad_(True) for p in leaves]
+                loss = loss_fn(_tree.unflatten_like(params, live), mb)
+                grads = torch.autograd.grad(loss, live, allow_unused=True)
+                for a, g in zip(gsum, grads):
+                    if g is not None:
+                        a.add_(g.to(acc_dtype))
+                lsum += loss.detach().float()
+                del loss, grads, live  # free this microbatch's graph and grads
         scale = n_micro
         if mesh is not None:
             gsum = [collectives.psum(a, mesh, axes)
@@ -321,11 +325,13 @@ def _telemetry(tcfg: TrainConfig, every: int, mesh, param_specs) -> Callable:
     return emit
 
 
-def _hook_collectives(spec, param_specs, shapes, mesh_sizes) -> dict:
+def _hook_collectives(spec, param_specs, shapes, mesh_sizes,
+                      itemsize: int = 4) -> dict:
     """Per op, the mesh-native hook's collectives on one step: each matched
     leaf whose projected axes are sharded runs ``sharded_collective_bytes``'
     schedule (a reduce's pmax or psum, the solve's all-gather, an ℓ1
-    apply's bisection psums)."""
+    apply's bisection psums) on values of ``itemsize`` bytes (the
+    parameters', which the hook projects)."""
     import types
 
     from repro_torch.core.schedule import sharded_collective_bytes
@@ -351,7 +357,7 @@ def _hook_collectives(spec, param_specs, shapes, mesh_sizes) -> dict:
             perm = perm[:batch] + perm[batch:][::-1]
         model = sharded_collective_bytes([shape[a] for a in perm], spec.levels,
                                          [names[a] for a in perm], mesh_sizes,
-                                         batch_dims=batch)
+                                         itemsize, batch_dims=batch)
         for st in model["per_step"]:
             kind, norm = st["step"].split("_")
             op = ("all_gather" if kind == "solve" else
@@ -395,7 +401,8 @@ def step_collectives(cfg: ArchConfig, tcfg: TrainConfig, param_specs, mesh,
     steps = int(bool(live & set(b_axes))) + len(groups - {()})
     calls["psum"] += steps
     nbytes["psum"] += 4 * steps
-    hook = _hook_collectives(tcfg.projection, param_specs, shapes, shp)
+    p_size = torch.empty((), dtype=getattr(torch, tcfg.param_dtype)).element_size()
+    hook = _hook_collectives(tcfg.projection, param_specs, shapes, shp, p_size)
     for op in calls:
         calls[op] += hook["calls"][op]
         nbytes[op] += hook["bytes"][op]
