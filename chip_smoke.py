@@ -14,15 +14,16 @@ float32 forward at the harvest's. ``--only autograd`` builds them and runs
 phases 3b and 3c on W1–W4 made from the seed; ``--only sae_tables`` runs
 phase 8, ``--only train_mesh`` phase 9, ``--only serve`` phase 10,
 ``--only moe`` phase 11, ``--only recurrent`` phase 12, ``--only whisper``
-phase 13.)
+phase 13, ``--only launch`` phase 14, ``--only widths`` phase 15.)
 
-1. builds the fourteen CUDA kernels of the seven sources in
-   ``src/repro_torch/csrc`` (one ``nvcc`` per source, started together),
+1. builds the fifteen CUDA kernels of the seven sources in
+   ``src/repro_torch/csrc`` (one ``nvcc`` per source, started together;
+   ``l1ball`` and ``l1ball_cluster`` share ``l1ball.cu``),
    prints each kernel's ptxas lines (registers, shared memory, spills) and
    holds each against its plain PyTorch version on the card: the three
    generated-pipeline projection kernels at the two full-width
    serving shapes, over the design matrix at small ragged sizes, and for
-   ``l1ball`` both bodies at 1, 127, 2048 and the tiler's limit of values,
+   ``l1ball`` both bodies at 1, 127, 2048 and the one-CTA limit of values,
    each with radii a fraction of Σ|v| (one item inside its ball), just
    under Σ|v| (the most bisection steps), 0, and with a NaN and ±inf in
    v, as a bucket and as one item with its radius by value; the
@@ -195,7 +196,7 @@ phase 13.)
    2 Σ lr everywhere), feasible (phase 5's bound), every copy of a replicated slice bit-identical across ranks (SHA-1 of
    params and moments), collectives per step equal to
    ``training.step.step_collectives``. (b) bf16 through the launcher's CLI
-   (``launch.train.run([... "--mesh", "2x2", "--layers", N])``, 20 layers
+   (``launch.train.run([... "--mesh", "2x2", "--layers", N])``, 12 layers
    on one card, 40 on four) for 3 steps: finite losses within 2e-2
    relative of the single-device launcher at the same depth, per rank the
    step ms, tokens/s, peak memory, collectives per step (= the model) and
@@ -379,6 +380,49 @@ phase 13.)
    variant the port's mesh takes (stablelm_*, sae_factory*), each delta of
    the baseline's dominant term printed. (c) and (d) run in the
    background while (a) and (b) hold the card.
+15. every head width up to 128, danube and zamba on their flash paths,
+   the long ℓ1 solve and the golden pipelines in bf16 (``widths_phase``;
+   ``--only widths`` runs it alone). (a) the six flash kernels at head
+   dims 8, 24, 48, 80, 96 and 112 (the kernels of the next instantiated
+   width up, the columns past the true one read as 0) on phase 1's
+   ragged cases (GQA, block-unaligned, non-causal, windows, Sq < Sk,
+   Sq > Sk) in float32 and bf16 at phase 1's bars; then at
+   h2o-danube-1.8b's q (4, 32, 2048, 80), k/v (4, 8, 2048, 80) causal
+   with its window of 4096, at (1, 32, 6144, 80) / (1, 8, 6144, 80)
+   where that window bites, and at zamba2-7b's shared attention (4, 32,
+   2048, 112): held, timed beside the bound at the true head dim, the
+   plain version and one scaled_dot_product_attention call (with the
+   window's mask where it bites); the ``FlashAttention`` Function's
+   float32 gradients at danube's shape against autograd of
+   ``attention_naive``. (b) the train launcher on h2o-danube-1.8b at
+   full width and depth through its default ``--attn flash``, bf16,
+   ``DANUBE_TRAIN_ARGV`` (8 × 2048 in micro-batches of 4, 3 steps):
+   finite losses, a feasible constraint, exactly 2 bf16 forwards and one
+   dQ and one dK/dV per layer and micro-batch (288 / 144 / 144), no
+   float32 flash, the peak memory; then one harvest step of the SAE
+   factory's launcher on danube at full width and depth (``--full
+   --layers 12 --harvest-steps 1 --train-steps 1``): exit 0 through the
+   flash kernels. (c) ``zamba.forward(impl="flash")`` on zamba2-7b at
+   full width cut to two super-blocks (12 layers) on 1 × 2048 seeded
+   tokens against ``impl="chunked"`` on the card: logits within 1e-4 of
+   their largest, one float32 forward launch per shared-attention
+   application. (d) ``l1ball_cluster`` (a thread block cluster per item)
+   in both methods at 51,201, 100,352, 262,144 and 524,288 values,
+   float32 and bf16, on phase 1's radii and NaN/±inf cases, as a bucket
+   of 8 and as one item with its radius by value, against
+   ``project_l1_plain`` on the card (phase 1's bars; bf16 within one
+   bf16 rounding), two launches a pair of calls; timed (bisect) beside
+   the plain version and the PyTorch-ops solve ``ref.project_l1_ref``;
+   ``outer_l1_solve`` at 524,289 values launches nothing. (e) the golden
+   Algorithm 2 and 5 pipelines on W1–W4 and W5 ((2048, 100352) uniform
+   from a numpy seed: stablelm-1.6b's embedding, one column per token, the
+   ℓ1 over its vocabulary, through ``l1ball_cluster``) in float32 and
+   bf16: each fused call its three kernels once; float32 equal to the
+   generated pipeline (1e-6), bf16 to the plain bf16 chain on the card
+   and to the float32 pipeline on its values with the radius rounded to
+   bf16 (both within one bf16 rounding), both feasible (bf16 within
+   bf16(η) · (1 + 2^-8), each column's radius rounded half an ulp, plus
+   phase 3's slack); each pipeline timed in both types.
 
 The widths are the SAE factory's on stablelm-1.6b: d_model 2048, d_dict
 4 x 2048 = 8192, 32 heads; the projected tensor is the transposed encoder.
@@ -763,19 +807,20 @@ def fmax(t):
 L1_CASES = ("fraction", "just_under", "zero", "nan", "inf")
 
 
-def l1ball_case(randn, rand, n, case):
-    """Four vectors of ``n`` values and their radii for one of L1_CASES;
-    the non-finite values go into items 0 and 1, item 3 stays finite."""
+def l1ball_case(randn, rand, n, case, items=4):
+    """``items`` (at least 3) vectors of ``n`` values and their radii for
+    one of L1_CASES; the non-finite values go into items 0 and 1, the last
+    item stays finite."""
     import torch
 
-    v = randn((4, n))
+    v = randn((items, n))
     s = v.abs().sum(1)
     if case == "just_under":
         radii = s * (1 - 1e-6)
     elif case == "zero":
         radii = torch.zeros_like(s)
     else:
-        radii = rand((4,)) * s
+        radii = rand((items,)) * s
     if case == "fraction":
         radii[0] = s[0] * 2       # one item inside its ball
     elif case == "nan":
@@ -1464,16 +1509,17 @@ def time_flash_harvest(flash_full, launches):
     return row
 
 
-def hold_function_grads(randn):
-    """The ``FlashAttention`` Function's float32 gradients at granite's
-    attention shape against autograd of ``attention_naive`` (the S×S
-    logits) on the same q, k, v and cotangent."""
+def hold_function_grads(randn, attn=GRANITE_ATTN):
+    """The ``FlashAttention`` Function's float32 gradients at ``attn``
+    (q shape, k/v shape, causal, window; granite's attention by default)
+    against autograd of ``attention_naive`` (the S×S logits) on the same
+    q, k, v and cotangent."""
     import torch
 
     from repro_torch.kernels import _build, flash_attention as flash
     from repro_torch.models import layers as L
 
-    qs, ks, causal, window = GRANITE_ATTN
+    qs, ks, causal, window = attn
     q, k, v, cot = randn(qs, 1.0), randn(ks, 1.0), randn(ks, 1.0), randn(qs, 1.0)
     lf = [x.clone().requires_grad_(True) for x in (q, k, v)]
     _build.reset_launches()
@@ -2042,9 +2088,11 @@ def function_launches():
     return launches
 
 
-def hold_sdpa(tag, sdpa, leaves, q, k, v, o, lse, do, causal=True):
+def hold_sdpa(tag, sdpa, leaves, q, k, v, o, lse, do, causal=True,
+              window=None):
     """SDPA's distance to the plain version at granite's shape (and
-    whisper's, non-causal where ``causal`` is False), the library
+    whisper's, non-causal where ``causal`` is False; phase 15's under a
+    sliding ``window``), the library
     baseline of rows 12 and 13a/13b: its forward against
     ``flash_attention_plain``'s o and its gradients against
     ``flash_attention_bwd_plain``'s (from the kernel's o and lse). Read and
@@ -2056,10 +2104,11 @@ def hold_sdpa(tag, sdpa, leaves, q, k, v, o, lse, do, causal=True):
     from repro_torch.kernels import flash_attention as flash
 
     held = q.dtype == torch.float32
-    want_o = flash.flash_attention_plain(q, k, v, causal=causal)[0]
+    want_o = flash.flash_attention_plain(q, k, v, causal=causal,
+                                         window=window)[0]
     got_o = sdpa()
     want = dict(zip(("dq", "dk", "dv"), flash.flash_attention_bwd_plain(
-        q, k, v, o, lse, do, causal=causal)))
+        q, k, v, o, lse, do, causal=causal, window=window)))
     got = dict(zip(("dq", "dk", "dv"), torch.autograd.grad(got_o, leaves, do)))
     if held:
         errs = {"o": check_close(f"SDPA {tag} o", got_o.detach(), want_o, 2.0)}
@@ -2070,7 +2119,8 @@ def hold_sdpa(tag, sdpa, leaves, q, k, v, o, lse, do, causal=True):
         errs |= {n: float((got[n].float() - w.float()).abs().max())
                  for n, w in want.items()}
     how = "held to the kernels' float32 bars" if held else "read"
-    print(f"SDPA {tag} {tuple(q.shape)}/{tuple(k.shape)} causal={causal} vs "
+    print(f"SDPA {tag} {tuple(q.shape)}/{tuple(k.shape)} causal={causal} "
+          f"window={window} vs "
           f"the plain version ({how}): " + ", ".join(f"{n} max_abs_err {e:.3e}" for n, e in errs.items()))
     del want_o, got_o, want, got
     return {"fwd": errs["o"], "bwd": max(errs["dq"], errs["dk"], errs["dv"])}
@@ -2575,9 +2625,10 @@ def mesh_phase(backend):
 MESH_TRAIN_SIZES = (2, 2)
 MESH_TRAIN_F32 = (2, 2)          # (a): layers, steps; float32 compute
 MESH_TRAIN_BF16_STEPS = 3        # (b): bf16 compute, the launcher's CLI
-# (b)'s depth: four ranks on one card share its 80 GB (about 10 GB a rank
-# at 20 layers); on four cards the full 40
-MESH_TRAIN_LAYERS = {"gloo": 20, "nccl": 40}
+# (b)'s depth: four ranks on one card share its 80 GB (about 11 GB a rank
+# at 20 layers), and 12 layers keep the whole script in its time limit
+# (about 60 s of gloo steps); on four cards the full 40
+MESH_TRAIN_LAYERS = {"gloo": 12, "nccl": 40}
 MESH_TRAIN_RTOL = {"f32": 1e-4, "bf16": 2e-2}
 # per rank and step, the sharded hook's kernels on w_up and w_gate: the
 # bi-level ν with both trailing axes sharded ((None, "data", "model")) is
@@ -4983,9 +5034,9 @@ def recurrent_phase(dev, smi):
                                           "chip_smoke_recurrent")
     torch.cuda.synchronize()
     launches = _build.launch_counts()
-    if len(launches) != 14:
+    if len(launches) != 15:
         raise SmokeFailure(f"recurrent: {len(launches)} kernels registered, "
-                           "not the 14 whose launches the phase counts")
+                           "not the 15 whose launches the phase counts")
     rec.update(launches=launches, phase_seconds=time.perf_counter() - t0,
                base_bytes=base)
     print(f"recurrent: phase 12 in {rec['phase_seconds']:.1f} s "
@@ -5018,40 +5069,55 @@ WHISPER_TRAIN_ARGV = ["--batch", "8", "--microbatch", "4", "--seq", "448",
 WHISPER_SMOKE_RADIUS = {WHISPER_ARCH: 2.0}
 
 
-def whisper_flash(randn, smi):
-    """(a): the forward, dQ and dK/dV kernels at WHISPER_FLASH's shapes in
-    bf16 and float32, held against their plain versions with phase 1's
-    bars (``hold_attention``), then timed (CUDA events, median of 20; the
-    plain versions median of 5) beside their bounds and one
-    scaled_dot_product_attention call without a mask (held to the float32
-    bars first, its bf16 distance read: ``hold_sdpa``; its backward is
-    forward+backward minus forward). The bounds count causal work as half
-    of the non-causal 4·B·H·Sq·Sk·D forward (6 and 8 of it for dQ and
-    dK/dV), bf16 at the bf16 rate, float32 at the TF32 rate. Returns
-    {kernel: {site: its numbers}}, bf16 under BF16_FLASH's names and
-    float32 under F32_FLASH's."""
+def sdpa_call(qq, kk, vv, causal, window):
+    """One scaled_dot_product_attention call on the leaves (``enable_gqa``):
+    ``is_causal`` where no window bites (Sq = Sk when causal), else the
+    boolean mask of the kernels' rule, queries right-aligned to the keys."""
+    import torch
+
+    sq, sk = qq.shape[2], kk.shape[2]
+    if window is None or window >= sk:
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            qq, kk, vv, is_causal=causal, enable_gqa=True)
+    qpos = torch.arange(sq, device=qq.device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=qq.device)[None, :]
+    mask = kpos > qpos - window
+    if causal:
+        mask &= kpos <= qpos
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qq, kk, vv, attn_mask=mask, enable_gqa=True)
+
+
+def flash_sites(randn, smi, sites, tag):
+    """The forward, dQ and dK/dV kernels at each of ``sites`` ((site, q, k/v,
+    causal, window)) in bf16 and float32, held against their plain
+    versions with phase 1's bars (``hold_attention``), then timed (CUDA
+    events, median of 20; the plain versions median of 5) beside their
+    bounds and one scaled_dot_product_attention call (``sdpa_call``; held
+    to the float32 bars first, its bf16 distance read: ``hold_sdpa``; its
+    backward is forward+backward minus forward). The bounds count the work
+    at the true head dim, causal as half of the non-causal 4·B·H·Sq·Sk·D
+    forward (6 and 8 of it for dQ and dK/dV), bf16 at the bf16 rate,
+    float32 at the TF32 rate. Returns {kernel: {site: its numbers}}, bf16
+    under BF16_FLASH's names and float32 under F32_FLASH's."""
     import torch
 
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.roofline import costs as C
 
     out = {n: {} for n in BF16_FLASH + F32_FLASH}
-    for site, qs, ks, causal in WHISPER_FLASH:
+    for site, qs, ks, causal, window in sites:
         for dt, names in ((torch.bfloat16, BF16_FLASH),
                           (torch.float32, F32_FLASH)):
-            tag = f"whisper (a) {site}"
+            where = f"{tag} {site}"
             errs, (q, k, v, do, o, lse, delta) = hold_attention(
-                randn, tag, qs, ks, causal, None, dt)
+                randn, where, qs, ks, causal, window, dt)
             qq, kk, vv = (x.detach().clone().requires_grad_(True)
                           for x in (q, k, v))
-
-            def sdpa():
-                return torch.nn.functional.scaled_dot_product_attention(
-                    qq, kk, vv, is_causal=causal, enable_gqa=True)
-
-            lib_err = hold_sdpa(f"{tag} {str(dt)[6:]}", sdpa, (qq, kk, vv), q,
-                                k, v, o, lse, do, causal=causal)
-            opt = {"causal": causal}
+            sdpa = sdpa_call(qq, kk, vv, causal, window)
+            lib_err = hold_sdpa(f"{where} {str(dt)[6:]}", sdpa, (qq, kk, vv), q,
+                                k, v, o, lse, do, causal=causal, window=window)
+            opt = {"causal": causal, "window": window}
             t = {"flash_fwd": event_ms(lambda: flash.flash_attention(
                      q, k, v, **opt)),
                  "flash_bwd_dq": event_ms(lambda: flash.flash_bwd_dq(
@@ -5069,28 +5135,34 @@ def whisper_flash(randn, smi):
             rate = BF16_OPS_PER_S if dt == torch.bfloat16 else TF32_OPS_PER_S
             spec_ = {  # bytes, operations (roofline/costs.py's table), plain,
                        # library, library's distance
-                "flash_fwd": (*C.flash_fwd(q, k, causal), t["fwd_plain"],
+                "flash_fwd": (*C.flash_fwd(q, k, causal, window), t["fwd_plain"],
                               t["sdpa_fwd"], lib_err["fwd"]),
-                "flash_bwd_dq": (*C.flash_bwd_dq(q, k, causal), t["bwd_plain"],
-                                 t["sdpa_bwd"], lib_err["bwd"]),
-                "flash_bwd_dkv": (*C.flash_bwd_dkv(q, k, causal), t["bwd_plain"],
-                                  t["sdpa_bwd"], lib_err["bwd"]),
+                "flash_bwd_dq": (*C.flash_bwd_dq(q, k, causal, window),
+                                 t["bwd_plain"], t["sdpa_bwd"], lib_err["bwd"]),
+                "flash_bwd_dkv": (*C.flash_bwd_dkv(q, k, causal, window),
+                                  t["bwd_plain"], t["sdpa_bwd"], lib_err["bwd"]),
             }
             for kern, name in zip(BF16_FLASH, names):
                 nbytes, nops, plain_ms, lib_ms, lerr = spec_[kern]
                 bms, by = bound_ms(nbytes, nops, rate)
                 out[name][site] = {
                     "q": list(qs), "kv": list(ks), "causal": causal,
-                    "ms": t[kern], "plain_ms": plain_ms, "bound_ms": bms,
-                    "bound_by": by, "library_ms": lib_ms,
+                    "window": window, "ms": t[kern], "plain_ms": plain_ms,
+                    "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
                     "max_abs_err": errs[kern], "library_max_abs_err": lerr}
-                print(f"time whisper {site} {name} q{qs} kv{ks} causal={causal}"
-                      f": {t[kern]:.4f} ms (bound {bms:.4f} ms by {by}, "
-                      f"{bms / t[kern]:.3f} of bound), plain {plain_ms:.4f} ms, "
-                      f"scaled_dot_product_attention {lib_ms:.4f} ms, "
-                      f"max_abs_err {errs[kern]:.3e}; {smi}")
-            del q, k, v, do, o, lse, delta, qq, kk, vv
+                print(f"time {tag} {site} {name} q{qs} kv{ks} causal={causal} "
+                      f"window={window}: {t[kern]:.4f} ms (bound {bms:.4f} ms "
+                      f"by {by}, {bms / t[kern]:.3f} of bound), plain "
+                      f"{plain_ms:.4f} ms, scaled_dot_product_attention "
+                      f"{lib_ms:.4f} ms, max_abs_err {errs[kern]:.3e}; {smi}")
+            del q, k, v, do, o, lse, delta, qq, kk, vv, sdpa
     return out
+
+
+def whisper_flash(randn, smi):
+    """(a): ``flash_sites`` at WHISPER_FLASH's shapes (no window)."""
+    return flash_sites(randn, smi, [w + (None,) for w in WHISPER_FLASH],
+                       "whisper (a)")
 
 
 COMMON_PART = 0.01   # keys (and values) k̄ + COMMON_PART · ε, k̄ ~ 2 · N(0, 1)
@@ -5751,6 +5823,409 @@ def launch_phase(dev, smi, randn):
     return rec
 
 
+# phase 15: the flash kernels at every head width up to 128, danube and
+# zamba on their flash paths, the long l1ball, the golden pipelines in bf16
+WIDTHS = (8, 24, 48, 80, 96, 112)
+# phase 1's ragged cases, run at each width: GQA, block-unaligned,
+# non-causal, windows, Sq < Sk (cross, right-aligned, windowed), Sq > Sk
+WIDTH_CASES = [FLASH_CASES[i] for i in (3, 4, 5, 6, 9, 10, 11, 12, 13)]
+DANUBE_ARCH = "h2o-danube-1.8b"   # 32 q heads over 8 kv heads of 80, window 4096
+ZAMBA_ARCH = "zamba2-7b"          # the shared attention's 32 heads of 112
+WIDTH_SITES = (  # (site, q, k/v, causal, window)
+    ("danube", (4, 32, 2048, 80), (4, 8, 2048, 80), True, 4096),
+    ("danube_window", (1, 32, 6144, 80), (1, 8, 6144, 80), True, 4096),
+    ("zamba", (4, 32, 2048, 112), (4, 32, 2048, 112), True, None),
+)
+DANUBE_TRAIN_ARGV = ["--batch", "8", "--microbatch", "4", "--seq", "2048",
+                     "--steps", "3"]
+ZAMBA_FLASH_LAYERS = 12           # (c): two super-blocks of attn_every = 6
+ZAMBA_FLASH_TOKENS = (1, 2048)
+ZAMBA_FLASH_BAR = 1e-4            # (c): of max|logits|, float32
+LONG_L1 = (51201, 100352, 262144, 524288)   # (d): past the one-CTA limit
+LONG_L1_ITEMS = 8
+# (e)'s fifth workload: stablelm-1.6b's embedding, one column per token,
+# the ℓ1 over its 100,352-token vocabulary; uniform(0, 1) from a numpy seed
+W5 = ((2048, 100352), 5)
+W5_RADIUS_FRACTION = 0.25         # of its ℓ1,∞ norm, as W1's and W2's radii
+BF16_ULP = 2.0 ** -8              # a bf16 rounding to nearest, relative
+
+
+def widths_flash(randn, smi):
+    """(a): the six flash kernels at every width of WIDTHS on WIDTH_CASES
+    in both types (phase 1's bars), then at WIDTH_SITES held and timed
+    (``flash_sites``), and the ``FlashAttention`` Function's float32
+    gradients at danube's shape against autograd of ``attention_naive``."""
+    import torch
+
+    case_errs = {}
+    for d in WIDTHS:
+        for dt in (torch.float32, torch.bfloat16):
+            for i, (qs, ks, causal, window) in enumerate(WIDTH_CASES):
+                errs, _ = hold_attention(randn, f"widths (a) d={d} case{i}",
+                                         qs[:3] + (d,), ks[:3] + (d,), causal,
+                                         window, dt)
+                for k_, v_ in errs.items():
+                    key = f"{k_} {str(dt)[6:]}"
+                    case_errs[key] = max(case_errs.get(key, 0.0), v_)
+    print(f"widths (a): the flash kernels at head dims {WIDTHS} on "
+          f"{len(WIDTH_CASES)} ragged cases each, float32 and bf16, within "
+          "phase 1's bars: " + ", ".join(f"{k_} max_abs_err {v_:.3e}"
+                                        for k_, v_ in case_errs.items()))
+    sites = flash_sites(randn, smi, WIDTH_SITES, "widths (a)")
+    grads = hold_function_grads(randn, WIDTH_SITES[0][1:])
+    return {"cases": case_errs, "sites": sites, "function_grads": grads}
+
+
+def widths_danube(dev, smi, workdir):
+    """(b): danube's train launcher at full width and depth through its
+    default ``--attn flash`` (``rec_train``: finite losses, a feasible
+    constraint), its bf16 flash launches held to their count (a forward
+    and its remat recompute, one dQ and one dK/dV per layer and
+    micro-batch), peak memory; then one harvest step of the SAE factory's
+    launcher on danube at full width and depth."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import _build
+    from repro_torch.launch import sae_factory as factory_cli
+
+    cfg = registry.get_arch(DANUBE_ARCH)
+    a = serve_args(DANUBE_TRAIN_ARGV)
+    _build.reset_launches()
+    rec = rec_train(dev, smi, DANUBE_ARCH, DANUBE_TRAIN_ARGV, tag="widths (b)")
+    counts = _build.launch_counts()
+    per = cfg.n_layers * int(a["--steps"]) * (int(a["--batch"])
+                                              // int(a["--microbatch"]))
+    want = {"flash_fwd": 2 * per, "flash_bwd_dq": per, "flash_bwd_dkv": per}
+    want |= dict.fromkeys(F32_FLASH, 0)
+    got = {n: counts[n] for n in want}
+    print(f"widths (b) {DANUBE_ARCH} train: flash launches {got} (want {want})"
+          f", peak {rec['peak_bytes'] / 2**30:.2f} GiB; {smi}")
+    if got != want:
+        raise SmokeFailure(f"widths (b): flash launches {got}, not {want}")
+    out = workdir / "factory"
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    rc = factory_cli.main(["--arch", DANUBE_ARCH, "--full", "--out", str(out),
+                           "--layers", "12", "--harvest-steps", "1",
+                           "--train-steps", "1", "--seeds", "0"])
+    torch.cuda.synchronize()
+    factory_s = time.perf_counter() - t0
+    fcounts = {n: c for n, c in _build.launch_counts().items() if c}
+    flash_n = sum(fcounts.get(n, 0) for n in BF16_FLASH + F32_FLASH)
+    print(f"widths (b) {DANUBE_ARCH} sae_factory --full --layers 12 "
+          f"--harvest-steps 1 --train-steps 1: rc {rc}, {factory_s:.1f} s, "
+          f"launches {fcounts}; {smi}")
+    if rc != 0 or flash_n == 0:
+        raise SmokeFailure(f"widths (b): the factory returned {rc} with "
+                           f"{flash_n} flash launches")
+    shutil.rmtree(out, ignore_errors=True)
+    rec.pop("sparsity")
+    return dict(rec, launches=got, factory={"rc": rc, "seconds": factory_s,
+                                            "launches": fcounts})
+
+
+def widths_zamba(dev, smi):
+    """(c): zamba2-7b at full width cut to ZAMBA_FLASH_LAYERS (two
+    super-blocks), ``zamba.forward(impl="flash")`` (the float32 flash
+    forward at its 112-wide heads, one launch per shared-attention
+    application) held against ``impl="chunked"`` on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch import models
+    from repro_torch.configs import registry
+    from repro_torch.kernels import _build
+    from repro_torch.models import lm, params as PM, zamba
+
+    cfg = lm.cut_depth(registry.get_arch(ZAMBA_ARCH), ZAMBA_FLASH_LAYERS)
+    params = PM.init_params(models.get(cfg).template(cfg), SEED, device=dev)
+    toks = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, ZAMBA_FLASH_TOKENS), device=dev)
+    sites = ZAMBA_FLASH_LAYERS // cfg.hybrid.attn_every
+    with torch.no_grad():
+        _build.reset_launches()
+        got, _ = zamba.forward(params, toks, cfg, impl="flash", remat=False)
+        torch.cuda.synchronize()
+        counts = {n: c for n, c in _build.launch_counts().items() if c}
+        want, _ = zamba.forward(params, toks, cfg, impl="chunked", remat=False)
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    print(f"widths (c) {ZAMBA_ARCH} {ZAMBA_FLASH_LAYERS} layers d_model "
+          f"{cfg.d_model} heads {cfg.n_heads} x {cfg.resolved_head_dim}, "
+          f"tokens {ZAMBA_FLASH_TOKENS}: forward(impl='flash') vs 'chunked' "
+          f"logits max_abs_err {err:.3e} (bar {ZAMBA_FLASH_BAR} x max|logits| "
+          f"{scale:.4g}); launches {counts}; {smi}")
+    if not (bool(torch.isfinite(got).all()) and err <= ZAMBA_FLASH_BAR * scale
+            and counts == {"flash_fwd_tf32": sites}):
+        raise SmokeFailure(f"widths (c): logits {err:.3e} from chunked, "
+                           f"launches {counts}, not {sites} flash_fwd_tf32")
+    del params, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": ZAMBA_FLASH_LAYERS, "max_abs_err": err, "scale": scale,
+            "launches": counts}
+
+
+def widths_l1ball(randn, rand, smi):
+    """(d): both bodies of ``l1ball_cluster`` at LONG_L1's lengths, float32
+    and bf16, on L1_CASES' radii and non-finite values, as a bucket of
+    LONG_L1_ITEMS and as one item with its radius by value, against
+    ``project_l1_plain`` on the card (phase 1's bars; bf16 within one bf16
+    rounding); then timed (bisect, the fraction radii) beside the plain
+    version and the PyTorch-ops solve (``ref.project_l1_ref``, one item);
+    and ``outer_l1_solve`` one past JAX's limit launches nothing."""
+    import torch
+
+    from repro_torch.kernels import _build, l1ball, ref
+    from repro_torch.roofline import costs as C
+
+    errs, times = {}, {}
+    for n in LONG_L1:
+        for dt in (torch.float32, torch.bfloat16):
+            tag_t = str(dt)[6:]
+            rtol = BF16_RTOL if dt == torch.bfloat16 else RTOL
+            for case in L1_CASES:
+                v, radii = l1ball_case(randn, rand, n, case, LONG_L1_ITEMS)
+                v = v.to(dt)
+                nonfinite = case in ("nan", "inf")
+                for method in ("bisect", "filter"):
+                    before = l1ball.CLUSTER_KERNEL.launches
+                    got = l1ball.project_l1_batched(v, radii, method=method)
+                    one = l1ball.project_l1(v[-1], float(radii[-1]),
+                                            method=method)
+                    torch.cuda.synchronize()
+                    if l1ball.CLUSTER_KERNEL.launches != before + 2:
+                        raise SmokeFailure(f"l1ball_cluster n={n}: "
+                                           f"{l1ball.CLUSTER_KERNEL.launches - before}"
+                                           " launches for two calls")
+                    want = l1ball.project_l1_plain(v, radii, method)
+                    tag = f"widths (d) l1ball_cluster {method} n={n} {tag_t} {case}"
+                    err = max(check_close(tag, got, want, fmax(v), rtol=rtol,
+                                          nonfinite=nonfinite),
+                              check_close(f"{tag} one item", one, want[-1],
+                                          fmax(v), rtol=rtol,
+                                          nonfinite=nonfinite))
+                    key = f"{method} {tag_t}"
+                    errs[key] = max(errs.get(key, 0.0), err)
+                    print(f"{tag}: max_abs_err {err:.3e}")
+                if case != "fraction":
+                    continue
+                one_v, one_r = v[-1].contiguous(), float(radii[-1])
+                one_t = torch.tensor([one_r], device=v.device)
+                bucket = lambda: l1ball.project_l1_batched(v, radii)  # noqa: E731
+                single = lambda: l1ball.project_l1(one_v, one_r)  # noqa: E731
+                t = {"bucket_ms": event_ms(bucket), "one_ms": event_ms(single),
+                     "plain_bucket_ms": event_ms(
+                         lambda: l1ball.project_l1_plain(v, radii), reps=5),
+                     "plain_one_ms": event_ms(
+                         lambda: l1ball.project_l1_plain(one_v[None], one_t),
+                         reps=5),
+                     "ref_one_ms": event_ms(
+                         lambda: ref.project_l1_ref(one_v, one_r), reps=5)}
+                es = v.element_size()
+                t["bound_bucket_ms"], t["bound_by"] = bound_ms(
+                    *C.l1ball(LONG_L1_ITEMS, n, es))
+                t["bound_one_ms"], _ = bound_ms(*C.l1ball(1, n, es))
+                times[f"{n} {tag_t}"] = t
+                print(f"time widths (d) l1ball_cluster n={n} {tag_t}: bucket of "
+                      f"{LONG_L1_ITEMS} {t['bucket_ms']:.4f} ms (bound "
+                      f"{t['bound_bucket_ms']:.6f} ms by {t['bound_by']}), plain "
+                      f"{t['plain_bucket_ms']:.4f} ms; one item {t['one_ms']:.4f}"
+                      f" ms (bound {t['bound_one_ms']:.6f}), plain "
+                      f"{t['plain_one_ms']:.4f} ms, ref.project_l1_ref "
+                      f"{t['ref_one_ms']:.4f} ms; {smi}")
+                del v, radii, one_v, one_t
+    n = l1ball.REF_ROUTE_ABOVE + 1
+    v = randn((n,))
+    r = 0.25 * float(v.abs().sum())
+    _build.reset_launches()
+    x = l1ball.outer_l1_solve(v, r)
+    torch.cuda.synchronize()
+    launched = {k: c for k, c in _build.launch_counts().items() if c}
+    err = check_close(f"widths (d) outer_l1_solve n={n}", x,
+                      l1ball.project_l1_plain(v[None], torch.tensor(
+                          [r], device=v.device))[0], fmax(v))
+    print(f"widths (d) outer_l1_solve at n={n}: the PyTorch-ops route, "
+          f"launches {launched}, max_abs_err {err:.3e} from project_l1_plain")
+    if launched:
+        raise SmokeFailure(f"widths (d): outer_l1_solve at {n} launched {launched}")
+    return {"errs": errs, "times": times, "past_limit_launches": launched}
+
+
+def widths_golden(randn, smi):
+    """(e): the golden Algorithm 2 and 5 pipelines on W1–W5 in float32 and
+    bf16, each fused call in a counting window of its own (its three
+    kernels once each: ``l1ball_cluster`` for W5's 100,352-value
+    aggregate). Float32 is held to the generated pipeline (1e-6, the
+    golden pin); bf16 to the plain bf16 chain on the card and to the
+    float32 pipeline on the same values and the radius rounded to bf16,
+    both within one bf16 rounding (2^-7 |b| + 1e-5 max|Y|). Feasible:
+    float32 within phase 3's slack; bf16 within bf16(η)·(1 + 2^-8) (each
+    column's radius rounded to bf16, half an ulp) + that slack. Each
+    pipeline is timed (CUDA events, median of 20) in both types. Returns
+    per workload its numbers, and the launches of every kernel over the
+    fused calls."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import multilevel
+    from repro_torch.kernels import (_build, bilevel_l1inf as bi, codegen,
+                                     l1ball, trilevel_l1infinf as tri)
+
+    fused = {"bilevel": bi.bilevel_l1inf_fused,
+             "trilevel": tri.trilevel_l1infinf_fused}
+    levels = {"bilevel": BILEVEL, "trilevel": TRILEVEL}
+
+    def plain_chain(design, y, eta):
+        radii = torch.tensor([eta], device=y.device)
+        if design == "bilevel":
+            u = l1ball.project_l1_plain(bi.colmax_plain(y)[None], radii)[0]
+            return bi.clip_plain(y, u)
+        v2, v1 = tri.trilevel_reduce_plain(y)
+        u1 = l1ball.project_l1_plain(v1[None], radii)[0]
+        return tri.trilevel_apply_plain(y, v2, u1)
+
+    wls = {}
+    for wl, (shape, lv) in zip(("W1", "W2"), FULL.values()):
+        y = randn(shape)
+        wls[wl] = ("bilevel" if lv == BILEVEL else "trilevel", y,
+                   (0.25 * float(multilevel.multilevel_norm(y, lv)),))
+    for wl, design, (shape, seed, radii) in (("W3", "bilevel", FIG1),
+                                              ("W4", "trilevel", FIG3)):
+        y = np.random.default_rng(seed).uniform(0.0, 1.0, shape)
+        wls[wl] = (design, torch.from_numpy(y.astype(np.float32)).cuda(), radii)
+    shape, seed = W5
+    y = torch.from_numpy(np.random.default_rng(seed).uniform(
+        0.0, 1.0, shape).astype(np.float32)).cuda()
+    wls["W5"] = ("bilevel", y, (W5_RADIUS_FRACTION * float(
+        multilevel.multilevel_norm(y, BILEVEL)),))
+    del y
+    per_call = {"bilevel": ("colmax", "l1ball", "clip"),
+                "trilevel": ("trilevel_reduce", "l1ball", "trilevel_apply")}
+    total, out = {}, {}
+    for wl, (design, y, radii) in wls.items():
+        lv, fn = levels[design], fused[design]
+        m, scale = y.shape[-1], float(y.abs().max())
+        solve = "l1ball" if m <= l1ball.L1_ONE_CTA_MAX else "l1ball_cluster"
+        want_calls = {k if k != "l1ball" else solve: 1 for k in per_call[design]}
+        generated = codegen.build(y.shape, lv, torch.float32, method="bisect")
+        yb = y.to(torch.bfloat16)
+        recs = []
+        for eta in radii:
+            eta_b = float(torch.tensor(eta).to(torch.bfloat16))
+            rec = {"eta": eta, "eta_bf16": eta_b}
+            xs = {}
+            for dt, yy in ((torch.float32, y), (torch.bfloat16, yb)):
+                _build.reset_launches()
+                x = fn(yy, eta)
+                torch.cuda.synchronize()
+                got = {k: c for k, c in _build.launch_counts().items() if c}
+                if got != want_calls:
+                    raise SmokeFailure(f"widths (e) {wl} {dt} η={eta}: launches "
+                                       f"{got}, not {want_calls}")
+                for k, c in got.items():
+                    total[k] = total.get(k, 0) + c
+                if x.dtype != dt:
+                    raise SmokeFailure(f"widths (e) {wl}: {x.dtype} out of {dt}")
+                xs[dt] = x
+            pin = float((xs[torch.float32] - generated(y, eta)).abs().max())
+            if not pin <= 1e-6:
+                raise SmokeFailure(f"widths (e) {wl} η={eta}: golden vs "
+                                   f"generated {pin:.3e}")
+            xb = xs[torch.bfloat16]
+            tag = f"widths (e) {wl} bf16 η={eta:.6g}"
+            e_plain = check_close(f"{tag} vs the plain bf16 chain", xb,
+                                  plain_chain(design, yb, eta), scale,
+                                  rtol=BF16_RTOL)
+            e_f32 = check_close(f"{tag} vs float32 on its values", xb,
+                                fn(yb.float(), eta_b), scale, rtol=BF16_RTOL)
+            slack = RTOL * eta + m * 2.0 ** -23 * scale
+            nrm = float(multilevel.multilevel_norm(xs[torch.float32], lv))
+            nrm_b = float(multilevel.multilevel_norm(xb.float(), lv))
+            bar_b = eta_b * (1 + BF16_ULP) + slack
+            if not (nrm <= eta + slack and nrm_b <= bar_b):
+                raise SmokeFailure(f"widths (e) {wl} η={eta}: norms {nrm} (bar "
+                                   f"{eta + slack}), bf16 {nrm_b} (bar {bar_b})")
+            rec.update(pin=pin, bf16_vs_plain=e_plain, bf16_vs_f32=e_f32,
+                       norm=nrm, norm_bf16=nrm_b, bar_bf16=bar_b)
+            print(f"widths (e) golden {wl} {design} {tuple(y.shape)} η={eta:.6g}"
+                  f": launches {want_calls} a call in each type; float32 vs "
+                  f"generated {pin:.3e}, norm {nrm:.7g} (bar {eta + slack:.7g}); "
+                  f"bf16 vs the plain bf16 chain {e_plain:.3e}, vs float32 on "
+                  f"its values {e_f32:.3e}, norm {nrm_b:.7g} (bar {bar_b:.7g})")
+            recs.append(rec)
+            del xs, xb
+        eta = radii[0]
+        t = {"f32_ms": event_ms(lambda: fn(y, eta)),
+             "bf16_ms": event_ms(lambda: fn(yb, eta)),
+             "generated_ms": event_ms(lambda: generated(y, eta))}
+        print(f"time widths (e) golden {wl} {tuple(y.shape)} η={eta:.6g}: "
+              f"float32 {t['f32_ms']:.4f} ms, bf16 {t['bf16_ms']:.4f} ms, the "
+              f"generated (float32) {t['generated_ms']:.4f} ms; {smi}")
+        out[wl] = {"design": design, "shape": list(y.shape), "checks": recs, **t}
+        del yb
+    del wls
+    torch.cuda.empty_cache()
+    return {"workloads": out, "launches": total}
+
+
+def widths_phase(dev, smi, randn, rand):
+    """Phase 15 (see the module docstring): (a)–(e) in order, each from
+    freed memory. Returns their records and the phase's seconds."""
+    import torch
+
+    t0 = time.perf_counter()
+    workdir = ROOT / "build" / "chip_smoke_widths"
+    workdir.mkdir(parents=True, exist_ok=True)
+    rec = {}
+    for key, run in (("flash", lambda: widths_flash(randn, smi)),
+                     ("danube", lambda: widths_danube(dev, smi, workdir)),
+                     ("zamba", lambda: widths_zamba(dev, smi)),
+                     ("l1ball", lambda: widths_l1ball(randn, rand, smi)),
+                     ("golden", lambda: widths_golden(randn, smi))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec[key] = run()
+    shutil.rmtree(workdir, ignore_errors=True)
+    rec["phase_seconds"] = time.perf_counter() - t0
+    print(f"phase 15: {rec['phase_seconds']:.1f} s")
+    return rec
+
+
+def widths_rows(rec):
+    """Phase 15's kernel rows: the six flash kernels at danube's shape
+    (their other sites under ``"widths"``), with (b)'s launches for the
+    bf16 kernels and the factory's for the float32 ones, and
+    ``l1ball_cluster`` on W5's aggregate (one item, float32 bisect; its
+    other lengths under ``"widths"``) with (e)'s launches."""
+    rows = []
+    for name in BF16_FLASH + F32_FLASH:
+        site = rec["flash"]["sites"][name]["danube"]
+        rows.append({
+            "name": name, "workload": f"danube q{tuple(site['q'])} "
+            f"kv{tuple(site['kv'])} causal window {site['window']}",
+            "route": "cuda", "source": "src/repro_torch/csrc/" + (
+                "flash_fwd.cu" if name.startswith("flash_fwd") else "flash_bwd.cu"),
+            "replaces": REPLACES[name, False],
+            "launches": (rec["danube"]["launches"][name] if name in BF16_FLASH
+                         else rec["danube"]["factory"]["launches"].get(name, 0)),
+            **{k: site[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")},
+            "widths": rec["flash"]["sites"][name]})
+    t = rec["l1ball"]["times"]["100352 float32"]
+    rows.append({
+        "name": "l1ball_cluster", "workload": "W5 aggregate 1x100352 f32",
+        "route": "cuda", "source": "src/repro_torch/csrc/l1ball.cu",
+        "replaces": REPLACES["l1ball", False],
+        "launches": rec["golden"]["launches"].get("l1ball_cluster", 0),
+        "max_abs_err": max(rec["l1ball"]["errs"].values()),
+        "ms": t["one_ms"], "plain_ms": t["plain_one_ms"],
+        "bound_ms": t["bound_one_ms"], "bound_by": t["bound_by"],
+        "library_ms": None, "ref_ms": t["ref_one_ms"],
+        "widths": rec["l1ball"]["times"]})
+    return rows
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5760,7 +6235,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=("mesh", "attention", "autograd",
                                        "sae_tables", "train_mesh", "serve",
                                        "moe", "recurrent", "whisper",
-                                       "launch"),
+                                       "launch", "widths"),
                     help="run one phase alone: 'mesh' builds the kernels and "
                          "runs phase 7 (the partial apply, then the mesh "
                          "executor on four ranks); 'attention' builds them "
@@ -5775,7 +6250,7 @@ def main(argv=None) -> int:
                          "builds them and runs phase 11; 'recurrent' builds "
                          "them and runs phase 12; 'whisper' builds them and "
                          "runs phase 13; 'launch' builds them and runs "
-                         "phase 14")
+                         "phase 14; 'widths' builds them and runs phase 15")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -5932,6 +6407,18 @@ def main(argv=None) -> int:
     if args.only == "launch":
         return finish({"kernels": [], "launch": launch_phase(dev, smi, randn)})
 
+    if args.only == "widths":
+        rec = widths_phase(dev, smi, randn, rand)
+        return finish({"kernels": widths_rows(rec), "widths": rec})
+
+    marks = [("start", time.perf_counter())]
+
+    def mark(name):
+        """Print the seconds since the last mark: each phase's command time."""
+        marks.append((name, time.perf_counter()))
+        print(f"command time: {name} {marks[-1][1] - marks[-2][1]:.1f} s "
+              f"(total {marks[-1][1] - marks[0][1]:.1f} s)")
+
     # ------------------------------------- phase 1: kernels vs plain versions
     for name, shape, levels in DESIGNS:
         for nonfinite in (False, True):
@@ -5940,7 +6427,7 @@ def main(argv=None) -> int:
             print(f"design {name} {shape}{' NaN/±inf' if nonfinite else ''}: "
                   + ", ".join(f"{k} max_abs_err {v:.3e}" for k, v in errs.items()))
 
-    for n in (1, 127, 2048, tiling.L1_KERNEL_MAX):
+    for n in (1, 127, 2048, tiling.L1_ONE_CTA_MAX):
         for case in L1_CASES:
             v, radii = l1ball_case(randn, rand, n, case)
             nonfinite = case in ("nan", "inf")
@@ -5956,6 +6443,7 @@ def main(argv=None) -> int:
                                       nonfinite=nonfinite))
                 print(f"{tag}: max_abs_err {err:.3e}")
 
+    mark("phase 1 (the codegen designs, l1ball)")
     for i, (qs, ks, causal, window) in enumerate(FLASH_CASES):
         hold_flash(randn, f"case{i}", qs, ks, causal, window)
     flash_full = hold_flash(randn, "full", *FLASH_FULL)
@@ -5972,6 +6460,7 @@ def main(argv=None) -> int:
             f"{k} max_abs_err {v:.3e}" for k, v in errs.items()))
     torch.cuda.empty_cache()
 
+    mark("phase 1 (flash, golden kernels, full-width pipelines)")
     # ------------------------------------- phase 2: the server at full width
     # synchronous engines (start=False: result() dispatches inline), so each
     # workload's 8 requests form exactly one bucket of 8
@@ -6072,6 +6561,7 @@ def main(argv=None) -> int:
     print(f"server: {served} checked requests, 0 failures; plan cache "
           f"{planmod.cache_info()}")
 
+    mark("phase 2")
     # ------------------ phase 3: the hand-written Algorithm 2 and 5 pipelines
     wls = golden_workloads(server_reqs)
     golden = golden_phase(wls)
@@ -6081,12 +6571,15 @@ def main(argv=None) -> int:
     grad = grad_phase(wls)
     refused = refuse_grad_phase(wls)
 
+    mark("phases 3, 3b, 3c")
     # ------------------------------ phase 4: the SAE factory at full width
     fac = factory_phase(dev, F.SAEFactoryConfig(**FACTORY), FACTORY_SEEDS,
                         ROOT / "build" / "chip_smoke_factory", randn)
 
+    mark("phase 4")
     # ------------------------------ phase 5: LM training at full width
     trn = training_phase(dev, ROOT / "build" / "chip_smoke_train")
+    mark("phase 5")
 
     # ------------------------------------- phase 6: times at full width
     # each kernel at the bucket of 8 and at one item (the codegen path), on
@@ -6202,30 +6695,51 @@ def main(argv=None) -> int:
     print(f"harvest step breakdown (ms): {step_parts}")
     print(f"SAE step breakdown (ms): {sae_parts}")
     del full_cases, attn_full, flash_full
+    mark("phase 6")
     # ------------------------- phase 7: the mesh executor at full width
     mesh_row, mesh = mesh_phases()
     rows.append(mesh_row)
+    mark("phase 7")
 
     # ------------------- phase 8: the §7.3 application at the paper's size
     tables = sae_tables_phase()
+    mark("phase 8")
 
     # ------------------------------------------ phase 9: sharded training
     train_mesh = train_mesh_phases(rows)
+    mark("phase 9")
 
     # ------------------------- phase 10: serving, telemetry, int8 moments
     serve = serve_phases(rows)
+    mark("phase 10")
 
     # ---------------------------- phase 11: the MoE family at full width
     moe = moe_phase(dev, smi)
+    mark("phase 11")
 
     # ------------------------ phase 12: the recurrent families at full width
     recurrent = recurrent_phase(dev, smi)
+    mark("phase 12")
 
     # ---------------------------- phase 13: whisper-large-v3 at full width
     whisper = whisper_phase(dev, smi, randn)
+    mark("phase 13")
 
     # ------------- phase 14: the dry run, the cost model, the tile search
     launch = launch_phase(dev, smi, randn)
+    mark("phase 14")
+
+    # ------- phase 15: every head width, danube and zamba on flash, the long
+    # l1ball and the golden pipelines in bf16
+    widths = widths_phase(dev, smi, randn, rand)
+    mark("phase 15")
+    wrows = widths_rows(widths)
+    rows.append(wrows[-1])   # l1ball_cluster; the flash rows ride along
+    for row in rows:
+        if row["name"] in widths["flash"]["sites"]:
+            row["widths"] = widths["flash"]["sites"][row["name"]]
+            row["launches_widths"] = next(
+                r["launches"] for r in wrows if r["name"] == row["name"])
     for row in rows:
         if row["name"] in ("codegen_reduce", "codegen_apply"):
             row["search_launches"] = {
@@ -6244,7 +6758,7 @@ def main(argv=None) -> int:
     return finish({"kernels": rows, "mesh": mesh, "grad": grad,
                    "train_mesh": train_mesh, "serve": serve, "moe": moe,
                    "recurrent": recurrent, "whisper": whisper,
-                   "launch": launch,
+                   "launch": launch, "widths": widths,
                    "refuse_grad": refused, "sae_tables": tables,
                    "factory": {"harvest_step_ms": step_parts,
                                "sae_step_ms": sae_parts,

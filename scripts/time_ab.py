@@ -36,7 +36,8 @@ that tree's kernels of FAMILY and times them, float32:
   rows 13a and 13b f32 (``flash_bwd_dq``, ``flash_bwd_dkv``) at granite-3-2b's
   q (4, 32, 2048, 64), k/v (4, 8, 2048, 64) causal beside SDPA's float32
   backward (``enable_gqa``: forward+backward and forward, timed apart; the
-  backward is their difference);
+  backward is their difference); rows 12, 13a and 13b in bf16 at
+  granite's shape (held to the plain versions at phase 1's bf16 bars);
 - ``harvest``: one warm harvest step of the SAE factory at stablelm-1.6b's
   full width (``chip_smoke.py``'s FACTORY) and its LM forward, on the host
   clock, each ended by a synchronize (median of 3); ``chip_smoke.py``'s
@@ -344,6 +345,27 @@ def flash_cases(torch, cs, randn, rand):
                                               {"kernel": dq, **library}, None)
     cases[f"row 13b f32 {gs}/{gk} causal"] = (held(dkv, ("dk", "dv")),
                                               {"kernel": dkv}, None)
+
+    # rows 12, 13a and 13b in bf16 (the trainer's type) at granite's shape,
+    # held to the plain versions at phase 1's bf16 bars
+    bq, bk, bv, bdo = (x.to(torch.bfloat16) for x in (gq, gkk, gv, gdo))
+    bo, blse = flash.flash_attention(bq, bk, bv, **opts)
+    bdelta = (bdo.float() * bo.float()).sum(-1)
+    bf = {"12": lambda: flash.flash_attention(bq, bk, bv, **opts),
+          "13a": lambda: flash.flash_bwd_dq(bq, bk, bv, bdo, blse, bdelta, **opts),
+          "13b": lambda: flash.flash_bwd_dkv(bq, bk, bv, bdo, blse, bdelta, **opts)}
+
+    def bf16_check(tag):
+        po = flash.flash_attention_plain(bq, bk, bv, **opts)[0]
+        cs.check_close(f"{tag} o", bf["12"]()[0], po, 2.0, rtol=cs.BF16_RTOL)
+        want = flash.flash_attention_bwd_plain(bq, bk, bv, bo, blse, bdo, **opts)
+        got = (bf["13a"](), *bf["13b"]())
+        for n, g, w in zip(("dq", "dk", "dv"), got, want):
+            cs.check_close(f"{tag} {n}", g, w, float(w.abs().max()),
+                           rtol=cs.BF16_RTOL)
+    for row, fn in bf.items():
+        cases[f"row {row} bf16 {gs}/{gk} causal"] = (
+            bf16_check if row == "12" else (lambda tag: None), {"kernel": fn}, None)
     return cases
 
 

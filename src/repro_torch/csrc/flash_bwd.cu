@@ -34,7 +34,12 @@
 // two pallas_calls, _dq_kernel (:181, call at :302) and _dkv_kernel (:226,
 // call at :325). Same layouts: q, o, do, dq (B, Hq, Sq, D); k, v, dk, dv
 // (B, Hkv, Sk, D); lse, delta (B, Hq, Sq) float32; queries right-aligned to
-// the keys; causal and sliding-window masks; GQA through h / G.
+// the keys; causal and sliding-window masks; GQA through h / G. A head dim
+// d (a multiple of 8 up to 128) runs the kernels of the next width up, as
+// in flash_fwd.cu (flash::padded_width): the tensor maps read the columns
+// past d as 0, which add nothing to S, dP or the pre-pass's planes (written
+// at width d, as is k̄), and dq, dk and dv are stored at row stride d with
+// the padding's zero columns left out.
 //
 // What the TPU kernels' grids did, and what these kernels do instead:
 //   * dQ's sequential k axis becomes a loop inside the CTA over the k tiles
@@ -70,8 +75,17 @@ namespace {
 // keys each (keys are the M of every product) and a producer warp. Its
 // first thread loads K and V once, then streams 64-row tiles of Q and dO
 // through a ring of BSTAGES (TMA, one full and one empty barrier per stage)
-// over the G query heads of the kv head and, for each, the q tiles in
-// [i_lo, i_hi); its 32 lanes stage each tile's lse · log2 e and delta in
+// over the q tiles in [i_lo, i_hi), the farthest from the keys first, and
+// for each the G query heads of the kv head. Under a causal or windowed
+// mask P is largest on the queries nearest the keys, and the chained wgmma
+// accumulators keep each tile's contribution only to the precision of the
+// running sum: walked nearest first, the large early terms made the many
+// small later ones lose their low bits, enough at a long windowed shape
+// (1, 32, 6144, 80) to move a few dK/dV entries past phase 1's bar of
+// chip_smoke.py; walked farthest first, with the heads interleaved so that
+// no head's total sits in the sum while the next head's small terms come,
+// the sum grows as its terms do, at the same time (PERF.md § 6). Its 32
+// lanes stage each tile's lse · log2 e and delta in
 // shared memory (0 past Sq) and arrive on the same full barrier. Per tile a
 // warpgroup, with float32 accumulators,
 //   Sᵀ = K Qᵀ, dPᵀ = V dOᵀ          wgmma m64n64k16, operands in shared memory;
@@ -101,10 +115,11 @@ constexpr int BSTAGES = 3;
 constexpr int THREADS = 2 * WG + 32;  // two consumer warpgroups and a producer warp
 
 // k̄ of dQ: each (batch, kv head)'s mean key over its sk keys, float32,
-// into kbar (mats, D). One block of 1024 threads per (batch, kv
-// head): a thread sums the VEC columns of a 16-byte chunk over every
-// RPP-th key, four chunks in flight, then D threads add the RPP partial
-// sums of their column in order (the result does not depend on timing).
+// into kbar (mats, d), k (mats, sk, d) with d <= D. One block of 1024
+// threads per (batch, kv head): a thread sums the VEC columns of a 16-byte
+// chunk over every RPP-th key, four chunks in flight (the chunks past d
+// sum nothing), then d threads add the RPP partial sums of their column in
+// order (the result does not depend on timing).
 __device__ __forceinline__ void add_chunk(const uint4& x, float (&sum)[4]) {
   const float4 f = *reinterpret_cast<const float4*>(&x);
   sum[0] += f.x;
@@ -124,12 +139,12 @@ __device__ __forceinline__ void add_chunk(const uint4& x, float (&sum)[8]) {
 
 template <typename T, int D>
 __global__ void __launch_bounds__(1024)
-head_means(const T* __restrict__ k, float* __restrict__ kbar, int sk) {
+head_means(const T* __restrict__ k, float* __restrict__ kbar, int sk, int d) {
   constexpr int VEC = 16 / sizeof(T), TPR = D / VEC, RPP = 1024 / TPR;
   __shared__ float part[RPP][D + 1];
   const long long mat = blockIdx.x;
-  const int c = threadIdx.x % TPR, r0 = threadIdx.x / TPR;
-  const uint4* rows = reinterpret_cast<const uint4*>(k + mat * sk * D);
+  const int c = threadIdx.x % TPR, r0 = threadIdx.x / TPR, chunks = d / VEC;
+  const uint4* rows = reinterpret_cast<const uint4*>(k + mat * sk * d);
   float sum[VEC];
 #pragma unroll
   for (int e = 0; e < VEC; ++e) sum[e] = 0.f;
@@ -138,7 +153,8 @@ head_means(const T* __restrict__ k, float* __restrict__ kbar, int sk) {
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int j = j0 + u * RPP;
-      x[u] = j < sk ? rows[static_cast<long long>(j) * TPR + c] : make_uint4(0, 0, 0, 0);
+      x[u] = j < sk && c < chunks ? rows[static_cast<long long>(j) * chunks + c]
+                                  : make_uint4(0, 0, 0, 0);
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u) add_chunk(x[u], sum);
@@ -146,16 +162,16 @@ head_means(const T* __restrict__ k, float* __restrict__ kbar, int sk) {
 #pragma unroll
   for (int e = 0; e < VEC; ++e) part[r0][c * VEC + e] = sum[e];
   __syncthreads();
-  if (threadIdx.x < D) {
+  if (threadIdx.x < d) {
     float total = 0.f;
     for (int i = 0; i < RPP; ++i) total += part[i][threadIdx.x];
-    kbar[mat * D + threadIdx.x] = total / sk;
+    kbar[mat * d + threadIdx.x] = total / sk;
   }
 }
 
 template <typename T, int D>
-void head_mean(const T* k, float* kbar, int mats, int sk, cudaStream_t stream) {
-  head_means<T, D><<<mats, 1024, 0, stream>>>(k, kbar, sk);
+void head_mean(const T* k, float* kbar, int mats, int sk, int d, cudaStream_t stream) {
+  head_means<T, D><<<mats, 1024, 0, stream>>>(k, kbar, sk, d);
 }
 
 template <int D>
@@ -211,7 +227,7 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
                     const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
                     __nv_bfloat16* __restrict__ dv, int batch, int hq, int hkv, int sq,
-                    int sk, int causal, int window, float scale) {
+                    int sk, int d, int causal, int window, float scale) {
   using L = Layout<D>;
   using S = DkvSmem<D>;
   extern __shared__ uint8_t smem_raw[];
@@ -261,7 +277,7 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
       for (int t = 0; t < ntiles; ++t) {
         const int s = t % BSTAGES;
         mbar_wait(empty + s, ((t / BSTAGES) & 1) ^ 1);
-        const int qm = b * hq + hk * group + t / nq, q0 = qfirst + (t % nq) * TQR;
+        const int qm = b * hq + hk * group + t % group, q0 = qfirst + (nq - 1 - t / group) * TQR;
         // lse · log2 e and delta of the tile's rows, 0 past Sq
         float* rs = rows_s + s * 2 * TQR;
 #pragma unroll
@@ -302,7 +318,7 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
   for (int t = 0; t < ntiles; ++t) {
     const int s = t % BSTAGES;
     const uint32_t ph = (t / BSTAGES) & 1;
-    const int q0 = qfirst + (t % nq) * TQR;
+    const int q0 = qfirst + (nq - 1 - t / group) * TQR;
     const uint32_t qt = smem_u32(smem + S::RING + 2 * s * S::TILE), dot = qt + S::TILE;
     mbar_wait(full + s, ph);
     // some key of this warpgroup is valid for some row of the tile
@@ -370,7 +386,8 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
     if (key >= sk) continue;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      const long long off = (base + key) * D + 8 * j + 2 * quad;
+      if (8 * j >= d) continue;  // the padding's zero columns
+      const long long off = (base + key) * d + 8 * j + 2 * quad;
       *reinterpret_cast<__nv_bfloat162*>(dk + off) = __floats2bfloat162_rn(
           dk_acc[4 * j + 2 * i] * scale, dk_acc[4 * j + 2 * i + 1] * scale);
       *reinterpret_cast<__nv_bfloat162*>(dv + off) =
@@ -382,13 +399,14 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
 template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, void* dk, void* dv, int batch, int hq,
-               int hkv, int sq, int sk, int causal, int window, float scale,
+               int hkv, int sq, int sk, int d, int causal, int window, float scale,
                cudaStream_t stream) {
-  CUtensorMap tq, tk, tv, tdo;
-  int e = tile_map(&tq, q, batch * hq, sq, D, TQR);
-  if (!e) e = tile_map(&tdo, dout, batch * hq, sq, D, TQR);
-  if (!e) e = tile_map(&tk, k, batch * hkv, sk, D, BKV);
-  if (!e) e = tile_map(&tv, v, batch * hkv, sk, D, BKV);
+  using L = Layout<D>;
+  CUtensorMap tq, tk, tv, tdo;  // boxes of the instantiated width D over the true d
+  int e = tile_map(&tq, q, batch * hq, sq, d, TQR, 2, L::BOX);
+  if (!e) e = tile_map(&tdo, dout, batch * hq, sq, d, TQR, 2, L::BOX);
+  if (!e) e = tile_map(&tk, k, batch * hkv, sk, d, BKV, 2, L::BOX);
+  if (!e) e = tile_map(&tv, v, batch * hkv, sk, d, BKV, 2, L::BOX);
   if (e) return e;
   constexpr int smem = DkvSmem<D>::BYTES;
   int sms = 0;
@@ -397,7 +415,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   const int grid = (sk + BKV - 1) / BKV * hkv * batch;
   flash_bwd_dkv_wgmma<D><<<grid, THREADS, smem, stream>>>(
       tq, tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), batch, hq, hkv, sq, sk, causal, window, scale);
+      static_cast<__nv_bfloat16*>(dv), batch, hq, hkv, sq, sk, d, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -480,7 +498,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
                    const float* __restrict__ delta, const float* __restrict__ kbar,
                    __nv_bfloat16* __restrict__ dq, int batch, int hq, int hkv, int sq,
-                   int sk, int causal, int window, float scale) {
+                   int sk, int d, int causal, int window, float scale) {
   using L = Layout<D>;
   using S = DqSmem<D>;
   constexpr int STAGES = S::STAGES;
@@ -621,14 +639,15 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
     rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
   }
-  const float* kb = kbar + (static_cast<long long>(b) * hkv + h / (hq / hkv)) * D;
+  const float* kb = kbar + (static_cast<long long>(b) * hkv + h / (hq / hkv)) * d;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = rw + r + 8 * i;
     if (row >= sq) continue;
-    __nv_bfloat16* out = dq + (mat * sq + row) * D;
+    __nv_bfloat16* out = dq + (mat * sq + row) * d;
 #pragma unroll
     for (int c = 0; c < D / 8; ++c) {
+      if (8 * c >= d) continue;  // the padding's zero columns
       const int col = 8 * c + 2 * quad;
       *reinterpret_cast<__nv_bfloat162*>(out + col) = __floats2bfloat162_rn(
           fmaf(-rs[i], kb[col], acc[4 * c + 2 * i]) * scale,
@@ -640,17 +659,18 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, float* kbar, int batch,
-              int hq, int hkv, int sq, int sk, int causal, int window, float scale,
+              int hq, int hkv, int sq, int sk, int d, int causal, int window, float scale,
               cudaStream_t stream) {
+  using L = Layout<D>;
   head_mean<__nv_bfloat16, D>(static_cast<const __nv_bfloat16*>(k), kbar, batch * hkv, sk,
-                             stream);
+                             d, stream);
   const cudaError_t e0 = cudaGetLastError();
   if (e0) return e0;
-  CUtensorMap tq, tk, tv, tdo;
-  int e = tile_map(&tq, q, batch * hq, sq, D, BQR);
-  if (!e) e = tile_map(&tdo, dout, batch * hq, sq, D, BQR);
-  if (!e) e = tile_map(&tk, k, batch * hkv, sk, D, BKT);
-  if (!e) e = tile_map(&tv, v, batch * hkv, sk, D, BKT);
+  CUtensorMap tq, tk, tv, tdo;  // boxes of the instantiated width D over the true d
+  int e = tile_map(&tq, q, batch * hq, sq, d, BQR, 2, L::BOX);
+  if (!e) e = tile_map(&tdo, dout, batch * hq, sq, d, BQR, 2, L::BOX);
+  if (!e) e = tile_map(&tk, k, batch * hkv, sk, d, BKT, 2, L::BOX);
+  if (!e) e = tile_map(&tv, v, batch * hkv, sk, d, BKT, 2, L::BOX);
   if (e) return e;
   constexpr int smem = DqSmem<D>::BYTES;
   int sms = 0;
@@ -659,7 +679,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   const int grid = (sq + BQR - 1) / BQR * hq * batch;
   flash_bwd_dq_wgmma<D><<<grid, THREADS, smem, stream>>>(
       tq, tk, tv, tdo, lse, delta, kbar, static_cast<__nv_bfloat16*>(dq), batch, hq, hkv, sq,
-      sk, causal, window, scale);
+      sk, d, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -771,7 +791,8 @@ flash_bwd_dq_tf32(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tv,
                   const __grid_constant__ CUtensorMap tkt, const float* __restrict__ lse,
                   const float* __restrict__ delta, float* __restrict__ dq, int batch,
-                  int hq, int hkv, int sq, int sk, int causal, int window, float scale) {
+                  int hq, int hkv, int sq, int sk, int d, int causal, int window,
+                  float scale) {
   using C = F32Dq<D>;
   using KQ = KMajor<C::QROW>;    // Q, dO, K and V tiles: boxes of [rows][QROW / 4]
   using KT = KMajor<C::BK * 4>;  // Kᵀ tiles: one box of [D][BK keys]
@@ -937,11 +958,12 @@ flash_bwd_dq_tf32(const __grid_constant__ CUtensorMap tq,
   for (int i = 0; i < 2; ++i) {
     const int row = rw + r + 8 * i;
     if (row >= sq) continue;
-    float* out = dq + (mat * sq + row) * D;
+    float* out = dq + (mat * sq + row) * d;
 #pragma unroll
     for (int c = 0; c < D / 8; ++c)
-      *reinterpret_cast<float2*>(out + 8 * c + 2 * quad) =
-          make_float2(acc[4 * c + 2 * i] * scale, acc[4 * c + 2 * i + 1] * scale);
+      if (8 * c < d)  // columns past d are the padding's zeros
+        *reinterpret_cast<float2*>(out + 8 * c + 2 * quad) =
+            make_float2(acc[4 * c + 2 * i] * scale, acc[4 * c + 2 * i + 1] * scale);
   }
 }
 
@@ -955,7 +977,7 @@ flash_bwd_dkv_tf32(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tv, const float* __restrict__ lse,
                    const float* __restrict__ delta, float* __restrict__ dk,
                    float* __restrict__ dv, int batch, int hq, int hkv, int sq, int sk,
-                   int causal, int window, float scale) {
+                   int d, int causal, int window, float scale) {
   using C = F32Dkv<D>;
   using KQ = KMajor<C::QROW>;    // K, V, Q and dO tiles: boxes of [rows][QROW / 4]
   using QT = KMajor<C::TQ * 4>;  // Qᵀ and dOᵀ tiles: one box of [D][TQ rows]
@@ -1155,7 +1177,8 @@ flash_bwd_dkv_tf32(const __grid_constant__ CUtensorMap tq,
     if (key >= sk) continue;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      const long long off = (base + key) * D + 8 * j + 2 * quad;
+      if (8 * j >= d) continue;  // the padding's zero columns
+      const long long off = (base + key) * d + 8 * j + 2 * quad;
       *reinterpret_cast<float2*>(dk + off) =
           make_float2(dk_acc[4 * j + 2 * i] * scale, dk_acc[4 * j + 2 * i + 1] * scale);
       *reinterpret_cast<float2*>(dv + off) =
@@ -1193,25 +1216,28 @@ struct Tf32BwdWork {
 template <int D>
 int launch_dq_tf32(const float* q, const float* k, const float* v, const float* dout,
                    const float* lse, const float* delta, float* dq, float* work, int batch,
-                   int hq, int hkv, int sq, int sk, int causal, int window, float scale,
-                   cudaStream_t stream) {
+                   int hq, int hkv, int sq, int sk, int d, int causal, int window,
+                   float scale, cudaStream_t stream) {
   using C = F32Dq<D>;
-  const Tf32BwdWork w(batch, hq, hkv, sq, sk, D);
-  float* kbar = work;           // k̄: (batch · hkv, D)
-  float* kp = kbar + w.kbar;    // K big, K small: (2 · batch · hkv, sk, D)
+  constexpr int QBOX = C::QROW / 4;
+  const Tf32BwdWork w(batch, hq, hkv, sq, sk, d);
+  float* kbar = work;           // k̄: (batch · hkv, d)
+  float* kp = kbar + w.kbar;    // K big, K small: (2 · batch · hkv, sk, d)
   float* vp = kp + 2 * w.nk;    // V big, V small
-  float* ktp = vp + 2 * w.nk;   // (K − k̄)ᵀ big, small: (2 · batch · hkv, D, skp)
-  head_mean<float, D>(k, kbar, batch * hkv, sk, stream);
-  planes_t(k, ktp, batch * hkv, sk, w.skp, D, stream, kp, kbar);
+  float* ktp = vp + 2 * w.nk;   // (K − k̄)ᵀ big, small: (2 · batch · hkv, d, skp)
+  head_mean<float, D>(k, kbar, batch * hkv, sk, d, stream);
+  planes_t(k, ktp, batch * hkv, sk, w.skp, d, stream, kp, kbar);
   planes(v, vp, w.nk, nullptr, stream);
   const cudaError_t e0 = cudaGetLastError();
   if (e0) return e0;
-  CUtensorMap tq, tdo, tk, tv, tkt;  // Q and dO raw
-  int e = tile_map(&tq, q, batch * hq, sq, D, C::BQ, 4);
-  if (!e) e = tile_map(&tdo, dout, batch * hq, sq, D, C::BQ, 4);
-  if (!e) e = tile_map(&tk, kp, 2 * batch * hkv, sk, D, C::BK, 4);
-  if (!e) e = tile_map(&tv, vp, 2 * batch * hkv, sk, D, C::BK, 4);
-  if (!e) e = tile_map(&tkt, ktp, 2 * batch * hkv, D, w.skp, D, 4, C::BK);
+  // Q and dO raw; boxes of the instantiated width D over the true d (the
+  // transposed Kᵀ: D rows over its d)
+  CUtensorMap tq, tdo, tk, tv, tkt;
+  int e = tile_map(&tq, q, batch * hq, sq, d, C::BQ, 4, QBOX);
+  if (!e) e = tile_map(&tdo, dout, batch * hq, sq, d, C::BQ, 4, QBOX);
+  if (!e) e = tile_map(&tk, kp, 2 * batch * hkv, sk, d, C::BK, 4, QBOX);
+  if (!e) e = tile_map(&tv, vp, 2 * batch * hkv, sk, d, C::BK, 4, QBOX);
+  if (!e) e = tile_map(&tkt, ktp, 2 * batch * hkv, d, w.skp, D, 4, C::BK);
   if (e) return e;
   constexpr int smem = C::BYTES;
   int sms = 0;
@@ -1219,36 +1245,40 @@ int launch_dq_tf32(const float* q, const float* k, const float* v, const float* 
   if (e) return e;
   const int grid = (sq + C::BQ - 1) / C::BQ * hq * batch;
   flash_bwd_dq_tf32<D><<<grid, C::THREADS, smem, stream>>>(
-      tq, tdo, tk, tv, tkt, lse, delta, dq, batch, hq, hkv, sq, sk, causal, window, scale);
+      tq, tdo, tk, tv, tkt, lse, delta, dq, batch, hq, hkv, sq, sk, d, causal, window,
+      scale);
   return cudaGetLastError();
 }
 
 template <int D>
 int launch_dkv_tf32(const float* q, const float* k, const float* v, const float* dout,
                     const float* lse, const float* delta, float* dk, float* dv, float* work,
-                    int batch, int hq, int hkv, int sq, int sk, int causal, int window,
-                    float scale, cudaStream_t stream) {
+                    int batch, int hq, int hkv, int sq, int sk, int d, int causal,
+                    int window, float scale, cudaStream_t stream) {
   using C = F32Dkv<D>;
-  const Tf32BwdWork w(batch, hq, hkv, sq, sk, D);
-  float* qp = work;               // Q big, Q small: (2 · batch · hq, sq, D)
+  constexpr int QBOX = C::QROW / 4;
+  const Tf32BwdWork w(batch, hq, hkv, sq, sk, d);
+  float* qp = work;               // Q big, Q small: (2 · batch · hq, sq, d)
   float* dop = qp + 2 * w.nq;     // dO big, dO small
-  float* qtp = dop + 2 * w.nq;    // Qᵀ big, Qᵀ small: (2 · batch · hq, D, sqp)
+  float* qtp = dop + 2 * w.nq;    // Qᵀ big, Qᵀ small: (2 · batch · hq, d, sqp)
   float* dotp = qtp + 2 * w.nqt;  // dOᵀ big, dOᵀ small
-  float* kp = dotp + 2 * w.nqt;   // K big, K small: (2 · batch · hkv, sk, D)
+  float* kp = dotp + 2 * w.nqt;   // K big, K small: (2 · batch · hkv, sk, d)
   float* vp = kp + 2 * w.nk;      // V big, V small
-  planes_t(q, qtp, batch * hq, sq, w.sqp, D, stream, qp);
-  planes_t(dout, dotp, batch * hq, sq, w.sqp, D, stream, dop);
+  planes_t(q, qtp, batch * hq, sq, w.sqp, d, stream, qp);
+  planes_t(dout, dotp, batch * hq, sq, w.sqp, d, stream, dop);
   planes(k, kp, w.nk, nullptr, stream);
   planes(v, vp, w.nk, nullptr, stream);
   const cudaError_t e0 = cudaGetLastError();
   if (e0) return e0;
+  // boxes of the instantiated width D over the true d (the transposed
+  // planes: D rows over their d)
   CUtensorMap tq, tdo, tqt, tdot, tk, tv;
-  int e = tile_map(&tq, qp, 2 * batch * hq, sq, D, C::TQ, 4);
-  if (!e) e = tile_map(&tdo, dop, 2 * batch * hq, sq, D, C::TQ, 4);
-  if (!e) e = tile_map(&tqt, qtp, 2 * batch * hq, D, w.sqp, D, 4, C::TQ);
-  if (!e) e = tile_map(&tdot, dotp, 2 * batch * hq, D, w.sqp, D, 4, C::TQ);
-  if (!e) e = tile_map(&tk, kp, 2 * batch * hkv, sk, D, C::BKV, 4);
-  if (!e) e = tile_map(&tv, vp, 2 * batch * hkv, sk, D, C::BKV, 4);
+  int e = tile_map(&tq, qp, 2 * batch * hq, sq, d, C::TQ, 4, QBOX);
+  if (!e) e = tile_map(&tdo, dop, 2 * batch * hq, sq, d, C::TQ, 4, QBOX);
+  if (!e) e = tile_map(&tqt, qtp, 2 * batch * hq, d, w.sqp, D, 4, C::TQ);
+  if (!e) e = tile_map(&tdot, dotp, 2 * batch * hq, d, w.sqp, D, 4, C::TQ);
+  if (!e) e = tile_map(&tk, kp, 2 * batch * hkv, sk, d, C::BKV, 4, QBOX);
+  if (!e) e = tile_map(&tv, vp, 2 * batch * hkv, sk, d, C::BKV, 4, QBOX);
   if (e) return e;
   constexpr int smem = C::BYTES;
   int sms = 0;
@@ -1256,7 +1286,7 @@ int launch_dkv_tf32(const float* q, const float* k, const float* v, const float*
   if (e) return e;
   const int grid = (sk + C::BKV - 1) / C::BKV * hkv * batch;
   flash_bwd_dkv_tf32<D><<<grid, C::THREADS, smem, stream>>>(
-      tq, tdo, tqt, tdot, tk, tv, lse, delta, dk, dv, batch, hq, hkv, sq, sk, causal,
+      tq, tdo, tqt, tdot, tk, tv, lse, delta, dk, dv, batch, hq, hkv, sq, sk, d, causal,
       window, scale);
   return cudaGetLastError();
 }
@@ -1270,7 +1300,8 @@ int launch_dkv_tf32(const float* q, const float* k, const float* v, const float*
 // delta: (batch, hq, sq) float32. work: float32 scratch of work_floats
 // floats, at least tc::Tf32BwdWork::needed() of the kernel (dQ: k̄, then in
 // float32 the pre-pass's planes; dK/dV: the planes in float32, null and 0
-// in bf16). window <= 0 means none; d is 16, 32, 64 or 128.
+// in bf16). window <= 0 means none; d is a multiple of 8 from 8 to 128
+// (flash::padded_width: the kernels of the next width up run on it).
 // Both types run on the tensor cores. Each returns a cudaError_t.
 REPRO_EXPORT int flash_bwd_dq(const void* q, const void* k, const void* v,
                               const void* dout, const float* lse,
@@ -1284,22 +1315,22 @@ REPRO_EXPORT int flash_bwd_dq(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
   float* kb = static_cast<float*>(work);
   if (bf16) {
-    switch (d) {
-      case 16: return tc::launch_dq<16>(q, k, v, dout, lse, delta, dq, kb, batch, hq, hkv, sq, sk, causal, window, scale, st);
-      case 32: return tc::launch_dq<32>(q, k, v, dout, lse, delta, dq, kb, batch, hq, hkv, sq, sk, causal, window, scale, st);
-      case 64: return tc::launch_dq<64>(q, k, v, dout, lse, delta, dq, kb, batch, hq, hkv, sq, sk, causal, window, scale, st);
-      case 128: return tc::launch_dq<128>(q, k, v, dout, lse, delta, dq, kb, batch, hq, hkv, sq, sk, causal, window, scale, st);
+    switch (flash::padded_width(d)) {
+      case 16: return tc::launch_dq<16>(q, k, v, dout, lse, delta, dq, kb, batch, hq, hkv, sq, sk, d, causal, window, scale, st);
+      case 32: return tc::launch_dq<32>(q, k, v, dout, lse, delta, dq, kb, batch, hq, hkv, sq, sk, d, causal, window, scale, st);
+      case 64: return tc::launch_dq<64>(q, k, v, dout, lse, delta, dq, kb, batch, hq, hkv, sq, sk, d, causal, window, scale, st);
+      case 128: return tc::launch_dq<128>(q, k, v, dout, lse, delta, dq, kb, batch, hq, hkv, sq, sk, d, causal, window, scale, st);
       default: return cudaErrorInvalidValue;
     }
   }
   const float *fq = static_cast<const float*>(q), *fk = static_cast<const float*>(k),
               *fv = static_cast<const float*>(v), *fo = static_cast<const float*>(dout);
   float* fdq = static_cast<float*>(dq);
-  switch (d) {
-    case 16: return tc::launch_dq_tf32<16>(fq, fk, fv, fo, lse, delta, fdq, kb, batch, hq, hkv, sq, sk, causal, window, scale, st);
-    case 32: return tc::launch_dq_tf32<32>(fq, fk, fv, fo, lse, delta, fdq, kb, batch, hq, hkv, sq, sk, causal, window, scale, st);
-    case 64: return tc::launch_dq_tf32<64>(fq, fk, fv, fo, lse, delta, fdq, kb, batch, hq, hkv, sq, sk, causal, window, scale, st);
-    case 128: return tc::launch_dq_tf32<128>(fq, fk, fv, fo, lse, delta, fdq, kb, batch, hq, hkv, sq, sk, causal, window, scale, st);
+  switch (flash::padded_width(d)) {
+    case 16: return tc::launch_dq_tf32<16>(fq, fk, fv, fo, lse, delta, fdq, kb, batch, hq, hkv, sq, sk, d, causal, window, scale, st);
+    case 32: return tc::launch_dq_tf32<32>(fq, fk, fv, fo, lse, delta, fdq, kb, batch, hq, hkv, sq, sk, d, causal, window, scale, st);
+    case 64: return tc::launch_dq_tf32<64>(fq, fk, fv, fo, lse, delta, fdq, kb, batch, hq, hkv, sq, sk, d, causal, window, scale, st);
+    case 128: return tc::launch_dq_tf32<128>(fq, fk, fv, fo, lse, delta, fdq, kb, batch, hq, hkv, sq, sk, d, causal, window, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1312,11 +1343,11 @@ REPRO_EXPORT int flash_bwd_dkv(const void* q, const void* k, const void* v,
                                float scale, int bf16, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    switch (d) {
-      case 16: return tc::launch_dkv<16>(q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, sq, sk, causal, window, scale, st);
-      case 32: return tc::launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, sq, sk, causal, window, scale, st);
-      case 64: return tc::launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, sq, sk, causal, window, scale, st);
-      case 128: return tc::launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, sq, sk, causal, window, scale, st);
+    switch (flash::padded_width(d)) {
+      case 16: return tc::launch_dkv<16>(q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, sq, sk, d, causal, window, scale, st);
+      case 32: return tc::launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, sq, sk, d, causal, window, scale, st);
+      case 64: return tc::launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, sq, sk, d, causal, window, scale, st);
+      case 128: return tc::launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, sq, sk, d, causal, window, scale, st);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -1327,11 +1358,11 @@ REPRO_EXPORT int flash_bwd_dkv(const void* q, const void* k, const void* v,
               *fv = static_cast<const float*>(v), *fo = static_cast<const float*>(dout);
   float *fdk = static_cast<float*>(dk), *fdv = static_cast<float*>(dv),
         *fw = static_cast<float*>(work);
-  switch (d) {
-    case 16: return tc::launch_dkv_tf32<16>(fq, fk, fv, fo, lse, delta, fdk, fdv, fw, batch, hq, hkv, sq, sk, causal, window, scale, st);
-    case 32: return tc::launch_dkv_tf32<32>(fq, fk, fv, fo, lse, delta, fdk, fdv, fw, batch, hq, hkv, sq, sk, causal, window, scale, st);
-    case 64: return tc::launch_dkv_tf32<64>(fq, fk, fv, fo, lse, delta, fdk, fdv, fw, batch, hq, hkv, sq, sk, causal, window, scale, st);
-    case 128: return tc::launch_dkv_tf32<128>(fq, fk, fv, fo, lse, delta, fdk, fdv, fw, batch, hq, hkv, sq, sk, causal, window, scale, st);
+  switch (flash::padded_width(d)) {
+    case 16: return tc::launch_dkv_tf32<16>(fq, fk, fv, fo, lse, delta, fdk, fdv, fw, batch, hq, hkv, sq, sk, d, causal, window, scale, st);
+    case 32: return tc::launch_dkv_tf32<32>(fq, fk, fv, fo, lse, delta, fdk, fdv, fw, batch, hq, hkv, sq, sk, d, causal, window, scale, st);
+    case 64: return tc::launch_dkv_tf32<64>(fq, fk, fv, fo, lse, delta, fdk, fdv, fw, batch, hq, hkv, sq, sk, d, causal, window, scale, st);
+    case 128: return tc::launch_dkv_tf32<128>(fq, fk, fv, fo, lse, delta, fdk, fdv, fw, batch, hq, hkv, sq, sk, d, causal, window, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }

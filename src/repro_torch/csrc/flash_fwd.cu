@@ -8,7 +8,12 @@
 // (o, lse): q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D) → o (B, Hq, Sq, D) and
 // lse (B, Hq, Sq), with queries right-aligned to the keys (absolute position
 // i + Sk - Sq), causal and sliding-window masks, and GQA through the kv head
-// h / (Hq / Hkv).
+// h / (Hq / Hkv). A head dim d (a multiple of 8 up to 128) runs the kernels
+// instantiated at the next width up, D = 16, 32, 64 or 128
+// (flash::padded_width): the tensor maps describe q, k and v at their true
+// d, so a box's columns past d read as 0, and o is stored at row stride d
+// with those columns left out; the float32 kernel's pre-pass writes its
+// planes at width d.
 //
 // What the TPU kernel's grid did, and what these kernels do instead: the
 // sequential ("arbitrary") k grid axis becomes a loop over key tiles inside
@@ -243,7 +248,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-                float* __restrict__ lse, int batch, int hq, int hkv, int sq, int sk,
+                float* __restrict__ lse, int batch, int hq, int hkv, int sq, int sk, int d,
                 int causal, int window, float scale_log2, int block_q, int block_k) {
   using L = Layout<D>;
   using S = FwdSmem<D>;
@@ -383,11 +388,12 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       const int row = row0 + r + 8 * i;
       if (row >= sq) continue;
       const float denom = l[i] == 0.f ? 1.f : l[i], inv = 1.f / denom;
-      __nv_bfloat16* orow = o + (mat * sq + row) * D;
+      __nv_bfloat16* orow = o + (mat * sq + row) * d;
 #pragma unroll
       for (int c = 0; c < D / 8; ++c)
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c + 2 * quad) = __floats2bfloat162_rn(
-            acc[4 * c + 2 * i] * inv, acc[4 * c + 2 * i + 1] * inv);
+        if (8 * c < d)  // columns past d are the padding's zeros
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c + 2 * quad) = __floats2bfloat162_rn(
+              acc[4 * c + 2 * i] * inv, acc[4 * c + 2 * i + 1] * inv);
       if (quad == 0) lse[mat * sq + row] = (m[i] == NEG ? NEG : m[i] * LN2) + logf(denom);
     }
     j += it.ntiles > 0;
@@ -396,12 +402,13 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
-           int hq, int hkv, int sq, int sk, int causal, int window, float scale,
+           int hq, int hkv, int sq, int sk, int d, int causal, int window, float scale,
            int block_q, int block_k, cudaStream_t stream) {
+  using L = Layout<D>;
   CUtensorMap tq, tk, tv;
-  int e = tile_map(&tq, q, batch * hq, sq, D, BQ);
-  if (!e) e = tile_map(&tk, k, batch * hkv, sk, D, BK);
-  if (!e) e = tile_map(&tv, v, batch * hkv, sk, D, BK);
+  int e = tile_map(&tq, q, batch * hq, sq, d, BQ, 2, L::BOX);
+  if (!e) e = tile_map(&tk, k, batch * hkv, sk, d, BK, 2, L::BOX);
+  if (!e) e = tile_map(&tv, v, batch * hkv, sk, d, BK, 2, L::BOX);
   if (e) return e;
   constexpr int smem = FwdSmem<D>::BYTES;
   int sms = 0;
@@ -411,7 +418,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
   const int nitems = (sq + BQ - 1) / BQ * hq * batch;
   const int grid = nitems < sms ? nitems : sms;
   flash_fwd_wgmma<D><<<grid, THREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, batch, hq, hkv, sq, sk, causal,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, batch, hq, hkv, sq, sk, d, causal,
       window, scale * LOG2E, block_q, block_k);
   return cudaGetLastError();
 }
@@ -419,11 +426,11 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
              int hq, int hkv, int sq, int sk, int d, int causal, int window, float scale,
              int block_q, int block_k, cudaStream_t st) {
-  switch (d) {
-    case 16: return launch<16>(q, k, v, o, lse, batch, hq, hkv, sq, sk, causal, window, scale, block_q, block_k, st);
-    case 32: return launch<32>(q, k, v, o, lse, batch, hq, hkv, sq, sk, causal, window, scale, block_q, block_k, st);
-    case 64: return launch<64>(q, k, v, o, lse, batch, hq, hkv, sq, sk, causal, window, scale, block_q, block_k, st);
-    case 128: return launch<128>(q, k, v, o, lse, batch, hq, hkv, sq, sk, causal, window, scale, block_q, block_k, st);
+  switch (flash::padded_width(d)) {
+    case 16: return launch<16>(q, k, v, o, lse, batch, hq, hkv, sq, sk, d, causal, window, scale, block_q, block_k, st);
+    case 32: return launch<32>(q, k, v, o, lse, batch, hq, hkv, sq, sk, d, causal, window, scale, block_q, block_k, st);
+    case 64: return launch<64>(q, k, v, o, lse, batch, hq, hkv, sq, sk, d, causal, window, scale, block_q, block_k, st);
+    case 128: return launch<128>(q, k, v, o, lse, batch, hq, hkv, sq, sk, d, causal, window, scale, block_q, block_k, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -508,7 +515,7 @@ flash_fwd_tf32(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv, float* __restrict__ o,
                float* __restrict__ lse, int* __restrict__ counter, int batch, int hq,
-               int hkv, int sq, int sk, int causal, int window, float scale_log2,
+               int hkv, int sq, int sk, int d, int causal, int window, float scale_log2,
                int block_q, int block_k) {
   using C = F32Fwd<D>;
   using KQ = KMajor<C::QROW>;  // Q and K tiles: boxes of [rows][QROW / 4]
@@ -673,11 +680,12 @@ flash_fwd_tf32(const __grid_constant__ CUtensorMap tq,
       const int row = row0 + r + 8 * i;
       if (row >= sq) continue;
       const float denom = l[i] == 0.f ? 1.f : l[i], inv = 1.f / denom;
-      float* orow = o + (mat * sq + row) * D;
+      float* orow = o + (mat * sq + row) * d;
 #pragma unroll
       for (int c = 0; c < D / 8; ++c)
-        *reinterpret_cast<float2*>(orow + 8 * c + 2 * quad) =
-            make_float2(acc[4 * c + 2 * i] * inv, acc[4 * c + 2 * i + 1] * inv);
+        if (8 * c < d)  // columns past d are the padding's zeros
+          *reinterpret_cast<float2*>(orow + 8 * c + 2 * quad) =
+              make_float2(acc[4 * c + 2 * i] * inv, acc[4 * c + 2 * i + 1] * inv);
       if (quad == 0) lse[mat * sq + row] = (m[i] == NEG ? NEG : m[i] * LN2) + logf(denom);
     }
   }
@@ -700,25 +708,25 @@ struct Tf32Work {
 
 template <int D>
 int launch_tf32(const float* q, const float* k, const float* v, float* o, float* lse,
-                float* work, int batch, int hq, int hkv, int sq, int sk, int causal,
+                float* work, int batch, int hq, int hkv, int sq, int sk, int d, int causal,
                 int window, float scale, int block_q, int block_k, cudaStream_t stream) {
   using C = F32Fwd<D>;
-  const Tf32Work w(batch, hq, hkv, sq, sk, D);
+  const Tf32Work w(batch, hq, hkv, sq, sk, d);
   const long long nq = w.nq, nk = w.nk, nv = w.nv;
   const int skp = w.skp;
-  float* qp = work;       // Q big, Q small: (2 · batch · hq, sq, D)
-  float* kp = qp + 2 * nq;  // K big, K small: (2 · batch · hkv, sk, D)
-  float* vp = kp + 2 * nk;  // Vᵀ big, Vᵀ small: (2 · batch · hkv, D, skp)
+  float* qp = work;       // Q big, Q small: (2 · batch · hq, sq, d)
+  float* kp = qp + 2 * nq;  // K big, K small: (2 · batch · hkv, sk, d)
+  float* vp = kp + 2 * nk;  // Vᵀ big, Vᵀ small: (2 · batch · hkv, d, skp)
   int* counter = reinterpret_cast<int*>(vp + 2 * nv);
   planes(q, qp, nq, counter, stream);
   planes(k, kp, nk, nullptr, stream);
-  planes_t(v, vp, batch * hkv, sk, skp, D, stream);
+  planes_t(v, vp, batch * hkv, sk, skp, d, stream);
   cudaError_t e0 = cudaGetLastError();
   if (e0) return e0;
-  CUtensorMap tq, tk, tv;
-  int e = tile_map(&tq, qp, 2 * batch * hq, sq, D, C::BQ, 4);
-  if (!e) e = tile_map(&tk, kp, 2 * batch * hkv, sk, D, C::BK, 4);
-  if (!e) e = tile_map(&tv, vp, 2 * batch * hkv, D, skp, D, 4);
+  CUtensorMap tq, tk, tv;  // boxes of the instantiated width D over the true d
+  int e = tile_map(&tq, qp, 2 * batch * hq, sq, d, C::BQ, 4, C::QROW / 4);
+  if (!e) e = tile_map(&tk, kp, 2 * batch * hkv, sk, d, C::BK, 4, C::QROW / 4);
+  if (!e) e = tile_map(&tv, vp, 2 * batch * hkv, d, skp, D, 4);
   if (e) return e;
   constexpr int smem = C::BYTES;
   int sms = 0;
@@ -728,7 +736,7 @@ int launch_tf32(const float* q, const float* k, const float* v, float* o, float*
   const int nitems = (sq + C::BQ - 1) / C::BQ * hq * batch;
   const int grid = nitems < sms ? nitems : sms;
   flash_fwd_tf32<D><<<grid, C::THREADS, smem, stream>>>(
-      tq, tk, tv, o, lse, counter, batch, hq, hkv, sq, sk, causal, window, scale * LOG2E,
+      tq, tk, tv, o, lse, counter, batch, hq, hkv, sq, sk, d, causal, window, scale * LOG2E,
       block_q, block_k);
   return cudaGetLastError();
 }
@@ -736,11 +744,11 @@ int launch_tf32(const float* q, const float* k, const float* v, float* o, float*
 int dispatch_tf32(const float* q, const float* k, const float* v, float* o, float* lse,
                   float* work, int batch, int hq, int hkv, int sq, int sk, int d, int causal,
                   int window, float scale, int block_q, int block_k, cudaStream_t st) {
-  switch (d) {
-    case 16: return launch_tf32<16>(q, k, v, o, lse, work, batch, hq, hkv, sq, sk, causal, window, scale, block_q, block_k, st);
-    case 32: return launch_tf32<32>(q, k, v, o, lse, work, batch, hq, hkv, sq, sk, causal, window, scale, block_q, block_k, st);
-    case 64: return launch_tf32<64>(q, k, v, o, lse, work, batch, hq, hkv, sq, sk, causal, window, scale, block_q, block_k, st);
-    case 128: return launch_tf32<128>(q, k, v, o, lse, work, batch, hq, hkv, sq, sk, causal, window, scale, block_q, block_k, st);
+  switch (flash::padded_width(d)) {
+    case 16: return launch_tf32<16>(q, k, v, o, lse, work, batch, hq, hkv, sq, sk, d, causal, window, scale, block_q, block_k, st);
+    case 32: return launch_tf32<32>(q, k, v, o, lse, work, batch, hq, hkv, sq, sk, d, causal, window, scale, block_q, block_k, st);
+    case 64: return launch_tf32<64>(q, k, v, o, lse, work, batch, hq, hkv, sq, sk, d, causal, window, scale, block_q, block_k, st);
+    case 128: return launch_tf32<128>(q, k, v, o, lse, work, batch, hq, hkv, sq, sk, d, causal, window, scale, block_q, block_k, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -755,8 +763,9 @@ int dispatch_tf32(const float* q, const float* k, const float* v, float* o, floa
 // tc::Tf32Work::floats() (float32 only; null and 0 for bf16). window <= 0
 // means none. block_q/block_k are the emulated TPU
 // blocks (min(128, sq), min(128, sk)); block_q is a multiple of 64 or equals
-// sq. d is 16, 32, 64 or 128. Both types run on the tensor cores. Returns a
-// cudaError_t.
+// sq. d is a multiple of 8 from 8 to 128 (flash::padded_width: the kernels
+// of the next width up run on it). Both types run on the tensor cores.
+// Returns a cudaError_t.
 REPRO_EXPORT int flash_fwd(const void* q, const void* k, const void* v, void* o,
                            float* lse, void* work, long long work_floats,
                            int batch, int hq, int hkv, int sq, int sk, int d,

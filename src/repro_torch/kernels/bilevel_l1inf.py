@@ -195,26 +195,16 @@ def clip(y: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def check_fused(what: str, y: torch.Tensor) -> None:
-    """The fused pipelines take float32: the outer solve's ``l1ball``
-    kernel is float32-only. (On the card their first launch refuses a Y
-    that autograd records: the kernels have no backward, nor has the JAX
-    package's.)"""
-    if y.dtype != torch.float32:
-        raise ValueError(f"{what} takes float32 (the l1ball outer solve is "
-                         f"float32-only), got {y.dtype}")
-
-
 def bilevel_l1inf_fused(y: torch.Tensor, radius, *,
                         method: str = "bisect") -> torch.Tensor:
-    """Fused bi-level ℓ1,∞ projection of Y (n, m): colmax → outer ℓ1
-    solve → clip, on Y's device.
+    """Fused bi-level ℓ1,∞ projection of Y (n, m), float32 or bf16:
+    colmax → outer ℓ1 solve → clip, on Y's device and in Y's type (three
+    launches on the card, as JAX's ``bilevel_l1inf_pallas``).
 
     ``method`` selects the outer θ-solve: "bisect" or "filter" run the
     ``l1ball`` kernel; any other ``core.ball`` method, or m over JAX's
     single-block limit, the solver in PyTorch ops (``l1ball.outer_l1_solve``).
     """
-    check_fused("bilevel_l1inf_fused", y)
     v = colmax(y)
     u = l1ball.outer_l1_solve(v, radius, method=method)
     return clip(y, u)

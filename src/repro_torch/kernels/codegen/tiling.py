@@ -16,14 +16,15 @@ design here is:
 * an ℓ1 apply at level L-1, whose group is a whole column of n rows: one CTA
   keeps ``n × BLOCK_M`` floats of it in shared memory for the 64 bisection
   sweeps (the ``n_resident`` pin), so ``n <= SMEM_BUDGET_BYTES / (4·BLOCK_M)``;
-* an ℓ1 outer solve: ``csrc/l1ball.cu`` keeps one item's m-vector in shared
-  memory, so ``m <= L1_KERNEL_MAX``;
+* an ℓ1 outer solve: ``csrc/l1ball.cu`` keeps one item's m-vector in the
+  shared memory of one CTA (``m <= L1_ONE_CTA_MAX``) or of a thread block
+  cluster, so ``m <= L1_KERNEL_MAX`` = 524,288, JAX's single-block limit;
 * the type: float32 only.
 
 ``plan_tiles`` returns ``None`` for every design outside those limits: the
 ``codegen`` planner backends are then unavailable for it. Designs the JAX
 tiler accepts and this one rejects: depth > 4, non-float32 types, an ℓ1 apply
-over more than 1600 rows, an ℓ1 solve over more than 51,200 values (see
+over more than 1600 rows, an ℓ1 solve over more than 524,288 values (see
 ROADMAP.md).
 
 Pallas walked the row axis sequentially; Hopper has no sequential grid axis.
@@ -55,7 +56,8 @@ BLOCK_M = 32                     # columns per CTA: one warp of 4-byte loads
 BLOCK_ROWS = 8                   # thread rows per CTA: 256 threads
 SMEM_BUDGET_BYTES = 200 * 1024   # dynamic shared memory one CTA may claim
                                  # (Hopper allows 227 KB; slack for static)
-L1_KERNEL_MAX = SMEM_BUDGET_BYTES // 4  # l1ball.cu: one float32 vector in smem
+L1_ONE_CTA_MAX = SMEM_BUDGET_BYTES // 4  # l1ball.cu: a float32 vector in one CTA
+L1_KERNEL_MAX = 512 * 1024       # l1ball.cu's cluster path: JAX's L1_KERNEL_MAX
 MAX_LEAD_RANK = 2                # kernels instantiated for 0, 1, 2 lead axes
 SM_COUNT = 132                   # H100 SXM
 TARGET_CTAS = 8 * SM_COUNT       # 8 CTAs of 256 threads fill an SM's 2048

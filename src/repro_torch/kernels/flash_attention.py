@@ -6,11 +6,14 @@
 q's dtype and lse (B, Hq, Sq) in f32, queries right-aligned to the keys,
 causal and sliding-window masks, GQA with group Hq // Hkv.
 
-On a CUDA tensor it launches ``csrc/flash_fwd.cu`` (D in 16, 32, 64 or
-128): tensor-core kernels (``wgmma`` fed by TMA), bf16 products for bf16
-and three TF32 products per product for float32 (its operands' two tf32
-terms in a scratch buffer, :func:`tf32_work_floats`); on a CPU tensor it
-runs :func:`flash_attention_plain`,
+On a CUDA tensor it launches ``csrc/flash_fwd.cu`` (D a multiple of 8
+from 8 to 128, :data:`KERNEL_HEAD_DIMS`; the kernels instantiated at the
+next of 16, 32, 64 and 128 up run on it, ``flash::padded_width``, reading
+the columns past D as 0): tensor-core kernels (``wgmma`` fed by TMA),
+bf16 products for bf16 and three TF32 products per product for float32
+(its operands' two tf32 terms in a scratch buffer,
+:func:`tf32_work_floats`); on a CPU tensor it runs
+:func:`flash_attention_plain`,
 the same blockwise algorithm in PyTorch ops. Both evaluate the TPU kernel's
 blocks of (min(block_q, Sq), min(block_k, Sk)) with its liveness rule and
 its -1e30 masking, so even the rows no key reaches (causal with Sq > Sk)
@@ -54,7 +57,10 @@ from . import _build
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
 TILE_Q = 64                        # query rows that share one liveness (csrc/flash_fwd.cu)
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+# the kernels' head dims: multiples of 8 (TMA's 16-byte strides in bf16)
+# up to 128, each run by the instantiation of the next of 16, 32, 64, 128 up
+KERNEL_HEAD_DIMS = range(8, 129, 8)
+HEAD_DIMS_TEXT = "a multiple of 8 from 8 to 128"
 _NEG_INF = -1e30
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -228,7 +234,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None, scale=None,
 
 def _check_kernel_operands(what, d, *ts):
     """The kernels' contract: one dtype (float32 or bf16), one device,
-    contiguous, 16-byte aligned, head dim 16/32/64/128."""
+    contiguous, 16-byte aligned, head dim in :data:`KERNEL_HEAD_DIMS`."""
     if ts[0].dtype not in KERNEL_DTYPES or any(t.dtype != ts[0].dtype for t in ts):
         raise ValueError(f"{what}: the flash kernels take float32 or bfloat16 "
                          f"operands of one dtype, got {[t.dtype for t in ts]}")
@@ -238,7 +244,7 @@ def _check_kernel_operands(what, d, *ts):
                          "aligned operands on one device")
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{what}: the flash kernels take head dims "
-                         f"{KERNEL_HEAD_DIMS}, got {d}")
+                         f"{HEAD_DIMS_TEXT}, got {d}")
 
 
 # --------------------------------------------------------------- backward

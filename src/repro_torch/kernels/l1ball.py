@@ -2,10 +2,15 @@
 pipeline (port of ``repro/kernels/l1ball.py``).
 
 :func:`project_l1_batched` projects every row of ``v`` (B, n) onto its own
-ℓ1 ball. On a CUDA tensor it launches ``csrc/l1ball.cu`` (one CTA per row,
-the row in registers up to 2048 values and in shared memory up to
-``L1_KERNEL_MAX``); on a CPU tensor it runs :func:`project_l1_plain`, the
-same two algorithms in PyTorch ops:
+ℓ1 ball, float32 or bf16. On a CUDA tensor it launches ``csrc/l1ball.cu``:
+the ``l1ball`` kernel (one CTA per row, the row in registers up to 2048
+values and in shared memory up to ``L1_ONE_CTA_MAX`` = 51,200) or, for
+longer rows up to ``L1_KERNEL_MAX`` = 524,288 (JAX's single-block limit),
+the ``l1ball_cluster`` kernel (a thread block cluster per row, the row in
+the shared memory of its CTAs). bf16 is read into float32, the radius
+rounded to bf16 first, the solve run in float32 and the output rounded to
+bf16 once. On a CPU tensor it runs :func:`project_l1_plain`, the same two
+algorithms in PyTorch ops:
 
 * ``bisect`` — at most 64 bisection steps on θ over [0, max|v|] (the kernel
   stops at the float fixed point, where further steps leave θ as it is,
@@ -27,7 +32,7 @@ from repro_torch import _device
 from repro_torch.roofline import costs as _costs
 
 from . import _build
-from .codegen.tiling import L1_KERNEL_MAX
+from .codegen.tiling import L1_KERNEL_MAX, L1_ONE_CTA_MAX
 
 _ITERS = 64
 KERNEL_METHODS = ("bisect", "filter")
@@ -36,11 +41,13 @@ KERNEL_METHODS = ("bisect", "filter")
 REF_ROUTE_ABOVE = 512 * 1024
 _METHOD_CODES = {"bisect": 0, "filter": 1}
 
-KERNEL = _build.Kernel("l1ball", {
-    "l1ball_project": [_build.PTR, _build.PTR, _build.FLOAT, _build.PTR,
-                       _build.INT, _build.INT, _build.INT, _build.INT,
-                       _build.PTR],
-})
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGS = [_build.PTR, _build.PTR, _build.FLOAT, _build.PTR] + [_build.INT] * 5 \
+    + [_build.PTR]
+KERNEL = _build.Kernel("l1ball", {"l1ball_project": _ARGS})
+# rows past L1_ONE_CTA_MAX: the same source, counted apart
+CLUSTER_KERNEL = _build.Kernel(
+    "l1ball_cluster", {"l1ball_cluster_project": _ARGS}, source="l1ball")
 
 
 def _iters(method: str, n: int) -> int:
@@ -51,7 +58,13 @@ def _iters(method: str, n: int) -> int:
 def project_l1_plain(v: torch.Tensor, radii: torch.Tensor,
                      method: str = "bisect") -> torch.Tensor:
     """The plain PyTorch version of the kernel, row by row identical in
-    algorithm (the sums run in another order)."""
+    algorithm (the sums run in another order). A bf16 ``v`` is solved as
+    the kernel solves it: |v| in float32, the radius rounded to bf16 first,
+    the output rounded to bf16 once."""
+    out_dtype = v.dtype
+    if v.dtype == torch.bfloat16:
+        radii = radii.to(v.dtype).float()
+        v = v.float()
     a = v.abs()
     r = radii[:, None]
     s0 = a.sum(dim=1, keepdim=True)
@@ -85,7 +98,7 @@ def project_l1_plain(v: torch.Tensor, radii: torch.Tensor,
             it += 1
         theta = torch.clamp(theta, min=0.0)
     theta = torch.where(inside, torch.zeros_like(theta), theta)
-    return torch.sign(v) * torch.clamp(a - theta, min=0.0)
+    return (torch.sign(v) * torch.clamp(a - theta, min=0.0)).to(out_dtype)
 
 
 def _check_method(method: str) -> None:
@@ -95,14 +108,21 @@ def _check_method(method: str) -> None:
             f"{list(KERNEL_METHODS)}")
 
 
+def _check_dtype(v: torch.Tensor) -> None:
+    if v.dtype not in _DTYPE_CODES:
+        raise ValueError(f"l1ball takes float32 or bfloat16, got {v.dtype}")
+
+
 def _check(v: torch.Tensor, radii: torch.Tensor, method: str) -> None:
     _check_method(method)
     if v.ndim != 2 or radii.shape != (v.shape[0],):
         raise ValueError(
             f"l1ball takes v (B, n) and radii (B,), got {tuple(v.shape)} and "
             f"{tuple(radii.shape)}")
-    if v.dtype != torch.float32 or radii.dtype != torch.float32:
-        raise ValueError(f"l1ball takes float32, got {v.dtype}/{radii.dtype}")
+    _check_dtype(v)
+    if radii.dtype not in (torch.float32, v.dtype):
+        raise ValueError(f"l1ball takes radii in float32 or v's type, got "
+                         f"{radii.dtype} for {v.dtype}")
     if radii.get_device() != v.get_device():  # no torch.device built
         raise ValueError("v and radii must lie on one device")
 
@@ -110,11 +130,12 @@ def _check(v: torch.Tensor, radii: torch.Tensor, method: str) -> None:
 def _launch(v: torch.Tensor, b: int, n: int, radii: torch.Tensor | None,
             radius: float, method: str, out: torch.Tensor | None
             ) -> torch.Tensor:
-    """Launch the kernel on ``b`` rows of ``n`` values of ``v`` (any shape of
+    """Launch a kernel on ``b`` rows of ``n`` values of ``v`` (any shape of
     ``b · n`` values): radius ``radii[i]`` for row i, or ``radius`` for every
-    row when ``radii`` is None. Autograd may not record the call: the
-    kernel has no backward of its own (the generated pipeline's Function
-    calls it with grad mode off)."""
+    row when ``radii`` is None. ``l1ball`` up to ``L1_ONE_CTA_MAX`` values,
+    ``l1ball_cluster`` beyond. Autograd may not record the call: the
+    kernels have no backward of their own (the generated pipeline's
+    Function calls them with grad mode off)."""
     _device.require_cuda(v, "l1ball")
     if v.requires_grad or (radii is not None and radii.requires_grad):
         _device.refuse_grad("l1ball", v, radii)
@@ -126,12 +147,19 @@ def _launch(v: torch.Tensor, b: int, n: int, radii: torch.Tensor | None,
         out = torch.empty_like(v)
     elif out.shape != v.shape or out.dtype != v.dtype or not out.is_contiguous() \
             or out.get_device() != v.get_device():
-        raise ValueError("out must be a contiguous float32 tensor like v")
-    if _costs.active() and _costs.declare(KERNEL, v, *_costs.l1ball(b, n)):
+        raise ValueError("out must be a contiguous tensor like v")
+    if radii is not None and radii.dtype != torch.float32:
+        radii = radii.float()  # bf16 radii are exact in float32
+    if n <= L1_ONE_CTA_MAX:
+        kernel, fn = KERNEL, "l1ball_project"
+    else:
+        kernel, fn = CLUSTER_KERNEL, "l1ball_cluster_project"
+    if _costs.active() and _costs.declare(
+            kernel, v, *_costs.l1ball(b, n, v.element_size())):
         return out
-    KERNEL.launch("l1ball_project", v.data_ptr(), _build.ptr(radii), radius,
-                  out.data_ptr(), b, n, _METHOD_CODES[method],
-                  _iters(method, n), _build.stream_handle(v))
+    kernel.launch(fn, v.data_ptr(), _build.ptr(radii), radius, out.data_ptr(),
+                  b, n, _METHOD_CODES[method], _iters(method, n),
+                  _DTYPE_CODES[v.dtype], _build.stream_handle(v))
     return out
 
 
@@ -155,9 +183,10 @@ def project_l1(v: torch.Tensor, radius, *, method: str = "bisect") -> torch.Tens
     batched kernel (or its plain version on a CPU tensor) with B = 1.
 
     ``method`` is "bisect" or "filter"; a CUDA vector over
-    ``L1_KERNEL_MAX`` values raises (the kernel keeps it on chip). A number
-    radius reaches the kernel by value (rounded to float32), so the call
-    copies nothing to the device; a tensor radius is read there.
+    ``L1_KERNEL_MAX`` values raises (the kernels keep it on chip). A number
+    radius reaches the kernel by value (rounded to float32, then to v's
+    type), so the call copies nothing to the device; a tensor radius is read
+    there.
     """
     if v.ndim != 1:
         raise ValueError(f"project_l1 takes a vector, got {tuple(v.shape)}")
@@ -165,8 +194,7 @@ def project_l1(v: torch.Tensor, radius, *, method: str = "bisect") -> torch.Tens
         radii = torch.as_tensor(radius, dtype=v.dtype, device=v.device).reshape(1)
         return project_l1_batched(v[None], radii, method=method)[0]
     _check_method(method)
-    if v.dtype != torch.float32:
-        raise ValueError(f"l1ball takes float32, got {v.dtype}")
+    _check_dtype(v)
     return _launch(v, 1, v.shape[0], None, float(radius), method, None)
 
 
@@ -176,9 +204,8 @@ def outer_l1_solve(v: torch.Tensor, radius, *, method: str = "bisect"
     (m,), routed as JAX's ``outer_l1_solve``: a kernel method ("bisect",
     "filter") runs :func:`project_l1`, any other method, or a vector over
     ``REF_ROUTE_ABOVE`` values, the ``core.ball`` solver in PyTorch ops on
-    ``v``'s device. A kernel method on a CUDA vector of
-    ``L1_KERNEL_MAX`` + 1 … ``REF_ROUTE_ABOVE`` values raises (over the
-    card's shared memory, under JAX's limit)."""
+    ``v``'s device. ``L1_KERNEL_MAX`` is ``REF_ROUTE_ABOVE``: every length a
+    kernel method sends to JAX's kernel runs one of the port's."""
     if v.shape[0] <= REF_ROUTE_ABOVE and method in KERNEL_METHODS:
         return project_l1(v, radius, method=method)
     from .ref import project_l1_ref

@@ -29,8 +29,7 @@ import torch
 from repro_torch.roofline import costs as _costs
 
 from . import _build, l1ball
-from .bilevel_l1inf import (SM_COUNT, check_fused, check_operands,
-                            stream_shape, vector_width)
+from .bilevel_l1inf import SM_COUNT, check_operands, stream_shape, vector_width
 
 REDUCE_THREADS = 512   # threads per reduce CTA (csrc/trilevel_l1infinf.cu)
 REDUCE_CTAS = SM_COUNT  # reduce CTAs resident at once: one per SM
@@ -169,15 +168,15 @@ def trilevel_apply(y: torch.Tensor, v2: torch.Tensor,
 
 def trilevel_l1infinf_fused(y: torch.Tensor, radius, *,
                             method: str = "bisect") -> torch.Tensor:
-    """Fused tri-level ℓ1,∞,∞ projection of Y (c, n, m): reduce → outer ℓ1
-    solve → apply, on Y's device.
+    """Fused tri-level ℓ1,∞,∞ projection of Y (c, n, m), float32 or bf16:
+    reduce → outer ℓ1 solve → apply, on Y's device and in Y's type (three
+    launches on the card, as JAX's ``trilevel_l1infinf_pallas``).
 
     ``method`` selects the outer θ-solve: "bisect" or "filter" run the
     ``l1ball`` kernel; any other ``core.ball`` method, or m over JAX's
     single-block limit, the solver in PyTorch ops (``l1ball.outer_l1_solve``).
     """
     _check_order3("trilevel_l1infinf_fused", y)
-    check_fused("trilevel_l1infinf_fused", y)
     v2, v1 = trilevel_reduce(y)
     u1 = l1ball.outer_l1_solve(v1, radius, method=method)
     return trilevel_apply(y, v2, u1)

@@ -96,14 +96,14 @@ def _refuse_mesh(cfg: ArchConfig) -> None:
 def _check_impl(cfg: ArchConfig, impl: str) -> None:
     """MLA's q/k and v heads differ in width, which no flash kernel takes."""
     if cfg.mla is not None and impl == "flash":
-        from repro_torch.kernels.flash_attention import KERNEL_HEAD_DIMS
+        from repro_torch.kernels.flash_attention import HEAD_DIMS_TEXT
 
         m = cfg.mla
         raise ValueError(
             f"{cfg.name}: MLA's q/k heads are {m.qk_nope_dim + m.qk_rope_dim} "
             f"wide ({m.qk_nope_dim} nope + {m.qk_rope_dim} rope) and its v "
             f"heads {m.v_head_dim}; the flash kernels take q, k and v of one "
-            f"width in {KERNEL_HEAD_DIMS}: use impl='chunked' or 'naive'")
+            f"width, {HEAD_DIMS_TEXT}: use impl='chunked' or 'naive'")
 
 
 def cut_depth(cfg: ArchConfig, n_layers: int) -> ArchConfig:

@@ -15,10 +15,10 @@ be empty (a depth cut to a multiple of ``attn_every``).
 At sequence lengths >= hybrid.long_seq the shared attention switches to a
 sliding window (hybrid.window_at_long), and its decode cache to a ring of
 that many slots. The shared attention's heads are d_model / n_heads wide
-(112 for zamba2-7b), which no flash kernel takes: the forward runs
-``impl="chunked"`` (the JAX package's training step passes no ``impl``, so
-its forward does too), or ``"naive"``; ``"flash"`` raises unless the width
-is one the kernels take.
+(112 for zamba2-7b). The forward runs ``impl="chunked"`` by default (the
+JAX package's training step passes no ``impl``, so its forward does too),
+or ``"naive"``, or ``"flash"``: the flash kernels take zamba2-7b's 112
+(as every multiple of 8 up to 128), and a width outside that raises.
 
 Serving keeps an O(1) recurrent state per Mamba layer (the rolled conv
 window and the SSM state, float32) and a KV cache for each shared-attention
@@ -86,13 +86,13 @@ def _check_impl(cfg: ArchConfig, impl: str) -> None:
     """The shared attention's width against the flash kernels'."""
     if impl != "flash":
         return
-    from repro_torch.kernels.flash_attention import KERNEL_HEAD_DIMS
+    from repro_torch.kernels.flash_attention import HEAD_DIMS_TEXT, KERNEL_HEAD_DIMS
 
     hd = cfg.resolved_head_dim
     if hd not in KERNEL_HEAD_DIMS:
         raise ValueError(
             f"{cfg.name}: the shared attention's heads are {hd} wide; the "
-            f"flash kernels take {KERNEL_HEAD_DIMS}: use impl='chunked' or "
+            f"flash kernels take {HEAD_DIMS_TEXT}: use impl='chunked' or "
             "'naive'")
 
 

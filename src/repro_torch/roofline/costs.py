@@ -129,10 +129,11 @@ def codegen_partial_apply(elems: int, w_elems: int, v1_elems: int):
     return 4 * (2 * elems + w_elems + v1_elems), 2 * elems
 
 
-def l1ball(batch: int, n: int):
-    """v read and x written once, the radii read; the 64-step bisection's
-    three operations a value and step, plus six."""
-    return 4 * (2 * batch * n + batch), batch * n * (3 * 64 + 6)
+def l1ball(batch: int, n: int, itemsize: int = 4):
+    """v read and x written once (``itemsize`` bytes a value), the float32
+    radii read; the 64-step bisection's three operations a value and step,
+    plus six."""
+    return itemsize * 2 * batch * n + 4 * batch, batch * n * (3 * 64 + 6)
 
 
 def colmax(itemsize: int, elems: int, m: int):

@@ -186,7 +186,7 @@ def test_tiler_accepts_the_design_matrix_like_jax():
     ((2, 2, 2, 3, 8), [("inf", 1)] * 4 + [("1", 1)], jnp.float32),  # depth 5
     ((32, 64), BILEVEL, jnp.bfloat16),                               # type
     ((1601, 8), [("1", 1), ("1", 1)], jnp.float32),    # l1 apply over > 1600 rows
-    ((2, 60000), BILEVEL, jnp.float32),                 # l1 solve over > 51200
+    ((2, 600000), BILEVEL, jnp.float32),                # l1 solve over > 524288
 ])
 def test_tiler_rejects_what_jax_accepts(shape, levels, dtype):
     """The designs the Hopper tiler rejects though JAX's accepts them (the

@@ -147,11 +147,18 @@ def test_trilevel_fused_matches_pallas(method):
 
 
 def test_fused_pipelines_take_float32_only():
+    """Named for the float32-only pipelines they were: the fused pipelines
+    take bf16 as well now, as JAX's do (bf16 in, bf16 out, equal to the
+    plain bf16 chain colmax → l1ball → clip); another type and a Y of the
+    wrong order still raise."""
     _, ty = _rand((8, 128), dtype=jnp.bfloat16)
-    with pytest.raises(ValueError, match="float32"):
-        tbi.bilevel_l1inf_fused(ty, 1.0)
-    with pytest.raises(ValueError, match="float32"):
-        ttri.trilevel_l1infinf_fused(ty[None], 1.0)
+    x = tbi.bilevel_l1inf_fused(ty, 1.0)
+    u = tl1ball.project_l1_plain(tbi.colmax_plain(ty)[None], torch.tensor([1.0]))
+    assert x.dtype == torch.bfloat16
+    torch.testing.assert_close(x, tbi.clip_plain(ty, u[0]), rtol=0, atol=0)
+    assert ttri.trilevel_l1infinf_fused(ty[None], 1.0).dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tbi.bilevel_l1inf_fused(ty.half(), 1.0)
     with pytest.raises(ValueError, match="order-3"):
         ttri.trilevel_l1infinf_fused(torch.ones(8, 128), 1.0)
 
@@ -207,14 +214,22 @@ def test_outer_l1_solve_routes_by_method_and_length(monkeypatch):
 
 
 def test_kernel_method_past_the_shared_memory_limit_raises(monkeypatch):
-    """A kernel method on a device vector of 51,201 … 524,288 values raises
-    (no quiet plain run); the launch gate is lifted so the length check is
-    what a CUDA tensor would reach."""
+    """Past one CTA's shared memory (51,201 … 524,288 values, JAX's limit)
+    a kernel method on a device vector reaches the cluster kernel's launch
+    (recorded here in its place), and ``project_l1`` past 524,288 raises
+    (no quiet plain run); the launch gate is lifted so the length checks
+    are what a CUDA tensor would reach."""
     monkeypatch.setattr(tl1ball._device, "require_cuda", lambda t, what: None)
+    calls = []
+    monkeypatch.setattr(tl1ball.CLUSTER_KERNEL, "launch",
+                        lambda fn, *args: calls.append((fn, *args)))
+    for n in (tl1ball.L1_ONE_CTA_MAX + 1, tl1ball.L1_KERNEL_MAX):
+        tl1ball.outer_l1_solve(torch.empty(n, device="meta"), 1.0)
+        assert calls[-1][0] == "l1ball_cluster_project" and calls[-1][6] == n
     n = tl1ball.L1_KERNEL_MAX + 1
     with pytest.raises(ValueError, match=f"n <= {tl1ball.L1_KERNEL_MAX}"):
-        tl1ball.outer_l1_solve(torch.empty(n, device="meta"), 1.0)
-    assert tl1ball.KERNEL.launches == 0
+        tl1ball.project_l1(torch.empty(n, device="meta"), 1.0)
+    assert len(calls) == 2 and tl1ball.KERNEL.launches == 0
 
 
 def test_project_l1_is_the_batched_kernel_at_one_item():

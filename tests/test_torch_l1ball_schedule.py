@@ -243,13 +243,18 @@ def test_model_matches_pallas_interpret(n):
 
 def test_register_and_shared_memory_limits_cover_the_main_path():
     """The kernel holds the main path's 2048-value aggregate in registers,
-    and its shared-memory path takes every length the tiler lets through."""
+    its one-CTA shared-memory path the lengths up to L1_ONE_CTA_MAX, and
+    its cluster path (up to CLUSTER_MAX CTAs of shared memory) every
+    length the tiler lets through, JAX's L1_KERNEL_MAX."""
     from repro_torch.kernels.codegen import tiling
 
     assert _constant("THREADS") * _constant("REG_ELEMS") >= 2048
     assert f"constexpr int SMEM_MAX = {tiling.SMEM_BUDGET_BYTES // 1024} * 1024;" \
         in SOURCE.read_text()
-    assert tl1ball.L1_KERNEL_MAX * 4 <= tiling.SMEM_BUDGET_BYTES
+    assert tl1ball.L1_ONE_CTA_MAX * 4 <= tiling.SMEM_BUDGET_BYTES
+    assert "constexpr int L1_MAX = 512 * 1024;" in SOURCE.read_text()
+    assert tl1ball.L1_KERNEL_MAX == jl1ball.L1_KERNEL_MAX == 512 * 1024
+    assert tl1ball.L1_KERNEL_MAX * 4 <= _constant("CLUSTER_MAX") * tiling.SMEM_BUDGET_BYTES
 
 
 def test_reductions_per_call_on_the_paper_workloads():

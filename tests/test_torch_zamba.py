@@ -349,8 +349,9 @@ def test_train_and_serve_cli_on_cpu(capsys):
 
 
 def test_refusals(tmp_path):
-    """No silent fallback: a mesh, a harvest and flash on the 112-wide
-    shared attention each raise by name."""
+    """No silent fallback: a mesh, a harvest and flash on a shared attention
+    wider than the kernels take (136) each raise by name; zamba2-7b's 112
+    is a kernel width."""
     with pytest.raises(ValueError, match=r"sharded recurrent step \(hybrid "
                        r"family\)"):
         train_cli.run(["--device", "cpu", "--smoke", "--arch", ARCH, "--steps",
@@ -361,8 +362,11 @@ def test_refusals(tmp_path):
     _, _, tcfg, tp = setup(ARCH, SEED)
     full = dataclasses.replace(tcfg, d_model=3584, n_heads=32, head_dim=0)
     assert full.resolved_head_dim == 112
-    with pytest.raises(ValueError, match=r"heads are 112 wide.*impl='chunked'"):
-        tzamba.forward(tp, torch.zeros(1, 4, dtype=torch.int64), full,
+    tzamba._check_impl(full, "flash")
+    wide = dataclasses.replace(tcfg, d_model=4352, n_heads=32, head_dim=0)
+    assert wide.resolved_head_dim == 136
+    with pytest.raises(ValueError, match=r"heads are 136 wide.*impl='chunked'"):
+        tzamba.forward(tp, torch.zeros(1, 4, dtype=torch.int64), wide,
                        impl="flash")
     # at the smoke width (16) flash runs, on its plain version here
     with torch.no_grad():
