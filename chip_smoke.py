@@ -14,7 +14,8 @@ float32 forward at the harvest's. ``--only autograd`` builds them and runs
 phases 3b and 3c on W1–W4 made from the seed; ``--only sae_tables`` runs
 phase 8, ``--only train_mesh`` phase 9, ``--only serve`` phase 10,
 ``--only moe`` phase 11, ``--only recurrent`` phase 12, ``--only whisper``
-phase 13, ``--only launch`` phase 14, ``--only widths`` phase 15.)
+phase 13, ``--only launch`` phase 14, ``--only widths`` phase 15,
+``--only mesh_families`` phase 16.)
 
 1. builds the fifteen CUDA kernels of the seven sources in
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, started together;
@@ -196,7 +197,7 @@ phase 13, ``--only launch`` phase 14, ``--only widths`` phase 15.)
    2 Σ lr everywhere), feasible (phase 5's bound), every copy of a replicated slice bit-identical across ranks (SHA-1 of
    params and moments), collectives per step equal to
    ``training.step.step_collectives``. (b) bf16 through the launcher's CLI
-   (``launch.train.run([... "--mesh", "2x2", "--layers", N])``, 12 layers
+   (``launch.train.run([... "--mesh", "2x2", "--layers", N])``, 8 layers
    on one card, 40 on four) for 3 steps: finite losses within 2e-2
    relative of the single-device launcher at the same depth, per rank the
    step ms, tokens/s, peak memory, collectives per step (= the model) and
@@ -301,8 +302,8 @@ phase 13, ``--only launch`` phase 14, ``--only widths`` phase 15.)
    leaf (min, mean and max printed), step seconds and peak memory. (d) the same for xlstm-1.3b: (a)'s readings at full width
    and depth (48 layers, 2.02 B parameters), layer 0's chunkwise mLSTM
    against its sequential form within REC_MLSTM_BAR · max|y|, the sLSTM's
-   time loop timed at the training shape, and (c)'s at ``--layers 16`` (14
-   mLSTM + 2 sLSTM). (e) the train launcher on both
+   time loop timed at the training shape, and (c)'s at ``--layers 8`` (7
+   mLSTM + 1 sLSTM). (e) the train launcher on both
    archs' smoke configs, 3 bf16 steps with the constraint on, on the card
    and on the CPU from one saved init, within MOE_LOSS_RTOL,
    MOE_GNORM_RTOL and 2 · steps · lr + MOE_PARAM_ATOL (``tests/
@@ -372,14 +373,16 @@ phase 13, ``--only launch`` phase 14, ``--only widths`` phase 15.)
    — the ratio is printed —; the meta walk's memory (arguments + peak) is
    within 0.5–2× of ``torch.cuda.max_memory_allocated`` over a step.
    (c) ``python -m repro_torch.launch.dryrun --shape all`` for every
-   assigned arch on both production meshes (two processes a mesh, each
-   with half the archs, ``LAUNCH_ARCH_HALVES``; no card visible:
+   assigned arch on both production meshes (three processes a mesh, each
+   with a third of the archs, ``LAUNCH_ARCH_GROUPS``; no card visible:
    ``CUDA_VISIBLE_DEVICES`` empty) and ``roofline.report`` on the records:
    the counts of ok, skip and error, no error but the mesh refusal of the
-   MoE, recurrent and audio families. (d) ``launch.hillclimb`` on every
-   variant the port's mesh takes (stablelm_*, sae_factory*), each delta of
-   the baseline's dominant term printed. (c) and (d) run in the
-   background while (a) and (b) hold the card.
+   MoE family (deepseek-v3-671b, kimi-k2-1t-a32b): the audio, hybrid and
+   recurrent families' cells walk their sharded forwards. (d)
+   ``launch.hillclimb`` on every variant the port's mesh takes
+   (stablelm_*, sae_factory*, xlstm_*; two processes), each delta of its
+   baseline's dominant term printed. (c) and (d) run in the background while (a) and
+   (b) hold the card.
 15. every head width up to 128, danube and zamba on their flash paths,
    the long ℓ1 solve and the golden pipelines in bf16 (``widths_phase``;
    ``--only widths`` runs it alone). (a) the six flash kernels at head
@@ -423,6 +426,27 @@ phase 13, ``--only launch`` phase 14, ``--only widths`` phase 15.)
    bf16 (both within one bf16 rounding), both feasible (bf16 within
    bf16(η) · (1 + 2^-8), each column's radius rounded half an ulp, plus
    phase 3's slack); each pipeline timed in both types.
+16. the audio, hybrid and recurrent families trained under a mesh
+   (``mesh_families_phase``; ``--only mesh_families`` runs it alone):
+   whisper-large-v3 (2 + 2 layers), zamba2-7b (7 layers: five Mamba
+   layers, one shared-attention site, one trailing Mamba layer) and
+   xlstm-1.3b (8 layers: seven mLSTM, one sLSTM) at full width, 2
+   sequences a step (448, 1024 and 256 tokens) in one micro-batch, the
+   constraint on (w_up|w_gate|w_in) at 0.05 of the init's smallest slice
+   norm. The flash kernels at the ranks' local heads (whisper's 64-wide
+   encoder, decoder and cross sites, zamba's 112-wide shared attention)
+   in float32 and bf16 and the hook's reduce, l1ball and apply on each
+   family's largest constrained shard, held against their plain
+   versions; then four ranks (phase 9's transport): (a) one float32
+   step on the (2, 2) and (1, 4) meshes against the same step on one
+   device, loss and gradient norm within 1e-5 relative, the parameters'
+   replicated copies bit-identical across ranks, each rank's collectives
+   = ``step_collectives``, per rank the flash and hook launches by kernel
+   and the body the hook gave each constrained leaf (every one the
+   generated kernels', none the plain body); (b) each family's train
+   launcher under ``--mesh 2x2``, 2 bf16 steps: finite losses the same on
+   every rank, collectives = the model, a feasible constraint, flash and
+   hook launches on every rank, peak memory per rank.
 
 The widths are the SAE factory's on stablelm-1.6b: d_model 2048, d_dict
 4 x 2048 = 8192, 32 heads; the projected tensor is the transposed encoder.
@@ -2626,9 +2650,9 @@ MESH_TRAIN_SIZES = (2, 2)
 MESH_TRAIN_F32 = (2, 2)          # (a): layers, steps; float32 compute
 MESH_TRAIN_BF16_STEPS = 3        # (b): bf16 compute, the launcher's CLI
 # (b)'s depth: four ranks on one card share its 80 GB (about 11 GB a rank
-# at 20 layers), and 12 layers keep the whole script in its time limit
-# (about 60 s of gloo steps); on four cards the full 40
-MESH_TRAIN_LAYERS = {"gloo": 12, "nccl": 40}
+# at 20 layers), and 8 layers keep the whole script in its time limit with
+# phase 16; on four cards the full 40
+MESH_TRAIN_LAYERS = {"gloo": 8, "nccl": 40}
 MESH_TRAIN_RTOL = {"f32": 1e-4, "bf16": 2e-2}
 # per rank and step, the sharded hook's kernels on w_up and w_gate: the
 # bi-level ν with both trailing axes sharded ((None, "data", "model")) is
@@ -4618,7 +4642,8 @@ def moe_phase(dev, smi):
 
 
 # the recurrent families (phase 12): zamba2-7b and xlstm-1.3b at full width,
-# seeded float32. Served at full depth; trained cut to 13 and 16 layers.
+# seeded float32. Served at full depth; trained cut to 13 and 8 layers (one
+# xLSTM super-block: the script's time limit, with phase 16).
 REC_SERVE_ARGV = ["--batch", "8", "--prompt-len", "128", "--new", "16"]
 REC_DECODE_TIMED = 8          # decode steps timed after the held prompt
 REC_SSD_TOKENS = 256          # (b): two of zamba's 128-token chunks
@@ -4629,7 +4654,7 @@ REC_RADIUS_FRACTION = 0.05    # of the init's smallest per-slice l1,inf norm
 REC_TRAIN = {  # arch -> the train launcher's argv at full width
     "zamba2-7b": ["--layers", "13", "--batch", "8", "--microbatch", "4",
                   "--seq", "2048", "--steps", "3"],
-    "xlstm-1.3b": ["--layers", "16", "--batch", "8", "--microbatch", "8",
+    "xlstm-1.3b": ["--layers", "8", "--batch", "8", "--microbatch", "8",
                    "--seq", "2048", "--steps", "3"],
 }
 REC_SMOKE_RADIUS = {"zamba2-7b": 5.0, "xlstm-1.3b": 0.5}
@@ -5492,22 +5517,32 @@ def whisper_rows(rec):
 # phase 14: the dry run, the cost model and the tile search
 LAUNCH_LAYERS = 8             # (b): granite-3-2b at full width, 8 layers
 LAUNCH_MEM_BAND = (0.5, 2.0)  # (b): meta estimate / max_memory_allocated
-LAUNCH_HILLCLIMB = ("stablelm_probsbf16", "stablelm_chunk2048",
-                    "stablelm_probsbf16_c2048", "stablelm_mb64",
-                    "stablelm_proj_all", "stablelm_gsp_all", "sae_factory",
-                    "sae_factory_heads8")
+# (d): the variants in two processes of about equal walking time (an xLSTM
+# cell takes 11–13 s a walk on an H100 host's CPU)
+LAUNCH_HILLCLIMB_GROUPS = (
+    ("stablelm_probsbf16", "stablelm_chunk2048", "stablelm_probsbf16_c2048",
+     "stablelm_mb64", "stablelm_proj_all", "stablelm_gsp_all", "sae_factory",
+     "sae_factory_heads8"),
+    ("xlstm_chunk128", "xlstm_chunk256", "xlstm_chunk512",
+     "xlstm_chunk128_mb64", "xlstm_shard_r", "xlstm_shard_r_chunk128"))
+LAUNCH_HILLCLIMB = sum(LAUNCH_HILLCLIMB_GROUPS, ())
+# (d): each hillclimb variant's baseline: the dry run's cell of its arch,
+# the SAE factory's variants against the first of them
+LAUNCH_BASELINES = (("stablelm", "stablelm-1.6b"), ("xlstm", "xlstm-1.3b"),
+                    ("sae_factory_", None))
 # (c): the one error a dry-run cell may end in, the mesh refusal of the
-# MoE/MLA, recurrent and audio families (models/lm.py: _refuse_mesh)
-LAUNCH_REFUSAL = "the sharded forward covers the dense family"
-LAUNCH_REFUSED = {"deepseek-v3-671b", "kimi-k2-1t-a32b", "whisper-large-v3",
-                  "xlstm-1.3b", "zamba2-7b"}
-# (c): the archs in two halves of about equal walking time, one process a
-# half and mesh (every assigned arch once)
-LAUNCH_ARCH_HALVES = (
-    ("qwen3-32b", "stablelm-1.6b", "deepseek-v3-671b", "kimi-k2-1t-a32b",
-     "whisper-large-v3"),
-    ("chameleon-34b", "granite-3-2b", "h2o-danube-1.8b", "xlstm-1.3b",
-     "zamba2-7b"))
+# MoE/MLA family (models/lm.py: _refuse_mesh)
+LAUNCH_REFUSAL = "the sharded MoE/MLA step"
+LAUNCH_REFUSED = {"deepseek-v3-671b", "kimi-k2-1t-a32b"}
+# (c): the archs in three groups of about equal walking time, one process
+# a group and mesh (every assigned arch once). A mesh's walks on an H100
+# host's CPU: qwen3-32b 48 s, zamba2-7b 45, chameleon-34b
+# 40, whisper-large-v3 28, granite-3-2b 25, xlstm-1.3b and h2o-danube-1.8b
+# 18, stablelm-1.6b 13, the two refused MoE archs none
+LAUNCH_ARCH_GROUPS = (
+    ("qwen3-32b", "whisper-large-v3", "deepseek-v3-671b", "kimi-k2-1t-a32b"),
+    ("zamba2-7b", "granite-3-2b", "stablelm-1.6b"),
+    ("chameleon-34b", "h2o-danube-1.8b", "xlstm-1.3b"))
 
 
 def launch_search(randn):
@@ -5728,19 +5763,22 @@ def launch_background(workdir):
     env = ["env", f"PYTHONPATH={ROOT / 'src'}", "CUDA_VISIBLE_DEVICES="]
     procs = {}
     for mesh in ("single", "multi"):
-        for i, half in enumerate(LAUNCH_ARCH_HALVES):
+        for i, group in enumerate(LAUNCH_ARCH_GROUPS):
             name = f"dryrun_{mesh}_{i}"
             procs[name] = subprocess.Popen(
                 env + [sys.executable, "-m", "repro_torch.launch.dryrun",
-                       "--arch", ",".join(half), "--shape", "all", "--mesh",
+                       "--arch", ",".join(group), "--shape", "all", "--mesh",
                        mesh, "--out", str(workdir / "dryrun")],
                 stdout=open(workdir / f"{name}.log", "w"),
                 stderr=subprocess.STDOUT, cwd=ROOT)
-    procs["hillclimb"] = subprocess.Popen(
-        env + [sys.executable, "-m", "repro_torch.launch.hillclimb", "--cell",
-               ",".join(LAUNCH_HILLCLIMB), "--out", str(workdir / "hillclimb")],
-        stdout=open(workdir / "hillclimb.log", "w"), stderr=subprocess.STDOUT,
-        cwd=ROOT)
+    for i, group in enumerate(LAUNCH_HILLCLIMB_GROUPS):
+        name = f"hillclimb_{i}"
+        procs[name] = subprocess.Popen(
+            env + [sys.executable, "-m", "repro_torch.launch.hillclimb",
+                   "--cell", ",".join(group), "--out",
+                   str(workdir / "hillclimb")],
+            stdout=open(workdir / f"{name}.log", "w"),
+            stderr=subprocess.STDOUT, cwd=ROOT)
     return procs
 
 
@@ -5768,8 +5806,8 @@ def launch_sweep(workdir, procs, t0):
     if len(recs) != 80:
         bad.append(("records", len(recs)))
     print("dry run: " + ", ".join(f"{m} {st} {n}" for (m, st), n in sorted(counts.items()))
-          + f" ({wall:.1f} s wall, five processes in parallel: each mesh's "
-          "two halves of the archs and the hillclimb)")
+          + f" ({wall:.1f} s wall, eight processes in parallel: each mesh's "
+          "three groups of the archs and the hillclimb's two)")
     report.main([str(workdir / "dryrun")])
     if bad:
         raise SmokeFailure(f"dry run: errors beyond the mesh refusals: {bad}")
@@ -5778,14 +5816,15 @@ def launch_sweep(workdir, procs, t0):
         v = json.loads(f.read_text())
         hc[v["variant"]] = v
     failed = [k for k in LAUNCH_HILLCLIMB if hc.get(k, {}).get("status") != "ok"]
-    if rcs["hillclimb"] or failed:
+    if any(rc for k, rc in rcs.items() if k.startswith("hillclimb")) or failed:
         raise SmokeFailure(f"hillclimb: failed variants {failed}")
-    base = next(r for r in recs if (r["arch"], r["shape"], r["mesh"])
-                == ("stablelm-1.6b", "train_4k", "single"))
     deltas = {}
-    for prefix, b in (("stablelm", base), ("sae_factory_", hc["sae_factory"])):
+    for prefix, arch in LAUNCH_BASELINES:
+        b = hc["sae_factory"] if arch is None else next(
+            r for r in recs if (r["arch"], r["shape"], r["mesh"])
+            == (arch, "train_4k", "single"))
         variants = [hc[k] for k in sorted(hc) if k.startswith(prefix)]
-        name = b.get("variant", "the dry run's stablelm-1.6b x train_4k x single")
+        name = b.get("variant", f"the dry run's {arch} x train_4k x single")
         print(f"hillclimb against {name}:")
         print(fill_experiments.perf_table(b, variants))
         dom = b["roofline"]["bottleneck"]
@@ -6226,6 +6265,421 @@ def widths_rows(rec):
     return rows
 
 
+# the audio, hybrid and recurrent families trained under a mesh (phase 16):
+# each family's sharded forward at full width, cut in depth so that four
+# ranks on one card hold it (whisper 2 + 2 layers; zamba2-7b 7 layers: a
+# super-group of 5 Mamba layers and one shared-attention site, and one
+# trailing Mamba layer; xlstm-1.3b 8 layers: 7 mLSTM and one sLSTM), 2
+# sequences a step in one micro-batch (each micro-batch gathers every
+# weight again: zamba2's (2, 2) f32 step moves 17 GB through gloo at two),
+# the launcher's constraint on (w_up|w_gate|w_in) at REC_RADIUS_FRACTION of
+# the init's smallest slice
+MF_ARCHS = ("whisper-large-v3", "zamba2-7b", "xlstm-1.3b")
+MF_LAYERS = {"whisper-large-v3": 2, "zamba2-7b": 7, "xlstm-1.3b": 8}
+MF_SEQ = {"whisper-large-v3": 448,   # the decoder's context; 1500 frames
+          "zamba2-7b": 1024,
+          "xlstm-1.3b": 256}         # a short sequence for the sLSTM loop
+MF_BATCH, MF_MICRO = 2, 2
+MF_SIZES = ((2, 2), (1, 4))          # (a): the held step's meshes
+MF_RTOL = 1e-5                       # (a): loss and gradient norm, float32
+MF_LAUNCH_STEPS = 2                  # (b): bf16 steps of the launcher, 2x2
+MF_FLASH = ("whisper-large-v3", "zamba2-7b")   # the families with attention
+MF_HOOK = ("codegen_reduce", "l1ball", "codegen_apply", "codegen_partial_apply")
+
+
+def mf_argv(arch, radius, steps):
+    """The train launcher's argv of a phase 16 family."""
+    return ["--arch", arch, "--layers", str(MF_LAYERS[arch]), "--batch",
+            str(MF_BATCH), "--microbatch", str(MF_MICRO), "--seq",
+            str(MF_SEQ[arch]), "--steps", str(steps), "--radius", repr(radius)]
+
+
+def mf_setup(arch, radius, compute):
+    """(cfg, tcfg, pipeline) of a phase 16 family: the launcher's
+    TrainConfig with ``compute`` (remat on)."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.types import ProjectionSpec, TrainConfig
+    from repro_torch.data import DataConfig, DataPipeline
+    from repro_torch.models import lm
+
+    cfg = lm.cut_depth(registry.get_arch(arch), MF_LAYERS[arch])
+    tcfg = TrainConfig(microbatch=MF_MICRO, total_steps=1, warmup=1, remat=True,
+                       master_dtype="", compute_dtype=compute,
+                       projection=ProjectionSpec(pattern=REC_PATTERN,
+                                                 radius=radius))
+    pipe = DataPipeline(DataConfig(vocab=cfg.vocab, seq_len=MF_SEQ[arch] + 1,
+                                   global_batch=MF_BATCH, microbatch=MF_MICRO))
+    return cfg, tcfg, pipe
+
+
+def mf_shapes(arch, sizes):
+    """The flash sites a phase 16 rank runs on the ``sizes`` mesh: (tag, q,
+    k/v, causal) of one micro-batch's slice over "data" and the rank's
+    heads; and the largest constrained leaf's shard (its path and shape)."""
+    from repro_torch import _tree, models
+    from repro_torch.models.params import param_specs
+    from repro_torch.parallel import sharding
+
+    cfg, _, _ = mf_setup(arch, 1.0, "float32")
+    mesh = dict(zip(("data", "model"), sizes))
+    tpl = models.get(cfg).template(cfg)
+    specs = dict(_tree.leaves_with_paths(param_specs(
+        tpl, sharding.param_rules(mesh), mesh)))
+    shapes = dict(_tree.leaves_with_paths(_tree.tree_map(lambda pd: pd.shape, tpl)))
+    b = MF_MICRO // sizes[0]
+    h, s = cfg.n_heads // sizes[1], MF_SEQ[arch]
+    hd = cfg.resolved_head_dim
+    sites = []
+    if arch == "whisper-large-v3":
+        f = cfg.enc_frames
+        sites = [("encoder", (b, h, f, hd), (b, h, f, hd), False),
+                 ("decoder", (b, h, s, hd), (b, h, s, hd), True),
+                 ("cross", (b, h, s, hd), (b, h, f, hd), False)]
+    elif arch == "zamba2-7b":
+        sites = [("shared", (b, h, s, hd), (b, h, s, hd), True)]
+    names = [n for n, sh in shapes.items()
+             if len(sh) >= 2 and re.search(REC_PATTERN, n)]
+    big = max(names, key=lambda n: math.prod(shapes[n]))
+    return sites, (big, sharding.local_shape(shapes[big], specs[big], mesh))
+
+
+def mf_hold_kernels(randn, rand):
+    """Phase 16's kernels at the shapes its ranks give them (``mf_shapes``
+    on the (2, 2) mesh), against their plain versions with phase 1's bars:
+    the flash forward, dQ and dK/dV in float32 ((a)'s compute) and bf16
+    ((b)'s) at each attention site, and the sharded hook's reduce, l1ball
+    and apply on the largest constrained shard of each family."""
+    import torch
+
+    from repro_torch.core import schedule
+    from repro_torch.kernels import l1ball
+    from repro_torch.kernels.codegen import lowering, tiling
+
+    errs = {}
+
+    def keep(name, e):
+        errs[name] = max(errs.get(name, 0.0), e)
+
+    norms = [n for n, _ in BILEVEL]
+    for arch in MF_ARCHS:
+        sites, (leaf, w_loc) = mf_shapes(arch, MF_SIZES[0])
+        for tag, qs, ks, causal in sites:
+            for dtype in (torch.float32, torch.bfloat16):
+                e, held = hold_attention(randn, f"mesh families {arch} {tag}",
+                                         qs, ks, causal, None, dtype)
+                for name, err in e.items():
+                    keep(f"{name} {str(dtype)[6:]}", err)
+                del held
+        lead = math.prod(w_loc[:-2])
+        tp = tiling.plan_tiles(schedule.compile_schedule(w_loc[-2:], BILEVEL),
+                               torch.float32)
+        yc = randn((lead,) + tp.canon_shape)
+        tag = f"mesh families {arch} {leaf} shard {tuple(w_loc)}"
+        aggs, acc = lowering.codegen_reduce(yc, tp, norms[:-1], raw=True)
+        vfin = lowering.finalize(norms[-2], acc)
+        torch.cuda.synchronize()
+        aggs_p, vfin_p = lowering.reduce_plain(yc, norms[:-1])
+        keep("codegen_reduce", check_close(f"{tag} reduce", vfin, vfin_p,
+                                           fmax(vfin_p)))
+        radii = RADIUS_FRACTION * vfin_p.sum(1)
+        u = l1ball.project_l1_batched(vfin_p, radii)
+        torch.cuda.synchronize()
+        u_p = l1ball.project_l1_plain(vfin_p, radii)
+        keep("l1ball", check_close(f"{tag} l1ball", u, u_p, fmax(vfin_p)))
+        x = lowering.codegen_apply(yc, aggs_p, vfin_p, u_p, tp, norms[:-1])
+        torch.cuda.synchronize()
+        keep("codegen_apply", check_close(
+            f"{tag} apply", x, lowering.apply_plain(yc, aggs_p, vfin_p, u_p,
+                                                   norms[:-1]), fmax(yc)))
+        del yc, aggs, acc, vfin, aggs_p, vfin_p, u, u_p, x
+        torch.cuda.empty_cache()
+    print("mesh families kernels at the ranks' (2, 2) shapes vs their plain "
+          "versions: " + ", ".join(f"{k} max_abs_err {v:.3e}"
+                                   for k, v in errs.items()))
+    return errs
+
+
+def mf_rank(rank, world, backend, tmp, radii):
+    """One rank of phase 16 (``torch.multiprocessing`` spawns it): (a) the
+    float32 sharded step of each family on each mesh of MF_SIZES from the
+    seed, with its launches, collectives, digests and the body the hook
+    gave each constrained leaf; (b) the train launcher of each family on
+    the 2x2 mesh in bf16, feasibility and peak memory. Writes its numbers
+    to ``<tmp>/rank<rank>.json``."""
+    import datetime
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import _tree, models
+    from repro_torch.configs.types import ProjectionSpec
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.params import param_specs
+    from repro_torch.optim import projection_hook as PH
+    from repro_torch.parallel import collectives, sharding
+    from repro_torch.parallel.mesh import Mesh
+    from repro_torch.training import init_state, make_train_step
+    from repro_torch.training.sae_factory import constraint_report
+    from repro_torch.training.step import step_collectives
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=600),
+                            device_id=dev if backend == "nccl" else None)
+    bodies = []
+    resolve = PH._resolve_shard_backend
+
+    def spy(*a, **k):   # the body the hook gives each sharded leaf
+        be = resolve(*a, **k)
+        bodies.append(be)
+        return be
+
+    PH._resolve_shard_backend = spy
+    out = {"rank": rank, "a": {}, "b": {}}
+    for sizes in MF_SIZES:
+        mesh = Mesh(sizes, ("data", "model"))
+        for arch in MF_ARCHS:
+            cfg, tcfg, pipe = mf_setup(arch, radii[arch], "float32")
+            api = models.get(cfg)
+            specs = param_specs(api.template(cfg), sharding.param_rules(mesh),
+                                sharding.mesh_shape_dict(mesh))
+            state = init_state(cfg, tcfg, api, tcfg.seed, device=dev,
+                               mesh=mesh, param_specs=specs)
+            step = make_train_step(cfg, tcfg, api, impl="flash", mesh=mesh,
+                                   param_specs=specs)
+            names = PH.matched_names(state["params"], tcfg.projection)
+            bodies.clear()
+            mesh.reset_counts()
+            _build.reset_launches()
+            mark = tile_search_mark()
+            t0 = time.perf_counter()
+            state, m = step(state, {"tokens": torch.from_numpy(
+                pipe.batch(0)).to(dev)})
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            search = tile_search_launches(mark)
+            launches = {k: n - search.get(k, 0)
+                        for k, n in _build.launch_counts().items() if n}
+            out["a"][f"{arch} {sizes}"] = {
+                "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                "seconds": secs, "collectives": mesh.counts()["by_op"],
+                "model": step_collectives(cfg, tcfg, specs, mesh,
+                                          pipe.batch(0).shape),
+                "launches": launches, "search_launches": search,
+                "bodies": dict(zip(names, bodies)) if len(bodies) == len(names)
+                else {"unmatched": bodies, "leaves": names},
+                "digests": {n: _digest(x) for n, x in
+                            _tree.leaves_with_paths(state["params"])},
+                "specs": {n: list(sp) for n, sp in _tree.leaves_with_paths(specs)},
+                "coords": mesh.coords}
+            del state, step
+            torch.cuda.empty_cache()
+    for arch in MF_ARCHS:
+        argv = mf_argv(arch, radii[arch], MF_LAUNCH_STEPS) + ["--mesh", "2x2"]
+        torch.cuda.reset_peak_memory_stats(dev)
+        dist.barrier()
+        _build.reset_launches()
+        mark = tile_search_mark()
+        run = train_cli.run(argv)
+        torch.cuda.synchronize()
+        search = tile_search_launches(mark)
+        launches = {k: n - search.get(k, 0)
+                    for k, n in _build.launch_counts().items() if n}
+        peak = torch.cuda.max_memory_allocated(dev)
+        cfg, tcfg, pipe = mf_setup(arch, radii[arch], "bfloat16")
+        tcfg = train_cli.launch_config(train_cli._parser().parse_args(argv))
+        mesh = Mesh((2, 2), ("data", "model"))
+        specs = param_specs(models.get(cfg).template(cfg),
+                            sharding.param_rules(mesh), mesh.shape)
+        flat = dict(_tree.leaves_with_paths(specs))
+        spec = ProjectionSpec(pattern=REC_PATTERN, radius=radii[arch])
+        full = {n: collectives.gather_full(x, flat[n], mesh)
+                for n, x in _tree.leaves_with_paths(run["state"]["params"])
+                if n in PH.matched_names(run["state"]["params"], spec)}
+        rep = constraint_report(full, spec)
+        out["b"][arch] = {
+            "argv": argv, "losses": run["losses"],
+            "grad_norms": run["grad_norms"], "step_seconds": run["step_seconds"],
+            "collectives": [c["by_op"] for c in run["collectives"]],
+            "model": step_collectives(cfg, tcfg, specs, mesh,
+                                      (MF_BATCH // MF_MICRO, MF_MICRO,
+                                       MF_SEQ[arch] + 1)),
+            "launches": launches, "peak_bytes": peak,
+            "max_violation": rep["max_violation"]}
+        del run, full
+        torch.cuda.empty_cache()
+    dist.barrier()
+    dist.destroy_process_group()
+    (tmp / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def mesh_families_phase(dev, smi, backend, randn, rand):
+    """Phase 16: the kernels at the ranks' shapes (``mf_hold_kernels``), the
+    single-device float32 step of each family from the seed, then four
+    ranks (``mf_rank``; gloo with all four on one card, or NCCL one a card
+    on four), then every hold. Returns the record; its ``launches`` are
+    each rank's on (b), the bf16 launcher's main path."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    from repro_torch import models
+    from repro_torch.parallel import sharding
+    from repro_torch.training import init_state, make_train_step
+
+    t_all = time.perf_counter()
+    kernel_errs = mf_hold_kernels(randn, rand)
+    radii, ref = {}, {}
+    for arch in MF_ARCHS:
+        cfg, _, _ = mf_setup(arch, 1.0, "float32")
+        radii[arch] = rec_radius(dev, cfg)[0]
+        cfg, tcfg, pipe = mf_setup(arch, radii[arch], "float32")
+        api = models.get(cfg)
+        state = init_state(cfg, tcfg, api, tcfg.seed, device=dev)
+        step = make_train_step(cfg, tcfg, api, impl="flash", fused=False)
+        state, m = step(state, {"tokens": torch.from_numpy(pipe.batch(0)).to(dev)})
+        ref[arch] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t_all
+
+    tmp = ROOT / "build" / "chip_smoke_mesh_families"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    t1 = time.perf_counter()
+    try:
+        mp.start_processes(mf_rank, args=(MESH_RANKS, backend, tmp, radii),
+                           nprocs=MESH_RANKS, join=True, start_method="spawn")
+    except ProcessException as e:
+        raise SmokeFailure(f"mesh families phase: a rank failed:\n{e}") from None
+    ranks_s = time.perf_counter() - t1
+    ranks = [json.loads((tmp / f"rank{r}.json").read_text())
+             for r in range(MESH_RANKS)]
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    fails = []
+
+    def fail(msg):
+        print(f"mesh families FAILED: {msg}")
+        fails.append(msg)
+
+    # (a) float32 on each mesh against one device
+    identical = {}
+    for key in ranks[0]["a"]:
+        arch = key.split(" ")[0]
+        want = ref[arch]
+        for o in ranks:
+            a = o["a"][key]
+            for k_ in ("loss", "grad_norm"):
+                rel = abs(a[k_] - want[k_]) / abs(want[k_])
+                if not rel <= MF_RTOL:
+                    fail(f"(a) {key} rank {o['rank']} {k_} {a[k_]} vs one "
+                         f"device {want[k_]} ({rel:.3e} relative)")
+                if a[k_] != ranks[0]["a"][key][k_]:
+                    fail(f"(a) {key} rank {o['rank']} {k_} differs from rank 0's")
+            model = {op: {"calls": a["model"]["calls"][op],
+                          "bytes": a["model"]["bytes"][op]}
+                     for op in a["model"]["calls"]}
+            if a["collectives"] != model:
+                fail(f"(a) {key} rank {o['rank']}: collectives "
+                     f"{a['collectives']} != the model {model}")
+            plain = [n for n, be in a["bodies"].items() if be != "codegen"]
+            if "unmatched" in a["bodies"] or plain or not a["bodies"]:
+                fail(f"(a) {key} rank {o['rank']}: a constrained leaf did not "
+                     f"take the codegen body: {a['bodies']}")
+            flash = {k_: a["launches"].get(k_, 0) for k_ in F32_FLASH}
+            hook = {k_: a["launches"].get(k_, 0) for k_ in MF_HOOK}
+            if arch in MF_FLASH and not all(flash.values()):
+                fail(f"(a) {key} rank {o['rank']}: flash launches {flash}")
+            if hook["codegen_reduce"] != len(a["bodies"]) or not (
+                    hook["codegen_apply"] + hook["codegen_partial_apply"]):
+                fail(f"(a) {key} rank {o['rank']}: hook launches {hook} for "
+                     f"{len(a['bodies'])} constrained leaves")
+            print(f"mesh families (a) {key} rank {o['rank']}: loss "
+                  f"{a['loss']:.7g} (one device {want['loss']:.7g}), grad norm "
+                  f"{a['grad_norm']:.7g} (one device {want['grad_norm']:.7g}); "
+                  f"{a['seconds']:.2f} s; collectives = the model "
+                  f"{a['model']['calls']}; flash launches {flash}; hook "
+                  f"launches {hook}; bodies {a['bodies']}")
+        pairs = 0
+        coords = [o["a"][key]["coords"] for o in ranks]
+        for name, sp in ranks[0]["a"][key]["specs"].items():
+            axes = sharding.spec_axes(tuple(sp))
+            for r in range(MESH_RANKS):
+                for q in range(r):
+                    if all(coords[r][ax] == coords[q][ax] for ax in axes):
+                        if ranks[r]["a"][key]["digests"][name] != \
+                                ranks[q]["a"][key]["digests"][name]:
+                            fail(f"(a) {key} {name} differs on ranks {q} and {r}")
+                        else:
+                            pairs += 1
+        identical[key] = pairs
+        print(f"mesh families (a) {key}: {pairs} copy pairs of the parameters "
+              f"bit-identical across ranks")
+
+    # (b) bf16: the launcher on the 2x2 mesh
+    per_rank = {}
+    for arch in MF_ARCHS:
+        per_rank[arch] = []
+        for o in ranks:
+            b = o["b"][arch]
+            if not (len(b["losses"]) == MF_LAUNCH_STEPS
+                    and np.isfinite(b["losses"]).all()
+                    and np.isfinite(b["grad_norms"]).all()):
+                fail(f"(b) {arch} rank {o['rank']}: losses {b['losses']} "
+                     f"gradient norms {b['grad_norms']}")
+            if b["losses"] != ranks[0]["b"][arch]["losses"]:
+                fail(f"(b) {arch} rank {o['rank']}: losses differ from rank 0's")
+            model = {op: {"calls": b["model"]["calls"][op],
+                          "bytes": b["model"]["bytes"][op]}
+                     for op in b["model"]["calls"]}
+            if any(c != model for c in b["collectives"]):
+                fail(f"(b) {arch} rank {o['rank']}: collectives != the model")
+            if not b["max_violation"] <= 1e-5 * radii[arch]:
+                fail(f"(b) {arch} rank {o['rank']}: infeasible, max violation "
+                     f"{b['max_violation']:.3e}")
+            flash = {k_: b["launches"].get(k_, 0) for k_ in BF16_FLASH}
+            hook = {k_: b["launches"].get(k_, 0) for k_ in MF_HOOK}
+            if arch in MF_FLASH and not all(flash.values()):
+                fail(f"(b) {arch} rank {o['rank']}: flash launches {flash}")
+            if not (hook["codegen_reduce"] and (hook["codegen_apply"]
+                                               + hook["codegen_partial_apply"])):
+                fail(f"(b) {arch} rank {o['rank']}: hook launches {hook}")
+            per_rank[arch].append({"rank": o["rank"], "losses": b["losses"],
+                                   "step_ms": [x * 1e3 for x in b["step_seconds"]],
+                                   "peak_gib": b["peak_bytes"] / 2**30,
+                                   "launches": b["launches"]})
+            print(f"mesh families (b) {arch} rank {o['rank']} "
+                  f"(python -m repro_torch.launch.train {' '.join(b['argv'])}): "
+                  f"losses {b['losses']}, step ms "
+                  f"{[round(x * 1e3, 1) for x in b['step_seconds']]}, peak "
+                  f"{b['peak_bytes'] / 2**30:.2f} GiB, feasible (max violation "
+                  f"{b['max_violation']:.3e}), collectives = the model, flash "
+                  f"launches {flash}, hook launches {hook}; {smi}")
+    total = time.perf_counter() - t_all
+    print(f"mesh families phase: {MESH_RANKS} ranks over {backend}, kernels and "
+          f"references {ref_s:.1f} s, ranks {ranks_s:.1f} s wall, phase "
+          f"{total:.1f} s")
+    if fails:
+        raise SmokeFailure("mesh families phase: " + "; ".join(fails))
+    return {"backend": backend, "radii": radii, "one_device": ref,
+            "seconds": {"references": ref_s, "ranks": ranks_s, "phase": total},
+            "a": {k_: {o["rank"]: {f: o["a"][k_][f] for f in
+                                   ("loss", "grad_norm", "seconds", "launches",
+                                    "bodies")} for o in ranks}
+                  for k_ in ranks[0]["a"]},
+            "identical_pairs": identical, "b": per_rank,
+            "kernels_at_rank_shapes": kernel_errs}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -6235,7 +6689,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=("mesh", "attention", "autograd",
                                        "sae_tables", "train_mesh", "serve",
                                        "moe", "recurrent", "whisper",
-                                       "launch", "widths"),
+                                       "launch", "widths", "mesh_families"),
                     help="run one phase alone: 'mesh' builds the kernels and "
                          "runs phase 7 (the partial apply, then the mesh "
                          "executor on four ranks); 'attention' builds them "
@@ -6250,7 +6704,8 @@ def main(argv=None) -> int:
                          "builds them and runs phase 11; 'recurrent' builds "
                          "them and runs phase 12; 'whisper' builds them and "
                          "runs phase 13; 'launch' builds them and runs "
-                         "phase 14; 'widths' builds them and runs phase 15")
+                         "phase 14; 'widths' builds them and runs phase 15; "
+                         "'mesh_families' builds them and runs phase 16")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -6410,6 +6865,22 @@ def main(argv=None) -> int:
     if args.only == "widths":
         rec = widths_phase(dev, smi, randn, rand)
         return finish({"kernels": widths_rows(rec), "widths": rec})
+
+    def mesh_families_phases(rows=()):
+        """Phase 16 from freed memory; each kernel row of its path gets the
+        launches every rank made on (b), the bf16 launchers' main path,
+        per family."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec = mesh_families_phase(dev, smi, mesh_backend, randn, rand)
+        for row in rows:
+            row["launches_mesh_families"] = {
+                arch: [r["launches"].get(row["name"], 0) for r in per]
+                for arch, per in rec["b"].items()}
+        return rec
+
+    if args.only == "mesh_families":
+        return finish({"kernels": [], "mesh_families": mesh_families_phases()})
 
     marks = [("start", time.perf_counter())]
 
@@ -6733,6 +7204,10 @@ def main(argv=None) -> int:
     # l1ball and the golden pipelines in bf16
     widths = widths_phase(dev, smi, randn, rand)
     mark("phase 15")
+
+    # ------- phase 16: the audio, hybrid and recurrent families under a mesh
+    mesh_families = mesh_families_phases(rows)
+    mark("phase 16")
     wrows = widths_rows(widths)
     rows.append(wrows[-1])   # l1ball_cluster; the flash rows ride along
     for row in rows:
@@ -6759,6 +7234,7 @@ def main(argv=None) -> int:
                    "train_mesh": train_mesh, "serve": serve, "moe": moe,
                    "recurrent": recurrent, "whisper": whisper,
                    "launch": launch, "widths": widths,
+                   "mesh_families": mesh_families,
                    "refuse_grad": refused, "sae_tables": tables,
                    "factory": {"harvest_step_ms": step_parts,
                                "sae_step_ms": sae_parts,

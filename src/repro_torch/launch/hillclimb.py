@@ -8,8 +8,8 @@ record its roofline, to set beside the baseline's (port of
 Each variant runs as the dry run runs a cell (``launch/dryrun.py``: one
 rank of the "single" mesh, 32 × 8 H100s, on ``meta``), and writes
 ``<out>/<variant>.json``. A variant on a family the port's mesh refuses
-(``kimi_*``, ``xlstm_*``, ``deepseek_*``) records the refusal and counts
-as a failure, as the JAX hillclimb counts a variant that fails to compile.
+(``kimi_*``, ``deepseek_*``: MoE/MLA) records the refusal and counts as a
+failure, as the JAX hillclimb counts a variant that fails to compile.
 """
 
 from __future__ import annotations

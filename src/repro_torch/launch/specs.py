@@ -22,10 +22,11 @@ with ``roofline/costs.py``.
   local shapes (``param_specs``, ``cache_spec_tree``); the collective
   term is not modelled (None, with the reason in the record). A sharded
   serving step is queued (ROADMAP.md § 2(b)).
-* A family the port's mesh refuses (``models.lm._refuse_mesh``: MoE/MLA,
-  the recurrent families, the audio family) raises with that refusal in
-  every cell under a mesh of more than one card; the dry run records it as
-  an error, as JAX records any cell that fails.
+* A family the port's mesh refuses (``models.lm._refuse_mesh``: MoE/MLA)
+  raises with that refusal in every cell under a mesh of more than one
+  card; the dry run records it as an error, as JAX records any cell that
+  fails. The audio, hybrid and recurrent families walk their sharded
+  forwards.
 
 The decode and prefill cells take ``serving.lm.make_decode_step`` and
 ``make_prefill``; the JAX module calls them through ``serving.engine``,
@@ -246,7 +247,8 @@ def decode_cell(cfg: ArchConfig, shape: ShapeConfig, mesh):
     api = models.get(cfg)
     b = shape.global_batch
     n_groups = max(1, min(SH.dp_shards(mesh), b))
-    step_fn = serving_lm.make_decode_step(cfg, api, n_groups=n_groups)
+    step_fn = serving_lm.make_decode_step(cfg, api, n_groups=n_groups,
+                                          max_len=shape.seq_len)
     cache = api.make_cache(cfg, b, shape.seq_len, dtype=torch.bfloat16,
                            device="meta")
     cache_specs = SH.cache_spec_tree(cfg, mesh, cache, shape)

@@ -44,10 +44,12 @@ package's ``"pallas"`` (the JAX launcher trains with ``"chunked"``, or
 ``"naive"`` under ``--smoke``); under a mesh on each rank's own heads.
 ``--attn chunked`` or ``naive`` run the PyTorch paths; an MLA model
 (deepseek-v3-671b, kimi-k2-1t-a32b), whose q/k and v heads differ in
-width, needs one of them. The recurrent families take no ``--attn``, as in
-the JAX package: zamba2-7b's shared attention runs chunked and xlstm-1.3b
-has none; the launcher says which ran. whisper-large-v3 (the audio
-family) trains on zero audio frames, as the JAX package's does, with
+width, needs one of them. The recurrent families take no ``--attn`` on
+one device, as in the JAX package: zamba2-7b's shared attention runs
+chunked and xlstm-1.3b has none; under a mesh zamba2-7b's shared attention
+takes ``--attn`` on each rank's heads. The launcher says which ran.
+whisper-large-v3 (the audio family) trains on zero audio frames, as the
+JAX package's does, with
 ``--attn`` in its encoder's and cross-attention's non-causal and its
 decoder's causal attention, and the constraint on both stacks' ``w_up``.
 With the constraint on, the launcher names the leaves it projects.
@@ -55,8 +57,11 @@ With the constraint on, the launcher names the leaves it projects.
 layers at full width (``models.lm.cut_depth``): an MoE model keeps its
 dense leading layers and needs more than those, an xLSTM model whole
 super-blocks of ``slstm_every`` layers, and whisper keeps N encoder and N
-decoder layers. The recurrent and audio families train on one device: a
-``--mesh`` beyond ``1x1`` is refused. ``--telemetry-every N`` / ``--telemetry-marks``
+decoder layers. Every family but MoE/MLA trains under ``--mesh``: the
+audio, hybrid and recurrent ones through their own sharded forwards
+(``models/whisper.py``, ``zamba.py``, ``xlstm.py``); an MoE model under a
+mesh is refused before the world is joined. ``--telemetry-every N`` /
+``--telemetry-marks``
 turn the in-step telemetry bridge (``obs/bridge.py``) on for the run and
 give the step its cadence and marks (``training/step.py``); the pending
 values are drained into the registry before the run returns.
@@ -166,6 +171,22 @@ def join_world(size, device: str):
     return torch.device("cuda", local % max(1, torch.cuda.device_count()))
 
 
+def launch_config(args):
+    """The ``TrainConfig`` of parsed arguments: bf16 compute, remat but
+    under ``--smoke``, the constraint on ``(w_up|w_gate|w_in)`` when
+    ``--radius > 0``."""
+    from repro_torch.configs.types import ProjectionSpec, TrainConfig
+
+    proj = None
+    if args.radius > 0:
+        proj = ProjectionSpec(pattern=r"(w_up|w_gate|w_in)", radius=args.radius)
+    return TrainConfig(microbatch=args.microbatch or args.batch, lr=args.lr,
+                       total_steps=args.steps,
+                       warmup=min(20, args.steps // 5 + 1), remat=not args.smoke,
+                       master_dtype="", projection=proj,
+                       checkpoint_every=args.ckpt_every)
+
+
 def run(argv=None) -> dict:
     """Parse ``argv``, train, and return ``{"state", "losses",
     "grad_norms", "step_seconds", "collectives", "start", "sparsity"}``
@@ -188,7 +209,6 @@ def _run(args) -> dict:
 
     from repro_torch import _device, _tree, models
     from repro_torch.configs import registry
-    from repro_torch.configs.types import ProjectionSpec, TrainConfig
     from repro_torch.data import DataConfig, DataPipeline
     from repro_torch.models import lm
     from repro_torch.models import params as PM
@@ -208,7 +228,7 @@ def _run(args) -> dict:
     sizes, _ = mesh_dims(args.mesh)
     sharded = any(d > 1 for d in sizes)
     if sharded:
-        lm._refuse_mesh(cfg)
+        lm._refuse_mesh(cfg)   # MoE/MLA, before joining a world
         dev = join_world(int(torch.tensor(sizes).prod()), args.device)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
@@ -219,19 +239,16 @@ def _run(args) -> dict:
         mesh, rank, world = None, 0, 1
     say = print if rank == 0 else (lambda *a, **k: None)
     api = models.get(cfg)
-    if cfg.family in lm.RECURRENT:
+    if cfg.family == "hybrid" and mesh is not None:
+        say(f"attention: {args.attn} (the shared block, on each rank's heads)")
+    elif cfg.family in lm.RECURRENT:
         # the step passes these forwards no impl, as the JAX package's does
         ran = "chunked (the shared block)" if cfg.family == "hybrid" else "none"
         say(f"attention: {ran}; a {cfg.family} model takes no --attn "
             f"({args.attn} not used)")
     micro = args.microbatch or args.batch
-    proj = None
-    if args.radius > 0:
-        proj = ProjectionSpec(pattern=r"(w_up|w_gate|w_in)", radius=args.radius)
-    tcfg = TrainConfig(microbatch=micro, lr=args.lr, total_steps=args.steps,
-                       warmup=min(20, args.steps // 5 + 1), remat=not args.smoke,
-                       master_dtype="", projection=proj,
-                       checkpoint_every=args.ckpt_every)
+    tcfg = launch_config(args)
+    proj = tcfg.projection
 
     pipe = DataPipeline(DataConfig(vocab=cfg.vocab, seq_len=args.seq + 1,
                                    global_batch=args.batch, microbatch=micro))

@@ -24,9 +24,10 @@ Under a mesh (``mesh=`` a ``parallel.mesh.Mesh``, ``param_specs=`` the
 spec tree of ``models.params.param_specs``) ``params`` are this rank's
 shards and ``tokens`` this rank's slice of the batch, and the forward is
 the one GSPMD makes of the JAX package's under its shardings, with the
-collectives written out (``parallel/collectives.py``). It covers the dense
-family; an MLA or MoE model under a mesh raises (its sharded step, experts
-over "model", is a slice of its own):
+collectives written out (``parallel/collectives.py``). Here it covers the
+dense family (the audio, hybrid and recurrent families' own forwards build
+on :class:`_Sharded`); an MLA or MoE model under a mesh raises (its sharded
+step, experts over "model", waits for four cards):
 
 * each weight's FSDP axis ('embed' over "data") is all-gathered where it
   is used — inside the checkpointed block body, so the recompute gathers
@@ -76,21 +77,14 @@ RECURRENT = ("ssm", "hybrid")   # the families with a recurrent decode state
 
 
 def _refuse_mesh(cfg: ArchConfig) -> None:
+    """Every family but MLA/MoE has a sharded forward: the dense family
+    here, the audio, hybrid and recurrent ones in their own modules."""
     if cfg.mla is not None or cfg.moe is not None:
         raise ValueError(
-            f"{cfg.name}: the sharded forward covers the dense family; the "
-            "sharded MoE/MLA step (experts over \"model\") waits for its "
-            "slice")
-    if cfg.family in RECURRENT:
-        raise ValueError(
-            f"{cfg.name}: the sharded forward covers the dense family; the "
-            f"sharded recurrent step ({cfg.family} family) waits for its "
-            "slice: train it on one device (--mesh 1x1)")
-    if cfg.family == "audio":
-        raise ValueError(
-            f"{cfg.name}: the sharded forward covers the dense family; the "
-            "sharded encoder-decoder step (audio family, whisper) waits for "
-            "its slice: train it on one device (--mesh 1x1)")
+            f"{cfg.name}: the sharded MoE/MLA step (experts over \"model\") "
+            "is not ported; it waits for a machine with four cards, since "
+            "four ranks on one 80 GB card cannot hold a full-width MoE "
+            "layer's float32 parameters, gradients and AdamW moments")
 
 
 def _check_impl(cfg: ArchConfig, impl: str) -> None:
@@ -361,6 +355,61 @@ class _Sharded:
         w = C.gather_spec(w, spec, self.mesh)
         return C.enter(w, self.mesh) if whole else w
 
+    def full(self, w, spec, split: bool = False):
+        """The whole weight on every rank: FSDP-gathered, then gathered over
+        "model" where that shards it (last, whatever the axis). Backward,
+        the "model" gather only slices this rank's part out of the gradient
+        (every rank ran the same computation on it), or psums it first when
+        ``split``: each rank read other parts of it (its own heads' columns
+        of a fused projection)."""
+        w = C.gather_spec(w, spec, self.mesh)
+        for axis, name in enumerate(spec):
+            if name == "model":
+                w = C.gather(w, self.mesh, "model", axis, sum_grad=split)
+        return w
+
+    def tree(self, p, sp):
+        """:meth:`full` of every leaf of a block: the block runs whole."""
+        return {k: self.tree(v, sp[k]) if isinstance(v, dict)
+                else self.full(v, sp[k]) for k, v in p.items()}
+
+
+def local_slice(n: int, sh: _Sharded) -> slice:
+    """This rank's contiguous part of an axis of ``n`` split over "model"."""
+    m, size = sh.mesh.axis_index("model"), sh.mesh.shape["model"]
+    return slice(m * n // size, (m + 1) * n // size)
+
+
+def checkpointed(body, x, sharded: bool):
+    """``body(x)`` recomputed in the backward. Under a mesh the recompute
+    runs the whole body, so every rank's collectives are the forward's
+    twice whatever the checkpoint's early stop."""
+    if not sharded:
+        return checkpoint(body, x, use_reentrant=False)
+    with set_checkpoint_early_stop(False):
+        return checkpoint(body, x, use_reentrant=False)
+
+
+def embed_sharded(params, param_specs, tokens, sh: _Sharded):
+    """The embedding lookup of this rank's tokens: a masked lookup and a
+    psum where "model" shards the vocabulary."""
+    table = sh.weight(params["embed"], param_specs["embed"])
+    if sh.tp(param_specs["embed"][0]):
+        return C.vocab_embed(table, tokens, sh.mesh)
+    return table[tokens]
+
+
+def logits_sharded(x, params, param_specs, cfg: ArchConfig, sh: _Sharded):
+    """The logits of the final activations: this rank's slice of the
+    vocabulary (:func:`logits_spec`) through ``unembed``, or through the
+    embedding's transpose where the model ties them."""
+    if logits_spec(cfg, param_specs, sh.mesh)[-1] == "model":
+        x = C.enter(x, sh.mesh)
+    un = params.get("unembed")
+    if un is not None:
+        return x @ sh.weight(un, param_specs["unembed"])
+    return x @ sh.weight(params["embed"], param_specs["embed"]).T
+
 
 def _kv_for_local_heads(k, cfg: ArchConfig, sh: _Sharded):
     """The replicated kv heads (B, S, KV, hd) this rank's q heads read:
@@ -447,6 +496,105 @@ def logits_spec(cfg: ArchConfig, param_specs, mesh) -> tuple:
             "model" if vocab == "model" and size > 1 else None)
 
 
+class Tally:
+    """The collectives of one sharded forward and backward on a rank,
+    counted from shapes and specs as the forward makes them (the mesh's
+    ``counts()`` ops): ``shp`` the mesh's ``{name: size}``, weights and
+    activations of ``itemsize`` bytes."""
+
+    def __init__(self, shp, itemsize: int):
+        self.shp, self.itemsize = dict(shp), itemsize
+        self.live = {a for a, n in self.shp.items() if n > 1}
+        self.calls = {"psum": 0, "pmax": 0, "all_gather": 0}
+        self.nbytes = dict.fromkeys(self.calls, 0)
+
+    def add(self, op, n, times=1):
+        self.calls[op] += times
+        self.nbytes[op] += n * times
+
+    def tp(self, entry) -> bool:
+        return entry == "model" and "model" in self.live
+
+    def _fsdp(self, shape, spec, times):
+        """:func:`collectives.gather_spec`'s gathers of the axes other than
+        "model": an all-gather forward (``times``), a psum backward."""
+        loc = [d // self.shp[n] if n in self.live else d
+               for d, n in zip(shape, spec)]
+        for i, (d, n) in enumerate(zip(shape, spec)):
+            if n is not None and n != "model" and n in self.live:
+                loc[i] = d
+                full = math.prod(loc) * self.itemsize
+                self.add("all_gather", full, times)
+                self.add("psum", full)
+        return loc
+
+    def weight(self, shape, spec, times=1, whole=False):
+        """:meth:`_Sharded.weight`: the FSDP gathers, and with ``whole``
+        the psum over "model" of the gradient."""
+        loc = self._fsdp(shape, spec, times)
+        if whole and "model" in self.live:
+            self.add("psum", math.prod(loc) * self.itemsize)
+
+    def full(self, shape, spec, times=1, split=False):
+        """:meth:`_Sharded.full`: the FSDP gathers, then the "model" one
+        (and its gradient's psum when ``split``)."""
+        loc = self._fsdp(shape, spec, times)
+        for i, (d, n) in enumerate(zip(shape, spec)):
+            if self.tp(n):
+                loc[i] = d
+                full = math.prod(loc) * self.itemsize
+                self.add("all_gather", full, times)
+                if split:
+                    self.add("psum", full)
+
+    def tree(self, tpl, sp, times=1, strip=0):
+        """:meth:`_Sharded.tree` of a block of templates (``strip``
+        leading stacked axes)."""
+        for k in sorted(tpl):
+            if isinstance(tpl[k], dict):
+                self.tree(tpl[k], sp[k], times, strip)
+            else:
+                self.full(tpl[k].shape[strip:], sp[k][strip:], times)
+
+    def top(self, cfg: ArchConfig, tpl, param_specs, act, tokens):
+        """:func:`embed_sharded`, :func:`logits_sharded` and the loss
+        (``vocab_xent``'s pmax and two psums of ``tokens`` float32 values,
+        and the final activations' psum backward)."""
+        self.weight(tpl["embed"].shape, param_specs["embed"])
+        if self.tp(param_specs["embed"][0]):
+            self.add("psum", act)
+        if "unembed" in param_specs:
+            self.weight(tpl["unembed"].shape, param_specs["unembed"])
+        else:
+            self.weight(tpl["embed"].shape, param_specs["embed"])
+        if logits_spec(cfg, param_specs, self.shp)[-1] == "model":
+            self.add("pmax", tokens * 4)
+            self.add("psum", tokens * 4, 2)
+            self.add("psum", act)
+
+    def attn(self, a, asp, act, fwd, strip=1):
+        """:func:`_attn_sharded`: the weights (replicated kv heads and the
+        qk-norm scales psummed over "model" backward), one psum forward
+        per run of the branch and one backward for its input."""
+        heads_tp, kv_tp = self.tp(asp["wq"][-2]), self.tp(asp["wk"][-2])
+        for name in sorted(a):
+            whole = heads_tp and (name in ("qn", "kn")
+                                  or (name in ("wk", "wv") and not kv_tp))
+            self.weight(a[name].shape[strip:], asp[name][strip:], fwd, whole)
+        if heads_tp:
+            self.add("psum", act, fwd + 1)
+
+    def mlp(self, m, msp, act, fwd, strip=1):
+        """:func:`_mlp_sharded`."""
+        for name in sorted(m):
+            self.weight(m[name].shape[strip:], msp[name][strip:], fwd)
+        if self.tp(msp["w_up"][-1]):
+            self.add("psum", act, fwd + 1)
+
+    def result(self) -> dict:
+        return {"calls": self.calls, "bytes": self.nbytes}
+
+
 def sharded_collectives(cfg: ArchConfig, param_specs, mesh, batch: int,
                         seq: int, *, remat: bool, itemsize: int) -> dict:
     """The collectives one forward and backward of the sharded forward make
@@ -454,7 +602,8 @@ def sharded_collectives(cfg: ArchConfig, param_specs, mesh, batch: int,
     ``counts()`` ops): ``batch`` × ``seq`` tokens on this rank, weights and
     activations of ``itemsize`` bytes (the compute dtype), the logits'
     reductions in float32. ``mesh`` is a mesh or a ``{name: size}``
-    mapping. The model of the module docstring, counted:
+    mapping. The model of the module docstring, counted (:class:`Tally`;
+    the audio, hybrid and recurrent families count in their modules):
 
     * an FSDP gather: an all-gather of the weight's "model"-local shape
       forward (twice under ``remat`` inside a block: the recompute runs
@@ -468,58 +617,22 @@ def sharded_collectives(cfg: ArchConfig, param_specs, mesh, batch: int,
     """
     _refuse_mesh(cfg)
     shp = dict(mesh.shape) if hasattr(mesh, "shape") else dict(mesh)
-    live = {a for a, n in shp.items() if n > 1}
-    calls = {"psum": 0, "pmax": 0, "all_gather": 0}
-    nbytes = dict.fromkeys(calls, 0)
+    t = Tally(shp, itemsize)
+    if cfg.family in ("audio", "hybrid", "ssm"):
+        from . import whisper, xlstm, zamba
+
+        fam = {"audio": whisper, "hybrid": zamba, "ssm": xlstm}[cfg.family]
+        fam.tally(t, cfg, param_specs, batch, seq, remat=remat)
+        return t.result()
     act = batch * seq * cfg.d_model * itemsize
-
-    def add(op, n, times=1):
-        calls[op] += times
-        nbytes[op] += n * times
-
-    def weight(shape, spec, times=1, whole=False):
-        """A weight's gathers (forward ``times``) and their backward psums."""
-        loc = [d // shp[n] if n in live else d for d, n in zip(shape, spec)]
-        for i, (d, n) in enumerate(zip(shape, spec)):
-            if n is not None and n != "model" and n in live:
-                loc[i] = d
-                full = math.prod(loc) * itemsize
-                add("all_gather", full, times)
-                add("psum", full)
-        if whole and "model" in live:
-            add("psum", math.prod(loc) * itemsize)
-
     tpl = template(cfg)
-    tp = lambda e: e == "model" and "model" in live  # noqa: E731
-    weight(tpl["embed"].shape, param_specs["embed"])
-    if tp(param_specs["embed"][0]):
-        add("psum", act)
-    vocab_tp = logits_spec(cfg, param_specs, shp)[-1] == "model"
-    if "unembed" in param_specs:
-        weight(tpl["unembed"].shape, param_specs["unembed"])
-    else:
-        weight(tpl["embed"].shape, param_specs["embed"])
-    if vocab_tp:
-        add("pmax", batch * seq * 4)
-        add("psum", batch * seq * 4, 2)
-        add("psum", act)
+    t.top(cfg, tpl, param_specs, act, batch * seq)
     fwd = 2 if remat else 1
     blocks, bspecs = tpl["blocks"], param_specs["blocks"]
     for _ in range(cfg.n_layers):
-        a, asp = blocks["attn"], bspecs["attn"]
-        heads_tp, kv_tp = tp(asp["wq"][-2]), tp(asp["wk"][-2])
-        for name in sorted(a):
-            whole = heads_tp and (name in ("qn", "kn")
-                                  or (name in ("wk", "wv") and not kv_tp))
-            weight(a[name].shape[1:], asp[name][1:], fwd, whole)
-        if heads_tp:
-            add("psum", act, fwd + 1)
-        m, msp = blocks["mlp"], bspecs["mlp"]
-        for name in sorted(m):
-            weight(m[name].shape[1:], msp[name][1:], fwd)
-        if tp(msp["w_up"][-1]):
-            add("psum", act, fwd + 1)
-    return {"calls": calls, "bytes": nbytes}
+        t.attn(blocks["attn"], bspecs["attn"], act, fwd)
+        t.mlp(blocks["mlp"], bspecs["mlp"], act, fwd)
+    return t.result()
 
 
 def forward(params, tokens, cfg: ArchConfig, *, impl="chunked", n_groups=1,
@@ -552,12 +665,8 @@ def forward(params, tokens, cfg: ArchConfig, *, impl="chunked", n_groups=1,
     _check_impl(cfg, impl)
     b, s = tokens.shape
     top = None if mesh is None else _Sharded(mesh, param_specs)
-    if top is None:
-        x = params["embed"][tokens]
-    else:
-        table = top.weight(params["embed"], param_specs["embed"])
-        x = (C.vocab_embed(table, tokens, mesh)
-             if top.tp(param_specs["embed"][0]) else table[tokens])
+    x = (params["embed"][tokens] if top is None
+         else embed_sharded(params, param_specs, tokens, top))
     x = x.to(params["final_norm"].dtype)
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
     aux = 0.0
@@ -579,16 +688,8 @@ def forward(params, tokens, cfg: ArchConfig, *, impl="chunked", n_groups=1,
                               collect=collect, sh=layer_sh, moe=moe,
                               n_groups=n_groups)
 
-            if not remat:
-                x, a, cap = body(x)
-            elif layer_sh is None:
-                x, a, cap = checkpoint(body, x, use_reentrant=False)
-            else:
-                # the recompute runs the whole body, so every rank's
-                # collectives are the forward's twice whatever the
-                # checkpoint's early stop
-                with set_checkpoint_early_stop(False):
-                    x, a, cap = checkpoint(body, x, use_reentrant=False)
+            x, a, cap = (checkpointed(body, x, layer_sh is not None) if remat
+                         else body(x))
             aux = aux + a
             caps.append(cap)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -596,10 +697,7 @@ def forward(params, tokens, cfg: ArchConfig, *, impl="chunked", n_groups=1,
     if top is None:
         logits = x @ un if un is not None else x @ params["embed"].T
     else:
-        if logits_spec(cfg, param_specs, mesh)[-1] == "model":
-            x = C.enter(x, mesh)
-        logits = (x @ top.weight(un, param_specs["unembed"]) if un is not None
-                  else x @ top.weight(params["embed"], param_specs["embed"]).T)
+        logits = logits_sharded(x, params, param_specs, cfg, top)
     if collect is not None:
         return logits, aux, torch.stack(caps)
     return logits, aux

@@ -30,7 +30,6 @@ from __future__ import annotations
 import operator
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch import _tree
 from repro_torch.configs.types import ArchConfig
@@ -97,24 +96,39 @@ def _check_impl(cfg: ArchConfig, impl: str) -> None:
 
 
 def _shared_attn(sp, x, x0, cfg: ArchConfig, *, positions, impl, window,
-                 cache=None, pos=None, cur=None, freqs=None):
+                 cache=None, pos=None, cur=None, freqs=None, sh=None,
+                 specs=None):
     """The weight-shared transformer block: x + attention + MLP of
     concat(x, x0)'s projection. Without ``cache`` over the sequence
     (``positions``); with ``cache`` ({"k", "v"} (B, T, KV, hd) of this
     site) one token at the Python int ``pos``, written in place at slot
     ``pos`` (``pos % T`` under a window), ``cur`` the valid length and
-    ``freqs`` the rotary angles of ``pos``."""
-    h = torch.cat([x, x0], dim=-1) @ sp["w_concat"]
+    ``freqs`` the rotary angles of ``pos``. Under a mesh (``sh``, ``specs``
+    the block's specs) the attention and the MLP run on this rank's heads
+    and ffn slice (``lm._attn_sharded``, ``lm._mlp_sharded``) and
+    ``w_concat`` is FSDP-gathered."""
+    w_concat = sp["w_concat"] if sh is None else sh.weight(sp["w_concat"],
+                                                           specs["w_concat"])
+    h = torch.cat([x, x0], dim=-1) @ w_concat
     hn = L.rms_norm(h, sp["ln1"], cfg.norm_eps)
-    if cache is None:
+    if sh is not None:
+        attn = {k: sp[k] for k in _ATTN}
+        a = lm._attn_sharded(attn, {k: specs[k] for k in _ATTN}, hn, cfg, sh,
+                             positions=positions, impl=impl, window=window)
+    elif cache is None:
         a = lm._attn_dense(sp, hn, cfg, positions=positions, impl=impl,
                            window=window)
     else:
         a = lm._attn_dense_decode(sp, hn, cfg, pos=pos, cur=cur, freqs=freqs,
                                   cache=cache, window=window)
     h2 = h + a
-    y = L.mlp_apply(sp["mlp"], L.rms_norm(h2, sp["ln2"], cfg.norm_eps), cfg.act)
+    h2n = L.rms_norm(h2, sp["ln2"], cfg.norm_eps)
+    y = (L.mlp_apply(sp["mlp"], h2n, cfg.act) if sh is None else
+         lm._mlp_sharded(sp["mlp"], specs["mlp"], h2n, cfg.act, sh))
     return x + a + y  # block delta re-joins the backbone stream
+
+
+_ATTN = ("wq", "wk", "wv", "wo")   # the shared block's attention leaves
 
 
 def _window_for(cfg: ArchConfig, seq_len: int):
@@ -123,36 +137,83 @@ def _window_for(cfg: ArchConfig, seq_len: int):
 
 
 def forward(params, tokens, cfg: ArchConfig, *, impl="chunked", remat=True,
-            act_spec=None):
+            act_spec=None, mesh=None, param_specs=None):
     """tokens (B, S) int -> (logits (B, S, V), 0.0). ``remat`` recomputes
     each Mamba layer in the backward (``torch.utils.checkpoint``; JAX's
     ``jax.checkpoint`` of the layer); ``act_spec`` has no effect without a
-    mesh, as in ``models.lm``."""
+    mesh, as in ``models.lm``.
+
+    ``mesh`` and ``param_specs`` run the sharded forward (``models.lm``'s
+    module docstring) on this rank's shards and slice of the batch: the
+    shared block on its heads and ffn slice at every site (its weights'
+    gradients add up over the sites), each Mamba layer whole on every rank
+    of a "model" line with its weights gathered (``w_in``'s fused ``[z | x
+    | B | C | dt]`` axis splits over "model" in pieces that do not line up
+    with the SSM heads; the gradient is sliced back to the shard), and the
+    logits this rank's slice of the vocabulary where "model" shards it."""
+    if (mesh is None) != (param_specs is None):
+        raise ValueError("a sharded forward takes both mesh= and param_specs=")
     _check_impl(cfg, impl)
     b, s = tokens.shape
-    x0 = params["embed"][tokens].to(params["final_norm"].dtype)
+    sh = None if mesh is None else lm._Sharded(mesh, param_specs)
+    x0 = (params["embed"][tokens] if sh is None else
+          lm.embed_sharded(params, param_specs, tokens, sh))
+    x0 = x0.to(params["final_norm"].dtype)
     x = x0
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
     window = _window_for(cfg, s)
 
-    def mamba(lp, norm, x):
+    def mamba(lp, lsp, norm, x):
         def body(x, lp=lp, norm=norm):
-            y, _ = L.mamba2_apply(lp, L.rms_norm(x, norm, cfg.norm_eps), cfg.ssm)
+            w = lp if sh is None else sh.tree(lp, lsp)
+            y, _ = L.mamba2_apply(w, L.rms_norm(x, norm, cfg.norm_eps), cfg.ssm)
             return y + x
 
-        return checkpoint(body, x, use_reentrant=False) if remat else body(x)
+        return lm.checkpointed(body, x, sh is not None) if remat else body(x)
 
+    def layer_specs(name, strip):
+        return None if sh is None else _tree.tree_map(
+            lambda sp: tuple(sp[strip:]), param_specs[name])
+
+    sup, trail = layer_specs("mamba_super", 2), layer_specs("mamba_trailing", 1)
+    shared_sp = None if sh is None else param_specs["shared"]
     norms = params["mamba_norm"]
     for lps, ns in zip(_tree.unstack(params["mamba_super"]), norms["super"].unbind(0)):
         for lp, norm in zip(_tree.unstack(lps), ns.unbind(0)):
-            x = mamba(lp, norm, x)
+            x = mamba(lp, sup, norm, x)
         x = _shared_attn(params["shared"], x, x0, cfg, positions=positions,
-                         impl=impl, window=window)
+                         impl=impl, window=window, sh=sh, specs=shared_sp)
     for lp, norm in zip(_tree.unstack(params["mamba_trailing"]),
                         norms["trailing"].unbind(0)):
-        x = mamba(lp, norm, x)
+        x = mamba(lp, trail, norm, x)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ params["unembed"], 0.0
+    if sh is None:
+        return x @ params["unembed"], 0.0
+    return lm.logits_sharded(x, params, param_specs, cfg, sh), 0.0
+
+
+def tally(t, cfg: ArchConfig, param_specs, batch: int, seq: int, *,
+          remat: bool) -> None:
+    """The sharded forward's and backward's collectives on one rank into
+    ``t`` (``lm.Tally``): the top level's, each Mamba layer's whole
+    gathers (twice forward under ``remat``) and each shared-attention
+    site's FSDP gather of ``w_concat``, attention and MLP (the block is not
+    recomputed)."""
+    tpl = template(cfg)
+    act = batch * seq * cfg.d_model * t.itemsize
+    t.top(cfg, tpl, param_specs, act, batch * seq)
+    n_super, m_per, trailing = _n_groups_trailing(cfg)
+    fwd = 2 if remat else 1
+    for _ in range(n_super * m_per):
+        t.tree(tpl["mamba_super"], param_specs["mamba_super"], fwd, strip=2)
+    for _ in range(trailing):
+        t.tree(tpl["mamba_trailing"], param_specs["mamba_trailing"], fwd,
+               strip=1)
+    shared, ssp = tpl["shared"], param_specs["shared"]
+    for _ in range(n_super):
+        t.weight(shared["w_concat"].shape, ssp["w_concat"])
+        t.attn({k: shared[k] for k in _ATTN}, ssp, act, 1, strip=0)
+        t.mlp(shared["mlp"], ssp["mlp"], act, 1, strip=0)
 
 
 def make_cache(cfg: ArchConfig, batch: int, max_len: int,

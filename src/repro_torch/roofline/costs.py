@@ -40,7 +40,13 @@ step on the card give the same FLOPs and bytes.
 count. Here a loop body marks itself with :func:`section` (the train step's
 micro-batch); ``Costs.repeat(name, n)`` then gives the cost of the walked
 step had the section run ``n`` times, so the dry run walks one micro-batch
-of a step that has many.
+of a step that has many. A loop over time or chunks inside a model (the
+sLSTM's steps, the mLSTM's chunks: thousands of small operations at a
+production sequence, each dispatched to a ``meta`` kernel in Python) runs
+one step in a walk on ``meta`` tensors (:func:`walked_steps`) and counts
+the others forward and backward from one more run of the step
+(:func:`count_steps`). Only the peak is not scaled: the activations such
+a loop saves for the backward count for the walked step alone.
 
 Everything is per rank; ``roofline/analysis.py`` multiplies by the chips.
 """
@@ -229,6 +235,74 @@ def declare(kernel, t: torch.Tensor, nbytes: float, ops: float, *,
         return False
     w._kernel(kernel.name, nbytes, ops, matmul)
     return t.is_meta
+
+
+def walked_steps(n: int, like: torch.Tensor) -> int:
+    """How many steps of an ``n``-step loop whose steps all cost alike to
+    run: ``n``, but one inside a walk where ``like`` is a ``meta`` tensor;
+    :func:`count_steps` then counts the other ``n - 1``."""
+    return 1 if n > 1 and like.is_meta and active() is not None else n
+
+
+def count_steps(step, inputs, extra: int, out: torch.Tensor,
+                shared=()) -> torch.Tensor:
+    """Inside a walk, count ``extra`` more runs of ``step(*inputs)`` in a
+    loop whose result is ``out``, and return ``out``. ``step`` runs once
+    more on detached copies of the inputs, and its vector-Jacobian product
+    is taken (the gradient of every floating input, and for each input
+    that every step reads, its index in ``shared``, the sum autograd adds
+    that step's gradient into): the forward's cost
+    counts ``extra`` times here (this run's own, and the rest), and the
+    backward's when ``out``'s gradient arrives (an identity on ``out``
+    adds it then, so a recomputed block counts its forward twice and its
+    backward once, as it runs). Under no grad the forward alone. Outside a
+    walk ``out`` itself."""
+    w = active()
+    if w is None or extra <= 0:
+        return out
+    grad = torch.is_grad_enabled() and not torch.is_inference_mode_enabled()
+    s0 = w._snapshot()
+    xs = [x.detach().requires_grad_(grad and x.is_floating_point())
+          for x in inputs]
+    # identity saved-tensor hooks: inside a checkpointed block the
+    # checkpoint's own hooks would recompute the whole block to unpack
+    # what this run saves
+    with torch.autograd.graph.saved_tensors_hooks(lambda t: t, lambda t: t):
+        outs = [o for o in tree_leaves(step(*xs))
+                if isinstance(o, torch.Tensor) and o.requires_grad]
+        s1 = w._snapshot()
+        if grad:
+            wrt = [i for i, x in enumerate(xs) if x.requires_grad]
+            gs = dict(zip(wrt, torch.autograd.grad(
+                outs, [xs[i] for i in wrt], [torch.ones_like(o) for o in outs],
+                allow_unused=True)))
+            for i in shared:
+                if gs.get(i) is not None:
+                    gs[i].add(gs[i])
+    s2 = w._snapshot()
+    fwd, bwd = s1, s2
+    bwd.add(s1, -1.0)
+    fwd.add(s0, -1.0)
+    w.costs.add(fwd, extra - 1)
+    w.costs.add(bwd, -1.0)
+    if not (grad and out.requires_grad):
+        return out
+    return _CountBackward.apply(out, w, bwd, extra)
+
+
+class _CountBackward(torch.autograd.Function):
+    """Identity; its backward adds ``extra`` times a step's backward cost
+    to the walk (:func:`count_steps`)."""
+
+    @staticmethod
+    def forward(ctx, x, w, bwd, extra):
+        ctx.w, ctx.bwd, ctx.extra = w, bwd, extra
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.w.costs.add(ctx.bwd, ctx.extra)
+        return g, None, None, None
 
 
 @contextlib.contextmanager

@@ -30,11 +30,17 @@ from repro_torch.configs.types import ArchConfig
 from repro_torch.models.lm import RECURRENT
 
 
-def make_decode_step(cfg: ArchConfig, api, *, n_groups: int = 1):
+def make_decode_step(cfg: ArchConfig, api, *, n_groups: int = 1,
+                     max_len: Optional[int] = None):
     """``step(params, tokens (B,), cache, pos) -> (next_tokens, logits,
-    cache)``: greedy argmax as int32; ``pos`` a Python int."""
+    cache)``: greedy argmax as int32; ``pos`` a Python int. ``max_len``,
+    the length the cache was made for, reaches the hybrid family's decode
+    step, whose shared attention is windowed over a ring cache from
+    ``long_seq`` on (a position past the ring's slots needs it)."""
 
     kw = {"n_groups": n_groups} if cfg.family in ("dense", "moe", "vlm") else {}
+    if cfg.family == "hybrid" and max_len is not None:
+        kw["max_len"] = max_len
 
     def step(params, tokens, cache, pos):
         logits, cache = api.decode_step(params, tokens, cache, pos, cfg, **kw)
@@ -70,7 +76,7 @@ def generate(params, cfg: ArchConfig, prompt, max_new: int, *,
     max_len = max_len or (s + max_new)
     dev = params["embed"].device
     cache = api.make_cache(cfg, b, max_len, dtype=torch.float32, device=dev)
-    step = make_decode_step(cfg, api, n_groups=n_groups)
+    step = make_decode_step(cfg, api, n_groups=n_groups, max_len=max_len)
     with torch.inference_mode():
         toks = prompt.to(dev)
         nxt = None

@@ -66,7 +66,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch import _tree
+from repro_torch import _tree, models
 from repro_torch.configs.types import ArchConfig, TrainConfig
 from repro_torch.core import multilevel
 from repro_torch.models import lm
@@ -99,8 +99,10 @@ def make_loss_fn(cfg: ArchConfig, api, *, impl: str, remat: bool,
     outside the recurrent families (their forwards run their own attention,
     zamba's chunked), ``n_groups`` only for the dense, MoE and VLM
     families, and ``act_spec``.
-    With ``mesh``/``param_specs`` the forward is the sharded one on this
-    rank's shards and batch slice, and the loss is this slice's mean; where
+    With ``mesh``/``param_specs`` the forward is the family's sharded one
+    on this rank's shards and batch slice (the hybrid family's then takes
+    ``impl`` too: its shared attention runs on the local heads, flash on
+    the card), and the loss is this slice's mean; where
     the logits hold a "model" slice of the vocabulary
     (``models.lm.logits_spec``) it is ``collectives.vocab_xent``. The
     logits' layout follows from the parameter specs, so ``logits_spec``
@@ -110,7 +112,8 @@ def make_loss_fn(cfg: ArchConfig, api, *, impl: str, remat: bool,
     vocab_tp = mesh is not None and \
         lm.logits_spec(cfg, param_specs, mesh)[-1] == "model"
     kw = {"remat": remat, "act_spec": act_spec}
-    if cfg.family not in lm.RECURRENT:
+    if cfg.family not in lm.RECURRENT or (mesh is not None
+                                          and cfg.family == "hybrid"):
         kw["impl"] = impl
     if cfg.family in ("dense", "moe", "vlm"):
         kw["n_groups"] = n_groups
@@ -389,7 +392,7 @@ def step_collectives(cfg: ArchConfig, tcfg: TrainConfig, param_specs, mesh,
     calls = {op: n * n_micro for op, n in fb["calls"].items()}
     nbytes = {op: n * n_micro for op, n in fb["bytes"].items()}
     b_axes = sharding.batch_axes(shp)
-    tpl = lm.template(cfg)
+    tpl = models.get(cfg).template(cfg)
     shapes = _tree.tree_map(lambda pd: pd.shape, tpl)
     groups = set()
     for sp, shape in zip(_tree.leaves(param_specs), _tree.leaves(shapes)):

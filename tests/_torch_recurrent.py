@@ -179,3 +179,38 @@ def train_parity(arch, seed, radius, *, seq, steps=3, impl="flash",
                 f"step {i + 1} {name}: {past.max():.3e} past the AdamW slack, "
                 f"bar {atol:.3e}")
     return ts
+
+
+def sharded_loss_on_meta(arch, impl="chunked", sizes=(2, 2), batch=4, seq=8):
+    """The family's sharded loss (``make_loss_fn(mesh=, param_specs=)``),
+    forward and backward, on one rank of an abstract ``sizes`` mesh over
+    ("data", "model") with ``meta`` shards of the smoke config's
+    parameters: returns the mesh's collective counts and
+    ``models.lm.sharded_collectives``' model of them (no remat, float32)."""
+    import torch
+
+    from repro_torch.models import lm as tlm
+    from repro_torch.models import params as tparams
+    from repro_torch.parallel import sharding as tsharding
+    from repro_torch.parallel.mesh import AbstractMesh
+
+    cfg = treg.smoke_config(arch)
+    api = tmodels.get(cfg)
+    mesh = AbstractMesh(sizes, ("data", "model"))
+    tpl = api.template(cfg)
+    specs = tparams.param_specs(tpl, tsharding.param_rules(mesh), mesh.shape)
+    table = dict(_tree.leaves_with_paths(specs))
+    params = tparams.abstract_params(
+        tpl, shape=lambda path, pd: tsharding.local_shape(pd.shape, table[path],
+                                                          mesh))
+    live = [p.requires_grad_(True) for p in _tree.leaves(params)]
+    b_loc = batch // sizes[0]
+    tokens = torch.empty((b_loc, seq + 1), dtype=torch.int64, device="meta")
+    loss = tstep.make_loss_fn(cfg, api, impl=impl, remat=False,
+                              compute_dtype=torch.float32, mesh=mesh,
+                              param_specs=specs)(params, tokens)
+    torch.autograd.grad(loss, live, allow_unused=True)
+    got = {op: c["calls"] for op, c in mesh.counts()["by_op"].items()}
+    want = tlm.sharded_collectives(cfg, specs, mesh.shape, b_loc, seq,
+                                   remat=False, itemsize=4)["calls"]
+    return got, want

@@ -18,6 +18,7 @@ The kernel itself is held against ``apply_plain`` on the card by
 ``chip_smoke.py``.
 """
 
+import contextlib
 import math
 
 import numpy as np
@@ -70,8 +71,27 @@ def _chunks(slices, ls):
             for z in range(ls.splits)]
 
 
+@contextlib.contextmanager
+def one_thread():
+    """Index arithmetic on one thread: beside the test runner's other
+    workers, torch's thread pool only contends for the cores (the reduce's
+    cover of the tri-level cases took 16–22 s at 8 threads in 6 processes
+    at once on 8 cores, 0.25 s at one)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 def _count_cover(batch, slices, n, m, ls):
     """How many times the launch touches each element of (B, slices, n, m)."""
+    with one_thread():
+        return _count_cover_counts(batch, slices, n, m, ls)
+
+
+def _count_cover_counts(batch, slices, n, m, ls):
     rows, cols = _positions(n, m, ls)
     pos = rows * m + cols
     assert torch.unique(pos).numel() == pos.numel()   # one thread per element

@@ -288,6 +288,31 @@ def test_abstract_mesh_counts_equal_step_collectives(sizes, names):
     assert sum(mesh.axis_bytes().values()) == mesh.counts()["bytes"]
 
 
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "zamba2-7b", "xlstm-1.3b"])
+def test_abstract_mesh_train_cell_of_each_family(arch):
+    """The audio, hybrid and recurrent families' train cells walk on
+    ``meta`` under a (2, 2) abstract mesh (the smoke configs, 8 × 16 tokens
+    in micro-batches of 4): the walk's collectives by op, calls and bytes,
+    equal ``step_collectives``' model."""
+    from repro_torch.parallel.mesh import AbstractMesh
+    from repro_torch.training import step as TS
+
+    cfg = treg.smoke_config(arch)
+    mesh = AbstractMesh((2, 2), ("data", "model"))
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=16, global_batch=8)
+    tune = dataclasses.replace(TSP.tuning_for(cfg), microbatch=4)
+    cell = TSP.train_cell(cfg, shape, mesh, tune=tune)
+    state, batch = cell["args"]
+    mesh.reset_counts()
+    cell["fn"](state, batch)
+    model = TS.step_collectives(cfg, cell["tcfg"], cell["specs"]["state"]["params"],
+                                mesh, tuple(batch["tokens"].shape))
+    got = mesh.counts()["by_op"]
+    assert {op: c["calls"] for op, c in got.items()} == model["calls"]
+    assert {op: c["bytes"] for op, c in got.items()} == model["bytes"]
+    assert got["psum"]["calls"] > 0 and got["all_gather"]["calls"] > 0
+
+
 def test_abstract_mesh_refuses_real_tensors():
     from repro_torch.parallel.mesh import AbstractMesh
 
@@ -348,9 +373,10 @@ def test_dryrun_cli_records_a_decode_cell_and_a_skip(tmp_path, capsys):
 def test_dryrun_records_the_mesh_refusal(tmp_path):
     from repro_torch.launch import dryrun
 
-    rec = dryrun.run_cell("xlstm-1.3b", "decode_32k", "multi", verbose=False)
+    rec = dryrun.run_cell("deepseek-v3-671b", "decode_32k", "multi",
+                          verbose=False)
     assert rec["status"] == "error"
-    assert "sharded recurrent step" in rec["error"]
+    assert "sharded MoE/MLA step" in rec["error"] and "four cards" in rec["error"]
 
 
 def test_dryrun_and_hillclimb_refuse_real_tensors(tmp_path):

@@ -28,7 +28,7 @@ import torch
 from repro_torch.core import schedule as tschedule
 from repro_torch.kernels.codegen import lowering as tlowering
 from repro_torch.kernels.codegen import tiling as ttiling
-from test_torch_apply_split import ALL_DESIGNS
+from test_torch_apply_split import ALL_DESIGNS, one_thread
 
 BILEVEL = [("inf", 1), ("1", 1)]
 TRILEVEL = [("inf", 1), ("inf", 1), ("1", 1)]
@@ -68,10 +68,15 @@ def _lanes(rs):
 def _cover(lead, n, m, rs):
     """How many times one item's launch touches each element of (g, n, m),
     g the product of the lead axes (slices in memory order)."""
+    with one_thread():
+        return _cover_counts(lead, n, m, rs)
+
+
+def _cover_counts(lead, n, m, rs):
     g = math.prod(lead)
     p, s, r, R = _lanes(rs)
     kmax = math.ceil(rs.rows / R)
-    counts = torch.zeros(g * n * m, dtype=torch.int32)
+    touched = []
     if len(lead) == 1:
         k2 = torch.arange(math.ceil(g / rs.lanes))
         slices = s[:, None] + rs.lanes * k2[None, :]              # (T, K2)
@@ -89,9 +94,10 @@ def _cover(lead, n, m, rs):
             idx = (slices[:, None, :, None] * n + rows[:, :, None, None]) * m \
                 + col[:, None, None, :]
             idx, ok = torch.broadcast_tensors(idx, ok)
-            idx = idx[ok]
-            counts += torch.bincount(idx, minlength=g * n * m).to(torch.int32)
-    return counts
+            touched.append(idx[ok])
+    # one count over every CTA's elements (a bincount per CTA would sweep the
+    # whole item each time)
+    return torch.bincount(torch.cat(touched), minlength=g * n * m)
 
 
 @pytest.mark.parametrize("batch", [1, 3])

@@ -27,8 +27,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_recurrent import (assert_close_tree, setup, template_shapes,
-                              train_parity)
+from _torch_recurrent import (assert_close_tree, setup, sharded_loss_on_meta,
+                              template_shapes, train_parity)
 from repro.models import layers as jlayers
 from repro.models import params as jparams
 from repro.models import whisper as jw
@@ -337,17 +337,16 @@ def test_train_and_serve_cli_on_cpu(capsys):
 
 
 def test_refusals(tmp_path):
-    """No silent fallback: a mesh, a harvest, the SAE factory and a cut to
-    no layer each raise by name."""
-    with pytest.raises(ValueError, match=r"sharded encoder-decoder step "
-                       r"\(audio family, whisper\)"):
+    """No silent fallback: a harvest, the SAE factory and a cut to no layer
+    each raise by name. A 2x2 launch passes the family's gate and stops
+    only where it needs a world of four ranks, and the sharded loss runs
+    on one rank of an abstract 2x2 mesh with the model's collectives (the
+    2x2 launch itself: ``tests/test_torch_train_mesh_families.py``)."""
+    with pytest.raises(ValueError, match="torchrun"):
         train_cli.run(["--device", "cpu", "--smoke", "--arch", ARCH, "--steps",
                        "1", "--mesh", "2x2"])
-    cfg = treg.smoke_config(ARCH)
-    with pytest.raises(ValueError, match="sharded encoder-decoder step"):
-        tstep.make_loss_fn(cfg, tmodels.get(cfg), impl="flash", remat=False,
-                           compute_dtype=torch.float32, mesh=object(),
-                           param_specs={})
+    got, want = sharded_loss_on_meta(ARCH)
+    assert got == want and got["psum"] > 0
     _, _, tcfg, tp = setup(ARCH, SEED)
     pipe = DataPipeline(DataConfig(vocab=tcfg.vocab, seq_len=8, global_batch=2,
                                    microbatch=2))

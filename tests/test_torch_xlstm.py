@@ -18,8 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_recurrent import (assert_close_tree, setup, template_shapes,
-                              train_parity)
+from _torch_recurrent import (assert_close_tree, setup, sharded_loss_on_meta,
+                              template_shapes, train_parity)
 from repro.models import params as jparams
 from repro.models import xlstm as jx
 from repro.serving import lm as jserve
@@ -228,17 +228,22 @@ def test_train_and_serve_cli_on_cpu(capsys):
 
 
 def test_refusals(tmp_path):
-    """A cut below one super-block, a mesh and a harvest each raise by
-    name."""
+    """A cut below one super-block and a harvest each raise by name. A 1x2
+    launch passes the family's gate and stops only where it needs a world
+    of two ranks, and the sharded loss runs on one rank of an abstract 2x2
+    mesh with the model's collectives (the 2x2 launch itself:
+    ``tests/test_torch_train_mesh_families.py``)."""
     for cli in (serve_cli.run, train_cli.run):
         with pytest.raises(ValueError, match="leave no xLSTM super-block"):
             cli(["--device", "cpu", "--smoke", "--arch", ARCH, "--layers", "3"])
     with pytest.raises(ValueError, match="cut to at least 8"):
         tlm.cut_depth(treg.get_arch(ARCH), 7)
     assert tlm.cut_depth(treg.get_arch(ARCH), 16).n_layers == 16
-    with pytest.raises(ValueError, match=r"sharded recurrent step \(ssm family\)"):
+    with pytest.raises(ValueError, match="torchrun"):
         train_cli.run(["--device", "cpu", "--smoke", "--arch", ARCH,
                        "--mesh", "1x2"])
+    got, want = sharded_loss_on_meta(ARCH)
+    assert got == want and got["psum"] > 0
     _, _, tcfg, tp = setup(ARCH, SEED)
     pipe = DataPipeline(DataConfig(vocab=tcfg.vocab, seq_len=8, global_batch=2,
                                    microbatch=2))

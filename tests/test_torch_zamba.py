@@ -28,8 +28,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_recurrent import (assert_close_tree, setup, template_shapes,
-                              train_parity)
+from _torch_recurrent import (assert_close_tree, setup, sharded_loss_on_meta,
+                              template_shapes, train_parity)
 from repro.models import layers as jlayers
 from repro.models import zamba as jzamba
 from repro.models import params as jparams
@@ -349,13 +349,17 @@ def test_train_and_serve_cli_on_cpu(capsys):
 
 
 def test_refusals(tmp_path):
-    """No silent fallback: a mesh, a harvest and flash on a shared attention
-    wider than the kernels take (136) each raise by name; zamba2-7b's 112
-    is a kernel width."""
-    with pytest.raises(ValueError, match=r"sharded recurrent step \(hybrid "
-                       r"family\)"):
+    """No silent fallback: a harvest and flash on a shared attention wider
+    than the kernels take (136) each raise by name; zamba2-7b's 112 is a
+    kernel width. A 2x2 launch passes the family's gate and stops only
+    where it needs a world of four ranks, and the sharded loss runs on one
+    rank of an abstract 2x2 mesh with the model's collectives (the 2x2
+    launch itself: ``tests/test_torch_train_mesh_families.py``)."""
+    with pytest.raises(ValueError, match="torchrun"):
         train_cli.run(["--device", "cpu", "--smoke", "--arch", ARCH, "--steps",
                        "1", "--mesh", "2x2"])
+    got, want = sharded_loss_on_meta(ARCH)
+    assert got == want and got["all_gather"] > 0
     with pytest.raises(ValueError, match="hybrid family's forward collects none"):
         factory_cli.main(["--device", "cpu", "--arch", ARCH, "--attn", "chunked",
                           "--out", str(tmp_path), "--harvest-steps", "1"])
