@@ -183,9 +183,8 @@ def dtype_name(dtype) -> str:
 def canonical_sharding(sharding, ndim: int) -> Optional[ShardingKey]:
     """Fold ``None``, a :class:`ShardingKey` or a ``(mesh, spec)`` pair
     into a :class:`ShardingKey`, registering the live mesh. ``None`` for
-    what the mesh executor does not take — a mesh of one rank, a fully
-    replicated spec, or one tensor axis over several mesh axes — which the
-    single-device backends serve."""
+    what the mesh executor does not take — a mesh of one rank or a fully
+    replicated spec — which the single-device backends serve."""
     if sharding is None or isinstance(sharding, ShardingKey):
         return sharding
     mesh, spec = sharding
@@ -194,7 +193,7 @@ def canonical_sharding(sharding, ndim: int) -> Optional[ShardingKey]:
     from . import sharded as shmod
 
     names = shmod.parse_spec(spec, ndim, mesh)  # the one spec parser
-    if names is None or not any(names):
+    if not any(names):
         return None
     mesh_axes = tuple((str(n), int(s)) for n, s in mesh.shape.items())
     ranks = tuple(range(mesh.size))
@@ -223,9 +222,11 @@ def _build_sharded(key: PlanKey) -> Callable:
 def _sharded_fn(key: PlanKey, backend: str, shmod) -> Callable:
     """``(y_local, radius, out)`` through the mesh executor; its outer
     θ-solver is resolved once here, on rank 0, and broadcast."""
+    from repro_torch.parallel.sharding import entry_size
+
     mesh = _key_mesh(key)
     spec, levels = key.sharding.spec, list(key.levels)
-    padded = tuple(d * mesh.shape[n] if n else d for d, n in zip(
+    padded = tuple(d * entry_size(n, mesh.shape) if n else d for d, n in zip(
         shmod.local_shape(key.shape, spec, mesh), spec))
     method = shmod._resolve_sharded_method(
         AUTO, schedule.compile_schedule(padded, levels), key.dtype, mesh,

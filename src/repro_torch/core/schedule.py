@@ -255,7 +255,11 @@ def sharded_collective_bytes(shape, levels: Sequence[Level], spec,
     sched = compile_schedule(shape, levels, batch_dims)
     b = sched.batch_dims
     names = [spec[a] if a < len(spec) else None for a in range(len(shape))]
-    batch_local = math.prod(-(-d // mesh_sizes[n]) if n else d
+
+    def ranks(n) -> int:   # an axis name, or a tuple of them
+        return math.prod(mesh_sizes[a] for a in ((n,) if isinstance(n, str) else n))
+
+    batch_local = math.prod(-(-d // ranks(n)) if n else d
                             for d, n in zip(shape[:b], names[:b]))
 
     def payload(stage_shape, stage_names=None) -> int:
@@ -263,7 +267,7 @@ def sharded_collective_bytes(shape, levels: Sequence[Level], spec,
         a sharded axis that survives to the stage at its per-rank extent."""
         dims = stage_shape[b:]
         if stage_names is not None:
-            dims = [-(-d // mesh_sizes[n]) if n else d
+            dims = [-(-d // ranks(n)) if n else d
                     for d, n in zip(dims, stage_names[b:])]
         return batch_local * math.prod(dims) * itemsize
 

@@ -36,7 +36,7 @@ import torch
 
 from repro_torch.obs import profile as obs_profile
 from repro_torch.parallel import mesh as mesh_mod
-from repro_torch.parallel.sharding import local_shape
+from repro_torch.parallel.sharding import entry_size, local_shape
 
 from . import ball
 from . import schedule as sched_mod
@@ -45,14 +45,15 @@ _BISECT_ITERS = 64
 BACKENDS = ("plain", "codegen")
 
 
-def parse_spec(spec, ndim: int, mesh) -> Optional[Tuple[Optional[str], ...]]:
+def parse_spec(spec, ndim: int, mesh) -> Tuple[object, ...]:
     """THE parser of spec entries for the schedule executor (the planner's
     ``canonical_sharding`` and the projection hook delegate here).
 
-    Returns the per-tensor-axis mesh axis name padded to ``ndim``, or
-    ``None`` when an entry shards one tensor axis over several mesh axes
-    (not supported by this executor, so callers fall back). A name that is
-    not a mesh axis raises.
+    Returns the per-tensor-axis mesh axis name padded to ``ndim``: a name,
+    or a tuple of names where the entry shards one tensor axis over
+    several mesh axes (row-major over them, ``parallel.sharding``'s
+    layout; a collective over such an axis spans all of them). A name that
+    is not a mesh axis raises.
     """
     entries = tuple(spec) + (None,) * (ndim - len(tuple(spec)))
     names = []
@@ -60,27 +61,15 @@ def parse_spec(spec, ndim: int, mesh) -> Optional[Tuple[Optional[str], ...]]:
         if entry is None:
             names.append(None)
             continue
-        if isinstance(entry, (tuple, list)):
-            if len(entry) != 1:
-                return None  # one mesh axis per tensor axis only
-            entry = entry[0]
-        if entry not in mesh.shape:
-            raise ValueError(
-                f"spec names mesh axis {entry!r} but mesh has "
-                f"{tuple(mesh.shape)}")
-        names.append(str(entry))
+        entry = tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+        for a in entry:
+            if a not in mesh.shape:
+                raise ValueError(
+                    f"spec names mesh axis {a!r} but mesh has "
+                    f"{tuple(mesh.shape)}")
+        names.append(str(entry[0]) if len(entry) == 1
+                     else tuple(str(a) for a in entry))
     return tuple(names)
-
-
-def _spec_axis_names(spec, ndim: int, mesh) -> Tuple[Optional[str], ...]:
-    """Strict :func:`parse_spec`: multi-mesh-axis entries are an error here."""
-    names = parse_spec(spec, ndim, mesh)
-    if names is None:
-        raise ValueError(
-            f"spec {tuple(spec)!r} shards a tensor axis over multiple mesh "
-            "axes: the schedule executor supports one mesh axis per tensor "
-            "axis")
-    return names
 
 
 def _grouped_l1_collective(y: torch.Tensor, radii: torch.Tensor, axes,
@@ -195,8 +184,8 @@ def multilevel_project_sharded(y: torch.Tensor, levels, radius, *, mesh,
                                backend: str = "plain") -> torch.Tensor:
     """MP^ν on a mesh: this rank's shard ``y`` in, its projected shard out.
 
-    ``spec`` names the mesh axis of each tensor axis (None = unsharded; at
-    most one mesh axis per tensor axis); ``shape`` is the global shape (by
+    ``spec`` names the mesh axis of each tensor axis (None = unsharded, or
+    a tuple of axes: :func:`parse_spec`); ``shape`` is the global shape (by
     default the padded one, ``y.shape`` times the sharded axes' sizes).
     ``y`` has :func:`~repro_torch.parallel.sharding.local_shape` of it and
     zeros where its slice runs past the end of an axis. The leading
@@ -217,8 +206,9 @@ def multilevel_project_sharded(y: torch.Tensor, levels, radius, *, mesh,
     if backend not in BACKENDS:
         raise ValueError(f"unknown sharded backend {backend!r}: expected one "
                          f"of {BACKENDS}")
-    names = _spec_axis_names(spec, y.ndim, mesh)
-    padded = tuple(d * mesh.shape[n] if n else d for d, n in zip(y.shape, names))
+    names = parse_spec(spec, y.ndim, mesh)
+    padded = tuple(d * entry_size(n, mesh.shape) if n else d
+                   for d, n in zip(y.shape, names))
     if shape is not None:
         if local_shape(shape, names, mesh) != tuple(y.shape):
             raise ValueError(
@@ -332,7 +322,7 @@ def sharded_collective_bytes(shape, levels, spec, mesh, itemsize: int = 4, *,
                              batch_dims: int = 0) -> dict:
     """Collective payload of this design on this mesh vs gathering the
     tensor (``schedule.sharded_collective_bytes`` on the mesh's sizes)."""
-    names = _spec_axis_names(spec, len(shape), mesh)
+    names = parse_spec(spec, len(shape), mesh)
     return sched_mod.sharded_collective_bytes(
         tuple(shape), levels, names, dict(mesh.shape), itemsize,
         batch_dims=batch_dims)

@@ -95,7 +95,7 @@ def shardable(shape, levels, axis_names: Sequence[Optional[str]], mesh,
     if plan_tiles(lsched, dtype) is None:
         return False
     surv = lsched.stage_shapes[-1]
-    gathered = math.prod(d * (mesh.shape[n] if n else 1)
+    gathered = math.prod(d * (sharding.entry_size(n, mesh.shape) if n else 1)
                          for d, n in zip(surv, axis_names[len(shape) - len(surv):]))
     return levels[-1][0] != "1" or gathered <= L1_KERNEL_MAX
 
@@ -136,7 +136,7 @@ def make_codegen_schedule_body(sched: Schedule,
             f"no sharded codegen lowering for levels={levels} on "
             f"shape={sched.shape} with axes {names}: an intermediate reduce "
             "axis is sharded, or the local shard does not tile")
-    if any(d % mesh.shape[n] for d, n in zip(sched.shape, names) if n):
+    if any(d % sharding.entry_size(n, mesh.shape) for d, n in zip(sched.shape, names) if n):
         raise ValueError(
             "make_codegen_schedule_body needs even shards — the executor "
             "compiles the schedule on the zero-padded shape")
@@ -159,7 +159,7 @@ def make_codegen_schedule_body(sched: Schedule,
     # surviving (solve) axes: the last level's run, after the batch axis
     surv_names = names[b + n_reduced:]
     surv_loc = lsched.stage_shapes[-1]
-    surv_glob = tuple(d * mesh.shape[n] if n else d
+    surv_glob = tuple(d * sharding.entry_size(n, mesh.shape) if n else d
                       for d, n in zip(surv_loc, surv_names))
 
     def _solve_sliced(v, norm, radii):

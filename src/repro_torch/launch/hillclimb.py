@@ -7,9 +7,9 @@ record its roofline, to set beside the baseline's (port of
 
 Each variant runs as the dry run runs a cell (``launch/dryrun.py``: one
 rank of the "single" mesh, 32 × 8 H100s, on ``meta``), and writes
-``<out>/<variant>.json``. A variant on a family the port's mesh refuses
-(``kimi_*``, ``deepseek_*``: MoE/MLA) records the refusal and counts as a
-failure, as the JAX hillclimb counts a variant that fails to compile.
+``<out>/<variant>.json``. A variant whose walk raises records the error
+and counts as a failure, as the JAX hillclimb counts a variant that fails
+to compile.
 """
 
 from __future__ import annotations
@@ -97,7 +97,7 @@ def run_variant(name, out_dir):
             tune = dataclasses.replace(SP.tuning_for(cfg), **overrides)
             cell = SP.build_cell(cfg, SHAPES[shape_name], mesh, tune=tune)
         costs, _ = walk_cell(cell)
-    except Exception as e:  # noqa: BLE001 - record the refusal, count it
+    except Exception as e:  # noqa: BLE001 - record the error, count it
         rec.update(status="error", error=f"{type(e).__name__}: {e}")
         with open(path, "w") as f:
             json.dump(rec, f, indent=1)

@@ -22,11 +22,10 @@ with ``roofline/costs.py``.
   local shapes (``param_specs``, ``cache_spec_tree``); the collective
   term is not modelled (None, with the reason in the record). A sharded
   serving step is queued (ROADMAP.md § 2(b)).
-* A family the port's mesh refuses (``models.lm._refuse_mesh``: MoE/MLA)
-  raises with that refusal in every cell under a mesh of more than one
-  card; the dry run records it as an error, as JAX records any cell that
-  fails. The audio, hybrid and recurrent families walk their sharded
-  forwards.
+* Every family walks its sharded forward: the dense and MoE families
+  ``models/lm.py``'s (the MoE archs' experts and MLA heads over "model",
+  their 'embed' over ("pod", "data") on the multi-pod mesh), the audio,
+  hybrid and recurrent families their own.
 
 The decode and prefill cells take ``serving.lm.make_decode_step`` and
 ``make_prefill``; the JAX module calls them through ``serving.engine``,
@@ -43,7 +42,6 @@ import torch
 
 from repro_torch import _tree, models
 from repro_torch.configs.types import ArchConfig, ProjectionSpec, ShapeConfig, TrainConfig
-from repro_torch.models import lm
 from repro_torch.models import params as PM
 from repro_torch.optim import adamw
 from repro_torch.parallel import sharding as SH
@@ -187,17 +185,11 @@ def local_bytes(tree, specs, mesh) -> int:
     return total
 
 
-def _refuse(cfg: ArchConfig, mesh) -> None:
-    if SH.mesh_shape_dict(mesh) and math.prod(SH.mesh_shape_dict(mesh).values()) > 1:
-        lm._refuse_mesh(cfg)
-
-
 # ------------------------------------------------------------------ the cells
 def train_cell(cfg: ArchConfig, shape: ShapeConfig, mesh, tune=None):
     """The sharded train step of one rank (module docstring)."""
     tune = tune or tuning_for(cfg)
     cfg = apply_tuning(cfg, tune)
-    _refuse(cfg, mesh)
     tcfg = train_config(cfg, shape, tune)
     api = models.get(cfg)
     n_micro = shape.global_batch // tcfg.microbatch
@@ -243,7 +235,6 @@ def decode_cell(cfg: ArchConfig, shape: ShapeConfig, mesh):
     shapes)."""
     from repro_torch.serving import lm as serving_lm
 
-    _refuse(cfg, mesh)
     api = models.get(cfg)
     b = shape.global_batch
     n_groups = max(1, min(SH.dp_shards(mesh), b))
@@ -271,7 +262,6 @@ def prefill_cell(cfg: ArchConfig, shape: ShapeConfig, mesh):
     device at the global shapes (module docstring)."""
     from repro_torch.serving import lm as serving_lm
 
-    _refuse(cfg, mesh)
     api = models.get(cfg)
     tune = tuning_for(cfg)
     tok_spec = SH.batch_spec(mesh, shape.global_batch, extra_dims=1)

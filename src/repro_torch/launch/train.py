@@ -57,10 +57,11 @@ With the constraint on, the launcher names the leaves it projects.
 layers at full width (``models.lm.cut_depth``): an MoE model keeps its
 dense leading layers and needs more than those, an xLSTM model whole
 super-blocks of ``slstm_every`` layers, and whisper keeps N encoder and N
-decoder layers. Every family but MoE/MLA trains under ``--mesh``: the
-audio, hybrid and recurrent ones through their own sharded forwards
-(``models/whisper.py``, ``zamba.py``, ``xlstm.py``); an MoE model under a
-mesh is refused before the world is joined. ``--telemetry-every N`` /
+decoder layers. Every family trains under ``--mesh``: the dense and
+MoE ones through ``models/lm.py``'s sharded forward (an MoE model's
+experts and MLA heads over "model", its dispatch in ``dp_shards`` token
+groups, JAX's), the audio, hybrid and recurrent ones through their own
+(``models/whisper.py``, ``zamba.py``, ``xlstm.py``). ``--telemetry-every N`` /
 ``--telemetry-marks``
 turn the in-step telemetry bridge (``obs/bridge.py``) on for the run and
 give the step its cadence and marks (``training/step.py``); the pending
@@ -228,7 +229,6 @@ def _run(args) -> dict:
     sizes, _ = mesh_dims(args.mesh)
     sharded = any(d > 1 for d in sizes)
     if sharded:
-        lm._refuse_mesh(cfg)   # MoE/MLA, before joining a world
         dev = join_world(int(torch.tensor(sizes).prod()), args.device)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)

@@ -306,17 +306,39 @@ def moe_apply(p, x, cfg, *, n_groups: int, act="silu"):
     slots; ``"scatter"`` adds each kept (token, slot) into row
     ``expert·cap + place`` of an (e·cap + 1)-row buffer with ``index_add``
     (the dropped go to the last row, which is thrown away) and gathers the
-    experts' rows back. The two give the same output."""
+    experts' rows back. The two give the same output (:func:`moe_experts`)."""
+    tkns, m = x.shape
+    r = moe_route(p, x, cfg, n_groups=n_groups)
+    out = moe_experts(p, x, r, r["top_v"] * r["keep"], cfg, act=act)
+    if cfg.n_shared:
+        out = out + mlp_apply(p["shared"], x.reshape(r["g"], r["tg"], m), act)
+    return out.reshape(tkns, m), moe_aux(r, cfg.n_experts)
+
+
+def moe_aux(r, n_experts: int):
+    """The Switch load-balance loss of a route: the experts' mean fraction
+    of slots times their mean probability, per group, averaged."""
+    me = r["onehot"].sum(dim=2).mean(dim=1)                   # (g, e)
+    pe = r["probs"].mean(dim=1)
+    return n_experts * (me * pe).sum(dim=-1).mean()
+
+
+def moe_experts(p, x, r, gate, cfg, *, act="silu", experts=None):
+    """The routed experts' output (g, tg, M) on x (T, M) under the route
+    ``r`` (:func:`moe_route`), each kept (token, slot) weighted by ``gate``
+    (g, tg, k). ``experts`` is the slice of the experts whose weights ``p``
+    holds (all of them by default): only their slots are dispatched and
+    combined, so a rank that holds a slice of the experts gives its part of
+    the sum (``models/lm.py``'s sharded MoE layer)."""
     tkns, m = x.shape
     e, k = cfg.n_experts, cfg.top_k
-    r = moe_route(p, x, cfg, n_groups=n_groups)
+    lo, hi = (0, e) if experts is None else (experts.start, experts.stop)
     g, tg, cap = r["g"], r["tg"], r["cap"]
     xg = x.reshape(g, tg, m)
     pos, keep, expert_of = r["pos"], r["keep"], r["top_i"]
-    gate = r["top_v"] * keep
     if cfg.dispatch == "einsum":
         # collapse the k slots: a token holds at most one slot per expert
-        oh_e = r["onehot"]
+        oh_e = r["onehot"][..., lo:hi]
         mask_te = torch.einsum("gtke,gtk->gte", oh_e, keep.float())
         pos_te = torch.einsum("gtke,gtk->gte", oh_e, pos)
         gate_te = torch.einsum("gtke,gtk->gte", oh_e, gate)
@@ -327,29 +349,23 @@ def moe_apply(p, x, cfg, *, n_groups: int, act="silu"):
         xe = torch.einsum("gtec,gtm->gecm", disp_te, xg)      # (g, e, cap, m)
         ye = _experts(p, xe, act)
         comb = gate_te[..., None].to(x.dtype) * disp_te
-        out = torch.einsum("gtec,gecm->gtm", comb, ye)
-    elif cfg.dispatch == "scatter":
-        slot = expert_of * cap + pos.long()                   # (g, tg, k)
-        slot = torch.where(keep, slot, torch.full_like(slot, e * cap))
+        return torch.einsum("gtec,gecm->gtm", comb, ye)
+    if cfg.dispatch == "scatter":
+        n = hi - lo
+        mine = keep & (expert_of >= lo) & (expert_of < hi)
+        slot = (expert_of - lo) * cap + pos.long()            # (g, tg, k)
+        slot = torch.where(mine, slot, torch.full_like(slot, n * cap))
         rows = slot + (torch.arange(g, device=x.device)
-                       * (e * cap + 1))[:, None, None]
+                       * (n * cap + 1))[:, None, None]
         src = xg[:, :, None, :].expand(g, tg, k, m).reshape(-1, m)
-        buf = torch.zeros(g * (e * cap + 1), m, dtype=x.dtype, device=x.device)
+        buf = torch.zeros(g * (n * cap + 1), m, dtype=x.dtype, device=x.device)
         buf = buf.index_add(0, rows.reshape(-1), src)
-        xe = buf.reshape(g, e * cap + 1, m)[:, :e * cap].reshape(g, e, cap, m)
-        ye = _experts(p, xe, act).reshape(g, e * cap, m)
+        xe = buf.reshape(g, n * cap + 1, m)[:, :n * cap].reshape(g, n, cap, m)
+        ye = _experts(p, xe, act).reshape(g, n * cap, m)
         ye = torch.cat([ye, ye.new_zeros(g, 1, m)], dim=1).reshape(-1, m)
         gath = ye[rows.reshape(-1)].reshape(g, tg, k, m)
-        out = (gath * gate[..., None].to(x.dtype)).sum(dim=2)
-    else:
-        raise ValueError(f"unknown MoE dispatch {cfg.dispatch!r}")
-    if cfg.n_shared:
-        out = out + mlp_apply(p["shared"], xg, act)
-    # aux load-balance loss (Switch): mean fraction * mean prob per expert
-    me = r["onehot"].sum(dim=2).mean(dim=1)                   # (g, e)
-    pe = r["probs"].mean(dim=1)
-    aux = e * (me * pe).sum(dim=-1).mean()
-    return out.reshape(tkns, m), aux
+        return (gath * gate[..., None].to(x.dtype)).sum(dim=2)
+    raise ValueError(f"unknown MoE dispatch {cfg.dispatch!r}")
 
 
 # --------------------------------------------------------------------- mamba2

@@ -25,9 +25,8 @@ spec tree of ``models.params.param_specs``) ``params`` are this rank's
 shards and ``tokens`` this rank's slice of the batch, and the forward is
 the one GSPMD makes of the JAX package's under its shardings, with the
 collectives written out (``parallel/collectives.py``). Here it covers the
-dense family (the audio, hybrid and recurrent families' own forwards build
-on :class:`_Sharded`); an MLA or MoE model under a mesh raises (its sharded
-step, experts over "model", waits for four cards):
+dense and MoE families (the audio, hybrid and recurrent families' own
+forwards build on :class:`_Sharded`):
 
 * each weight's FSDP axis ('embed' over "data") is all-gathered where it
   is used — inside the checkpointed block body, so the recompute gathers
@@ -40,6 +39,23 @@ step, experts over "model", waits for four cards):
   after ``wo`` and after ``w_down``. Weights the branch uses whole (a
   replicated ``wk``/``wv``, the qk-norm scales) are entered too, so their
   gradient is summed over the heads of every rank;
+* MLA runs on this rank's heads: ``wq_b``, ``wkv_b`` and ``wo`` are split
+  over "model" on their heads axis, and the low-rank ``wq_a``/``wkv_a``
+  and their norms are used whole inside the branch (entered, so their
+  gradient sums every rank's heads, as does the one rotated ``k_rope``
+  head that all heads share);
+* an MoE layer routes every token over all the experts on every rank
+  (the router is replicated over "model"), then runs this rank's experts
+  (``experts`` over "model") and its slice of the shared expert's ffn
+  inside one branch left with one psum. The gates enter the branch too:
+  each rank's experts give a part of their gradient, which the psum
+  completes, and the routing's backward (the balance loss included) then
+  runs alike on every rank, so the router's gradient counts the balance
+  loss once. The dispatch's groups follow JAX's ``n_groups`` (the
+  launcher's ``dp_shards``): this rank's tokens hold ``n_groups`` over the
+  batch split of them, with the global ``tg`` and ``cap``; the balance
+  loss is this rank's groups' mean, which the step averages over the
+  batch axes with the loss;
 * a vocabulary sharded over "model" gives a masked lookup plus psum, and
   logits of this rank's slice of the vocabulary (:func:`logits_spec`),
   which ``training.step`` turns into the loss with ``vocab_xent``.
@@ -74,17 +90,6 @@ from . import layers as L
 from .params import ParamDef
 
 RECURRENT = ("ssm", "hybrid")   # the families with a recurrent decode state
-
-
-def _refuse_mesh(cfg: ArchConfig) -> None:
-    """Every family but MLA/MoE has a sharded forward: the dense family
-    here, the audio, hybrid and recurrent ones in their own modules."""
-    if cfg.mla is not None or cfg.moe is not None:
-        raise ValueError(
-            f"{cfg.name}: the sharded MoE/MLA step (experts over \"model\") "
-            "is not ported; it waits for a machine with four cards, since "
-            "four ranks on one 80 GB card cannot hold a full-width MoE "
-            "layer's float32 parameters, gradients and AdamW moments")
 
 
 def _check_impl(cfg: ArchConfig, impl: str) -> None:
@@ -274,7 +279,8 @@ def _attn_dense_decode(lp, h, cfg: ArchConfig, *, pos: int, cur, freqs,
 def _attn_mla(lp, h, cfg: ArchConfig, *, positions, impl, window):
     """MLA training/prefill attention, the full expansion. h (B,S,D) ->
     (B,S,D). k's rope part is one head, rotated, then broadcast to every
-    head; the scale is (qk_nope + qk_rope)^-0.5, q's width."""
+    head (the heads ``wq_b`` holds: a rank's own under a mesh); the scale
+    is (qk_nope + qk_rope)^-0.5, q's width."""
     m = cfg.mla
     b, s, _ = h.shape
     q_lat = L.rms_norm(torch.einsum("bsd,dr->bsr", h, lp["wq_a"]),
@@ -290,7 +296,7 @@ def _attn_mla(lp, h, cfg: ArchConfig, *, positions, impl, window):
     freqs = L.rope_frequencies(m.qk_rope_dim, 1.0, cfg.rope_theta, positions)
     q_rope = L.apply_rope(q_rope, freqs)
     k_rope = L.apply_rope(k_rope[:, :, None, :], freqs)       # one kv head
-    k_rope = k_rope.expand(b, s, cfg.n_heads, m.qk_rope_dim)
+    k_rope = k_rope.expand(b, s, q.shape[2], m.qk_rope_dim)
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     k_full = torch.cat([k_nope, k_rope], dim=-1)
     out = L.attention(q_full, k_full, v, causal=True, window=window, impl=impl)
@@ -380,6 +386,17 @@ def local_slice(n: int, sh: _Sharded) -> slice:
     return slice(m * n // size, (m + 1) * n // size)
 
 
+def batch_split(mesh, act_spec=None) -> int:
+    """Over how many ranks the batch is split: the mesh size over the axes
+    of ``act_spec``'s batch entry (None: not split), by default over the
+    batch axes."""
+    from repro_torch.parallel import sharding
+
+    if act_spec is None:
+        return sharding.dp_shards(mesh)
+    return sharding.entry_size(act_spec[0], mesh.shape)
+
+
 def checkpointed(body, x, sharded: bool):
     """``body(x)`` recomputed in the backward. Under a mesh the recompute
     runs the whole body, so every rank's collectives are the forward's
@@ -451,6 +468,69 @@ def _mlp_sharded(p, sp, x, act, sh: _Sharded):
     return C.leave(L.mlp_apply(full, C.enter(x, sh.mesh), act), sh.mesh)
 
 
+# the MLA weights used whole inside the tensor-parallel branch
+MLA_WHOLE = ("wq_a", "q_norm", "wkv_a", "kv_norm")
+
+
+def _attn_mla_sharded(lp, sp, h, cfg: ArchConfig, sh: _Sharded, *, positions,
+                      impl, window):
+    """:func:`_attn_mla` on this rank's heads (module docstring)."""
+    heads_tp = sh.tp(sp["wq_b"][-2])
+    w = {k: sh.weight(x, sp[k], heads_tp and k in MLA_WHOLE)
+         for k, x in lp.items()}
+    if not heads_tp:
+        return _attn_mla(w, h, cfg, positions=positions, impl=impl,
+                         window=window)
+    out = _attn_mla(w, C.enter(h, sh.mesh), cfg, positions=positions,
+                    impl=impl, window=window)
+    return C.leave(out, sh.mesh)
+
+
+def local_groups(cfg: ArchConfig, n_groups: int, split: int) -> int:
+    """The MoE dispatch's groups on a rank whose tokens are one of
+    ``split`` slices of the batch: JAX's global ``n_groups`` make each
+    slice ``n_groups // split`` whole groups, so ``tg`` and ``cap`` are the
+    global ones."""
+    if n_groups % split:
+        raise ValueError(
+            f"{cfg.name}: the MoE dispatch's {n_groups} token groups do not "
+            f"split over the {split} slices of the batch: a group would span "
+            f"ranks; give n_groups a multiple of {split} (the launcher's "
+            "dp_shards)")
+    return n_groups // split
+
+
+def _moe_sharded(p, sp, x, cfg: ArchConfig, sh: _Sharded, n_groups: int):
+    """:func:`layers.moe_apply` on this rank's experts and shared-expert ffn
+    slice (module docstring): x (B, S, D) -> ((B, S, D), aux)."""
+    b, s, d = x.shape
+    mo, mesh = cfg.moe, sh.mesh
+    xf = x.reshape(b * s, d)
+    w = {k: sh.weight(v, sp[k]) for k, v in p.items() if k != "shared"}
+    r = L.moe_route(w, xf, mo, n_groups=n_groups)
+    gate = r["top_v"] * r["keep"]
+    experts_tp = sh.tp(sp["w_up"][0])
+    shared_tp = mo.n_shared and sh.tp(sp["shared"]["w_up"][-1])
+    xin = C.enter(xf, mesh) if experts_tp or shared_tp else xf
+    if experts_tp:
+        inside = L.moe_experts(w, xin, r, C.enter(gate, mesh), mo, act=cfg.act,
+                               experts=local_slice(mo.n_experts, sh))
+        outside = 0.0
+    else:
+        inside, outside = 0.0, L.moe_experts(w, xf, r, gate, mo, act=cfg.act)
+    if mo.n_shared:
+        shared = {k: sh.weight(v, sp["shared"][k]) for k, v in p["shared"].items()}
+        xs = (xin if shared_tp else xf).reshape(r["g"], r["tg"], d)
+        y = L.mlp_apply(shared, xs, cfg.act)
+        if shared_tp:
+            inside = inside + y
+        else:
+            outside = outside + y
+    if experts_tp or shared_tp:
+        outside = outside + C.leave(inside, mesh)
+    return outside.reshape(b, s, d), L.moe_aux(r, mo.n_experts)
+
+
 # --------------------------------------------------------------------- blocks
 def _block(lp, x, cfg: ArchConfig, *, positions, impl, collect=None, sh=None,
            moe=False, n_groups=1):
@@ -459,10 +539,15 @@ def _block(lp, x, cfg: ArchConfig, *, positions, impl, collect=None, sh=None,
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     aux = 0.0
     if sh is not None:
-        x = x + _attn_sharded(lp["attn"], sh.specs["attn"], h, cfg, sh,
-                              positions=positions, impl=impl, window=cfg.window)
-        y = _mlp_sharded(lp["mlp"], sh.specs["mlp"],
-                         L.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg.act, sh)
+        attn = _attn_mla_sharded if cfg.mla is not None else _attn_sharded
+        x = x + attn(lp["attn"], sh.specs["attn"], h, cfg, sh,
+                     positions=positions, impl=impl, window=cfg.window)
+        h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        if moe:
+            y, aux = _moe_sharded(lp["mlp"], sh.specs["mlp"], h2, cfg, sh,
+                                  n_groups)
+        else:
+            y = _mlp_sharded(lp["mlp"], sh.specs["mlp"], h2, cfg.act, sh)
     else:
         attn = _attn_mla if cfg.mla is not None else _attn_dense
         x = x + attn(lp["attn"], h, cfg, positions=positions, impl=impl,
@@ -517,11 +602,15 @@ class Tally:
 
     def _fsdp(self, shape, spec, times):
         """:func:`collectives.gather_spec`'s gathers of the axes other than
-        "model": an all-gather forward (``times``), a psum backward."""
-        loc = [d // self.shp[n] if n in self.live else d
-               for d, n in zip(shape, spec)]
+        "model" (an entry over several axes, as the giants' ("pod", "data")
+        'embed', gathers once): an all-gather forward (``times``), a psum
+        backward."""
+        from repro_torch.parallel import sharding
+
+        loc = [d // sharding.entry_size(n, self.shp) for d, n in zip(shape, spec)]
         for i, (d, n) in enumerate(zip(shape, spec)):
-            if n is not None and n != "model" and n in self.live:
+            if n is not None and n != "model" and \
+                    sharding.entry_size(n, self.shp) > 1:
                 loc[i] = d
                 full = math.prod(loc) * self.itemsize
                 self.add("all_gather", full, times)
@@ -573,16 +662,38 @@ class Tally:
             self.add("psum", act)
 
     def attn(self, a, asp, act, fwd, strip=1):
-        """:func:`_attn_sharded`: the weights (replicated kv heads and the
-        qk-norm scales psummed over "model" backward), one psum forward
-        per run of the branch and one backward for its input."""
-        heads_tp, kv_tp = self.tp(asp["wq"][-2]), self.tp(asp["wk"][-2])
+        """:func:`_attn_sharded` or :func:`_attn_mla_sharded`: the weights
+        (replicated kv heads, the qk-norm scales and MLA's low-rank
+        projections and norms psummed over "model" backward), one psum
+        forward per run of the branch and one backward for its input."""
+        mla = "wq_b" in a
+        heads_tp = self.tp(asp["wq_b" if mla else "wq"][-2])
+        kv_tp = not mla and self.tp(asp["wk"][-2])
         for name in sorted(a):
-            whole = heads_tp and (name in ("qn", "kn")
-                                  or (name in ("wk", "wv") and not kv_tp))
+            whole = heads_tp and (name in MLA_WHOLE if mla else (
+                name in ("qn", "kn") or (name in ("wk", "wv") and not kv_tp)))
             self.weight(a[name].shape[strip:], asp[name][strip:], fwd, whole)
         if heads_tp:
             self.add("psum", act, fwd + 1)
+
+    def moe(self, m, msp, act, fwd, tokens, top_k, strip=1):
+        """:func:`_moe_sharded` on ``tokens`` local tokens: the weights;
+        where the experts or the shared expert's ffn split over "model",
+        one psum forward per run of the branch and one backward for its
+        input, and with the experts split one psum backward of the entered
+        gates (``tokens`` × ``top_k`` float32 values)."""
+        for name in sorted(m):
+            if name == "shared":
+                for k in sorted(m[name]):
+                    self.weight(m[name][k].shape[strip:],
+                                msp[name][k][strip:], fwd)
+            else:
+                self.weight(m[name].shape[strip:], msp[name][strip:], fwd)
+        experts_tp = self.tp(msp["w_up"][strip])
+        if experts_tp or ("shared" in m and self.tp(msp["shared"]["w_up"][-1])):
+            self.add("psum", act, fwd + 1)
+        if experts_tp:
+            self.add("psum", tokens * top_k * 4)
 
     def mlp(self, m, msp, act, fwd, strip=1):
         """:func:`_mlp_sharded`."""
@@ -608,14 +719,15 @@ def sharded_collectives(cfg: ArchConfig, param_specs, mesh, batch: int,
     * an FSDP gather: an all-gather of the weight's "model"-local shape
       forward (twice under ``remat`` inside a block: the recompute runs
       the whole body) and a psum of it backward;
-    * a tensor-parallel attention or MLP: one psum forward (twice under
-      ``remat``), one backward for its input, and one backward for each
-      weight it uses whole (a replicated wk/wv, the qk-norm scales);
+    * a tensor-parallel attention, MLP or MoE layer: one psum forward
+      (twice under ``remat``), one backward for its input, and one
+      backward for each weight it uses whole (a replicated wk/wv, the
+      qk-norm scales, MLA's low-rank projections and norms); an MoE
+      layer's split experts also one backward for the entered gates;
     * a "model"-sharded vocabulary: a psum of the embedded rows; a pmax and
       two psums of (B, S) in the loss; one psum backward for the final
       activations.
     """
-    _refuse_mesh(cfg)
     shp = dict(mesh.shape) if hasattr(mesh, "shape") else dict(mesh)
     t = Tally(shp, itemsize)
     if cfg.family in ("audio", "hybrid", "ssm"):
@@ -628,10 +740,15 @@ def sharded_collectives(cfg: ArchConfig, param_specs, mesh, batch: int,
     tpl = template(cfg)
     t.top(cfg, tpl, param_specs, act, batch * seq)
     fwd = 2 if remat else 1
-    blocks, bspecs = tpl["blocks"], param_specs["blocks"]
-    for _ in range(cfg.n_layers):
-        t.attn(blocks["attn"], bspecs["attn"], act, fwd)
-        t.mlp(blocks["mlp"], bspecs["mlp"], act, fwd)
+    for name, moe, n in stacks(cfg):
+        blocks, bspecs = tpl[name], param_specs[name]
+        for _ in range(n):
+            t.attn(blocks["attn"], bspecs["attn"], act, fwd)
+            if moe:
+                t.moe(blocks["mlp"], bspecs["mlp"], act, fwd, batch * seq,
+                      cfg.moe.top_k)
+            else:
+                t.mlp(blocks["mlp"], bspecs["mlp"], act, fwd)
     return t.result()
 
 
@@ -643,11 +760,13 @@ def forward(params, tokens, cfg: ArchConfig, *, impl="chunked", n_groups=1,
     ``n_groups`` is the MoE dispatch's number of token groups (the dense
     family takes and ignores it, as in the JAX package). ``act_spec`` is
     the (B, S, D) activations' layout: under a mesh the caller hands this
-    rank its slice of the batch, the layout JAX's constraint pins, and
-    without one it has no effect. ``mesh`` and ``param_specs`` run the
-    sharded forward of the dense family (module docstring): ``params`` and
-    ``tokens`` are this rank's shards, and the logits are this rank's shard
-    under :func:`logits_spec`.
+    rank its slice of the batch, the layout JAX's constraint pins (its
+    first entry names the mesh axes the batch is split over, by default
+    the batch axes), and without one it has no effect. ``mesh`` and
+    ``param_specs`` run the sharded forward of the dense and MoE families
+    (module docstring): ``params`` and ``tokens`` are this rank's shards,
+    ``n_groups`` stays the global count, and the logits are this rank's
+    shard under :func:`logits_spec`.
 
     ``collect``: None | "resid" | "mlp" — also return the per-layer
     activations stacked on a leading layer axis, shape (L, B, S, D): the
@@ -660,11 +779,11 @@ def forward(params, tokens, cfg: ArchConfig, *, impl="chunked", n_groups=1,
     """
     if (mesh is None) != (param_specs is None):
         raise ValueError("a sharded forward takes both mesh= and param_specs=")
-    if mesh is not None:
-        _refuse_mesh(cfg)
     _check_impl(cfg, impl)
     b, s = tokens.shape
     top = None if mesh is None else _Sharded(mesh, param_specs)
+    if top is not None and cfg.moe is not None:
+        n_groups = local_groups(cfg, n_groups, batch_split(mesh, act_spec))
     x = (params["embed"][tokens] if top is None
          else embed_sharded(params, param_specs, tokens, top))
     x = x.to(params["final_norm"].dtype)
@@ -683,9 +802,9 @@ def forward(params, tokens, cfg: ArchConfig, *, impl="chunked", n_groups=1,
         for i in range(n):
             lp = _tree.unflatten_like(blocks, [u[i] for u in per_layer])
 
-            def body(x, lp=lp, moe=moe):
+            def body(x, lp=lp, moe=moe, sh=layer_sh):
                 return _block(lp, x, cfg, positions=positions, impl=impl,
-                              collect=collect, sh=layer_sh, moe=moe,
+                              collect=collect, sh=sh, moe=moe,
                               n_groups=n_groups)
 
             x, a, cap = (checkpointed(body, x, layer_sh is not None) if remat

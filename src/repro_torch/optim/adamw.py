@@ -187,6 +187,19 @@ def _at(qs, i):
     return {"q": qs["q"][i], "s": qs["s"][i]}
 
 
+_SLICE = 1 << 25   # elements of a leaf that an in-place update takes at a time
+
+
+def _slices(p: torch.Tensor) -> list:
+    """Indices of ``p`` that an in-place update takes in turn: slices of its
+    leading axis of at most ``_SLICE`` elements, or the whole leaf where it
+    is smaller or has no leading axis to cut."""
+    if p.ndim == 0 or p.numel() <= _SLICE or p.shape[0] == 1:
+        return [...]
+    rows = max(1, _SLICE * p.shape[0] // p.numel())
+    return [slice(i, i + rows) for i in range(0, p.shape[0], rows)]
+
+
 def _assign(dst, src) -> None:
     """Write a moment (a tensor, or an int8 ``{"q", "s"}``) in place."""
     if isinstance(dst, dict):
@@ -256,7 +269,8 @@ def update(grads, state, params, cfg: TrainConfig, *, mesh=None,
     """One AdamW step. Returns (new_params, new_state, metrics); the inputs
     are left as they were, or, with ``inplace``, the new values are written
     into ``params`` and ``state`` leaf by leaf and those are returned (as
-    the JAX package's donated step; one leaf's temporaries at a time).
+    the JAX package's donated step; the temporaries of one leaf, or of one
+    slice of a large float32-moment leaf's leading axis, at a time).
     ``mesh``/``param_specs``: the trees are this rank's shards (module
     docstring); int8 moments are held to :func:`check_int8_mesh` first."""
     master = state.get("master")
@@ -276,12 +290,17 @@ def update(grads, state, params, cfg: TrainConfig, *, mesh=None,
     metrics = {"grad_norm": gnorm, "lr": lr_schedule(step, cfg)}
     if inplace:
         for g, m, v, ps, shape, p in flat:
-            pnew, mq, vq = one_leaf(g, m, v, ps, shape)
-            _assign(m, mq)
-            _assign(v, vq)
-            p.copy_(pnew)
-            if master is not None:
-                ps.copy_(pnew)
+            # a float32-moment leaf in slices of its leading axis: each
+            # slice's temporaries live only while its results land
+            quant = isinstance(m, dict)
+            for i in [...] if quant else _slices(ps):
+                mi, vi = (m, v) if quant else (m[i], v[i])
+                pnew, mq, vq = one_leaf(g[i], mi, vi, ps[i], shape)
+                _assign(mi, mq)
+                _assign(vi, vq)
+                p[i].copy_(pnew)
+                if master is not None:
+                    ps[i].copy_(pnew)
         state["step"].add_(1)
         return params, state, metrics
     outs = [one_leaf(g, m, v, ps, shape) for g, m, v, ps, shape, _ in flat]

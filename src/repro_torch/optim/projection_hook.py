@@ -41,6 +41,7 @@ from repro_torch import _tree
 from repro_torch.configs.types import ProjectionSpec
 from repro_torch.core import ball, multilevel, schedule as sched_mod, sharded
 from repro_torch.core.masks import sparsity
+from repro_torch.parallel.sharding import entry_size
 
 SHARD_BACKENDS = ("auto",) + sharded.BACKENDS
 
@@ -84,7 +85,10 @@ def _method_resolver(spec: ProjectionSpec):
 
 def _project_leaf(w: torch.Tensor, levels, radius, method: str,
                   transpose: bool = False) -> torch.Tensor:
-    """Project the trailing axes of ``w``; leading axes are batch axes."""
+    """Project the trailing axes of ``w``; leading axes are batch axes. An
+    empty leaf (a stack cut to no layers) is its own projection."""
+    if not w.numel():
+        return w
     need = sum(k for _, k in levels)
     batch = w.ndim - need
     perm = None
@@ -145,7 +149,8 @@ def _project_leaf_sharded(w: torch.Tensor, spec: ProjectionSpec, radius,
         perm = tuple(range(batch)) + tuple(reversed(range(batch, w.ndim)))
         w = w.permute(perm).contiguous()
         names = tuple(names[a] for a in perm)
-    padded = tuple(d * mesh.shape[n] if n else d for d, n in zip(w.shape, names))
+    padded = tuple(d * entry_size(n, mesh.shape) if n else d
+                   for d, n in zip(w.shape, names))
     be = _resolve_shard_backend(backend, padded, spec.levels, names, mesh,
                                 w.dtype, batch, w.device)
     x = sharded.multilevel_project_sharded(
@@ -179,13 +184,13 @@ def _projector(spec: ProjectionSpec, mesh=None, param_specs=None,
     specs_by_path = _spec_table(param_specs) if mesh is not None else {}
 
     def one(name, w):
-        if match(name, w):
+        if match(name, w) and w.numel():   # an empty leaf is its own projection
             names = None
             if mesh is not None:
                 names = _sharded_leaf_names(mesh, specs_by_path.get(name),
                                             w.ndim, need)
             if names is not None:
-                padded = tuple(d * mesh.shape[n] if n else d
+                padded = tuple(d * entry_size(n, mesh.shape) if n else d
                                for d, n in zip(w.shape, names))
                 method = resolve(padded, w.dtype, w.device, mesh)
                 return _project_leaf_sharded(
@@ -249,4 +254,5 @@ def tree_sparsity(params, spec: ProjectionSpec):
     """Column-sparsity % of each projected leaf (paper's metric, per tensor)."""
     match = _matches(spec)
     return {name: sparsity(w.reshape(-1, w.shape[-1]), axis=0)
-            for name, w in _tree.leaves_with_paths(params) if match(name, w)}
+            for name, w in _tree.leaves_with_paths(params)
+            if match(name, w) and w.numel()}

@@ -96,9 +96,10 @@ def leave(x: torch.Tensor, mesh, axes: Axes = "model") -> torch.Tensor:
 def gather(x: torch.Tensor, mesh, name: str, axis: int,
            sum_grad: bool = True) -> torch.Tensor:
     """All-gather tensor axis ``axis`` over mesh axis ``name`` (the ranks'
-    slices in coordinate order); backward: psum over ``name`` (the ranks
-    saw other data), then own slice. ``sum_grad=False`` skips the psum,
-    for ranks that computed the same gradient from the same data."""
+    slices in coordinate order; a spec entry's axes, row-major); backward:
+    psum over ``name`` (the ranks saw other data), then own slice.
+    ``sum_grad=False`` skips the psum, for ranks that computed the same
+    gradient from the same data."""
     if not live_axes(mesh, name):
         return x
     return _Gather.apply(x, mesh, name, axis % x.ndim, sum_grad)
@@ -115,7 +116,9 @@ def gather_spec(x: torch.Tensor, spec, mesh, keep: Axes = "model",
     data_axes = (data_axes,) if isinstance(data_axes, str) else tuple(data_axes)
     for axis, name in enumerate(spec):
         if name is not None and name not in keep:
-            x = gather(x, mesh, name, axis, sum_grad=name in data_axes)
+            names = (name,) if isinstance(name, str) else tuple(name)
+            x = gather(x, mesh, name, axis,
+                       sum_grad=bool(set(names) & set(data_axes)))
     return x
 
 

@@ -111,16 +111,28 @@ class Mesh:
         return f"Mesh({self.shape}, rank={self.rank})"
 
     # ---------------------------------------------------------------- axes
-    def _axes(self, axes: Axes) -> Tuple[str, ...]:
-        names = (axes,) if isinstance(axes, str) else tuple(axes)
+    def _entry(self, axes: Axes) -> Tuple[str, ...]:
+        """The mesh axes of ``axes`` in the order given: a name, names, or
+        names nested one level (a spec entry over several mesh axes)."""
+        names = tuple(a for x in ((axes,) if isinstance(axes, str) else axes)
+                      for a in ((x,) if isinstance(x, str) else x))
         for a in names:
             if a not in self.shape:
                 raise ValueError(f"{a!r} is not an axis of mesh {self.shape}")
+        return names
+
+    def _axes(self, axes: Axes) -> Tuple[str, ...]:
+        names = self._entry(axes)
         return tuple(a for a in self.axis_names if a in names)
 
-    def axis_index(self, name: str) -> int:
-        """This rank's coordinate on axis ``name`` (``jax.lax.axis_index``)."""
-        return self.coords[self._axes(name)[0]]
+    def axis_index(self, name: Axes) -> int:
+        """This rank's coordinate on axis ``name`` (``jax.lax.axis_index``);
+        on several axes, row-major over them in the order given (a spec
+        entry's)."""
+        idx = 0
+        for a in self._entry(name):
+            idx = idx * self.shape[a] + self.coords[a]
+        return idx
 
     def axis_size(self, axes: Axes) -> int:
         return math.prod(self.shape[a] for a in self._axes(axes))
@@ -171,20 +183,21 @@ class Mesh:
         """Maximum of ``x`` over the ranks along ``axes`` (``jax.lax.pmax``)."""
         return self._all_reduce("pmax", x, axes, dist.ReduceOp.MAX)
 
-    def all_gather(self, x: torch.Tensor, name: str, axis: int) -> torch.Tensor:
+    def all_gather(self, x: torch.Tensor, name: Axes, axis: int) -> torch.Tensor:
         """The ranks' ``x`` along mesh axis ``name`` concatenated on tensor
         axis ``axis`` in coordinate order (``jax.lax.all_gather(...,
-        tiled=True)``)."""
-        (name,) = self._axes(name)
-        size, idx = self.shape[name], self.coords[name]
+        tiled=True)``); ``name`` may be a spec entry over several axes,
+        gathered row-major over them."""
+        names = self._axes(name)
+        size, idx = self.axis_size(names), self.axis_index(name)
         axis = axis % x.ndim
         shape = list(x.shape)
         local = shape[axis]
         shape[axis] = local * size
         out = x.new_zeros(shape)
         out.narrow(axis, idx * local, local).copy_(x)
-        self._count("all_gather", out, (name,))
-        group = self._groups[(name,)]
+        self._count("all_gather", out, names)
+        group = self._groups[names]
         if group is not None:
             dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
         return out

@@ -145,7 +145,8 @@ def _names(entry) -> Tuple[str, ...]:
     return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
 
 
-def _size(entry, sizes) -> int:
+def entry_size(entry, sizes) -> int:
+    """The ranks a spec entry (None, an axis or axes) splits over."""
     return math.prod(sizes[a] for a in _names(entry))
 
 
@@ -168,7 +169,7 @@ def local_shape(shape: Sequence[int], spec, mesh) -> Tuple[int, ...]:
     """One rank's shard shape of a ``shape`` tensor under ``spec``: ceil
     division on each sharded axis."""
     sizes = mesh_shape_dict(mesh)
-    return tuple(-(-int(d) // _size(n, sizes))
+    return tuple(-(-int(d) // entry_size(n, sizes))
                  for d, n in zip(shape, _spec(spec, len(shape))))
 
 
@@ -177,7 +178,7 @@ def global_shape(shape: Sequence[int], spec, mesh) -> Tuple[int, ...]:
     not padded (a parameter's: :func:`param_specs` shards only where the
     mesh divides)."""
     sizes = mesh_shape_dict(mesh)
-    return tuple(int(d) * _size(n, sizes)
+    return tuple(int(d) * entry_size(n, sizes)
                  for d, n in zip(shape, _spec(spec, len(shape))))
 
 
@@ -213,7 +214,7 @@ def unshard(shards: Sequence[torch.Tensor], spec, mesh,
     rank r's), the padding dropped: the inverse of :func:`shard`."""
     spec = _spec(spec, len(shape))
     sizes = mesh_shape_dict(mesh)
-    padded = tuple(loc * _size(n, sizes)
+    padded = tuple(loc * entry_size(n, sizes)
                    for loc, n in zip(local_shape(shape, spec, sizes), spec))
     full = shards[0].new_zeros(padded)
     for r, piece in enumerate(shards):

@@ -61,6 +61,7 @@ gathered whole (every rank gathers; a cadence step only).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable
 
@@ -107,8 +108,6 @@ def make_loss_fn(cfg: ArchConfig, api, *, impl: str, remat: bool,
     (``models.lm.logits_spec``) it is ``collectives.vocab_xent``. The
     logits' layout follows from the parameter specs, so ``logits_spec``
     (JAX's sharding constraint on them) is accepted and has no effect."""
-    if mesh is not None:
-        lm._refuse_mesh(cfg)
     vocab_tp = mesh is not None and \
         lm.logits_spec(cfg, param_specs, mesh)[-1] == "model"
     kw = {"remat": remat, "act_spec": act_spec}
@@ -167,17 +166,29 @@ def make_train_step(cfg: ArchConfig | None, tcfg: TrainConfig, api=None, *,
     """
     if (mesh is None) != (param_specs is None):
         raise ValueError("a sharded step takes both mesh= and param_specs=")
+    if mesh is not None and cfg is not None and tcfg.moment_dtype == "int8":
+        # refuse before the first step, not after its forward and backward
+        adamw.check_int8_mesh(_tree.tree_map(lambda pd: pd.shape,
+                                             models.get(cfg).template(cfg)),
+                              param_specs, mesh)
     if isinstance(telemetry_every, bool) or not isinstance(
             telemetry_every, int) or telemetry_every < 0:
         raise ValueError(f"telemetry_every is a cadence in steps, an int >= 0 "
                          f"(0: off), got {telemetry_every!r}")
     compute_dtype = getattr(torch, tcfg.compute_dtype)
-    if loss_fn is None:
-        loss_fn = make_loss_fn(cfg, api, impl=impl, remat=tcfg.remat,
-                               compute_dtype=compute_dtype, n_groups=n_groups,
-                               act_spec=act_spec, logits_spec=logits_spec,
-                               mesh=mesh, param_specs=param_specs)
-    elif mesh is not None:
+
+    # under a mesh the LM's loss follows each micro-batch's layout: the
+    # split of its batch, which an MoE dispatch's groups follow
+    @functools.lru_cache(maxsize=None)
+    def lm_loss(spec):
+        return make_loss_fn(cfg, api, impl=impl, remat=tcfg.remat,
+                            compute_dtype=compute_dtype, n_groups=n_groups,
+                            act_spec=spec, logits_spec=logits_spec,
+                            mesh=mesh, param_specs=param_specs)
+
+    if loss_fn is None and mesh is None:
+        loss_fn = lm_loss(act_spec)
+    elif loss_fn is not None and mesh is not None:
         loss_fn = _whole_params_loss(loss_fn, mesh, param_specs)
     projecting = tcfg.projection is not None and tcfg.projection.enabled
     if fused == "auto":
@@ -209,12 +220,17 @@ def make_train_step(cfg: ArchConfig | None, tcfg: TrainConfig, api=None, *,
     def train_step(state, batch):
         params = state["params"]
         tokens = batch["tokens"]              # (n_micro, mb, ...)
+        fn = loss_fn
         if mesh is not None:  # each micro-batch's slice, taken in its turn
             mb_spec = sharding.tokens_spec(mesh, None, tokens.shape[1])[1:]
+            fn = loss_fn or lm_loss((mb_spec[0], None, None))
         n_micro = tokens.shape[0]
         leaves = _tree.leaves(params)
-        gsum = [torch.zeros(p.shape, dtype=acc_dtype, device=p.device)
-                for p in leaves]
+        # one micro-batch: its gradients are the accumulator (no zero-filled
+        # copy of the tree beside them); more, or a cost walk (which walks a
+        # step's first micro-batch for all of them): each adds into zeros
+        gsum = None if n_micro == 1 and costs.active() is None else [
+            torch.zeros(p.shape, dtype=acc_dtype, device=p.device) for p in leaves]
         lsum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
         for mb in tokens:
             # one micro-batch: a cost walk multiplies it (roofline/costs.py)
@@ -222,11 +238,14 @@ def make_train_step(cfg: ArchConfig | None, tcfg: TrainConfig, api=None, *,
                 if mesh is not None:
                     mb = sharding.shard(mb, mb_spec, mesh)
                 live = [p.detach().requires_grad_(True) for p in leaves]
-                loss = loss_fn(_tree.unflatten_like(params, live), mb)
+                loss = fn(_tree.unflatten_like(params, live), mb)
                 grads = torch.autograd.grad(loss, live, allow_unused=True)
-                for a, g in zip(gsum, grads):
-                    if g is not None:
-                        a.add_(g.to(acc_dtype))
+                if gsum is None:
+                    gsum = _accumulator(leaves, grads, acc_dtype)
+                else:
+                    for a, g in zip(gsum, grads):
+                        if g is not None:
+                            a.add_(g.to(acc_dtype))
                 lsum += loss.detach().float()
                 del loss, grads, live  # free this microbatch's graph and grads
         scale = n_micro
@@ -277,6 +296,26 @@ def make_train_step(cfg: ArchConfig | None, tcfg: TrainConfig, api=None, *,
     return train_step
 
 
+def _accumulator(leaves, grads, acc_dtype):
+    """The gradient accumulator of a step of one micro-batch, made of its
+    gradients (0 + g is g): a leaf's own tensor where it is contiguous and
+    shares its storage with no other (a ``meta`` tensor has none), else a
+    copy; zeros for a leaf without a gradient."""
+    out, seen = [], set()
+    for p, g in zip(leaves, grads):
+        if g is None:
+            out.append(torch.zeros(p.shape, dtype=acc_dtype, device=p.device))
+            continue
+        a = g.to(acc_dtype)
+        ptr = None if a.is_meta else a.untyped_storage().data_ptr()
+        if ptr in seen or not a.is_contiguous():
+            a = a.clone(memory_format=torch.contiguous_format)
+        if not a.is_meta:
+            seen.add(a.untyped_storage().data_ptr())
+        out.append(a)
+    return out
+
+
 def _telemetry(tcfg: TrainConfig, every: int, mesh, param_specs) -> Callable:
     """``emit(opt, params, metrics)``, called after every step: on every
     ``every``-th step, with the bridge on, report the loss, the gradient
@@ -315,7 +354,7 @@ def _telemetry(tcfg: TrainConfig, every: int, mesh, param_specs) -> Callable:
             return
         with torch.no_grad():
             for name, w in _tree.leaves_with_paths(params):
-                if not match(name, w):
+                if not match(name, w) or not w.numel():
                     continue
                 if specs is not None:
                     w = collectives.gather_full(w, specs[name], mesh)
@@ -348,7 +387,8 @@ def _hook_collectives(spec, param_specs, shapes, mesh_sizes,
     need = sum(k for _, k in spec.levels)
     for (name, sp), shape in zip(_tree.leaves_with_paths(param_specs),
                                  _tree.leaves(shapes)):
-        if not match(name, types.SimpleNamespace(ndim=len(shape))):
+        if not match(name, types.SimpleNamespace(ndim=len(shape))) \
+                or not math.prod(shape):
             continue
         batch = len(shape) - need
         names = tuple(sp) + (None,) * (len(shape) - len(sp))
@@ -396,7 +436,7 @@ def step_collectives(cfg: ArchConfig, tcfg: TrainConfig, param_specs, mesh,
     shapes = _tree.tree_map(lambda pd: pd.shape, tpl)
     groups = set()
     for sp, shape in zip(_tree.leaves(param_specs), _tree.leaves(shapes)):
-        local = [d // shp[n] if n else d for d, n in zip(shape, sp)]
+        local = [d // sharding.entry_size(n, shp) for d, n in zip(shape, sp)]
         if live & (set(b_axes) - set(sharding.spec_axes(sp))):
             calls["psum"] += 1
             nbytes["psum"] += math.prod(local) * acc

@@ -412,18 +412,40 @@ def test_harvest_frees_the_lm_on_return(tmp_path, monkeypatch):
 
 
 def test_refusals(tmp_path):
-    """No silent fallback: flash on MLA, a sharded MoE forward and a depth
-    cut that leaves no MoE layer each raise."""
+    """No silent fallback: flash on MLA, a depth cut that leaves no MoE
+    layer, and a sharded MoE forward whose dispatch groups do not split
+    over the batch's slices each raise. A sharded MoE forward runs: on a
+    (2, 2) abstract mesh, with one token group a data rank (JAX's
+    ``n_groups = dp_shards``), it gives this rank's logits (its half of
+    the vocabulary), and its collectives forward are those that
+    ``sharded_collectives`` counts forward."""
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.mesh import AbstractMesh
+
     cfg, _, tcfg, tp = _setup(ARCHS[0])
     toks = torch.zeros(1, 4, dtype=torch.int64)
     with pytest.raises(ValueError, match=r"q/k heads are 24 wide .* v heads "
                        r"16.*impl='chunked'"):
         tlm.forward(tp, toks, tcfg, impl="flash")
-    with pytest.raises(ValueError, match="sharded MoE/MLA step"):
-        tlm.forward(tp, toks, tcfg, mesh=object(), param_specs={})
-    with pytest.raises(ValueError, match="sharded MoE/MLA step"):
-        tlm.sharded_collectives(tcfg, {}, {"data": 2, "model": 2}, 1, 4,
-                                remat=True, itemsize=4)
+    mesh = AbstractMesh((2, 2), ("data", "model"))
+    specs = tparams.param_specs(tlm.template(tcfg), sharding.param_rules(mesh),
+                                mesh.shape)
+    shards = _tree.tree_map(
+        lambda x, sp: torch.empty(sharding.local_shape(x.shape, sp, mesh),
+                                  device="meta"), tp, specs)
+    meta_toks = torch.zeros(1, 4, dtype=torch.int64, device="meta")
+    logits, aux = tlm.forward(shards, meta_toks, tcfg, n_groups=2, remat=False,
+                              mesh=mesh, param_specs=specs)
+    assert logits.shape == (1, 4, tcfg.vocab // 2) and aux.shape == ()
+    fwd = mesh.counts()["by_op"]
+    model = tlm.sharded_collectives(tcfg, specs, mesh, 1, 4, remat=False,
+                                    itemsize=4)
+    assert fwd["all_gather"] == {"calls": model["calls"]["all_gather"],
+                                 "bytes": model["bytes"]["all_gather"]}
+    with pytest.raises(ValueError, match=r"1 token groups do not split over "
+                       r"the 2 slices"):
+        tlm.forward(shards, meta_toks, tcfg, n_groups=1, mesh=mesh,
+                    param_specs=specs)
     full = dataclasses.replace(tcfg, mla=treg.get_arch(ARCHS[0]).mla)
     with pytest.raises(ValueError, match=r"192 wide \(128 nope \+ 64 rope\) "
                        r"and its v heads 128"):
